@@ -7,8 +7,8 @@ weights + forward outputs + backward errors (+ gradients) at training batch
 size ``B_s``.
 
 The paper's formulas are kept verbatim for its own VGG-11 experiment. This
-is the PyTorch port's own copy of ``repro.core.costmodel`` (numpy only); the
-token-zoo layer entries (attention, FFN, SSM) come with the token models.
+is the PyTorch port's own copy of ``repro.core.costmodel`` (numpy only),
+with the token models' layer entries (attention, FFN, SSM).
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.configs.base import ArchConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +101,76 @@ def vgg11_layers(width_mult: float = 1.0, sf: int = 4,
     layers.append(fc_layer("fc1", fc1, fc1, sf=sf))
     layers.append(fc_layer("fc2", fc1, classes, sf=sf))
     return layers
+
+
+# ---------------------------------------------------------------------------
+# Extensions: per-layer costs for the token models
+# (per token; sf bytes per element; seq enters attention's O(S) term)
+# ---------------------------------------------------------------------------
+
+
+def attention_layer(name: str, cfg: ArchConfig, seq: int, sf: int = 2) -> LayerCost:
+    d, hd, nh, kv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    proj = 2 * d * (nh * hd) + 2 * 2 * d * (kv * hd) + 2 * (nh * hd) * d
+    scores = 2 * nh * hd * seq + 2 * nh * seq * hd             # QK^T + AV per token
+    fwd = proj + scores
+    weights = sf * (d * nh * hd + 2 * d * kv * hd + nh * hd * d)
+    acts = sf * (4 * nh * hd + 2 * d)
+    return LayerCost(name, "attention", fwd, 2 * fwd, 2 * weights, acts,
+                     sf=sf)
+
+
+def ffn_layer(name: str, cfg: ArchConfig, sf: int = 2) -> LayerCost:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.moe is not None:
+        k, e = cfg.moe.top_k, cfg.moe.n_experts
+        fwd = 2 * d * e + k * 3 * 2 * d * f                    # router + top-k experts
+        weights = sf * (d * e + e * 3 * d * f)                 # ALL experts resident
+        acts = sf * (k * (2 * f + d))
+        return LayerCost(name, "moe_ffn", fwd, 2 * fwd, 2 * weights, acts,
+                         sf=sf)
+    fwd = 3 * 2 * d * f
+    weights = sf * 3 * d * f
+    acts = sf * (2 * f + d)
+    return LayerCost(name, "ffn", fwd, 2 * fwd, 2 * weights, acts, sf=sf)
+
+
+def ssm_layer(name: str, cfg: ArchConfig, sf: int = 2) -> LayerCost:
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in, n, p, ds = s.d_inner(d), s.n_heads(d), s.head_dim, s.d_state
+    q = s.chunk_size
+    proj = 2 * d * (2 * d_in + 2 * ds + n) + 2 * d_in * d
+    conv = 2 * s.d_conv * (d_in + 2 * ds)
+    # SSD per token: intra-chunk quadratic (O(q)) + state update (O(ds*p))
+    ssd = 2 * q * ds + 2 * q * n * p + 4 * n * p * ds
+    fwd = proj + conv + ssd
+    weights = sf * (d * (2 * d_in + 2 * ds + n) + d_in * d
+                    + s.d_conv * (d_in + 2 * ds))
+    acts = sf * (4 * d_in + 4 * ds + 2 * n)
+    return LayerCost(name, "ssm", fwd, 2 * fwd, 2 * weights, acts, sf=sf)
+
+
+def arch_layers(cfg: ArchConfig, seq: int, sf: int = 2) -> List[LayerCost]:
+    """Per-layer cost vector for a decoder stack."""
+    out: List[LayerCost] = []
+    emb = LayerCost("embed", "embed", 2 * cfg.d_model, 2 * cfg.d_model,
+                    sf * cfg.vocab * cfg.d_model, sf * cfg.d_model, sf=sf)
+    out.append(emb)
+    for i in range(cfg.enc_layers):
+        out.append(attention_layer(f"enc{i}.attn", cfg, seq, sf))
+    for i in range(cfg.n_layers):
+        if cfg.kind(i) == "A":
+            out.append(attention_layer(f"l{i}.attn", cfg, seq, sf))
+        else:
+            out.append(ssm_layer(f"l{i}.ssm", cfg, sf))
+        if cfg.d_ff:
+            out.append(ffn_layer(f"l{i}.ffn", cfg, sf))
+    head_w = 0 if cfg.tie_embeddings else sf * cfg.d_model * cfg.vocab
+    out.append(LayerCost("unembed", "fc", 2 * cfg.d_model * cfg.vocab,
+                         4 * cfg.d_model * cfg.vocab, 2 * head_w,
+                         sf * cfg.vocab, sf=sf))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,8 @@ import numpy as np
 class FLDataset:
     """Synthetic non-IID FL dataset: one private shard per device plus a
     shared IID test set (see the module docstring for how it is generated)."""
-    x_dev: List[np.ndarray]     # per-device images (D_n, 32, 32, 3)
+    x_dev: List[np.ndarray]     # per-device images (D_n, 32, 32, 3) or
+    #                             tokens (D_n, seq_len)
     y_dev: List[np.ndarray]
     x_test: np.ndarray
     y_test: np.ndarray
@@ -76,6 +77,62 @@ def make_fl_dataset(n_devices: int, sizes: np.ndarray, q_classes: np.ndarray,
     y_test = np.tile(np.arange(classes), test_size // classes).astype(np.int32)
     x_test = _sample(rng, templates, y_test)
     return FLDataset(x_dev, y_dev, x_test, y_test, cls_of)
+
+
+# ---------------------------------------------------------------------------
+# Token corpora for the sequence models (next-token prediction)
+# ---------------------------------------------------------------------------
+
+
+def _markov_steps(rng: np.random.Generator, succ_dev: np.ndarray,
+                  succ_glob: np.ndarray, chi: float, vocab: int,
+                  n_seq: int, length: int) -> np.ndarray:
+    """Walk ``n_seq`` Markov chains of ``length`` tokens at once.
+
+    Each token's successors are one of ``branching`` table entries; every
+    step mixes the device's private table with the shared global one by
+    ``chi`` (the token twin of the q-class non-IID mixing).
+    """
+    seq = np.empty((n_seq, length), np.int32)
+    tok = rng.integers(0, vocab, size=n_seq).astype(np.int32)
+    seq[:, 0] = tok
+    branching = succ_glob.shape[1]
+    for t in range(1, length):
+        branch = rng.integers(0, branching, size=n_seq)
+        use_dev = rng.random(n_seq) < chi
+        tok = np.where(use_dev, succ_dev[tok, branch],
+                       succ_glob[tok, branch]).astype(np.int32)
+        seq[:, t] = tok
+    return seq
+
+
+def make_token_fl_dataset(n_devices: int, sizes: np.ndarray, vocab: int = 128,
+                          seq_len: int = 32, chi: float = 1.0,
+                          branching: int = 4, test_size: int = 256,
+                          seed: int = 0) -> FLDataset:
+    """Synthetic non-IID token corpora for next-token prediction.
+
+    Device ``n`` holds ``sizes[n]`` sequences of ``seq_len`` tokens drawn
+    from a Markov chain: a *shared* global successor table chi-mixed with a
+    *private* per-device table (each device speaks its own dialect).
+    ``x_dev[n]`` is ``(D_n, seq_len)`` int32 tokens, ``y_dev[n]`` the
+    shifted next-token labels; the shared test set is drawn from the global
+    table alone. Byte-identical to the reference's for a seed.
+    """
+    rng = np.random.default_rng(seed)
+    succ_glob = rng.integers(0, vocab, size=(vocab, branching))
+    x_dev, y_dev, cls_of = [], [], []
+    for n in range(n_devices):
+        succ_dev = rng.integers(0, vocab, size=(vocab, branching))
+        cls_of.append(np.unique(succ_dev))
+        seq = _markov_steps(rng, succ_dev, succ_glob, chi, vocab,
+                            int(sizes[n]), seq_len + 1)
+        x_dev.append(seq[:, :-1].copy())
+        y_dev.append(seq[:, 1:].copy())
+    seq = _markov_steps(rng, succ_glob, succ_glob, 0.0, vocab,
+                        test_size, seq_len + 1)
+    return FLDataset(x_dev, y_dev, seq[:, :-1].copy(), seq[:, 1:].copy(),
+                     cls_of)
 
 
 def sample_batch(rng: np.random.Generator, ds: FLDataset, n: int,

@@ -39,7 +39,7 @@ from repro_torch.core.schedulers import RoundContext, make_policy
 from repro_torch.device import resolve_device, use_f32_numerics
 from repro_torch.fl import cohort as cohort_lib
 from repro_torch.fl.data import (CohortLayout, make_fl_dataset,
-                                 sample_cohort_batch)
+                                 make_token_fl_dataset, sample_cohort_batch)
 from repro_torch.fl.roles import BaseStation, Device, Gateway
 from repro_torch.models import registry as model_registry
 from repro_torch.models.convert import params_from_numpy
@@ -411,21 +411,30 @@ class Simulation:
         self.d_tilde = np.maximum((sc.alpha * self.d_sizes).astype(int), 4)
 
         # model resolved through the registry + layer-level costs (Table II);
-        # its init draws from a torch generator, never from the numpy stream
+        # built *before* the dataset so its input_kind picks the data path.
+        # Its init draws from a torch generator, never from the numpy stream
         self.plan, params, self.layers = self._build_params(sc.seed)
         if init_params is not None:
             params = params_from_numpy(self.plan, init_params, self.device)
         self.bs = BaseStation(self.plan, params)
 
-        # non-IID classes: gateway 0's devices see the widest variety
-        # (paper Sec. VII-B: "the 1-th gateway ... a wider variety")
-        q = np.zeros(ncfg.n_devices, dtype=int)
-        for n in range(ncfg.n_devices):
-            gw = self.net.assign[n]
-            q[n] = sc.classes if gw == 0 else int(self.rng.integers(1, 4))
-        self.ds = make_fl_dataset(ncfg.n_devices, self.d_sizes, q,
-                                  chi=sc.chi, classes=sc.classes,
-                                  seed=sc.seed)
+        if self.plan.input_kind == "tokens":
+            # token models: per-device Markov-chain corpora whose transition
+            # tables play the role of the class mixture (chi-mixed); no
+            # class counts are drawn from self.rng
+            self.ds = make_token_fl_dataset(
+                ncfg.n_devices, self.d_sizes, vocab=self.plan.classes,
+                seq_len=sc.seq_len, chi=sc.chi, seed=sc.seed)
+        else:
+            # non-IID classes: gateway 0's devices see the widest variety
+            # (paper Sec. VII-B: "the 1-th gateway ... a wider variety")
+            q = np.zeros(ncfg.n_devices, dtype=int)
+            for n in range(ncfg.n_devices):
+                gw = self.net.assign[n]
+                q[n] = sc.classes if gw == 0 else int(self.rng.integers(1, 4))
+            self.ds = make_fl_dataset(ncfg.n_devices, self.d_sizes, q,
+                                      chi=sc.chi, classes=sc.classes,
+                                      seed=sc.seed)
 
         o = cm.flops_vector(self.layers)
         g = cm.mem_vector(self.layers, batch=int(self.d_tilde.max()))

@@ -19,6 +19,8 @@ import shutil
 import subprocess
 from typing import Dict, Sequence
 
+import torch
+
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -64,11 +66,46 @@ def build_all(sources: Sequence[pathlib.Path]) -> None:
         raise RuntimeError("\n".join(errors))
 
 
-def load(src: pathlib.Path) -> ctypes.CDLL:
-    """The loaded library for ``src``, built first if needed."""
-    src = pathlib.Path(src).resolve()
+def load(src: pathlib.Path, argtypes: Dict[str, list]) -> ctypes.CDLL:
+    """The loaded library for ``src``, built first if needed, with the C
+    signatures in ``argtypes`` (name -> argument types) declared; every
+    function returns a CUDA error code. Keyed by ``src`` as given: every
+    kernel launch looks its library up here, and resolving a path costs a
+    filesystem walk (over half a millisecond on the card's machine)."""
     lib = _LOADED.get(src)
     if lib is None:
         build_all([src])
-        lib = _LOADED[src] = ctypes.CDLL(str(_target(src)))
+        lib = ctypes.CDLL(str(_target(src)))
+        for name, types in argtypes.items():
+            fn = getattr(lib, name)
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
+        _LOADED[src] = lib
     return lib
+
+
+def on_cuda(what: str, *tensors) -> bool:
+    """True for CUDA operands, False for CPU ones (``None`` entries are
+    skipped); raises on any other device or on a mix of devices."""
+    dev = next(t.device for t in tensors if t is not None)
+    for t in tensors:
+        if t is not None and t.device != dev:
+            raise ValueError(f"{what}: operands on {t.device} and {dev}")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {dev}")
+    return True
+
+
+def launch(lib: ctypes.CDLL, fn: str, name: str, counts: Dict[str, int],
+           device, *args) -> None:
+    """Call kernel entry ``fn`` of ``lib`` on ``device``'s current stream;
+    raise if the launch failed, else count it under ``counts[name]``."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{rc}")
+    counts[name] += 1

@@ -33,34 +33,15 @@ _ARGTYPES = {
     "fused_linear_bwd_dx": [_P] * 4 + [_I] * 4 + [_L] * 8 + [_I, _P],
     "fused_linear_bwd_dw_db": [_P] * 5 + [_I] * 4 + [_L] * 9 + [_I, _P],
 }
-_lib = None
 
 
-def library() -> ctypes.CDLL:
+def library():
     """The built kernel library, with its C signatures declared."""
-    global _lib
-    if _lib is None:
-        lib = build.load(SOURCE)
-        for name, argtypes in _ARGTYPES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    return build.load(SOURCE, _ARGTYPES)
 
 
 def _on_cuda(*tensors) -> bool:
-    """True for CUDA operands, False for CPU ones; raises on anything else
-    or on a mix of devices."""
-    dev = tensors[0].device
-    for t in tensors:
-        if t is not None and t.device != dev:
-            raise ValueError(f"operands on {t.device} and {dev}")
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"fused_linear runs on cpu or cuda, not {dev}")
-    return True
+    return build.on_cuda("fused_linear", *tensors)
 
 
 def _operand(t: torch.Tensor, ndim: int, name: str) -> torch.Tensor:
@@ -82,13 +63,7 @@ def _check_mask(mask: str, y) -> None:
 
 
 def _launch(name: str, fn: str, device, *args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(library(), fn)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"{name}: kernel launch failed with CUDA error {rc}")
-    LAUNCHES[name] += 1
+    build.launch(library(), fn, name, LAUNCHES, device, *args)
 
 
 def fused_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

@@ -1,7 +1,7 @@
 """FL split-model registry: name -> builder producing the ``(SplitModel,
 params, layer costs)`` triple the FL simulation consumes (port of the FL
-half of ``repro.models.registry``; this slice registers ``vgg`` and
-``mlp``)."""
+half of ``repro.models.registry``: ``vgg``, ``mlp``, ``transformer`` and
+``ssm``; ``moe`` waits for the MoE FFN)."""
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Tuple
@@ -46,4 +46,19 @@ def _build_mlp(generator, spec, device):
     from repro_torch.models import split_model as sm
     sizes = (3072, *getattr(spec, "mlp_hidden", (128, 64)), spec.classes)
     model = sm.MLPSplitModel(sizes=sizes)
+    return model, model.init(generator, device), model.layer_costs()
+
+
+@register_fl_model("transformer")
+def _build_transformer(generator, spec, device):
+    from repro_torch.models import split_model as sm
+    model = sm.SeqSplitModel(sm.FL_TRANSFORMER,
+                             seq_len=getattr(spec, "seq_len", 32))
+    return model, model.init(generator, device), model.layer_costs()
+
+
+@register_fl_model("ssm")
+def _build_ssm(generator, spec, device):
+    from repro_torch.models import split_model as sm
+    model = sm.SeqSplitModel(sm.FL_SSM, seq_len=getattr(spec, "seq_len", 32))
     return model, model.init(generator, device), model.layer_costs()

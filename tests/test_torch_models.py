@@ -214,4 +214,4 @@ def test_registry_builds_seeded_models():
     model, params, _ = registry.build_fl_model("mlp", g, Spec, "cpu")
     assert model.sizes == (3072, 32, 16, 10)
     with pytest.raises(KeyError):
-        registry.build_fl_model("transformer", g, Spec, "cpu")
+        registry.build_fl_model("moe", g, Spec, "cpu")

@@ -157,7 +157,11 @@ def test_port_imports_neither_jax_nor_reference():
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "assert 'repro_torch.fl.sim' in sys.modules\n")
+        "for m in ('fl.sim', 'configs.base', 'models.layers', "
+        "'models.model', 'models.ssm', 'kernels.flash_attention.kernel', "
+        "'kernels.flash_attention.ops', 'kernels.ssd_scan.kernel', "
+        "'kernels.ssd_scan.ops'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                           capture_output=True, text=True, timeout=120)
