@@ -2,38 +2,78 @@
 //
 // Replaces the three Pallas TPU kernels of
 // src/repro/kernels/fused_linear/kernel.py:
-//   fused_linear            (kernel.py:81)  y  = act(x @ w + b), act in {none, relu}
+//   fused_linear            (kernel.py:81)  y  = act(x @ w + b),
+//                           act in {none, relu, silu, gelu (tanh form)}
 //   fused_linear_bwd_dx     (kernel.py:123) dx = (dy * 1[y > 0]) @ w^T
 //   fused_linear_bwd_dw_db  (kernel.py:179) dw = x^T @ dz, db = sum_m dz
 //
 // What bounds them on an H100: at the split-FL round's shapes (VGG-11 fc
-// layers, M = 95 rows per slot, K and N up to 4096) every kernel does
-// 2*M*K*N operations on about 4*K*N weight bytes, i.e. ~M/2 = 47 FLOP per
-// byte, above the f32 ridge point of 67 TFLOP/s / 3.35 TB/s = 20 FLOP per
-// byte: the f32 FMA units bound them, not device memory. (At M = 1, the
-// per-sample gradients of the statistics pass, they are bound by bytes.)
-// f32 operands cannot use the tensor cores without TF32 rounding, which the
-// reference's 1e-5 f32 contract does not survive, so the work is plain FMA.
+// layers, M = 95 rows per slot, K and N up to 4096) a kernel does 2*M*K*N
+// operations on about 4*K*N weight (or dw) bytes, ~M/2 = 47 FLOP per byte.
+// On the f32 FMA units (67 TFLOP/s) that is far above the ridge; with the
+// tensor cores in 3xTF32 (three TF32 products per f32 product, 495/3 = 165
+// TFLOP/s) the ridge is 165 / 3.35 = 49 FLOP per byte, so at fc2 the
+// forward and dw/db sit on it and HBM bytes bound them about as much as
+// operations do (fc2 forward: 0.126 ms of bytes against 0.116 ms of
+// operations). So the kernels must both use the tensor cores and stream
+// the weights (or dw) at close to HBM rate.
 //
-// The simple design: 64x64 output tiles, one block of 256 threads each
-// owning a 4x4 sub-tile, a 16-deep reduction slab staged through shared
-// memory per step. Operands are read as float4 from shared memory so the
-// inner loop issues 2 shared loads per 16 FMAs. The TPU grid's sequential
-// reduction axis becomes the loop inside the block; nothing carries over
-// between blocks. Ragged M, K and N are masked on load and store, so no
-// shape leaves the kernel. A batch (slot) index rides blockIdx.z and every
-// operand has its own batch stride: stride 0 shares one weight matrix
-// across all slots without a copy.
+// Why 3xTF32 keeps the f32 contract. Each operand a splits into big =
+// rna_tf32(a) and small = rna_tf32(a - big); the product is small*big +
+// big*small + big*big with f32 accumulation, dropping only small*small
+// (~2^-22 relative). Emulated on the CPU in k-steps of 8 at M = 95,
+// K = 4096, N = 256 with He-scaled weights, the largest error against the
+// f64 product is 1.7e-6 x the output scale, against 6.4e-7 for plain f32
+// FMA and 2.9e-4 for one TF32 product; the kernels are held to 1e-5 x scale
+// (tests/test_torch_fused_linear.py repeats that emulation). The tensor
+// cores truncate the f32 sum they accumulate, though: chained over all of
+// K = 4096 that drifted to 2.7e-5 x scale on the card, so each stage's
+// products go to a zeroed accumulator that is added to the running sum
+// with a round-to-nearest f32 add (flush), which holds 2.2e-6.
 //
-// Backward: dx reads w in its stored (K, N) layout and transposes the tile
-// while staging it; both backward kernels rebuild the relu mask from the
-// saved output y per tile, so dz never reaches device memory. The dw
-// kernel's blocks whose K-tile index is 0 also sum their dz columns over
-// the M loop they already run, which gives db in the same pass with no
-// atomics (deterministic).
+// What the design does (forward fwd_kernel, dw/db dwdb_kernel):
+// - Tensor cores: mma.sync.m16n8k8 tf32 with the 3xTF32 split done on the
+//   fragments as they leave shared memory, on the integer units (rna_tf32).
+//   wgmma would need K-major tiles for both operands, and neither w (K, N)
+//   nor x^T and dz are.
+// - A cp.async pipeline: 4 stages of the x/w tiles (3 of the x/dz tiles)
+//   in flight in dynamic shared memory while the MMAs run on the stage
+//   that has landed.
+//   Copies are 16 bytes where an operand's row strides and pointer allow it,
+//   else 4 bytes (fc3's 10-wide rows): the wrapper picks each operand's
+//   width, a template choice of the same kernel. Tiles are padded so that
+//   fragment loads are free of bank conflicts (pitches of 4 and 8 mod 32
+//   words).
+// - Forward tiles of 96 x 64: one CTA covers all 95 rows of a slot, so
+//   each weight byte is read from HBM once. M tiles are fastest in the
+//   launch, so CTAs sharing a weight strip run together. Where w and b are
+//   shared (stride 0) and x's slots are row-contiguous, the wrapper folds
+//   slots into rows, so the statistics pass reads the 64 MB weight once.
+// - Split-K where the grid cannot fill the card (fc3's N = 10, M = 1):
+//   partials go to a scratch buffer and splitk_reduce_kernel sums them in a
+//   fixed order, then adds bias and activation: deterministic.
+// - dw/db: 128 x 64 dw tiles, the M reduction in stages of 32 rows (M = 95
+//   is three); the relu mask dz = dy * 1[y > 0] is applied on the fragment
+//   loads from the staged dy and y, so dz never reaches device memory. Two
+//   CTAs share an SM, so one CTA's dw stores overlap the other's loads and
+//   MMAs (a persistent loop over tiles was tried and measured slower: its
+//   per-stage tile arithmetic cost more than the overlap it added). Stores
+//   are float2 per fragment pair (full 32-byte sectors). The CTAs of the
+//   first K tile also sum the staged dz columns into db in a fixed order:
+//   no atomics.
+//
+// dx_kernel keeps the first, simple design: f32 FMA, 64 x 64 output tiles
+// of 4 x 4 per thread, a 16-deep slab per shared-memory step.
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// dx: f32 FMA through shared memory
+// ---------------------------------------------------------------------------
 
 constexpr int kTile = 64;     // output tile edge (rows and columns)
 constexpr int kDepth = 16;    // reduction slab per shared-memory step
@@ -69,50 +109,6 @@ __device__ __forceinline__ float masked_dz(const float* dy, const float* y,
                                            int relu) {
   const float g = dy[off_dy];
   return (relu && !(y[off_y] > 0.f)) ? 0.f : g;
-}
-
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-           const float* __restrict__ bias, float* __restrict__ y, int M, int K,
-           int N, long long sxb, long long sxm, long long swb, long long swk,
-           long long sbb, long long syb, long long sym, int relu) {
-  __shared__ Tiles t;
-  const int bz = blockIdx.z;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  x += bz * sxb;
-  w += bz * swb;
-  bias += bz * sbb;
-  y += bz * syb;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kDepth) {
-    for (int e = threadIdx.x; e < kTile * kDepth; e += kThreads) {
-      const int i = e / kDepth, r = e % kDepth;   // x row-major: k fastest
-      const int m = m0 + i, k = k0 + r;
-      t.a[r][i] = (m < M && k < K) ? x[m * sxm + k] : 0.f;
-    }
-    for (int e = threadIdx.x; e < kTile * kDepth; e += kThreads) {
-      const int r = e / kTile, j = e % kTile;     // w row-major: n fastest
-      const int k = k0 + r, n = n0 + j;
-      t.b[r][j] = (k < K && n < N) ? w[k * swk + n] : 0.f;
-    }
-    __syncthreads();
-    mma_slab(t, ty, tx, acc);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= N) continue;
-      float v = acc[i][j] + bias[n];
-      if (relu) v = fmaxf(v, 0.f);
-      y[m * sym + n] = v;
-    }
-  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -159,83 +155,492 @@ dx_kernel(const float* __restrict__ dy, const float* __restrict__ yv,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-dwdb_kernel(const float* __restrict__ x, const float* __restrict__ dy,
-            const float* __restrict__ yv, float* __restrict__ dw,
-            float* __restrict__ db, int M, int K, int N, long long sxb,
-            long long sxm, long long sdb, long long sdm, long long syb,
-            long long sym, long long swb, long long swk, long long sbb,
-            int relu) {
-  __shared__ Tiles t;
-  const int bz = blockIdx.z;
-  const int k0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const bool with_db = blockIdx.y == 0 && ty == 0;
-  x += bz * sxb;
-  dy += bz * sdb;
-  if (relu) yv += bz * syb;
-  dw += bz * swb;
-  db += bz * sbb;
-  float acc[4][4] = {};
-  float dbacc[4] = {};
-  for (int mr = 0; mr < M; mr += kDepth) {
-    for (int e = threadIdx.x; e < kTile * kDepth; e += kThreads) {
-      const int r = e / kTile, i = e % kTile;     // x (M, K): k fastest
-      const int m = mr + r, k = k0 + i;
-      t.a[r][i] = (m < M && k < K) ? x[m * sxm + k] : 0.f;
-    }
-    for (int e = threadIdx.x; e < kTile * kDepth; e += kThreads) {
-      const int r = e / kTile, j = e % kTile;     // dz (M, N): n fastest
-      const int m = mr + r, n = n0 + j;
-      t.b[r][j] = (m < M && n < N)
-                      ? masked_dz(dy, yv, m * sdm + n, m * sym + n, relu)
-                      : 0.f;
-    }
-    __syncthreads();
-    mma_slab(t, ty, tx, acc);
-    if (with_db) {
-#pragma unroll
-      for (int r = 0; r < kDepth; ++r)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) dbacc[j] += t.b[r][tx * 4 + j];
-    }
-    __syncthreads();
+inline int tiles(int n) { return (n + kTile - 1) / kTile; }
+
+// ---------------------------------------------------------------------------
+// forward and dw/db: 3xTF32 on the tensor cores, cp.async pipeline
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copy VEC bytes (16: four floats, 4: one) from global to shared memory,
+// reading only `bytes` of them and zero-filling the rest.
+template <int VEC>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         int bytes) {
+  if constexpr (VEC == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 ::"r"(smem_addr(dst)), "l"(src), "r"(bytes) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 ::"r"(smem_addr(dst)), "l"(src), "r"(bytes) : "memory");
   }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage rows [r0, r0 + R) x columns [c0, c0 + C) of a row-major operand
+// (row stride ld, unit column stride) into shared memory with row pitch P;
+// rows at or past rlim and columns at or past clim read as zero.
+template <int R, int C, int P, int VEC, int THREADS>
+__device__ __forceinline__ void load_tile(float* s, const float* g,
+                                          long long ld, int r0, int c0,
+                                          int rlim, int clim) {
+  constexpr int kPer = VEC / 4;
+  constexpr int kRowChunks = C / kPer;
+  static_assert((R * kRowChunks) % THREADS == 0, "tile / threads");
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty * 4 + i;
-    if (k >= K) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) dw[k * swk + n] = acc[i][j];
+  for (int i = 0; i < R * kRowChunks / THREADS; ++i) {
+    const int e = threadIdx.x + i * THREADS;
+    const int r = e / kRowChunks, c = (e % kRowChunks) * kPer;
+    const int gr = r0 + r, gc = c0 + c;
+    int bytes = 0;
+    const float* src = g;
+    if (gr < rlim && gc < clim) {
+      bytes = min(VEC, (clim - gc) * 4);
+      src = g + gr * ld + gc;
     }
+    cp_async<VEC>(s + r * P + c, src, bytes);
   }
-  if (with_db) {
+}
+
+// cvt.rna.tf32.f32 on the integer units: round the magnitude to 10
+// mantissa bits, ties away from zero (the same result for finite values;
+// the conversion unit itself runs at a quarter of the integer rate, and
+// three warps' worth of splits per MMA would make it the bottleneck).
+__device__ __forceinline__ uint32_t rna_tf32(float a) {
+  return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+}
+
+// a = big + small, each a TF32 value rounded to nearest (ties away).
+__device__ __forceinline__ void split_tf32(float a, uint32_t& big,
+                                           uint32_t& small) {
+  big = rna_tf32(a);
+  small = rna_tf32(a - __uint_as_float(big));
+}
+
+// c (16 x 8, f32) += a (16 x 8, tf32) * b (8 x 8, tf32)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One warp's MT*16 x NT*8 output tile at (row0, col0) of the CTA tile
+// accumulates A * B over one staged slab of depth DEPTH, in 3xTF32.
+// A is staged as sA[row][k] (pitch PA = 8 mod 32 words), or as sA[k][row]
+// when A_KMAJOR (dw's x^T; pitch 4 mod 32). B is staged as sB[k][col]
+// (pitch PB = 4 mod 32); MASK zeroes B where the staged forward output sY
+// (same layout) is not positive (the relu mask). Fragment layouts are
+// mma.m16n8k8's: lane = 4 g + t; A (row g [+8], k-slot t [+4]), B (k-slot
+// t [+4], col g), C (g [+8], 2t [+1]). K-slots t and t + 4 read physical
+// k = 2t and 2t + 1 of the k-step, in A and B alike (any order of the
+// reduction is the same sum), so an sA[row][k] pair is one float2 load;
+// with those pitches no fragment load has a bank conflict.
+// With TAIL only the k-steps below `depth` run (the rest of a reduction's
+// last slab is zero fill); the check stays out of every other slab, where
+// it would keep the compiler from scheduling across k-steps.
+template <int MT, int NT, int DEPTH, int PA, int PB, bool A_KMAJOR, bool MASK,
+          bool TAIL = false>
+__device__ __forceinline__ void warp_mma(const float* sA, const float* sB,
+                                         const float* sY, int row0, int col0,
+                                         int depth, float (&acc)[MT][NT][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) db[n] = dbacc[j];
+  for (int kk = 0; kk < DEPTH; kk += 8) {
+    if constexpr (TAIL)
+      if (kk >= depth) break;
+    uint32_t bb[NT][2], bs[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int off = (kk + 2 * t + h) * PB + col0 + j * 8 + g;
+        float v = sB[off];
+        if constexpr (MASK) v = sY[off] > 0.f ? v : 0.f;
+        split_tf32(v, bb[j][h], bs[j][h]);
+      }
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int r = row0 + i * 16 + g;
+      float av[4];
+      if constexpr (A_KMAJOR) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          av[q] = sA[(kk + 2 * t + (q >> 1)) * PA + r + 8 * (q & 1)];
+      } else {
+        const float2 lo = *reinterpret_cast<const float2*>(
+            sA + r * PA + kk + 2 * t);
+        const float2 hi = *reinterpret_cast<const float2*>(
+            sA + (r + 8) * PA + kk + 2 * t);
+        av[0] = lo.x, av[1] = hi.x, av[2] = lo.y, av[3] = hi.y;
+      }
+      uint32_t ab[4], as[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) split_tf32(av[q], ab[q], as[q]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], as, bb[j]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ab, bs[j]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ab, bb[j]);
     }
   }
 }
 
-inline int tiles(int n) { return (n + kTile - 1) / kTile; }
+// acc += step in f32, then step = 0, after every stage. The tensor cores
+// truncate the sum they accumulate, which over K / 8 chained k-steps drifts
+// (2.7e-5 x scale at K = 4096 when all of K chains into acc); a chain of one
+// stage's k-steps, added to acc with one round-to-nearest add, does not.
+template <int MT, int NT>
+__device__ __forceinline__ void flush(float (&acc)[MT][NT][4],
+                                      float (&step)[MT][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        acc[i][j][q] += step[i][j][q];
+        step[i][j][q] = 0.f;
+      }
+}
+
+// Store a fragment pair (v0 at column n, v1 at n + 1) of row pointer p,
+// as one float2 when `pair` (both in range, 8-byte aligned).
+__device__ __forceinline__ void store_pair(float* p, int n, int N, float v0,
+                                           float v1, bool pair) {
+  if (pair && n + 1 < N) {
+    *reinterpret_cast<float2*>(p + n) = make_float2(v0, v1);
+  } else {
+    if (n < N) p[n] = v0;
+    if (n + 1 < N) p[n + 1] = v1;
+  }
+}
+
+// 0 none, 1 relu, 2 silu, 3 gelu (tanh form, as jax.nn.gelu's default)
+__device__ __forceinline__ float activate(float z, int act) {
+  switch (act) {
+    case 1:
+      return fmaxf(z, 0.f);
+    case 2:
+      return z / (1.f + expf(-z));
+    case 3: {
+      const float u = 0.7978845608028654f * (z + 0.044715f * z * z * z);
+      return 0.5f * z * (1.f + tanhf(u));
+    }
+    default:
+      return z;
+  }
+}
+
+struct FwdArgs {
+  const float* x;
+  const float* w;
+  const float* bias;
+  float* y;
+  float* part;   // (splits, batch, M, N) partial sums when splits > 1
+  int batch, M, K, N, act, splits, kchunk;
+  long long sxb, sxm, swb, swk, sbb, syb, sym;
+};
+
+constexpr int kFwdBM = 96;   // all 95 rows of a slot in one CTA
+constexpr int kFwdBN = 64;   // output columns per CTA
+constexpr int kFwdBK = 32;   // reduction depth per pipeline stage
+constexpr int kFwdStages = 4;
+constexpr int kFwdThreads = 2 * kFwdBN;
+constexpr int kFwdSmemFloats =
+    kFwdStages * (kFwdBM * (kFwdBK + 8) + kFwdBK * (kFwdBN + 4));
+
+// One CTA: rows [m0, m0 + 96) x columns [n0, n0 + 64) of one slot, over the
+// reduction range of its split. Warps 2 (rows, 48 each) x 2 (columns, 32
+// each); two CTAs share an SM.
+template <int VX, int VW>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+fwd_kernel(const FwdArgs a) {
+  constexpr int BM = kFwdBM, BN = kFwdBN, BK = kFwdBK;
+  constexpr int STAGES = kFwdStages, THREADS = kFwdThreads;
+  constexpr int PA = BK + 8, PB = BN + 4;
+  constexpr int A_SZ = BM * PA, STAGE = A_SZ + BK * PB;
+  extern __shared__ __align__(16) float smem[];
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int slot = blockIdx.z % a.batch, split = blockIdx.z / a.batch;
+  const int kbeg = split * a.kchunk, kend = min(a.K, kbeg + a.kchunk);
+  const int nk = (kend - kbeg + BK - 1) / BK;
+  const float* x = a.x + slot * a.sxb;
+  const float* w = a.w + slot * a.swb;
+  auto load = [&](int kt) {
+    float* s = smem + (kt % STAGES) * STAGE;
+    const int k0 = kbeg + kt * BK;
+    load_tile<BM, BK, PA, VX, THREADS>(s, x, a.sxm, m0, k0, a.M, kend);
+    load_tile<BK, BN, PB, VW, THREADS>(s + A_SZ, w, a.swk, k0, n0, kend,
+                                        a.N);
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  const int warp = threadIdx.x >> 5;
+  const int wm = (warp & 1) * 48, wn = (warp >> 1) * 32;
+  float acc[3][4][4] = {}, step[3][4][4] = {};
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();   // stage kt landed; stage kt - 1 is free to refill
+    if (kt + STAGES - 1 < nk) load(kt + STAGES - 1);
+    cp_async_commit();
+    const float* s = smem + (kt % STAGES) * STAGE;
+    warp_mma<3, 4, BK, PA, PB, false, false>(s, s + A_SZ, nullptr, wm, wn,
+                                             BK, step);
+    flush(acc, step);
+  }
+
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool direct = a.splits == 1;
+  float* out = direct ? a.y + slot * a.syb
+                      : a.part + (static_cast<long long>(split) * a.batch +
+                                  slot) * a.M * a.N;
+  const long long ld = direct ? a.sym : a.N;
+  const bool pair =
+      (ld & 1) == 0 && (reinterpret_cast<uintptr_t>(out) & 7) == 0;
+  const float* bias = a.bias + slot * a.sbb;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm + i * 16 + g + 8 * h;
+      if (m >= a.M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + wn + j * 8 + 2 * t;
+        float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (direct) {
+          if (n < a.N) v0 = activate(v0 + bias[n], a.act);
+          if (n + 1 < a.N) v1 = activate(v1 + bias[n + 1], a.act);
+        }
+        store_pair(out + m * ld, n, a.N, v0, v1, pair);
+      }
+    }
+}
+
+// y = act(sum over splits, in order, of the partials + bias)
+__global__ void splitk_reduce_kernel(const FwdArgs a) {
+  const long long total = static_cast<long long>(a.batch) * a.M * a.N;
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       e < total; e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int n = static_cast<int>(e % a.N);
+    const long long bm = e / a.N;
+    const int m = static_cast<int>(bm % a.M), b = static_cast<int>(bm / a.M);
+    float v = 0.f;
+    for (int s = 0; s < a.splits; ++s) v += a.part[s * total + e];
+    a.y[b * a.syb + m * a.sym + n] = activate(v + a.bias[b * a.sbb + n],
+                                              a.act);
+  }
+}
+
+struct DwArgs {
+  const float* x;
+  const float* dy;
+  const float* y;
+  float* dw;
+  float* db;
+  int M, K, N;
+  long long sxb, sxm, sdb, sdm, syb, sym, swb, swk, sbb;
+};
+
+constexpr int kDwBK = 128;   // dw rows (the K axis) per CTA
+constexpr int kDwBN = 64;    // dw columns per CTA
+constexpr int kDwBR = 32;    // reduction (M) rows per pipeline stage
+constexpr int kDwStages = 3;
+constexpr int kDwThreads = 2 * kDwBN;
+constexpr int kDwMinBlocks = 2;
+
+template <bool RELU>
+constexpr int dw_smem_floats() {
+  return kDwStages * kDwBR * ((kDwBK + 4) + (kDwBN + 4) * (RELU ? 2 : 1));
+}
+
+// One CTA: dw rows [k0, k0 + 128) x columns [n0, n0 + 64) of one slot, over
+// all M. Warps 2 (rows, 64 each) x 2 (columns, 32 each).
+template <int VX, int VD, bool RELU>
+__global__ void __launch_bounds__(kDwThreads, kDwMinBlocks)
+dwdb_kernel(const DwArgs a) {
+  constexpr int PX = kDwBK + 4, PD = kDwBN + 4, BR = kDwBR;
+  constexpr int X_SZ = BR * PX, D_SZ = BR * PD;
+  constexpr int STAGE = X_SZ + D_SZ * (RELU ? 2 : 1);
+  extern __shared__ __align__(16) float smem[];
+  const int n0 = blockIdx.x * kDwBN, k0 = blockIdx.y * kDwBK;
+  const int slot = blockIdx.z;
+  const float* x = a.x + slot * a.sxb;
+  const float* dy = a.dy + slot * a.sdb;
+  const float* yv = a.y + slot * a.syb;
+  const int nr = (a.M + BR - 1) / BR;
+  auto load = [&](int rt) {
+    float* s = smem + (rt % kDwStages) * STAGE;
+    const int r0 = rt * BR;
+    load_tile<BR, kDwBK, PX, VX, kDwThreads>(s, x, a.sxm, r0, k0, a.M, a.K);
+    load_tile<BR, kDwBN, PD, VD, kDwThreads>(s + X_SZ, dy, a.sdm, r0, n0,
+                                             a.M, a.N);
+    if constexpr (RELU)
+      load_tile<BR, kDwBN, PD, VD, kDwThreads>(s + X_SZ + D_SZ, yv, a.sym,
+                                               r0, n0, a.M, a.N);
+  };
+#pragma unroll
+  for (int s = 0; s < kDwStages - 1; ++s) {
+    if (s < nr) load(s);
+    cp_async_commit();
+  }
+  const int warp = threadIdx.x >> 5;
+  const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;
+  const bool with_db = blockIdx.y == 0 && threadIdx.x < kDwBN;
+  float acc[4][4][4] = {}, step[4][4][4] = {};
+  float dbacc = 0.f;
+  // stage rt of the pipeline. With tail, only the k-steps below M run: the
+  // whole reduction is one short stage (M < 32: the per-sample pass's
+  // M = 1). Any other M runs every stage in full, zero fill included: a
+  // second copy of warp_mma after the loop, for M's last partial stage,
+  // measured slower at fc2 (tools/fused_linear_variants.py, two_copies).
+  auto stage = [&](int rt, auto tail) {
+    cp_async_wait<kDwStages - 2>();
+    __syncthreads();
+    if (rt + kDwStages - 1 < nr) load(rt + kDwStages - 1);
+    cp_async_commit();
+    const float* s = smem + (rt % kDwStages) * STAGE;
+    const float* sd = s + X_SZ;
+    const float* sy = RELU ? sd + D_SZ : nullptr;
+    warp_mma<4, 4, BR, PX, PD, true, RELU, decltype(tail)::value>(
+        s, sd, sy, wm, wn, a.M - rt * BR, step);
+    flush(acc, step);
+    if (with_db) {
+#pragma unroll 8
+      for (int r = 0; r < BR; ++r) {
+        const float v = sd[r * PD + threadIdx.x];
+        dbacc += (!RELU || sy[r * PD + threadIdx.x] > 0.f) ? v : 0.f;
+      }
+    }
+  };
+  if (a.M < BR) {
+    if (nr) stage(0, std::true_type{});
+  } else {
+    for (int rt = 0; rt < nr; ++rt) stage(rt, std::false_type{});
+  }
+
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float* dw = a.dw + slot * a.swb;
+  const bool pair =
+      (a.swk & 1) == 0 && (reinterpret_cast<uintptr_t>(dw) & 7) == 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + wm + i * 16 + g + 8 * h;
+      if (k >= a.K) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        store_pair(dw + k * a.swk, n0 + wn + j * 8 + 2 * t, a.N,
+                   acc[i][j][2 * h], acc[i][j][2 * h + 1], pair);
+    }
+  if (with_db && n0 + threadIdx.x < a.N)
+    a.db[slot * a.sbb + n0 + threadIdx.x] = dbacc;
+}
+
+// Above 48 KB a block's shared memory must be asked for explicitly: allow
+// each kernel the card's opt-in maximum, once per process (the launch
+// itself fails, and reports it, if a block asks for more).
+template <typename Kernel>
+cudaError_t allow_max_smem(Kernel kernel) {
+  int dev = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&max_smem,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+  return err;
+}
+
+template <int VX, int VW>
+cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream) {
+  static const cudaError_t attr = allow_max_smem(fwd_kernel<VX, VW>);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.M + kFwdBM - 1) / kFwdBM, (a.N + kFwdBN - 1) / kFwdBN,
+                  a.batch * a.splits);
+  const size_t smem = sizeof(float) * kFwdSmemFloats;
+  fwd_kernel<VX, VW><<<grid, kFwdThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int VX, int VD, bool RELU>
+cudaError_t launch_dwdb(const DwArgs& a, int batch, cudaStream_t stream) {
+  static const cudaError_t attr = allow_max_smem(dwdb_kernel<VX, VD, RELU>);
+  if (attr != cudaSuccess) return attr;
+  // K = 0 still runs the first K tile, whose CTAs write db
+  const int k_tiles = a.K > 0 ? (a.K + kDwBK - 1) / kDwBK : 1;
+  const dim3 grid((a.N + kDwBN - 1) / kDwBN, k_tiles, batch);
+  const size_t smem = sizeof(float) * dw_smem_floats<RELU>();
+  dwdb_kernel<VX, VD, RELU><<<grid, kDwThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// dw/db with copy widths vx (x) and vd (dy, y), 16 or 4 bytes
+template <bool RELU>
+cudaError_t dispatch_dwdb(const DwArgs& a, int batch, int vx, int vd,
+                          cudaStream_t st) {
+  if (vx == 16)
+    return vd == 16 ? launch_dwdb<16, 16, RELU>(a, batch, st)
+                    : launch_dwdb<16, 4, RELU>(a, batch, st);
+  return vd == 16 ? launch_dwdb<4, 16, RELU>(a, batch, st)
+                  : launch_dwdb<4, 4, RELU>(a, batch, st);
+}
+
+// the forward with copy widths vx (x) and vw (w), 16 or 4 bytes
+cudaError_t dispatch_fwd(const FwdArgs& a, int vx, int vw, cudaStream_t st) {
+  if (vx == 16)
+    return vw == 16 ? launch_fwd<16, 16>(a, st) : launch_fwd<16, 4>(a, st);
+  return vw == 16 ? launch_fwd<4, 16>(a, st) : launch_fwd<4, 4>(a, st);
+}
 
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Every operand is row-major in
 // its last dimension; the other strides are in elements. Each returns the
-// launch's cudaGetLastError() so the caller can raise on a refused launch.
+// launch's cudaGetLastError() (or that of the first failing step) so the
+// caller can raise on a refused launch.
+
+// y = act(x @ w + b). The launch plan comes from the wrapper
+// (kernel.fwd_plan): splits > 1 splits K into kchunk-deep ranges (a
+// multiple of 32) whose partials go to `part` (splits * B * M * N floats)
+// and are summed by a second launch; vx and vw are the cp.async widths in
+// bytes (16 or 4) of x and w.
 extern "C" int fused_linear_fwd(const float* x, const float* w,
-                                const float* bias, float* y, int B, int M,
-                                int K, int N, long long sxb, long long sxm,
-                                long long swb, long long swk, long long sbb,
-                                long long syb, long long sym, int relu,
-                                void* stream) {
-  const dim3 grid(tiles(N), tiles(M), B);
-  fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, w, bias, y, M, K, N, sxb, sxm, swb, swk, sbb, syb, sym, relu);
+                                const float* bias, float* y, float* part,
+                                int B, int M, int K, int N, long long sxb,
+                                long long sxm, long long swb, long long swk,
+                                long long sbb, long long syb, long long sym,
+                                int act, int splits, int kchunk, int vx,
+                                int vw, void* stream) {
+  const FwdArgs a{x, w, bias, y, part, B, M, K, N, act, splits, kchunk,
+                  sxb, sxm, swb, swk, sbb, syb, sym};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = dispatch_fwd(a, vx, vw, st);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long total = static_cast<long long>(B) * M * N;
+  const long long want = (total + 255) / 256;
+  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
+  splitk_reduce_kernel<<<blocks, 256, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -251,6 +656,9 @@ extern "C" int fused_linear_bwd_dx(const float* dy, const float* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+// (dw, db) = (x^T @ dz, sum_m dz), dz = dy * 1[y > 0] when relu; vx and vd
+// are the cp.async widths in bytes (16 or 4) of x and of dy and y, from the
+// wrapper (kernel.dwdb_plan).
 extern "C" int fused_linear_bwd_dw_db(const float* x, const float* dy,
                                       const float* y, float* dw, float* db,
                                       int B, int M, int K, int N,
@@ -258,10 +666,11 @@ extern "C" int fused_linear_bwd_dw_db(const float* x, const float* dy,
                                       long long sdb, long long sdm,
                                       long long syb, long long sym,
                                       long long swb, long long swk,
-                                      long long sbb, int relu, void* stream) {
-  const dim3 grid(tiles(N), tiles(K), B);
-  dwdb_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, dy, y, dw, db, M, K, N, sxb, sxm, sdb, sdm, syb, sym, swb, swk, sbb,
-      relu);
-  return static_cast<int>(cudaGetLastError());
+                                      long long sbb, int relu, int vx,
+                                      int vd, void* stream) {
+  const DwArgs a{x, dy, y, dw, db, M, K, N, sxb, sxm, sdb, sdm, syb, sym,
+                 swb, swk, sbb};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(relu ? dispatch_dwdb<true>(a, B, vx, vd, st)
+                               : dispatch_dwdb<false>(a, B, vx, vd, st));
 }

@@ -9,11 +9,19 @@ in place with no copy.
 Dispatch is by tensor device only: CPU tensors go to the plain versions in
 :mod:`.ref`; CUDA tensors launch the kernel, which is built with ``nvcc`` at
 first use, or the call raises. ``LAUNCHES`` counts the kernel launches of
-each wrapper and nothing else.
+each wrapper and nothing else: one per wrapper call, also where the
+forward's split-K plan makes it two launches (the partial products and
+their ordered sum).
+
+How the forward and dw/db kernels launch is decided here, in pure Python,
+by :func:`fwd_plan` and :func:`dwdb_plan` (slot fold, split-K count, copy
+widths), so the CPU tests can check every plan the card would run.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import pathlib
 
 import torch
@@ -27,12 +35,117 @@ LAUNCHES = {"fused_linear": 0, "fused_linear_bwd_dx": 0,
             "fused_linear_bwd_dw_db": 0}
 
 _MASKS = ("none", "relu")
+# activation codes of the forward kernel's epilogue
+ACT_CODES = {"none": 0, "relu": 1, "silu": 2, "gelu": 3}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    "fused_linear_fwd": [_P] * 4 + [_I] * 4 + [_L] * 7 + [_I, _P],
+    "fused_linear_fwd": [_P] * 5 + [_I] * 4 + [_L] * 7 + [_I] * 5 + [_P],
     "fused_linear_bwd_dx": [_P] * 4 + [_I] * 4 + [_L] * 8 + [_I, _P],
-    "fused_linear_bwd_dw_db": [_P] * 5 + [_I] * 4 + [_L] * 9 + [_I, _P],
+    "fused_linear_bwd_dw_db": [_P] * 5 + [_I] * 4 + [_L] * 9 + [_I] * 3
+                              + [_P],
 }
+
+# The kernels' tile shapes (csrc/fused_linear.cu): forward CTAs cover 96 x
+# 64 of the output, 32 reduction steps per stage; dw/db CTAs cover 128 x 64
+# of dw, 32 rows of M per stage.
+FWD_BM, FWD_BN, FWD_BK = 96, 64, 32
+DW_BK, DW_BN = 128, 64
+# Both kernels' shared memory lets two CTAs share an SM: a grid of fewer
+# than CTAS_PER_SM x SMs CTAs leaves the card part idle.
+CTAS_PER_SM = 2
+# Split K no finer than this many reduction steps per split.
+MIN_SPLIT_K = 128
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """One forward launch. With ``fold`` the slots are folded into one row
+    axis: the kernel sees ``batch = 1`` slot of ``rows = B * M`` rows at row
+    stride ``sxm``. Above 1, ``splits`` K ranges of ``k_chunk`` (a multiple
+    of :data:`FWD_BK`) each sum into a scratch buffer; ``vec_x`` and
+    ``vec_w`` are the copy widths of x and w in bytes (16, or 4 where one
+    of the operand's strides or its pointer is not 16-byte aligned)."""
+    fold: bool
+    batch: int
+    rows: int
+    n: int
+    sxb: int
+    sxm: int
+    splits: int
+    k_chunk: int
+    vec_x: int
+    vec_w: int
+
+    @property
+    def grid(self) -> tuple:
+        return (_cdiv(self.rows, FWD_BM), _cdiv(self.n, FWD_BN),
+                self.batch * self.splits)
+
+
+def _vec(aligned: bool, *strides) -> int:
+    """16-byte copies where the pointer and every stride (in floats)
+    allow them, else 4-byte ones."""
+    return 16 if aligned and all(s % 4 == 0 for s in strides) else 4
+
+
+def fwd_plan(nb: int, m: int, k: int, n: int, *, sxb: int, sxm: int,
+             swb: int, swk: int, sbb: int, x_aligned: bool, w_aligned: bool,
+             sms: int) -> FwdPlan:
+    """The forward's launch plan for x (nb, m, k) @ w (nb, k, n) on a card
+    with ``sms`` SMs; strides in elements, ``x_aligned`` / ``w_aligned``:
+    the operand's data pointer is 16-byte aligned."""
+    fold = nb > 1 and swb == 0 and sbb == 0 and (m == 1 or sxb == m * sxm)
+    batch, rows = nb, m
+    if fold:
+        batch, rows, sxb, sxm = 1, nb * m, 0, (sxb if m == 1 else sxm)
+    target = CTAS_PER_SM * sms
+    ctas = max(1, batch * _cdiv(rows, FWD_BM) * _cdiv(n, FWD_BN))
+    splits = 1
+    if ctas < target:
+        splits = max(1, min(_cdiv(target, ctas), k // MIN_SPLIT_K))
+    k_chunk = FWD_BK * max(1, _cdiv(_cdiv(k, splits), FWD_BK))
+    splits = max(1, _cdiv(k, k_chunk))
+    return FwdPlan(fold, batch, rows, n, sxb, sxm, splits, k_chunk,
+                   _vec(x_aligned, sxb, sxm), _vec(w_aligned, swb, swk))
+
+
+@dataclasses.dataclass(frozen=True)
+class DwPlan:
+    """One dw/db launch: a CTA per DW_BK x DW_BN dw tile of each slot, each
+    summing all of M; K = 0 keeps the first K tile, whose CTAs write db.
+    ``vec_x`` and ``vec_dz`` (dy and y) as in :class:`FwdPlan`."""
+    batch: int
+    k: int
+    n: int
+    vec_x: int
+    vec_dz: int
+
+    @property
+    def grid(self) -> tuple:
+        return (_cdiv(self.n, DW_BN), max(1, _cdiv(self.k, DW_BK)),
+                self.batch)
+
+
+def dwdb_plan(nb: int, m: int, k: int, n: int, *, strides, x_aligned: bool,
+              dz_aligned: bool) -> DwPlan:
+    """The dw/db launch plan; ``strides``: the batch and row strides of x,
+    dy and y; ``x_aligned`` / ``dz_aligned``: x's pointer, or dy's and
+    y's, are 16-byte aligned."""
+    return DwPlan(nb, k, n, _vec(x_aligned, *strides[:2]),
+                  _vec(dz_aligned, *strides[2:]))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def library():
@@ -66,14 +179,23 @@ def _launch(name: str, fn: str, device, *args) -> None:
     build.launch(library(), fn, name, LAUNCHES, device, *args)
 
 
+def fused_linear_plan(x: torch.Tensor, w: torch.Tensor,
+                      b: torch.Tensor) -> FwdPlan:
+    """The forward's plan for these CUDA operands (unit last stride)."""
+    nb, m, k = x.shape
+    return fwd_plan(nb, m, k, w.shape[2], sxb=x.stride(0), sxm=x.stride(1),
+                    swb=w.stride(0), swk=w.stride(1), sbb=b.stride(0),
+                    x_aligned=_aligned(x), w_aligned=_aligned(w),
+                    sms=_sm_count(x.device.index))
+
+
 def fused_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  activation: str = "relu") -> torch.Tensor:
-    """y (B, M, N) = act(x @ w + b), act in {none, relu} on the card."""
+    """y (B, M, N) = act(x @ w + b), act in {none, relu, silu, gelu}."""
     if not _on_cuda(x, w, b):
         return ref.fused_linear_ref(x, w, b, activation)
-    if activation not in _MASKS:
-        raise NotImplementedError(
-            f"activation {activation!r}: the CUDA kernel fuses none/relu only")
+    if activation not in ACT_CODES:
+        raise NotImplementedError(f"activation {activation!r}")
     x, w, b = _operand(x, 3, "x"), _operand(w, 3, "w"), _operand(b, 2, "b")
     nb, m, k = x.shape
     n = w.shape[2]
@@ -82,11 +204,17 @@ def fused_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                          f"b {tuple(b.shape)}")
     y = torch.empty((nb, m, n), device=x.device, dtype=x.dtype)
     if y.numel():
+        plan = fused_linear_plan(x, w, b)
+        part = (torch.empty(plan.splits * plan.batch * plan.rows * n,
+                            device=x.device, dtype=x.dtype)
+                if plan.splits > 1 else None)
+        syb, sym = (0, n) if plan.fold else (y.stride(0), y.stride(1))
         _launch("fused_linear", "fused_linear_fwd", x.device,
                 x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                nb, m, k, n, x.stride(0), x.stride(1), w.stride(0),
-                w.stride(1), b.stride(0), y.stride(0), y.stride(1),
-                int(activation == "relu"))
+                None if part is None else part.data_ptr(),
+                plan.batch, plan.rows, k, n, plan.sxb, plan.sxm, w.stride(0),
+                w.stride(1), b.stride(0), syb, sym, ACT_CODES[activation],
+                plan.splits, plan.k_chunk, plan.vec_x, plan.vec_w)
     return y
 
 
@@ -114,6 +242,20 @@ def fused_linear_bwd_dx(dy: torch.Tensor, w: torch.Tensor,
     return dx
 
 
+def _dw_strides(x, dy, y) -> tuple:
+    return (x.stride(0), x.stride(1), dy.stride(0), dy.stride(1),
+            y.stride(0), y.stride(1))
+
+
+def fused_linear_bwd_dw_db_plan(x: torch.Tensor, dy: torch.Tensor,
+                                y: torch.Tensor) -> DwPlan:
+    """The dw/db plan for these CUDA operands (``y`` is ``dy`` when no
+    mask is applied)."""
+    nb, m, k = x.shape
+    return dwdb_plan(nb, m, k, dy.shape[2], strides=_dw_strides(x, dy, y),
+                     x_aligned=_aligned(x), dz_aligned=_aligned(dy, y))
+
+
 def fused_linear_bwd_dw_db(x: torch.Tensor, dy: torch.Tensor,
                            y: torch.Tensor | None = None,
                            mask: str = "none"):
@@ -130,10 +272,11 @@ def fused_linear_bwd_dw_db(x: torch.Tensor, dy: torch.Tensor,
         raise ValueError(f"shapes x {tuple(x.shape)}, dy {tuple(dy.shape)}")
     dw = torch.empty((nb, k, n), device=x.device, dtype=x.dtype)
     db = torch.empty((nb, n), device=x.device, dtype=x.dtype)
-    if dw.numel():
+    if db.numel():
+        plan = fused_linear_bwd_dw_db_plan(x, dy, y)
         _launch("fused_linear_bwd_dw_db", "fused_linear_bwd_dw_db", x.device,
                 x.data_ptr(), dy.data_ptr(), y.data_ptr(), dw.data_ptr(),
-                db.data_ptr(), nb, m, k, n, x.stride(0), x.stride(1),
-                dy.stride(0), dy.stride(1), y.stride(0), y.stride(1),
-                dw.stride(0), dw.stride(1), db.stride(0), int(relu))
+                db.data_ptr(), nb, m, k, n, *_dw_strides(x, dy, y),
+                dw.stride(0), dw.stride(1), db.stride(0), int(relu),
+                plan.vec_x, plan.vec_dz)
     return dw, db

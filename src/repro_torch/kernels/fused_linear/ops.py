@@ -4,7 +4,11 @@ The counterpart of ``repro.kernels.fused_linear.ops.linear``: an
 ``autograd.Function`` whose forward and backward are the three kernels of
 :mod:`.kernel` (CUDA on the card, their plain versions on the CPU), with
 the reference's residual policy: ``(x, w, y)`` for relu, where the backward
-kernels rebuild the mask from the saved output, and ``(x, w)`` for none.
+kernels rebuild the mask from the saved output, ``(x, w)`` for none, and
+``(x, w, b)`` for the smooth activations (silu, gelu), whose backward
+rebuilds the pre-activation with one extra ``activation="none"`` forward
+(the remat rule: one GEMM instead of an (M, N) buffer held per layer) and
+hands the backward kernels a pre-multiplied ``dz`` with ``mask="none"``.
 
 ``linear`` takes one weight for every row (w (K, N), b (N,)) or one weight
 per slot (x (S, ..., K), w (S, K, N), b (S, N)), so a slot-batched cohort
@@ -16,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.fused_linear import kernel
+from repro_torch.kernels.fused_linear import kernel, ref
 
 
 class _FusedLinear(torch.autograd.Function):
@@ -28,17 +32,26 @@ class _FusedLinear(torch.autograd.Function):
         ctx.activation = activation
         if activation == "relu":
             ctx.save_for_backward(x, w, y)   # mask recovered from y > 0
-        else:
+        elif activation == "none":
             ctx.save_for_backward(x, w)      # identity: dz is dy
+        else:
+            ctx.save_for_backward(x, w, b)   # smooth: z rebuilt in backward
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        mask = ctx.activation
+        mask, y = ctx.activation, None
         if mask == "relu":
             x, w, y = ctx.saved_tensors
+        elif mask == "none":
+            x, w = ctx.saved_tensors
         else:
-            (x, w), y = ctx.saved_tensors, None
+            x, w, b = ctx.saved_tensors
+            z = kernel.fused_linear(x, w, b, "none")
+            with torch.enable_grad():
+                z.requires_grad_()
+                (dy,) = torch.autograd.grad(ref.ACTS[mask](z), z, dy)
+            mask = "none"
         dx = (kernel.fused_linear_bwd_dx(dy, w, y, mask)
               if ctx.needs_input_grad[0] else None)
         dw, db = kernel.fused_linear_bwd_dw_db(x, dy, y, mask)
@@ -48,13 +61,13 @@ class _FusedLinear(torch.autograd.Function):
 def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
            activation: str = "relu") -> torch.Tensor:
     """Fused ``act(x @ w + b)`` with the kernels' backward, act in
-    {none, relu}.
+    {none, relu, silu, gelu} (gelu in its tanh form, as the reference's).
 
     w (K, N), b (N,): x is (..., K) and every row shares the weight (its
     rows fold into one GEMM). w (S, K, N), b (S, N): x is (S, ..., K) and
     slot s multiplies by w[s].
     """
-    if activation not in ("none", "relu"):
+    if activation not in ref.ACTS:
         raise NotImplementedError(f"activation {activation!r}")
     k, n = w.shape[-2:]
     if w.dim() == 2:

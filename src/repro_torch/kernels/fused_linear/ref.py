@@ -9,10 +9,14 @@ the card.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+# jax.nn.gelu's default is the tanh approximation; so is this gelu
 ACTS = {
     "none": lambda z: z,
     "relu": torch.relu,
+    "silu": F.silu,
+    "gelu": lambda z: F.gelu(z, approximate="tanh"),
 }
 
 CALLS = {"fused_linear": 0, "fused_linear_bwd_dx": 0,

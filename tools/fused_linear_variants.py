@@ -1,0 +1,227 @@
+"""Design variants of the fused linear CUDA kernels, side by side on one card.
+
+    python3 tools/fused_linear_variants.py
+
+Run from the root of a checkout on a machine with a CUDA card. Each variant
+is the source ``src/repro_torch/kernels/fused_linear/csrc/fused_linear.cu``
+with one design choice undone (a text substitution, listed in VARIANTS);
+all are compiled in parallel with the port's nvcc flags into
+``build/variants/``, loaded with ctypes, and driven through the C entry
+points with the wrappers' own launch plans. At the VGG round's fc shapes
+(6 slots x 95 rows) and the per-sample pass's M = 1, every variant's
+forward and dw/db is held against the plain PyTorch version (1e-5 x the
+output scale, as chip_smoke.py) and timed on the device (chip_smoke.py's
+``device_ms``); dw/db also without the relu mask, to show what the mask
+costs. ``base`` (the source as it is) runs first and again last, which
+shows the run's spread. Prints each kernel's registers and spills, then
+one line per case and variant, in milliseconds.
+"""
+from __future__ import annotations
+
+import ctypes
+import pathlib
+import re
+import subprocess
+import sys
+
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.fused_linear import kernel, ref  # noqa: E402
+
+DW_LOOP = ("  if (a.M < BR) {\n    if (nr) stage(0, std::true_type{});\n"
+           "  } else {\n    for (int rt = 0; rt < nr; ++rt) "
+           "stage(rt, std::false_type{});\n  }")
+# name -> [(text in the source, its replacement)]
+VARIANTS = {
+    "base": [],
+    # the TF32 split on the conversion unit (cvt.rna.tf32.f32)
+    "cvt_rounding": [(
+        "  return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;",
+        "  uint32_t r;\n  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(r) "
+        ": \"f\"(a));\n  return r;")],
+    # every stage's MMAs chained straight into acc (no per-stage f32 add)
+    "no_flush": [
+        ("                                             BK, step);\n"
+         "    flush(acc, step);",
+         "                                             BK, acc);"),
+        ("        s, sd, sy, wm, wn, a.M - rt * BR, step);\n"
+         "    flush(acc, step);",
+         "        s, sd, sy, wm, wn, a.M - rt * BR, acc);")],
+    # dw/db: full stages in a loop, then M's partial last stage apart
+    "dw_two_copies": [(DW_LOOP, (
+        "  const int full = a.M / BR;\n"
+        "  for (int rt = 0; rt < full; ++rt) stage(rt, std::false_type{});\n"
+        "  if (full < nr) stage(full, std::true_type{});"))],
+    # dw/db: every stage in full, M < 32 too
+    "dw_no_tail": [(DW_LOOP, (
+        "  for (int rt = 0; rt < nr; ++rt) stage(rt, std::false_type{});"))],
+    # dw/db: 128 x 128 tiles, one CTA per SM
+    "dw_tiles_128x128": [
+        ("constexpr int kDwBN = 64; ", "constexpr int kDwBN = 128;"),
+        ("constexpr int kDwMinBlocks = 2;",
+         "constexpr int kDwMinBlocks = 1;")],
+    # dw/db: 16 rows of M per stage, 4 stages
+    "dw_16_row_stages": [
+        ("constexpr int kDwBR = 32;", "constexpr int kDwBR = 16;"),
+        ("constexpr int kDwStages = 3;", "constexpr int kDwStages = 4;")],
+    # dw/db without its dw stores (what the stores cost; output not checked)
+    "dw_no_store": [("      if (k >= a.K) continue;",
+                     "      if (k >= a.K || a.N >= 0) continue;")],
+}
+CASES = ("round fc1", "round fc2", "round fc3", "sigma fc2 M=1")
+
+
+def build_variants() -> dict:
+    """Compile every variant in parallel; print registers and spills."""
+    out_dir = build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    source = kernel.SOURCE.read_text()
+    jobs = {}
+    for name, subs in VARIANTS.items():
+        text = source
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{name}: {old!r} is not in the source "
+                                   "exactly once")
+            text = text.replace(old, new)
+        src = out_dir / f"{name}.cu"
+        src.write_text(text)
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+               str(out_dir / f"{name}.so"), str(src)]
+        jobs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {name}:\n{log}")
+        lines = log.splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry" in line and re.search(r"fwd_|dwdb_", line):
+                fn = re.search(r"((?:fwd|dwdb)_kernel\w*?)vNS_",
+                               line).group(1)
+                info = " ".join(lines[i + 1:i + 5])
+                regs = re.search(r"Used (\d+) registers", info).group(1)
+                spill = re.search(r"(\d+) bytes spill stores", info).group(1)
+                print(f"ptxas {name:18s} {fn:40s} registers={regs} "
+                      f"spill_bytes={spill}")
+        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
+        for fn, types in kernel._ARGTYPES.items():
+            getattr(lib, fn).argtypes = types
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def fwd_call(lib, x, w, b, act):
+    """The forward through ``lib`` with the wrapper's plan: (run, y)."""
+    p = kernel.fused_linear_plan(x, w, b)
+    nb, m, k = x.shape
+    n = w.shape[2]
+    y = torch.empty(nb, m, n, device="cuda")
+    part = (torch.empty(p.splits * p.batch * p.rows * n, device="cuda")
+            if p.splits > 1 else None)
+    syb, sym = (0, n) if p.fold else (y.stride(0), y.stride(1))
+    args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+            None if part is None else part.data_ptr(), p.batch, p.rows, k, n,
+            p.sxb, p.sxm, w.stride(0), w.stride(1), b.stride(0), syb, sym,
+            kernel.ACT_CODES[act], p.splits, p.k_chunk, p.vec_x, p.vec_w)
+
+    def run():
+        if lib.fused_linear_fwd(*args, _stream()):
+            raise RuntimeError("fused_linear_fwd launch failed")
+    return run, y
+
+
+def dwdb_call(lib, x, dy, y, relu: bool):
+    """dw/db through ``lib`` with the wrapper's plan: (run, (dw, db))."""
+    nb, m, k = x.shape
+    n = dy.shape[2]
+    y = y if relu else dy
+    p = kernel.fused_linear_bwd_dw_db_plan(x, dy, y)
+    dw = torch.empty(nb, k, n, device="cuda")
+    db = torch.empty(nb, n, device="cuda")
+    args = (x.data_ptr(), dy.data_ptr(), y.data_ptr(), dw.data_ptr(),
+            db.data_ptr(), nb, m, k, n, *kernel._dw_strides(x, dy, y),
+            dw.stride(0), dw.stride(1), db.stride(0), int(relu), p.vec_x,
+            p.vec_dz)
+
+    def run():
+        if lib.fused_linear_bwd_dw_db(*args, _stream()):
+            raise RuntimeError("fused_linear_bwd_dw_db launch failed")
+    return run, (dw, db)
+
+
+def _rel_err(got, want) -> float:
+    return max(float((a - r).abs().max()) / max(1.0, float(r.abs().max()))
+               for a, r in zip(got, want))
+
+
+def main() -> int:
+    chip_smoke.check(torch.cuda.is_available(), "needs one CUDA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    libs = build_variants()
+    order = list(libs) + ["base"]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for label, nb, m, k, n, act, shared in chip_smoke.CASES:
+        if label not in CASES:
+            continue
+        x = torch.randn(nb, m, k, device="cuda", generator=g)
+        if shared:
+            w = (torch.randn(k, n, device="cuda", generator=g)
+                 * (2.0 / k) ** 0.5).expand(nb, k, n)
+            b = torch.randn(n, device="cuda", generator=g).expand(nb, n)
+        else:
+            w = torch.randn(nb, k, n, device="cuda", generator=g) \
+                * (2.0 / k) ** 0.5
+            b = torch.randn(nb, n, device="cuda", generator=g)
+        dy = torch.randn(nb, m, n, device="cuda", generator=g)
+        want_y = ref.fused_linear_ref(x, w, b, act)
+        relu = act == "relu"
+        want_dw = ref.fused_linear_bwd_dw_db_ref(
+            x, dy, want_y if relu else None, act)
+        for name in order:
+            lib = libs[name]
+            run, y = fwd_call(lib, x, w, b, act)
+            run()
+            fwd_err = _rel_err((y,), (want_y,))
+            fwd_ms = chip_smoke.device_ms(run)
+            run, out = dwdb_call(lib, x, dy, want_y, relu)
+            run()
+            dw_err = _rel_err(out, want_dw)
+            dw_ms = chip_smoke.device_ms(run)
+            nomask = ""
+            if relu:
+                run, _ = dwdb_call(lib, x, dy, want_y, False)
+                nomask = f" dwdb_nomask_ms={chip_smoke.device_ms(run):.4f}"
+            ok = name == "dw_no_store" or max(fwd_err, dw_err) <= 1e-5
+            print(f"variant {label:14s} {name:18s} fwd_ms={fwd_ms:.4f} "
+                  f"dwdb_ms={dw_ms:.4f}{nomask} err/scale fwd={fwd_err:.1e} "
+                  f"dwdb={dw_err:.1e}{'' if ok else ' OVER 1e-5'}",
+                  flush=True)
+        lib_fwd = chip_smoke.device_ms(
+            lambda: torch.baddbmm(b.unsqueeze(1), x, w))
+        lib_dw = chip_smoke.device_ms(lambda: torch.bmm(x.transpose(1, 2),
+                                                        dy))
+        print(f"variant {label:14s} {'library':18s} fwd_ms={lib_fwd:.4f} "
+              f"dwdb_ms={lib_dw:.4f} (baddbmm; bmm: no mask, no db)",
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
