@@ -23,8 +23,10 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
      128) causal, the same with a 256 window, (2, 4, 256, 64) non-causal),
      against ``scaled_dot_product_attention`` as the library yardstick;
    - the SSD scan at the SSM path's shapes (S = 32, chunk 32, n = 4,
-     p = 32, ds = 16, a_log per slot or stride-0 shared) and a multi-chunk
-     shape ((2, 512, 8, 64), ds = 64, chunk 64);
+     p = 32, ds = 16, a_log per slot or stride-0 shared) and two multi-chunk
+     shapes ((2, 512, 8, 64), ds = 64, chunk 64: the chunk-parallel form;
+     264 rows of 128 steps: the sequential walk); each case line prints the
+     launch plan;
 3. agreement phases: narrow simulations on the card against the same on
    the CPU, whose plain path the CPU tests hold against the JAX reference:
    VGG, the FL transformer and the FL Mamba-2;
@@ -98,7 +100,8 @@ NAMES = tuple(REPLACES)[:3]            # the fused linear kernels
 FA_NAMES = tuple(REPLACES)[3:6]
 # the CUDA kernels of the port's sources, by function name
 PORT_KERNELS = ("fwd_kernel", "splitk_reduce_kernel", "dx_kernel",
-                "dwdb_kernel", "dq_kernel", "dkdv_kernel", "ssd_kernel")
+                "dwdb_kernel", "dq_kernel", "dkdv_kernel", "ssd_kernel",
+                "ssd_chunk_scan_kernel")
 # every launch counter and every plain-version call counter of the port
 LAUNCH_COUNTS = (kernel.LAUNCHES, fa_kernel.LAUNCHES, ssd_kernel.LAUNCHES)
 CALL_COUNTS = (ref.CALLS, fa_ref.CALLS, ssd_ref.CALLS)
@@ -232,11 +235,13 @@ def _plan_of(name: str, x, w, b, dy, act) -> str:
         p = kernel.fused_linear_plan(x, w, b)
         return (f" plan: fold={int(p.fold)} splits={p.splits} "
                 f"vec_x={p.vec_x} vec_w={p.vec_w}")
-    if name == "fused_linear_bwd_dw_db":
-        y = kernel.fused_linear(x, w, b, act) if act == "relu" else dy
-        p = kernel.fused_linear_bwd_dw_db_plan(x, dy, y)
-        return f" plan: vec_x={p.vec_x} vec_dz={p.vec_dz}"
-    return ""
+    y = kernel.fused_linear(x, w, b, act) if act == "relu" else dy
+    if name == "fused_linear_bwd_dx":
+        p = kernel.fused_linear_bwd_dx_plan(dy, w, y)
+        return (f" plan: fold={int(p.fold)} splits={p.splits} "
+                f"n_chunk={p.n_chunk} vec_dz={p.vec_dz} vec_w={p.vec_w}")
+    p = kernel.fused_linear_bwd_dw_db_plan(x, dy, y)
+    return f" plan: vec_x={p.vec_x} vec_dz={p.vec_dz}"
 
 
 def kernel_phase() -> dict:
@@ -405,11 +410,14 @@ def attention_phase() -> dict:
 SSD_RTOL = 1e-4
 # (label, rows, S, n, p, ds, chunk, slots): rows = slots x batch rows, each
 # slot with its own a_log; slots = 0: one a_log for every row, read through
-# a stride-0 view of 12 slots (the statistics pass)
+# a stride-0 view of 12 slots (the statistics pass). The multi-chunk case
+# runs the plan's chunk-parallel form (16 rows x heads), "long rows" (the
+# round's 6 slots at four chunks) the sequential walk over chunks.
 SSD_CASES = [
     ("round", 570, 32, 4, 32, 16, 32, 6),
     ("stats", 1140, 32, 4, 32, 16, 32, 0),
     ("multi-chunk", 2, 512, 8, 64, 64, 64, 1),
+    ("long rows", 264, 128, 4, 32, 16, 32, 6),
 ]
 
 
@@ -432,12 +440,15 @@ def ssd_phase() -> dict:
             2 * pairs * p + 4 * chunk * ds * p))
         nbytes = 4 * (2 * rows * s * n * p + rows * s * n
                       + 2 * rows * s * ds + max(slots, 1) * n)
+        plan = ssd_kernel.ssd_scan_plan(x, bm, cm, chunk)
         _hold(totals, "ssd_scan", label,
               lambda: ssd_kernel.ssd_scan(x, dt, a_log, bm, cm, chunk=chunk),
               lambda: ssd_ref.ssd_ref(x, dt, a_log, bm, cm), None, SSD_RTOL,
               _bound(ops, nbytes), label == "round",
               f"rows={rows} S={s} n={n} p={p} ds={ds} chunk={chunk} "
-              f"slots={slots}")
+              f"slots={slots} plan: heads={plan.heads} warps={plan.warps} "
+              f"chunk_parallel={int(plan.chunk_parallel)} "
+              f"vec_x={plan.vec_x} vec_bc={plan.vec_bc}")
     return totals
 
 

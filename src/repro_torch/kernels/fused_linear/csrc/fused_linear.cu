@@ -31,14 +31,16 @@
 // products go to a zeroed accumulator that is added to the running sum
 // with a round-to-nearest f32 add (flush), which holds 2.2e-6.
 //
-// What the design does (forward fwd_kernel, dw/db dwdb_kernel):
+// What the design does (forward fwd_kernel, dx dx_kernel, dw/db
+// dwdb_kernel):
 // - Tensor cores: mma.sync.m16n8k8 tf32 with the 3xTF32 split done on the
 //   fragments as they leave shared memory, on the integer units (rna_tf32).
 //   wgmma would need K-major tiles for both operands, and neither w (K, N)
-//   nor x^T and dz are.
-// - A cp.async pipeline: 4 stages of the x/w tiles (3 of the x/dz tiles)
-//   in flight in dynamic shared memory while the MMAs run on the stage
-//   that has landed.
+//   nor x^T and dz are (dx's are: dz (M, N) and w (K, N) both have the
+//   reduction N contiguous).
+// - A cp.async pipeline: 4 stages of the x/w tiles (3 of the x/dz tiles,
+//   2 of dx's dz/w tiles) in flight in dynamic shared memory while the
+//   MMAs run on the stage that has landed.
 //   Copies are 16 bytes where an operand's row strides and pointer allow it,
 //   else 4 bytes (fc3's 10-wide rows): the wrapper picks each operand's
 //   width, a template choice of the same kernel. Tiles are padded so that
@@ -52,6 +54,18 @@
 // - Split-K where the grid cannot fill the card (fc3's N = 10, M = 1):
 //   partials go to a scratch buffer and splitk_reduce_kernel sums them in a
 //   fixed order, then adds bias and activation: deterministic.
+// - dx: the forward's shape with both operands staged reduction-major
+//   (dz as sA[row][n], w as sB[k][n]: B fragment pairs are float2 loads
+//   too) in two 32-deep stages, so that dz's y tile fits beside them with
+//   two CTAs per SM (four 16-deep stages and three 32-deep ones, one CTA
+//   per SM, measured slower: tools/fused_linear_variants.py); the relu mask
+//   is applied on dz's fragment loads. The same 96-row tiles (w read once
+//   per slot), slot fold under shared w (the statistics pass and the
+//   per-sample pass read the 64 MB w once), and a split of the reduction N
+//   where the grid is small (the round's fc1 has 48 CTAs unsplit, the
+//   evaluation's M = 232 has 24), summed by the same fixed-order second
+//   launch without the epilogue. A reduction of at most 16 (fc3's N = 10)
+//   copies and multiplies only the k-steps it has.
 // - dw/db: 128 x 64 dw tiles, the M reduction in stages of 32 rows (M = 95
 //   is three); the relu mask dz = dy * 1[y > 0] is applied on the fragment
 //   loads from the staged dy and y, so dz never reaches device memory. Two
@@ -61,9 +75,6 @@
 //   are float2 per fragment pair (full 32-byte sectors). The CTAs of the
 //   first K tile also sum the staged dz columns into db in a fixed order:
 //   no atomics.
-//
-// dx_kernel keeps the first, simple design: f32 FMA, 64 x 64 output tiles
-// of 4 x 4 per thread, a 16-deep slab per shared-memory step.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,93 +83,7 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// dx: f32 FMA through shared memory
-// ---------------------------------------------------------------------------
-
-constexpr int kTile = 64;     // output tile edge (rows and columns)
-constexpr int kDepth = 16;    // reduction slab per shared-memory step
-constexpr int kPad = 4;       // keeps rows 16-byte aligned for float4 reads
-constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 outputs each
-
-struct Tiles {
-  // a[r][i]: the left operand, reduction index r, output row i
-  // b[r][j]: the right operand, reduction index r, output column j
-  __align__(16) float a[kDepth][kTile + kPad];
-  __align__(16) float b[kDepth][kTile + kPad];
-};
-
-// acc[i][j] += sum_r a[r][ty*4+i] * b[r][tx*4+j] over the staged slab.
-__device__ __forceinline__ void mma_slab(const Tiles& t, int ty, int tx,
-                                         float acc[4][4]) {
-#pragma unroll
-  for (int r = 0; r < kDepth; ++r) {
-    const float4 av = *reinterpret_cast<const float4*>(&t.a[r][ty * 4]);
-    const float4 bv = *reinterpret_cast<const float4*>(&t.b[r][tx * 4]);
-    const float a4[4] = {av.x, av.y, av.z, av.w};
-    const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a4[i], b4[j], acc[i][j]);
-  }
-}
-
-// dz = dy, or dy * 1[y > 0] when relu (y is the saved forward output).
-__device__ __forceinline__ float masked_dz(const float* dy, const float* y,
-                                           long long off_dy, long long off_y,
-                                           int relu) {
-  const float g = dy[off_dy];
-  return (relu && !(y[off_y] > 0.f)) ? 0.f : g;
-}
-
-__global__ void __launch_bounds__(kThreads)
-dx_kernel(const float* __restrict__ dy, const float* __restrict__ yv,
-          const float* __restrict__ w, float* __restrict__ dx, int M, int K,
-          int N, long long sdb, long long sdm, long long syb, long long sym,
-          long long swb, long long swk, long long sxb, long long sxm,
-          int relu) {
-  __shared__ Tiles t;
-  const int bz = blockIdx.z;
-  const int m0 = blockIdx.y * kTile, k0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  dy += bz * sdb;
-  if (relu) yv += bz * syb;
-  w += bz * swb;
-  dx += bz * sxb;
-  float acc[4][4] = {};
-  for (int n0 = 0; n0 < N; n0 += kDepth) {
-    for (int e = threadIdx.x; e < kTile * kDepth; e += kThreads) {
-      const int i = e / kDepth, r = e % kDepth;   // dz row-major: n fastest
-      const int m = m0 + i, n = n0 + r;
-      t.a[r][i] = (m < M && n < N)
-                      ? masked_dz(dy, yv, m * sdm + n, m * sym + n, relu)
-                      : 0.f;
-    }
-    for (int e = threadIdx.x; e < kTile * kDepth; e += kThreads) {
-      const int j = e / kDepth, r = e % kDepth;   // w (K, N): n fastest
-      const int k = k0 + j, n = n0 + r;
-      t.b[r][j] = (k < K && n < N) ? w[k * swk + n] : 0.f;
-    }
-    __syncthreads();
-    mma_slab(t, ty, tx, acc);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + tx * 4 + j;
-      if (k < K) dx[m * sxm + k] = acc[i][j];
-    }
-  }
-}
-
-inline int tiles(int n) { return (n + kTile - 1) / kTile; }
-
-// ---------------------------------------------------------------------------
-// forward and dw/db: 3xTF32 on the tensor cores, cp.async pipeline
+// 3xTF32 on the tensor cores, cp.async pipeline
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -242,7 +167,10 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 // A is staged as sA[row][k] (pitch PA = 8 mod 32 words), or as sA[k][row]
 // when A_KMAJOR (dw's x^T; pitch 4 mod 32). B is staged as sB[k][col]
 // (pitch PB = 4 mod 32); MASK zeroes B where the staged forward output sY
-// (same layout) is not positive (the relu mask). Fragment layouts are
+// (same layout) is not positive (the relu mask). With B_KMAJOR, B is staged
+// as sB[col][k] (dx's w; pitch 8 mod 32) and its fragment pairs are float2
+// loads like A's; MASK_A applies the relu mask to A instead (dx's dz, with
+// sY in sA's layout). Fragment layouts are
 // mma.m16n8k8's: lane = 4 g + t; A (row g [+8], k-slot t [+4]), B (k-slot
 // t [+4], col g), C (g [+8], 2t [+1]). K-slots t and t + 4 read physical
 // k = 2t and 2t + 1 of the k-step, in A and B alike (any order of the
@@ -252,7 +180,7 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 // last slab is zero fill); the check stays out of every other slab, where
 // it would keep the compiler from scheduling across k-steps.
 template <int MT, int NT, int DEPTH, int PA, int PB, bool A_KMAJOR, bool MASK,
-          bool TAIL = false>
+          bool TAIL = false, bool B_KMAJOR = false, bool MASK_A = false>
 __device__ __forceinline__ void warp_mma(const float* sA, const float* sB,
                                          const float* sY, int row0, int col0,
                                          int depth, float (&acc)[MT][NT][4]) {
@@ -263,14 +191,22 @@ __device__ __forceinline__ void warp_mma(const float* sA, const float* sB,
       if (kk >= depth) break;
     uint32_t bb[NT][2], bs[NT][2];
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < NT; ++j) {
+      if constexpr (B_KMAJOR) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            sB + (col0 + j * 8 + g) * PB + kk + 2 * t);
+        split_tf32(v.x, bb[j][0], bs[j][0]);
+        split_tf32(v.y, bb[j][1], bs[j][1]);
+      } else {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int off = (kk + 2 * t + h) * PB + col0 + j * 8 + g;
-        float v = sB[off];
-        if constexpr (MASK) v = sY[off] > 0.f ? v : 0.f;
-        split_tf32(v, bb[j][h], bs[j][h]);
+        for (int h = 0; h < 2; ++h) {
+          const int off = (kk + 2 * t + h) * PB + col0 + j * 8 + g;
+          float v = sB[off];
+          if constexpr (MASK) v = sY[off] > 0.f ? v : 0.f;
+          split_tf32(v, bb[j][h], bs[j][h]);
+        }
       }
+    }
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
       const int r = row0 + i * 16 + g;
@@ -285,6 +221,16 @@ __device__ __forceinline__ void warp_mma(const float* sA, const float* sB,
         const float2 hi = *reinterpret_cast<const float2*>(
             sA + (r + 8) * PA + kk + 2 * t);
         av[0] = lo.x, av[1] = hi.x, av[2] = lo.y, av[3] = hi.y;
+        if constexpr (MASK_A) {
+          const float2 ylo = *reinterpret_cast<const float2*>(
+              sY + r * PA + kk + 2 * t);
+          const float2 yhi = *reinterpret_cast<const float2*>(
+              sY + (r + 8) * PA + kk + 2 * t);
+          av[0] = ylo.x > 0.f ? av[0] : 0.f;
+          av[1] = yhi.x > 0.f ? av[1] : 0.f;
+          av[2] = ylo.y > 0.f ? av[2] : 0.f;
+          av[3] = yhi.y > 0.f ? av[3] : 0.f;
+        }
       }
       uint32_t ab[4], as[4];
 #pragma unroll
@@ -434,7 +380,9 @@ fwd_kernel(const FwdArgs a) {
     }
 }
 
-// y = act(sum over splits, in order, of the partials + bias)
+// y = act(sum over splits, in order, of the partials + bias); without
+// EPILOGUE (dx) the sum alone
+template <bool EPILOGUE>
 __global__ void splitk_reduce_kernel(const FwdArgs a) {
   const long long total = static_cast<long long>(a.batch) * a.M * a.N;
   for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
@@ -445,8 +393,8 @@ __global__ void splitk_reduce_kernel(const FwdArgs a) {
     const int m = static_cast<int>(bm % a.M), b = static_cast<int>(bm / a.M);
     float v = 0.f;
     for (int s = 0; s < a.splits; ++s) v += a.part[s * total + e];
-    a.y[b * a.syb + m * a.sym + n] = activate(v + a.bias[b * a.sbb + n],
-                                              a.act);
+    a.y[b * a.syb + m * a.sym + n] =
+        EPILOGUE ? activate(v + a.bias[b * a.sbb + n], a.act) : v;
   }
 }
 
@@ -556,6 +504,121 @@ dwdb_kernel(const DwArgs a) {
     a.db[slot * a.sbb + n0 + threadIdx.x] = dbacc;
 }
 
+struct DxArgs {
+  const float* dy;
+  const float* y;
+  const float* w;
+  float* dx;
+  float* part;   // (splits, batch, M, K) partial sums when splits > 1
+  int batch, M, K, N, splits, nchunk;
+  long long sdb, sdm, syb, sym, swb, swk, sxb, sxm;
+};
+
+constexpr int kDxBM = 96;    // all 95 rows of a slot in one CTA
+constexpr int kDxBN = 64;    // dx columns (the K axis) per CTA
+constexpr int kDxBK = 32;    // reduction (N) depth per pipeline stage
+constexpr int kDxStages = 2;
+constexpr int kDxThreads = 2 * kDxBN;
+constexpr int kDxPitch = kDxBK + 8;   // 8 mod 32: float2 fragment loads
+
+template <bool RELU>
+constexpr int dx_smem_floats() {
+  return kDxStages * kDxPitch * (kDxBM * (RELU ? 2 : 1) + kDxBN);
+}
+
+// One CTA: dx rows [m0, m0 + 96) x columns [k0, k0 + 64) of one slot, over
+// the N range of its split. dz = dy (* 1[y > 0]) is staged as sA[row][n]
+// (with y beside it when RELU) and w as sB[k][n]: both operands have the
+// reduction contiguous, the layout mma.sync's row.col product takes, so
+// every fragment pair is one float2 load and the mask is applied as dz's
+// fragments leave shared memory. Warps 2 (rows, 48 each) x 2 (columns, 32
+// each); a warp whose rows all lie past M (the per-sample pass's few rows,
+// an evaluation's last tile) loads but skips its MMAs. Two CTAs share an SM.
+template <int VD, int VW, bool RELU>
+__global__ void __launch_bounds__(kDxThreads, 2)
+dx_kernel(const DxArgs a) {
+  constexpr int BM = kDxBM, BN = kDxBN, BK = kDxBK, P = kDxPitch;
+  constexpr int STAGES = kDxStages, THREADS = kDxThreads;
+  constexpr int A_SZ = BM * P, B_OFF = A_SZ * (RELU ? 2 : 1);
+  constexpr int STAGE = B_OFF + BN * P;
+  extern __shared__ __align__(16) float smem[];
+  const int m0 = blockIdx.x * BM, k0 = blockIdx.y * BN;
+  const int slot = blockIdx.z % a.batch, split = blockIdx.z / a.batch;
+  const int nbeg = split * a.nchunk, nend = min(a.N, nbeg + a.nchunk);
+  const int nn = (nend - nbeg + BK - 1) / BK;
+  const float* dy = a.dy + slot * a.sdb;
+  const float* yv = a.y + slot * a.syb;
+  const float* w = a.w + slot * a.swb;
+  // Copy C columns of each operand. A reduction of at most 16 (fc3's
+  // N = 10) runs only its k-steps (below) and copies 16 columns, not BK.
+  auto copy = [&](float* s, int n0, auto cols) {
+    constexpr int C = decltype(cols)::value;
+    load_tile<BM, C, P, VD, THREADS>(s, dy, a.sdm, m0, n0, a.M, nend);
+    if constexpr (RELU)
+      load_tile<BM, C, P, VD, THREADS>(s + A_SZ, yv, a.sym, m0, n0, a.M,
+                                       nend);
+    load_tile<BN, C, P, VW, THREADS>(s + B_OFF, w, a.swk, k0, n0, a.K, nend);
+  };
+  const bool short_n = nend - nbeg <= 16;
+  auto load = [&](int st) {
+    float* s = smem + (st % STAGES) * STAGE;
+    const int n0 = nbeg + st * BK;
+    if (short_n)
+      copy(s, n0, std::integral_constant<int, 16>{});
+    else
+      copy(s, n0, std::integral_constant<int, BK>{});
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nn) load(s);
+    cp_async_commit();
+  }
+  const int warp = threadIdx.x >> 5;
+  const int wm = (warp & 1) * 48, wn = (warp >> 1) * 32;
+  const bool live = m0 + wm < a.M;
+  float acc[3][4][4] = {}, step[3][4][4] = {};
+  // stage st of the pipeline. With tail, only the k-steps below the split's
+  // depth run: the whole reduction is one short stage (fc3's N = 10).
+  auto stage = [&](int st, auto tail) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();   // stage st landed; stage st - 1 is free to refill
+    if (st + STAGES - 1 < nn) load(st + STAGES - 1);
+    cp_async_commit();
+    if (live) {
+      const float* s = smem + (st % STAGES) * STAGE;
+      warp_mma<3, 4, BK, P, P, false, false, decltype(tail)::value, true,
+               RELU>(s, s + B_OFF, RELU ? s + A_SZ : nullptr, wm, wn,
+                     nend - nbeg, step);
+      flush(acc, step);
+    }
+  };
+  if (nend - nbeg < BK) {
+    if (nn) stage(0, std::true_type{});
+  } else {
+    for (int st = 0; st < nn; ++st) stage(st, std::false_type{});
+  }
+
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool direct = a.splits == 1;
+  float* out = direct ? a.dx + slot * a.sxb
+                      : a.part + (static_cast<long long>(split) * a.batch +
+                                  slot) * a.M * a.K;
+  const long long ld = direct ? a.sxm : a.K;
+  const bool pair =
+      (ld & 1) == 0 && (reinterpret_cast<uintptr_t>(out) & 7) == 0;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm + i * 16 + g + 8 * h;
+      if (m >= a.M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        store_pair(out + m * ld, k0 + wn + j * 8 + 2 * t, a.K,
+                   acc[i][j][2 * h], acc[i][j][2 * h + 1], pair);
+    }
+}
+
 // Above 48 KB a block's shared memory must be asked for explicitly: allow
 // each kernel the card's opt-in maximum, once per process (the launch
 // itself fails, and reports it, if a block asks for more).
@@ -606,6 +669,39 @@ cudaError_t dispatch_dwdb(const DwArgs& a, int batch, int vx, int vd,
                   : launch_dwdb<4, 4, RELU>(a, batch, st);
 }
 
+template <int VD, int VW, bool RELU>
+cudaError_t launch_dx(const DxArgs& a, cudaStream_t stream) {
+  static const cudaError_t attr = allow_max_smem(dx_kernel<VD, VW, RELU>);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.M + kDxBM - 1) / kDxBM, (a.K + kDxBN - 1) / kDxBN,
+                  a.batch * a.splits);
+  const size_t smem = sizeof(float) * dx_smem_floats<RELU>();
+  dx_kernel<VD, VW, RELU><<<grid, kDxThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// dx with copy widths vd (dy, y) and vw (w), 16 or 4 bytes
+template <bool RELU>
+cudaError_t dispatch_dx(const DxArgs& a, int vd, int vw, cudaStream_t st) {
+  if (vd == 16)
+    return vw == 16 ? launch_dx<16, 16, RELU>(a, st)
+                    : launch_dx<16, 4, RELU>(a, st);
+  return vw == 16 ? launch_dx<4, 16, RELU>(a, st)
+                  : launch_dx<4, 4, RELU>(a, st);
+}
+
+// The second launch of a split-K plan: out (a.y) = the sum over a.splits,
+// in order, of the partials, with the forward's bias and activation when
+// EPILOGUE.
+template <bool EPILOGUE>
+cudaError_t reduce_splits(const FwdArgs& a, cudaStream_t st) {
+  const long long total = static_cast<long long>(a.batch) * a.M * a.N;
+  const long long want = (total + 255) / 256;
+  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
+  splitk_reduce_kernel<EPILOGUE><<<blocks, 256, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
 // the forward with copy widths vx (x) and vw (w), 16 or 4 bytes
 cudaError_t dispatch_fwd(const FwdArgs& a, int vx, int vw, cudaStream_t st) {
   if (vx == 16)
@@ -637,23 +733,35 @@ extern "C" int fused_linear_fwd(const float* x, const float* w,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = dispatch_fwd(a, vx, vw, st);
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const long long total = static_cast<long long>(B) * M * N;
-  const long long want = (total + 255) / 256;
-  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-  splitk_reduce_kernel<<<blocks, 256, 0, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(reduce_splits<true>(a, st));
 }
 
+// dx = (dy * 1[y > 0] when relu) @ w^T, w read in its (K, N) layout. The
+// launch plan comes from the wrapper (kernel.dx_plan): B slots of M rows
+// (slots folded into rows there where w is shared), splits > 1 splits N
+// into nchunk-deep ranges (a multiple of 16) whose partials go to `part`
+// (splits * B * M * K floats) and are summed by a second launch; vd and vw
+// are the cp.async widths in bytes (16 or 4) of dy and y, and of w.
 extern "C" int fused_linear_bwd_dx(const float* dy, const float* y,
-                                   const float* w, float* dx, int B, int M,
-                                   int K, int N, long long sdb, long long sdm,
-                                   long long syb, long long sym, long long swb,
-                                   long long swk, long long sxb, long long sxm,
-                                   int relu, void* stream) {
-  const dim3 grid(tiles(K), tiles(M), B);
-  dx_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      dy, y, w, dx, M, K, N, sdb, sdm, syb, sym, swb, swk, sxb, sxm, relu);
-  return static_cast<int>(cudaGetLastError());
+                                   const float* w, float* dx, float* part,
+                                   int B, int M, int K, int N, long long sdb,
+                                   long long sdm, long long syb,
+                                   long long sym, long long swb,
+                                   long long swk, long long sxb,
+                                   long long sxm, int relu, int splits,
+                                   int nchunk, int vd, int vw, void* stream) {
+  const DxArgs a{dy, y, w, dx, part, B, M, K, N, splits, nchunk,
+                 sdb, sdm, syb, sym, swb, swk, sxb, sxm};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = relu ? dispatch_dx<true>(a, vd, vw, st)
+                               : dispatch_dx<false>(a, vd, vw, st);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  FwdArgs r{};
+  r.y = dx;
+  r.part = part;
+  r.batch = B, r.M = M, r.N = K, r.splits = splits;
+  r.syb = sxb, r.sym = sxm;
+  return static_cast<int>(reduce_splits<false>(r, st));
 }
 
 // (dw, db) = (x^T @ dz, sum_m dz), dz = dy * 1[y > 0] when relu; vx and vd

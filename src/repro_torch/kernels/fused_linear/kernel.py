@@ -10,12 +10,13 @@ Dispatch is by tensor device only: CPU tensors go to the plain versions in
 :mod:`.ref`; CUDA tensors launch the kernel, which is built with ``nvcc`` at
 first use, or the call raises. ``LAUNCHES`` counts the kernel launches of
 each wrapper and nothing else: one per wrapper call, also where the
-forward's split-K plan makes it two launches (the partial products and
-their ordered sum).
+forward's or dx's split-K plan makes it two launches (the partial
+products and their ordered sum).
 
-How the forward and dw/db kernels launch is decided here, in pure Python,
-by :func:`fwd_plan` and :func:`dwdb_plan` (slot fold, split-K count, copy
-widths), so the CPU tests can check every plan the card would run.
+How the kernels launch is decided here, in pure Python, by
+:func:`fwd_plan`, :func:`dx_plan` and :func:`dwdb_plan` (slot fold, split
+count, copy widths), so the CPU tests can check every plan the card would
+run.
 """
 from __future__ import annotations
 
@@ -40,20 +41,22 @@ ACT_CODES = {"none": 0, "relu": 1, "silu": 2, "gelu": 3}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "fused_linear_fwd": [_P] * 5 + [_I] * 4 + [_L] * 7 + [_I] * 5 + [_P],
-    "fused_linear_bwd_dx": [_P] * 4 + [_I] * 4 + [_L] * 8 + [_I, _P],
+    "fused_linear_bwd_dx": [_P] * 5 + [_I] * 4 + [_L] * 8 + [_I] * 5 + [_P],
     "fused_linear_bwd_dw_db": [_P] * 5 + [_I] * 4 + [_L] * 9 + [_I] * 3
                               + [_P],
 }
 
 # The kernels' tile shapes (csrc/fused_linear.cu): forward CTAs cover 96 x
-# 64 of the output, 32 reduction steps per stage; dw/db CTAs cover 128 x 64
-# of dw, 32 rows of M per stage.
+# 64 of the output, 32 reduction steps per stage; dx CTAs 96 x 64 of dx, 32
+# steps of the reduction N per stage; dw/db CTAs cover 128 x 64 of dw, 32
+# rows of M per stage.
 FWD_BM, FWD_BN, FWD_BK = 96, 64, 32
+DX_BM, DX_BN, DX_BK = 96, 64, 32
 DW_BK, DW_BN = 128, 64
-# Both kernels' shared memory lets two CTAs share an SM: a grid of fewer
+# Every kernel's shared memory lets two CTAs share an SM: a grid of fewer
 # than CTAS_PER_SM x SMs CTAs leaves the card part idle.
 CTAS_PER_SM = 2
-# Split K no finer than this many reduction steps per split.
+# Split a reduction no finer than this many steps per split.
 MIN_SPLIT_K = 128
 
 
@@ -102,15 +105,72 @@ def fwd_plan(nb: int, m: int, k: int, n: int, *, sxb: int, sxm: int,
     batch, rows = nb, m
     if fold:
         batch, rows, sxb, sxm = 1, nb * m, 0, (sxb if m == 1 else sxm)
-    target = CTAS_PER_SM * sms
-    ctas = max(1, batch * _cdiv(rows, FWD_BM) * _cdiv(n, FWD_BN))
-    splits = 1
-    if ctas < target:
-        splits = max(1, min(_cdiv(target, ctas), k // MIN_SPLIT_K))
-    k_chunk = FWD_BK * max(1, _cdiv(_cdiv(k, splits), FWD_BK))
-    splits = max(1, _cdiv(k, k_chunk))
+    ctas = batch * _cdiv(rows, FWD_BM) * _cdiv(n, FWD_BN)
+    splits, k_chunk = _split(ctas, k, FWD_BK, sms)
     return FwdPlan(fold, batch, rows, n, sxb, sxm, splits, k_chunk,
                    _vec(x_aligned, sxb, sxm), _vec(w_aligned, swb, swk))
+
+
+def _split(ctas: int, depth: int, step: int, sms: int) -> tuple:
+    """(splits, chunk) of a reduction of ``depth`` steps for a grid of
+    ``ctas`` CTAs: split only where the grid is under CTAS_PER_SM x
+    ``sms``, into chunks that are multiples of the stage depth ``step``
+    and no shorter than MIN_SPLIT_K."""
+    target, ctas = CTAS_PER_SM * sms, max(1, ctas)
+    splits = 1
+    if ctas < target:
+        splits = max(1, min(_cdiv(target, ctas), depth // MIN_SPLIT_K))
+    chunk = step * max(1, _cdiv(_cdiv(depth, splits), step))
+    return max(1, _cdiv(depth, chunk)), chunk
+
+
+@dataclasses.dataclass(frozen=True)
+class DxPlan:
+    """One dx launch. With ``fold`` the slots (sharing one stride-0 w) are
+    folded into one row axis: ``batch = 1`` slot of ``rows = B * M`` rows at
+    row strides ``sdm`` (dy) and ``sym`` (y). Above 1, ``splits`` ranges of
+    the reduction N, ``n_chunk`` deep (a multiple of :data:`DX_BK`), each
+    sum into a scratch buffer; ``vec_dz`` (dy and y) and ``vec_w`` are copy
+    widths in bytes as in :class:`FwdPlan`."""
+    fold: bool
+    batch: int
+    rows: int
+    k: int
+    sdb: int
+    sdm: int
+    syb: int
+    sym: int
+    splits: int
+    n_chunk: int
+    vec_dz: int
+    vec_w: int
+
+    @property
+    def grid(self) -> tuple:
+        return (_cdiv(self.rows, DX_BM), _cdiv(self.k, DX_BN),
+                self.batch * self.splits)
+
+
+def dx_plan(nb: int, m: int, k: int, n: int, *, strides, swb: int, swk: int,
+            dz_aligned: bool, w_aligned: bool, sms: int) -> DxPlan:
+    """dx's launch plan for dz (nb, m, n) @ w (nb, k, n)^T on a card with
+    ``sms`` SMs; ``strides``: the batch and row strides of dy and y (dy's
+    again when there is no mask), in elements; ``dz_aligned``: dy's and
+    y's pointers are 16-byte aligned, ``w_aligned``: w's."""
+    sdb, sdm, syb, sym = strides
+    fold = nb > 1 and swb == 0 and (
+        m == 1 or (sdb == m * sdm and syb == m * sym))
+    batch, rows = nb, m
+    if fold:
+        batch, rows = 1, nb * m
+        if m == 1:
+            sdm, sym = sdb, syb
+        sdb = syb = 0
+    ctas = batch * _cdiv(rows, DX_BM) * _cdiv(k, DX_BN)
+    splits, n_chunk = _split(ctas, n, DX_BK, sms)
+    return DxPlan(fold, batch, rows, k, sdb, sdm, syb, sym, splits, n_chunk,
+                  _vec(dz_aligned, sdb, sdm, syb, sym),
+                  _vec(w_aligned, swb, swk))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,6 +278,19 @@ def fused_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y
 
 
+def fused_linear_bwd_dx_plan(dy: torch.Tensor, w: torch.Tensor,
+                             y: torch.Tensor) -> DxPlan:
+    """dx's plan for these CUDA operands (``y`` is ``dy`` when no mask is
+    applied)."""
+    nb, m, n = dy.shape
+    return dx_plan(nb, m, w.shape[1], n,
+                   strides=(dy.stride(0), dy.stride(1), y.stride(0),
+                            y.stride(1)),
+                   swb=w.stride(0), swk=w.stride(1),
+                   dz_aligned=_aligned(dy, y), w_aligned=_aligned(w),
+                   sms=_sm_count(dy.device.index))
+
+
 def fused_linear_bwd_dx(dy: torch.Tensor, w: torch.Tensor,
                         y: torch.Tensor | None = None,
                         mask: str = "none") -> torch.Tensor:
@@ -234,11 +307,17 @@ def fused_linear_bwd_dx(dy: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"shapes dy {tuple(dy.shape)}, w {tuple(w.shape)}")
     dx = torch.empty((nb, m, k), device=dy.device, dtype=dy.dtype)
     if dx.numel():
+        plan = fused_linear_bwd_dx_plan(dy, w, y)
+        part = (torch.empty(plan.splits * plan.batch * plan.rows * k,
+                            device=dy.device, dtype=dy.dtype)
+                if plan.splits > 1 else None)
+        sxb, sxm = (0, k) if plan.fold else (dx.stride(0), dx.stride(1))
         _launch("fused_linear_bwd_dx", "fused_linear_bwd_dx", dy.device,
                 dy.data_ptr(), y.data_ptr(), w.data_ptr(), dx.data_ptr(),
-                nb, m, k, n, dy.stride(0), dy.stride(1), y.stride(0),
-                y.stride(1), w.stride(0), w.stride(1), dx.stride(0),
-                dx.stride(1), int(relu))
+                None if part is None else part.data_ptr(), plan.batch,
+                plan.rows, k, n, plan.sdb, plan.sdm, plan.syb, plan.sym,
+                w.stride(0), w.stride(1), sxb, sxm, int(relu), plan.splits,
+                plan.n_chunk, plan.vec_dz, plan.vec_w)
     return dx
 
 

@@ -9,12 +9,19 @@ place). y (B, S, n, p) comes back contiguous.
 
 Dispatch is by tensor device only: CPU tensors go to the plain version in
 :mod:`.ref`; CUDA tensors launch the kernel, which is built with ``nvcc`` at
-first use, or the call raises. ``LAUNCHES`` counts the kernel's launches
-and nothing else.
+first use, or the call raises. ``LAUNCHES`` counts one per wrapper call
+that reaches the card, also where the plan's chunk-parallel form makes
+three launches (chunk states, the scan over them, the outputs).
+
+How the kernel launches is decided here, in pure Python, by
+:func:`ssd_plan` (heads per block, warps, sequential or chunk-parallel), so
+the CPU tests can check every plan the card would run.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import pathlib
 
 import torch
@@ -27,25 +34,111 @@ SOURCE = pathlib.Path(__file__).parent / "csrc" / "ssd_scan.cu"
 LAUNCHES = {"ssd_scan": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = {"ssd_scan_fwd": [_P] * 6 + [_I] * 8 + [_P, _P]}
+_ARGTYPES = {"ssd_scan_fwd": [_P] * 8 + [_I] * 12 + [_P, _P]}
 
-# rows x head blocks below which heads get a block each: two blocks per SM
-# of the H100's 132
-_MIN_BLOCKS = 264
+# A grid of fewer blocks than BLOCKS_PER_SM x SMs leaves the card part idle.
+BLOCKS_PER_SM = 2
+# Steps, state rows or p columns per warp task (csrc/ssd_scan.cu kTile).
+TILE = 32
+# csrc/ssd_scan.cu kMaxThreads / 32
+MAX_WARPS = 4
+# Shared memory of a block, in floats: at most half an SM's 227 KB where
+# heads share a block, and the opt-in maximum in any case.
+SMEM_SHARE = 232448 // 4 // BLOCKS_PER_SM
+SMEM_MAX = 232448 // 4
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round(v: int, to: int) -> int:
+    return -(-v // to) * to
+
+
+def smem_floats(chunk: int, p: int, ds: int, heads: int,
+                state: bool) -> int:
+    """The kernel's shared memory in floats (csrc/ssd_scan.cu ``layout``):
+    c, b and the scores once per block; per head x, the decayed weights,
+    the state where one enters a chunk (``state``), three per-step arrays
+    and the total decay."""
+    qr, pp, dsp = _round(chunk, 32), _round(p, 4), _round(ds, 4)
+    per_head = qr * pp + qr * qr + (ds * pp if state else 0) + 3 * qr + 1
+    return _round(qr * (dsp | 4) + chunk * dsp + qr * qr + heads * per_head,
+                  4)
+
+
+@dataclasses.dataclass(frozen=True)
+class SsdPlan:
+    """One wrapper call. A block takes one batch row and ``heads`` heads
+    (they share the row's c b^T scores) with ``warps`` warps sharing the
+    heads' tiles. ``chunk_parallel``: the three-pass form (each chunk's own
+    end state in parallel, a scan over the ``chunks`` chunk states, the
+    outputs in parallel) instead of one block walking a row's chunks in
+    order. ``vec_x`` and ``vec_bc`` are the copy widths in bytes of x, and
+    of b and c: 16 where the rows' pointers and strides allow it, else
+    4."""
+    heads: int
+    warps: int
+    chunk_parallel: bool
+    chunks: int
+    vec_x: int
+    vec_bc: int
+
+
+def ssd_plan(bsz: int, s: int, n: int, p: int, ds: int, chunk: int, *,
+             sms: int, x_strides=(), bc_strides=(), x_aligned: bool = False,
+             bc_aligned: bool = False) -> SsdPlan:
+    """The launch plan for ``bsz`` rows of ``s`` steps, ``n`` heads of
+    width ``p``, state width ``ds``, in chunks of ``chunk`` steps, on a card
+    with ``sms`` SMs. Up to 4 heads share a block while the grid still
+    fills the card; the chunk-parallel form where it does not and there
+    are several chunks. ``x_strides`` (row, step, head) and ``bc_strides``
+    (b's and c's row and step strides) with ``x_aligned`` / ``bc_aligned``
+    (the pointers are 16-byte aligned) set the copy widths."""
+    target = BLOCKS_PER_SM * sms
+    chunks = s // chunk
+    heads = 1
+    for hb in (4, 2):
+        if (n % hb == 0 and bsz * (n // hb) >= target
+                and smem_floats(chunk, p, ds, hb, chunks > 1) <= SMEM_SHARE):
+            heads = hb
+            break
+    if smem_floats(chunk, p, ds, heads, chunks > 1) > SMEM_MAX:
+        raise ValueError(f"chunk={chunk}, p={p}, ds={ds}: the block's "
+                         "shared memory exceeds the card's")
+    chunk_parallel = chunks > 1 and bsz * (n // heads) < target
+    tasks = heads * _cdiv(chunk, TILE) * _cdiv(p, TILE)
+
+    def vec(aligned, width, strides):
+        return 16 if aligned and all(v % 4 == 0
+                                     for v in (width, *strides)) else 4
+    return SsdPlan(heads, max(1, min(MAX_WARPS, tasks)), chunk_parallel,
+                   chunks, vec(x_aligned, p, x_strides),
+                   vec(bc_aligned, ds, bc_strides))
+
+
+def ssd_scan_plan(xh: torch.Tensor, b_ssm: torch.Tensor, c_ssm: torch.Tensor,
+                  chunk: int) -> SsdPlan:
+    """The plan for these CUDA operands (unit last strides; ``chunk``
+    already clamped to S)."""
+    bsz, s, n, p = xh.shape
+    return ssd_plan(
+        bsz, s, n, p, b_ssm.shape[-1], chunk,
+        sms=_sm_count(xh.device.index), x_strides=xh.stride()[:3],
+        bc_strides=b_ssm.stride()[:2] + c_ssm.stride()[:2],
+        x_aligned=xh.data_ptr() % 16 == 0,
+        bc_aligned=b_ssm.data_ptr() % 16 == 0 and c_ssm.data_ptr() % 16 == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def library():
     """The built kernel library, with its C signatures declared."""
     return build.load(SOURCE, _ARGTYPES)
-
-
-def _block_h(bsz: int, n: int) -> int:
-    """Heads per block: up to 4 share one block's score matrix, unless that
-    leaves too few blocks to fill the card."""
-    for bh in (4, 2):
-        if n % bh == 0 and bsz * (n // bh) >= _MIN_BLOCKS:
-            return bh
-    return 1
 
 
 def _operand(t: torch.Tensor, ndim: int, name: str) -> torch.Tensor:
@@ -81,14 +174,24 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     if s % chunk:
         raise ValueError(f"S={s} is not a multiple of chunk={chunk}")
     y = torch.empty((bsz, s, n, p), device=xh.device, dtype=torch.float32)
+    if not y.numel():
+        return y
+    plan = ssd_scan_plan(xh, b_ssm, c_ssm, chunk)
+    states = decays = None
+    if plan.chunk_parallel:
+        states = torch.empty(bsz * n * plan.chunks * ds * p,
+                             device=xh.device, dtype=torch.float32)
+        decays = torch.empty(bsz * n * plan.chunks, device=xh.device,
+                             dtype=torch.float32)
     strides = (ctypes.c_longlong * 10)(
         xh.stride(0), xh.stride(1), xh.stride(2), dt.stride(0), dt.stride(1),
         b_ssm.stride(0), b_ssm.stride(1), c_ssm.stride(0), c_ssm.stride(1),
         a2.stride(0) if groups > 1 else 0)
-    if y.numel():
-        build.launch(library(), "ssd_scan_fwd", "ssd_scan", LAUNCHES,
-                     xh.device, xh.data_ptr(), dt.data_ptr(), a2.data_ptr(),
-                     b_ssm.data_ptr(), c_ssm.data_ptr(), y.data_ptr(), bsz, s,
-                     n, p, ds, chunk, _block_h(bsz, n), bsz // groups,
-                     strides)
+    build.launch(library(), "ssd_scan_fwd", "ssd_scan", LAUNCHES, xh.device,
+                 xh.data_ptr(), dt.data_ptr(), a2.data_ptr(),
+                 b_ssm.data_ptr(), c_ssm.data_ptr(), y.data_ptr(),
+                 None if states is None else states.data_ptr(),
+                 None if decays is None else decays.data_ptr(), bsz, s, n, p,
+                 ds, chunk, plan.heads, plan.warps, int(plan.chunk_parallel),
+                 bsz // groups, plan.vec_x, plan.vec_bc, strides)
     return y

@@ -380,3 +380,205 @@ def test_fwd_plan_splits_k_only_for_underfilled_grids():
     fc3 = plan(6, 95, 4096, 10, False)
     assert fc3.splits > 1 and fc3.k_chunk >= kernel.MIN_SPLIT_K
     assert plan(8, 1, 4096, 4096, True).splits > 1
+
+
+# ---------------------------------------------------------------------------
+# dx: the launch plan and the 3xTF32 arithmetic of the redesigned kernel
+# ---------------------------------------------------------------------------
+
+
+def _aligned_dx_plan(nb, m, k, n, shared, **change):
+    """dx's plan on a 132-SM card for contiguous dy, y and w (w stride-0
+    when ``shared``), every pointer 16-byte aligned; ``change`` overrides
+    a stride or an alignment flag."""
+    kw = dict(strides=(m * n, n, m * n, n), swb=0 if shared else k * n,
+              swk=n, dz_aligned=True, w_aligned=True, sms=132)
+    kw.update(change)
+    return kernel.dx_plan(nb, m, k, n, **kw)
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=str)
+def test_dx_plan_covers_every_output_once(case):
+    """dx's grid covers each dx element of every slot once per split, and
+    the splits' N ranges partition [0, N) into non-empty, DX_BK-aligned
+    pieces (N is dx's reduction)."""
+    nb, m, k, n, shared = case
+    plan = _aligned_dx_plan(*case)
+    assert plan.batch * plan.rows == nb * m and plan.k == k
+    gx, gy, gz = plan.grid
+    assert gz == plan.batch * plan.splits
+    cover = np.zeros((plan.batch, plan.rows, k), np.int32)
+    for bx in range(gx):
+        for by in range(gy):
+            for z in range(plan.batch):
+                cover[z, bx * kernel.DX_BM:(bx + 1) * kernel.DX_BM,
+                      by * kernel.DX_BN:(by + 1) * kernel.DX_BN] += 1
+    assert (cover == 1).all()
+    assert plan.n_chunk % kernel.DX_BK == 0
+    bounds = [(s * plan.n_chunk, min(n, (s + 1) * plan.n_chunk))
+              for s in range(plan.splits)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert n == 0 or all(lo < hi for lo, hi in bounds)
+
+
+def test_dx_plan_folds_only_shared_weights_over_row_contiguous_slots():
+    nb, m, k, n = 12, 95, 4096, 4096
+    plan = _aligned_dx_plan(nb, m, k, n, True)
+    assert plan.fold and (plan.batch, plan.rows) == (1, nb * m)
+    assert (plan.sdb, plan.sdm, plan.syb, plan.sym) == (0, n, 0, n)
+    for change in (dict(swb=k * n), dict(strides=(96 * n, n, m * n, n)),
+                   dict(strides=(m * n, n, 96 * n, n))):
+        plan = _aligned_dx_plan(nb, m, k, n, True, **change)
+        assert not plan.fold and (plan.batch, plan.rows) == (nb, m), change
+    # one row per slot: the slot strides are the folded row strides
+    plan = _aligned_dx_plan(8, 1, k, n, True,
+                            strides=(n + 4, 1, n + 8, 1))
+    assert plan.fold and (plan.rows, plan.sdm, plan.sym) == (8, n + 4, n + 8)
+    assert not _aligned_dx_plan(1, m, k, n, True).fold
+
+
+def test_dx_plan_splits_n_only_for_underfilled_grids():
+    """The round's fc2 (384 CTAs) and the statistics pass's folded fc2 fill
+    the card unsplit; the round's fc1 (48 CTAs), the evaluation's M = 232
+    (24) and the per-sample pass's folded M = 1 (64) split N, each into
+    enough CTAs to fill it."""
+    target = kernel.CTAS_PER_SM * 132
+    assert _aligned_dx_plan(6, 95, 4096, 4096, False).splits == 1
+    assert _aligned_dx_plan(12, 95, 4096, 4096, True).splits == 1
+    for case in [(6, 95, 512, 4096, False), (1, 232, 512, 4096, True),
+                 (8, 1, 4096, 4096, True)]:
+        plan = _aligned_dx_plan(*case)
+        gx, gy, gz = plan.grid
+        assert plan.splits > 1 and gx * gy * gz >= target, (case, plan)
+        assert plan.n_chunk >= kernel.MIN_SPLIT_K
+    # fc3's reduction is N = 10: nothing to split
+    assert _aligned_dx_plan(6, 95, 4096, 10, False).splits == 1
+
+
+@pytest.mark.parametrize("n,change,vec", [
+    (4096, {}, (16, 16)),
+    (10, {}, (4, 4)),                                 # fc3's 40-byte rows
+    (4096, dict(dz_aligned=False), (4, 16)),          # dy or y off 16 bytes
+    (4096, dict(w_aligned=False), (16, 4)),           # w off 16 bytes
+    (4096, dict(strides=(95 * 4096, 4096, 95 * 4096 + 2, 4096)), (4, 16)),
+    (4096, dict(swb=4096 * 4096 + 2), (16, 4)),
+    (12, {}, (16, 16)),                               # ragged N, aligned rows
+])
+def test_dx_plan_copy_width_is_16_bytes_only_where_aligned(n, change, vec):
+    """dz's (dy and y) and w's copy widths: 16 bytes only where the
+    operand's pointers and every one of its strides allow them."""
+    plan = _aligned_dx_plan(6, 95, 4096, n, False, **change)
+    assert (plan.vec_dz, plan.vec_w) == vec
+
+
+def _dx_tensor_core_product(dz, w, n_chunk: int, stage: int,
+                            terms: str) -> np.ndarray:
+    """dz (M, N) @ w (K, N)^T as dx_kernel takes it: the TN operand order
+    (both operands with the reduction N contiguous), per split of
+    ``n_chunk`` steps a running f32 sum to which each ``stage``-deep
+    stage's products are added once (the per-stage flush), the splits then
+    summed in order in f32 (splitk_reduce_kernel)."""
+    out = np.zeros((dz.shape[0], w.shape[0]), np.float32)
+    for n0 in range(0, dz.shape[1], n_chunk):
+        acc = np.zeros_like(out)
+        for s0 in range(n0, min(dz.shape[1], n0 + n_chunk), stage):
+            sl = slice(s0, min(s0 + stage, n0 + n_chunk))
+            step = _tensor_core_product(dz[:, sl], w[:, sl].T, terms)
+            acc = (acc + step).astype(np.float32)
+        out = (out + acc).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("plan_case", [(1, 95, 256, 4096, False),
+                                       (6, 95, 4096, 4096, False)],
+                         ids=["split", "unsplit"])
+def test_3xtf32_emulation_holds_the_dx_tolerance(plan_case):
+    """dx's (95, 4096) dz (relu-masked dy) times w^T for 256 columns of a
+    He-scaled w (K, 4096), with the per-stage flushes over N of the plan
+    for one slot at K = 256 (4 CTAs: N split) or for the round's fc2 (384
+    CTAs: unsplit): 3xTF32 stays within 1e-5 x the output scale of the f64
+    product, one TF32 product does not."""
+    plan = _aligned_dx_plan(*plan_case)
+    assert (plan.splits > 1) == (plan_case[0] == 1)
+    m, n, k = 95, 4096, 256
+    rng = np.random.default_rng(11)
+    dy = rng.normal(size=(m, n)).astype(np.float32)
+    y = rng.normal(size=(m, n)).astype(np.float32)
+    dz = np.where(y > 0, dy, np.float32(0))
+    w = (rng.normal(size=(k, n)) * np.sqrt(2 / plan_case[2])).astype(
+        np.float32)
+    exact = dz.astype(np.float64) @ w.astype(np.float64).T
+    scale = np.abs(exact).max()
+    errs = {t: np.abs(_dx_tensor_core_product(dz, w, plan.n_chunk,
+                                              kernel.DX_BK, t) - exact).max()
+            for t in ("3x", "1x")}
+    assert errs["3x"] <= 1e-5 * scale, (errs, scale)
+    assert errs["1x"] > 1e-5 * scale, (errs, scale)
+
+
+@pytest.mark.parametrize("mask", ["relu", "none"])
+def test_bwd_dx_matches_reference_pallas_interpret(mask):
+    """The port's dx wrapper on the CPU against the reference's dx kernel
+    in Pallas interpret mode, with and without the relu mask."""
+    rng = np.random.default_rng(12)
+    m, k, n = 64, 256, 128
+    dy = rng.normal(size=(m, n)).astype(np.float32)
+    y = rng.normal(size=(m, n)).astype(np.float32)
+    w = (rng.normal(size=(k, n)) * np.sqrt(2 / k)).astype(np.float32)
+    from repro.kernels.fused_linear import kernel as ref_kernel
+    my = y if mask == "relu" else None
+    want = np.asarray(ref_kernel.fused_linear_bwd_dx(
+        dy, w, my, mask=mask, interpret=True))
+    got = kernel.fused_linear_bwd_dx(
+        torch.from_numpy(dy)[None], torch.from_numpy(w)[None],
+        None if my is None else torch.from_numpy(y)[None], mask)
+    np.testing.assert_allclose(_np(got[0]), want, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the design-variant tools stay in step with the sources they edit
+# ---------------------------------------------------------------------------
+
+TOOLS = pathlib.Path(__file__).resolve().parents[1] / "tools"
+
+
+def _tool(name: str):
+    spec = importlib.util.spec_from_file_location(f"_{name}",
+                                                  TOOLS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", ["fused_linear_variants",
+                                  "ssd_scan_variants"])
+def test_variant_tool_substitutions_match_the_source(name):
+    """Every text substitution of a variant tool finds its text exactly
+    once in the CUDA source it edits (the tool raises on the card where one
+    does not)."""
+    mod = _tool(name)
+    source = mod.kernel.SOURCE.read_text()
+    for variant, subs in mod.VARIANTS.items():
+        for old, _ in subs:
+            assert source.count(old) == 1, (variant, old)
+
+
+def test_variant_tools_import_neither_jax_nor_reference():
+    import os
+    import subprocess
+    import sys
+    code = (
+        "import importlib.util, sys\n"
+        f"for name in ('fused_linear_variants', 'ssd_scan_variants'):\n"
+        f"    spec = importlib.util.spec_from_file_location(name, "
+        f"{str(TOOLS)!r} + '/' + name + '.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+        "assert not bad, bad\n")
+    root = TOOLS.parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

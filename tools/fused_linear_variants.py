@@ -9,16 +9,20 @@ all are compiled in parallel with the port's nvcc flags into
 ``build/variants/``, loaded with ctypes, and driven through the C entry
 points with the wrappers' own launch plans. At the VGG round's fc shapes
 (6 slots x 95 rows) and the per-sample pass's M = 1, every variant's
-forward and dw/db is held against the plain PyTorch version (1e-5 x the
-output scale, as chip_smoke.py) and timed on the device (chip_smoke.py's
-``device_ms``); dw/db also without the relu mask, to show what the mask
-costs. ``base`` (the source as it is) runs first and again last, which
-shows the run's spread. Prints each kernel's registers and spills, then
-one line per case and variant, in milliseconds.
+forward, dx and dw/db is held against the plain PyTorch version (1e-5 x
+the output scale, as chip_smoke.py) and timed on the device (chip_smoke.py's
+``device_ms``); dw/db and dx also without the relu mask, to show what the
+mask costs. Two dx variants change the launch plan instead of the source
+(DX_PLANS: no split of N, no slot fold), and one computes dz = dy *
+1[y > 0] in a separate pass before an unmasked dx. ``base`` (the source as
+it is) runs first and again last, which shows the run's spread. Prints each
+kernel's registers and spills, then one line per case and variant, in
+milliseconds.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import pathlib
 import re
 import subprocess
@@ -52,7 +56,9 @@ VARIANTS = {
          "                                             BK, acc);"),
         ("        s, sd, sy, wm, wn, a.M - rt * BR, step);\n"
          "    flush(acc, step);",
-         "        s, sd, sy, wm, wn, a.M - rt * BR, acc);")],
+         "        s, sd, sy, wm, wn, a.M - rt * BR, acc);"),
+        ("                     nend - nbeg, step);\n      flush(acc, step);",
+         "                     nend - nbeg, acc);")],
     # dw/db: full stages in a loop, then M's partial last stage apart
     "dw_two_copies": [(DW_LOOP, (
         "  const int full = a.M / BR;\n"
@@ -73,8 +79,39 @@ VARIANTS = {
     # dw/db without its dw stores (what the stores cost; output not checked)
     "dw_no_store": [("      if (k >= a.K) continue;",
                      "      if (k >= a.K || a.N >= 0) continue;")],
+    # dx: 16-deep stages, 4 of them (two CTAs per SM)
+    "dx_16_deep_4_stages": [
+        ("constexpr int kDxBK = 32; ", "constexpr int kDxBK = 16; "),
+        ("constexpr int kDxStages = 2;", "constexpr int kDxStages = 4;")],
+    # dx: 3 stages (the y tile then leaves room for one CTA per SM)
+    "dx_3_stages": [
+        ("constexpr int kDxStages = 2;", "constexpr int kDxStages = 3;")],
+    # dx: a short reduction (N <= 16) copies all 32 columns of its stage
+    "dx_full_short_copy": [
+        ("const bool short_n = nend - nbeg <= 16;",
+         "const bool short_n = false;")],
+    # dx: every stage in full, a short reduction (N < 32) too
+    "dx_no_tail": [
+        ("const bool short_n = nend - nbeg <= 16;",
+         "const bool short_n = false;"),
+        ("  if (nend - nbeg < BK) {\n"
+         "    if (nn) stage(0, std::true_type{});", "  if (false) {")],
+}
+# dx launch-plan variants of the base source: name -> change to the plan
+DX_PLANS = {
+    # one CTA per output tile walks all of N, however few CTAs that makes
+    "dx_no_split": lambda nb, m, k, n, plan: dataclasses.replace(
+        plan, splits=1, n_chunk=max(n, 1)),
+    # slots sharing w kept apart (each slot reads the shared w again), the
+    # plan's split chosen for that grid
+    "dx_no_fold": lambda nb, m, k, n, plan: kernel.dx_plan(
+        nb, m, k, n, strides=(m * n, n, m * n, n), swb=k * n, swk=n,
+        dz_aligned=True, w_aligned=True, sms=kernel._sm_count(0)),
 }
 CASES = ("round fc1", "round fc2", "round fc3", "sigma fc2 M=1")
+DX_SOURCE_VARIANTS = ("base", "cvt_rounding", "no_flush",
+                      "dx_16_deep_4_stages", "dx_3_stages",
+                      "dx_full_short_copy", "dx_no_tail")
 
 
 def build_variants() -> dict:
@@ -103,9 +140,9 @@ def build_variants() -> dict:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
         lines = log.splitlines()
         for i, line in enumerate(lines):
-            if "Compiling entry" in line and re.search(r"fwd_|dwdb_", line):
-                fn = re.search(r"((?:fwd|dwdb)_kernel\w*?)vNS_",
-                               line).group(1)
+            found = re.search(r"\d((?:fwd|dwdb|dx)_kernel\w*?)vNS_", line)
+            if "Compiling entry" in line and found:
+                fn = found.group(1)
                 info = " ".join(lines[i + 1:i + 5])
                 regs = re.search(r"Used (\d+) registers", info).group(1)
                 spill = re.search(r"(\d+) bytes spill stores", info).group(1)
@@ -162,6 +199,44 @@ def dwdb_call(lib, x, dy, y, relu: bool):
     return run, (dw, db)
 
 
+def dx_call(lib, dy, w, y, relu: bool, change=None):
+    """dx through ``lib`` with the wrapper's plan, or that plan changed by
+    ``change`` (a DX_PLANS entry): (run, dx)."""
+    nb, m, n = dy.shape
+    k = w.shape[1]
+    y = y if relu else dy
+    p = kernel.fused_linear_bwd_dx_plan(dy, w, y)
+    if change is not None:
+        p = change(nb, m, k, n, p)
+    dx = torch.empty(nb, m, k, device="cuda")
+    part = (torch.empty(p.splits * p.batch * p.rows * k, device="cuda")
+            if p.splits > 1 else None)
+    sxb, sxm = (0, k) if p.fold else (dx.stride(0), dx.stride(1))
+    args = (dy.data_ptr(), y.data_ptr(), w.data_ptr(), dx.data_ptr(),
+            None if part is None else part.data_ptr(), p.batch, p.rows, k, n,
+            p.sdb, p.sdm, p.syb, p.sym, w.stride(0), w.stride(1), sxb, sxm,
+            int(relu), p.splits, p.n_chunk, p.vec_dz, p.vec_w)
+
+    def run():
+        if lib.fused_linear_bwd_dx(*args, _stream()):
+            raise RuntimeError("fused_linear_bwd_dx launch failed")
+    return run, dx
+
+
+def _dx_line(label, name, lib, dy, w, want_y, want_dx, relu, change=None):
+    run, dx = dx_call(lib, dy, w, want_y, relu, change)
+    run()
+    err = _rel_err((dx,), (want_dx,))
+    ms = chip_smoke.device_ms(run)
+    nomask = ""
+    if relu:
+        run, _ = dx_call(lib, dy, w, want_y, False, change)
+        nomask = f" dx_nomask_ms={chip_smoke.device_ms(run):.4f}"
+    print(f"variant {label:14s} {name:18s} dx_ms={ms:.4f}{nomask} "
+          f"err/scale dx={err:.1e}{'' if err <= 1e-5 else ' OVER 1e-5'}",
+          flush=True)
+
+
 def _rel_err(got, want) -> float:
     return max(float((a - r).abs().max()) / max(1.0, float(r.abs().max()))
                for a, r in zip(got, want))
@@ -194,6 +269,8 @@ def main() -> int:
         relu = act == "relu"
         want_dw = ref.fused_linear_bwd_dw_db_ref(
             x, dy, want_y if relu else None, act)
+        want_dx = ref.fused_linear_bwd_dx_ref(dy, w, want_y if relu else None,
+                                              act)
         for name in order:
             lib = libs[name]
             run, y = fwd_call(lib, x, w, b, act)
@@ -213,13 +290,30 @@ def main() -> int:
                   f"dwdb_ms={dw_ms:.4f}{nomask} err/scale fwd={fwd_err:.1e} "
                   f"dwdb={dw_err:.1e}{'' if ok else ' OVER 1e-5'}",
                   flush=True)
+            if name in DX_SOURCE_VARIANTS:
+                _dx_line(label, name, lib, dy, w, want_y, want_dx, relu)
+        for name, change in DX_PLANS.items():
+            _dx_line(label, name, libs["base"], dy, w, want_y, want_dx, relu,
+                     change)
+        if relu:
+            # the mask as its own elementwise pass (PyTorch's), dz written
+            # to device memory, then dx without the mask
+            dz = torch.empty_like(dy)
+            run, _ = dx_call(libs["base"], dz, w, None, False)
+
+            def dz_pass():
+                torch.mul(dy, want_y > 0, out=dz)
+                run()
+            print(f"variant {label:14s} {'dx_dz_pass':18s} "
+                  f"dx_ms={chip_smoke.device_ms(dz_pass):.4f}", flush=True)
         lib_fwd = chip_smoke.device_ms(
             lambda: torch.baddbmm(b.unsqueeze(1), x, w))
         lib_dw = chip_smoke.device_ms(lambda: torch.bmm(x.transpose(1, 2),
                                                         dy))
+        lib_dx = chip_smoke.device_ms(lambda: torch.bmm(dy, w.transpose(1, 2)))
         print(f"variant {label:14s} {'library':18s} fwd_ms={lib_fwd:.4f} "
-              f"dwdb_ms={lib_dw:.4f} (baddbmm; bmm: no mask, no db)",
-              flush=True)
+              f"dwdb_ms={lib_dw:.4f} dx_ms={lib_dx:.4f} (baddbmm; bmm: no "
+              f"mask, no db)", flush=True)
     return 0
 
 
