@@ -19,9 +19,13 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
    - flash attention forward, dq and dk/dv at the transformer path's
      shapes (S = 32, D = 32, causal; the round's 6 slots x 95 rows x 2
      heads, the statistics pass's 12 x 95 x 2, the per-sample pass's
-     8 x 2) and at multi-tile shapes the path never reaches ((2, 8, 1024,
-     128) causal, the same with a 256 window, (2, 4, 256, 64) non-causal),
-     against ``scaled_dot_product_attention`` as the library yardstick;
+     8 x 2), at two more shapes of the backward's short form (S = 20 with
+     a window of 8, and S = 32 non-causal) and at multi-tile shapes the
+     path never reaches ((2, 8, 1024, 128) causal, the same with a 256
+     window, (2, 4, 256, 64) non-causal), against
+     ``scaled_dot_product_attention`` as the library yardstick; the
+     backward's case lines print its launch plan (short or tiled form,
+     heads per block, copy width);
    - the SSD scan at the SSM path's shapes (S = 32, chunk 32, n = 4,
      p = 32, ds = 16, a_log per slot or stride-0 shared) and two multi-chunk
      shapes ((2, 512, 8, 64), ds = 64, chunk 64: the chunk-parallel form;
@@ -100,8 +104,8 @@ NAMES = tuple(REPLACES)[:3]            # the fused linear kernels
 FA_NAMES = tuple(REPLACES)[3:6]
 # the CUDA kernels of the port's sources, by function name
 PORT_KERNELS = ("fwd_kernel", "splitk_reduce_kernel", "dx_kernel",
-                "dwdb_kernel", "dq_kernel", "dkdv_kernel", "ssd_kernel",
-                "ssd_chunk_scan_kernel")
+                "dwdb_kernel", "dq_kernel", "dkdv_kernel", "dq_short_kernel",
+                "dkdv_short_kernel", "ssd_kernel", "ssd_chunk_scan_kernel")
 # every launch counter and every plain-version call counter of the port
 LAUNCH_COUNTS = (kernel.LAUNCHES, fa_kernel.LAUNCHES, ssd_kernel.LAUNCHES)
 CALL_COUNTS = (ref.CALLS, fa_ref.CALLS, ssd_ref.CALLS)
@@ -318,11 +322,15 @@ def _hold(totals: dict, name: str, label: str, fn, plain, lib, rtol: float,
 # online softmax sums over k-tiles in another order than the one-shot one
 FA_RTOL = 2e-5
 # (label, B, H, S, D, causal, window): the transformer path's B x H heads
-# (rows x 2 heads, S = 32, hd = 32, causal) and multi-tile shapes
+# (rows x 2 heads, S = 32, hd = 32, causal), two more shapes of the
+# backward's short form (a ragged S with a window, non-causal) and
+# multi-tile shapes
 FA_CASES = [
     ("round", 570, 2, 32, 32, True, None),
     ("stats", 1140, 2, 32, 32, True, None),
     ("sigma M=1", 8, 2, 32, 32, True, None),
+    ("S=20 window 8", 64, 2, 20, 32, True, 8),
+    ("full 32", 570, 2, 32, 32, False, None),
     ("causal 1024", 2, 8, 1024, 128, True, None),
     ("window 256", 2, 8, 1024, 128, True, 256),
     ("full 256", 2, 4, 256, 64, False, None),
@@ -372,6 +380,9 @@ def attention_phase() -> dict:
             with torch.no_grad():
                 return sdpa()
         args = (q, k, v, do, lse, delta)
+        plan = fa_kernel.attention_bwd_plan(q, k, v, do)
+        plan_txt = (f" plan: form={plan.form} heads_per_block="
+                    f"{plan.heads_per_block} vec={plan.vec}")
         fns = {
             "flash_attention": (
                 lambda: fa_kernel.flash_attention(q, k, v, causal, window),
@@ -399,7 +410,8 @@ def attention_phase() -> dict:
             _hold(totals, name, label, fn, plain, lib, FA_RTOL, bound,
                   label == "round",
                   f"B={b} H={h} S={s} D={d} causal={int(causal)} "
-                  f"window={window}")
+                  f"window={window}"
+                  + ("" if name == "flash_attention" else plan_txt))
     return totals
 
 

@@ -14,12 +14,19 @@ Dispatch is by tensor device only: CPU tensors go to the plain versions in
 :mod:`.ref`; CUDA tensors launch the kernel, which is built with ``nvcc`` at
 first use, or the call raises. ``LAUNCHES`` counts the kernel launches of
 each wrapper and nothing else.
+
+How the backward pair launches is decided here, in pure Python, by
+:func:`attention_plan`: the short form (a warp per (b, h) head, a lane per
+row) where S <= 32 and D = 32, else the 64-row tiled kernels; heads per
+block and the staging copy width. The CPU tests check every plan the card
+would run.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import pathlib
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -33,13 +40,57 @@ LAUNCHES = {"flash_attention": 0, "flash_attention_bwd_dq": 0,
 
 HEAD_DIMS = (32, 64, 128)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_TAIL = [_I] * 4 + [_P, _F, _I, _I, _P]  # b, h, s, d, strides, scale,
-#                                           causal, window, stream
+_PROBLEM = [_I] * 4 + [_P, _F, _I, _I]  # b, h, s, d, strides, scale,
+#                                           causal, window
+_PLAN = [_I] * 3                        # short form, heads per block, vec
 _ARGTYPES = {
-    "flash_attention_fwd": [_P] * 5 + _TAIL,
-    "flash_attention_bwd_dq": [_P] * 7 + _TAIL,
-    "flash_attention_bwd_dkdv": [_P] * 8 + _TAIL,
+    "flash_attention_fwd": [_P] * 5 + _PROBLEM + [_P],
+    "flash_attention_bwd_dq": [_P] * 7 + _PROBLEM + _PLAN + [_P],
+    "flash_attention_bwd_dkdv": [_P] * 8 + _PROBLEM + _PLAN + [_P],
 }
+
+# The short form (csrc kShortMaxSeq, kShortD): a lane per row of a head.
+SHORT_MAX_SEQ = 32
+SHORT_HEAD_DIM = 32
+# Warps (heads) per block of the short form: one spreads the heads over
+# the SMs most evenly (tools/flash_attention_variants.py: fastest at the
+# round's shape, within 3 % of two at the statistics pass's, 4 and 8
+# slower at both). csrc kMaxHeadsPerBlock bounds it.
+HEADS_PER_BLOCK = 1
+MAX_HEADS_PER_BLOCK = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    """One backward wrapper call. ``form`` is ``"short"`` (a warp per
+    (b, h) head, ``heads_per_block`` warps per block, cp.async staging
+    copies of ``vec`` bytes: 16 where every pointer and (b, h, s) stride
+    allows it, else 4) or ``"tiled"`` (a 256-thread block per head and
+    64-row tile, 4-byte loads)."""
+    form: str
+    heads_per_block: int
+    vec: int
+
+
+def attention_plan(b: int, h: int, s: int, d: int, *,
+                   strides: Sequence[int] = (),
+                   aligned: bool = False) -> AttentionPlan:
+    """The backward pair's plan for ``b`` x ``h`` heads of ``s`` rows of
+    width ``d``. ``strides`` are the (b, h, s) element strides of every
+    operand, ``aligned`` whether every pointer is 16-byte aligned."""
+    if not (s <= SHORT_MAX_SEQ and d == SHORT_HEAD_DIM):
+        return AttentionPlan("tiled", 1, 4)
+    vec = 16 if aligned and all(st % 4 == 0 for st in strides) else 4
+    return AttentionPlan("short", HEADS_PER_BLOCK, vec)
+
+
+def attention_bwd_plan(*tensors: torch.Tensor) -> AttentionPlan:
+    """The plan for these (B, H, S, D) operands, inputs and outputs (unit
+    last strides)."""
+    return attention_plan(
+        *tensors[0].shape,
+        strides=[st for t in tensors for st in t.stride()[:3]],
+        aligned=all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def library():
@@ -86,6 +137,10 @@ def _problem(q, window, causal, *tensors):
             0 if window is None else int(window))
 
 
+def _plan_args(plan: AttentionPlan) -> tuple:
+    return int(plan.form == "short"), plan.heads_per_block, plan.vec
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None):
     """(o (B, H, S, D), lse (B, H, S) f32) of softmax attention."""
@@ -114,6 +169,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
     dq = torch.empty_like(q)
     tail = _problem(q, window, causal, q, k, v, do, dq)
     if dq.numel():
+        tail += _plan_args(attention_bwd_plan(q, k, v, do, dq))
         build.launch(library(), "flash_attention_bwd_dq",
                      "flash_attention_bwd_dq", LAUNCHES, q.device,
                      q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -133,6 +189,7 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal: bool = True,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     tail = _problem(q, window, causal, q, k, v, do, dk, dv)
     if dk.numel():
+        tail += _plan_args(attention_bwd_plan(q, k, v, do, dk, dv))
         build.launch(library(), "flash_attention_bwd_dkdv",
                      "flash_attention_bwd_dkdv", LAUNCHES, q.device,
                      q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

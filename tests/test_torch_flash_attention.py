@@ -135,3 +135,209 @@ def test_dispatch_is_by_device_only():
         before_c["flash_attention_bwd_dkdv"] + 1
     with pytest.raises(ValueError):
         kernel.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# the backward's launch plan and the short form's order of work, which the
+# card cannot show here
+# ---------------------------------------------------------------------------
+
+
+def _chip_smoke_fa_cases():
+    """chip_smoke.py's attention cases (it imports torch and the port
+    only), as label -> (B, H, S, D, causal, window)."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return {c[0]: c[1:] for c in mod.FA_CASES}
+
+
+def _plan_of(t):
+    """The plan for (B, H, S, D) views ``t`` as the wrapper computes it
+    (fresh CPU allocations are 16-byte aligned too)."""
+    return kernel.attention_bwd_plan(*t)
+
+
+def _bshd_views(b, h, s, d, n=5):
+    """``n`` (B, H, S, D) views of (B, S, H, D) activations, as the model
+    hands them to the kernels."""
+    return [torch.empty(b, s, h, d).transpose(1, 2) for _ in range(n)]
+
+
+@pytest.mark.parametrize("label,want", [
+    # the FL path: a warp and a block per head, 16-byte copies of the
+    # (B, S, H, D) activations' 128-byte rows
+    ("round", ("short", 1, 16)),
+    ("stats", ("short", 1, 16)),
+    ("sigma M=1", ("short", 1, 16)),
+    # a ragged S and a non-causal mask are the short form too
+    ("S=20 window 8", ("short", 1, 16)),
+    ("full 32", ("short", 1, 16)),
+    # S > 32 or D != 32: the 64-row tiles
+    ("causal 1024", ("tiled", 1, 4)),
+    ("window 256", ("tiled", 1, 4)),
+    ("full 256", ("tiled", 1, 4)),
+])
+def test_attention_plan_for_chip_smoke_cases(label, want):
+    b, h, s, d, _, _ = _chip_smoke_fa_cases()[label]
+    plan = _plan_of(_bshd_views(b, h, s, d))
+    assert (plan.form, plan.heads_per_block, plan.vec) == want
+    assert plan.heads_per_block <= kernel.MAX_HEADS_PER_BLOCK
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_attention_plan_for_test_shapes(case):
+    """The short form exactly where S <= 32 and D = 32."""
+    b, h, s, d, _, _ = case
+    plan = _plan_of(_bshd_views(b, h, s, d))
+    assert plan.form == ("short" if s <= 32 and d == 32 else "tiled")
+
+
+@pytest.mark.parametrize("s,d,form", [(1, 32, "short"), (32, 32, "short"),
+                                      (33, 32, "tiled"), (32, 64, "tiled"),
+                                      (16, 128, "tiled")])
+def test_attention_plan_short_form_bounds(s, d, form):
+    assert kernel.attention_plan(570, 2, s, d).form == form
+
+
+def test_attention_plan_copy_width_is_16_bytes_only_where_aligned():
+    """16-byte staging copies need every pointer and every (b, h, s)
+    stride 16-byte aligned; an odd row stride from a sliced view, or an
+    unaligned pointer, takes 4-byte copies."""
+    b, h, s, d = 570, 2, 32, 32
+    views = _bshd_views(b, h, s, d)
+    assert _plan_of(views).vec == 16
+    # (B, S, H*D + 1) activations sliced to H*D columns: row stride 65
+    sliced = torch.empty(b, s, h * d + 1)[..., :h * d].unflatten(
+        -1, (h, d)).transpose(1, 2)
+    assert sliced.stride()[2] == h * d + 1
+    plan = _plan_of([sliced] + views[1:])
+    assert (plan.form, plan.vec) == ("short", 4)
+    strides = [st for x in views for st in x.stride()[:3]]
+    unaligned = kernel.attention_plan(b, h, s, d, strides=strides,
+                                      aligned=False)
+    assert (unaligned.form, unaligned.vec) == ("short", 4)
+
+
+def _visible(q, k, causal, window):
+    vis = torch.ones(torch.broadcast_shapes(q.shape, k.shape),
+                     dtype=torch.bool)
+    if causal:
+        vis &= k <= q
+    if window is not None:
+        vis &= k > q - window
+    return vis
+
+
+def _dot4(a, x):
+    """The kernel's ``dot2``: four partial sums over d = m (mod 4), each in
+    order of d, summed pairwise at the end."""
+    prod = (a * x).unflatten(-1, (a.shape[-1] // 4, 4))
+    parts = torch.zeros(prod.shape[:-2] + (4,))
+    for c in range(prod.shape[-2]):
+        parts = parts + prod[..., c, :]
+    return (parts[..., 0] + parts[..., 1]) + (parts[..., 2] + parts[..., 3])
+
+
+def _lanes(x, s):
+    """A warp's 32 lanes of row registers: rows past S are zero (the
+    kernel fills lanes past the sequence end with zeros)."""
+    out = torch.zeros(x.shape[:2] + (32,) + x.shape[3:])
+    out[:, :, :s] = x[:, :, :s]
+    return out
+
+
+def _short_dq(q, k, v, do, lse, delta, s, causal, window):
+    """dq in the short form's order of work on 32-row operands of which
+    rows [0, s) are real: lane i holds q_i and do_i, walks keys j = 0 ..
+    s-1 in order (rows past s are never read), and a masked pair adds
+    exactly 0."""
+    scale = q.shape[-1] ** -0.5
+    qr, dor = _lanes(q, s), _lanes(do, s)
+    lse_i, delta_i = _lanes(lse, s), _lanes(delta, s)
+    lane = torch.arange(32)
+    acc = torch.zeros_like(qr)
+    for j in range(s):
+        kj, vj = k[:, :, j:j + 1], v[:, :, j:j + 1]
+        sc, dp = _dot4(qr, kj), _dot4(dor, vj)
+        vis = _visible(lane, torch.tensor(j), causal, window) & (lane < s)
+        p = torch.where(vis, torch.exp(sc * scale - lse_i), 0.0)
+        acc = acc + (p * (dp - delta_i))[..., None] * kj
+    return (acc * scale)[:, :, :s]
+
+
+def _short_dkdv(q, k, v, do, lse, delta, s, causal, window):
+    """dk, dv in the short form's order of work: lane j holds k_j and v_j,
+    walks queries i = 0 .. s-1 in order with lse_i and delta_i taken from
+    lane i."""
+    scale = q.shape[-1] ** -0.5
+    kr, vr = _lanes(k, s), _lanes(v, s)
+    lane = torch.arange(32)
+    dk, dv = torch.zeros_like(kr), torch.zeros_like(vr)
+    for i in range(s):
+        qi, doi = q[:, :, i:i + 1], do[:, :, i:i + 1]
+        sc, dp = _dot4(kr, qi), _dot4(vr, doi)
+        vis = _visible(torch.tensor(i), lane, causal, window) & (lane < s)
+        p = torch.where(vis, torch.exp(sc * scale - lse[:, :, i:i + 1]), 0.0)
+        ds = p * (dp - delta[:, :, i:i + 1])
+        dv = dv + p[..., None] * doi
+        dk = dk + ds[..., None] * qi
+    return (dk * scale)[:, :, :s], dv[:, :, :s]
+
+
+@pytest.mark.parametrize("s,causal,window", [(32, True, None), (20, True, 8),
+                                             (32, False, None)])
+def test_short_form_order_of_work_matches_reference_pallas(s, causal,
+                                                           window):
+    """A plain-torch emulation of the short form (lane per row, keys or
+    queries in order, masked pairs exactly 0, the loop stopping at S)
+    against the reference's flash_attention_bwd in interpret mode. The
+    rows past S of the emulation's 32-row operands are NaN: they would
+    poison every output if any were read."""
+    b, h, d = 3, 2, 32
+    q, k, v, do = _qkv_do(b, h, s, d, seed=100 + s)
+    o_ref, lse_ref = ref_kernel.flash_attention(
+        q, k, v, causal=causal, window=window, block_q=s, block_k=s,
+        interpret=True, return_lse=True)
+    delta = np.sum(do * np.asarray(o_ref), axis=-1)
+    dq_ref, dk_ref, dv_ref = ref_kernel.flash_attention_bwd(
+        q, k, v, do, lse_ref, delta, causal=causal, window=window,
+        block_q=s, block_k=s, interpret=True)
+
+    def pad(a):
+        out = np.full(a.shape[:2] + (32,) + a.shape[3:], np.nan, np.float32)
+        out[:, :, :s] = a
+        return torch.from_numpy(out)
+    args = [pad(a) for a in (q, k, v, do, np.asarray(lse_ref), delta)]
+    dq = _short_dq(*args, s, causal, window)
+    dk, dv = _short_dkdv(*args, s, causal, window)
+    assert kernel.attention_plan(b, h, s, d).form == "short"
+    for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+
+
+def test_variant_tool_plans_are_launchable():
+    """Every plan variant of tools/flash_attention_variants.py is one the
+    C entries take: the short form within S <= 32, D = 32, 1-8 heads per
+    block and 4- or 16-byte copies, or the tiled form."""
+    import importlib.util
+    import pathlib
+    path = (pathlib.Path(__file__).resolve().parents[1] / "tools"
+            / "flash_attention_variants.py")
+    spec = importlib.util.spec_from_file_location("_fa_variants", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    cases = _chip_smoke_fa_cases()
+    for label in mod.CASES:
+        b, h, s, d, _, _ = cases[label]
+        base = _plan_of(_bshd_views(b, h, s, d))
+        assert base.form == "short"
+        for name, change in mod.PLANS.items():
+            plan = base if change is None else change(base)
+            assert plan.form in ("short", "tiled"), name
+            if plan.form == "short":
+                assert 1 <= plan.heads_per_block <= \
+                    kernel.MAX_HEADS_PER_BLOCK and plan.vec in (4, 16), name

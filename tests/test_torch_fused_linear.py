@@ -570,7 +570,8 @@ def test_variant_tools_import_neither_jax_nor_reference():
     import sys
     code = (
         "import importlib.util, sys\n"
-        f"for name in ('fused_linear_variants', 'ssd_scan_variants'):\n"
+        "for name in ('fused_linear_variants', 'ssd_scan_variants',\n"
+        "             'flash_attention_variants'):\n"
         f"    spec = importlib.util.spec_from_file_location(name, "
         f"{str(TOOLS)!r} + '/' + name + '.py')\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
