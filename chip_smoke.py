@@ -19,13 +19,13 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
    - flash attention forward, dq and dk/dv at the transformer path's
      shapes (S = 32, D = 32, causal; the round's 6 slots x 95 rows x 2
      heads, the statistics pass's 12 x 95 x 2, the per-sample pass's
-     8 x 2), at two more shapes of the backward's short form (S = 20 with
-     a window of 8, and S = 32 non-causal) and at multi-tile shapes the
-     path never reaches ((2, 8, 1024, 128) causal, the same with a 256
-     window, (2, 4, 256, 64) non-causal), against
-     ``scaled_dot_product_attention`` as the library yardstick; the
-     backward's case lines print its launch plan (short or tiled form,
-     heads per block, copy width);
+     8 x 2), at two more shapes of the short forms (S = 20 with a window
+     of 8, and S = 32 non-causal) and at multi-tile shapes the path never
+     reaches ((2, 8, 1024, 128) causal, the same with a 256 window,
+     (2, 4, 256, 64) non-causal, and a ragged S = 100 at D = 32 with a
+     window of 40), against ``scaled_dot_product_attention`` as the
+     library yardstick; every case line prints its kernel's launch plan
+     (short or tiled form, heads per block, copy width);
    - the SSD scan at the SSM path's shapes (S = 32, chunk 32, n = 4,
      p = 32, ds = 16, a_log per slot or stride-0 shared) and two multi-chunk
      shapes ((2, 512, 8, 64), ds = 64, chunk 64: the chunk-parallel form;
@@ -75,14 +75,17 @@ from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
 
 # H100 SXM data sheet: f32 outside the tensor cores, HBM3 bandwidth. The
-# attention and SSD kernels are plain f32 FMA.
+# attention backward, the forward's short form and the SSD kernels are
+# plain f32 FMA.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-# The fused linear forward and dw/db run 3xTF32 on the tensor cores: three
-# TF32 products (495 TFLOP/s dense) per f32 product, which holds the 1e-5 x
-# scale contract below (split a = big + small, drop only small * small).
-# The bound of all three fused linear kernels, dx too, reads this rate: the
-# same work could run at it whatever implements it.
+# The fused linear kernels and the attention forward's tiled form run
+# 3xTF32 on the tensor cores: three TF32 products (495 TFLOP/s dense) per
+# f32 product, which holds the 1e-5 x scale contract below (split a = big +
+# small, drop only small * small). The bound of all three fused linear
+# kernels, dx too, reads this rate: the same work could run at it whatever
+# implements it; the attention forward's bound reads the rate of the form
+# that runs.
 PEAK_3XTF32_FLOPS = 495e12 / 3
 SOURCE = "src/repro_torch/kernels/fused_linear/csrc/fused_linear.cu"
 FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
@@ -104,7 +107,8 @@ NAMES = tuple(REPLACES)[:3]            # the fused linear kernels
 FA_NAMES = tuple(REPLACES)[3:6]
 # the CUDA kernels of the port's sources, by function name
 PORT_KERNELS = ("fwd_kernel", "splitk_reduce_kernel", "dx_kernel",
-                "dwdb_kernel", "dq_kernel", "dkdv_kernel", "dq_short_kernel",
+                "dwdb_kernel", "fwd_short_kernel", "fwd_tc_kernel",
+                "dq_kernel", "dkdv_kernel", "dq_short_kernel",
                 "dkdv_short_kernel", "ssd_kernel", "ssd_chunk_scan_kernel")
 # every launch counter and every plain-version call counter of the port
 LAUNCH_COUNTS = (kernel.LAUNCHES, fa_kernel.LAUNCHES, ssd_kernel.LAUNCHES)
@@ -138,13 +142,14 @@ def device_ms(fn, reps: int = 10) -> float:
     times, summed from torch.profiler. Where the host launches more slowly
     than the card runs (small kernels, plain versions of many small ops),
     the event-timed :func:`time_ms` measures the host instead. The tracer
-    now and then drops part or all of a window, so three profiles are
-    taken and only those that caught the most kernel launches count: the
-    median of their times."""
+    now and then drops part or all of a window (all of it in three
+    profiles running, once), so profiles are taken until three caught
+    kernel launches, ten at most, and only those that caught the most
+    count: the median of their times."""
     fn()
     torch.cuda.synchronize()
     runs = []
-    for _ in range(3):
+    for _ in range(10):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -152,11 +157,15 @@ def device_ms(fn, reps: int = 10) -> float:
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA]
-        runs.append((sum(e.count for e in kernels),
-                     sum(e.self_device_time_total for e in kernels)))
+        count = sum(e.count for e in kernels)
+        if count:
+            runs.append((count, sum(e.self_device_time_total
+                                    for e in kernels)))
+        if len(runs) == 3:
+            break
+    if not runs:
+        raise RuntimeError("ten profiles in a row caught no device time")
     most = max(count for count, _ in runs)
-    if most == 0:
-        raise RuntimeError("three profiles in a row caught no device time")
     kept = sorted(us for count, us in runs if count == most)
     return kept[len(kept) // 2] / 1e3 / reps
 
@@ -322,9 +331,9 @@ def _hold(totals: dict, name: str, label: str, fn, plain, lib, rtol: float,
 # online softmax sums over k-tiles in another order than the one-shot one
 FA_RTOL = 2e-5
 # (label, B, H, S, D, causal, window): the transformer path's B x H heads
-# (rows x 2 heads, S = 32, hd = 32, causal), two more shapes of the
-# backward's short form (a ragged S with a window, non-causal) and
-# multi-tile shapes
+# (rows x 2 heads, S = 32, hd = 32, causal), two more shapes of the short
+# forms (a ragged S with a window, non-causal) and multi-tile shapes, the
+# last with a ragged S at D = 32
 FA_CASES = [
     ("round", 570, 2, 32, 32, True, None),
     ("stats", 1140, 2, 32, 32, True, None),
@@ -334,6 +343,7 @@ FA_CASES = [
     ("causal 1024", 2, 8, 1024, 128, True, None),
     ("window 256", 2, 8, 1024, 128, True, 256),
     ("full 256", 2, 4, 256, 64, False, None),
+    ("tiled S=100 D=32", 8, 2, 100, 32, True, 40),
 ]
 # operations per visible (query, key) pair per head dim, (B, H, S, D)
 # tensors and (B, H, S) rows read or written once
@@ -380,9 +390,9 @@ def attention_phase() -> dict:
             with torch.no_grad():
                 return sdpa()
         args = (q, k, v, do, lse, delta)
-        plan = fa_kernel.attention_bwd_plan(q, k, v, do)
-        plan_txt = (f" plan: form={plan.form} heads_per_block="
-                    f"{plan.heads_per_block} vec={plan.vec}")
+        plans = {"flash_attention": fa_kernel.attention_fwd_plan(q, k, v, o)}
+        plans["flash_attention_bwd_dq"] = plans["flash_attention_bwd_dkdv"] \
+            = fa_kernel.attention_bwd_plan(q, k, v, do)
         fns = {
             "flash_attention": (
                 lambda: fa_kernel.flash_attention(q, k, v, causal, window),
@@ -405,13 +415,17 @@ def attention_phase() -> dict:
         }
         for name, (fn, plain, lib) in fns.items():
             per_pair, tensors, rows = FA_WORK[name]
+            plan = plans[name]
+            # the forward's tiled form runs on the tensor cores
+            tc = name == "flash_attention" and plan.form == "tiled"
             bound = _bound(per_pair * d * pairs * b * h,
-                           4 * b * h * s * (tensors * d + rows))
+                           4 * b * h * s * (tensors * d + rows),
+                           PEAK_3XTF32_FLOPS if tc else PEAK_F32_FLOPS)
             _hold(totals, name, label, fn, plain, lib, FA_RTOL, bound,
                   label == "round",
                   f"B={b} H={h} S={s} D={d} causal={int(causal)} "
-                  f"window={window}"
-                  + ("" if name == "flash_attention" else plan_txt))
+                  f"window={window} plan: form={plan.form} heads_per_block="
+                  f"{plan.heads_per_block} vec={plan.vec}")
     return totals
 
 

@@ -11,42 +11,48 @@
 //
 // What bounds them on an H100: attention does 4*S*S*D (forward) and
 // 8*S*S*D (backward) operations per head on 4*S*D elements in and out, so
-// at S >= 64 it is bound by arithmetic, not by device memory. The work here
-// is plain f32 FMA against the 67 TFLOP/s f32 rate. The tensor cores would
-// take it as 3xTF32 (each operand split into a TF32 high part and a TF32
-// remainder, three products summed in f32 per stage), which the fused
-// linear kernels run within the reference's 1e-5 f32 contract; that form of
-// the tiled kernels is not written yet. At the FL path's S <= 32 with
-// D = 32 a head is far too small for a tile and the kernels are bound by
-// latency: the backward pair runs its short form there (below).
+// at S >= 64 it is bound by arithmetic, not by device memory. The tiled
+// forward runs it on the tensor cores as 3xTF32 (each operand split into a
+// TF32 high part and a TF32 remainder, three products summed in f32 per
+// stage), which the fused linear kernels run within the reference's 1e-5
+// f32 contract; the tiled backward is still plain f32 FMA against the 67
+// TFLOP/s f32 rate. At the FL path's S <= 32 with D = 32 a head is far too
+// small for a tile and the kernels are bound by latency: the forward and
+// the backward pair run their short forms there (below).
 //
-// The tiled design. One block of 256 threads per (batch*head, 64-row
+// The tiled forward (tensor cores). A block of 4 warps per (batch*head,
+// 64-row query tile); each warp owns 16 query rows and walks the visible
+// 64-key tiles, which the block stages by cp.async into a two-stage ring. S = Q K^T and P V are
+// mma.m16n8k8 in 3xTF32; the running max, denominator and the output
+// accumulator stay in registers, in the MMA's fragment layout (below,
+// before fwd_tc_kernel).
+//
+// The tiled backward. One block of 256 threads per (batch*head, 64-row
 // tile); the TPU grid's sequential innermost axis becomes a loop inside the
-// block over the other operand's 64-row tiles, with the running max,
-// denominator and output accumulator kept in registers (forward), or the
-// dq / dk / dv accumulators (backward). Tiles that a causal or window mask
-// hides entirely are skipped, not run. Every tile sits in shared memory
+// block over the other operand's 64-row tiles, with the dq / dk / dv
+// accumulators kept in registers. Every tile sits in shared memory
 // row-major with an odd row pitch (D + 1): thread (ty, tx) owns rows
 // ty*4 .. ty*4+3 and columns tx + 16*c, so a warp reads one row by
-// broadcast and 16 consecutive columns without bank conflicts. Row
-// reductions (max, sum) run across the 16 lanes of a row with shuffles.
+// broadcast and 16 consecutive columns without bank conflicts.
 // Operands are (batch, head, seq, d) with any batch / head / seq strides
 // and unit d stride, so the slot-batched (rows, seq, heads, d) projections
 // are read in place; rows past the sequence end are masked on load and
-// store, so any S runs. expf / logf throughout (no fast-math intrinsics).
+// store, so any S runs. Tiles that a causal or window mask hides entirely
+// are skipped, not run, in every tiled kernel. expf / logf throughout (the
+// tiled forward: exp2f; no fast-math intrinsics).
 //
-// The short form of the backward pair (S <= 32, D = 32: every shape of the
-// FL path). A 64-row tile there is half padding, and a block per head runs
-// 2.2 waves of mostly idle threads behind 4-6 barriers. Instead one warp
-// owns one (batch, head) and one lane owns one row: for dq lane i holds
-// q_i, do_i and its dq accumulator in registers and walks the keys in order;
-// for dk/dv lane j holds k_j, v_j and both accumulators and walks the
-// queries in order. The other operand's rows are staged once in shared
-// memory by cp.async (16-byte copies where the plan's `vec` allows) and
-// read by broadcast; lse and delta come by shuffle or straight from global.
-// A block holds `heads_per_block` warps (the plan's: one, which measured
-// best) that share nothing, so there is no __syncthreads: each warp waits
-// on its own copies and __syncwarp()s. Rows
+// The short forms (S <= 32, D = 32: every shape of the FL path). A 64-row
+// tile there is half padding, and a block per head runs 2.2 waves of mostly
+// idle threads behind several barriers. Instead one warp owns one
+// (batch, head) and one lane owns one row: for the forward and dq lane i
+// holds q_i (dq: and do_i) and its accumulator in registers and walks the
+// keys in order; for dk/dv lane j holds k_j, v_j and both accumulators and
+// walks the queries in order. The other operands' rows are staged once in
+// shared memory by cp.async (16-byte copies where the plan's `vec` allows)
+// and read by broadcast; lse and delta come by shuffle or straight from
+// global. A block holds `heads_per_block` warps (the plan's: one, which
+// measured best) that share nothing, so there is no __syncthreads: each
+// warp waits on its own copies and __syncwarp()s. Rows
 // past S are neither copied nor multiplied (the loops end at S); masked
 // pairs contribute exactly 0. Each warp writes its outputs to its own
 // staging rows and stores them as whole rows with the other lanes.
@@ -80,12 +86,14 @@ __device__ __forceinline__ int n_tiles(const Problem& pr) {
   return (pr.seq + kTile - 1) / kTile;
 }
 
-// key tiles [lo, hi) that hold a visible key for some row of the q tile
+// key tiles [lo, hi) of `k_rows` keys that hold a visible key for some
+// row of the query rows [q0, q0 + q_rows)
 __device__ __forceinline__ void key_tiles(const Problem& pr, int q0, int* lo,
-                                          int* hi) {
-  const int q_last = min(q0 + kTile, pr.seq) - 1;
-  *hi = pr.causal ? q_last / kTile + 1 : n_tiles(pr);
-  *lo = pr.window > 0 ? max(0, q0 - pr.window + 1) / kTile : 0;
+                                          int* hi, int q_rows = kTile,
+                                          int k_rows = kTile) {
+  const int q_last = min(q0 + q_rows, pr.seq) - 1;
+  *hi = pr.causal ? q_last / k_rows + 1 : (pr.seq + k_rows - 1) / k_rows;
+  *lo = pr.window > 0 ? max(0, q0 - pr.window + 1) / k_rows : 0;
 }
 
 // query tiles [lo, hi) that see some key of the k tile
@@ -108,20 +116,6 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
     const int row = row0 + r;
     dst[r * (D + 1) + d] = row < seq ? src[row * row_stride + d] : 0.f;
   }
-}
-
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 // acc[r][j] = sum_d a[(ty*4+r)][d] * b[(tx+16j)][d] over two [64][D+1] tiles
@@ -160,85 +154,6 @@ __device__ __forceinline__ void tile_matmul(const float* p, const float* m,
 #pragma unroll
       for (int c = 0; c < D / 16; ++c) acc[r][c] = fmaf(pv, mv[c], acc[r][c]);
     }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, float* __restrict__ o,
-           float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
-           Strides so, Problem pr) {
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + kTile * (D + 1);
-  float* vs = ks + kTile * (D + 1);
-  float* ps = vs + kTile * (D + 1);
-  const int bh = blockIdx.x, b = bh / pr.heads, h = bh % pr.heads;
-  const int q0 = blockIdx.y * kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  q += b * sq.b + h * sq.h;
-  k += b * sk.b + h * sk.h;
-  v += b * sv.b + h * sv.h;
-  o += b * so.b + h * so.h;
-  lse += static_cast<long long>(bh) * pr.seq;
-
-  load_tile<D>(qs, q, sq.s, q0, pr.seq);
-  float m[kRows], l[kRows], acc[kRows][D / 16];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[r][c] = 0.f;
-  }
-  int lo, hi;
-  key_tiles(pr, q0, &lo, &hi);
-  for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D>(ks, k, sk.s, k0, pr.seq);
-    load_tile<D>(vs, v, sv.s, k0, pr.seq);
-    __syncthreads();
-    float s[kRows][4] = {};
-    tile_dot<D>(qs, ks, ty, tx, s);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qi = q0 + ty * kRows + r;
-      bool vis[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        vis[j] = visible(pr, qi, k0 + tx + 16 * j);
-        s[r][j] = vis[j] ? s[r][j] * pr.scale : kNegInf;
-        mx = fmaxf(mx, s[r][j]);
-      }
-      const float m_new = fmaxf(m[r], row_max(mx));
-      const float alpha = expf(m[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = vis[j] ? expf(s[r][j] - m_new) : 0.f;
-        ps[(ty * kRows + r) * kPitchP + tx + 16 * j] = p;
-        sum += p;
-      }
-      l[r] = alpha * l[r] + row_sum(sum);
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) acc[r][c] *= alpha;
-    }
-    __syncthreads();
-    tile_matmul<D>(ps, vs, ty, tx, acc);
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qi = q0 + ty * kRows + r;
-    if (qi >= pr.seq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c)
-      o[qi * so.s + tx + 16 * c] = acc[r][c] / denom;
-    if (tx == 0) lse[qi] = m[r] + logf(denom);
   }
 }
 
@@ -418,20 +333,24 @@ constexpr int kMaxHeadsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
 // *dst = *src, global to shared without a register round trip: a lane
-// issues all its copies before it waits on any. Both widths allocate in L1
-// (.ca): the 16-byte copies measured faster that way than with L1 bypassed
-// (.cg) at the FL round's shape, and no slower at the statistics pass's.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+// issues all its copies before it waits on any. Only `bytes` of the copy
+// are read (0 or all of it), the rest zero-filled. Both widths allocate in
+// L1 (.ca): the 16-byte copies measured faster that way than with L1
+// bypassed (.cg) at the FL round's shape, and no slower at the statistics
+// pass's.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes = 4) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
+               "l"(src), "r"(bytes)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes = 16) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
+               "l"(src), "r"(bytes)
                : "memory");
 }
 
@@ -489,29 +408,29 @@ __device__ __forceinline__ void row_to_regs(float (&dst)[kShortD],
   }
 }
 
-// (a . x, b . y) for register rows a, b and a broadcast shared row pair
-// x, y: four partial sums each over d = m (mod 4), in order of d, summed
-// pairwise at the end, so the dependent chains are 8 FMAs long.
-__device__ __forceinline__ float2 dot2(const float (&a)[kShortD],
-                                       const float (&b)[kShortD],
-                                       const float* x, const float* y) {
+// a . x for a register row a and a broadcast shared row x: four partial
+// sums over d = m (mod 4), in order of d, summed pairwise at the end, so
+// the dependent chains are 8 FMAs long.
+__device__ __forceinline__ float dot(const float (&a)[kShortD],
+                                     const float* x) {
   const float4* x4 = reinterpret_cast<const float4*>(x);
-  const float4* y4 = reinterpret_cast<const float4*>(y);
-  float s[4] = {0.f, 0.f, 0.f, 0.f}, t[4] = {0.f, 0.f, 0.f, 0.f};
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int c = 0; c < kShortD / 4; ++c) {
-    const float4 xv = x4[c], yv = y4[c];
+    const float4 xv = x4[c];
     s[0] = fmaf(a[4 * c], xv.x, s[0]);
     s[1] = fmaf(a[4 * c + 1], xv.y, s[1]);
     s[2] = fmaf(a[4 * c + 2], xv.z, s[2]);
     s[3] = fmaf(a[4 * c + 3], xv.w, s[3]);
-    t[0] = fmaf(b[4 * c], yv.x, t[0]);
-    t[1] = fmaf(b[4 * c + 1], yv.y, t[1]);
-    t[2] = fmaf(b[4 * c + 2], yv.z, t[2]);
-    t[3] = fmaf(b[4 * c + 3], yv.w, t[3]);
   }
-  return make_float2((s[0] + s[1]) + (s[2] + s[3]),
-                     (t[0] + t[1]) + (t[2] + t[3]));
+  return (s[0] + s[1]) + (s[2] + s[3]);
+}
+
+// (a . x, b . y): two independent chains, interleaved once inlined
+__device__ __forceinline__ float2 dot2(const float (&a)[kShortD],
+                                       const float (&b)[kShortD],
+                                       const float* x, const float* y) {
+  return make_float2(dot(a, x), dot(b, y));
 }
 
 // acc += w * x for a broadcast shared row x
@@ -537,6 +456,66 @@ __device__ __forceinline__ void regs_to_row(float* rows, int lane,
   for (int c = 0; c < kShortD / 4; ++c)
     row[c] = make_float4(src[4 * c] * scale, src[4 * c + 1] * scale,
                          src[4 * c + 2] * scale, src[4 * c + 3] * scale);
+}
+
+// o and lse of one (batch, head) per warp, in two passes over the keys
+// instead of the online softmax's per-key rescale of the accumulator (which
+// costs as much as the accumulation itself). Lane i holds q_i. Pass 1, keys
+// j = 0 .. S-1 in order: s_ij = (q_i . k_j) * scale into the warp's score
+// buffer at [j][i] (consecutive lanes, consecutive banks), and m_i = the max
+// over the visible j. Pass 2, j = 0 .. S-1 in order: p = exp(s_ij - m_i)
+// (exactly 0 where masked), l_i += p, acc_i += p * v_j. The max is exact
+// before the first p, so nothing is rescaled. Stores o_i = acc_i * (1 /
+// max(l_i, 1e-30)) and lse_i = m_i + log(max(l_i, 1e-30)). The q rows'
+// staging buffer holds the scores once q_i is in registers, and o's rows
+// after the last score is read. Both passes are unrolled by 4 (four
+// independent keys in flight: faster than one at every FL shape).
+template <int VEC>
+__global__ void __launch_bounds__(32 * kMaxHeadsPerBlock, 1)
+fwd_short_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
+                 Strides so, Problem pr, int n_heads) {
+  extern __shared__ __align__(16) float short_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int bh = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (bh >= n_heads) return;
+  const int b = bh / pr.heads, h = bh % pr.heads, seq = pr.seq;
+  float* qs = short_smem + warp * 3 * kShortRows;
+  float* ks = qs + kShortRows;
+  float* vs = ks + kShortRows;
+  stage_rows<VEC>(qs, q + b * sq.b + h * sq.h, sq.s, seq, lane);
+  stage_rows<VEC>(ks, k + b * sk.b + h * sk.h, sk.s, seq, lane);
+  stage_rows<VEC>(vs, v + b * sv.b + h * sv.h, sv.s, seq, lane);
+  cp_async_wait_all();
+  __syncwarp();
+
+  float qr[kShortD], acc[kShortD];
+  row_to_regs(qr, qs, lane, seq);
+  __syncwarp();  // every q row is in registers: qs holds the scores now
+  float m = kNegInf;
+#pragma unroll 4
+  for (int j = 0; j < seq; ++j) {
+    const float s = dot(qr, ks + j * kShortPitch) * pr.scale;
+    qs[j * 32 + lane] = s;
+    if (visible(pr, lane, j)) m = fmaxf(m, s);
+  }
+  float l = 0.f;
+#pragma unroll
+  for (int d = 0; d < kShortD; ++d) acc[d] = 0.f;
+#pragma unroll 4
+  for (int j = 0; j < seq; ++j) {
+    const float p = visible(pr, lane, j) ? expf(qs[j * 32 + lane] - m) : 0.f;
+    l += p;
+    axpy(acc, p, vs + j * kShortPitch);
+  }
+  const float denom = fmaxf(l, 1e-30f);
+  __syncwarp();  // every score is read: o's rows go into qs
+  regs_to_row(qs, lane, acc, 1.f / denom);
+  if (lane < seq)
+    lse[static_cast<long long>(bh) * seq + lane] = m + logf(denom);
+  __syncwarp();
+  store_rows<VEC>(o + b * so.b + h * so.h, so.s, qs, seq, lane);
 }
 
 // dq of one (batch, head) per warp: lane i walks keys j = 0 .. S-1 with
@@ -643,6 +622,338 @@ dkdv_short_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_rows<VEC>(dv + b * sdv.b + h * sdv.h, sdv.s, vs, seq, lane);
 }
 
+// ---------------------------------------------------------------------------
+// the tiled forward on the tensor cores (3xTF32)
+// ---------------------------------------------------------------------------
+
+// rna_tf32, split_tf32 and mma_tf32 are twins of fused_linear.cu's (each
+// source is built by its own nvcc, so they are copied, not shared).
+//
+// cvt.rna.tf32.f32 on the integer units: round the magnitude to 10
+// mantissa bits, ties away from zero.
+__device__ __forceinline__ uint32_t rna_tf32(float a) {
+  return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+}
+
+// a = big + small, each a TF32 value rounded to nearest (ties away).
+__device__ __forceinline__ void split_tf32(float a, uint32_t& big,
+                                           uint32_t& small) {
+  big = rna_tf32(a);
+  small = rna_tf32(a - __uint_as_float(big));
+}
+
+// c (16 x 8, f32) += a (16 x 8, tf32) * b (8 x 8, tf32)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c[j] += a * b[j] for N n-tiles in 3xTF32: small*big, big*small, then
+// big*big (fused_linear.cu's order), each term over all n-tiles before the
+// next, so the N chains interleave.
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float (&c)[N][4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           const uint32_t (&bb)[N][2],
+                                           const uint32_t (&bs)[N][2]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(c[j], as, bb[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(c[j], ab, bs[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(c[j], ab, bb[j]);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + rows) of one head's operand (global row stride `ld`) into
+// dst with row pitch `pitch`, by all the block's threads in VEC-byte
+// copies; rows at or past seq are zero-filled. The chunks per row are a
+// compile-time power of two, so a chunk's row and column cost a shift and
+// a mask, not a division.
+template <int D, int VEC>
+__device__ __forceinline__ void stage_tile_by(float* dst, int pitch,
+                                              const float* src, long long ld,
+                                              int r0, int rows, int seq) {
+  constexpr int kPer = VEC / 4, kChunks = D / kPer;
+  for (int e = threadIdx.x; e < rows * kChunks; e += blockDim.x) {
+    const int r = e / kChunks, c = (e % kChunks) * kPer, gr = r0 + r;
+    const bool in = gr < seq;
+    const float* from = in ? src + gr * ld + c : src;
+    if (VEC == 16)
+      cp_async16(dst + r * pitch + c, from, in ? 16 : 0);
+    else
+      cp_async4(dst + r * pitch + c, from, in ? 4 : 0);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void stage_tile(float* dst, int pitch,
+                                           const float* src, long long ld,
+                                           int r0, int rows, int seq,
+                                           bool vec16) {
+  if (vec16)
+    stage_tile_by<D, 16>(dst, pitch, src, ld, r0, rows, seq);
+  else
+    stage_tile_by<D, 4>(dst, pitch, src, ld, r0, rows, seq);
+}
+
+constexpr int kTcRows = 16;   // query rows per warp: one m16 tile
+// Tile sizes as measured (tools/flash_attention_variants.py): 64 keys and
+// 64-column P V chunks (eight independent MMA chains, where four left the
+// tensor cores waiting on their own results) beat 32 and 32 at causal
+// 1024 and full 256; a ring of two beats one there (three do not fit in
+// shared memory at D = 128).
+constexpr int kTcKeys = 64;   // keys per tile: eight n8 tiles
+constexpr int kTcN = kTcKeys / 8;
+constexpr int kTcStages = 2;  // key/value tiles in the ring
+constexpr int kTcPvN = 8;     // n8 tiles of d per P V chunk
+// Four warps, 64 query rows, per block: the warps share every key/value
+// tile the block stages, and 64 rows beat 32 and 16 at every multi-tile
+// shape of chip_smoke.py, even at full 256, where they leave 100 of the
+// 132 SMs idle (32 blocks against 128 of 16 rows; PERF.md section 6).
+constexpr int kTcWarps = 4;
+constexpr int kTcQRows = kTcWarps * kTcRows;
+// The tiled forward's softmax runs in base 2: s2 = (q . k) * scale *
+// log2(e), p = exp2(s2 - m2), one MUFU.EX2 each where expf adds its own
+// range reduction; lse = m2 * ln(2) + log(l).
+constexpr float kTcLog2e = 1.4426950408889634f;
+constexpr float kTcLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float tc_exp(float x) { return exp2f(x); }
+
+// Pitches that keep every fragment load free of bank conflicts (see
+// fused_linear.cu's warp_mma): Q and K are read as float2 pairs along d
+// (pitch 8 mod 32), V as scalars along d at rows 2t and 2t + 1 (4 mod 32).
+template <int D>
+struct TcPitch {
+  static constexpr int qk = D + 8, v = D + 4;
+  static constexpr int stage = kTcKeys * (qk + v);  // one K and V tile
+};
+
+// One warp, one key tile: the warp's 16 query rows (qs, staged) against
+// keys [k0, k0 + kTcKeys) (ks, vs, staged). Fragments are mma.m16n8k8's:
+// lane = 4 g + t; A (row g [+8], k-slot t [+4]), B (k-slot t [+4], col g),
+// C (row g [+8], col 2t [+1]). K-slots t and t + 4 read physical k = 2t
+// and 2t + 1 of the k-step, in A and B alike (a k-step's sum is the same
+// in any order), so a Q or K pair along d is one float2 load, and a C
+// fragment of S is, element for element, the A fragment of P for the
+// k-step of its eight keys: P goes from the scores' registers to the P V
+// product with no trip through shared memory.
+//
+// Order of the sums. S: per 32-wide stage of d, four k-steps chained on the
+// tensor cores (3 MMAs each), then added to S in f32. Then the online
+// softmax per row, in base 2: m_new = max(m, tile max), alpha = exp2(m -
+// m_new), p = exp2(s * (scale * log2 e) - m_new) (exactly 0 where masked),
+// l = alpha * l + the row's sum of p (each lane's values in order, then
+// across the quad's four lanes, xor 1 then xor 2). P V: per chunk of
+// 8 * kTcPvN columns of d, the tile's k-steps chained on the tensor cores,
+// then acc = fma(acc, alpha, that), so each tile's product reaches acc in
+// one f32 add (chained MMAs drift, the tensor cores truncating what they
+// accumulate: fused_linear.cu's flush).
+template <int D>
+__device__ __forceinline__ void tc_tile(const float* qs, const float* ks,
+                                        const float* vs, const Problem& pr,
+                                        int wq0, int k0, float (&acc)[D / 8][4],
+                                        float (&m)[2], float (&l)[2]) {
+  constexpr int PQK = TcPitch<D>::qk, PV = TcPitch<D>::v;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float s[kTcN][4] = {};
+#pragma unroll
+  for (int d0 = 0; d0 < D; d0 += 32) {
+    float st[kTcN][4] = {};
+#pragma unroll
+    for (int kk = d0; kk < d0 + 32; kk += 8) {
+      const float2 lo =
+          *reinterpret_cast<const float2*>(qs + g * PQK + kk + 2 * t);
+      const float2 hi =
+          *reinterpret_cast<const float2*>(qs + (g + 8) * PQK + kk + 2 * t);
+      uint32_t ab[4], as[4];
+      split_tf32(lo.x, ab[0], as[0]);
+      split_tf32(hi.x, ab[1], as[1]);
+      split_tf32(lo.y, ab[2], as[2]);
+      split_tf32(hi.y, ab[3], as[3]);
+      uint32_t bb[kTcN][2], bs[kTcN][2];
+#pragma unroll
+      for (int j = 0; j < kTcN; ++j) {
+        const float2 kv = *reinterpret_cast<const float2*>(
+            ks + (8 * j + g) * PQK + kk + 2 * t);
+        split_tf32(kv.x, bb[j][0], bs[j][0]);
+        split_tf32(kv.y, bb[j][1], bs[j][1]);
+      }
+      mma_3xtf32(st, ab, as, bb, bs);
+    }
+#pragma unroll
+    for (int j = 0; j < kTcN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += st[j][e];
+  }
+
+  // the online softmax of rows wq0 + g (r = 0) and wq0 + g + 8 (r = 1)
+  const float scale2 = pr.scale * kTcLog2e;
+  bool vis[kTcN][4];
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < kTcN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      vis[j][e] = visible(pr, wq0 + g + 8 * (e >> 1),
+                          k0 + 8 * j + 2 * t + (e & 1));
+      s[j][e] = vis[j][e] ? s[j][e] * scale2 : kNegInf;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+  float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = tc_exp(m[r] - m_new);
+    m[r] = m_new;
+  }
+  uint32_t pb[kTcN][4], ps[kTcN][4];  // P's A fragment, k-step j: keys 8j ..
+#pragma unroll
+  for (int j = 0; j < kTcN; ++j) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = vis[j][e] ? tc_exp(s[j][e] - m[e >> 1]) : 0.f;
+      sum[e >> 1] += p[e];
+    }
+    // C (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1) -> A (g, t), (g+8, t),
+    // (g, t+4), (g+8, t+4)
+    split_tf32(p[0], pb[j][0], ps[j][0]);
+    split_tf32(p[2], pb[j][1], ps[j][1]);
+    split_tf32(p[1], pb[j][2], ps[j][2]);
+    split_tf32(p[3], pb[j][3], ps[j][3]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(kFull, sum[r], 1);
+    sum[r] += __shfl_xor_sync(kFull, sum[r], 2);
+    l[r] = alpha[r] * l[r] + sum[r];
+  }
+
+  constexpr int NC = kTcPvN < D / 8 ? kTcPvN : D / 8;  // n-tiles per chunk
+#pragma unroll
+  for (int c = 0; c < D / 8; c += NC) {
+    float st[NC][4] = {};
+#pragma unroll
+    for (int j = 0; j < kTcN; ++j) {
+      uint32_t bb[NC][2], bs[NC][2];
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          split_tf32(vs[(8 * j + 2 * t + hh) * PV + 8 * (c + n) + g],
+                     bb[n][hh], bs[n][hh]);
+      mma_3xtf32(st, pb[j], ps[j], bb, bs);
+    }
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[c + n][e] = fmaf(acc[c + n][e], alpha[e >> 1], st[n][e]);
+  }
+}
+
+// o and lse of one (batch*head, query tile): kTcWarps warps of 16 rows.
+// The block stages its query rows once and the visible key tiles
+// into a ring of kTcStages (the next tiles' copies in flight while the
+// warps work on this one); a warp skips the tiles its own 16 rows cannot
+// see.
+// Query tiles run last first, so a causal mask's longest tiles start first.
+template <int D>
+__global__ void __launch_bounds__(32 * kTcWarps)
+fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
+              Strides so, Problem pr, int vec16) {
+  constexpr int PQK = TcPitch<D>::qk, STAGE = TcPitch<D>::stage;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* qs = smem;
+  float* ring = qs + kTcQRows * PQK;  // stage i: K at ring + i * STAGE, then V
+  const int bh = blockIdx.x, b = bh / pr.heads, h = bh % pr.heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcQRows;
+  q += b * sq.b + h * sq.h;
+  k += b * sk.b + h * sk.h;
+  v += b * sv.b + h * sv.h;
+  o += b * so.b + h * so.h;
+  lse += static_cast<long long>(bh) * pr.seq;
+
+  int lo, hi, wlo = 0, whi = 0;
+  key_tiles(pr, q0, &lo, &hi, kTcQRows, kTcKeys);
+  const int wq0 = q0 + warp * kTcRows;
+  if (wq0 < pr.seq) key_tiles(pr, wq0, &wlo, &whi, kTcRows, kTcKeys);
+  auto stage_kv = [&](int kt) {
+    float* ks = ring + ((kt - lo) % kTcStages) * STAGE;
+    stage_tile<D>(ks, PQK, k, sk.s, kt * kTcKeys, kTcKeys, pr.seq, vec16);
+    stage_tile<D>(ks + kTcKeys * PQK, TcPitch<D>::v, v, sv.s, kt * kTcKeys,
+                  kTcKeys, pr.seq, vec16);
+    cp_async_commit();
+  };
+  // the query rows go with the first group; one group per tile, empty past
+  // the last tile, so the count of groups in flight stays kTcStages - 1
+  stage_tile<D>(qs, PQK, q, sq.s, q0, kTcQRows, pr.seq, vec16);
+#pragma unroll
+  for (int i = 0; i < kTcStages - 1; ++i) {
+    if (lo + i < hi) stage_kv(lo + i);
+    else cp_async_commit();
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  for (int kt = lo; kt < hi; ++kt) {
+    // into the stage that tile kt - 1 left
+    if (kt + kTcStages - 1 < hi) stage_kv(kt + kTcStages - 1);
+    else cp_async_commit();
+    cp_async_wait<kTcStages - 1>();
+    __syncthreads();  // tile kt is in, for every thread's copies
+    if (kt >= wlo && kt < whi) {
+      const float* ks = ring + ((kt - lo) % kTcStages) * STAGE;
+      tc_tile<D>(qs + warp * kTcRows * PQK, ks, ks + kTcKeys * PQK, pr, wq0,
+                 kt * kTcKeys, acc, m, l);
+    }
+    __syncthreads();  // done with this stage before it is refilled
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wq0 + g + 8 * r;
+    if (row >= pr.seq) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    float* out = o + row * so.s + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const float v0 = acc[n][2 * r] / denom, v1 = acc[n][2 * r + 1] / denom;
+      if (vec16) {
+        *reinterpret_cast<float2*>(out + 8 * n) = make_float2(v0, v1);
+      } else {
+        out[8 * n] = v0;
+        out[8 * n + 1] = v1;
+      }
+    }
+    if (t == 0) lse[row] = m[r] * kTcLn2 + logf(denom);
+  }
+}
+
 Strides strides_at(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
@@ -665,19 +976,6 @@ cudaError_t allow_max_smem(Kernel kernel) {
 
 dim3 grid_of(int batch, int heads, int seq) {
   return dim3(batch * heads, (seq + kTile - 1) / kTile);
-}
-
-template <int D>
-int launch_fwd(const float* q, const float* k, const float* v, float* o,
-               float* lse, int batch, const long long* st, Problem pr,
-               cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (3 * kTile * (D + 1) + kTile * kPitchP);
-  static const cudaError_t attr = allow_max_smem(fwd_kernel<D>);
-  if (attr != cudaSuccess) return attr;
-  fwd_kernel<D><<<grid_of(batch, pr.heads, pr.seq), kThreads, smem, stream>>>(
-      q, k, v, o, lse, strides_at(st, 0), strides_at(st, 1),
-      strides_at(st, 2), strides_at(st, 3), pr);
-  return cudaGetLastError();
 }
 
 template <int D>
@@ -717,8 +1015,39 @@ dim3 short_grid(int batch, const Problem& pr, int hpb) {
   return dim3((batch * pr.heads + hpb - 1) / hpb);
 }
 
-size_t short_smem_bytes(int hpb) {
-  return sizeof(float) * 4 * kShortRows * hpb;
+// `operands` staged rows of kShortRows floats per warp
+size_t short_smem_bytes(int hpb, int operands) {
+  return sizeof(float) * operands * kShortRows * hpb;
+}
+
+template <int VEC>
+int launch_fwd_short(const float* q, const float* k, const float* v,
+                     float* o, float* lse, int batch, const long long* st,
+                     Problem pr, int hpb, cudaStream_t stream) {
+  static const cudaError_t attr = allow_max_smem(fwd_short_kernel<VEC>);
+  if (attr != cudaSuccess) return attr;
+  fwd_short_kernel<VEC><<<short_grid(batch, pr, hpb), 32 * hpb,
+                          short_smem_bytes(hpb, 3), stream>>>(
+      q, k, v, o, lse, strides_at(st, 0), strides_at(st, 1),
+      strides_at(st, 2), strides_at(st, 3), pr, batch * pr.heads);
+  return cudaGetLastError();
+}
+
+// The tiled forward: a block per (batch*head, query tile), the query rows
+// and the key/value ring in shared memory.
+template <int D>
+int launch_fwd_tc(const float* q, const float* k, const float* v, float* o,
+                  float* lse, int batch, const long long* st, Problem pr,
+                  int vec, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (kTcQRows * TcPitch<D>::qk +
+                                       kTcStages * TcPitch<D>::stage);
+  static const cudaError_t attr = allow_max_smem(fwd_tc_kernel<D>);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(batch * pr.heads, (pr.seq + kTcQRows - 1) / kTcQRows);
+  fwd_tc_kernel<D><<<grid, 32 * kTcWarps, smem, stream>>>(
+      q, k, v, o, lse, strides_at(st, 0), strides_at(st, 1),
+      strides_at(st, 2), strides_at(st, 3), pr, vec == 16);
+  return cudaGetLastError();
 }
 
 template <int VEC>
@@ -729,7 +1058,7 @@ int launch_dq_short(const float* q, const float* k, const float* v,
   static const cudaError_t attr = allow_max_smem(dq_short_kernel<VEC>);
   if (attr != cudaSuccess) return attr;
   dq_short_kernel<VEC><<<short_grid(batch, pr, hpb), 32 * hpb,
-                         short_smem_bytes(hpb), stream>>>(
+                         short_smem_bytes(hpb, 4), stream>>>(
       q, k, v, dout, lse, delta, dq, strides_at(st, 0), strides_at(st, 1),
       strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), pr,
       batch * pr.heads);
@@ -745,7 +1074,7 @@ int launch_dkdv_short(const float* q, const float* k, const float* v,
   static const cudaError_t attr = allow_max_smem(dkdv_short_kernel<VEC>);
   if (attr != cudaSuccess) return attr;
   dkdv_short_kernel<VEC><<<short_grid(batch, pr, hpb), 32 * hpb,
-                           short_smem_bytes(hpb), stream>>>(
+                           short_smem_bytes(hpb, 4), stream>>>(
       q, k, v, dout, lse, delta, dk, dv, strides_at(st, 0),
       strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
       strides_at(st, 4), strides_at(st, 5), pr, batch * pr.heads);
@@ -765,24 +1094,34 @@ bool short_plan_ok(int seq, int d, int hpb, int vec) {
 // C interface (loaded with ctypes). Operands are (batch, heads, seq, d)
 // f32 with unit d stride; `strides` holds (b, h, s) element strides per
 // operand, in argument order. lse and delta are contiguous (batch*heads,
-// seq). window <= 0 means no window. The backward pair also takes the
-// launch plan (kernel.py `attention_plan`): short_form != 0 runs the
-// short form (seq <= 32, d = 32) with `heads_per_block` warps per block
-// and `vec`-byte staging copies (16 needs every pointer and (b, h, s)
-// stride 16-byte aligned), else the 64-row tiled kernels. Returns the CUDA
-// error code of the launch (0 on success); the kernels run asynchronously
-// on `stream`.
+// seq). window <= 0 means no window. Every entry also takes the launch
+// plan (kernel.py `attention_plan`): short_form != 0 runs the short form
+// (seq <= 32, d = 32) with `heads_per_block` warps per block and
+// `vec`-byte staging copies (16 needs every pointer and (b, h, s) stride
+// 16-byte aligned), else the tiled kernels: the forward's on the tensor
+// cores with `vec`-byte copies (heads_per_block unused), the backward's
+// 64-row tiles. Returns the CUDA error code of the
+// launch (0 on success); the kernels run asynchronously on `stream`.
 extern "C" int flash_attention_fwd(const float* q, const float* k,
                                    const float* v, float* o, float* lse,
                                    int batch, int heads, int seq, int d,
                                    const long long* strides, float scale,
-                                   int causal, int window,
+                                   int causal, int window, int short_form,
+                                   int heads_per_block, int vec,
                                    cudaStream_t stream) {
   const Problem pr{heads, seq, scale, causal, window};
+  if (short_form) {
+    if (!short_plan_ok(seq, d, heads_per_block, vec))
+      return cudaErrorInvalidValue;
+    return vec == 16
+        ? launch_fwd_short<16>(q, k, v, o, lse, batch, strides, pr, heads_per_block, stream)
+        : launch_fwd_short<4>(q, k, v, o, lse, batch, strides, pr, heads_per_block, stream);
+  }
+  if (vec != 4 && vec != 16) return cudaErrorInvalidValue;
   switch (d) {
-    case 32: return launch_fwd<32>(q, k, v, o, lse, batch, strides, pr, stream);
-    case 64: return launch_fwd<64>(q, k, v, o, lse, batch, strides, pr, stream);
-    case 128: return launch_fwd<128>(q, k, v, o, lse, batch, strides, pr, stream);
+    case 32: return launch_fwd_tc<32>(q, k, v, o, lse, batch, strides, pr, vec, stream);
+    case 64: return launch_fwd_tc<64>(q, k, v, o, lse, batch, strides, pr, vec, stream);
+    case 128: return launch_fwd_tc<128>(q, k, v, o, lse, batch, strides, pr, vec, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -15,10 +15,11 @@ Dispatch is by tensor device only: CPU tensors go to the plain versions in
 first use, or the call raises. ``LAUNCHES`` counts the kernel launches of
 each wrapper and nothing else.
 
-How the backward pair launches is decided here, in pure Python, by
+How every kernel launches is decided here, in pure Python, by
 :func:`attention_plan`: the short form (a warp per (b, h) head, a lane per
-row) where S <= 32 and D = 32, else the 64-row tiled kernels; heads per
-block and the staging copy width. The CPU tests check every plan the card
+row) where S <= 32 and D = 32, else the tiled kernels (the forward's on the
+tensor cores, the backward's 64-row tiles); heads per block and the
+staging copy width. The CPU tests check every plan the card
 would run.
 """
 from __future__ import annotations
@@ -44,7 +45,7 @@ _PROBLEM = [_I] * 4 + [_P, _F, _I, _I]  # b, h, s, d, strides, scale,
 #                                           causal, window
 _PLAN = [_I] * 3                        # short form, heads per block, vec
 _ARGTYPES = {
-    "flash_attention_fwd": [_P] * 5 + _PROBLEM + [_P],
+    "flash_attention_fwd": [_P] * 5 + _PROBLEM + _PLAN + [_P],
     "flash_attention_bwd_dq": [_P] * 7 + _PROBLEM + _PLAN + [_P],
     "flash_attention_bwd_dkdv": [_P] * 8 + _PROBLEM + _PLAN + [_P],
 }
@@ -52,45 +53,60 @@ _ARGTYPES = {
 # The short form (csrc kShortMaxSeq, kShortD): a lane per row of a head.
 SHORT_MAX_SEQ = 32
 SHORT_HEAD_DIM = 32
-# Warps (heads) per block of the short form: one spreads the heads over
-# the SMs most evenly (tools/flash_attention_variants.py: fastest at the
-# round's shape, within 3 % of two at the statistics pass's, 4 and 8
-# slower at both). csrc kMaxHeadsPerBlock bounds it.
+# Warps (heads) per block of the short forms: one spreads the heads over
+# the SMs most evenly (tools/flash_attention_variants.py, backward and
+# forward alike: fastest or within 3 % of two at the round's and the
+# statistics pass's shapes, 4 and 8 slower at both). csrc
+# kMaxHeadsPerBlock bounds it.
 HEADS_PER_BLOCK = 1
 MAX_HEADS_PER_BLOCK = 8
 
 
 @dataclasses.dataclass(frozen=True)
 class AttentionPlan:
-    """One backward wrapper call. ``form`` is ``"short"`` (a warp per
-    (b, h) head, ``heads_per_block`` warps per block, cp.async staging
-    copies of ``vec`` bytes: 16 where every pointer and (b, h, s) stride
-    allows it, else 4) or ``"tiled"`` (a 256-thread block per head and
-    64-row tile, 4-byte loads)."""
+    """One wrapper call. ``form`` is ``"short"`` (a warp per (b, h) head,
+    ``heads_per_block`` warps per block, cp.async staging copies of ``vec``
+    bytes: 16 where every pointer and (b, h, s) stride allows it, else 4)
+    or ``"tiled"``: the forward's tensor-core tiles (a block of 4 warps
+    per head and 64 query rows, cp.async copies of ``vec`` bytes by the
+    same rule) or the backward's 256-thread block per head and 64-row tile
+    (4-byte loads)."""
     form: str
     heads_per_block: int
     vec: int
 
 
 def attention_plan(b: int, h: int, s: int, d: int, *,
-                   strides: Sequence[int] = (),
-                   aligned: bool = False) -> AttentionPlan:
-    """The backward pair's plan for ``b`` x ``h`` heads of ``s`` rows of
-    width ``d``. ``strides`` are the (b, h, s) element strides of every
-    operand, ``aligned`` whether every pointer is 16-byte aligned."""
-    if not (s <= SHORT_MAX_SEQ and d == SHORT_HEAD_DIM):
-        return AttentionPlan("tiled", 1, 4)
+                   strides: Sequence[int] = (), aligned: bool = False,
+                   forward: bool = False) -> AttentionPlan:
+    """The plan of the forward (``forward``) or of the backward pair for
+    ``b`` x ``h`` heads of ``s`` rows of width ``d``. ``strides`` are the
+    (b, h, s) element strides of every operand, ``aligned`` whether every
+    pointer is 16-byte aligned."""
     vec = 16 if aligned and all(st % 4 == 0 for st in strides) else 4
-    return AttentionPlan("short", HEADS_PER_BLOCK, vec)
+    if s <= SHORT_MAX_SEQ and d == SHORT_HEAD_DIM:
+        return AttentionPlan("short", HEADS_PER_BLOCK, vec)
+    return AttentionPlan("tiled", 1, vec if forward else 4)
 
 
-def attention_bwd_plan(*tensors: torch.Tensor) -> AttentionPlan:
-    """The plan for these (B, H, S, D) operands, inputs and outputs (unit
-    last strides)."""
+def _plan_for(forward: bool, tensors) -> AttentionPlan:
     return attention_plan(
         *tensors[0].shape,
         strides=[st for t in tensors for st in t.stride()[:3]],
-        aligned=all(t.data_ptr() % 16 == 0 for t in tensors))
+        aligned=all(t.data_ptr() % 16 == 0 for t in tensors),
+        forward=forward)
+
+
+def attention_fwd_plan(*tensors: torch.Tensor) -> AttentionPlan:
+    """The forward's plan for these (B, H, S, D) operands, q, k, v and o
+    (unit last strides)."""
+    return _plan_for(True, tensors)
+
+
+def attention_bwd_plan(*tensors: torch.Tensor) -> AttentionPlan:
+    """The backward pair's plan for these (B, H, S, D) operands, inputs and
+    outputs (unit last strides)."""
+    return _plan_for(False, tensors)
 
 
 def library():
@@ -151,6 +167,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty(q.shape[:3], device=q.device, dtype=torch.float32)
     tail = _problem(q, window, causal, q, k, v, o)
     if o.numel():
+        tail += _plan_args(attention_fwd_plan(q, k, v, o))
         build.launch(library(), "flash_attention_fwd", "flash_attention",
                      LAUNCHES, q.device, q.data_ptr(), k.data_ptr(),
                      v.data_ptr(), o.data_ptr(), lse.data_ptr(), *tail)

@@ -180,6 +180,7 @@ def _bshd_views(b, h, s, d, n=5):
     ("causal 1024", ("tiled", 1, 4)),
     ("window 256", ("tiled", 1, 4)),
     ("full 256", ("tiled", 1, 4)),
+    ("tiled S=100 D=32", ("tiled", 1, 4)),
 ])
 def test_attention_plan_for_chip_smoke_cases(label, want):
     b, h, s, d, _, _ = _chip_smoke_fa_cases()[label]
@@ -319,10 +320,23 @@ def test_short_form_order_of_work_matches_reference_pallas(s, causal,
         np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
 
 
+def _launchable(plan, s, d, forward) -> bool:
+    """The plan is one the C entries take (csrc short_plan_ok and the
+    forward's check of its copy width): the short form within S <= 32,
+    D = 32, 1-8 heads per block and 4- or 16-byte copies; the forward's
+    tiled form with 4- or 16-byte copies; the backward's tiled form as it
+    is."""
+    if plan.form == "short":
+        return (s <= kernel.SHORT_MAX_SEQ and d == kernel.SHORT_HEAD_DIM
+                and 1 <= plan.heads_per_block <= kernel.MAX_HEADS_PER_BLOCK
+                and plan.vec in (4, 16))
+    return plan.form == "tiled" and (not forward or plan.vec in (4, 16))
+
+
 def test_variant_tool_plans_are_launchable():
-    """Every plan variant of tools/flash_attention_variants.py is one the
-    C entries take: the short form within S <= 32, D = 32, 1-8 heads per
-    block and 4- or 16-byte copies, or the tiled form."""
+    """Every plan variant of tools/flash_attention_variants.py, forward and
+    backward, is one the C entries take, and each forward variant runs the
+    form it is meant to."""
     import importlib.util
     import pathlib
     path = (pathlib.Path(__file__).resolve().parents[1] / "tools"
@@ -337,7 +351,225 @@ def test_variant_tool_plans_are_launchable():
         assert base.form == "short"
         for name, change in mod.PLANS.items():
             plan = base if change is None else change(base)
-            assert plan.form in ("short", "tiled"), name
-            if plan.form == "short":
-                assert 1 <= plan.heads_per_block <= \
-                    kernel.MAX_HEADS_PER_BLOCK and plan.vec in (4, 16), name
+            assert _launchable(plan, s, d, forward=False), name
+    for label in mod.SHORT_CASES + mod.TILED_CASES:
+        b, h, s, d, _, _ = cases[label]
+        base = kernel.attention_fwd_plan(*_bshd_views(b, h, s, d, n=4))
+        short = label in mod.SHORT_CASES
+        assert base.form == ("short" if short else "tiled"), label
+        plans = mod.FWD_PLANS if short else mod.FWD_TILED_PLANS
+        for name, change in plans.items():
+            plan = base if change is None else change(base, b, h, s)
+            assert _launchable(plan, s, d, forward=True), (label, name)
+            assert plan.form == ("tiled" if name == "tiled_form"
+                                 else base.form), (label, name)
+
+
+# ---------------------------------------------------------------------------
+# the forward's launch plan, its short form's order of work and its
+# tensor-core form's arithmetic
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("label,want", [
+    # the FL path: the short form, a warp per head, 16-byte copies
+    ("round", ("short", 1, 16)),
+    ("stats", ("short", 1, 16)),
+    ("sigma M=1", ("short", 1, 16)),
+    ("S=20 window 8", ("short", 1, 16)),
+    ("full 32", ("short", 1, 16)),
+    # the tensor-core tiles, with 16-byte copies of the aligned views
+    ("causal 1024", ("tiled", 1, 16)),
+    ("window 256", ("tiled", 1, 16)),
+    ("full 256", ("tiled", 1, 16)),
+    ("tiled S=100 D=32", ("tiled", 1, 16)),
+])
+def test_forward_plan_for_chip_smoke_cases(label, want):
+    b, h, s, d, _, _ = _chip_smoke_fa_cases()[label]
+    plan = kernel.attention_fwd_plan(*_bshd_views(b, h, s, d, n=4))
+    assert (plan.form, plan.heads_per_block, plan.vec) == want
+
+
+@pytest.mark.parametrize("s,d,form", [(1, 32, "short"), (32, 32, "short"),
+                                      (33, 32, "tiled"), (32, 64, "tiled"),
+                                      (16, 128, "tiled")])
+def test_forward_plan_short_form_bounds(s, d, form):
+    plan = kernel.attention_plan(570, 2, s, d, forward=True)
+    assert plan.form == form
+    assert _launchable(plan, s, d, forward=True)
+
+
+def test_forward_plan_copy_width_is_16_bytes_only_where_aligned():
+    """The forward's copies follow the backward's rule, in both forms: an
+    odd row stride from a sliced view, or an unaligned pointer, takes
+    4-byte copies."""
+    for s, d, form in ((32, 32, "short"), (96, 64, "tiled")):
+        b, h = 12, 2
+        views = _bshd_views(b, h, s, d, n=4)
+        assert kernel.attention_fwd_plan(*views).vec == 16
+        sliced = torch.empty(b, s, h * d + 1)[..., :h * d].unflatten(
+            -1, (h, d)).transpose(1, 2)
+        plan = kernel.attention_fwd_plan(sliced, *views[1:])
+        assert (plan.form, plan.vec) == (form, 4)
+        strides = [st for x in views for st in x.stride()[:3]]
+        unaligned = kernel.attention_plan(b, h, s, d, strides=strides,
+                                          aligned=False, forward=True)
+        assert (unaligned.form, unaligned.vec) == (form, 4)
+
+
+def _short_fwd(q, k, v, s, causal, window):
+    """o, lse in the forward short form's order of work on 32-row operands
+    of which rows [0, s) are real: lane i holds q_i; pass 1 walks keys j =
+    0 .. s-1 in order, s_ij = (q_i . k_j) * scale and m_i = the max over
+    the visible j; pass 2 walks them again: p = exp(s_ij - m_i) (exactly 0
+    where masked), l_i += p, acc_i += p * v_j; o_i = acc_i * (1 /
+    max(l_i, 1e-30)), lse_i = m_i + log(max(l_i, 1e-30)). Rows past s are
+    never read."""
+    scale = q.shape[-1] ** -0.5
+    qr = _lanes(q, s)
+    lane = torch.arange(32)
+    m = torch.full(qr.shape[:3], -1e30)
+    scores = []
+    for j in range(s):
+        sc = _dot4(qr, k[:, :, j:j + 1]) * scale
+        vis = _visible(lane, torch.tensor(j), causal, window) & (lane < s)
+        m = torch.where(vis, torch.maximum(m, sc), m)
+        scores.append(sc)
+    l_sum, acc = torch.zeros_like(m), torch.zeros_like(qr)
+    for j in range(s):
+        vis = _visible(lane, torch.tensor(j), causal, window) & (lane < s)
+        p = torch.where(vis, torch.exp(scores[j] - m), 0.0)
+        l_sum = l_sum + p
+        acc = acc + p[..., None] * v[:, :, j:j + 1]
+    denom = torch.clamp(l_sum, min=1e-30)
+    o = acc * (1.0 / denom)[..., None]
+    return o[:, :, :s], (m + torch.log(denom))[:, :, :s]
+
+
+@pytest.mark.parametrize("s,causal,window", [(32, True, None), (20, True, 8),
+                                             (32, False, None)])
+def test_forward_short_form_order_of_work_matches_reference_pallas(
+        s, causal, window):
+    """A plain-torch emulation of the forward's short form (a lane per row,
+    a scores pass and an accumulation pass over the keys in order, masked
+    pairs exactly 0, the loops stopping at S) against the reference's
+    flash_attention in interpret mode, o and lse. The rows past S of the
+    emulation's 32-row operands are NaN: they would poison every output if
+    any were read."""
+    b, h, d = 3, 2, 32
+    q, k, v, _ = _qkv_do(b, h, s, d, seed=200 + s)
+    o_ref, lse_ref = ref_kernel.flash_attention(
+        q, k, v, causal=causal, window=window, block_q=s, block_k=s,
+        interpret=True, return_lse=True)
+
+    def pad(a):
+        out = np.full(a.shape[:2] + (32,) + a.shape[3:], np.nan, np.float32)
+        out[:, :, :s] = a
+        return torch.from_numpy(out)
+    o, lse = _short_fwd(pad(q), pad(k), pad(v), s, causal, window)
+    assert kernel.attention_plan(b, h, s, d, forward=True).form == "short"
+    np.testing.assert_allclose(_np(o), np.asarray(o_ref), **TOL)
+    np.testing.assert_allclose(_np(lse), np.asarray(lse_ref), **TOL)
+
+
+def _fused_linear_tests():
+    """tests/test_torch_fused_linear.py, for its 3xTF32 helpers
+    (``_rna_tf32``, ``_tensor_core_product``)."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().with_name(
+        "test_torch_fused_linear.py")
+    spec = importlib.util.spec_from_file_location("_fl_tests", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _tc_keys() -> int:
+    """The tiled forward's keys per tile (csrc kTcKeys)."""
+    import re
+    found = re.search(r"constexpr int kTcKeys = (\d+);",
+                      kernel.SOURCE.read_text())
+    return int(found.group(1))
+
+
+def _tc_forward(q, k, v, causal, window, terms="3x"):
+    """o, lse of (B, H, S, D) f32 numpy operands in the tensor-core tiled
+    forward's arithmetic (csrc fwd_tc_kernel): a warp's 16 query rows walk
+    the key tiles they can see (key_tiles, kTcKeys keys); per tile, S = the
+    sum over 32-wide stages of d of four chained 3xTF32 k-steps, each stage
+    added to S in f32; the online softmax in base 2 (scores times scale *
+    log2 e, p = 2^(s - m), masked pairs exactly 0, lse = m ln 2 + log l);
+    P V as the tile's chained k-steps, reaching acc in one fused f32 add,
+    acc = acc * alpha + P V. ``terms`` "1x": one TF32 product instead of
+    three."""
+    tcp = _fused_linear_tests()._tensor_core_product
+    b, h, s, d = q.shape
+    scale = np.float32(d ** -0.5) * np.float32(np.log2(np.e))
+    keys = _tc_keys()
+    pad = -(-s // keys) * keys + 16
+    o = np.zeros_like(q)
+    lse = np.zeros((b, h, s), np.float32)
+    for bi in range(b):
+        for hi in range(h):
+            qh, kh, vh = (np.zeros((pad, d), np.float32) for _ in range(3))
+            qh[:s], kh[:s], vh[:s] = q[bi, hi], k[bi, hi], v[bi, hi]
+            for w0 in range(0, s, 16):
+                rows = np.arange(w0, w0 + 16)[:, None]
+                last = min(w0 + 16, s) - 1
+                lo = max(0, w0 - window + 1) // keys if window else 0
+                hi_t = last // keys + 1 if causal else -(-s // keys)
+                m = np.full(16, -1e30, np.float32)
+                l_sum = np.zeros(16, np.float32)
+                acc = np.zeros((16, d), np.float32)
+                for kt in range(lo, hi_t):
+                    k0 = kt * keys
+                    cols = np.arange(k0, k0 + keys)[None, :]
+                    sc = np.zeros((16, keys), np.float32)
+                    for d0 in range(0, d, 32):
+                        stage = tcp(qh[w0:w0 + 16, d0:d0 + 32],
+                                    kh[k0:k0 + keys, d0:d0 + 32].T, terms)
+                        sc = (sc + stage).astype(np.float32)
+                    vis = (rows < s) & (cols < s)
+                    if causal:
+                        vis &= cols <= rows
+                    if window:
+                        vis &= cols > rows - window
+                    sc = np.where(vis, sc * scale, np.float32(-1e30))
+                    m_new = np.maximum(m, sc.max(1))
+                    alpha = np.exp2(m - m_new).astype(np.float32)
+                    p = np.where(vis, np.exp2(sc - m_new[:, None]),
+                                 0).astype(np.float32)
+                    l_sum = (alpha * l_sum + p.sum(1)).astype(np.float32)
+                    pv = tcp(p, vh[k0:k0 + keys], terms)
+                    acc = (acc.astype(np.float64) * alpha[:, None]
+                           + pv).astype(np.float32)
+                    m = m_new
+                n = min(16, s - w0)
+                denom = np.maximum(l_sum, np.float32(1e-30))
+                o[bi, hi, w0:w0 + n] = (acc / denom[:, None])[:n]
+                lse[bi, hi, w0:w0 + n] = (m * np.float32(np.log(2))
+                                          + np.log(denom))[:n]
+    return o, lse
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48)])
+def test_forward_3xtf32_emulation_matches_reference_pallas(causal, window):
+    """The tensor-core forward's arithmetic (numpy emulation: rna_tf32
+    split, three products per k-step, a per-stage f32 add for S, the
+    softmax in base 2 and a per-key-tile fused f32 add for P V with the
+    online rescale) against
+    the reference's flash_attention in interpret mode at two 64-key tiles
+    and eight 16-row warps per head, o and lse, at the file's TOL (the
+    reference's f32 attention tolerance). One TF32 product instead of three
+    misses TOL, so the check has teeth."""
+    b, h, s, d = 1, 2, 128, 64
+    q, k, v, _ = _qkv_do(b, h, s, d, seed=300 + (window or 0))
+    o_ref, lse_ref = ref_kernel.flash_attention(
+        q, k, v, causal=causal, window=window, block_q=BLOCK,
+        block_k=BLOCK, interpret=True, return_lse=True)
+    o, lse = _tc_forward(q, k, v, causal, window)
+    np.testing.assert_allclose(o, np.asarray(o_ref), **TOL)
+    np.testing.assert_allclose(lse, np.asarray(lse_ref), **TOL)
+    o1, _ = _tc_forward(q, k, v, causal, window, terms="1x")
+    assert not np.allclose(o1, np.asarray(o_ref), **TOL)

@@ -552,7 +552,8 @@ def _tool(name: str):
 
 
 @pytest.mark.parametrize("name", ["fused_linear_variants",
-                                  "ssd_scan_variants"])
+                                  "ssd_scan_variants",
+                                  "flash_attention_variants"])
 def test_variant_tool_substitutions_match_the_source(name):
     """Every text substitution of a variant tool finds its text exactly
     once in the CUDA source it edits (the tool raises on the card where one

@@ -1,20 +1,30 @@
-"""Launch-plan variants of the flash-attention backward pair, side by side
-on one card.
+"""Design and launch-plan variants of the flash-attention kernels, side by
+side on one card.
 
     python3 tools/flash_attention_variants.py
 
-Run from the root of a checkout on a machine with a CUDA card. The source
-is built as it is (no substitutions); each variant changes one choice of
-the backward's launch plan (``kernel.attention_bwd_plan``): heads per block
-of the short form, its staging copy width, or the 64-row tiled form forced
-where the short form would run. Each is driven through the wrappers at
-chip_smoke.py's round and statistics shapes, held against the plain
-versions (chip_smoke.py's FA_RTOL x the output scale) and timed on the
-device (chip_smoke.py's ``device_ms``); SDPA's whole backward is timed
-beside them. ``plan`` (the wrapper's own) runs first and again last, which
-shows the run's spread. Prints the registers and spills of every kernel of
-the source (``ptxas -v``), then one line per case, variant and kernel, in
-milliseconds.
+Run from the root of a checkout on a machine with a CUDA card. It prints
+the registers and spills of every kernel of the source as it is (``ptxas
+-v``), then times, each held against the plain versions (chip_smoke.py's
+FA_RTOL x the output scale) and timed on the device (chip_smoke.py's
+``device_ms``):
+
+1. forward source variants (VARIANTS): the source with one design choice
+   of the forward undone (a text substitution), all compiled in parallel
+   with the port's nvcc flags into ``build/variants/``, loaded with ctypes
+   and driven through the wrapper with its own plan: the short form at
+   chip_smoke.py's round, statistics and sigma shapes, the tensor-core
+   tiled form at its multi-tile shapes;
+2. forward plan variants (FWD_PLANS, FWD_TILED_PLANS): heads per block
+   1-8, 4-byte copies and the tiled form forced where the short form runs;
+   4-byte copies where the tiled form runs; SDPA's forward beside them;
+3. backward plan variants (PLANS): heads per block of the short form, its
+   staging copy width, or the 64-row tiled form forced, at the round's and
+   statistics shapes; SDPA's whole backward beside them.
+
+``base`` / ``plan`` (the source and the wrapper's plan as they are) runs
+first and again last, which shows the run's spread. One line per case,
+variant and kernel, in milliseconds.
 """
 from __future__ import annotations
 
@@ -35,7 +45,119 @@ import chip_smoke  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel, ref  # noqa: E402
 
-# name -> change to the wrapper's plan (None: the plan as it is)
+_SHORT_PASSES = (
+    "  float m = kNegInf;\n"
+    "#pragma unroll 4\n"
+    "  for (int j = 0; j < seq; ++j) {\n"
+    "    const float s = dot(qr, ks + j * kShortPitch) * pr.scale;\n"
+    "    qs[j * 32 + lane] = s;\n"
+    "    if (visible(pr, lane, j)) m = fmaxf(m, s);\n"
+    "  }\n"
+    "  float l = 0.f;\n"
+    "#pragma unroll\n"
+    "  for (int d = 0; d < kShortD; ++d) acc[d] = 0.f;\n"
+    "#pragma unroll 4\n"
+    "  for (int j = 0; j < seq; ++j) {\n"
+    "    const float p = visible(pr, lane, j) ? expf(qs[j * 32 + lane] - m)"
+    " : 0.f;\n")
+_KEYS = "constexpr int kTcKeys = 64;"
+_STAGES = "constexpr int kTcStages = 2;"
+_PV = "constexpr int kTcPvN = 8;"
+_WARPS = "constexpr int kTcWarps = 4;"
+_MMA3 = (
+    "#pragma unroll\n"
+    "  for (int j = 0; j < N; ++j) mma_tf32(c[j], as, bb[j]);\n"
+    "#pragma unroll\n"
+    "  for (int j = 0; j < N; ++j) mma_tf32(c[j], ab, bs[j]);\n"
+    "#pragma unroll\n"
+    "  for (int j = 0; j < N; ++j) mma_tf32(c[j], ab, bb[j]);\n")
+# name -> [(text in the source, its replacement)]
+VARIANTS = {
+    "base": [],
+    # the short forward in one pass, the online softmax rescaling the
+    # accumulator only when some lane's running max changes (the design the
+    # two passes replace)
+    "short_rescale_on_new_max": [(_SHORT_PASSES, (
+        "  float m = kNegInf, l = 0.f;\n"
+        "#pragma unroll\n"
+        "  for (int d = 0; d < kShortD; ++d) acc[d] = 0.f;\n"
+        "  for (int j = 0; j < seq; ++j) {\n"
+        "    const float s = dot(qr, ks + j * kShortPitch) * pr.scale;\n"
+        "    const bool vis = visible(pr, lane, j);\n"
+        "    const float m_new = vis ? fmaxf(m, s) : m;\n"
+        "    if (m_new > m) {\n"
+        "      const float alpha = expf(m - m_new);\n"
+        "      l *= alpha;\n"
+        "#pragma unroll\n"
+        "      for (int d = 0; d < kShortD; ++d) acc[d] *= alpha;\n"
+        "      m = m_new;\n"
+        "    }\n"
+        "    const float p = vis ? expf(s - m) : 0.f;\n"))],
+    # both passes of the short forward without their unroll by 4
+    "short_no_unroll": [(_SHORT_PASSES, _SHORT_PASSES.replace(
+        "#pragma unroll 4\n", ""))],
+    # the tiled forward's split without rounding the small part (the MMA
+    # reads its top 19 bits): two integer operations fewer per operand
+    "tc_small_truncated": [(
+        "  small = rna_tf32(a - __uint_as_float(big));",
+        "  small = __float_as_uint(a - __uint_as_float(big));")],
+    # the tiled forward with 32-key tiles (four n8 tiles of scores): half
+    # the shared memory, so two blocks share an SM at D = 128
+    "tc_keys_32": [(_KEYS, "constexpr int kTcKeys = 32;")],
+    # P V in chunks of 32 columns of d (four chains of MMAs, not eight)
+    "tc_pv_32": [(_PV, "constexpr int kTcPvN = 4;")],
+    # both: the first design of the tensor-core tiles
+    "tc_keys_32_pv_32": [(_KEYS, "constexpr int kTcKeys = 32;"),
+                         (_PV, "constexpr int kTcPvN = 4;")],
+    # the softmax in base e (expf), not base 2
+    "tc_expf": [
+        ("constexpr float kTcLog2e = 1.4426950408889634f;",
+         "constexpr float kTcLog2e = 1.f;"),
+        ("constexpr float kTcLn2 = 0.6931471805599453f;",
+         "constexpr float kTcLn2 = 1.f;"),
+        ("float tc_exp(float x) { return exp2f(x); }",
+         "float tc_exp(float x) { return expf(x); }")],
+    # 32 or 16 query rows per block (two warps or one), not 64
+    "tc_warps_2": [(_WARPS, "constexpr int kTcWarps = 2;")],
+    "tc_warps_1": [(_WARPS, "constexpr int kTcWarps = 1;")],
+    # a ring of one key/value tile (three do not fit in shared memory at
+    # D = 128)
+    "tc_stages_1": [(_STAGES, "constexpr int kTcStages = 1;")],
+    # the two small products of a k-step into their own accumulator, added
+    # in f32 after the k-step (a chain of one MMA per k-step, not three)
+    "tc_small_terms_apart": [(_MMA3, (
+        "  float c2[N][4] = {};\n"
+        "#pragma unroll\n"
+        "  for (int j = 0; j < N; ++j) mma_tf32(c2[j], as, bb[j]);\n"
+        "#pragma unroll\n"
+        "  for (int j = 0; j < N; ++j) mma_tf32(c2[j], ab, bs[j]);\n"
+        "#pragma unroll\n"
+        "  for (int j = 0; j < N; ++j) mma_tf32(c[j], ab, bb[j]);\n"
+        "#pragma unroll\n"
+        "  for (int j = 0; j < N; ++j)\n"
+        "#pragma unroll\n"
+        "    for (int e = 0; e < 4; ++e) c[j][e] += c2[j][e];\n"))],
+}
+SHORT_CASES = ("round", "stats", "sigma M=1")
+TILED_CASES = ("causal 1024", "window 256", "full 256")
+
+
+# forward plan variants where the short form runs: name -> change to the
+# wrapper's plan, given the plan and (b, h, s) (None: the plan as it is)
+FWD_PLANS = {
+    "plan": None,
+    **{f"heads_per_block={n}":
+       (lambda p, b, h, s, n=n: dataclasses.replace(p, heads_per_block=n))
+       for n in (1, 2, 4, 8)},
+    "copies_4_bytes": lambda p, b, h, s: dataclasses.replace(p, vec=4),
+    "tiled_form": lambda p, b, h, s: kernel.AttentionPlan("tiled", 1, p.vec),
+}
+# forward plan variants where the tiled form runs
+FWD_TILED_PLANS = {
+    "plan": None,
+    "copies_4_bytes": lambda p, b, h, s: dataclasses.replace(p, vec=4),
+}
+# backward plan variants: name -> change to the wrapper's plan
 PLANS = {
     "plan": None,
     **{f"heads_per_block={n}":
@@ -72,23 +194,93 @@ def print_registers() -> None:
         print(f"ptxas {name:22s} registers={regs} spill_bytes={spill}")
 
 
-def main() -> int:
-    chip_smoke.check(torch.cuda.is_available(), "needs one CUDA card")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
-    print_registers()
-    kernel.library()
-    torch.backends.cuda.matmul.allow_tf32 = False
+def build_variants() -> dict:
+    """name -> loaded library of every VARIANTS source, built in parallel."""
+    out_dir = build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    source = kernel.SOURCE.read_text()
+    paths = {}
+    for name, subs in VARIANTS.items():
+        text = source
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"variant {name}: substitution does not "
+                                   f"match the source once: {old[:60]!r}")
+            text = text.replace(old, new)
+        path = out_dir / f"flash_attention_{name}.cu"
+        path.write_text(text)
+        paths[name] = path
+    build.build_all(list(paths.values()))
+    return {name: build.load(path, kernel._ARGTYPES)
+            for name, path in paths.items()}
+
+
+def _inputs(label: str, g: torch.Generator):
+    b, h, s, d, causal, window = {c[0]: c[1:]
+                                  for c in chip_smoke.FA_CASES}[label]
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=g)
+                   .transpose(1, 2) for _ in range(4))
+    return (b, h, s, d, causal, window), (q, k, v, do)
+
+
+def _err(got, want) -> float:
+    """max |got - want| over the outputs, over the largest output scale
+    (at least 1)."""
+    scale = max(1.0, max(float(w.abs().max()) for w in want))
+    return max(float((a - w).abs().max()) for a, w in zip(got, want)) / scale
+
+
+def _line(label, name, which, fn, want, plan=None) -> None:
+    err = _err(fn(), want)
+    note = " OVER FA_RTOL" if err > chip_smoke.FA_RTOL else ""
+    plan_txt = "" if plan is None else (
+        f" plan: form={plan.form} heads_per_block={plan.heads_per_block} "
+        f"vec={plan.vec}")
+    print(f"variant {label:11s} {name:24s} {which:4s} "
+          f"ms={chip_smoke.device_ms(fn):.4f} err/scale={err:.1e}{note}"
+          f"{plan_txt}", flush=True)
+
+
+def forward_variants(g: torch.Generator) -> None:
+    libs = build_variants()
+    library = kernel.library
+    fwd_plan = kernel.attention_fwd_plan
+    for label in SHORT_CASES + TILED_CASES:
+        (b, h, s, d, causal, window), (q, k, v, _) = _inputs(label, g)
+        want = ref.attention_ref_lse(q, k, v, causal=causal, window=window)
+
+        def fn():
+            return kernel.flash_attention(q, k, v, causal, window)
+        short = fwd_plan(q, k, v, q).form == "short"
+        for name in list(VARIANTS) + ["base"]:
+            if name.startswith("tc_" if short else "short_"):
+                continue
+            kernel.library = lambda lib=libs[name]: lib
+            _line(label, name, "fwd", fn, want)
+        kernel.library = library
+        plans = FWD_PLANS if short else FWD_TILED_PLANS
+        for name, change in list(plans.items()) + [("plan", None)]:
+            kernel.attention_fwd_plan = (
+                fwd_plan if change is None else
+                lambda *t, c=change: c(fwd_plan(*t), b, h, s))
+            _line(label, name, "fwd", fn, want,
+                  kernel.attention_fwd_plan(q, k, v, q))
+        kernel.attention_fwd_plan = fwd_plan
+        lib_mask = (None if window is None
+                    else chip_smoke._visible(s, causal, window))
+        sdpa_ms = chip_smoke.device_ms(
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=lib_mask,
+                is_causal=causal and lib_mask is None))
+        print(f"variant {label:11s} {'sdpa_forward':24s} fwd  "
+              f"ms={sdpa_ms:.4f}", flush=True)
+
+
+def backward_variants(g: torch.Generator) -> None:
     plan_of = kernel.attention_bwd_plan
     runs = list(PLANS.items()) + [("plan", None)]
-    g = torch.Generator(device="cuda").manual_seed(1)
-    cases = {c[0]: c[1:] for c in chip_smoke.FA_CASES}
     for label in CASES:
-        b, h, s, d, causal, window = cases[label]
-        q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=g)
-                       .transpose(1, 2) for _ in range(4))
+        (b, h, s, d, causal, window), (q, k, v, do) = _inputs(label, g)
         o, lse = kernel.flash_attention(q, k, v, causal, window)
         delta = (do * o).sum(-1)
         args = (q, k, v, do, lse, delta)
@@ -104,25 +296,29 @@ def main() -> int:
         o_lib = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
         sdpa_ms = chip_smoke.device_ms(lambda: torch.autograd.grad(
             o_lib, (qg, kg, vg), do, retain_graph=True))
-        print(f"variant {label:6s} sdpa_backward ms={sdpa_ms:.4f}")
+        print(f"variant {label:11s} sdpa_backward ms={sdpa_ms:.4f}")
         for name, change in runs:
             kernel.attention_bwd_plan = (
                 plan_of if change is None else
                 lambda *t, c=change: c(plan_of(*t)))
             plan = kernel.attention_bwd_plan(q, k, v, do)
             for which, fn in fns.items():
-                got = fn()
-                scale = max(1.0, max(float(w.abs().max())
-                                     for w in want[which]))
-                err = max(float((a - w).abs().max())
-                          for a, w in zip(got, want[which])) / scale
-                note = " OVER FA_RTOL" if err > chip_smoke.FA_RTOL else ""
-                print(f"variant {label:6s} {name:18s} {which:4s} "
-                      f"ms={chip_smoke.device_ms(fn):.4f} "
-                      f"err/scale={err:.1e}{note} plan: form={plan.form} "
-                      f"heads_per_block={plan.heads_per_block} "
-                      f"vec={plan.vec}", flush=True)
+                _line(label, name, which, fn, want[which], plan)
         kernel.attention_bwd_plan = plan_of
+
+
+def main() -> int:
+    chip_smoke.check(torch.cuda.is_available(), "needs one CUDA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    print_registers()
+    kernel.library()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(1)
+    forward_variants(g)
+    backward_variants(g)
     return 0
 
 
