@@ -1,9 +1,16 @@
-"""Device-scheduling policies: the registry and DDSRA.
+"""Device-scheduling policies: DDSRA + the paper's four baselines (port of
+``repro.core.schedulers``).
 
 All schedulers share one interface: ``schedule(ctx) -> RoundDecision`` where
-ctx carries the drawn channel state, queues and feedback (losses). The
-paper's baselines (random, round robin, loss- and delay-driven) come in a
-later slice of the port.
+ctx carries the drawn channel state, queues and feedback (losses). Baselines
+fix the partition point, transmit power and frequency split ("the baseline
+schemes fix the transmit power, computation frequency and the DNN partition
+point", Sec. VII-C); a baseline round *fails* for a gateway whose fixed
+resources violate the energy/memory constraints. Host numpy, the same
+arithmetic in the same order as the reference's, so decisions, queues and
+delays are bit-identical. The reference's fused-loop hooks
+(``_TracedBaseline.plan_for``, ``traced_chosen``, ``traced_decide``) wait
+for the port of the fused simulation loop.
 """
 from __future__ import annotations
 
@@ -12,7 +19,9 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Type
 
 import numpy as np
 
-from repro_torch.core.ddsra import RoundDecision, Workload, ddsra_round
+from repro_torch.core.ddsra import (GatewaySolution, RoundDecision, Workload,
+                                    _cum, _train_times, ddsra_round)
+from repro_torch.core.lyapunov import update_queues
 from repro_torch.core.network import ChannelState, Network
 
 
@@ -29,6 +38,56 @@ class RoundContext:
     # (M,) updates dispatched but not yet landed at the server, per gateway
     # (None under synchronous engines, the only kind this slice has)
     inflight: Optional[np.ndarray] = None
+
+
+def _fixed_resource_solution(ctx: RoundContext, m: int, j: int,
+                             l_frac: float = 0.5) -> GatewaySolution:
+    """Evaluate a gateway at FIXED resources (baselines)."""
+    net, st, w = ctx.net, ctx.state, ctx.workload
+    cfg = net.cfg
+    devs = net.devices_of(m)
+    n_loc = len(devs)
+    big_l = w.n_layers
+    l = np.full(n_loc, int(round(l_frac * big_l)), dtype=int)
+    f_gw = np.full(n_loc, cfg.f_gw_max / max(n_loc, 1))
+    p_tx = cfg.p_max
+
+    cumf, cumg = _cum(w.flops), _cum(w.mem)
+    tot_f, tot_g = cumf[-1], cumg[-1]
+    e_dev = (w.k_iters * w.d_tilde[devs] * cfg.v_dev / cfg.phi_dev
+             * cumf[l] * net.f_dev[devs] ** 2)
+    e_tra_gw = float(np.sum(w.k_iters * w.d_tilde[devs] * cfg.v_gw / cfg.phi_gw
+                            * (tot_f - cumf[l]) * f_gw ** 2))
+    e_up = net.uplink_energy(m, j, p_tx, w.gamma, st)
+    mem_dev_ok = (cumg[l] <= cfg.g_dev_max).all()
+    mem_gw_ok = float(np.sum(tot_g - cumg[l])) <= cfg.g_gw_max
+    ok = (mem_dev_ok and mem_gw_ok and (e_dev <= st.e_dev[devs]).all()
+          and (e_tra_gw + e_up) <= st.e_gw[m])
+
+    t_train = float(np.max(_train_times(w, devs, l, net.f_dev[devs],
+                                        cfg.phi_dev, cfg.phi_gw, f_gw)))
+    lam = (t_train + net.uplink_time(m, j, p_tx, w.gamma, st)
+           + net.downlink_time(m, j, w.gamma, st))
+    return GatewaySolution(bool(ok), lam, l, f_gw, p_tx, e_dev,
+                           e_tra_gw + e_up)
+
+
+def _decision_for(ctx: RoundContext, chosen: np.ndarray) -> RoundDecision:
+    """Build a RoundDecision for baseline scheduler given chosen gateways."""
+    net = ctx.net
+    m_gw, j_ch = net.cfg.n_gateways, net.cfg.n_channels
+    eye = np.zeros((m_gw, j_ch))
+    lam = np.full((m_gw, j_ch), np.inf)
+    sols: Dict = {}
+    for j, m in enumerate(chosen[:j_ch]):
+        sol = _fixed_resource_solution(ctx, int(m), j)
+        sols[(int(m), j)] = sol
+        lam[int(m), j] = sol.delay
+        eye[int(m), j] = 1.0
+    selected = eye.sum(axis=1) > 0
+    tau = float(np.where(eye > 0, lam, -np.inf).max())
+    new_q = update_queues(ctx.queues, selected, ctx.gamma_rates)
+    return RoundDecision(eye, selected, lam, sols, tau, new_q)
 
 
 # ---------------------------------------------------------------------------
@@ -115,3 +174,60 @@ class DDSRAScheduler:
     def schedule(self, ctx: RoundContext) -> RoundDecision:
         return ddsra_round(ctx.workload, ctx.net, ctx.state, ctx.queues,
                            ctx.gamma_rates, ctx.v)
+
+
+@register_policy("random", kwargs=("seed",))
+class RandomScheduler:
+    """Random Scheduling [26]: uniform J gateways per round, drawn from the
+    policy's own generator (checkpointed by :func:`policy_state`)."""
+
+    def __init__(self, seed: int = 0):
+        self.rng = np.random.default_rng(seed)
+
+    def schedule(self, ctx: RoundContext) -> RoundDecision:
+        m, j = ctx.net.cfg.n_gateways, ctx.net.cfg.n_channels
+        chosen = self.rng.choice(m, size=j, replace=False)
+        return _decision_for(ctx, chosen)
+
+
+@register_policy("round_robin")
+class RoundRobinScheduler:
+    """Round Robin [26]: consecutive groups of J gateways."""
+
+    def schedule(self, ctx: RoundContext) -> RoundDecision:
+        m, j = ctx.net.cfg.n_gateways, ctx.net.cfg.n_channels
+        start = (ctx.t * j) % m
+        chosen = (start + np.arange(j)) % m
+        return _decision_for(ctx, chosen)
+
+
+@register_policy("loss_driven")
+class LossDrivenScheduler:
+    """Select the J gateways with the largest recent local loss."""
+
+    # decisions depend on training feedback (ctx.losses)
+    reads_losses = True
+
+    def schedule(self, ctx: RoundContext) -> RoundDecision:
+        m, j = ctx.net.cfg.n_gateways, ctx.net.cfg.n_channels
+        losses = ctx.losses if ctx.losses is not None else np.zeros(m)
+        chosen = np.argsort(-losses)[:j]
+        return _decision_for(ctx, chosen)
+
+
+@register_policy("delay_driven")
+class DelayDrivenScheduler:
+    """Select the J gateways with the smallest fixed-resource delay."""
+
+    def schedule(self, ctx: RoundContext) -> RoundDecision:
+        m, j = ctx.net.cfg.n_gateways, ctx.net.cfg.n_channels
+        # evaluate each gateway on its best channel at fixed resources
+        delays = np.array([
+            min(_fixed_resource_solution(ctx, mm, jj).delay for jj in range(j))
+            for mm in range(m)])
+        chosen = np.argsort(delays)[:j]
+        return _decision_for(ctx, chosen)
+
+
+# legacy name -> class view of the registry (prefer make_policy / POLICIES)
+SCHEDULERS = {name: spec.cls for name, spec in POLICIES.items()}

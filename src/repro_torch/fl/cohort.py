@@ -24,6 +24,13 @@ The statistics pass (:func:`cohort_stats`) takes per-device gradients at
 the shared global weights: each weight enters as an expanded stride-0 view
 with one slot per device, so the kernels read the single matrix in place
 while autograd returns one gradient per slot.
+
+Mixed precision (``compute_dtype="bf16"``, the reference's
+``Scenario(dtype="bf16")``): the round's per-slot master copies stay f32;
+each local step casts them and the inputs to bf16, so autograd runs
+through the cast and the gradients come back f32 onto the f32 masters,
+and the logits are promoted to f32 before the loss. The statistics pass
+and evaluation stay f32, as in the reference.
 """
 from __future__ import annotations
 
@@ -37,8 +44,22 @@ from repro_torch.fl.data import TieredCohortBatch
 from repro_torch.fl.split import _like, flat_params, leaves
 from repro_torch.models.split_model import Params, SplitModel
 
-# Scenario.dtype values the data plane runs in (bf16 comes in a later slice)
-COMPUTE_DTYPES = ("f32",)
+# Scenario.dtype -> the dtype the round's activations and weights are
+# computed in (None: the f32 masters as they are)
+COMPUTE_DTYPES = {"f32": None, "bf16": torch.bfloat16}
+
+
+def _cast_floats(tree, dtype):
+    """Cast the floating tensors of a tensor or a list of per-layer dicts
+    to ``dtype`` (integer tokens untouched); ``dtype=None`` is the
+    identity. Differentiable: a cast master's gradient comes back in the
+    master's dtype."""
+    if dtype is None:
+        return tree
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    return [{k: _cast_floats(v, dtype) for k, v in layer.items()}
+            for layer in tree]
 
 
 def _on(params: Params, device) -> Params:
@@ -57,24 +78,28 @@ def _batch_tiers(batch, device):
 
 
 def _local_train(model: SplitModel, params: Params, xs, ys, masks,
-                 k_iters: int, lr):
+                 k_iters: int, lr, compute_dtype: str = "f32"):
     """K local SGD epochs for every slot, one slot-batched segment per tier.
 
     ``xs/ys/masks`` are per-tier tuples (tier k: ``(S_k, W_k, ...)``).
     Returns (per-tier per-slot final params, per-tier last-epoch losses):
     the loss of the last epoch is taken before its update, as the
-    reference's scan reports it.
+    reference's scan reports it. ``compute_dtype="bf16"`` casts the f32
+    per-slot params and the inputs to bf16 inside each step.
     """
+    cdt = COMPUTE_DTYPES[compute_dtype]
     finals, losses = [], []
     for x, y, m in zip(xs, ys, masks):
         s = x.shape[0]
-        # the round's own per-slot copies of the global model, updated in
-        # place epoch by epoch
+        # the round's own per-slot f32 copies of the global model, updated
+        # in place epoch by epoch
         p = [{k: v.detach().expand(s, *v.shape).clone().requires_grad_()
               for k, v in layer.items()} for layer in params]
         ws = leaves(p)
+        xc = _cast_floats(x, cdt)
         for _ in range(k_iters):
-            loss = model.masked_loss(model.forward_slots(p, x), y, m)
+            logits = model.forward_slots(_cast_floats(p, cdt), xc)
+            loss = model.masked_loss(logits.float(), y, m)
             grads = torch.autograd.grad(loss.sum(), ws)
             with torch.no_grad():
                 for w, g in zip(ws, grads):
@@ -126,13 +151,14 @@ def cohort_round(model: SplitModel, params: Params, batch, l_n, weights,
         raise NotImplementedError(
             "boundary RMS and per-gateway models are not ported yet")
     if compute_dtype not in COMPUTE_DTYPES:
-        raise NotImplementedError(f"compute_dtype={compute_dtype!r}")
+        raise ValueError(f"compute_dtype={compute_dtype!r}: expected one of "
+                         f"{sorted(COMPUTE_DTYPES)}")
     del l_n
     device = resolve_device(device)
     xs, ys, masks = _batch_tiers(batch, device)
     xs = tuple(model.prepare_inputs(x) for x in xs)
     final_t, loss_t = _local_train(model, _on(params, device), xs, ys, masks,
-                                   k_iters, lr)
+                                   k_iters, lr, compute_dtype)
     final = _concat_tiers(final_t)
     dev_losses = torch.cat(loss_t)
 

@@ -1,4 +1,5 @@
-// Fused linear layer, forward and backward, f32 CUDA for Hopper (sm_90a).
+// Fused linear layer, forward and backward, CUDA for Hopper (sm_90a), in
+// f32 (3xTF32 tensor-core products) and in bf16 (the *_bf16 entries).
 //
 // Replaces the three Pallas TPU kernels of
 // src/repro/kernels/fused_linear/kernel.py:
@@ -75,6 +76,28 @@
 //   are float2 per fragment pair (full 32-byte sectors). The CTAs of the
 //   first K tile also sum the staged dz columns into db in a fixed order:
 //   no atomics.
+//
+// The bf16 forms (fwd_bf16_kernel, dx_bf16_kernel, dwdb_bf16_kernel), the
+// reference's bf16 data plane (Scenario(dtype="bf16")): the Pallas kernels
+// take bf16 operands, accumulate in f32 and write the operand dtype. Here
+// one mma.sync.m16n8k16 bf16 x bf16 -> f32 per 16-deep step (the products
+// are exact in f32: no split), the same per-stage f32 add as the f32
+// forms, bias and activation in f32, and one rounding to bf16 (to nearest
+// even) at the store; split-K partials stay f32. What bounds them: the
+// same ~M/2 = 47 FLOP per weight byte is now ~95 FLOP per byte (2-byte
+// elements) against a bf16 ridge of 989 / 3.35 = 295, so at the round's
+// shapes they are bound by HBM bytes alone, half those of f32. Their
+// design is the f32 CTA tiles (96 x 64 forward and dx, 128 x 64 dw) with
+// three CTAs per SM, not two (one wave of the round's fc2 grid), so 3, 2
+// and 3 cp.async stages (64, 64 and 32 deep); fragments loaded with
+// ldmatrix: x4 per 16 x 16 of A or two 8-column blocks of B, transposed in
+// the load (.trans) where k runs down the staged rows (the forward's w,
+// dw's x^T and dz), which the f32 forms' 32-bit elements could not use;
+// results leave through shared memory in 16-byte stores. Pitches of 16
+// bytes mod 128 keep every ldmatrix free of bank conflicts.
+// The copy width (16, 4 or, for an odd row width of bf16 that cp.async
+// cannot move, 2 bytes by plain loads) is an argument, not a template
+// choice: one kernel per form (and relu mask) keeps the build short.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -90,10 +113,10 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Copy VEC bytes (16: four floats, 4: one) from global to shared memory,
-// reading only `bytes` of them and zero-filling the rest.
+// Copy VEC bytes (16 or 4) from global to shared memory, reading only
+// `bytes` of them and zero-filling the rest.
 template <int VEC>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
                                          int bytes) {
   if constexpr (VEC == 16) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
@@ -115,12 +138,13 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Stage rows [r0, r0 + R) x columns [c0, c0 + C) of a row-major operand
 // (row stride ld, unit column stride) into shared memory with row pitch P;
-// rows at or past rlim and columns at or past clim read as zero.
-template <int R, int C, int P, int VEC, int THREADS>
-__device__ __forceinline__ void load_tile(float* s, const float* g,
-                                          long long ld, int r0, int c0,
-                                          int rlim, int clim) {
-  constexpr int kPer = VEC / 4;
+// rows at or past rlim and columns at or past clim read as zero. T is the
+// element (float, or uint16_t for bf16 bits); VEC the copy width in bytes.
+template <int R, int C, int P, int VEC, int THREADS, typename T = float>
+__device__ __forceinline__ void load_tile(T* s, const T* g, long long ld,
+                                          int r0, int c0, int rlim,
+                                          int clim) {
+  constexpr int kPer = VEC / static_cast<int>(sizeof(T));
   constexpr int kRowChunks = C / kPer;
   static_assert((R * kRowChunks) % THREADS == 0, "tile / threads");
 #pragma unroll
@@ -129,9 +153,9 @@ __device__ __forceinline__ void load_tile(float* s, const float* g,
     const int r = e / kRowChunks, c = (e % kRowChunks) * kPer;
     const int gr = r0 + r, gc = c0 + c;
     int bytes = 0;
-    const float* src = g;
+    const T* src = g;
     if (gr < rlim && gc < clim) {
-      bytes = min(VEC, (clim - gc) * 4);
+      bytes = min(VEC, (clim - gc) * static_cast<int>(sizeof(T)));
       src = g + gr * ld + gc;
     }
     cp_async<VEC>(s + r * P + c, src, bytes);
@@ -291,15 +315,36 @@ __device__ __forceinline__ float activate(float z, int act) {
   }
 }
 
-struct FwdArgs {
-  const float* x;
-  const float* w;
-  const float* bias;
-  float* y;
+// float for the f32 kernels, uint16_t (bf16 bits) for the bf16 forms;
+// partial sums are f32 in both
+template <typename T>
+struct FwdArgsT {
+  const T* x;
+  const T* w;
+  const T* bias;
+  T* y;
   float* part;   // (splits, batch, M, N) partial sums when splits > 1
   int batch, M, K, N, act, splits, kchunk;
   long long sxb, sxm, swb, swk, sbb, syb, sym;
 };
+using FwdArgs = FwdArgsT<float>;
+
+// bf16 (held as its bits) to and from f32; the identity on f32. The
+// rounding is to nearest even, as PyTorch's and JAX's casts round.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(uint16_t v) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ uint16_t from_f32<uint16_t>(float v) {
+  const uint32_t u = __float_as_uint(v);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return 0x7fc0;   // NaN
+  return static_cast<uint16_t>((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+}
 
 constexpr int kFwdBM = 96;   // all 95 rows of a slot in one CTA
 constexpr int kFwdBN = 64;   // output columns per CTA
@@ -381,9 +426,10 @@ fwd_kernel(const FwdArgs a) {
 }
 
 // y = act(sum over splits, in order, of the partials + bias); without
-// EPILOGUE (dx) the sum alone
-template <bool EPILOGUE>
-__global__ void splitk_reduce_kernel(const FwdArgs a) {
+// EPILOGUE (dx) the sum alone. The sum, bias and activation are f32; y is
+// rounded to T (bf16 for the bf16 forms) at the store.
+template <bool EPILOGUE, typename T>
+__global__ void splitk_reduce_kernel(const FwdArgsT<T> a) {
   const long long total = static_cast<long long>(a.batch) * a.M * a.N;
   for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
@@ -393,20 +439,22 @@ __global__ void splitk_reduce_kernel(const FwdArgs a) {
     const int m = static_cast<int>(bm % a.M), b = static_cast<int>(bm / a.M);
     float v = 0.f;
     for (int s = 0; s < a.splits; ++s) v += a.part[s * total + e];
-    a.y[b * a.syb + m * a.sym + n] =
-        EPILOGUE ? activate(v + a.bias[b * a.sbb + n], a.act) : v;
+    a.y[b * a.syb + m * a.sym + n] = from_f32<T>(
+        EPILOGUE ? activate(v + to_f32(a.bias[b * a.sbb + n]), a.act) : v);
   }
 }
 
-struct DwArgs {
-  const float* x;
-  const float* dy;
-  const float* y;
-  float* dw;
-  float* db;
+template <typename T>
+struct DwArgsT {
+  const T* x;
+  const T* dy;
+  const T* y;
+  T* dw;
+  T* db;
   int M, K, N;
   long long sxb, sxm, sdb, sdm, syb, sym, swb, swk, sbb;
 };
+using DwArgs = DwArgsT<float>;
 
 constexpr int kDwBK = 128;   // dw rows (the K axis) per CTA
 constexpr int kDwBN = 64;    // dw columns per CTA
@@ -504,15 +552,17 @@ dwdb_kernel(const DwArgs a) {
     a.db[slot * a.sbb + n0 + threadIdx.x] = dbacc;
 }
 
-struct DxArgs {
-  const float* dy;
-  const float* y;
-  const float* w;
-  float* dx;
+template <typename T>
+struct DxArgsT {
+  const T* dy;
+  const T* y;
+  const T* w;
+  T* dx;
   float* part;   // (splits, batch, M, K) partial sums when splits > 1
   int batch, M, K, N, splits, nchunk;
   long long sdb, sdm, syb, sym, swb, swk, sxb, sxm;
 };
+using DxArgs = DxArgsT<float>;
 
 constexpr int kDxBM = 96;    // all 95 rows of a slot in one CTA
 constexpr int kDxBN = 64;    // dx columns (the K axis) per CTA
@@ -619,6 +669,434 @@ dx_kernel(const DxArgs a) {
     }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 forms: mma.sync m16n8k16 bf16 x bf16 -> f32, ldmatrix fragments
+// ---------------------------------------------------------------------------
+
+// Load four 8 x 8 b16 matrices from shared memory (lane l gives row l % 8
+// of matrix l / 8); with TRANS each is transposed in the load, so that a
+// register holds two k-consecutive elements of an operand whose k runs
+// down the rows of its tile (fwd's w, dw's x^T and dz).
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const uint16_t* p) {
+  if constexpr (TRANS) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+  } else {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+  }
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16) * b (16 x 8, bf16): the products
+// of two bf16 are exact in f32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// dz = dy * 1[y > 0] on a register of two bf16, y's register in the same
+// fragment layout (y > 0 in bf16: NaN and -0 are not)
+__device__ __forceinline__ uint32_t relu_mask_bf16x2(uint32_t v, uint32_t y) {
+  uint32_t keep = 0;
+  if (__uint_as_float(y << 16) > 0.f) keep |= 0xffffu;
+  if (__uint_as_float(y & 0xffff0000u) > 0.f) keep |= 0xffff0000u;
+  return v & keep;
+}
+
+// One warp's MT*16 x NT*8 output tile at (row0, col0) of the CTA tile
+// accumulates A * B over one staged slab of depth DEPTH (a multiple of 16)
+// of bf16 operands. A is staged as sA[row][k] (pitch PA), or as sA[k][row]
+// when A_TRANS (dw's x^T); B as sB[col][k] (pitch PB; dx's w), or as
+// sB[k][col] when B_TRANS (fwd's w, dw's dz). Both pitches are 16 bytes
+// mod 128, so the eight 16-byte rows an ldmatrix reads fall in distinct
+// banks. MASK 1 applies the relu mask to A (dx's dz), 2 to B (dw's dz),
+// from y staged in that operand's layout at sY. Fragment layouts are
+// mma.m16n8k16's: lane = 4 g + t; A (row g [+8], k 2t, 2t + 1 [+8]),
+// B (k 2t, 2t + 1 [+8], col g), C (g [+8], 2t [+1]). With TAIL only the
+// k-steps below `depth` run (a reduction shorter than the slab).
+template <int MT, int NT, int DEPTH, int PA, int PB, bool A_TRANS,
+          bool B_TRANS, int MASK, bool TAIL = false>
+__device__ __forceinline__ void warp_mma_bf16(const uint16_t* sA,
+                                              const uint16_t* sB,
+                                              const uint16_t* sY, int row0,
+                                              int col0, int depth,
+                                              float (&acc)[MT][NT][4]) {
+  static_assert(NT % 2 == 0, "B fragments load in pairs of 8 columns");
+  const int lane = threadIdx.x & 31, q = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < DEPTH; kk += 16) {
+    if constexpr (TAIL)
+      if (kk >= depth) break;
+    uint32_t b[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      // matrices: (k 0-7, cols j), (k 8-15, cols j), then cols j + 1
+      const int col = col0 + (j + (q >> 1)) * 8, k = kk + (q & 1) * 8;
+      const int off = B_TRANS ? (k + r) * PB + col : (col + r) * PB + k;
+      uint32_t v[4];
+      ldmatrix_x4<B_TRANS>(v, sB + off);
+      if constexpr (MASK == 2) {
+        uint32_t yv[4];
+        ldmatrix_x4<B_TRANS>(yv, sY + off);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = relu_mask_bf16x2(v[e], yv[e]);
+      }
+      b[j][0] = v[0], b[j][1] = v[1], b[j + 1][0] = v[2], b[j + 1][1] = v[3];
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      // matrices: (rows 0-7, k 0-7), (rows 8-15, k 0-7), then k 8-15
+      const int row = row0 + i * 16 + (q & 1) * 8, k = kk + (q >> 1) * 8;
+      const int off = A_TRANS ? (k + r) * PA + row : (row + r) * PA + k;
+      uint32_t a[4];
+      ldmatrix_x4<A_TRANS>(a, sA + off);
+      if constexpr (MASK == 1) {
+        uint32_t yv[4];
+        ldmatrix_x4<A_TRANS>(yv, sY + off);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = relu_mask_bf16x2(a[e], yv[e]);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a, b[j]);
+    }
+  }
+}
+
+// Stage a tile as load_tile does, with the copy width chosen at run time:
+// one kernel per form, not one per pair of widths, keeps the build short.
+// 16-byte copies take load_tile's unrolled loop; the narrow widths (4-byte
+// copies of two bf16, or one bf16 by a plain load for an odd row width)
+// take a rolled loop: unrolled, their per-copy offsets, hoisted out of the
+// stage loop, would hold well over a hundred registers. The branch is
+// uniform and taken once per tile.
+template <int R, int C, int P, int THREADS>
+__device__ __forceinline__ void load_tile_bf16(int vec, uint16_t* s,
+                                               const uint16_t* g,
+                                               long long ld, int r0, int c0,
+                                               int rlim, int clim) {
+  if (vec == 16) {
+    load_tile<R, C, P, 16, THREADS>(s, g, ld, r0, c0, rlim, clim);
+    return;
+  }
+  const int per = vec / 2, chunks = C / per;   // bf16 per copy: 2 or 1
+#pragma unroll 1
+  for (int e = threadIdx.x; e < R * chunks; e += THREADS) {
+    const int r = e / chunks, c = (e % chunks) * per;
+    const int gr = r0 + r, gc = c0 + c;
+    const bool in = gr < rlim && gc < clim;
+    if (per == 2) {
+      cp_async<4>(s + r * P + c, in ? g + gr * ld + gc : g,
+                  in ? min(4, (clim - gc) * 2) : 0);
+    } else {
+      s[r * P + c] = in ? g[gr * ld + gc] : uint16_t(0);
+    }
+  }
+}
+
+// Store one warp's f32 partial sums (rows row0 + [0, MT*16), columns
+// col0 + [0, NT*8)) into a split-K scratch buffer (row stride ld) within
+// M x N, as fragment pairs.
+template <int MT, int NT>
+__device__ __forceinline__ void store_partials(float* out, long long ld,
+                                               int row0, int col0, int M,
+                                               int N,
+                                               const float (&acc)[MT][NT][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool pair =
+      (ld & 1) == 0 && (reinterpret_cast<uintptr_t>(out) & 7) == 0;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = row0 + i * 16 + g + 8 * h;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        store_pair(out + m * ld, col0 + j * 8 + 2 * t, N, acc[i][j][2 * h],
+                   acc[i][j][2 * h + 1], pair);
+    }
+}
+
+// Store the CTA's ROWS x COLS tile of bf16 results (each warp's MT*16 x
+// NT*8 accumulators at (wm, wn), each value through f(value, column)) at
+// rows r0.. and columns c0.. of out (row stride ld), within M x N. The
+// tile goes through shared memory at s (the pipeline's buffers, free once
+// every stage is consumed) and leaves in 16-byte stores, eight bf16 a
+// thread, a warp writing whole 128-byte rows: stored from the fragments,
+// a warp's 4-byte stores would fill each 32-byte sector of a row half.
+// Where out's rows or pointer are not 16-byte aligned, or at a ragged
+// right edge, the row is stored element by element.
+template <int ROWS, int COLS, int THREADS, int MT, int NT, typename F>
+__device__ __forceinline__ void store_tile_bf16(
+    uint16_t* s, uint16_t* out, long long ld, int r0, int c0, int M, int N,
+    int wm, int wn, const float (&acc)[MT][NT][4], F f) {
+  constexpr int P = COLS + 8;   // 16 bytes mod 128: conflict-free
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  cp_async_wait<0>();
+  __syncthreads();              // every warp is done with the stages
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int r = wm + i * 16 + g + 8 * h, c = wn + j * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(s + r * P + c) =
+            from_f32<uint16_t>(f(acc[i][j][2 * h], c0 + c)) |
+            (static_cast<uint32_t>(
+                 from_f32<uint16_t>(f(acc[i][j][2 * h + 1], c0 + c + 1)))
+             << 16);
+      }
+  __syncthreads();
+  const bool vec =
+      (ld & 7) == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  constexpr int CHUNKS = COLS / 8;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < ROWS * CHUNKS; e += THREADS) {
+    const int r = e / CHUNKS, c = (e % CHUNKS) * 8;
+    const int gr = r0 + r, gc = c0 + c;
+    if (gr >= M || gc >= N) continue;
+    uint16_t* dst = out + gr * ld + gc;
+    const uint16_t* src = s + r * P + c;
+    if (vec && gc + 8 <= N) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int q = 0; q < 8 && gc + q < N; ++q) dst[q] = src[q];
+    }
+  }
+}
+
+constexpr int kBfBK = 64;         // reduction depth per stage, fwd and dx
+constexpr int kBfPitch = kBfBK + 8;   // 144 bytes: 16 mod 128
+// Three CTAs share an SM in every bf16 form (the round's fc2 forward and
+// dx fill the card in one wave of 384 CTAs), which caps registers at 168;
+// the forward and dx keep fewer stages to fit three in shared memory
+constexpr int kBfMinBlocks = 3;
+constexpr int kBfFwdStages = 3;
+constexpr int kBfFwdSmem =
+    2 * kBfFwdStages * (kFwdBM * kBfPitch + kBfBK * (kFwdBN + 8));
+constexpr int kBfDxStages = 2;
+template <bool RELU>
+constexpr int bf_dx_smem() {
+  return 2 * kBfDxStages * kBfPitch * (kDxBM * (RELU ? 2 : 1) + kDxBN);
+}
+constexpr int kBfDwStages = 3;
+template <bool RELU>
+constexpr int bf_dw_smem() {
+  return 2 * kBfDwStages * kDwBR *
+         ((kDwBK + 8) + (kDwBN + 8) * (RELU ? 2 : 1));
+}
+
+struct Vec2 {
+  int a, b;   // copy widths in bytes of the two staged operands
+};
+
+// The bf16 forward: fwd_kernel's CTA (96 x 64 of y, warps 2 x 2 of 48 x 32,
+// split-K partials), three 64-deep stages; x staged sx[row][k], w
+// sw[k][col] and read with ldmatrix.trans.
+__global__ void __launch_bounds__(kFwdThreads, kBfMinBlocks)
+fwd_bf16_kernel(const FwdArgsT<uint16_t> a, const Vec2 vec) {
+  constexpr int BM = kFwdBM, BN = kFwdBN, BK = kBfBK;
+  constexpr int STAGES = kBfFwdStages, THREADS = kFwdThreads;
+  constexpr int PA = kBfPitch, PB = BN + 8;
+  constexpr int A_SZ = BM * PA, STAGE = A_SZ + BK * PB;
+  static_assert(BM * (BN + 8) <= STAGES * STAGE, "y tile fits the stages");
+  extern __shared__ __align__(16) uint16_t hsmem[];
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int slot = blockIdx.z % a.batch, split = blockIdx.z / a.batch;
+  const int kbeg = split * a.kchunk, kend = min(a.K, kbeg + a.kchunk);
+  const int nk = (kend - kbeg + BK - 1) / BK;
+  const uint16_t* x = a.x + slot * a.sxb;
+  const uint16_t* w = a.w + slot * a.swb;
+  auto load = [&](int kt) {
+    uint16_t* s = hsmem + (kt % STAGES) * STAGE;
+    const int k0 = kbeg + kt * BK;
+    load_tile_bf16<BM, BK, PA, THREADS>(vec.a, s, x, a.sxm, m0, k0, a.M,
+                                        kend);
+    load_tile_bf16<BK, BN, PB, THREADS>(vec.b, s + A_SZ, w, a.swk, k0, n0,
+                                        kend, a.N);
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  const int warp = threadIdx.x >> 5;
+  const int wm = (warp & 1) * 48, wn = (warp >> 1) * 32;
+  float acc[3][4][4] = {}, step[3][4][4] = {};
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();   // stage kt landed; stage kt - 1 is free to refill
+    if (kt + STAGES - 1 < nk) load(kt + STAGES - 1);
+    cp_async_commit();
+    const uint16_t* s = hsmem + (kt % STAGES) * STAGE;
+    warp_mma_bf16<3, 4, BK, PA, PB, false, true, 0>(s, s + A_SZ, nullptr, wm,
+                                                   wn, BK, step);
+    flush(acc, step);
+  }
+  if (a.splits == 1) {
+    const uint16_t* bias = a.bias + slot * a.sbb;
+    store_tile_bf16<BM, BN, THREADS>(
+        hsmem, a.y + slot * a.syb, a.sym, m0, n0, a.M, a.N, wm, wn, acc,
+        [&](float v, int n) {
+          return n < a.N ? activate(v + to_f32(bias[n]), a.act) : v;
+        });
+  } else {
+    float* part = a.part + (static_cast<long long>(split) * a.batch + slot) *
+                               a.M * a.N;
+    store_partials(part, a.N, m0 + wm, n0 + wn, a.M, a.N, acc);
+  }
+}
+
+// The bf16 dx: dx_kernel's CTA (96 x 64 of dx, warps 2 x 2), two 64-deep
+// stages of dz (sA[row][n], y beside it when RELU) and w (sB[k][n]): both
+// have the reduction N contiguous, so neither fragment load transposes.
+template <bool RELU>
+__global__ void __launch_bounds__(kDxThreads, kBfMinBlocks)
+dx_bf16_kernel(const DxArgsT<uint16_t> a, const Vec2 vec) {
+  constexpr int BM = kDxBM, BN = kDxBN, BK = kBfBK, P = kBfPitch;
+  constexpr int STAGES = kBfDxStages, THREADS = kDxThreads;
+  constexpr int A_SZ = BM * P, B_OFF = A_SZ * (RELU ? 2 : 1);
+  constexpr int STAGE = B_OFF + BN * P;
+  static_assert(BM * (BN + 8) <= STAGES * STAGE, "dx tile fits the stages");
+  extern __shared__ __align__(16) uint16_t hsmem[];
+  const int m0 = blockIdx.x * BM, k0 = blockIdx.y * BN;
+  const int slot = blockIdx.z % a.batch, split = blockIdx.z / a.batch;
+  const int nbeg = split * a.nchunk, nend = min(a.N, nbeg + a.nchunk);
+  const int nn = (nend - nbeg + BK - 1) / BK;
+  const uint16_t* dy = a.dy + slot * a.sdb;
+  const uint16_t* yv = a.y + slot * a.syb;
+  const uint16_t* w = a.w + slot * a.swb;
+  auto load = [&](int st) {
+    uint16_t* s = hsmem + (st % STAGES) * STAGE;
+    const int n0 = nbeg + st * BK;
+    load_tile_bf16<BM, BK, P, THREADS>(vec.a, s, dy, a.sdm, m0, n0, a.M,
+                                       nend);
+    if constexpr (RELU)
+      load_tile_bf16<BM, BK, P, THREADS>(vec.a, s + A_SZ, yv, a.sym, m0, n0,
+                                         a.M, nend);
+    load_tile_bf16<BN, BK, P, THREADS>(vec.b, s + B_OFF, w, a.swk, k0, n0,
+                                       a.K, nend);
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nn) load(s);
+    cp_async_commit();
+  }
+  const int warp = threadIdx.x >> 5;
+  const int wm = (warp & 1) * 48, wn = (warp >> 1) * 32;
+  const bool live = m0 + wm < a.M;   // warps wholly past M skip their MMAs
+  float acc[3][4][4] = {}, step[3][4][4] = {};
+  for (int st = 0; st < nn; ++st) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (st + STAGES - 1 < nn) load(st + STAGES - 1);
+    cp_async_commit();
+    if (live) {
+      const uint16_t* s = hsmem + (st % STAGES) * STAGE;
+      warp_mma_bf16<3, 4, BK, P, P, false, false, RELU ? 1 : 0>(
+          s, s + B_OFF, RELU ? s + A_SZ : nullptr, wm, wn, BK, step);
+      flush(acc, step);
+    }
+  }
+  if (a.splits == 1) {
+    store_tile_bf16<BM, BN, THREADS>(hsmem, a.dx + slot * a.sxb, a.sxm, m0,
+                                     k0, a.M, a.K, wm, wn, acc,
+                                     [](float v, int) { return v; });
+  } else {
+    float* part = a.part + (static_cast<long long>(split) * a.batch + slot) *
+                               a.M * a.K;
+    store_partials(part, a.K, m0 + wm, k0 + wn, a.M, a.K, acc);
+  }
+}
+
+// The bf16 dw/db: dwdb_kernel's CTA (128 x 64 of dw, warps 2 x 2 of 64 x
+// 32), three stages of 32 rows of M; x staged sx[m][k] and dz sd[m][n],
+// both read with ldmatrix.trans (M is the reduction); the relu mask on dz's
+// fragments; db summed in f32 from the staged dz by the first K tile's
+// CTAs, in a fixed order.
+template <bool RELU>
+__global__ void __launch_bounds__(kDwThreads, kBfMinBlocks)
+dwdb_bf16_kernel(const DwArgsT<uint16_t> a, const Vec2 vec) {
+  constexpr int PX = kDwBK + 8, PD = kDwBN + 8, BR = kDwBR;
+  constexpr int X_SZ = BR * PX, D_SZ = BR * PD;
+  constexpr int STAGE = X_SZ + D_SZ * (RELU ? 2 : 1);
+  constexpr int STAGES = kBfDwStages;
+  static_assert(kDwBK * (kDwBN + 8) <= STAGES * STAGE,
+                "dw tile fits the stages");
+  extern __shared__ __align__(16) uint16_t hsmem[];
+  const int n0 = blockIdx.x * kDwBN, k0 = blockIdx.y * kDwBK;
+  const int slot = blockIdx.z;
+  const uint16_t* x = a.x + slot * a.sxb;
+  const uint16_t* dy = a.dy + slot * a.sdb;
+  const uint16_t* yv = a.y + slot * a.syb;
+  const int nr = (a.M + BR - 1) / BR;
+  auto load = [&](int rt) {
+    uint16_t* s = hsmem + (rt % STAGES) * STAGE;
+    const int r0 = rt * BR;
+    load_tile_bf16<BR, kDwBK, PX, kDwThreads>(vec.a, s, x, a.sxm, r0, k0,
+                                              a.M, a.K);
+    load_tile_bf16<BR, kDwBN, PD, kDwThreads>(vec.b, s + X_SZ, dy, a.sdm, r0,
+                                              n0, a.M, a.N);
+    if constexpr (RELU)
+      load_tile_bf16<BR, kDwBN, PD, kDwThreads>(vec.b, s + X_SZ + D_SZ, yv,
+                                                a.sym, r0, n0, a.M, a.N);
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nr) load(s);
+    cp_async_commit();
+  }
+  const int warp = threadIdx.x >> 5;
+  const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;
+  const bool with_db = blockIdx.y == 0 && threadIdx.x < kDwBN;
+  float acc[4][4][4] = {}, step[4][4][4] = {};
+  float dbacc = 0.f;
+  // with tail, only the k-steps below M run (M < 32: the per-sample pass)
+  auto stage = [&](int rt, auto tail) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (rt + STAGES - 1 < nr) load(rt + STAGES - 1);
+    cp_async_commit();
+    const uint16_t* s = hsmem + (rt % STAGES) * STAGE;
+    const uint16_t* sd = s + X_SZ;
+    const uint16_t* sy = RELU ? sd + D_SZ : nullptr;
+    warp_mma_bf16<4, 4, BR, PX, PD, true, true, RELU ? 2 : 0,
+                  decltype(tail)::value>(s, sd, sy, wm, wn, a.M - rt * BR,
+                                         step);
+    flush(acc, step);
+    if (with_db) {
+#pragma unroll 8
+      for (int r = 0; r < BR; ++r) {
+        const float v = to_f32(sd[r * PD + threadIdx.x]);
+        dbacc += (!RELU || to_f32(sy[r * PD + threadIdx.x]) > 0.f) ? v : 0.f;
+      }
+    }
+  };
+  for (int rt = 0; rt < nr; ++rt) {
+    if (a.M < BR)   // one short stage
+      stage(rt, std::true_type{});
+    else
+      stage(rt, std::false_type{});
+  }
+  store_tile_bf16<kDwBK, kDwBN, kDwThreads>(hsmem, a.dw + slot * a.swb,
+                                            a.swk, k0, n0, a.K, a.N, wm, wn,
+                                            acc,
+                                            [](float v, int) { return v; });
+  if (with_db && n0 + threadIdx.x < a.N)
+    a.db[slot * a.sbb + n0 + threadIdx.x] = from_f32<uint16_t>(dbacc);
+}
+
 // Above 48 KB a block's shared memory must be asked for explicitly: allow
 // each kernel the card's opt-in maximum, once per process (the launch
 // itself fails, and reports it, if a block asks for more).
@@ -693,12 +1171,12 @@ cudaError_t dispatch_dx(const DxArgs& a, int vd, int vw, cudaStream_t st) {
 // The second launch of a split-K plan: out (a.y) = the sum over a.splits,
 // in order, of the partials, with the forward's bias and activation when
 // EPILOGUE.
-template <bool EPILOGUE>
-cudaError_t reduce_splits(const FwdArgs& a, cudaStream_t st) {
+template <bool EPILOGUE, typename T>
+cudaError_t reduce_splits(const FwdArgsT<T>& a, cudaStream_t st) {
   const long long total = static_cast<long long>(a.batch) * a.M * a.N;
   const long long want = (total + 255) / 256;
   const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-  splitk_reduce_kernel<EPILOGUE><<<blocks, 256, 0, st>>>(a);
+  splitk_reduce_kernel<EPILOGUE, T><<<blocks, 256, 0, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -707,6 +1185,41 @@ cudaError_t dispatch_fwd(const FwdArgs& a, int vx, int vw, cudaStream_t st) {
   if (vx == 16)
     return vw == 16 ? launch_fwd<16, 16>(a, st) : launch_fwd<16, 4>(a, st);
   return vw == 16 ? launch_fwd<4, 16>(a, st) : launch_fwd<4, 4>(a, st);
+}
+
+// the bf16 forms: one kernel per form (the copy widths are arguments)
+cudaError_t launch_fwd_bf16(const FwdArgsT<uint16_t>& a, Vec2 vec,
+                            cudaStream_t stream) {
+  static const cudaError_t attr = allow_max_smem(fwd_bf16_kernel);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.M + kFwdBM - 1) / kFwdBM, (a.N + kFwdBN - 1) / kFwdBN,
+                  a.batch * a.splits);
+  fwd_bf16_kernel<<<grid, kFwdThreads, kBfFwdSmem, stream>>>(a, vec);
+  return cudaGetLastError();
+}
+
+template <bool RELU>
+cudaError_t launch_dx_bf16(const DxArgsT<uint16_t>& a, Vec2 vec,
+                           cudaStream_t stream) {
+  static const cudaError_t attr = allow_max_smem(dx_bf16_kernel<RELU>);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.M + kDxBM - 1) / kDxBM, (a.K + kDxBN - 1) / kDxBN,
+                  a.batch * a.splits);
+  dx_bf16_kernel<RELU><<<grid, kDxThreads, bf_dx_smem<RELU>(), stream>>>(
+      a, vec);
+  return cudaGetLastError();
+}
+
+template <bool RELU>
+cudaError_t launch_dwdb_bf16(const DwArgsT<uint16_t>& a, int batch, Vec2 vec,
+                             cudaStream_t stream) {
+  static const cudaError_t attr = allow_max_smem(dwdb_bf16_kernel<RELU>);
+  if (attr != cudaSuccess) return attr;
+  const int k_tiles = a.K > 0 ? (a.K + kDwBK - 1) / kDwBK : 1;
+  const dim3 grid((a.N + kDwBN - 1) / kDwBN, k_tiles, batch);
+  dwdb_bf16_kernel<RELU><<<grid, kDwThreads, bf_dw_smem<RELU>(), stream>>>(
+      a, vec);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -733,7 +1246,7 @@ extern "C" int fused_linear_fwd(const float* x, const float* w,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = dispatch_fwd(a, vx, vw, st);
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  return static_cast<int>(reduce_splits<true>(a, st));
+  return static_cast<int>(reduce_splits<true, float>(a, st));
 }
 
 // dx = (dy * 1[y > 0] when relu) @ w^T, w read in its (K, N) layout. The
@@ -761,7 +1274,7 @@ extern "C" int fused_linear_bwd_dx(const float* dy, const float* y,
   r.part = part;
   r.batch = B, r.M = M, r.N = K, r.splits = splits;
   r.syb = sxb, r.sym = sxm;
-  return static_cast<int>(reduce_splits<false>(r, st));
+  return static_cast<int>(reduce_splits<false, float>(r, st));
 }
 
 // (dw, db) = (x^T @ dz, sum_m dz), dz = dy * 1[y > 0] when relu; vx and vd
@@ -781,4 +1294,61 @@ extern "C" int fused_linear_bwd_dw_db(const float* x, const float* dy,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(relu ? dispatch_dwdb<true>(a, B, vx, vd, st)
                                : dispatch_dwdb<false>(a, B, vx, vd, st));
+}
+
+// The bf16 forms of the three entries above, with the same arguments:
+// operands are bf16 (passed as their 16-bit patterns), products go to the
+// tensor cores in bf16 with f32 accumulation, bias and activation are f32,
+// and y, dx, dw and db are rounded to bf16 at the store; split-K partials
+// (`part`) are f32. The copy widths may also be 2 (bytes): an odd row
+// width, staged by plain loads.
+extern "C" int fused_linear_fwd_bf16(const uint16_t* x, const uint16_t* w,
+                                     const uint16_t* bias, uint16_t* y,
+                                     float* part, int B, int M, int K, int N,
+                                     long long sxb, long long sxm,
+                                     long long swb, long long swk,
+                                     long long sbb, long long syb,
+                                     long long sym, int act, int splits,
+                                     int kchunk, int vx, int vw,
+                                     void* stream) {
+  const FwdArgsT<uint16_t> a{x, w, bias, y, part, B, M, K, N, act, splits,
+                             kchunk, sxb, sxm, swb, swk, sbb, syb, sym};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = launch_fwd_bf16(a, Vec2{vx, vw}, st);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return static_cast<int>(reduce_splits<true, uint16_t>(a, st));
+}
+
+extern "C" int fused_linear_bwd_dx_bf16(
+    const uint16_t* dy, const uint16_t* y, const uint16_t* w, uint16_t* dx,
+    float* part, int B, int M, int K, int N, long long sdb, long long sdm,
+    long long syb, long long sym, long long swb, long long swk, long long sxb,
+    long long sxm, int relu, int splits, int nchunk, int vd, int vw,
+    void* stream) {
+  const DxArgsT<uint16_t> a{dy, y, w, dx, part, B, M, K, N, splits, nchunk,
+                            sdb, sdm, syb, sym, swb, swk, sxb, sxm};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Vec2 vec{vd, vw};
+  const cudaError_t err = relu ? launch_dx_bf16<true>(a, vec, st)
+                               : launch_dx_bf16<false>(a, vec, st);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  FwdArgsT<uint16_t> r{};
+  r.y = dx;
+  r.part = part;
+  r.batch = B, r.M = M, r.N = K, r.splits = splits;
+  r.syb = sxb, r.sym = sxm;
+  return static_cast<int>(reduce_splits<false, uint16_t>(r, st));
+}
+
+extern "C" int fused_linear_bwd_dw_db_bf16(
+    const uint16_t* x, const uint16_t* dy, const uint16_t* y, uint16_t* dw,
+    uint16_t* db, int B, int M, int K, int N, long long sxb, long long sxm,
+    long long sdb, long long sdm, long long syb, long long sym, long long swb,
+    long long swk, long long sbb, int relu, int vx, int vd, void* stream) {
+  const DwArgsT<uint16_t> a{x, dy, y, dw, db, M, K, N, sxb, sxm, sdb, sdm,
+                            syb, sym, swb, swk, sbb};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Vec2 vec{vx, vd};
+  return static_cast<int>(relu ? launch_dwdb_bf16<true>(a, B, vec, st)
+                               : launch_dwdb_bf16<false>(a, B, vec, st));
 }

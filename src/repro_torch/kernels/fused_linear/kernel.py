@@ -11,12 +11,20 @@ Dispatch is by tensor device only: CPU tensors go to the plain versions in
 first use, or the call raises. ``LAUNCHES`` counts the kernel launches of
 each wrapper and nothing else: one per wrapper call, also where the
 forward's or dx's split-K plan makes it two launches (the partial
-products and their ordered sum).
+products and their ordered sum); bf16 launches count under the wrapper's
+name with ``_bf16`` appended.
 
 How the kernels launch is decided here, in pure Python, by
 :func:`fwd_plan`, :func:`dx_plan` and :func:`dwdb_plan` (slot fold, split
 count, copy widths), so the CPU tests can check every plan the card would
 run.
+
+Operands are float32 or bfloat16, all of one dtype per call (mixed dtypes
+raise). bf16 operands launch the ``*_bf16`` entries of the same source:
+bf16 tensor-core products accumulated in f32, bias and activation in f32,
+and the result rounded to bf16 at the store, as the reference's kernels
+do. Split-K partials stay f32 in both. A bf16 launch that fails raises,
+as an f32 one does: there is no fallback to the plain version.
 """
 from __future__ import annotations
 
@@ -33,7 +41,8 @@ from repro_torch.kernels.fused_linear import ref
 SOURCE = pathlib.Path(__file__).parent / "csrc" / "fused_linear.cu"
 
 LAUNCHES = {"fused_linear": 0, "fused_linear_bwd_dx": 0,
-            "fused_linear_bwd_dw_db": 0}
+            "fused_linear_bwd_dw_db": 0, "fused_linear_bf16": 0,
+            "fused_linear_bwd_dx_bf16": 0, "fused_linear_bwd_dw_db_bf16": 0}
 
 _MASKS = ("none", "relu")
 # activation codes of the forward kernel's epilogue
@@ -45,14 +54,19 @@ _ARGTYPES = {
     "fused_linear_bwd_dw_db": [_P] * 5 + [_I] * 4 + [_L] * 9 + [_I] * 3
                               + [_P],
 }
+# the bf16 entries take the same arguments as their f32 twins
+_ARGTYPES.update({f"{fn}_bf16": types for fn, types in _ARGTYPES.items()})
+DTYPES = (torch.float32, torch.bfloat16)
 
 # The kernels' tile shapes (csrc/fused_linear.cu): forward CTAs cover 96 x
 # 64 of the output, 32 reduction steps per stage; dx CTAs 96 x 64 of dx, 32
 # steps of the reduction N per stage; dw/db CTAs cover 128 x 64 of dw, 32
-# rows of M per stage.
+# rows of M per stage. The bf16 forms keep the CTA tiles and stage 64
+# reduction steps (four m16n8k16 steps) in the forward and dx.
 FWD_BM, FWD_BN, FWD_BK = 96, 64, 32
 DX_BM, DX_BN, DX_BK = 96, 64, 32
 DW_BK, DW_BN = 128, 64
+BF16_BK = 64
 # Every kernel's shared memory lets two CTAs share an SM: a grid of fewer
 # than CTAS_PER_SM x SMs CTAs leaves the card part idle.
 CTAS_PER_SM = 2
@@ -71,7 +85,11 @@ class FwdPlan:
     stride ``sxm``. Above 1, ``splits`` K ranges of ``k_chunk`` (a multiple
     of :data:`FWD_BK`) each sum into a scratch buffer; ``vec_x`` and
     ``vec_w`` are the copy widths of x and w in bytes (16, or 4 where one
-    of the operand's strides or its pointer is not 16-byte aligned)."""
+    of the operand's strides or its pointer is not 16-byte aligned; bf16
+    operands take 4-byte copies of two elements where the pointer and the
+    strides are even, else 2-byte ones, one element at a time: cp.async
+    moves 4, 8 or 16 bytes, so an odd row width of bf16 is copied by plain
+    loads)."""
     fold: bool
     batch: int
     rows: int
@@ -89,26 +107,40 @@ class FwdPlan:
                 self.batch * self.splits)
 
 
-def _vec(aligned: bool, *strides) -> int:
-    """16-byte copies where the pointer and every stride (in floats)
-    allow them, else 4-byte ones."""
-    return 16 if aligned and all(s % 4 == 0 for s in strides) else 4
+def _vec(align: int, *strides, itemsize: int = 4) -> int:
+    """The widest copy, in bytes, that the data pointer's alignment
+    ``align`` (in bytes) and every stride (in elements) allow: 16, else 4,
+    else (2-byte elements) 2."""
+    for width in (16, 4, 2):
+        per = width // itemsize
+        if (per and align % width == 0
+                and all(s % per == 0 for s in strides)):
+            return width
+    raise ValueError(f"no copy width for {itemsize}-byte elements at "
+                     f"alignment {align}")
+
+
+def _stage(f32_depth: int, itemsize: int) -> int:
+    """Reduction steps per pipeline stage of the f32 or the bf16 form."""
+    return f32_depth if itemsize == 4 else BF16_BK
 
 
 def fwd_plan(nb: int, m: int, k: int, n: int, *, sxb: int, sxm: int,
-             swb: int, swk: int, sbb: int, x_aligned: bool, w_aligned: bool,
-             sms: int) -> FwdPlan:
+             swb: int, swk: int, sbb: int, x_align: int, w_align: int,
+             sms: int, itemsize: int = 4) -> FwdPlan:
     """The forward's launch plan for x (nb, m, k) @ w (nb, k, n) on a card
-    with ``sms`` SMs; strides in elements, ``x_aligned`` / ``w_aligned``:
-    the operand's data pointer is 16-byte aligned."""
+    with ``sms`` SMs; strides in elements, ``x_align`` / ``w_align``: the
+    alignment in bytes of the operand's data pointer (at most 16);
+    ``itemsize`` 4 (f32) or 2 (bf16)."""
     fold = nb > 1 and swb == 0 and sbb == 0 and (m == 1 or sxb == m * sxm)
     batch, rows = nb, m
     if fold:
         batch, rows, sxb, sxm = 1, nb * m, 0, (sxb if m == 1 else sxm)
     ctas = batch * _cdiv(rows, FWD_BM) * _cdiv(n, FWD_BN)
-    splits, k_chunk = _split(ctas, k, FWD_BK, sms)
+    splits, k_chunk = _split(ctas, k, _stage(FWD_BK, itemsize), sms)
     return FwdPlan(fold, batch, rows, n, sxb, sxm, splits, k_chunk,
-                   _vec(x_aligned, sxb, sxm), _vec(w_aligned, swb, swk))
+                   _vec(x_align, sxb, sxm, itemsize=itemsize),
+                   _vec(w_align, swb, swk, itemsize=itemsize))
 
 
 def _split(ctas: int, depth: int, step: int, sms: int) -> tuple:
@@ -152,11 +184,12 @@ class DxPlan:
 
 
 def dx_plan(nb: int, m: int, k: int, n: int, *, strides, swb: int, swk: int,
-            dz_aligned: bool, w_aligned: bool, sms: int) -> DxPlan:
+            dz_align: int, w_align: int, sms: int,
+            itemsize: int = 4) -> DxPlan:
     """dx's launch plan for dz (nb, m, n) @ w (nb, k, n)^T on a card with
     ``sms`` SMs; ``strides``: the batch and row strides of dy and y (dy's
-    again when there is no mask), in elements; ``dz_aligned``: dy's and
-    y's pointers are 16-byte aligned, ``w_aligned``: w's."""
+    again when there is no mask), in elements; ``dz_align``: the alignment
+    in bytes of dy's and y's pointers, ``w_align``: of w's."""
     sdb, sdm, syb, sym = strides
     fold = nb > 1 and swb == 0 and (
         m == 1 or (sdb == m * sdm and syb == m * sym))
@@ -167,10 +200,10 @@ def dx_plan(nb: int, m: int, k: int, n: int, *, strides, swb: int, swk: int,
             sdm, sym = sdb, syb
         sdb = syb = 0
     ctas = batch * _cdiv(rows, DX_BM) * _cdiv(k, DX_BN)
-    splits, n_chunk = _split(ctas, n, DX_BK, sms)
+    splits, n_chunk = _split(ctas, n, _stage(DX_BK, itemsize), sms)
     return DxPlan(fold, batch, rows, k, sdb, sdm, syb, sym, splits, n_chunk,
-                  _vec(dz_aligned, sdb, sdm, syb, sym),
-                  _vec(w_aligned, swb, swk))
+                  _vec(dz_align, sdb, sdm, syb, sym, itemsize=itemsize),
+                  _vec(w_align, swb, swk, itemsize=itemsize))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,13 +223,13 @@ class DwPlan:
                 self.batch)
 
 
-def dwdb_plan(nb: int, m: int, k: int, n: int, *, strides, x_aligned: bool,
-              dz_aligned: bool) -> DwPlan:
+def dwdb_plan(nb: int, m: int, k: int, n: int, *, strides, x_align: int,
+              dz_align: int, itemsize: int = 4) -> DwPlan:
     """The dw/db launch plan; ``strides``: the batch and row strides of x,
-    dy and y; ``x_aligned`` / ``dz_aligned``: x's pointer, or dy's and
-    y's, are 16-byte aligned."""
-    return DwPlan(nb, k, n, _vec(x_aligned, *strides[:2]),
-                  _vec(dz_aligned, *strides[2:]))
+    dy and y; ``x_align`` / ``dz_align``: the alignment in bytes of x's
+    pointer, or of dy's and y's."""
+    return DwPlan(nb, k, n, _vec(x_align, *strides[:2], itemsize=itemsize),
+                  _vec(dz_align, *strides[2:], itemsize=itemsize))
 
 
 @functools.lru_cache(maxsize=None)
@@ -204,8 +237,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _aligned(*tensors) -> bool:
-    return all(t.data_ptr() % 16 == 0 for t in tensors)
+def _align(*tensors) -> int:
+    """The data pointers' common alignment in bytes, at most 16."""
+    align = 16
+    for t in tensors:
+        while t.data_ptr() % align:
+            align //= 2
+    return align
 
 
 def library():
@@ -217,11 +255,16 @@ def _on_cuda(*tensors) -> bool:
     return build.on_cuda("fused_linear", *tensors)
 
 
-def _operand(t: torch.Tensor, ndim: int, name: str) -> torch.Tensor:
-    """Check one CUDA operand; make its last dimension unit-stride."""
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernels take float32, "
-                        f"not {t.dtype}")
+def _operand(t: torch.Tensor, ndim: int, name: str,
+             dtype: torch.dtype) -> torch.Tensor:
+    """Check one CUDA operand against the call's dtype ``dtype`` (the first
+    operand's); make its last dimension unit-stride."""
+    if dtype not in DTYPES:
+        raise TypeError(f"{name}: the CUDA kernels take float32 or "
+                        f"bfloat16, not {dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: {t.dtype} operand in a {dtype} call; the "
+                        "CUDA kernels take one dtype per call")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
     return t if t.stride(-1) == 1 else t.contiguous()
@@ -235,7 +278,11 @@ def _check_mask(mask: str, y) -> None:
         raise ValueError("mask='relu' needs the saved forward output y")
 
 
-def _launch(name: str, fn: str, device, *args) -> None:
+def _launch(name: str, fn: str, dtype, device, *args) -> None:
+    """Launch C entry ``fn``, or its ``_bf16`` twin for bf16 operands,
+    counted under ``name`` (``_bf16`` appended likewise)."""
+    if dtype == torch.bfloat16:
+        fn, name = fn + "_bf16", name + "_bf16"
     build.launch(library(), fn, name, LAUNCHES, device, *args)
 
 
@@ -245,8 +292,8 @@ def fused_linear_plan(x: torch.Tensor, w: torch.Tensor,
     nb, m, k = x.shape
     return fwd_plan(nb, m, k, w.shape[2], sxb=x.stride(0), sxm=x.stride(1),
                     swb=w.stride(0), swk=w.stride(1), sbb=b.stride(0),
-                    x_aligned=_aligned(x), w_aligned=_aligned(w),
-                    sms=_sm_count(x.device.index))
+                    x_align=_align(x), w_align=_align(w),
+                    sms=_sm_count(x.device.index), itemsize=x.element_size())
 
 
 def fused_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -256,7 +303,9 @@ def fused_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         return ref.fused_linear_ref(x, w, b, activation)
     if activation not in ACT_CODES:
         raise NotImplementedError(f"activation {activation!r}")
-    x, w, b = _operand(x, 3, "x"), _operand(w, 3, "w"), _operand(b, 2, "b")
+    dt = x.dtype
+    x, w, b = (_operand(x, 3, "x", dt), _operand(w, 3, "w", dt),
+               _operand(b, 2, "b", dt))
     nb, m, k = x.shape
     n = w.shape[2]
     if w.shape[:2] != (nb, k) or b.shape != (nb, n):
@@ -266,10 +315,10 @@ def fused_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if y.numel():
         plan = fused_linear_plan(x, w, b)
         part = (torch.empty(plan.splits * plan.batch * plan.rows * n,
-                            device=x.device, dtype=x.dtype)
+                            device=x.device, dtype=torch.float32)
                 if plan.splits > 1 else None)
         syb, sym = (0, n) if plan.fold else (y.stride(0), y.stride(1))
-        _launch("fused_linear", "fused_linear_fwd", x.device,
+        _launch("fused_linear", "fused_linear_fwd", dt, x.device,
                 x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                 None if part is None else part.data_ptr(),
                 plan.batch, plan.rows, k, n, plan.sxb, plan.sxm, w.stride(0),
@@ -287,8 +336,9 @@ def fused_linear_bwd_dx_plan(dy: torch.Tensor, w: torch.Tensor,
                    strides=(dy.stride(0), dy.stride(1), y.stride(0),
                             y.stride(1)),
                    swb=w.stride(0), swk=w.stride(1),
-                   dz_aligned=_aligned(dy, y), w_aligned=_aligned(w),
-                   sms=_sm_count(dy.device.index))
+                   dz_align=_align(dy, y), w_align=_align(w),
+                   sms=_sm_count(dy.device.index),
+                   itemsize=dy.element_size())
 
 
 def fused_linear_bwd_dx(dy: torch.Tensor, w: torch.Tensor,
@@ -298,9 +348,10 @@ def fused_linear_bwd_dx(dy: torch.Tensor, w: torch.Tensor,
     if not _on_cuda(dy, w, y):
         return ref.fused_linear_bwd_dx_ref(dy, w, y, mask)
     _check_mask(mask, y)
-    dy, w = _operand(dy, 3, "dy"), _operand(w, 3, "w")
+    dt = dy.dtype
+    dy, w = _operand(dy, 3, "dy", dt), _operand(w, 3, "w", dt)
     relu = mask == "relu"
-    y = _operand(y, 3, "y") if relu else dy
+    y = _operand(y, 3, "y", dt) if relu else dy
     nb, m, n = dy.shape
     k = w.shape[1]
     if w.shape != (nb, k, n) or y.shape != dy.shape:
@@ -309,10 +360,10 @@ def fused_linear_bwd_dx(dy: torch.Tensor, w: torch.Tensor,
     if dx.numel():
         plan = fused_linear_bwd_dx_plan(dy, w, y)
         part = (torch.empty(plan.splits * plan.batch * plan.rows * k,
-                            device=dy.device, dtype=dy.dtype)
+                            device=dy.device, dtype=torch.float32)
                 if plan.splits > 1 else None)
         sxb, sxm = (0, k) if plan.fold else (dx.stride(0), dx.stride(1))
-        _launch("fused_linear_bwd_dx", "fused_linear_bwd_dx", dy.device,
+        _launch("fused_linear_bwd_dx", "fused_linear_bwd_dx", dt, dy.device,
                 dy.data_ptr(), y.data_ptr(), w.data_ptr(), dx.data_ptr(),
                 None if part is None else part.data_ptr(), plan.batch,
                 plan.rows, k, n, plan.sdb, plan.sdm, plan.syb, plan.sym,
@@ -332,7 +383,8 @@ def fused_linear_bwd_dw_db_plan(x: torch.Tensor, dy: torch.Tensor,
     mask is applied)."""
     nb, m, k = x.shape
     return dwdb_plan(nb, m, k, dy.shape[2], strides=_dw_strides(x, dy, y),
-                     x_aligned=_aligned(x), dz_aligned=_aligned(dy, y))
+                     x_align=_align(x), dz_align=_align(dy, y),
+                     itemsize=x.element_size())
 
 
 def fused_linear_bwd_dw_db(x: torch.Tensor, dy: torch.Tensor,
@@ -342,20 +394,22 @@ def fused_linear_bwd_dw_db(x: torch.Tensor, dy: torch.Tensor,
     if not _on_cuda(x, dy, y):
         return ref.fused_linear_bwd_dw_db_ref(x, dy, y, mask)
     _check_mask(mask, y)
-    x, dy = _operand(x, 3, "x"), _operand(dy, 3, "dy")
+    dt = x.dtype
+    x, dy = _operand(x, 3, "x", dt), _operand(dy, 3, "dy", dt)
     relu = mask == "relu"
-    y = _operand(y, 3, "y") if relu else dy
+    y = _operand(y, 3, "y", dt) if relu else dy
     nb, m, n = dy.shape
     k = x.shape[2]
     if x.shape[:2] != (nb, m) or y.shape != dy.shape:
         raise ValueError(f"shapes x {tuple(x.shape)}, dy {tuple(dy.shape)}")
     dw = torch.empty((nb, k, n), device=x.device, dtype=x.dtype)
-    db = torch.empty((nb, n), device=x.device, dtype=x.dtype)
+    db = torch.empty((nb, n), device=x.device, dtype=dy.dtype)
     if db.numel():
         plan = fused_linear_bwd_dw_db_plan(x, dy, y)
-        _launch("fused_linear_bwd_dw_db", "fused_linear_bwd_dw_db", x.device,
-                x.data_ptr(), dy.data_ptr(), y.data_ptr(), dw.data_ptr(),
-                db.data_ptr(), nb, m, k, n, *_dw_strides(x, dy, y),
+        _launch("fused_linear_bwd_dw_db", "fused_linear_bwd_dw_db", dt,
+                x.device, x.data_ptr(), dy.data_ptr(), y.data_ptr(),
+                dw.data_ptr(), db.data_ptr(), nb, m, k, n,
+                *_dw_strides(x, dy, y),
                 dw.stride(0), dw.stride(1), db.stride(0), int(relu),
                 plan.vec_x, plan.vec_dz)
     return dw, db

@@ -9,6 +9,10 @@ kernels rebuild the mask from the saved output, ``(x, w)`` for none, and
 rebuilds the pre-activation with one extra ``activation="none"`` forward
 (the remat rule: one GEMM instead of an (M, N) buffer held per layer) and
 hands the backward kernels a pre-multiplied ``dz`` with ``mask="none"``.
+As in the reference's ``_linear_bwd``, that ``dz`` is cast to ``dy``'s
+dtype, and ``dx``, ``dw`` and ``db`` come back in the dtypes of ``x``,
+``w`` and ``dy`` (bf16 operands: bf16 gradients, which autograd carries
+back through the cast to the f32 master weights).
 
 ``linear`` takes one weight for every row (w (K, N), b (N,)) or one weight
 per slot (x (S, ..., K), w (S, K, N), b (S, N)), so a slot-batched cohort
@@ -40,7 +44,7 @@ class _FusedLinear(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        mask, y = ctx.activation, None
+        mask, y, dz = ctx.activation, None, dy
         if mask == "relu":
             x, w, y = ctx.saved_tensors
         elif mask == "none":
@@ -50,12 +54,12 @@ class _FusedLinear(torch.autograd.Function):
             z = kernel.fused_linear(x, w, b, "none")
             with torch.enable_grad():
                 z.requires_grad_()
-                (dy,) = torch.autograd.grad(ref.ACTS[mask](z), z, dy)
-            mask = "none"
-        dx = (kernel.fused_linear_bwd_dx(dy, w, y, mask)
+                (dz,) = torch.autograd.grad(ref.ACTS[mask](z), z, dy)
+            dz, mask = dz.to(dy.dtype), "none"
+        dx = (kernel.fused_linear_bwd_dx(dz, w, y, mask).to(x.dtype)
               if ctx.needs_input_grad[0] else None)
-        dw, db = kernel.fused_linear_bwd_dw_db(x, dy, y, mask)
-        return dx, dw, db, None
+        dw, db = kernel.fused_linear_bwd_dw_db(x, dz, y, mask)
+        return dx, dw.to(w.dtype), db.to(dy.dtype), None
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,

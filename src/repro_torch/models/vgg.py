@@ -16,6 +16,11 @@ reference's single-model signature (x ``(B, ...)``) on top of that.
 Convs and pools are PyTorch's (``F.conv2d``, ``F.max_pool2d``), as the
 reference leaves them to XLA; every fc layer goes through the hand-written
 fused linear kernels (``repro_torch.kernels.fused_linear.ops.linear``).
+Every layer runs in its input's dtype: bf16 activations and weights (the
+mixed-precision round, ``repro_torch.fl.cohort``) take cuDNN's bf16 convs
+and the kernels' bf16 forms. The conv adds its bias before rounding to
+bf16, where the reference rounds the conv and then adds the bias: one
+bf16 rounding apart.
 """
 from __future__ import annotations
 
@@ -94,7 +99,8 @@ def mlp_layer_costs(sizes=(3072, 128, 64, 10), sf: int = 4) -> List[LayerCost]:
 
 
 def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """relu(conv3x3 SAME + b) on NHWC slots x (S, B, H, W, C)."""
+    """relu(conv3x3 SAME + b) on NHWC slots x (S, B, H, W, C), in x's
+    dtype (w and b in the same)."""
     s, n, h, wd, c = x.shape
     if w.dim() == 4:
         # one weight for every slot: fold the slots into the batch; the
@@ -111,7 +117,7 @@ def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _pool(x: torch.Tensor) -> torch.Tensor:
-    """2x2/2 max-pool on NHWC slots x (S, B, H, W, C)."""
+    """2x2/2 max-pool on NHWC slots x (S, B, H, W, C), in x's dtype."""
     s, n = x.shape[:2]
     y = F.max_pool2d(x.flatten(0, 1).permute(0, 3, 1, 2), 2)
     return y.permute(0, 2, 3, 1).unflatten(0, (s, n))
@@ -119,7 +125,8 @@ def _pool(x: torch.Tensor) -> torch.Tensor:
 
 def _apply_layer(kind: str, layer: Dict[str, torch.Tensor],
                  x: torch.Tensor) -> torch.Tensor:
-    """One layer on slot-batched x (S, B, ...)."""
+    """One layer on slot-batched x (S, B, ...); an fc layer on bf16 x and
+    weights runs the fused linear kernels' bf16 forms."""
     if kind == "conv":
         return _conv(x, layer["w"], layer["b"])
     if kind == "pool":

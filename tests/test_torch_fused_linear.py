@@ -269,7 +269,7 @@ PLAN_CASES = _chip_smoke_cases() + [
 
 def _aligned_fwd_plan(nb, m, k, n, **strides):
     """The forward's plan on a 132-SM card, every pointer 16-byte aligned."""
-    return kernel.fwd_plan(nb, m, k, n, x_aligned=True, w_aligned=True,
+    return kernel.fwd_plan(nb, m, k, n, x_align=16, w_align=16,
                            sms=132, **strides)
 
 
@@ -309,7 +309,7 @@ def test_dwdb_plan_covers_every_output_once(case):
     written by the CTAs of the first K tile (there even when K = 0), which
     cover every column."""
     nb, m, k, n, _ = case
-    plan = kernel.dwdb_plan(nb, m, k, n, x_aligned=True, dz_aligned=True,
+    plan = kernel.dwdb_plan(nb, m, k, n, x_align=16, dz_align=16,
                             strides=(m * k, k, m * n, n, m * n, n))
     gx, gy, gz = plan.grid
     assert gz == nb and gy >= 1
@@ -360,13 +360,13 @@ def test_plan_copy_width_is_16_bytes_only_where_aligned(k, n, aligned,
     its strides allow them (the second alignment flag stands for w in the
     forward and for dy and y in dw/db)."""
     strides = {**_contiguous_fwd_strides(6, 95, k, n, False), **change}
-    plan = kernel.fwd_plan(6, 95, k, n, x_aligned=bool(aligned[0]),
-                           w_aligned=bool(aligned[1]), sms=132, **strides)
+    x_align, w_align = (16 if a else 4 for a in aligned)
+    plan = kernel.fwd_plan(6, 95, k, n, x_align=x_align, w_align=w_align,
+                           sms=132, **strides)
     assert (plan.vec_x, plan.vec_w) == fwd_vec
     dw_strides = (strides["sxb"], k, 95 * n, n, 95 * n, n)
     plan = kernel.dwdb_plan(6, 95, k, n, strides=dw_strides,
-                            x_aligned=bool(aligned[0]),
-                            dz_aligned=bool(aligned[1]))
+                            x_align=x_align, dz_align=w_align)
     assert (plan.vec_x, plan.vec_dz) == dw_vec
 
 
@@ -392,7 +392,7 @@ def _aligned_dx_plan(nb, m, k, n, shared, **change):
     when ``shared``), every pointer 16-byte aligned; ``change`` overrides
     a stride or an alignment flag."""
     kw = dict(strides=(m * n, n, m * n, n), swb=0 if shared else k * n,
-              swk=n, dz_aligned=True, w_aligned=True, sms=132)
+              swk=n, dz_align=16, w_align=16, sms=132)
     kw.update(change)
     return kernel.dx_plan(nb, m, k, n, **kw)
 
@@ -459,8 +459,8 @@ def test_dx_plan_splits_n_only_for_underfilled_grids():
 @pytest.mark.parametrize("n,change,vec", [
     (4096, {}, (16, 16)),
     (10, {}, (4, 4)),                                 # fc3's 40-byte rows
-    (4096, dict(dz_aligned=False), (4, 16)),          # dy or y off 16 bytes
-    (4096, dict(w_aligned=False), (16, 4)),           # w off 16 bytes
+    (4096, dict(dz_align=4), (4, 16)),                # dy or y off 16 bytes
+    (4096, dict(w_align=4), (16, 4)),                 # w off 16 bytes
     (4096, dict(strides=(95 * 4096, 4096, 95 * 4096 + 2, 4096)), (4, 16)),
     (4096, dict(swb=4096 * 4096 + 2), (16, 4)),
     (12, {}, (16, 16)),                               # ragged N, aligned rows
@@ -560,7 +560,8 @@ def test_variant_tool_substitutions_match_the_source(name):
     does not)."""
     mod = _tool(name)
     source = mod.kernel.SOURCE.read_text()
-    for variant, subs in mod.VARIANTS.items():
+    variants = {**mod.VARIANTS, **getattr(mod, "BF16_VARIANTS", {})}
+    for variant, subs in variants.items():
         for old, _ in subs:
             assert source.count(old) == 1, (variant, old)
 

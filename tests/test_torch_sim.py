@@ -120,8 +120,7 @@ def test_scenario_json_interchange():
 
 
 def test_unported_options_raise(reference):
-    for kw, err in ((dict(dtype="bf16"), NotImplementedError),
-                    (dict(data_plane="traced"), NotImplementedError),
+    for kw, err in ((dict(data_plane="traced"), NotImplementedError),
                     (dict(churn=0.1), ValueError),
                     (dict(engine="sequential"), ValueError)):
         with pytest.raises(err):

@@ -1,6 +1,7 @@
 """Design variants of the fused linear CUDA kernels, side by side on one card.
 
-    python3 tools/fused_linear_variants.py
+    python3 tools/fused_linear_variants.py          # the f32 kernels
+    python3 tools/fused_linear_variants.py --bf16   # their bf16 forms
 
 Run from the root of a checkout on a machine with a CUDA card. Each variant
 is the source ``src/repro_torch/kernels/fused_linear/csrc/fused_linear.cu``
@@ -17,7 +18,11 @@ mask costs. Two dx variants change the launch plan instead of the source
 1[y > 0] in a separate pass before an unmasked dx. ``base`` (the source as
 it is) runs first and again last, which shows the run's spread. Prints each
 kernel's registers and spills, then one line per case and variant, in
-milliseconds.
+milliseconds. With ``--bf16`` it does the same for the bf16 forms
+(BF16_VARIANTS) at chip_smoke.py's bf16 shapes, through the wrappers
+(``kernel.library`` pointed at each variant), each held to
+chip_smoke.py's ``BF16_RTOL`` (one bf16 ulp per element plus that
+fraction of the scale), with the round's fc1-fc3 summed per variant.
 """
 from __future__ import annotations
 
@@ -97,6 +102,49 @@ VARIANTS = {
         ("  if (nend - nbeg < BK) {\n"
          "    if (nn) stage(0, std::true_type{});", "  if (false) {")],
 }
+# The bf16 forms' fragment stores (4 bytes, two bf16, a store) in place of
+# the tile staged through shared memory and written 16 bytes at a time;
+# the staging code after the early return is left dead.
+BF16_FRAGMENT_STORES = """\
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int r = r0 + wm + i * 16 + g + 8 * h;
+        const int c = c0 + wn + j * 8 + 2 * t;
+        if (r >= M) continue;
+        const uint16_t v0 = from_f32<uint16_t>(f(acc[i][j][2 * h], c));
+        const uint16_t v1 = from_f32<uint16_t>(f(acc[i][j][2 * h + 1], c + 1));
+        uint16_t* p = out + r * ld;
+        if ((ld & 1) == 0 && (reinterpret_cast<uintptr_t>(out) & 3) == 0 &&
+            c + 1 < N) {
+          *reinterpret_cast<uint32_t*>(p + c) = v0 | (uint32_t(v1) << 16);
+        } else {
+          if (c < N) p[c] = v0;
+          if (c + 1 < N) p[c + 1] = v1;
+        }
+      }
+  return;
+"""
+BF16_STAGING = ("  cp_async_wait<0>();\n"
+                "  __syncthreads();              // every warp is done with "
+                "the stages\n")
+# bf16 forms: name -> [(text in the source, its replacement)]
+BF16_VARIANTS = {
+    "bf16_base": [],
+    # two CTAs per SM, as the f32 forms: 4 forward and 3 dx stages
+    "bf16_two_ctas": [
+        ("constexpr int kBfMinBlocks = 3;", "constexpr int kBfMinBlocks = 2;"),
+        ("constexpr int kBfFwdStages = 3;", "constexpr int kBfFwdStages = 4;"),
+        ("constexpr int kBfDxStages = 2;", "constexpr int kBfDxStages = 3;")],
+    # results stored straight from the fragments
+    "bf16_fragment_stores": [(BF16_STAGING,
+                              BF16_FRAGMENT_STORES + BF16_STAGING)],
+}
+BF16_CASES = ("round fc1", "round fc2", "round fc3", "stats fc2 shared",
+              "sigma fc2 M=1")
 # dx launch-plan variants of the base source: name -> change to the plan
 DX_PLANS = {
     # one CTA per output tile walks all of N, however few CTAs that makes
@@ -106,7 +154,7 @@ DX_PLANS = {
     # plan's split chosen for that grid
     "dx_no_fold": lambda nb, m, k, n, plan: kernel.dx_plan(
         nb, m, k, n, strides=(m * n, n, m * n, n), swb=k * n, swk=n,
-        dz_aligned=True, w_aligned=True, sms=kernel._sm_count(0)),
+        dz_align=16, w_align=16, sms=kernel._sm_count(0)),
 }
 CASES = ("round fc1", "round fc2", "round fc3", "sigma fc2 M=1")
 DX_SOURCE_VARIANTS = ("base", "cvt_rounding", "no_flush",
@@ -114,13 +162,13 @@ DX_SOURCE_VARIANTS = ("base", "cvt_rounding", "no_flush",
                       "dx_full_short_copy", "dx_no_tail")
 
 
-def build_variants() -> dict:
+def build_variants(variants: dict) -> dict:
     """Compile every variant in parallel; print registers and spills."""
     out_dir = build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     source = kernel.SOURCE.read_text()
     jobs = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in variants.items():
         text = source
         for old, new in subs:
             if text.count(old) != 1:
@@ -140,7 +188,9 @@ def build_variants() -> dict:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
         lines = log.splitlines()
         for i, line in enumerate(lines):
-            found = re.search(r"\d((?:fwd|dwdb|dx)_kernel\w*?)vNS_", line)
+            found = re.search(
+                r"\d((?:fwd|dwdb|dx)(?:_bf16)?_kernel\w*?)(?:vNS_|ENS_)",
+                line)
             if "Compiling entry" in line and found:
                 fn = found.group(1)
                 info = " ".join(lines[i + 1:i + 5])
@@ -249,7 +299,9 @@ def main() -> int:
                          text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = build_variants()
+    if "--bf16" in sys.argv[1:]:
+        return bf16_main()
+    libs = build_variants(VARIANTS)
     order = list(libs) + ["base"]
     g = torch.Generator(device="cuda").manual_seed(0)
     for label, nb, m, k, n, act, shared in chip_smoke.CASES:
@@ -314,6 +366,39 @@ def main() -> int:
         print(f"variant {label:14s} {'library':18s} fwd_ms={lib_fwd:.4f} "
               f"dwdb_ms={lib_dw:.4f} dx_ms={lib_dx:.4f} (baddbmm; bmm: no "
               f"mask, no db)", flush=True)
+    return 0
+
+
+def bf16_main() -> int:
+    """The bf16 forms' variants at BF16_CASES, through the wrappers."""
+    libs = build_variants(BF16_VARIANTS)
+    order = list(libs) + ["bf16_base"]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rounds: dict = {}
+    for label, nb, m, k, n, act, shared in chip_smoke.BF16_CASES:
+        if label not in BF16_CASES:
+            continue
+        x, w, b, dy = chip_smoke.case_operands(g, torch.bfloat16, nb, m, k,
+                                               n, shared)
+        for i, name in enumerate(order):
+            kernel.library = lambda lib=libs[name]: lib
+            if i == len(libs):
+                name += "_again"       # base's second run: the spread
+            fns = chip_smoke._bf16_case_fns(x, w, b, dy, act)
+            line = []
+            for fn_name, (fn, plain, _) in fns.items():
+                excess = chip_smoke._bf16_excess(fn(), plain())
+                ms = chip_smoke.device_ms(fn)
+                if label.startswith("round"):
+                    key = (name, fn_name)
+                    rounds[key] = rounds.get(key, 0.0) + ms
+                over = excess > chip_smoke.BF16_RTOL
+                line.append(f"{fn_name}={ms:.4f}{' OVER' if over else ''}")
+            print(f"variant {label:16s} {name:20s} " + " ".join(line),
+                  flush=True)
+    for (name, fn_name), ms in rounds.items():
+        print(f"variant round fc1-fc3 {name:20s} {fn_name}={ms:.4f}",
+              flush=True)
     return 0
 
 
