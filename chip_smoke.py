@@ -35,19 +35,26 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
      shapes ((2, 512, 8, 64), ds = 64, chunk 64: the chunk-parallel form;
      264 rows of 128 steps: the sequential walk); each case line prints the
      launch plan;
+   - the bf16 forms of flash attention (forward, dq, dk/dv) and of the SSD
+     scan at the same shapes, against their plain bf16 versions (one bf16
+     ulp plus FA_RTOL or SSD_RTOL of scale; lse, f32, at FA_RTOL), with
+     bf16 ``scaled_dot_product_attention`` as the attention's library
+     yardstick;
 3. agreement phases: narrow simulations on the card against the same on
    the CPU, whose plain path the CPU tests hold against the JAX reference:
-   VGG, the FL transformer, the FL Mamba-2, VGG in bf16
-   (``Scenario(dtype="bf16")``), and VGG under the ``round_robin`` and
-   ``delay_driven`` baseline policies;
+   VGG, the FL transformer, the FL Mamba-2, VGG, the transformer and the
+   Mamba-2 in bf16 (``Scenario(dtype="bf16")``), and VGG under the
+   ``round_robin`` and ``delay_driven`` baseline policies;
 4. path phases, each with every kernel's launch count set to 0 just before
    and read just after: the paper's default experiment (VGG-11, DDSRA,
    cohort engine) at full width, ``Scenario(width_mult=1.0, rounds=3,
    eval_every=3, net=FULL_WIDTH_NET)``, the same in bf16 (``vgg-bf16``,
    whose rounds run the bf16 forms), then ``Scenario(model="transformer",
    rounds=3, eval_every=3)`` and ``Scenario(model="ssm", rounds=3,
-   eval_every=3)`` on the default network, all on ``device="cuda"``:
-   statistics pass plus three rounds, the last one profiled.
+   eval_every=3)`` on the default network and both again in bf16
+   (``transformer-bf16``, ``ssm-bf16``: their rounds run the attention and
+   SSD bf16 forms), all on ``device="cuda"``: statistics pass plus three
+   rounds, the last one profiled.
 
 Any failure raises, which exits non-zero before the result line. The line
 before last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
@@ -83,7 +90,8 @@ from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
 
 # H100 SXM data sheet: f32 outside the tensor cores, HBM3 bandwidth. The
 # attention backward, the forward's short form and the SSD kernels are
-# plain f32 FMA.
+# plain f32 FMA (their bf16 forms too, but their bound reads the bf16
+# rate below: on bf16 operands the same work could run there).
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # The fused linear kernels and the attention forward's tiled form run
@@ -94,7 +102,8 @@ PEAK_BYTES = 3.35e12
 # implements it; the attention forward's bound reads the rate of the form
 # that runs.
 PEAK_3XTF32_FLOPS = 495e12 / 3
-# The bf16 forms: dense bf16 tensor cores, f32 accumulation
+# The bf16 forms (every kernel's): dense bf16 tensor cores, f32
+# accumulation
 PEAK_BF16_FLOPS = 989e12
 SOURCE = "src/repro_torch/kernels/fused_linear/csrc/fused_linear.cu"
 FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
@@ -108,18 +117,27 @@ REPLACES = {
     "flash_attention_bwd_dkdv":
         "src/repro/kernels/flash_attention/kernel.py:227",
     "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:77",
-    # the bf16 forms of the same three Pallas kernels
+    # the bf16 forms of the same Pallas kernels
     "fused_linear_bf16": "src/repro/kernels/fused_linear/kernel.py:81",
     "fused_linear_bwd_dx_bf16": "src/repro/kernels/fused_linear/kernel.py:123",
     "fused_linear_bwd_dw_db_bf16":
         "src/repro/kernels/fused_linear/kernel.py:179",
+    "flash_attention_bf16": "src/repro/kernels/flash_attention/kernel.py:96",
+    "flash_attention_bwd_dq_bf16":
+        "src/repro/kernels/flash_attention/kernel.py:227",
+    "flash_attention_bwd_dkdv_bf16":
+        "src/repro/kernels/flash_attention/kernel.py:227",
+    "ssd_scan_bf16": "src/repro/kernels/ssd_scan/kernel.py:77",
 }
 SOURCES = {name: (SOURCE if name.startswith("fused") else FA_SOURCE
                   if name.startswith("flash") else SSD_SOURCE)
            for name in REPLACES}
-NAMES = tuple(REPLACES)[:3]            # the fused linear kernels
-FA_NAMES = tuple(REPLACES)[3:6]
-BF16_NAMES = tuple(REPLACES)[7:]       # their bf16 forms
+# the kernels each path must launch, by name
+NAMES = ("fused_linear", "fused_linear_bwd_dx", "fused_linear_bwd_dw_db")
+FA_NAMES = ("flash_attention", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkdv")
+BF16_NAMES = tuple(f"{name}_bf16" for name in NAMES)
+FA_BF16_NAMES = tuple(f"{name}_bf16" for name in FA_NAMES)
 # the CUDA kernels of the port's sources, by function name
 PORT_KERNELS = ("fwd_kernel", "splitk_reduce_kernel", "dx_kernel",
                 "dwdb_kernel", "fwd_bf16_kernel", "dx_bf16_kernel",
@@ -164,9 +182,11 @@ def device_ms(fn, reps: int = 10) -> float:
     than the card runs (small kernels, plain versions of many small ops),
     the event-timed :func:`time_ms` measures the host instead. The tracer
     now and then drops part or all of a window (all of it in three
-    profiles running, once), so profiles are taken until three caught
-    kernel launches, ten at most, and only those that caught the most
-    count: the median of their times."""
+    profiles running, once; part of the SSD bf16 form's, whose calls
+    launch two kernels, in all three of another run), so profiles are
+    taken until three caught a whole number of launches per call (every
+    timed callable launches the same kernels each call), ten at most, and
+    only those that caught the most count: the median of their times."""
     fn()
     torch.cuda.synchronize()
     runs = []
@@ -179,13 +199,14 @@ def device_ms(fn, reps: int = 10) -> float:
         kernels = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA]
         count = sum(e.count for e in kernels)
-        if count:
+        if count and count % reps == 0:
             runs.append((count, sum(e.self_device_time_total
                                     for e in kernels)))
         if len(runs) == 3:
             break
     if not runs:
-        raise RuntimeError("ten profiles in a row caught no device time")
+        raise RuntimeError("ten profiles in a row caught no whole window "
+                           "of device time")
     most = max(count for count, _ in runs)
     kept = sorted(us for count, us in runs if count == most)
     return kept[len(kept) // 2] / 1e3 / reps
@@ -356,15 +377,22 @@ def _max_err(name: str, label: str, got, want) -> tuple:
 
 def _bf16_excess(got, want) -> float:
     """The largest (|kernel - plain| - ulp(plain)) / max |plain| over a bf16
-    form's outputs, each output against its own largest magnitude: at most
-    BF16_RTOL when every element lies within one bf16 ulp of the plain
-    result plus BF16_RTOL of the scale."""
+    form's bf16 outputs, each output against its own largest magnitude: at
+    most BF16_RTOL when every element lies within one bf16 ulp of the plain
+    result plus BF16_RTOL of the scale. An f32 output (the attention
+    forward's lse) counts by |kernel - plain| / max |plain| alone."""
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
+    check(got[0].dtype == want[0].dtype == torch.bfloat16,
+          "bf16 outputs expected")
     worst = 0.0
     for a, r in zip(got, want):
-        check(a.dtype == r.dtype == torch.bfloat16, "bf16 outputs expected")
+        check(a.dtype == r.dtype, f"dtypes {a.dtype} and {r.dtype}")
         r = r.float()
+        if a.dtype == torch.float32:
+            worst = max(worst, float((a - r).abs().max())
+                        / max(float(r.abs().max()), 1.0))
+            continue
         _, e = torch.frexp(r.abs())
         ulp = torch.where(r == 0, 0.0, torch.ldexp(torch.ones_like(r), e - 8))
         excess = float(((a.float() - r).abs() - ulp).max())
@@ -377,12 +405,13 @@ def _fmt(ms) -> str:
 
 
 def _hold(totals: dict, name: str, label: str, fn, plain, lib, rtol: float,
-          bound: tuple, record: bool, shape: str, bf16: bool = False) -> None:
+          bound: tuple, record: bool, shape: str, bf16: bool = False,
+          plain_reps: int = 10) -> None:
     """Check one kernel against its plain version at ``rtol`` x its output
     scale (``bf16``: one bf16 ulp per element plus that); time kernel,
-    plain version and library call on the device (and print their
-    event-timed wall times); keep the largest error, and add the case to
-    the record when ``record``."""
+    plain version (over ``plain_reps`` calls) and library call on the
+    device (and print their event-timed wall times); keep the largest
+    error, and add the case to the record when ``record``."""
     got, want = fn(), plain()
     err, scale = _max_err(name, label, got, want)
     if bf16:
@@ -395,8 +424,11 @@ def _hold(totals: dict, name: str, label: str, fn, plain, lib, rtol: float,
               f"{name} {label}: max |kernel - plain| = {err:.3e} > {rtol} x "
               f"{scale:.3e}")
     fns = dict(ms=fn, plain_ms=plain, library_ms=lib)
-    dev = {k: None if f is None else device_ms(f) for k, f in fns.items()}
-    wall = {k: None if f is None else time_ms(f) for k, f in fns.items()}
+    reps = dict(ms=10, plain_ms=plain_reps, library_ms=10)
+    dev = {k: None if f is None else device_ms(f, reps[k])
+           for k, f in fns.items()}
+    wall = {k: None if f is None else time_ms(f, reps[k])
+            for k, f in fns.items()}
     print(f"case {name:24s} {label:18s} {shape} max_abs_err={err:.3e} "
           + " ".join(f"{k}={_fmt(dev[k])} (wall {_fmt(wall[k])})"
                      for k in fns)
@@ -450,16 +482,21 @@ def _visible(s: int, causal: bool, window) -> torch.Tensor:
     return mask
 
 
-def attention_phase() -> dict:
-    g = torch.Generator(device="cuda").manual_seed(1)
+def attention_phase(bf16: bool = False) -> dict:
+    """Flash attention's three kernels (``bf16``: their bf16 forms, named
+    with ``_bf16``, on bf16 operands with f32 lse and delta, held to one
+    bf16 ulp plus FA_RTOL) against their plain versions at FA_CASES."""
+    g = torch.Generator(device="cuda").manual_seed(4 if bf16 else 1)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    sfx = "_bf16" * bf16
     totals: dict = {}
     for label, b, h, s, d, causal, window in FA_CASES:
         # (B, S, H, D) activations read as (B, H, S, D) views, as the model
         # hands them to the kernels
         q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=g)
-                       .transpose(1, 2) for _ in range(4))
+                       .to(dtype).transpose(1, 2) for _ in range(4))
         o, lse = fa_kernel.flash_attention(q, k, v, causal, window)
-        delta = (do * o).sum(-1)
+        delta = (do.float() * o.float()).sum(-1)
         mask = _visible(s, causal, window)
         pairs = int(mask.sum())
         # library yardstick: scaled_dot_product_attention, forward and its
@@ -503,16 +540,21 @@ def attention_phase() -> dict:
         for name, (fn, plain, lib) in fns.items():
             per_pair, tensors, rows = FA_WORK[name]
             plan = plans[name]
-            # the forward's tiled form runs on the tensor cores
+            # the forward's tiled form runs on the tensor cores; the bf16
+            # forms' bound reads the bf16 rate, 2 bytes a tensor element
+            # and 4 an lse or delta element
             tc = name == "flash_attention" and plan.form == "tiled"
             bound = _bound(per_pair * d * pairs * b * h,
-                           4 * b * h * s * (tensors * d + rows),
+                           b * h * s * (q.element_size() * tensors * d
+                                        + 4 * rows),
+                           PEAK_BF16_FLOPS if bf16 else
                            PEAK_3XTF32_FLOPS if tc else PEAK_F32_FLOPS)
-            _hold(totals, name, label, fn, plain, lib, FA_RTOL, bound,
+            _hold(totals, name + sfx, label, fn, plain, lib, FA_RTOL, bound,
                   label == "round",
                   f"B={b} H={h} S={s} D={d} causal={int(causal)} "
-                  f"window={window} plan: form={plan.form} heads_per_block="
-                  f"{plan.heads_per_block} vec={plan.vec}")
+                  f"window={window}" + " bf16" * bf16 + " plan: form="
+                  f"{plan.form} heads_per_block={plan.heads_per_block} "
+                  f"vec={plan.vec}", bf16=bf16)
     return totals
 
 
@@ -534,34 +576,47 @@ SSD_CASES = [
 ]
 
 
-def ssd_phase() -> dict:
-    g = torch.Generator(device="cuda").manual_seed(2)
+def ssd_phase(bf16: bool = False) -> dict:
+    """The SSD scan (``bf16``: its bf16 form, ``ssd_scan_bf16``, on bf16 x,
+    b, c and a_log with f32 dt, held to one bf16 ulp plus SSD_RTOL)
+    against its plain version at SSD_CASES."""
+    g = torch.Generator(device="cuda").manual_seed(5 if bf16 else 2)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    size = 2 if bf16 else 4
     totals: dict = {}
     for label, rows, s, n, p, ds, chunk, slots in SSD_CASES:
         # x, b and c as the model hands them over: split views of one conv
         # output, read through their row and step strides
         conv = torch.randn(rows, s, n * p + 2 * ds, device="cuda",
-                           generator=g)
+                           generator=g).to(dtype)
         x = conv[..., :n * p].reshape(rows, s, n, p)
         bm, cm = conv[..., n * p:n * p + ds], conv[..., n * p + ds:]
         dt = F.softplus(torch.randn(rows, s, n, device="cuda", generator=g))
         a_log = 0.5 * (torch.randn(n, device="cuda", generator=g)
                        .expand(12, n) if slots == 0 else
                        torch.randn(slots, n, device="cuda", generator=g))
+        a_log = a_log.to(dtype)
         pairs = chunk * (chunk + 1) // 2
         ops = rows * (s // chunk) * (2 * pairs * ds + n * (
             2 * pairs * p + 4 * chunk * ds * p))
-        nbytes = 4 * (2 * rows * s * n * p + rows * s * n
-                      + 2 * rows * s * ds + max(slots, 1) * n)
+        # x and y, b and c, a_log at the operands' size; dt at 4 bytes
+        nbytes = size * (2 * rows * s * n * p + 2 * rows * s * ds
+                         + max(slots, 1) * n) + 4 * rows * s * n
         plan = ssd_kernel.ssd_scan_plan(x, bm, cm, chunk)
-        _hold(totals, "ssd_scan", label,
+        # the plain recurrence launches some eight kernels a step: over
+        # hundreds of steps a call is thousands of launches, which the
+        # profiler takes seconds to sum, so those cases time one call
+        _hold(totals, "ssd_scan" + "_bf16" * bf16, label,
               lambda: ssd_kernel.ssd_scan(x, dt, a_log, bm, cm, chunk=chunk),
               lambda: ssd_ref.ssd_ref(x, dt, a_log, bm, cm), None, SSD_RTOL,
-              _bound(ops, nbytes), label == "round",
+              _bound(ops, nbytes, PEAK_BF16_FLOPS if bf16
+                     else PEAK_F32_FLOPS), label == "round",
               f"rows={rows} S={s} n={n} p={p} ds={ds} chunk={chunk} "
-              f"slots={slots} plan: heads={plan.heads} warps={plan.warps} "
+              f"slots={slots}" + " bf16" * bf16 + f" plan: heads="
+              f"{plan.heads} warps={plan.warps} "
               f"chunk_parallel={int(plan.chunk_parallel)} "
-              f"vec_x={plan.vec_x} vec_bc={plan.vec_bc}")
+              f"vec_x={plan.vec_x} vec_bc={plan.vec_bc}", bf16=bf16,
+              plain_reps=10 if s <= 32 else 1)
     return totals
 
 
@@ -576,10 +631,12 @@ def ssd_phase() -> dict:
 # reference's SSD tolerance of 1e-4: the card runs the chunked kernel
 # forward and the sequential recurrence backward, the CPU the chunked dual
 # form both ways, which sum in different orders.
-# The bf16 round: cuDNN's bf16 convolutions and the CPU's round to bf16 at
-# different points of different sums, so losses and params are held to the
-# reference's own bf16 contract (tests/test_mixed_precision.py: 5e-2 and
-# 3e-2); its statistics pass is f32. The baseline policies' runs are f32,
+# The bf16 rounds: cuDNN's bf16 convolutions and the CPU's round to bf16
+# at different points of different sums (the token models': the card's
+# bf16 attention and SSD kernels against the CPU's plain attention and
+# chunked dual form), so losses and params are held to the reference's own
+# bf16 contract (tests/test_mixed_precision.py: 5e-2 and 3e-2, absolute);
+# their statistics pass is f32. The baseline policies' runs are f32,
 # their decisions, queues and delays exact. Their losses and params admit
 # a relu tie: a pre-activation within ~1e-6 of 0 can round to either side
 # on the two devices, and the gradient below it then differs in that
@@ -592,12 +649,15 @@ def ssd_phase() -> dict:
 # runs are held at 5e-3.
 F32_AGREE = dict(params=1e-5, losses=1e-5, stats=1e-4)
 TIE_AGREE = dict(params=5e-3, losses=5e-3, stats=1e-4)
+BF16_AGREE = dict(params=3e-2, losses=5e-2, stats=1e-4)
 AGREE = {
     "vgg": (dict(width_mult=0.0625), F32_AGREE),
     "transformer": (dict(model="transformer"), F32_AGREE),
     "ssm": (dict(model="ssm"), dict(params=1e-4, losses=1e-4, stats=1e-4)),
-    "vgg-bf16": (dict(width_mult=0.0625, dtype="bf16"),
-                 dict(params=3e-2, losses=5e-2, stats=1e-4)),
+    "vgg-bf16": (dict(width_mult=0.0625, dtype="bf16"), BF16_AGREE),
+    "transformer-bf16": (dict(model="transformer", dtype="bf16"),
+                         BF16_AGREE),
+    "ssm-bf16": (dict(model="ssm", dtype="bf16"), BF16_AGREE),
     "vgg-round_robin": (dict(width_mult=0.0625, policy="round_robin"),
                         TIE_AGREE),
     "vgg-delay_driven": (dict(width_mult=0.0625, policy="delay_driven"),
@@ -661,6 +721,11 @@ PATHS = {
                     FA_NAMES, 98_624),
     "ssm": (Scenario(model="ssm", rounds=3, eval_every=3), ("ssd_scan",),
             72_216),
+    "transformer-bf16": (Scenario(model="transformer", rounds=3,
+                                  eval_every=3, dtype="bf16"),
+                         FA_BF16_NAMES, 98_624),
+    "ssm-bf16": (Scenario(model="ssm", rounds=3, eval_every=3,
+                          dtype="bf16"), ("ssd_scan_bf16",), 72_216),
 }
 
 
@@ -766,15 +831,22 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    totals = kernel_phase()
-    totals.update(kernel_phase(bf16=True))
-    totals.update(attention_phase())
-    totals.update(ssd_phase())
+
+    def timed(name, phase, *args, **kw):
+        """Run one phase and print its seconds (for the run's budget)."""
+        t = time.perf_counter()
+        out = phase(*args, **kw)
+        print(f"phase {name} s={time.perf_counter() - t:.1f}", flush=True)
+        return out
+    totals, launches = {}, {}
+    for bf16 in (False, True):
+        for phase in (kernel_phase, attention_phase, ssd_phase):
+            totals.update(timed(f"{phase.__name__} bf16={int(bf16)}", phase,
+                                bf16=bf16))
     for label in AGREE:
-        agreement_phase(label)
-    launches = {}
+        timed(f"agree {label}", agreement_phase, label)
     for label in PATHS:
-        launches.update(path_phase(label))
+        launches.update(timed(f"path {label}", path_phase, label))
 
     out = [dict(name=name, route="cuda", source=SOURCES[name],
                 replaces=REPLACES[name], launches=launches[name],

@@ -50,10 +50,11 @@ from repro_torch.models.convert import params_from_numpy
 # ---------------------------------------------------------------------------
 
 
-# models whose Scenario(dtype="bf16") the port runs: their fc layers have
-# the fused linear kernels' bf16 forms; the token models also need bf16
-# attention and SSD kernels
-BF16_MODELS = ("vgg", "mlp")
+# models whose Scenario(dtype="bf16") the port runs: VGG's and the MLP's
+# fc layers run the fused linear kernels' bf16 forms, the transformer's
+# attention and the SSM's scan the flash-attention and SSD kernels' bf16
+# forms
+BF16_MODELS = ("vgg", "mlp", "transformer", "ssm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,7 +88,7 @@ class Scenario:
     mesh_shape: Optional[Tuple[int, ...]] = None
     keep_last: Optional[int] = None
     # data-plane dtype: "f32", or "bf16" (mixed precision: bf16 rounds over
-    # f32 masters; vgg and mlp only, see BF16_MODELS)
+    # f32 masters; the models of BF16_MODELS)
     dtype: str = "f32"
     data_plane: str = "host"           # "host" ("traced" later)
     # model-upload compression: bits per parameter priced into the DDSRA
@@ -397,9 +398,8 @@ class Simulation:
                              "or 'bf16'")
         if sc.dtype == "bf16" and sc.model not in BF16_MODELS:
             raise NotImplementedError(
-                f"Scenario(model={sc.model!r}, dtype='bf16'): the bf16 forms "
-                "of the flash-attention and SSD scan kernels are not ported "
-                f"yet; the bf16 data plane runs {', '.join(BF16_MODELS)}")
+                f"Scenario(model={sc.model!r}, dtype='bf16'): the bf16 data "
+                f"plane runs {', '.join(BF16_MODELS)}")
         if sc.data_plane not in ("host", "traced"):
             raise ValueError(
                 f"Scenario.data_plane={sc.data_plane!r}: expected 'host' "

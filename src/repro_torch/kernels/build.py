@@ -28,6 +28,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LOADED: Dict[pathlib.Path, ctypes.CDLL] = {}
 
+# the operand dtypes the kernels take, and the suffix that names each
+# kernel's C entry and launch counter for that dtype
+DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
+
 
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
@@ -84,6 +88,20 @@ def load(src: pathlib.Path, argtypes: Dict[str, list]) -> ctypes.CDLL:
     return lib
 
 
+def copy_width(align: int, *strides, itemsize: int = 4) -> int:
+    """The widest staging copy, in bytes, that a data pointer's alignment
+    ``align`` (in bytes) and every stride (in elements) allow: 16, else 4,
+    else (2-byte elements) 2. Every wrapper's launch plan reads its copy
+    widths from here, for f32 and bf16 operands alike."""
+    for width in (16, 4, 2):
+        per = width // itemsize
+        if (per and align % width == 0
+                and all(s % per == 0 for s in strides)):
+            return width
+    raise ValueError(f"no copy width for {itemsize}-byte elements at "
+                     f"alignment {align}")
+
+
 def on_cuda(what: str, *tensors) -> bool:
     """True for CUDA operands, False for CPU ones (``None`` entries are
     skipped); raises on any other device or on a mix of devices."""
@@ -99,9 +117,11 @@ def on_cuda(what: str, *tensors) -> bool:
 
 
 def launch(lib: ctypes.CDLL, fn: str, name: str, counts: Dict[str, int],
-           device, *args) -> None:
+           device, *args, dtype: torch.dtype = torch.float32) -> None:
     """Call kernel entry ``fn`` of ``lib`` on ``device``'s current stream;
-    raise if the launch failed, else count it under ``counts[name]``."""
+    raise if the launch failed, else count it under ``counts[name]``. For
+    ``dtype``'s form both names take its suffix (:data:`DTYPES`)."""
+    fn, name = fn + DTYPES[dtype], name + DTYPES[dtype]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, fn)(*args, stream)

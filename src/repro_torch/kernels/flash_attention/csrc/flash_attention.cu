@@ -1,5 +1,5 @@
-// Flash attention, forward and the dq / dk-dv backward pair, f32 CUDA for
-// Hopper (sm_90a).
+// Flash attention, forward and the dq / dk-dv backward pair, CUDA for
+// Hopper (sm_90a), on f32 or bf16 operands.
 //
 // Replaces the Pallas TPU kernels of
 // src/repro/kernels/flash_attention/kernel.py:
@@ -56,8 +56,23 @@
 // past S are neither copied nor multiplied (the loops end at S); masked
 // pairs contribute exactly 0. Each warp writes its outputs to its own
 // staging rows and stores them as whole rows with the other lanes.
+//
+// The bf16 forms. Every kernel is a template on the operands' element type
+// T (float or __nv_bfloat16), as the Pallas kernels take any operand dtype:
+// they upcast on load, compute in f32 and write the operand dtype. For T =
+// bf16 only the loaders and the stores differ. The loaders read 16, 4 or
+// 2 bytes of bf16 per copy (the plan's `vec`) with plain loads, widen them
+// with __bfloat162float and write f32 into the same shared-memory layouts
+// and pitches the f32 forms fill by cp.async, so everything downstream (the
+// short forms' passes, the tiled backward's FMA tiles, tc_tile's 3xTF32
+// MMAs) is the f32 code. bf16 values are exact in TF32, so the small parts
+// of Q, K and V's 3xTF32 split are zero there: right, not fast. Each output
+// is rounded once, to nearest even (__float2bfloat16_rn); lse and delta
+// are f32 in both forms.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -76,6 +91,66 @@ struct Problem {
   float scale;
   int causal, window;          // window <= 0: no window
 };
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+// an f32 result in the operands' type: rounded once, to nearest even
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// VEC bytes of bf16 at src (VEC / 2 elements), widened into the floats at
+// dst (16-byte aligned for VEC = 16, 8-byte for VEC = 4)
+template <int VEC>
+__device__ __forceinline__ void widen(float* dst, const bf16* src) {
+  if constexpr (VEC == 16) {
+    const uint4 u = *reinterpret_cast<const uint4*>(src);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+    const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+    const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
+    reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
+    reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
+  } else if constexpr (VEC == 4) {
+    *reinterpret_cast<float2*>(dst) =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
+  } else {
+    *dst = __bfloat162float(*src);
+  }
+}
+
+// The reverse: VEC / 2 floats at src, each rounded once, as VEC bytes of
+// bf16 at dst
+template <int VEC>
+__device__ __forceinline__ void narrow(bf16* dst, const float* src) {
+  if constexpr (VEC == 16) {
+    const float4 a = reinterpret_cast<const float4*>(src)[0];
+    const float4 b = reinterpret_cast<const float4*>(src)[1];
+    __nv_bfloat162 h[4] = {__floats2bfloat162_rn(a.x, a.y),
+                           __floats2bfloat162_rn(a.z, a.w),
+                           __floats2bfloat162_rn(b.x, b.y),
+                           __floats2bfloat162_rn(b.z, b.w)};
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(h);
+  } else if constexpr (VEC == 4) {
+    *reinterpret_cast<__nv_bfloat162*>(dst) =
+        __floats2bfloat162_rn(src[0], src[1]);
+  } else {
+    *dst = __float2bfloat16_rn(*src);
+  }
+}
+
+// the copy widths, in bytes, that the forms of element type T take
+template <typename T>
+bool vec_ok(int vec) {
+  return vec == 16 || vec == 4 || (sizeof(T) == 2 && vec == 2);
+}
 
 __device__ __forceinline__ bool visible(const Problem& pr, int q, int k) {
   return q < pr.seq && k < pr.seq && (!pr.causal || k <= q) &&
@@ -105,16 +180,17 @@ __device__ __forceinline__ void query_tiles(const Problem& pr, int k0,
                       : n_tiles(pr);
 }
 
-// rows [row0, row0 + 64) of one (batch, head) operand into dst[64][D+1];
-// rows past the sequence end read as 0
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
+// rows [row0, row0 + 64) of one (batch, head) operand into dst[64][D+1]
+// as f32; rows past the sequence end read as 0
+template <int D, typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           long long row_stride, int row0,
                                           int seq) {
   for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
     const int r = e / D, d = e % D;
     const int row = row0 + r;
-    dst[r * (D + 1) + d] = row < seq ? src[row * row_stride + d] : 0.f;
+    dst[r * (D + 1) + d] = row < seq ? to_f32(src[row * row_stride + d])
+                                     : 0.f;
   }
 }
 
@@ -157,12 +233,12 @@ __device__ __forceinline__ void tile_matmul(const float* p, const float* m,
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, const float* __restrict__ dout,
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, const T* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
-          float* __restrict__ dq, Strides sq, Strides sk, Strides sv,
+          T* __restrict__ dq, Strides sq, Strides sk, Strides sv,
           Strides sdo, Strides sdq, Problem pr) {
   extern __shared__ float smem[];
   float* qs = smem;
@@ -223,19 +299,19 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (qi >= pr.seq) continue;
 #pragma unroll
     for (int c = 0; c < D / 16; ++c)
-      dq[qi * sdq.s + tx + 16 * c] = acc[r][c] * pr.scale;
+      dq[qi * sdq.s + tx + 16 * c] = from_f32<T>(acc[r][c] * pr.scale);
   }
 }
 
 // One block per (batch*head, 64-key tile); here the thread's rows are keys
 // and its columns queries, so p^T and ds^T are formed directly and never
 // transposed.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ dout,
+dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, const T* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
-            float* __restrict__ dk, float* __restrict__ dv, Strides sq,
+            T* __restrict__ dk, T* __restrict__ dv, Strides sq,
             Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
             Problem pr) {
   extern __shared__ float smem[];
@@ -314,8 +390,8 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (kj >= pr.seq) continue;
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) {
-      dk[kj * sdk.s + tx + 16 * c] = dk_acc[r][c] * pr.scale;
-      dv[kj * sdv.s + tx + 16 * c] = dv_acc[r][c];
+      dk[kj * sdk.s + tx + 16 * c] = from_f32<T>(dk_acc[r][c] * pr.scale);
+      dv[kj * sdv.s + tx + 16 * c] = from_f32<T>(dv_acc[r][c]);
     }
   }
 }
@@ -364,6 +440,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 template <int VEC>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src,
                                            long long ld, int seq, int lane) {
+  static_assert(VEC == 16 || VEC == 4, "f32 copies are 16 or 4 bytes");
   if (VEC == 16) {
     for (int e = lane; e < seq * (kShortD / 4); e += 32) {
       const int r = e / (kShortD / 4), c = (e % (kShortD / 4)) * 4;
@@ -372,6 +449,18 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
   } else {
     for (int r = 0; r < seq; ++r)
       cp_async4(dst + r * kShortPitch + lane, src + r * ld + lane);
+  }
+}
+
+// The bf16 operand's rows, widened into the same f32 rows: VEC / 2
+// elements per load, 32 / (VEC / 2) lanes per row.
+template <int VEC>
+__device__ __forceinline__ void stage_rows(float* dst, const bf16* src,
+                                           long long ld, int seq, int lane) {
+  constexpr int kPer = VEC / 2, kPieces = kShortD / kPer;
+  for (int e = lane; e < seq * kPieces; e += 32) {
+    const int r = e / kPieces, c = (e % kPieces) * kPer;
+    widen<VEC>(dst + r * kShortPitch + c, src + r * ld + c);
   }
 }
 
@@ -389,6 +478,18 @@ __device__ __forceinline__ void store_rows(float* dst, long long ld,
   } else {
     for (int r = 0; r < seq; ++r)
       dst[r * ld + lane] = src[r * kShortPitch + lane];
+  }
+}
+
+// ... and to a bf16 operand, each element rounded once
+template <int VEC>
+__device__ __forceinline__ void store_rows(bf16* dst, long long ld,
+                                           const float* src, int seq,
+                                           int lane) {
+  constexpr int kPer = VEC / 2, kPieces = kShortD / kPer;
+  for (int e = lane; e < seq * kPieces; e += 32) {
+    const int r = e / kPieces, c = (e % kPieces) * kPer;
+    narrow<VEC>(dst + r * ld + c, src + r * kShortPitch + c);
   }
 }
 
@@ -470,10 +571,10 @@ __device__ __forceinline__ void regs_to_row(float* rows, int lane,
 // staging buffer holds the scores once q_i is in registers, and o's rows
 // after the last score is read. Both passes are unrolled by 4 (four
 // independent keys in flight: faster than one at every FL shape).
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(32 * kMaxHeadsPerBlock, 1)
-fwd_short_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
+fwd_short_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
                  Strides so, Problem pr, int n_heads) {
   extern __shared__ __align__(16) float short_smem[];
@@ -521,12 +622,12 @@ fwd_short_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // dq of one (batch, head) per warp: lane i walks keys j = 0 .. S-1 with
 // p = exp(q_i . k_j * scale - lse_i) (0 where masked), ds = p * (do_i . v_j
 // - delta_i), dq_i += ds * k_j; stores dq_i * scale.
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(32 * kMaxHeadsPerBlock, 1)
-dq_short_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ dout,
+dq_short_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse,
-                const float* __restrict__ delta, float* __restrict__ dq,
+                const float* __restrict__ delta, T* __restrict__ dq,
                 Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdq,
                 Problem pr, int n_heads) {
   extern __shared__ __align__(16) float short_smem[];
@@ -570,14 +671,13 @@ dq_short_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // dk, dv of one (batch, head) per warp: lane j walks queries i = 0 .. S-1
 // with the same p and ds, dv_j += p * do_i, dk_j += ds * q_i; stores
 // dk_j * scale and dv_j. lse_i and delta_i come from lane i by shuffle.
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(32 * kMaxHeadsPerBlock, 1)
-dkdv_short_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v,
-                  const float* __restrict__ dout,
+dkdv_short_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
                   const float* __restrict__ lse,
-                  const float* __restrict__ delta, float* __restrict__ dk,
-                  float* __restrict__ dv, Strides sq, Strides sk, Strides sv,
+                  const float* __restrict__ delta, T* __restrict__ dk,
+                  T* __restrict__ dv, Strides sq, Strides sk, Strides sv,
                   Strides sdo, Strides sdk, Strides sdv, Problem pr,
                   int n_heads) {
   extern __shared__ __align__(16) float short_smem[];
@@ -686,6 +786,7 @@ template <int D, int VEC>
 __device__ __forceinline__ void stage_tile_by(float* dst, int pitch,
                                               const float* src, long long ld,
                                               int r0, int rows, int seq) {
+  static_assert(VEC == 16 || VEC == 4, "f32 copies are 16 or 4 bytes");
   constexpr int kPer = VEC / 4, kChunks = D / kPer;
   for (int e = threadIdx.x; e < rows * kChunks; e += blockDim.x) {
     const int r = e / kChunks, c = (e % kChunks) * kPer, gr = r0 + r;
@@ -698,15 +799,61 @@ __device__ __forceinline__ void stage_tile_by(float* dst, int pitch,
   }
 }
 
-template <int D>
+// The bf16 operand's rows, widened into the same f32 rows by plain loads
+// of VEC bytes; rows at or past seq are zero-filled.
+template <int D, int VEC>
+__device__ __forceinline__ void stage_tile_by(float* dst, int pitch,
+                                              const bf16* src, long long ld,
+                                              int r0, int rows, int seq) {
+  constexpr int kPer = VEC / 2, kChunks = D / kPer;
+  for (int e = threadIdx.x; e < rows * kChunks; e += blockDim.x) {
+    const int r = e / kChunks, c = (e % kChunks) * kPer, gr = r0 + r;
+    if (gr < seq) {
+      widen<VEC>(dst + r * pitch + c, src + gr * ld + c);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) dst[r * pitch + c + i] = 0.f;
+    }
+  }
+}
+
+template <int D, typename T>
 __device__ __forceinline__ void stage_tile(float* dst, int pitch,
-                                           const float* src, long long ld,
+                                           const T* src, long long ld,
                                            int r0, int rows, int seq,
-                                           bool vec16) {
-  if (vec16)
+                                           int vec) {
+  if (vec == 16) {
     stage_tile_by<D, 16>(dst, pitch, src, ld, r0, rows, seq);
-  else
+  } else if constexpr (sizeof(T) == 2) {
+    if (vec == 2)
+      stage_tile_by<D, 2>(dst, pitch, src, ld, r0, rows, seq);
+    else
+      stage_tile_by<D, 4>(dst, pitch, src, ld, r0, rows, seq);
+  } else {
     stage_tile_by<D, 4>(dst, pitch, src, ld, r0, rows, seq);
+  }
+}
+
+// Two neighbouring outputs of one row, each rounded once to T: as one pair
+// store where `pair` (the plan's copy width allows it), else one by one.
+__device__ __forceinline__ void store_pair(float* out, float v0, float v1,
+                                           bool pair) {
+  if (pair) {
+    *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
+  } else {
+    out[0] = v0;
+    out[1] = v1;
+  }
+}
+
+__device__ __forceinline__ void store_pair(bf16* out, float v0, float v1,
+                                           bool pair) {
+  if (pair) {
+    *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    out[0] = __float2bfloat16_rn(v0);
+    out[1] = __float2bfloat16_rn(v1);
+  }
 }
 
 constexpr int kTcRows = 16;   // query rows per warp: one m16 tile
@@ -874,12 +1021,12 @@ __device__ __forceinline__ void tc_tile(const float* qs, const float* ks,
 // warps work on this one); a warp skips the tiles its own 16 rows cannot
 // see.
 // Query tiles run last first, so a causal mask's longest tiles start first.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(32 * kTcWarps)
-fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o,
+fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ o,
               float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
-              Strides so, Problem pr, int vec16) {
+              Strides so, Problem pr, int vec) {
   constexpr int PQK = TcPitch<D>::qk, STAGE = TcPitch<D>::stage;
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -899,14 +1046,14 @@ fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (wq0 < pr.seq) key_tiles(pr, wq0, &wlo, &whi, kTcRows, kTcKeys);
   auto stage_kv = [&](int kt) {
     float* ks = ring + ((kt - lo) % kTcStages) * STAGE;
-    stage_tile<D>(ks, PQK, k, sk.s, kt * kTcKeys, kTcKeys, pr.seq, vec16);
+    stage_tile<D>(ks, PQK, k, sk.s, kt * kTcKeys, kTcKeys, pr.seq, vec);
     stage_tile<D>(ks + kTcKeys * PQK, TcPitch<D>::v, v, sv.s, kt * kTcKeys,
-                  kTcKeys, pr.seq, vec16);
+                  kTcKeys, pr.seq, vec);
     cp_async_commit();
   };
   // the query rows go with the first group; one group per tile, empty past
   // the last tile, so the count of groups in flight stays kTcStages - 1
-  stage_tile<D>(qs, PQK, q, sq.s, q0, kTcQRows, pr.seq, vec16);
+  stage_tile<D>(qs, PQK, q, sq.s, q0, kTcQRows, pr.seq, vec);
 #pragma unroll
   for (int i = 0; i < kTcStages - 1; ++i) {
     if (lo + i < hi) stage_kv(lo + i);
@@ -934,22 +1081,18 @@ fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const int g = lane >> 2, t = lane & 3;
+  // a pair of f32 needs 8-byte alignment (16-byte copies), of bf16 4-byte
+  const bool pair = sizeof(T) == 4 ? vec == 16 : vec >= 4;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = wq0 + g + 8 * r;
     if (row >= pr.seq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
-    float* out = o + row * so.s + 2 * t;
+    T* out = o + row * so.s + 2 * t;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const float v0 = acc[n][2 * r] / denom, v1 = acc[n][2 * r + 1] / denom;
-      if (vec16) {
-        *reinterpret_cast<float2*>(out + 8 * n) = make_float2(v0, v1);
-      } else {
-        out[8 * n] = v0;
-        out[8 * n + 1] = v1;
-      }
-    }
+    for (int n = 0; n < D / 8; ++n)
+      store_pair(out + 8 * n, acc[n][2 * r] / denom,
+                 acc[n][2 * r + 1] / denom, pair);
     if (t == 0) lse[row] = m[r] * kTcLn2 + logf(denom);
   }
 }
@@ -978,31 +1121,31 @@ dim3 grid_of(int batch, int heads, int seq) {
   return dim3(batch * heads, (seq + kTile - 1) / kTile);
 }
 
-template <int D>
-int launch_dq(const float* q, const float* k, const float* v,
-              const float* dout, const float* lse, const float* delta,
-              float* dq, int batch, const long long* st, Problem pr,
-              cudaStream_t stream) {
+template <typename T, int D>
+int launch_dq(const T* q, const T* k, const T* v, const T* dout,
+              const float* lse, const float* delta, T* dq, int batch,
+              const long long* st, Problem pr, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (4 * kTile * (D + 1) + kTile * kPitchP);
-  static const cudaError_t attr = allow_max_smem(dq_kernel<D>);
+  static const cudaError_t attr = allow_max_smem(dq_kernel<T, D>);
   if (attr != cudaSuccess) return attr;
-  dq_kernel<D><<<grid_of(batch, pr.heads, pr.seq), kThreads, smem, stream>>>(
+  dq_kernel<T, D><<<grid_of(batch, pr.heads, pr.seq), kThreads, smem,
+                    stream>>>(
       q, k, v, dout, lse, delta, dq, strides_at(st, 0), strides_at(st, 1),
       strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), pr);
   return cudaGetLastError();
 }
 
-template <int D>
-int launch_dkdv(const float* q, const float* k, const float* v,
-                const float* dout, const float* lse, const float* delta,
-                float* dk, float* dv, int batch, const long long* st,
-                Problem pr, cudaStream_t stream) {
+template <typename T, int D>
+int launch_dkdv(const T* q, const T* k, const T* v, const T* dout,
+                const float* lse, const float* delta, T* dk, T* dv,
+                int batch, const long long* st, Problem pr,
+                cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (4 * kTile * (D + 1) + kTile * kPitchP + 2 * kTile);
-  static const cudaError_t attr = allow_max_smem(dkdv_kernel<D>);
+  static const cudaError_t attr = allow_max_smem(dkdv_kernel<T, D>);
   if (attr != cudaSuccess) return attr;
-  dkdv_kernel<D><<<grid_of(batch, pr.heads, pr.seq), kThreads, smem,
-                   stream>>>(
+  dkdv_kernel<T, D><<<grid_of(batch, pr.heads, pr.seq), kThreads, smem,
+                      stream>>>(
       q, k, v, dout, lse, delta, dk, dv, strides_at(st, 0),
       strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
       strides_at(st, 4), strides_at(st, 5), pr);
@@ -1020,14 +1163,14 @@ size_t short_smem_bytes(int hpb, int operands) {
   return sizeof(float) * operands * kShortRows * hpb;
 }
 
-template <int VEC>
-int launch_fwd_short(const float* q, const float* k, const float* v,
-                     float* o, float* lse, int batch, const long long* st,
-                     Problem pr, int hpb, cudaStream_t stream) {
-  static const cudaError_t attr = allow_max_smem(fwd_short_kernel<VEC>);
+template <typename T, int VEC>
+int launch_fwd_short(const T* q, const T* k, const T* v, T* o, float* lse,
+                     int batch, const long long* st, Problem pr, int hpb,
+                     cudaStream_t stream) {
+  static const cudaError_t attr = allow_max_smem(fwd_short_kernel<T, VEC>);
   if (attr != cudaSuccess) return attr;
-  fwd_short_kernel<VEC><<<short_grid(batch, pr, hpb), 32 * hpb,
-                          short_smem_bytes(hpb, 3), stream>>>(
+  fwd_short_kernel<T, VEC><<<short_grid(batch, pr, hpb), 32 * hpb,
+                             short_smem_bytes(hpb, 3), stream>>>(
       q, k, v, o, lse, strides_at(st, 0), strides_at(st, 1),
       strides_at(st, 2), strides_at(st, 3), pr, batch * pr.heads);
   return cudaGetLastError();
@@ -1035,46 +1178,45 @@ int launch_fwd_short(const float* q, const float* k, const float* v,
 
 // The tiled forward: a block per (batch*head, query tile), the query rows
 // and the key/value ring in shared memory.
-template <int D>
-int launch_fwd_tc(const float* q, const float* k, const float* v, float* o,
-                  float* lse, int batch, const long long* st, Problem pr,
-                  int vec, cudaStream_t stream) {
+template <typename T, int D>
+int launch_fwd_tc(const T* q, const T* k, const T* v, T* o, float* lse,
+                  int batch, const long long* st, Problem pr, int vec,
+                  cudaStream_t stream) {
   const size_t smem = sizeof(float) * (kTcQRows * TcPitch<D>::qk +
                                        kTcStages * TcPitch<D>::stage);
-  static const cudaError_t attr = allow_max_smem(fwd_tc_kernel<D>);
+  static const cudaError_t attr = allow_max_smem(fwd_tc_kernel<T, D>);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(batch * pr.heads, (pr.seq + kTcQRows - 1) / kTcQRows);
-  fwd_tc_kernel<D><<<grid, 32 * kTcWarps, smem, stream>>>(
+  fwd_tc_kernel<T, D><<<grid, 32 * kTcWarps, smem, stream>>>(
       q, k, v, o, lse, strides_at(st, 0), strides_at(st, 1),
-      strides_at(st, 2), strides_at(st, 3), pr, vec == 16);
+      strides_at(st, 2), strides_at(st, 3), pr, vec);
   return cudaGetLastError();
 }
 
-template <int VEC>
-int launch_dq_short(const float* q, const float* k, const float* v,
-                    const float* dout, const float* lse, const float* delta,
-                    float* dq, int batch, const long long* st, Problem pr,
-                    int hpb, cudaStream_t stream) {
-  static const cudaError_t attr = allow_max_smem(dq_short_kernel<VEC>);
+template <typename T, int VEC>
+int launch_dq_short(const T* q, const T* k, const T* v, const T* dout,
+                    const float* lse, const float* delta, T* dq, int batch,
+                    const long long* st, Problem pr, int hpb,
+                    cudaStream_t stream) {
+  static const cudaError_t attr = allow_max_smem(dq_short_kernel<T, VEC>);
   if (attr != cudaSuccess) return attr;
-  dq_short_kernel<VEC><<<short_grid(batch, pr, hpb), 32 * hpb,
-                         short_smem_bytes(hpb, 4), stream>>>(
+  dq_short_kernel<T, VEC><<<short_grid(batch, pr, hpb), 32 * hpb,
+                            short_smem_bytes(hpb, 4), stream>>>(
       q, k, v, dout, lse, delta, dq, strides_at(st, 0), strides_at(st, 1),
       strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), pr,
       batch * pr.heads);
   return cudaGetLastError();
 }
 
-template <int VEC>
-int launch_dkdv_short(const float* q, const float* k, const float* v,
-                      const float* dout, const float* lse,
-                      const float* delta, float* dk, float* dv, int batch,
-                      const long long* st, Problem pr, int hpb,
+template <typename T, int VEC>
+int launch_dkdv_short(const T* q, const T* k, const T* v, const T* dout,
+                      const float* lse, const float* delta, T* dk, T* dv,
+                      int batch, const long long* st, Problem pr, int hpb,
                       cudaStream_t stream) {
-  static const cudaError_t attr = allow_max_smem(dkdv_short_kernel<VEC>);
+  static const cudaError_t attr = allow_max_smem(dkdv_short_kernel<T, VEC>);
   if (attr != cudaSuccess) return attr;
-  dkdv_short_kernel<VEC><<<short_grid(batch, pr, hpb), 32 * hpb,
-                           short_smem_bytes(hpb, 4), stream>>>(
+  dkdv_short_kernel<T, VEC><<<short_grid(batch, pr, hpb), 32 * hpb,
+                              short_smem_bytes(hpb, 4), stream>>>(
       q, k, v, dout, lse, delta, dk, dv, strides_at(st, 0),
       strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
       strides_at(st, 4), strides_at(st, 5), pr, batch * pr.heads);
@@ -1084,24 +1226,108 @@ int launch_dkdv_short(const float* q, const float* k, const float* v,
 // The plan's short form runs only where it applies; a 16-byte copy plan
 // with a stride or pointer that is not 16-byte aligned is the caller's
 // error (the plan checks both).
+template <typename T>
 bool short_plan_ok(int seq, int d, int hpb, int vec) {
   return d == kShortD && seq >= 1 && seq <= kShortMaxSeq && hpb >= 1 &&
-         hpb <= kMaxHeadsPerBlock && (vec == 4 || vec == 16);
+         hpb <= kMaxHeadsPerBlock && vec_ok<T>(vec);
+}
+
+// The short form's launch at the plan's copy width: `launch(VEC)` is
+// called with the width as a compile-time constant (2 for bf16 only).
+template <typename T, typename Launch>
+int by_vec(int vec, Launch launch) {
+  if (vec == 16) return launch(std::integral_constant<int, 16>());
+  if constexpr (sizeof(T) == 2)
+    if (vec == 2) return launch(std::integral_constant<int, 2>());
+  return launch(std::integral_constant<int, 4>());
+}
+
+template <typename T>
+int fwd_entry(const T* q, const T* k, const T* v, T* o, float* lse,
+              int batch, int heads, int seq, int d, const long long* strides,
+              float scale, int causal, int window, int short_form,
+              int heads_per_block, int vec, cudaStream_t stream) {
+  const Problem pr{heads, seq, scale, causal, window};
+  if (short_form) {
+    if (!short_plan_ok<T>(seq, d, heads_per_block, vec))
+      return cudaErrorInvalidValue;
+    return by_vec<T>(vec, [&](auto w) {
+      return launch_fwd_short<T, decltype(w)::value>(
+          q, k, v, o, lse, batch, strides, pr, heads_per_block, stream);
+    });
+  }
+  if (!vec_ok<T>(vec)) return cudaErrorInvalidValue;
+  switch (d) {
+    case 32: return launch_fwd_tc<T, 32>(q, k, v, o, lse, batch, strides, pr, vec, stream);
+    case 64: return launch_fwd_tc<T, 64>(q, k, v, o, lse, batch, strides, pr, vec, stream);
+    case 128: return launch_fwd_tc<T, 128>(q, k, v, o, lse, batch, strides, pr, vec, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int dq_entry(const T* q, const T* k, const T* v, const T* dout,
+             const float* lse, const float* delta, T* dq, int batch,
+             int heads, int seq, int d, const long long* strides,
+             float scale, int causal, int window, int short_form,
+             int heads_per_block, int vec, cudaStream_t stream) {
+  const Problem pr{heads, seq, scale, causal, window};
+  if (short_form) {
+    if (!short_plan_ok<T>(seq, d, heads_per_block, vec))
+      return cudaErrorInvalidValue;
+    return by_vec<T>(vec, [&](auto w) {
+      return launch_dq_short<T, decltype(w)::value>(
+          q, k, v, dout, lse, delta, dq, batch, strides, pr,
+          heads_per_block, stream);
+    });
+  }
+  switch (d) {
+    case 32: return launch_dq<T, 32>(q, k, v, dout, lse, delta, dq, batch, strides, pr, stream);
+    case 64: return launch_dq<T, 64>(q, k, v, dout, lse, delta, dq, batch, strides, pr, stream);
+    case 128: return launch_dq<T, 128>(q, k, v, dout, lse, delta, dq, batch, strides, pr, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int dkdv_entry(const T* q, const T* k, const T* v, const T* dout,
+               const float* lse, const float* delta, T* dk, T* dv, int batch,
+               int heads, int seq, int d, const long long* strides,
+               float scale, int causal, int window, int short_form,
+               int heads_per_block, int vec, cudaStream_t stream) {
+  const Problem pr{heads, seq, scale, causal, window};
+  if (short_form) {
+    if (!short_plan_ok<T>(seq, d, heads_per_block, vec))
+      return cudaErrorInvalidValue;
+    return by_vec<T>(vec, [&](auto w) {
+      return launch_dkdv_short<T, decltype(w)::value>(
+          q, k, v, dout, lse, delta, dk, dv, batch, strides, pr,
+          heads_per_block, stream);
+    });
+  }
+  switch (d) {
+    case 32: return launch_dkdv<T, 32>(q, k, v, dout, lse, delta, dk, dv, batch, strides, pr, stream);
+    case 64: return launch_dkdv<T, 64>(q, k, v, dout, lse, delta, dk, dv, batch, strides, pr, stream);
+    case 128: return launch_dkdv<T, 128>(q, k, v, dout, lse, delta, dk, dv, batch, strides, pr, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // C interface (loaded with ctypes). Operands are (batch, heads, seq, d)
-// f32 with unit d stride; `strides` holds (b, h, s) element strides per
-// operand, in argument order. lse and delta are contiguous (batch*heads,
-// seq). window <= 0 means no window. Every entry also takes the launch
-// plan (kernel.py `attention_plan`): short_form != 0 runs the short form
-// (seq <= 32, d = 32) with `heads_per_block` warps per block and
-// `vec`-byte staging copies (16 needs every pointer and (b, h, s) stride
-// 16-byte aligned), else the tiled kernels: the forward's on the tensor
-// cores with `vec`-byte copies (heads_per_block unused), the backward's
-// 64-row tiles. Returns the CUDA error code of the
-// launch (0 on success); the kernels run asynchronously on `stream`.
+// with unit d stride, f32 (the entries without a suffix) or bf16 (`_bf16`:
+// the same kernels' bf16 forms); `strides` holds (b, h, s) element strides
+// per operand, in argument order. lse and delta are contiguous f32
+// (batch*heads, seq) in both. window <= 0 means no window. Every entry
+// also takes the launch plan (kernel.py `attention_plan`): short_form != 0
+// runs the short form (seq <= 32, d = 32) with `heads_per_block` warps per
+// block and `vec`-byte staging copies (16 needs every pointer and (b, h,
+// s) stride 16-byte aligned; 2, one bf16 at a time, only in the bf16
+// forms), else the tiled kernels: the forward's on the tensor cores with
+// `vec`-byte copies (heads_per_block unused), the backward's 64-row tiles.
+// Returns the CUDA error code of the launch (0 on success); the kernels
+// run asynchronously on `stream`.
 extern "C" int flash_attention_fwd(const float* q, const float* k,
                                    const float* v, float* o, float* lse,
                                    int batch, int heads, int seq, int d,
@@ -1109,21 +1335,19 @@ extern "C" int flash_attention_fwd(const float* q, const float* k,
                                    int causal, int window, int short_form,
                                    int heads_per_block, int vec,
                                    cudaStream_t stream) {
-  const Problem pr{heads, seq, scale, causal, window};
-  if (short_form) {
-    if (!short_plan_ok(seq, d, heads_per_block, vec))
-      return cudaErrorInvalidValue;
-    return vec == 16
-        ? launch_fwd_short<16>(q, k, v, o, lse, batch, strides, pr, heads_per_block, stream)
-        : launch_fwd_short<4>(q, k, v, o, lse, batch, strides, pr, heads_per_block, stream);
-  }
-  if (vec != 4 && vec != 16) return cudaErrorInvalidValue;
-  switch (d) {
-    case 32: return launch_fwd_tc<32>(q, k, v, o, lse, batch, strides, pr, vec, stream);
-    case 64: return launch_fwd_tc<64>(q, k, v, o, lse, batch, strides, pr, vec, stream);
-    case 128: return launch_fwd_tc<128>(q, k, v, o, lse, batch, strides, pr, vec, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  return fwd_entry(q, k, v, o, lse, batch, heads, seq, d, strides, scale,
+                   causal, window, short_form, heads_per_block, vec, stream);
+}
+
+extern "C" int flash_attention_fwd_bf16(const bf16* q, const bf16* k,
+                                        const bf16* v, bf16* o, float* lse,
+                                        int batch, int heads, int seq, int d,
+                                        const long long* strides, float scale,
+                                        int causal, int window,
+                                        int short_form, int heads_per_block,
+                                        int vec, cudaStream_t stream) {
+  return fwd_entry(q, k, v, o, lse, batch, heads, seq, d, strides, scale,
+                   causal, window, short_form, heads_per_block, vec, stream);
 }
 
 extern "C" int flash_attention_bwd_dq(const float* q, const float* k,
@@ -1135,20 +1359,20 @@ extern "C" int flash_attention_bwd_dq(const float* q, const float* k,
                                       int causal, int window, int short_form,
                                       int heads_per_block, int vec,
                                       cudaStream_t stream) {
-  const Problem pr{heads, seq, scale, causal, window};
-  if (short_form) {
-    if (!short_plan_ok(seq, d, heads_per_block, vec))
-      return cudaErrorInvalidValue;
-    return vec == 16
-        ? launch_dq_short<16>(q, k, v, dout, lse, delta, dq, batch, strides, pr, heads_per_block, stream)
-        : launch_dq_short<4>(q, k, v, dout, lse, delta, dq, batch, strides, pr, heads_per_block, stream);
-  }
-  switch (d) {
-    case 32: return launch_dq<32>(q, k, v, dout, lse, delta, dq, batch, strides, pr, stream);
-    case 64: return launch_dq<64>(q, k, v, dout, lse, delta, dq, batch, strides, pr, stream);
-    case 128: return launch_dq<128>(q, k, v, dout, lse, delta, dq, batch, strides, pr, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  return dq_entry(q, k, v, dout, lse, delta, dq, batch, heads, seq, d,
+                  strides, scale, causal, window, short_form,
+                  heads_per_block, vec, stream);
+}
+
+extern "C" int flash_attention_bwd_dq_bf16(
+    const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+    const float* lse, const float* delta, bf16* dq, int batch, int heads,
+    int seq, int d, const long long* strides, float scale, int causal,
+    int window, int short_form, int heads_per_block, int vec,
+    cudaStream_t stream) {
+  return dq_entry(q, k, v, dout, lse, delta, dq, batch, heads, seq, d,
+                  strides, scale, causal, window, short_form,
+                  heads_per_block, vec, stream);
 }
 
 extern "C" int flash_attention_bwd_dkdv(const float* q, const float* k,
@@ -1160,18 +1384,18 @@ extern "C" int flash_attention_bwd_dkdv(const float* q, const float* k,
                                         float scale, int causal, int window,
                                         int short_form, int heads_per_block,
                                         int vec, cudaStream_t stream) {
-  const Problem pr{heads, seq, scale, causal, window};
-  if (short_form) {
-    if (!short_plan_ok(seq, d, heads_per_block, vec))
-      return cudaErrorInvalidValue;
-    return vec == 16
-        ? launch_dkdv_short<16>(q, k, v, dout, lse, delta, dk, dv, batch, strides, pr, heads_per_block, stream)
-        : launch_dkdv_short<4>(q, k, v, dout, lse, delta, dk, dv, batch, strides, pr, heads_per_block, stream);
-  }
-  switch (d) {
-    case 32: return launch_dkdv<32>(q, k, v, dout, lse, delta, dk, dv, batch, strides, pr, stream);
-    case 64: return launch_dkdv<64>(q, k, v, dout, lse, delta, dk, dv, batch, strides, pr, stream);
-    case 128: return launch_dkdv<128>(q, k, v, dout, lse, delta, dk, dv, batch, strides, pr, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  return dkdv_entry(q, k, v, dout, lse, delta, dk, dv, batch, heads, seq, d,
+                    strides, scale, causal, window, short_form,
+                    heads_per_block, vec, stream);
+}
+
+extern "C" int flash_attention_bwd_dkdv_bf16(
+    const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+    const float* lse, const float* delta, bf16* dk, bf16* dv, int batch,
+    int heads, int seq, int d, const long long* strides, float scale,
+    int causal, int window, int short_form, int heads_per_block, int vec,
+    cudaStream_t stream) {
+  return dkdv_entry(q, k, v, dout, lse, delta, dk, dv, batch, heads, seq, d,
+                    strides, scale, causal, window, short_form,
+                    heads_per_block, vec, stream);
 }

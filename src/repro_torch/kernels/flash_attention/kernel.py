@@ -6,7 +6,10 @@ kernels: the forward (o and the f32 log-sum-exp) and the backward pair,
 dq and dk/dv. Operands are kernel-layout ``(B, H, S, D)`` with equal head
 counts and any batch, head and sequence strides (the last dimension
 unit-stride), so a transposed view of ``(B, S, H, D)`` activations is read
-in place; outputs take the layout of the matching input. D is 32, 64 or
+in place; outputs take the layout of the matching input. q, k, v and do
+are all float32 or all bfloat16 (the kernels' bf16 forms: every product
+and sum in f32, each output rounded once to bf16); lse and delta are
+float32 in both. D is 32, 64 or
 128 on the card; any S runs (ragged tiles are masked). ``window`` is the
 sliding-window width (None: no window).
 
@@ -37,7 +40,9 @@ from repro_torch.kernels.flash_attention import ref
 SOURCE = pathlib.Path(__file__).parent / "csrc" / "flash_attention.cu"
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd_dq": 0,
-            "flash_attention_bwd_dkdv": 0}
+            "flash_attention_bwd_dkdv": 0, "flash_attention_bf16": 0,
+            "flash_attention_bwd_dq_bf16": 0,
+            "flash_attention_bwd_dkdv_bf16": 0}
 
 HEAD_DIMS = (32, 64, 128)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -49,6 +54,8 @@ _ARGTYPES = {
     "flash_attention_bwd_dq": [_P] * 7 + _PROBLEM + _PLAN + [_P],
     "flash_attention_bwd_dkdv": [_P] * 8 + _PROBLEM + _PLAN + [_P],
 }
+# the bf16 entries take the same arguments as their f32 twins
+_ARGTYPES.update({f"{fn}_bf16": types for fn, types in _ARGTYPES.items()})
 
 # The short form (csrc kShortMaxSeq, kShortD): a lane per row of a head.
 SHORT_MAX_SEQ = 32
@@ -65,12 +72,13 @@ MAX_HEADS_PER_BLOCK = 8
 @dataclasses.dataclass(frozen=True)
 class AttentionPlan:
     """One wrapper call. ``form`` is ``"short"`` (a warp per (b, h) head,
-    ``heads_per_block`` warps per block, cp.async staging copies of ``vec``
-    bytes: 16 where every pointer and (b, h, s) stride allows it, else 4)
-    or ``"tiled"``: the forward's tensor-core tiles (a block of 4 warps
-    per head and 64 query rows, cp.async copies of ``vec`` bytes by the
-    same rule) or the backward's 256-thread block per head and 64-row tile
-    (4-byte loads)."""
+    ``heads_per_block`` warps per block, staging copies of ``vec`` bytes:
+    16 where every pointer and (b, h, s) stride allows it, else 4, else
+    (bf16) 2; f32 by cp.async, bf16 by loads widened to f32 on their way
+    into shared memory) or ``"tiled"``: the forward's tensor-core tiles (a
+    block of 4 warps per head and 64 query rows, copies of ``vec`` bytes by
+    the same rule) or the backward's 256-thread block per head and 64-row
+    tile (loads of one element: ``vec`` is the element size)."""
     form: str
     heads_per_block: int
     vec: int
@@ -78,15 +86,17 @@ class AttentionPlan:
 
 def attention_plan(b: int, h: int, s: int, d: int, *,
                    strides: Sequence[int] = (), aligned: bool = False,
-                   forward: bool = False) -> AttentionPlan:
+                   forward: bool = False, itemsize: int = 4) -> AttentionPlan:
     """The plan of the forward (``forward``) or of the backward pair for
-    ``b`` x ``h`` heads of ``s`` rows of width ``d``. ``strides`` are the
-    (b, h, s) element strides of every operand, ``aligned`` whether every
-    pointer is 16-byte aligned."""
-    vec = 16 if aligned and all(st % 4 == 0 for st in strides) else 4
+    ``b`` x ``h`` heads of ``s`` rows of width ``d`` of ``itemsize``-byte
+    elements (4: f32, 2: bf16). ``strides`` are the (b, h, s) element
+    strides of every operand, ``aligned`` whether every pointer is 16-byte
+    aligned (else it is taken as aligned to the element only)."""
+    vec = build.copy_width(16 if aligned else itemsize, *strides,
+                           itemsize=itemsize)
     if s <= SHORT_MAX_SEQ and d == SHORT_HEAD_DIM:
         return AttentionPlan("short", HEADS_PER_BLOCK, vec)
-    return AttentionPlan("tiled", 1, vec if forward else 4)
+    return AttentionPlan("tiled", 1, vec if forward else itemsize)
 
 
 def _plan_for(forward: bool, tensors) -> AttentionPlan:
@@ -94,7 +104,7 @@ def _plan_for(forward: bool, tensors) -> AttentionPlan:
         *tensors[0].shape,
         strides=[st for t in tensors for st in t.stride()[:3]],
         aligned=all(t.data_ptr() % 16 == 0 for t in tensors),
-        forward=forward)
+        forward=forward, itemsize=tensors[0].element_size())
 
 
 def attention_fwd_plan(*tensors: torch.Tensor) -> AttentionPlan:
@@ -115,14 +125,17 @@ def library():
 
 
 def _operands(names, *tensors):
-    """Check the CUDA (B, H, S, D) operands; make each last dimension
-    unit-stride."""
-    shape = tensors[0].shape
+    """Check the CUDA (B, H, S, D) operands, all of one dtype (float32 or
+    bfloat16); make each last dimension unit-stride."""
+    shape, dtype = tensors[0].shape, tensors[0].dtype
     out = []
     for name, t in zip(names, tensors):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the CUDA kernels take float32, "
-                            f"not {t.dtype}")
+        if t.dtype not in build.DTYPES:
+            raise TypeError(f"{name}: the CUDA kernels take float32 or "
+                            f"bfloat16, not {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} is {t.dtype}, {names[0]} {dtype}: the "
+                            "operands share one dtype")
         if t.shape != shape or t.dim() != 4:
             raise ValueError(f"{name}: expected shape {tuple(shape)} "
                              f"(B, H, S, D), got {tuple(t.shape)}")
@@ -136,10 +149,12 @@ def _operands(names, *tensors):
 
 def _rows(t: torch.Tensor, b: int, h: int, s: int) -> torch.Tensor:
     """A (B, H, S) f32 row statistic as the contiguous block the kernels
-    index by (b * H + h) * S + s."""
+    index by (b * H + h) * S + s (float32 for operands of either dtype)."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"lse and delta are float32, not {t.dtype}")
     if t.shape != (b, h, s):
         raise ValueError(f"expected ({b}, {h}, {s}), got {tuple(t.shape)}")
-    return t.float().contiguous()
+    return t.contiguous()
 
 
 def _problem(q, window, causal, *tensors):
@@ -170,7 +185,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         tail += _plan_args(attention_fwd_plan(q, k, v, o))
         build.launch(library(), "flash_attention_fwd", "flash_attention",
                      LAUNCHES, q.device, q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), o.data_ptr(), lse.data_ptr(), *tail)
+                     v.data_ptr(), o.data_ptr(), lse.data_ptr(), *tail,
+                     dtype=q.dtype)
     return o, lse
 
 
@@ -190,7 +206,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
         build.launch(library(), "flash_attention_bwd_dq",
                      "flash_attention_bwd_dq", LAUNCHES, q.device,
                      q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *tail)
+                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *tail,
+                     dtype=q.dtype)
     return dq
 
 
@@ -211,5 +228,5 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal: bool = True,
                      "flash_attention_bwd_dkdv", LAUNCHES, q.device,
                      q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                      lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                     dv.data_ptr(), *tail)
+                     dv.data_ptr(), *tail, dtype=q.dtype)
     return dk, dv

@@ -2,7 +2,9 @@
 backward pair), on kernel-layout ``(B, H, S, D)`` operands of any strides.
 
 The CPU path of every wrapper in :mod:`.kernel`, and the yardstick the
-kernels are held against on the card. ``CALLS`` counts calls, so a run can
+kernels are held against on the card. Operands are f32 or bf16; every
+plain version computes in f32, as the Pallas kernels do, and rounds each
+output once to the operands' dtype (lse stays f32). ``CALLS`` counts calls, so a run can
 show that it never took this path on the card.
 """
 from __future__ import annotations
@@ -41,14 +43,16 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention_ref_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: Optional[int] = None):
-    """(o (B, H, S, D), lse (B, H, S) f32): the forward kernel's outputs."""
+    """(o (B, H, S, D), lse (B, H, S) f32): the forward kernel's outputs.
+    As the Pallas kernel does, P and P V stay f32 from any operand dtype,
+    and o is rounded once to the operands' dtype (in f32 a no-op)."""
     CALLS["flash_attention"] += 1
     mask = _mask(q.shape[2], causal, window, q.device)
     scores = _scores(q, k).masked_fill(~mask, float("-inf"))
     lse = torch.logsumexp(scores, dim=-1)
     p = torch.softmax(scores, dim=-1)
-    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
-    return o, lse.float()
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return o.to(v.dtype), lse.float()
 
 
 def _probs_and_ds(q, k, v, do, lse, delta, causal, window):

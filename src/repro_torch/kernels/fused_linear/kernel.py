@@ -56,7 +56,6 @@ _ARGTYPES = {
 }
 # the bf16 entries take the same arguments as their f32 twins
 _ARGTYPES.update({f"{fn}_bf16": types for fn, types in _ARGTYPES.items()})
-DTYPES = (torch.float32, torch.bfloat16)
 
 # The kernels' tile shapes (csrc/fused_linear.cu): forward CTAs cover 96 x
 # 64 of the output, 32 reduction steps per stage; dx CTAs 96 x 64 of dx, 32
@@ -107,19 +106,6 @@ class FwdPlan:
                 self.batch * self.splits)
 
 
-def _vec(align: int, *strides, itemsize: int = 4) -> int:
-    """The widest copy, in bytes, that the data pointer's alignment
-    ``align`` (in bytes) and every stride (in elements) allow: 16, else 4,
-    else (2-byte elements) 2."""
-    for width in (16, 4, 2):
-        per = width // itemsize
-        if (per and align % width == 0
-                and all(s % per == 0 for s in strides)):
-            return width
-    raise ValueError(f"no copy width for {itemsize}-byte elements at "
-                     f"alignment {align}")
-
-
 def _stage(f32_depth: int, itemsize: int) -> int:
     """Reduction steps per pipeline stage of the f32 or the bf16 form."""
     return f32_depth if itemsize == 4 else BF16_BK
@@ -139,8 +125,8 @@ def fwd_plan(nb: int, m: int, k: int, n: int, *, sxb: int, sxm: int,
     ctas = batch * _cdiv(rows, FWD_BM) * _cdiv(n, FWD_BN)
     splits, k_chunk = _split(ctas, k, _stage(FWD_BK, itemsize), sms)
     return FwdPlan(fold, batch, rows, n, sxb, sxm, splits, k_chunk,
-                   _vec(x_align, sxb, sxm, itemsize=itemsize),
-                   _vec(w_align, swb, swk, itemsize=itemsize))
+                   build.copy_width(x_align, sxb, sxm, itemsize=itemsize),
+                   build.copy_width(w_align, swb, swk, itemsize=itemsize))
 
 
 def _split(ctas: int, depth: int, step: int, sms: int) -> tuple:
@@ -202,8 +188,9 @@ def dx_plan(nb: int, m: int, k: int, n: int, *, strides, swb: int, swk: int,
     ctas = batch * _cdiv(rows, DX_BM) * _cdiv(k, DX_BN)
     splits, n_chunk = _split(ctas, n, _stage(DX_BK, itemsize), sms)
     return DxPlan(fold, batch, rows, k, sdb, sdm, syb, sym, splits, n_chunk,
-                  _vec(dz_align, sdb, sdm, syb, sym, itemsize=itemsize),
-                  _vec(w_align, swb, swk, itemsize=itemsize))
+                  build.copy_width(dz_align, sdb, sdm, syb, sym,
+                                   itemsize=itemsize),
+                  build.copy_width(w_align, swb, swk, itemsize=itemsize))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,8 +215,9 @@ def dwdb_plan(nb: int, m: int, k: int, n: int, *, strides, x_align: int,
     """The dw/db launch plan; ``strides``: the batch and row strides of x,
     dy and y; ``x_align`` / ``dz_align``: the alignment in bytes of x's
     pointer, or of dy's and y's."""
-    return DwPlan(nb, k, n, _vec(x_align, *strides[:2], itemsize=itemsize),
-                  _vec(dz_align, *strides[2:], itemsize=itemsize))
+    return DwPlan(nb, k, n,
+                  build.copy_width(x_align, *strides[:2], itemsize=itemsize),
+                  build.copy_width(dz_align, *strides[2:], itemsize=itemsize))
 
 
 @functools.lru_cache(maxsize=None)
@@ -259,7 +247,7 @@ def _operand(t: torch.Tensor, ndim: int, name: str,
              dtype: torch.dtype) -> torch.Tensor:
     """Check one CUDA operand against the call's dtype ``dtype`` (the first
     operand's); make its last dimension unit-stride."""
-    if dtype not in DTYPES:
+    if dtype not in build.DTYPES:
         raise TypeError(f"{name}: the CUDA kernels take float32 or "
                         f"bfloat16, not {dtype}")
     if t.dtype != dtype:
@@ -281,9 +269,7 @@ def _check_mask(mask: str, y) -> None:
 def _launch(name: str, fn: str, dtype, device, *args) -> None:
     """Launch C entry ``fn``, or its ``_bf16`` twin for bf16 operands,
     counted under ``name`` (``_bf16`` appended likewise)."""
-    if dtype == torch.bfloat16:
-        fn, name = fn + "_bf16", name + "_bf16"
-    build.launch(library(), fn, name, LAUNCHES, device, *args)
+    build.launch(library(), fn, name, LAUNCHES, device, *args, dtype=dtype)
 
 
 def fused_linear_plan(x: torch.Tensor, w: torch.Tensor,

@@ -1,4 +1,5 @@
-// Mamba-2 SSD chunked scan (forward), f32 CUDA for Hopper (sm_90a).
+// Mamba-2 SSD chunked scan (forward), CUDA for Hopper (sm_90a), on f32 or
+// bf16 operands.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd_scan/kernel.py:77
 // `ssd_scan`: for each batch row and head, over chunks of Q steps,
@@ -60,6 +61,17 @@
 // step strides (the slot-batched model hands in split views); y is
 // contiguous. expf for the rates, exp2f on log2-scaled cumsums for the
 // decays (no fast-math flags).
+//
+// The bf16 form. The kernel is a template on the type T of x, b, c and y
+// (float or __nv_bfloat16), as the Pallas kernel takes any operand dtype:
+// it upcasts on load, computes in f32 and writes y in x's dtype. For T =
+// bf16 x, b and c are staged by plain loads of 16, 4 or 2 bytes (the
+// plan's copy widths), widened with __bfloat162float into the same f32
+// tiles the f32 form fills by cp.async; y is rounded once at its store
+// (__float2bfloat16_rn). dt and a_log (the wrapper upcasts the small
+// (slots, n) a_log), the decays, the chunk states and the chunk scan stay
+// f32 in both forms.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,18 +85,22 @@ constexpr int kMinBlocks = 5;
 
 enum Pass { kSequential = 0, kChunkStates = 1, kChunkOutputs = 2 };
 
+using bf16 = __nv_bfloat16;
+
+template <typename T>
 struct Args {
-  const float* x;      // (B, S, n, p)
+  const T* x;          // (B, S, n, p)
   const float* dt;     // (B, S, n)
   const float* a_log;  // (slots, n)
-  const float* b;      // (B, S, ds)
-  const float* c;      // (B, S, ds)
-  float* y;            // (B, S, n, p), contiguous
+  const T* b;          // (B, S, ds)
+  const T* c;          // (B, S, ds)
+  T* y;                // (B, S, n, p), contiguous
   float* states;       // (B, n, chunks, ds, p): chunk-parallel scratch
   float* decays;       // (B, n, chunks)
   long long sx_b, sx_s, sx_h, sdt_b, sdt_s, sb_b, sb_s, sc_b, sc_s, sa_slot;
   int seq, n, p, ds, chunk, heads, rows_per_slot, chunks;
-  int vec_x, vec_bc;   // copy widths in bytes of x, and of b and c: 16 or 4
+  int vec_x, vec_bc;   // copy widths in bytes of x, and of b and c: 16 or
+                       // 4, or (bf16) 2
 };
 
 inline __host__ __device__ int round4(int v) { return (v + 3) & ~3; }
@@ -161,6 +177,49 @@ __device__ __forceinline__ void stage_rows(float* dst, int pitch,
   }
 }
 
+// The bf16 operand's rows, widened into the same f32 tiles by plain loads
+// of vec bytes (8, 2 or 1 elements) with the whole block.
+__device__ __forceinline__ void stage_rows(float* dst, int pitch,
+                                           const bf16* src, long long ld,
+                                           int rows, int cols, int vec) {
+  if (vec == 16) {
+    const int per = cols >> 3;
+    for (int e = threadIdx.x; e < rows * per; e += blockDim.x) {
+      const int r = e / per, c = (e - r * per) << 3;
+      const uint4 u = *reinterpret_cast<const uint4*>(src + r * ld + c);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+      const float2 f0 = __bfloat1622float2(h[0]);
+      const float2 f1 = __bfloat1622float2(h[1]);
+      const float2 f2 = __bfloat1622float2(h[2]);
+      const float2 f3 = __bfloat1622float2(h[3]);
+      float4* d = reinterpret_cast<float4*>(dst + r * pitch + c);
+      d[0] = make_float4(f0.x, f0.y, f1.x, f1.y);
+      d[1] = make_float4(f2.x, f2.y, f3.x, f3.y);
+    }
+  } else if (vec == 4) {
+    const int per = cols >> 1;
+    for (int e = threadIdx.x; e < rows * per; e += blockDim.x) {
+      const int r = e / per, c = (e - r * per) << 1;
+      *reinterpret_cast<float2*>(dst + r * pitch + c) = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(src + r * ld + c));
+    }
+  } else {
+    for (int r = threadIdx.x >> 5; r < rows; r += blockDim.x >> 5)
+      for (int c = threadIdx.x & 31; c < cols; c += 32)
+        dst[r * pitch + c] = __bfloat162float(src[r * ld + c]);
+  }
+}
+
+// an f32 result in y's type: rounded once, to nearest even
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -214,8 +273,9 @@ __device__ __forceinline__ void intra_block(float (&acc)[kTile],
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
-ssd_kernel(const Args a, int pass) {
+ssd_kernel(const Args<T> a, int pass) {
   extern __shared__ __align__(16) float smem[];
   const int Q = a.chunk, P = a.p, DS = a.ds, H = a.heads;
   // a state enters some chunk: the sequential walk over several chunks, or
@@ -230,12 +290,12 @@ ssd_kernel(const Args a, int pass) {
   const int row = blockIdx.x, h0 = blockIdx.y * H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
-  const float* x = a.x + row * a.sx_b;
+  const T* x = a.x + row * a.sx_b;
   const float* dt = a.dt + row * a.sdt_b;
-  const float* bg = a.b + row * a.sb_b;
-  const float* cg = a.c + row * a.sc_b;
+  const T* bg = a.b + row * a.sb_b;
+  const T* cg = a.c + row * a.sc_b;
   const float* a_log = a.a_log + (row / a.rows_per_slot) * a.sa_slot;
-  float* y = a.y + static_cast<long long>(row) * a.seq * a.n * P;
+  T* y = a.y + static_cast<long long>(row) * a.seq * a.n * P;
   const int cbeg = pass == kSequential ? 0 : blockIdx.z;
   const int cend = pass == kSequential ? a.chunks : cbeg + 1;
   const int hsz = DS * P;
@@ -350,12 +410,12 @@ ssd_kernel(const Args a, int pass) {
         intra_block<true>(acc, ws + qb * kTile * QR + q0, QR,
                           xh + qb * kTile * PP, PP);
         if (p < P) {
-          float* out = y + (static_cast<long long>(c0 + q0) * a.n + h0 + hh) *
-                               P + p;
+          T* out = y + (static_cast<long long>(c0 + q0) * a.n + h0 + hh) *
+                           P + p;
           const long long ld = static_cast<long long>(a.n) * P;
 #pragma unroll
           for (int i = 0; i < kTile; ++i)
-            if (q0 + i < Q) out[i * ld] = acc[i];
+            if (q0 + i < Q) out[i * ld] = from_f32<T>(acc[i]);
         }
       }
     }
@@ -404,7 +464,8 @@ ssd_kernel(const Args a, int pass) {
 
 // Pass 2 of the chunk-parallel form: per state entry, in chunk order,
 // replace each chunk's own end state by the state entering it.
-__global__ void ssd_chunk_scan_kernel(const Args a, int batch) {
+template <typename T>
+__global__ void ssd_chunk_scan_kernel(const Args<T> a, int batch) {
   const long long hsz = static_cast<long long>(a.ds) * a.p;
   const long long total = static_cast<long long>(batch) * a.n * hsz;
   for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
@@ -422,36 +483,26 @@ __global__ void ssd_chunk_scan_kernel(const Args a, int batch) {
   }
 }
 
-}  // namespace
+// A copy width of `vec` bytes over rows of `cols` elements of T: 16 or 4
+// bytes, or one bf16; the width must divide the row.
+template <typename T>
+bool copy_ok(int vec, int cols) {
+  if (vec != 16 && vec != 4 && !(sizeof(T) == 2 && vec == 2)) return false;
+  return cols % (vec / static_cast<int>(sizeof(T))) == 0;
+}
 
-// C interface (loaded with ctypes). x (B, S, n, p), dt (B, S, n), b and c
-// (B, S, ds) f32 with a unit last stride; `strides` holds, in order, x's
-// (row, step, head) strides, dt's (row, step), b's (row, step), c's (row,
-// step) and a_log's slot stride. Row r uses a_log slot r / rows_per_slot.
-// y is contiguous (B, S, n, p). The plan comes from the wrapper
-// (kernel.ssd_plan): `heads` heads per block of `warps` warps; with
-// chunk_parallel the three-pass form, whose scratch `states` holds
-// B * n * chunks * ds * p floats and `decays` B * n * chunks (both unused
-// otherwise); vec_x and vec_bc are the copy widths in bytes (16 where the
-// rows' pointers and strides allow it, else 4) of x, and of b and c. S must
-// be a multiple of chunk and n of heads. Returns the
-// CUDA error code of the first failing launch (0 on success); the kernels
-// run asynchronously on `stream`.
-extern "C" int ssd_scan_fwd(const float* x, const float* dt,
-                            const float* a_log, const float* b,
-                            const float* c, float* y, float* states,
-                            float* decays, int batch, int seq, int n, int p,
-                            int ds, int chunk, int heads, int warps,
-                            int chunk_parallel, int rows_per_slot,
-                            int vec_x, int vec_bc, const long long* strides,
-                            cudaStream_t stream) {
+template <typename T>
+int ssd_entry(const T* x, const float* dt, const float* a_log, const T* b,
+              const T* c, T* y, float* states, float* decays, int batch,
+              int seq, int n, int p, int ds, int chunk, int heads, int warps,
+              int chunk_parallel, int rows_per_slot, int vec_x, int vec_bc,
+              const long long* strides, cudaStream_t stream) {
   if (chunk <= 0 || seq % chunk || heads <= 0 || n % heads ||
       rows_per_slot <= 0 || warps <= 0 || 32 * warps > kMaxThreads ||
       (chunk_parallel && (!states || !decays)) ||
-      (vec_x != 16 && vec_x != 4) || (vec_bc != 16 && vec_bc != 4) ||
-      (vec_x == 16 && p % 4) || (vec_bc == 16 && ds % 4))
+      !copy_ok<T>(vec_x, p) || !copy_ok<T>(vec_bc, ds))
     return cudaErrorInvalidValue;
-  Args a{x, dt, a_log, b, c, y, states, decays,
+  Args<T> a{x, dt, a_log, b, c, y, states, decays,
          strides[0], strides[1], strides[2], strides[3], strides[4],
          strides[5], strides[6], strides[7], strides[8], strides[9],
          seq, n, p, ds, chunk, heads, rows_per_slot, seq / chunk,
@@ -467,11 +518,12 @@ extern "C" int ssd_scan_fwd(const float* x, const float* dt,
           &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(
-          ssd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+          ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          max_smem);
     // all of the SM's unified L1 as shared memory: five blocks fit
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(
-          ssd_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          ssd_kernel<T>, cudaFuncAttributePreferredSharedMemoryCarveout,
           cudaSharedmemCarveoutMaxShared);
     return err;
   }();
@@ -483,24 +535,68 @@ extern "C" int ssd_scan_fwd(const float* x, const float* dt,
     return sizeof(float) * layout(chunk, p, ds, heads, state).total;
   };
   if (!chunk_parallel) {
-    ssd_kernel<<<dim3(batch, hblocks, 1), threads, smem(a.chunks > 1),
-                 stream>>>(a, kSequential);
+    ssd_kernel<T><<<dim3(batch, hblocks, 1), threads, smem(a.chunks > 1),
+                    stream>>>(a, kSequential);
     return cudaGetLastError();
   }
   cudaError_t err = cudaSuccess;
   if (a.chunks > 1) {
-    ssd_kernel<<<dim3(batch, hblocks, a.chunks - 1), threads, smem(false),
-                 stream>>>(a, kChunkStates);
+    ssd_kernel<T><<<dim3(batch, hblocks, a.chunks - 1), threads,
+                    smem(false), stream>>>(a, kChunkStates);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   const long long entries = static_cast<long long>(batch) * n * ds * p;
   const long long want = (entries + 255) / 256;
   const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-  ssd_chunk_scan_kernel<<<blocks, 256, 0, stream>>>(a, batch);
+  ssd_chunk_scan_kernel<T><<<blocks, 256, 0, stream>>>(a, batch);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ssd_kernel<<<dim3(batch, hblocks, a.chunks), threads, smem(true),
-               stream>>>(a, kChunkOutputs);
+  ssd_kernel<T><<<dim3(batch, hblocks, a.chunks), threads, smem(true),
+                  stream>>>(a, kChunkOutputs);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// C interface (loaded with ctypes). x (B, S, n, p), dt (B, S, n), b and c
+// (B, S, ds) with a unit last stride: x, b, c and y f32 (ssd_scan_fwd) or
+// bf16 (ssd_scan_fwd_bf16), dt and a_log f32 in both; `strides` holds, in
+// order, x's (row, step, head) strides, dt's (row, step), b's (row, step),
+// c's (row, step) and a_log's slot stride. Row r uses a_log slot r / rows_per_slot.
+// y is contiguous (B, S, n, p). The plan comes from the wrapper
+// (kernel.ssd_plan): `heads` heads per block of `warps` warps; with
+// chunk_parallel the three-pass form, whose scratch `states` holds
+// B * n * chunks * ds * p floats and `decays` B * n * chunks (both unused
+// otherwise); vec_x and vec_bc are the copy widths in bytes (16 where the
+// rows' pointers and strides allow it, else 4, else one bf16) of x, and of
+// b and c. S must
+// be a multiple of chunk and n of heads. Returns the
+// CUDA error code of the first failing launch (0 on success); the kernels
+// run asynchronously on `stream`.
+extern "C" int ssd_scan_fwd(const float* x, const float* dt,
+                            const float* a_log, const float* b,
+                            const float* c, float* y, float* states,
+                            float* decays, int batch, int seq, int n, int p,
+                            int ds, int chunk, int heads, int warps,
+                            int chunk_parallel, int rows_per_slot,
+                            int vec_x, int vec_bc, const long long* strides,
+                            cudaStream_t stream) {
+  return ssd_entry(x, dt, a_log, b, c, y, states, decays, batch, seq, n, p,
+                   ds, chunk, heads, warps, chunk_parallel, rows_per_slot,
+                   vec_x, vec_bc, strides, stream);
+}
+
+extern "C" int ssd_scan_fwd_bf16(const bf16* x, const float* dt,
+                                 const float* a_log, const bf16* b,
+                                 const bf16* c, bf16* y, float* states,
+                                 float* decays, int batch, int seq, int n,
+                                 int p, int ds, int chunk, int heads,
+                                 int warps, int chunk_parallel,
+                                 int rows_per_slot, int vec_x, int vec_bc,
+                                 const long long* strides,
+                                 cudaStream_t stream) {
+  return ssd_entry(x, dt, a_log, b, c, y, states, decays, batch, seq, n, p,
+                   ds, chunk, heads, warps, chunk_parallel, rows_per_slot,
+                   vec_x, vec_bc, strides, stream);
 }

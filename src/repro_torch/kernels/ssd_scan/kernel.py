@@ -5,7 +5,11 @@ SSD forward over chunks of ``chunk`` steps, state carried across chunks.
 xh (B, S, n, p), dt (B, S, n), b/c (B, S, ds) with any row and step strides
 (the last dimension unit-stride); a_log (n,) for every row or (G, n), one
 per slot of B // G consecutive rows (a stride-0 expanded view is read in
-place). y (B, S, n, p) comes back contiguous.
+place). y (B, S, n, p) comes back contiguous, in xh's dtype. xh, b and c
+are all float32 or all bfloat16 (the kernel's bf16 form: every product,
+decay and state in f32, y rounded once to bf16); dt is float32 in both,
+as both packages compute it; a_log is any float dtype (a cast param under
+bf16), upcast here as the Pallas kernel's ``astype`` does.
 
 Dispatch is by tensor device only: CPU tensors go to the plain version in
 :mod:`.ref`; CUDA tensors launch the kernel, which is built with ``nvcc`` at
@@ -31,10 +35,12 @@ from repro_torch.kernels.ssd_scan import ref
 
 SOURCE = pathlib.Path(__file__).parent / "csrc" / "ssd_scan.cu"
 
-LAUNCHES = {"ssd_scan": 0}
+LAUNCHES = {"ssd_scan": 0, "ssd_scan_bf16": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = {"ssd_scan_fwd": [_P] * 8 + [_I] * 12 + [_P, _P]}
+# the bf16 entry takes the same arguments as the f32 one
+_ARGTYPES = {fn: [_P] * 8 + [_I] * 12 + [_P, _P]
+             for fn in ("ssd_scan_fwd", "ssd_scan_fwd_bf16")}
 
 # A grid of fewer blocks than BLOCKS_PER_SM x SMs leaves the card part idle.
 BLOCKS_PER_SM = 2
@@ -76,8 +82,8 @@ class SsdPlan:
     end state in parallel, a scan over the ``chunks`` chunk states, the
     outputs in parallel) instead of one block walking a row's chunks in
     order. ``vec_x`` and ``vec_bc`` are the copy widths in bytes of x, and
-    of b and c: 16 where the rows' pointers and strides allow it, else
-    4."""
+    of b and c: 16 where the rows' pointers and strides allow it, else 4,
+    else (bf16) 2."""
     heads: int
     warps: int
     chunk_parallel: bool
@@ -88,14 +94,16 @@ class SsdPlan:
 
 def ssd_plan(bsz: int, s: int, n: int, p: int, ds: int, chunk: int, *,
              sms: int, x_strides=(), bc_strides=(), x_aligned: bool = False,
-             bc_aligned: bool = False) -> SsdPlan:
+             bc_aligned: bool = False, itemsize: int = 4) -> SsdPlan:
     """The launch plan for ``bsz`` rows of ``s`` steps, ``n`` heads of
     width ``p``, state width ``ds``, in chunks of ``chunk`` steps, on a card
     with ``sms`` SMs. Up to 4 heads share a block while the grid still
     fills the card; the chunk-parallel form where it does not and there
     are several chunks. ``x_strides`` (row, step, head) and ``bc_strides``
     (b's and c's row and step strides) with ``x_aligned`` / ``bc_aligned``
-    (the pointers are 16-byte aligned) set the copy widths."""
+    (the pointers are 16-byte aligned; else taken as aligned to the element
+    only) set the copy widths, counted in ``itemsize``-byte elements (4:
+    f32, 2: bf16)."""
     target = BLOCKS_PER_SM * sms
     chunks = s // chunk
     heads = 1
@@ -111,8 +119,8 @@ def ssd_plan(bsz: int, s: int, n: int, p: int, ds: int, chunk: int, *,
     tasks = heads * _cdiv(chunk, TILE) * _cdiv(p, TILE)
 
     def vec(aligned, width, strides):
-        return 16 if aligned and all(v % 4 == 0
-                                     for v in (width, *strides)) else 4
+        return build.copy_width(16 if aligned else itemsize, width, *strides,
+                                itemsize=itemsize)
     return SsdPlan(heads, max(1, min(MAX_WARPS, tasks)), chunk_parallel,
                    chunks, vec(x_aligned, p, x_strides),
                    vec(bc_aligned, ds, bc_strides))
@@ -128,7 +136,8 @@ def ssd_scan_plan(xh: torch.Tensor, b_ssm: torch.Tensor, c_ssm: torch.Tensor,
         sms=_sm_count(xh.device.index), x_strides=xh.stride()[:3],
         bc_strides=b_ssm.stride()[:2] + c_ssm.stride()[:2],
         x_aligned=xh.data_ptr() % 16 == 0,
-        bc_aligned=b_ssm.data_ptr() % 16 == 0 and c_ssm.data_ptr() % 16 == 0)
+        bc_aligned=b_ssm.data_ptr() % 16 == 0 and c_ssm.data_ptr() % 16 == 0,
+        itemsize=xh.element_size())
 
 
 @functools.lru_cache(maxsize=None)
@@ -141,10 +150,14 @@ def library():
     return build.load(SOURCE, _ARGTYPES)
 
 
-def _operand(t: torch.Tensor, ndim: int, name: str) -> torch.Tensor:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernel takes float32, "
-                        f"not {t.dtype}")
+def _operand(t: torch.Tensor, ndim: int, name: str,
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Check one CUDA operand: ``dtype`` (xh's for b and c, float32 for
+    dt), ``ndim`` dims; make its last dimension unit-stride."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: the CUDA kernel takes {dtype} here "
+                        f"(xh, b and c share one dtype, float32 or "
+                        f"bfloat16; dt is float32), not {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
     return t if t.stride(-1) == 1 else t.contiguous()
@@ -156,8 +169,12 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     """y (B, S, n, p) of the chunked SSD scan (chunk clamped to S)."""
     if not build.on_cuda("ssd_scan", xh, dt, a_log, b_ssm, c_ssm):
         return ref.ssd_ref(xh, dt, a_log, b_ssm, c_ssm)
-    xh, dt = _operand(xh, 4, "xh"), _operand(dt, 3, "dt")
-    b_ssm, c_ssm = _operand(b_ssm, 3, "b_ssm"), _operand(c_ssm, 3, "c_ssm")
+    if xh.dtype not in build.DTYPES:
+        raise TypeError(f"xh: the CUDA kernel takes float32 or bfloat16, "
+                        f"not {xh.dtype}")
+    xh, dt = _operand(xh, 4, "xh", xh.dtype), _operand(dt, 3, "dt")
+    b_ssm = _operand(b_ssm, 3, "b_ssm", xh.dtype)
+    c_ssm = _operand(c_ssm, 3, "c_ssm", xh.dtype)
     bsz, s, n, p = xh.shape
     ds = b_ssm.shape[-1]
     if (dt.shape != (bsz, s, n) or b_ssm.shape != (bsz, s, ds)
@@ -165,7 +182,11 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         raise ValueError(f"shapes xh {tuple(xh.shape)}, dt "
                          f"{tuple(dt.shape)}, b {tuple(b_ssm.shape)}, c "
                          f"{tuple(c_ssm.shape)}")
-    a2 = _operand(a_log if a_log.dim() == 2 else a_log[None], 2, "a_log")
+    if not a_log.is_floating_point():
+        raise TypeError(f"a_log: expected a float dtype, not {a_log.dtype}")
+    # (G, n): the Pallas kernel's astype, on the small per-slot rates
+    a2 = _operand((a_log if a_log.dim() == 2 else a_log[None]).float(), 2,
+                  "a_log")
     groups = a2.shape[0]
     if a2.shape[1] != n or bsz % groups:
         raise ValueError(f"a_log {tuple(a_log.shape)} for {bsz} rows of "
@@ -173,7 +194,7 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"S={s} is not a multiple of chunk={chunk}")
-    y = torch.empty((bsz, s, n, p), device=xh.device, dtype=torch.float32)
+    y = torch.empty((bsz, s, n, p), device=xh.device, dtype=xh.dtype)
     if not y.numel():
         return y
     plan = ssd_scan_plan(xh, b_ssm, c_ssm, chunk)
@@ -193,5 +214,6 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                  None if states is None else states.data_ptr(),
                  None if decays is None else decays.data_ptr(), bsz, s, n, p,
                  ds, chunk, plan.heads, plan.warps, int(plan.chunk_parallel),
-                 bsz // groups, plan.vec_x, plan.vec_bc, strides)
+                 bsz // groups, plan.vec_x, plan.vec_bc, strides,
+                 dtype=xh.dtype)
     return y

@@ -41,6 +41,7 @@ from repro.kernels.fused_linear import ops as ref_ops  # noqa: E402
 from repro.kernels.fused_linear import ref as ref_ref  # noqa: E402
 from repro.models import split_model as ref_sm  # noqa: E402
 from repro_torch.fl import cohort, data, sim  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.fused_linear import kernel, ops, ref  # noqa: E402
 from repro_torch.models import split_model as sm  # noqa: E402
 from repro_torch.models.convert import (params_from_numpy,  # noqa: E402
@@ -176,10 +177,10 @@ def test_op_gradients_match_reference_vjp_bf16(shape, act):
     (4, (95 * 512, 512), 8, 4),
 ])
 def test_copy_width_in_bytes_of_the_element(itemsize, strides, align, vec):
-    """``_vec`` counts copy widths in bytes of the element: an odd bf16
+    """``copy_width`` counts copy widths in bytes of the element: an odd bf16
     row width takes the kernels' 2-byte path (plain loads, no cp.async),
     never a ValueError."""
-    assert kernel._vec(align, *strides, itemsize=itemsize) == vec
+    assert build.copy_width(align, *strides, itemsize=itemsize) == vec
 
 
 def test_bf16_plans_for_odd_widths_and_stage_depth():
@@ -320,12 +321,3 @@ def test_bf16_simulation_matches_reference(kw):
     for g, w in zip(params_to_numpy(s.plan, s.params), r.params):
         for k in g:
             np.testing.assert_allclose(g[k], np.asarray(w[k]), **PARAM_TOL)
-
-
-@pytest.mark.parametrize("model", ["transformer", "ssm"])
-def test_token_models_refuse_bf16_at_construction(model):
-    """The token models' bf16 path needs bf16 attention and SSD kernels,
-    which are not ported: the Simulation raises before building anything."""
-    with pytest.raises(NotImplementedError, match="flash-attention and SSD"):
-        sim.Simulation(sim.Scenario(model=model, dtype="bf16"),
-                       device="cpu")

@@ -1,0 +1,407 @@
+"""The token models' bf16 data plane against ``repro``'s, on the CPU: the
+flash-attention and SSD plain versions and autograd ops in bf16 against
+the reference's Pallas kernels in interpret mode, the launch plans' bf16
+copy widths, the wrappers' dtype checks, and two-round
+``Simulation(Scenario(model="transformer"|"ssm", dtype="bf16"))`` runs.
+
+Inputs are made with numpy and rounded to bf16 once, so both packages see
+the same bf16 values. Tolerances, each with its reason:
+
+- plain versions and ops: both packages upcast on load, compute in f32 and
+  round each output once to bf16, summing in different orders: one bf16
+  ulp of the reference's element plus ``FA_RTOL`` (2e-5, the reference's
+  f32 attention tolerance) or ``SSD_RTOL`` (1e-4, its SSD tolerance) of the
+  tensor's largest magnitude; lse (f32) within FA_RTOL of its scale;
+- simulations: the reference's own bf16 contract
+  (``tests/test_mixed_precision.py``: losses 5e-2, params 3e-2), absolute:
+  the SSM's zero-initialised leaves (dt_bias, conv_b, a_log) move by about
+  1e-4 in two rounds, so a difference relative to their own scale means
+  nothing. The measured differences are stated beside each test.
+"""
+import jax
+import jax.experimental
+
+if not hasattr(jax.experimental, "enable_x64"):
+    # the reference imports this alias, which JAX 0.9 dropped; patched for
+    # this process only
+    jax.experimental.enable_x64 = lambda v=True: jax.enable_x64(v)
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from repro.fl import sim as ref_sim  # noqa: E402
+from repro.kernels.flash_attention import kernel as ref_fa  # noqa: E402
+from repro.kernels.flash_attention import ops as ref_fa_ops  # noqa: E402
+from repro.kernels.ssd_scan import kernel as ref_ssd  # noqa: E402
+from repro.kernels.ssd_scan import ops as ref_ssd_ops  # noqa: E402
+from repro_torch.fl import sim  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel as ssd  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
+from repro_torch.models.convert import params_to_numpy  # noqa: E402
+
+# the kernels' tolerances on the card (chip_smoke.py FA_RTOL, SSD_RTOL)
+FA_RTOL = 2e-5
+SSD_RTOL = 1e-4
+# the reference's bf16 contract (tests/test_mixed_precision.py:119,124),
+# absolute (module docstring)
+LOSS_ATOL = 5e-2
+PARAM_ATOL = 3e-2
+
+# (B, H, S, D, causal, window): the FL round's shape at 8 rows, the short
+# form's ragged S with a window and its non-causal case, and a tiled shape
+FA_SHAPES = [(8, 2, 32, 32, True, None), (4, 2, 20, 32, True, 8),
+             (4, 2, 32, 32, False, None), (2, 2, 64, 64, True, None)]
+# (B, S, n, p, ds, chunk): the FL path's single chunk, and four chunks
+SSD_SHAPES = [(4, 32, 4, 32, 16, 32), (2, 128, 4, 16, 8, 32)]
+
+
+def _bf16(a: np.ndarray) -> np.ndarray:
+    """``a`` rounded to bf16 and back to f32 (exact both ways)."""
+    return torch.from_numpy(np.asarray(a, np.float32)).bfloat16().float() \
+        .numpy()
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
+
+
+def _j(a):
+    return jnp.asarray(a).astype(jnp.bfloat16)
+
+
+def _f32(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        return t.detach().float().numpy()
+    return np.asarray(jnp.asarray(t).astype(jnp.float32))
+
+
+def _ulp(want: np.ndarray) -> np.ndarray:
+    """The bf16 ulp of each element (8 significand bits)."""
+    _, e = np.frexp(np.abs(want))
+    return np.where(want == 0, 0.0, np.ldexp(1.0, e - 8))
+
+
+def bf16_excess(got, want) -> float:
+    """max(|got - want| - ulp(want)) over the tensor's largest magnitude:
+    at most ``rtol`` when every element lies within one bf16 ulp of the
+    reference's plus ``rtol`` of the scale. Both bf16."""
+    assert got.dtype == torch.bfloat16
+    assert want.dtype == jnp.bfloat16
+    g, w = _f32(got), _f32(want)
+    assert g.shape == w.shape
+    return float((np.abs(g - w) - _ulp(w)).max(initial=0.0)
+                 / max(np.abs(w).max(initial=0.0), 1e-30))
+
+
+def _fa_inputs(b, h, s, d, seed):
+    rng = np.random.default_rng(seed)
+    return [_bf16(rng.normal(size=(b, h, s, d))) for _ in range(4)]
+
+
+# ---------------------------------------------------------------------------
+# plain versions against the Pallas kernels in interpret mode
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", FA_SHAPES)
+def test_attention_plain_versions_match_reference_bf16(case):
+    """o and lse against the Pallas forward, dq, dk and dv against the
+    Pallas backward pair from the same residuals, all in bf16."""
+    b, h, s, d, causal, window = case
+    q, k, v, do = _fa_inputs(b, h, s, d, seed=s + d)
+    o_ref, lse_ref = ref_fa.flash_attention(
+        _j(q), _j(k), _j(v), causal=causal, window=window, interpret=True,
+        return_lse=True)
+    o, lse = fa_ref.attention_ref_lse(_t(q), _t(k), _t(v), causal=causal,
+                                      window=window)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert bf16_excess(o, o_ref) <= FA_RTOL
+    lse_ref = np.array(lse_ref)
+    assert np.abs(lse.numpy() - lse_ref).max() \
+        <= FA_RTOL * np.abs(lse_ref).max()
+
+    delta = np.sum(_f32(o_ref) * do, axis=-1)
+    dq_ref, dk_ref, dv_ref = ref_fa.flash_attention_bwd(
+        _j(q), _j(k), _j(v), _j(do), lse_ref, delta, causal=causal,
+        window=window, interpret=True)
+    got = fa_ref.attention_ref_bwd(
+        _t(q), _t(k), _t(v), _t(do), torch.from_numpy(lse_ref),
+        torch.from_numpy(delta), causal=causal, window=window)
+    for g, w in zip(got, (dq_ref, dk_ref, dv_ref)):
+        assert bf16_excess(g, w) <= FA_RTOL
+
+
+def _ssd_inputs(b, s, n, p, ds, seed):
+    """xh, b and c on the bf16 grid, dt f32 (both packages compute it in
+    f32), a_log on the bf16 grid (a cast param under bf16)."""
+    rng = np.random.default_rng(seed)
+    xh = _bf16(rng.normal(size=(b, s, n, p)))
+    dt = np.log1p(np.exp(rng.normal(size=(b, s, n)))).astype(np.float32)
+    a_log = _bf16(rng.normal(size=(n,)) * 0.5)
+    bm, cm = (_bf16(rng.normal(size=(b, s, ds))) for _ in range(2))
+    return xh, dt, a_log, bm, cm
+
+
+def _ssd_args(xh, dt, a_log, bm, cm, to):
+    """The scan's operands for one package: dt stays f32."""
+    return to(xh), (torch.from_numpy(dt) if to is _t else jnp.asarray(dt)), \
+        to(a_log), to(bm), to(cm)
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_plain_version_matches_reference_bf16(shape):
+    """ssd_ref (the kernel's plain version) with bf16 xh, b, c and a_log and
+    f32 dt against the Pallas kernel in interpret mode."""
+    *dims, chunk = shape
+    args = _ssd_inputs(*dims, seed=chunk + dims[1])
+    want = ref_ssd.ssd_scan(*_ssd_args(*args, _j), chunk=chunk,
+                            interpret=True)
+    got = ssd_ref.ssd_ref(*_ssd_args(*args, _t))
+    assert bf16_excess(got, want) <= SSD_RTOL
+
+
+def _attention_f32_before(q, k, v, causal, window):
+    """attention_ref_lse as it stood before it took bf16 operands."""
+    mask = fa_ref._mask(q.shape[2], causal, window, q.device)
+    scores = fa_ref._scores(q, k).masked_fill(~mask, float("-inf"))
+    lse = torch.logsumexp(scores, dim=-1)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v), lse.float()
+
+
+def _ssd_f32_before(xh, dt, a_log, b_ssm, c_ssm):
+    """The sequential recurrence as ssd_ref computes it in f32."""
+    a = -torch.exp(a_log.float())
+    h = torch.zeros((xh.shape[0], xh.shape[2], b_ssm.shape[-1], xh.shape[3]))
+    ys = []
+    for t in range(xh.shape[1]):
+        dt_t = dt[:, t].float()
+        upd = (dt_t[..., None, None] * b_ssm[:, t, None, :, None].float()
+               * xh[:, t, :, None, :].float())
+        h = h * torch.exp(dt_t * a)[..., None, None] + upd
+        ys.append(torch.einsum("bnsp,bs->bnp", h, c_ssm[:, t].float()))
+    return torch.stack(ys, dim=1).to(xh.dtype)
+
+
+@pytest.mark.parametrize("which", ["attention", "ssd"])
+def test_f32_plain_versions_are_bit_identical_to_before(which):
+    """The bf16 semantics change nothing in f32: the attention forward and
+    the SSD plain versions give exactly their earlier f32 results."""
+    rng = np.random.default_rng(5)
+    if which == "attention":
+        q, k, v = (torch.from_numpy(rng.normal(size=(3, 2, 32, 32))
+                                    .astype(np.float32)) for _ in range(3))
+        for causal, window in ((True, None), (True, 8), (False, None)):
+            got = fa_ref.attention_ref_lse(q, k, v, causal=causal,
+                                           window=window)
+            want = _attention_f32_before(q, k, v, causal, window)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+    else:
+        xh, dt, a_log, bm, cm = (torch.from_numpy(a.astype(np.float32))
+                                 for a in _ssd_inputs(2, 64, 4, 16, 8, 3))
+        assert torch.equal(ssd_ref.ssd_ref(xh, dt, a_log, bm, cm),
+                           _ssd_f32_before(xh, dt, a_log, bm, cm))
+
+
+# ---------------------------------------------------------------------------
+# the autograd ops against the reference's custom VJPs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 8)])
+def test_attention_op_gradients_match_reference_bf16(causal, window):
+    """o and the q/k/v gradients of flash_ops.attention in bf16 against
+    jax.vjp through the reference's op on its Pallas kernels in interpret
+    mode: one bf16 ulp plus FA_RTOL of scale, the gradients in bf16."""
+    q, k, v, do = _fa_inputs(4, 2, 32, 32, seed=11)
+
+    def f(q, k, v):
+        return ref_fa_ops.attention(q, k, v, causal=causal, window=window,
+                                    impl="interpret")
+    o_ref, vjp = jax.vjp(f, _j(q), _j(k), _j(v))
+    grads_ref = vjp(_j(do))
+    tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
+    o = fa_ops.attention(tq, tk, tv, causal=causal, window=window)
+    o.backward(_t(do))
+    assert bf16_excess(o, o_ref) <= FA_RTOL
+    for g, w in zip((tq.grad, tk.grad, tv.grad), grads_ref):
+        assert g.dtype == torch.bfloat16
+        assert bf16_excess(g, w) <= FA_RTOL
+
+
+def test_ssd_op_gradients_match_reference_bf16():
+    """y and all five cotangents of ssd_ops.ssd with bf16 xh, b, c and
+    a_log and f32 dt against jax.vjp through the reference's op (Pallas
+    forward in interpret mode; both backwards run through the sequential
+    recurrence): one bf16 ulp plus SSD_RTOL of scale, dt's f32 cotangent
+    within SSD_RTOL of its scale; each cotangent in its input's dtype."""
+    b, s, n, p, ds, chunk = SSD_SHAPES[0]
+    args = _ssd_inputs(b, s, n, p, ds, seed=9)
+    dy = _bf16(np.random.default_rng(10).normal(size=(b, s, n, p)))
+
+    def f(*a):
+        return ref_ssd_ops.ssd(*a, chunk=chunk, impl="interpret")
+    y_ref, vjp = jax.vjp(f, *_ssd_args(*args, _j))
+    grads_ref = vjp(_j(dy))
+    targs = [t.requires_grad_() for t in _ssd_args(*args, _t)]
+    y = ssd_ops.ssd(*targs, chunk=chunk)
+    y.backward(_t(dy))
+    assert bf16_excess(y, y_ref) <= SSD_RTOL
+    for t, w in zip(targs, grads_ref):
+        assert t.grad.dtype == t.dtype
+        if t.dtype == torch.bfloat16:
+            assert bf16_excess(t.grad, w) <= SSD_RTOL
+        else:
+            w = np.asarray(w)
+            assert np.abs(t.grad.numpy() - w).max() \
+                <= SSD_RTOL * np.abs(w).max()
+
+
+# ---------------------------------------------------------------------------
+# the launch plans' bf16 copy widths and the wrappers' dtype checks
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("itemsize,strides,aligned,vec", [
+    # the FL path: (B, S, H, D) = (570, 32, 2, 32) activations, rows of 64
+    (2, (2048, 32, 64), True, 16),
+    (4, (2048, 32, 64), True, 16),
+    (2, (2050, 34, 66), True, 4),      # even strides, not multiples of 8
+    (4, (2050, 34, 66), True, 4),
+    (2, (2048, 32, 65), True, 2),      # an odd row stride: one bf16 a copy
+    (2, (2048, 32, 64), False, 2),     # a pointer off 16 bytes
+    (4, (2048, 32, 64), False, 4),
+])
+def test_attention_plan_bf16_copy_width(itemsize, strides, aligned, vec):
+    """16-byte copies of bf16 need every stride a multiple of 8 elements
+    and every pointer 16-byte aligned; f32 as before, multiples of 4."""
+    plan = fa.attention_plan(570, 2, 32, 32, strides=strides * 4,
+                             aligned=aligned, itemsize=itemsize)
+    assert (plan.form, plan.vec) == ("short", vec)
+    fwd = fa.attention_plan(2, 2, 64, 64, strides=strides * 4,
+                            aligned=aligned, itemsize=itemsize, forward=True)
+    assert (fwd.form, fwd.vec) == ("tiled", vec)
+    # the tiled backward loads one element at a time
+    bwd = fa.attention_plan(2, 2, 64, 64, strides=strides * 4,
+                            aligned=aligned, itemsize=itemsize)
+    assert (bwd.form, bwd.vec) == ("tiled", itemsize)
+
+
+def test_fl_path_bf16_plans_take_16_byte_copies():
+    """The FL round's bf16 operands: q, k, v and o as (B, H, S, D) views of
+    (B, S, H, D) activations (rows of 64 elements), and the SSD's x, b and
+    c as split views of one (rows, 32, 160) conv output (offsets 0, 128
+    and 144)."""
+    views = [torch.empty(570, 32, 2, 32, dtype=torch.bfloat16)
+             .transpose(1, 2) for _ in range(4)]
+    assert fa.attention_fwd_plan(*views).vec == 16
+    assert fa.attention_bwd_plan(*views).vec == 16
+    conv = torch.empty(570, 32, 160, dtype=torch.bfloat16)
+    x = conv[..., :128].reshape(570, 32, 4, 32)
+    bm, cm = conv[..., 128:144], conv[..., 144:]
+    plan = ssd.ssd_plan(570, 32, 4, 32, 16, 32, sms=132,
+                        x_strides=x.stride()[:3],
+                        bc_strides=bm.stride()[:2] + cm.stride()[:2],
+                        x_aligned=x.data_ptr() % 16 == 0,
+                        bc_aligned=(bm.data_ptr() % 16 == 0
+                                    and cm.data_ptr() % 16 == 0),
+                        itemsize=2)
+    assert (plan.vec_x, plan.vec_bc) == (16, 16)
+
+
+@pytest.mark.parametrize("itemsize,step,ds,vec", [
+    (2, 160, 16, (16, 16)),
+    (2, 162, 16, (4, 4)),       # steps of 162 elements: pairs only
+    (2, 161, 16, (2, 2)),       # an odd step: one bf16 at a time
+    (2, 160, 12, (16, 4)),      # b and c rows of 12: not a multiple of 8
+    (4, 160, 12, (16, 16)),     # ... which is a multiple of 4 floats
+    (4, 162, 16, (4, 4)),
+])
+def test_ssd_plan_bf16_copy_width(itemsize, step, ds, vec):
+    """x's, and b's and c's, copy widths count in elements of their dtype:
+    16 bytes of bf16 need the row width and every stride a multiple of 8."""
+    plan = ssd.ssd_plan(570, 32, 4, 32, ds, 32, sms=132,
+                        x_strides=(32 * step, step, 32),
+                        bc_strides=(32 * step, step, 32 * step, step),
+                        x_aligned=True, bc_aligned=True, itemsize=itemsize)
+    assert (plan.vec_x, plan.vec_bc) == vec
+
+
+def test_attention_operands_refuse_a_mix_of_dtypes():
+    """q in bf16 with k in f32 raises TypeError (no cast), as do bf16 lse or
+    delta; one dtype throughout passes."""
+    q = torch.zeros(2, 2, 32, 32, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="share one dtype"):
+        fa._operands(("q", "k", "v"), q, q.float(), q)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa._operands(("q", "k", "v"), q.half(), q.half(), q.half())
+    assert all(t.dtype == torch.bfloat16
+               for t in fa._operands(("q", "k", "v"), q, q, q))
+    with pytest.raises(TypeError, match="float32"):
+        fa._rows(torch.zeros(2, 2, 32, dtype=torch.bfloat16), 2, 2, 32)
+
+
+def test_ssd_operands_refuse_a_mix_of_dtypes():
+    """b in f32 beside bf16 xh raises TypeError; dt in f32 beside bf16 xh
+    is the contract and passes."""
+    xh = torch.zeros(2, 32, 4, 32, dtype=torch.bfloat16)
+    b32 = torch.zeros(2, 32, 16)
+    with pytest.raises(TypeError):
+        ssd._operand(b32, 3, "b_ssm", xh.dtype)
+    assert ssd._operand(b32.bfloat16(), 3, "b_ssm", xh.dtype).dtype \
+        == torch.bfloat16
+    dt = torch.zeros(2, 32, 4)
+    assert ssd._operand(dt, 3, "dt").dtype == torch.float32
+    with pytest.raises(TypeError):
+        ssd._operand(dt.bfloat16(), 3, "dt")
+
+
+# ---------------------------------------------------------------------------
+# two bf16 rounds of the token models against the reference
+# ---------------------------------------------------------------------------
+
+SIM = dict(max_dataset=400, k_iters=2, sigma_samples=2, rounds=2,
+           eval_every=2, dtype="bf16")
+
+
+@pytest.mark.parametrize("model", ["transformer", "ssm"])
+def test_bf16_token_simulation_matches_reference(model):
+    """Two rounds of ``Simulation(Scenario(model=..., dtype="bf16"))`` from
+    the reference's weights and statistics: identical trained gateways,
+    selections, l_n, queues and delays; losses and params within the
+    reference's absolute bf16 contract (measured: transformer losses
+    1.1e-3, params 5.5e-5; SSM losses 2.7e-3, params 1.1e-3, both largest
+    in the embedding), with f32 masters."""
+    sc = dict(SIM, model=model)
+    r = ref_sim.Simulation(ref_sim.Scenario(**sc))
+    p0 = [jax.tree.map(np.asarray, p) for p in r.params]
+    rng0 = r.rng.bit_generator.state
+    want = list(r.rounds())
+    s = sim.Simulation(sim.Scenario(**sc), r.stats, device="cpu",
+                       init_params=p0)
+    s.rng.bit_generator.state = rng0
+    got = list(s.rounds())
+    for g, w in zip(got, want):
+        assert g.trained == w.trained
+        np.testing.assert_array_equal(g.selected, w.selected)
+        np.testing.assert_array_equal(g.l_n, w.l_n)
+        np.testing.assert_array_equal(g.queues, w.queues)
+        assert g.delay == w.delay
+        np.testing.assert_allclose(g.losses, w.losses, rtol=0,
+                                   atol=LOSS_ATOL)
+    assert any(g.trained for g in got)
+    assert all(v.dtype == torch.float32 for p in s.params
+               for v in p.values())
+    got_p = params_to_numpy(s.plan, s.params)
+    assert len(got_p) == len(r.params)
+    for g, w in zip(got_p, r.params):
+        assert jax.tree.structure(g) == jax.tree.structure(w)
+        for a, b in zip(jax.tree.leaves(g), jax.tree.leaves(w)):
+            np.testing.assert_allclose(a, np.asarray(b), rtol=0,
+                                       atol=PARAM_ATOL)

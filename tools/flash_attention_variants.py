@@ -182,16 +182,18 @@ def print_registers() -> None:
         raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
     lines = (proc.stdout + proc.stderr).splitlines()
     for i, line in enumerate(lines):
-        # a mangled name: ...<length><name>ILi<template argument>E...
+        # a mangled name: ...<length><name>I<element type>Li<width>E...,
+        # the type f (float) or 13__nv_bfloat16
         found = re.search(r"Compiling entry function '.*?\d+([a-z_]+kernel)"
-                          r"(?:ILi(\d+)E)?", line)
+                          r"I(f|13__nv_bfloat16)Li(\d+)E", line)
         if not found:
             continue
         info = " ".join(lines[i + 1:i + 5])
         regs = re.search(r"Used (\d+) registers", info).group(1)
         spill = re.search(r"(\d+) bytes spill stores", info).group(1)
-        name = f"{found.group(1)}<{found.group(2)}>"
-        print(f"ptxas {name:22s} registers={regs} spill_bytes={spill}")
+        dtype = "float" if found.group(2) == "f" else "bf16"
+        name = f"{found.group(1)}<{dtype}, {found.group(3)}>"
+        print(f"ptxas {name:30s} registers={regs} spill_bytes={spill}")
 
 
 def build_variants() -> dict:

@@ -62,8 +62,8 @@ VARIANTS = {
         ("        intra_block<true>(acc, ws", "        if (p < 0) "
          "intra_block<true>(acc, ws")],
     # no output stores
-    "no_store": [("        if (p < P) {\n          float* out = y",
-                  "        if (p < -1) {\n          float* out = y")],
+    "no_store": [("        if (p < P) {\n          T* out = y",
+                  "        if (p < -1) {\n          T* out = y")],
 }
 # plan variants of the base source: name -> change to the plan
 PLANS = {
