@@ -16,10 +16,15 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
      M = 95 and M = 1, the evaluation's M = 232, fc_last's N = 10), plus
      the forward with silu and gelu at the round's fc1 shape; each case
      line prints the launch plan (slot fold, split-K count, copy width);
-   - the fused linear kernels' bf16 forms at the same shapes and at one
-     odd width (K = 33, N = 7: the 2-byte copies), against their plain
-     bf16 versions, with bf16 cuBLAS (``baddbmm`` + relu, ``bmm``, ``bmm``
-     and a sum) as the library yardstick;
+   - the fused linear kernels' bf16 forms at the same shapes, at one odd
+     width (K = 33, N = 7: the 2-byte copies) and on unaligned views (the
+     round's fc1 with every operand 8 bytes off 16-byte alignment), against
+     their plain bf16 versions, with bf16 cuBLAS (``baddbmm`` + relu,
+     ``bmm``, ``bmm`` and a sum) as the library yardstick; dx and dw/db run
+     their Hopper forms (TMA, wgmma) wherever TMA can describe the operands
+     and their mma.sync forms elsewhere (fc3's N = 10, the odd width, the
+     unaligned views), so both forms of each are held; each case line
+     prints the plan's form, tile, stages and cluster;
    - flash attention forward, dq and dk/dv at the transformer path's
      shapes (S = 32, D = 32, causal; the round's 6 slots x 95 rows x 2
      heads, the statistics pass's 12 x 95 x 2, the per-sample pass's
@@ -141,7 +146,8 @@ FA_BF16_NAMES = tuple(f"{name}_bf16" for name in FA_NAMES)
 # the CUDA kernels of the port's sources, by function name
 PORT_KERNELS = ("fwd_kernel", "splitk_reduce_kernel", "dx_kernel",
                 "dwdb_kernel", "fwd_bf16_kernel", "dx_bf16_kernel",
-                "dwdb_bf16_kernel", "fwd_short_kernel", "fwd_tc_kernel",
+                "dwdb_bf16_kernel", "dx_tma_kernel", "dwdb_tma_kernel",
+                "fwd_short_kernel", "fwd_tc_kernel",
                 "dq_kernel", "dkdv_kernel", "dq_short_kernel",
                 "dkdv_short_kernel", "ssd_kernel", "ssd_chunk_scan_kernel")
 # every launch counter and every plain-version call counter of the port
@@ -186,7 +192,11 @@ def device_ms(fn, reps: int = 10) -> float:
     launch two kernels, in all three of another run), so profiles are
     taken until three caught a whole number of launches per call (every
     timed callable launches the same kernels each call), ten at most, and
-    only those that caught the most count: the median of their times."""
+    only those that caught the most count: the median of their times.
+    Where all ten missed (the SSD bf16 phase, once), the call is timed by
+    CUDA events instead (:func:`time_ms`: the elapsed time on the card,
+    launch gaps included) and a line says so, rather than failing the whole
+    run on the tracer."""
     fn()
     torch.cuda.synchronize()
     runs = []
@@ -205,8 +215,10 @@ def device_ms(fn, reps: int = 10) -> float:
         if len(runs) == 3:
             break
     if not runs:
-        raise RuntimeError("ten profiles in a row caught no whole window "
-                           "of device time")
+        ms = time_ms(fn, reps)
+        print(f"device_ms: ten profiles caught no whole window; event-timed "
+              f"{ms:.4f} ms a call", flush=True)
+        return ms
     most = max(count for count, _ in runs)
     kept = sorted(us for count, us in runs if count == most)
     return kept[len(kept) // 2] / 1e3 / reps
@@ -296,15 +308,25 @@ def _plan_of(name: str, x, w, b, dy, act) -> str:
     y = kernel.fused_linear(x, w, b, act) if act == "relu" else dy
     if name == "fused_linear_bwd_dx":
         p = kernel.fused_linear_bwd_dx_plan(dy, w, y)
-        return (f" plan: fold={int(p.fold)} splits={p.splits} "
-                f"n_chunk={p.n_chunk} vec_dz={p.vec_dz} vec_w={p.vec_w}")
-    p = kernel.fused_linear_bwd_dw_db_plan(x, dy, y)
-    return f" plan: vec_x={p.vec_x} vec_dz={p.vec_dz}"
+        rest = (f"fold={int(p.fold)} splits={p.splits} n_chunk={p.n_chunk}"
+                + ("" if p.form == "tma"
+                   else f" vec_dz={p.vec_dz} vec_w={p.vec_w}"))
+    else:
+        p = kernel.fused_linear_bwd_dw_db_plan(x, dy, y)
+        rest = (f"ctas={p.ctas} tiles={p.tiles}" if p.form == "tma"
+                else f"vec_x={p.vec_x} vec_dz={p.vec_dz}")
+    return (f" plan: form={p.form} tile={p.tile[0]}x{p.tile[1]} "
+            f"stages={p.stages} cluster={p.cluster} {rest}")
 
 
-# bf16 forms: CASES and one odd width (rows of 66 and 14 bytes: x, w and
-# dy take the kernels' 2-byte copies)
-BF16_CASES = CASES + [("odd K=33 N=7", 2, 33, 33, 7, "relu", False)]
+# bf16 forms: CASES, one odd width (rows of 66 and 14 bytes: x, w and dy
+# take the kernels' 2-byte copies) and the round's fc1 on views whose data
+# lie 8 bytes off 16-byte alignment (UNALIGNED: TMA cannot take them, so dx
+# and dw/db run their mma.sync forms at a shape of the path)
+BF16_CASES = CASES + [("odd K=33 N=7", 2, 33, 33, 7, "relu", False),
+                      ("unaligned fc1 view", 6, 95, 512, 4096, "relu",
+                       False)]
+UNALIGNED = ("unaligned fc1 view",)
 
 
 def _bf16_case_fns(x, w, b, dy, act):
@@ -322,13 +344,15 @@ def _bf16_case_fns(x, w, b, dy, act):
             for name, (fn, plain, _) in _case_fns(x, w, b, dy, act).items()}
 
 
-def case_operands(g, dtype, nb, m, k, n, shared) -> tuple:
+def case_operands(g, dtype, nb, m, k, n, shared, offset: int = 0) -> tuple:
     """(x, w, b, dy) of one case, drawn from ``g`` in f32 and rounded to
     ``dtype``: He-scaled weights; shared ones stay stride-0 views of one
-    matrix."""
+    matrix. ``offset`` > 0: each operand is a view ``offset`` elements into
+    rows 8 elements wider, so its data pointer is off 16-byte alignment."""
     def draw(*shape, scale=1.0):
-        return (torch.randn(*shape, device="cuda", generator=g)
-                * scale).to(dtype)
+        wide = (torch.randn(*shape[:-1], shape[-1] + 8 * (offset > 0),
+                            device="cuda", generator=g) * scale).to(dtype)
+        return wide[..., offset:offset + shape[-1]]
     x = draw(nb, m, k)
     if shared:
         w = draw(k, n, scale=(2.0 / k) ** 0.5).expand(nb, k, n)
@@ -348,7 +372,8 @@ def kernel_phase(bf16: bool = False) -> dict:
     totals: dict = {}
     for label, nb, m, k, n, act, shared in (BF16_CASES if bf16
                                             else CASES + ACT_CASES):
-        x, w, b, dy = case_operands(g, dt, nb, m, k, n, shared)
+        x, w, b, dy = case_operands(g, dt, nb, m, k, n, shared,
+                                    4 if label in UNALIGNED else 0)
         fns = (_bf16_case_fns if bf16 else _case_fns)(x, w, b, dy, act)
         for name, (fn, plain, lib) in fns.items():
             # the record sums one local epoch of the round: fc1 + fc2 + fc3

@@ -4,7 +4,9 @@ Each source under ``kernels/*/csrc/`` is compiled on first use into a
 shared library with a plain C interface (``nvcc -gencode
 arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``), written to
 ``build/`` at the repository root under a name keyed by a hash of the
-source, so an edited source rebuilds and an unchanged one loads at once.
+source and of the headers beside it (``csrc/*.cuh``, which the source
+includes by relative path), so an edited source or header rebuilds and an
+unchanged one loads at once.
 :func:`build_all` starts one ``nvcc`` per source together and waits for
 all of them. Nothing here runs at import time: the CPU tests import every
 module on a machine with no ``nvcc``.
@@ -42,9 +44,10 @@ def _nvcc() -> str:
 
 
 def _target(src: pathlib.Path) -> pathlib.Path:
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(src.parent.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all(sources: Sequence[pathlib.Path]) -> None:

@@ -98,10 +98,18 @@
 // The copy width (16, 4 or, for an odd row width of bf16 that cp.async
 // cannot move, 2 bytes by plain loads) is an argument, not a template
 // choice: one kernel per form (and relu mask) keeps the build short.
+//
+// The bf16 backward has Hopper forms besides (dx_tma_kernel,
+// dwdb_tma_kernel, built on hopper.cuh: TMA rings, wgmma, dw stored by
+// TMA from persistent CTAs), which take every operand TMA can describe;
+// the mma.sync forms above keep the rest. Their design is set out where
+// they are defined.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -344,6 +352,14 @@ __device__ __forceinline__ uint16_t from_f32<uint16_t>(float v) {
   const uint32_t u = __float_as_uint(v);
   if ((u & 0x7fffffffu) > 0x7f800000u) return 0x7fc0;   // NaN
   return static_cast<uint16_t>((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+}
+
+// two floats rounded to bf16 (to nearest even, as from_f32) in one
+// instruction: lo in the low half, hi in the high half
+__device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
 }
 
 constexpr int kFwdBM = 96;   // all 95 rows of a slot in one CTA
@@ -1097,6 +1113,437 @@ dwdb_bf16_kernel(const DwArgsT<uint16_t> a, const Vec2 vec) {
     a.db[slot * a.sbb + n0 + threadIdx.x] = from_f32<uint16_t>(dbacc);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 backward forms for Hopper: TMA rings and wgmma (hopper.cuh)
+// ---------------------------------------------------------------------------
+//
+// dx_tma_kernel and dwdb_tma_kernel take the bf16 backward wherever TMA can
+// describe the operands (16-byte aligned pointers, strides of multiples of
+// 8 elements; kernel.dx_plan and kernel.dwdb_plan decide); dx_bf16_kernel
+// and dwdb_bf16_kernel above keep the rest (fc3's 10-wide rows, odd
+// widths, unaligned views). At the round's shapes both are bound by HBM
+// bytes (w read once, dw written once), and what held the mma.sync forms
+// short of that rate was traffic inside the card and the lack of overlap:
+// - dx re-read dz and y (24 KB of every 32 KB stage) in each of a slot's 64
+//   CTAs of 64 columns, with one copy in flight and the relu mask applied
+//   again on every fragment. Here a CTA covers kTxBK = 192 columns of dx
+//   (three consumer warpgroups of 64), so dz and y are fetched a third as
+//   often, and the round's fc2 is one wave of 22 x 6 = 132 CTAs; a producer
+//   warp keeps a ring of kTxStages 64-deep stages of w, dz and y in flight by
+//   TMA (128-byte swizzle); the mask is applied once per staged tile, in
+//   shared memory (dz and y share one layout, so it is elementwise); wgmma
+//   takes w as A and dz as B, both K-major (the reduction N runs along
+//   their rows), computing dx^T: K fills wgmma's 64-row M, and the 96 rows
+//   of M (95 at the round) its N.
+// - dw/db re-read x and dz in every CTA of a 128 x 64 tile and then stored
+//   its tile with nothing left to overlap. Here persistent CTAs, one per SM,
+//   each walk a contiguous range of (slot, n-tile, k-tile) tiles of 128 x
+//   128, k fastest: dz and y (the whole reduction M <= 96) are staged,
+//   masked and summed into db once per (slot, n-tile) run and stay resident
+//   while x streams through a ring by TMA; wgmma takes x^T and dz, both
+//   MN-major (M runs down their rows: the descriptors' transpose bits); dw
+//   leaves through shared memory by TMA stores, so a tile's store drains
+//   while the next tile's x lands and multiplies.
+// Products are exact bf16 x bf16 in f32, summed in f32 (dx adds each
+// stage's products to its running sum, as the mma.sync forms do); dx, dw and
+// db are rounded to bf16 once, at the store; dx's split partials stay f32
+// for splitk_reduce_kernel. No atomics: the results are deterministic.
+// Measured on the H100 (tools/fused_linear_variants.py): dx at the round's
+// fc2 reads w at about 2.5 TB/s; dw/db is held by its TMA stores, which
+// drain at about 2.1 TB/s where a fill of dw writes at 3.25 (without the
+// stores it takes 0.6 of its time).
+
+constexpr int kTxGroups = 3;                  // consumer warpgroups
+constexpr int kTxBK = 64 * kTxGroups;         // dx columns (K) per CTA
+constexpr int kTxBM = 96;                     // dx rows (M) per CTA
+constexpr int kTxBN = 64;                     // reduction (N) per stage
+constexpr int kTxStages = 4;
+// each stage's products into a zeroed set, then added to the running sum
+constexpr bool kTxStageAdd = true;
+constexpr int kTxConsumers = 128 * kTxGroups;
+constexpr int kTxThreads = kTxConsumers + 32;   // and one producer warp
+
+template <bool RELU>
+struct TxSmem {   // byte offsets in the 1024-aligned dynamic shared memory
+  static constexpr int W = kTxBK * 128;    // kTxBK rows of 64 n, swizzled
+  static constexpr int DZ = kTxBM * 128;
+  static constexpr int STAGE = W + DZ * (RELU ? 2 : 1);
+  static constexpr int P = kTxBK + 4;      // f32 epilogue tile pitch
+  // the epilogue's tile reuses the ring once every stage is consumed
+  static constexpr int BAR = kTxStages * STAGE > kTxBM * P * 4
+                                 ? kTxStages * STAGE
+                                 : kTxBM * P * 4;
+  static constexpr int BYTES = BAR + 2 * kTxStages * 8 + 1024;
+};
+
+// dz = dy * 1[y > 0] on 16 bytes (eight bf16) of dz and y
+__device__ __forceinline__ uint4 relu_mask_16b(uint4 v, uint4 y) {
+  v.x = relu_mask_bf16x2(v.x, y.x), v.y = relu_mask_bf16x2(v.y, y.y);
+  v.z = relu_mask_bf16x2(v.z, y.z), v.w = relu_mask_bf16x2(v.w, y.w);
+  return v;
+}
+
+// dx_tma_kernel's consumer warpgroups: the stages' wgmmas, then the
+// epilogue.
+template <bool RELU>
+__device__ __forceinline__ void dx_tma_consumer(
+    uint8_t* smem, uint64_t* full, uint64_t* empty,
+    const DxArgsT<uint16_t>& a, int m0, int k0, int slot, int split, int nn,
+    int cl) {
+  using L = TxSmem<RELU>;
+  using namespace hopper;
+  const int tid = threadIdx.x, wg = tid / 128;
+  float acc[kTxBM / 2], step[kTxBM / 2];
+#pragma unroll
+  for (int i = 0; i < kTxBM / 2; ++i) acc[i] = step[i] = 0.f;
+  for (int st = 0; st < nn; ++st) {
+    const int s = st % kTxStages;
+    mbar_wait(&full[s], (st / kTxStages) & 1);
+    uint8_t* stage = smem + s * L::STAGE;
+    if constexpr (RELU) {
+      uint4* dz = reinterpret_cast<uint4*>(stage + L::W);
+      const uint4* yv = reinterpret_cast<const uint4*>(stage + L::W + L::DZ);
+#pragma unroll
+      for (int i = tid; i < L::DZ / 16; i += kTxConsumers)
+        dz[i] = relu_mask_16b(dz[i], yv[i]);
+      fence_proxy_async();
+      named_sync(1, kTxConsumers);
+    }
+    const uint64_t da = sw128_desc(stage + wg * 64 * 128, 16, 1024);
+    const uint64_t db = sw128_desc(stage + L::W, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTxBN / 16; ++kk) {   // 32 bytes of the row each
+      if constexpr (kTxStageAdd)
+        wgmma_bf16<0, 0>(step, da + 2 * kk, db + 2 * kk, kk > 0);
+      else
+        wgmma_bf16<0, 0>(acc, da + 2 * kk, db + 2 * kk, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(step);
+    fence_regs(acc);
+    __syncwarp();
+    if ((tid & 31) == 0) {   // this warp is done with the stage
+      if (cl == 1)
+        mbar_arrive(&empty[s]);
+      else
+        for (int r = 0; r < cl; ++r) mbar_arrive_cluster(&empty[s], r);
+    }
+    if constexpr (kTxStageAdd) {
+#pragma unroll
+      for (int i = 0; i < kTxBM / 2; ++i) acc[i] += step[i];
+    }
+  }
+
+  // the tile leaves through shared memory (the ring is free: every stage
+  // was consumed) as dx[m][k], 16 bytes a store
+  fence_proxy_async();
+  named_sync(1, kTxConsumers);
+  float* tile = reinterpret_cast<float*>(smem);
+  {
+    const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int r = wg * 64 + ((tid & 127) >> 5) * 16 + g;   // k in the tile
+#pragma unroll
+    for (int j = 0; j < kTxBM / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        tile[(8 * j + 2 * t + (e & 1)) * L::P + r + 8 * (e >> 1)] =
+            acc[4 * j + e];
+  }
+  named_sync(1, kTxConsumers);
+  const int rows = min(kTxBM, a.M - m0);
+  if (a.splits == 1) {
+    uint16_t* out = a.dx + slot * a.sxb;
+    const bool vec =
+        (a.sxm & 7) == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+    for (int e = tid; e < kTxBM * (kTxBK / 8); e += kTxConsumers) {
+      const int r = e / (kTxBK / 8), c = (e % (kTxBK / 8)) * 8;
+      const int gk = k0 + c;
+      if (r >= rows || gk >= a.K) continue;
+      const float* src = tile + r * L::P + c;
+      uint16_t* dst = out + (m0 + r) * a.sxm + gk;
+      if (vec && gk + 8 <= a.K) {
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(bf16x2_rn(src[0], src[1]), bf16x2_rn(src[2], src[3]),
+                       bf16x2_rn(src[4], src[5]), bf16x2_rn(src[6], src[7]));
+      } else {
+        for (int q = 0; q < 8 && gk + q < a.K; ++q)
+          dst[q] = from_f32<uint16_t>(src[q]);
+      }
+    }
+  } else {
+    float* part = a.part + (static_cast<long long>(split) * a.batch + slot) *
+                               a.M * a.K;
+    const bool vec = (a.K & 3) == 0;
+    for (int e = tid; e < kTxBM * (kTxBK / 4); e += kTxConsumers) {
+      const int r = e / (kTxBK / 4), c = (e % (kTxBK / 4)) * 4;
+      const int gk = k0 + c;
+      if (r >= rows || gk >= a.K) continue;
+      const float* src = tile + r * L::P + c;
+      float* dst = part + static_cast<long long>(m0 + r) * a.K + gk;
+      if (vec) {
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(src[0], src[1], src[2], src[3]);
+      } else {
+        for (int q = 0; q < 4 && gk + q < a.K; ++q) dst[q] = src[q];
+      }
+    }
+  }
+}
+
+// One CTA: dx rows [m0, m0 + 96) x columns [k0, k0 + kTxBK) of one slot,
+// over the N range of its split. Consumer warpgroup g computes dx^T rows
+// [k0 + 64 g, +64) x the 96 rows of M: wgmma m64n96k16 with A = w[k][n]
+// and B = dz[m][n] from the stage. wb: w has one matrix per slot (else
+// every slot reads matrix 0). cl: the cluster size along K, 1 or 2; in a
+// pair each CTA fetches half of the rows of every dz and y stage and
+// multicasts it to both (the maps' boxes are kTxBM / cl rows), so the pair
+// fetches them once. A stage is refilled once both CTAs' consumers have
+// released it: each warp arrives on its own CTA's empty barrier and on its
+// peer's.
+template <bool RELU>
+__global__ void __launch_bounds__(kTxThreads, 1)
+dx_tma_kernel(const __grid_constant__ CUtensorMap tw,
+              const __grid_constant__ CUtensorMap tdz,
+              const __grid_constant__ CUtensorMap ty,
+              const DxArgsT<uint16_t> a, const int wb, const int cl) {
+  using L = TxSmem<RELU>;
+  using namespace hopper;
+  extern __shared__ uint8_t tx_raw[];
+  uint8_t* smem = align1024(tx_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* empty = full + kTxStages;
+  const int m0 = blockIdx.x * kTxBM, k0 = blockIdx.y * kTxBK;
+  const int slot = blockIdx.z % a.batch, split = blockIdx.z / a.batch;
+  const int nbeg = split * a.nchunk, nend = min(a.N, nbeg + a.nchunk);
+  const int nn = (nend - nbeg + kTxBN - 1) / kTxBN;
+  const int tid = threadIdx.x;
+  const uint32_t rank = cl > 1 ? cluster_ctarank() : 0;
+  if (tid == 0) {
+    for (int s = 0; s < kTxStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], cl * (kTxConsumers / 32));   // a warp's arrival
+    }
+    fence_barrier_init();
+  }
+  if (cl > 1)
+    cluster_sync();   // the peer's barriers exist before anything reaches them
+  else
+    __syncthreads();
+
+  if (tid >= kTxConsumers) {   // the producer warp: one thread issues
+    if (tid == kTxConsumers) {
+      const int rows = kTxBM / cl;   // this CTA's share of dz and y
+      for (int st = 0; st < nn; ++st) {
+        const int s = st % kTxStages;
+        if (st >= kTxStages) mbar_wait(&empty[s], (st / kTxStages - 1) & 1);
+        uint8_t* stage = smem + s * L::STAGE;
+        const int n0 = nbeg + st * kTxBN;
+        mbar_expect_tx(&full[s], L::STAGE);
+        tma_load_3d(stage, &tw, &full[s], n0, k0, wb ? slot : 0);
+        uint8_t* dz = stage + L::W + rank * rows * 128;
+        const int r0 = m0 + rank * rows;
+        if (cl == 1) {
+          tma_load_3d(dz, &tdz, &full[s], n0, r0, slot);
+          if constexpr (RELU)
+            tma_load_3d(dz + L::DZ, &ty, &full[s], n0, r0, slot);
+        } else {
+          tma_load_3d_multicast(dz, &tdz, &full[s], n0, r0, slot, 3);
+          if constexpr (RELU)
+            tma_load_3d_multicast(dz + L::DZ, &ty, &full[s], n0, r0, slot, 3);
+        }
+      }
+    }
+  } else {
+    dx_tma_consumer<RELU>(smem, full, empty, a, m0, k0, slot, split, nn, cl);
+  }
+  if (cl > 1) {
+    __syncwarp();
+    cluster_sync();   // no CTA leaves while its peer may still arrive on it
+  }
+}
+
+constexpr int kTwGroups = 2;                  // consumer warpgroups
+constexpr int kTwKT = 64 * kTwGroups;         // dw rows (K) per tile
+constexpr int kTwNT = 128;                    // dw columns (N) per tile
+constexpr int kTwMR = 96;                     // most rows of M staged
+constexpr int kTwStages = 2;                  // x ring
+constexpr int kTwOutBufs = 1;                 // dw tiles staged for stores
+constexpr int kTwConsumers = 128 * kTwGroups;
+constexpr int kTwThreads = kTwConsumers + 32;   // and one producer warp
+
+template <bool RELU>
+struct TwSmem {   // byte offsets in the 1024-aligned dynamic shared memory
+  // 64 columns of kTwMR rows of 128 bytes, swizzled: TMA's box, and one
+  // column block of a wgmma operand
+  static constexpr int REGION = kTwMR * 128;
+  static constexpr int X = kTwGroups * REGION;          // one x stage
+  static constexpr int DZ = kTwStages * X;
+  static constexpr int DZ_BYTES = (kTwNT / 64) * REGION;
+  static constexpr int Y = DZ + DZ_BYTES;
+  static constexpr int OUT = Y + (RELU ? DZ_BYTES : 0);
+  static constexpr int OUT_REGION = kTwKT * 128;   // two stores' boxes
+  static constexpr int OUT_BUF = (kTwNT / 64) * OUT_REGION;
+  static constexpr int BAR = OUT + kTwOutBufs * OUT_BUF;
+  static constexpr int BYTES = BAR + (2 * kTwStages + 2) * 8 + 1024;
+};
+
+// Persistent CTAs over the tiles of dw (slot, n-tile, k-tile; k fastest):
+// CTA c takes tiles [c T / G, (c + 1) T / G) of T on a grid of G. Each run of
+// tiles of one (slot, n-tile) stages dz and y (M rows, box rows `mrows` =
+// M rounded up to 16), masks dz in place, and, where the run starts at
+// k-tile 0, sums db over M in f32, in row order. Per tile, warpgroup g
+// computes dw rows [64 g, +64) x the kTwNT columns: wgmma m64n128k16 with A =
+// x^T and B = dz, both MN-major, one k-step per 16 rows of M; then its 64
+// rows go to shared memory (bf16, in the store boxes' swizzled layout) and
+// out by TMA stores, which its next epilogue waits to have read. Each
+// warpgroup runs its epilogue alone (its own barrier and bulk group), so
+// one's stores overlap the other's multiply.
+template <bool RELU>
+__global__ void __launch_bounds__(kTwThreads, 1)
+dwdb_tma_kernel(const __grid_constant__ CUtensorMap tx,
+                const __grid_constant__ CUtensorMap tdz,
+                const __grid_constant__ CUtensorMap ty,
+                const __grid_constant__ CUtensorMap tdw,
+                const DwArgsT<uint16_t> a, const int batch,
+                const int mrows) {
+  using L = TwSmem<RELU>;
+  using namespace hopper;
+  extern __shared__ uint8_t tw_raw[];
+  uint8_t* smem = align1024(tw_raw);
+  uint64_t* x_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* x_empty = x_full + kTwStages;
+  uint64_t* dz_full = x_empty + kTwStages;
+  uint64_t* dz_empty = dz_full + 1;
+  const int ntiles = (a.N + kTwNT - 1) / kTwNT;
+  const int ktiles = (a.K + kTwKT - 1) / kTwKT;
+  const long long total = static_cast<long long>(batch) * ntiles * ktiles;
+  const int tb = static_cast<int>(total * blockIdx.x / gridDim.x);
+  const int te = static_cast<int>(total * (blockIdx.x + 1) / gridDim.x);
+  const int ksteps = mrows / 16;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kTwStages; ++s) {
+      mbar_init(&x_full[s], 1);
+      mbar_init(&x_empty[s], kTwConsumers);
+    }
+    mbar_init(dz_full, 1);
+    mbar_init(dz_empty, kTwConsumers);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kTwConsumers) {   // the producer warp: one thread issues
+    if (tid == kTwConsumers) {
+      int runs = 0;
+      for (int t = tb; t < te; ++t) {
+        const int i = t - tb, kt = t % ktiles;
+        const int nt = t / ktiles % ntiles, slot = t / ktiles / ntiles;
+        if (t == tb || kt == 0) {   // a new (slot, n-tile) run: dz and y
+          if (runs > 0) mbar_wait(dz_empty, (runs - 1) & 1);
+          mbar_expect_tx(dz_full,
+                         (kTwNT / 64) * mrows * 128 * (RELU ? 2 : 1));
+          for (int q = 0; q < kTwNT / 64; ++q) {
+            tma_load_3d(smem + L::DZ + q * L::REGION, &tdz, dz_full,
+                        nt * kTwNT + 64 * q, 0, slot);
+            if constexpr (RELU)
+              tma_load_3d(smem + L::Y + q * L::REGION, &ty, dz_full,
+                          nt * kTwNT + 64 * q, 0, slot);
+          }
+          ++runs;
+        }
+        const int s = i % kTwStages;
+        if (i >= kTwStages) mbar_wait(&x_empty[s], (i / kTwStages - 1) & 1);
+        mbar_expect_tx(&x_full[s], kTwGroups * mrows * 128);
+        for (int g = 0; g < kTwGroups; ++g)
+          tma_load_3d(smem + s * L::X + g * L::REGION, &tx, &x_full[s],
+                      kt * kTwKT + 64 * g, 0, slot);
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128;
+  const bool elected = (tid & 127) == 0;   // issues its warpgroup's stores
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int r = wg * 64 + ((tid & 127) >> 5) * 16 + g;   // dw row in the tile
+  float acc[kTwNT / 2];
+#pragma unroll
+  for (int i = 0; i < kTwNT / 2; ++i) acc[i] = 0.f;
+  int runs = 0;
+  for (int t = tb; t < te; ++t) {
+    const int i = t - tb, kt = t % ktiles;
+    const int nt = t / ktiles % ntiles, slot = t / ktiles / ntiles;
+    if (t == tb || kt == 0) {
+      mbar_wait(dz_full, runs & 1);
+      if constexpr (RELU) {
+        uint4* dz = reinterpret_cast<uint4*>(smem + L::DZ);
+        const uint4* yv = reinterpret_cast<const uint4*>(smem + L::Y);
+        for (int q = 0; q < kTwNT / 64; ++q)
+          for (int e = tid; e < mrows * 8; e += kTwConsumers) {
+            const int o = q * (L::REGION / 16) + e;
+            dz[o] = relu_mask_16b(dz[o], yv[o]);
+          }
+        fence_proxy_async();
+        named_sync(1, kTwConsumers);
+      }
+      if (kt == 0) {   // db: column c of the tile, rows in order
+        for (int c = tid; c < kTwNT; c += kTwConsumers) {
+          const int n = nt * kTwNT + c;
+          if (n >= a.N) continue;
+          const uint8_t* col = smem + L::DZ + (c / 64) * L::REGION;
+          const int chunk = (c % 64) / 8, within = (c % 8) * 2;
+          float sum = 0.f;
+          for (int m = 0; m < a.M; ++m)
+            sum += to_f32(*reinterpret_cast<const uint16_t*>(
+                col + m * 128 + ((chunk ^ (m & 7)) << 4) + within));
+          a.db[slot * a.sbb + n] = from_f32<uint16_t>(sum);
+        }
+      }
+      ++runs;
+    }
+    const int s = i % kTwStages;
+    mbar_wait(&x_full[s], (i / kTwStages) & 1);
+    const uint64_t da = sw128_desc(smem + s * L::X + wg * L::REGION,
+                                   L::REGION, 1024);
+    const uint64_t db = sw128_desc(smem + L::DZ, L::REGION, 1024);
+    wgmma_fence();
+    for (int kk = 0; kk < ksteps; ++kk)   // 16 rows of M, 2048 bytes each
+      wgmma_bf16<1, 1>(acc, da + 128 * kk, db + 128 * kk, kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&x_empty[s]);
+    if (t + 1 == te || (t + 1) % ktiles == 0) mbar_arrive(dz_empty);
+
+    // this warpgroup's epilogue: the stores that last read its half of
+    // the staging buffer are done
+    if (elected) bulk_wait_read<kTwOutBufs - 1>();
+    named_sync(2 + wg, 128);
+    uint8_t* out = smem + L::OUT + (i % kTwOutBufs) * L::OUT_BUF;
+#pragma unroll
+    for (int j = 0; j < kTwNT / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r + 8 * h;   // row % 8 == g
+        *reinterpret_cast<uint32_t*>(out + (j / 8) * L::OUT_REGION +
+                                     row * 128 + (((j % 8) ^ g) << 4) +
+                                     t4 * 4) =
+            bf16x2_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    fence_proxy_async();
+    named_sync(2 + wg, 128);
+    if (elected) {
+      for (int q = 0; q < kTwNT / 64; ++q)
+        tma_store_3d(&tdw, out + q * L::OUT_REGION + wg * 64 * 128,
+                     nt * kTwNT + 64 * q, kt * kTwKT + 64 * wg, slot);
+      bulk_commit();
+    }
+  }
+  if (elected) bulk_wait<0>();
+}
+
 // Above 48 KB a block's shared memory must be asked for explicitly: allow
 // each kernel the card's opt-in maximum, once per process (the launch
 // itself fails, and reports it, if a block asks for more).
@@ -1219,6 +1666,80 @@ cudaError_t launch_dwdb_bf16(const DwArgsT<uint16_t>& a, int batch, Vec2 vec,
   const dim3 grid((a.N + kDwBN - 1) / kDwBN, k_tiles, batch);
   dwdb_bf16_kernel<RELU><<<grid, kDwThreads, bf_dw_smem<RELU>(), stream>>>(
       a, vec);
+  return cudaGetLastError();
+}
+
+// a tensor map that cuTensorMapEncodeTiled refused: kEncodeError + its
+// CUresult (the C entries return it in place of a CUDA error)
+constexpr int kEncodeError = 10000;
+
+template <bool RELU>
+int launch_dx_tma(const DxArgsT<uint16_t>& a, int cl, cudaStream_t stream) {
+  static const cudaError_t attr = allow_max_smem(dx_tma_kernel<RELU>);
+  if (attr != cudaSuccess) return attr;
+  const int kblocks = (a.K + kTxBK - 1) / kTxBK;
+  if ((cl != 1 && cl != 2) || kblocks % cl) return cudaErrorInvalidValue;
+  constexpr CUtensorMapSwizzle kSw = CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap tw, tdz, ty;
+  CUresult r = hopper::encode_bf16_3d(&tw, a.w, a.N, a.K, a.batch, a.swk,
+                                      a.swb, kTxBN, kTxBK, kSw);
+  if (r == CUDA_SUCCESS)
+    r = hopper::encode_bf16_3d(&tdz, a.dy, a.N, a.M, a.batch, a.sdm, a.sdb,
+                               kTxBN, kTxBM / cl, kSw);
+  ty = tdz;
+  if (r == CUDA_SUCCESS && RELU)
+    r = hopper::encode_bf16_3d(&ty, a.y, a.N, a.M, a.batch, a.sym, a.syb,
+                               kTxBN, kTxBM / cl, kSw);
+  if (r != CUDA_SUCCESS) return kEncodeError + static_cast<int>(r);
+  const dim3 grid((a.M + kTxBM - 1) / kTxBM, kblocks, a.batch * a.splits);
+  const int wb = a.swb != 0;
+  if (cl == 1) {
+    dx_tma_kernel<RELU><<<grid, kTxThreads, TxSmem<RELU>::BYTES, stream>>>(
+        tw, tdz, ty, a, wb, cl);
+    return cudaGetLastError();
+  }
+  // pairs of CTAs along K, on neighbouring SMs
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kTxThreads);
+  cfg.dynamicSmemBytes = TxSmem<RELU>::BYTES;
+  cfg.stream = stream;
+  cudaLaunchAttribute pair;
+  pair.id = cudaLaunchAttributeClusterDimension;
+  pair.val.clusterDim.x = 1;
+  pair.val.clusterDim.y = cl;
+  pair.val.clusterDim.z = 1;
+  cfg.attrs = &pair;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, dx_tma_kernel<RELU>, tw, tdz, ty, a, wb, cl);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <bool RELU>
+int launch_dwdb_tma(const DwArgsT<uint16_t>& a, int batch, int ctas,
+                    cudaStream_t stream) {
+  static const cudaError_t attr = allow_max_smem(dwdb_tma_kernel<RELU>);
+  if (attr != cudaSuccess) return attr;
+  if (a.M < 1 || a.M > kTwMR || ctas < 1) return cudaErrorInvalidValue;
+  const int mrows = (a.M + 15) / 16 * 16;
+  constexpr CUtensorMapSwizzle kSw = CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap tx, tdz, ty, tdw;
+  CUresult r = hopper::encode_bf16_3d(&tx, a.x, a.K, a.M, batch, a.sxm,
+                                      a.sxb, 64, mrows, kSw);
+  if (r == CUDA_SUCCESS)
+    r = hopper::encode_bf16_3d(&tdz, a.dy, a.N, a.M, batch, a.sdm, a.sdb,
+                               64, mrows, kSw);
+  ty = tdz;
+  if (r == CUDA_SUCCESS && RELU)
+    r = hopper::encode_bf16_3d(&ty, a.y, a.N, a.M, batch, a.sym, a.syb, 64,
+                               mrows, kSw);
+  if (r == CUDA_SUCCESS)
+    r = hopper::encode_bf16_3d(&tdw, a.dw, a.N, a.K, batch, a.swk, a.swb, 64,
+                               64, kSw);   // a warpgroup's 64 rows
+  if (r != CUDA_SUCCESS) return kEncodeError + static_cast<int>(r);
+  dwdb_tma_kernel<RELU><<<ctas, kTwThreads, TwSmem<RELU>::BYTES, stream>>>(
+      tx, tdz, ty, tdw, a, batch, mrows);
   return cudaGetLastError();
 }
 
@@ -1351,4 +1872,44 @@ extern "C" int fused_linear_bwd_dw_db_bf16(
   const Vec2 vec{vx, vd};
   return static_cast<int>(relu ? launch_dwdb_bf16<true>(a, B, vec, st)
                                : launch_dwdb_bf16<false>(a, B, vec, st));
+}
+
+
+// The Hopper forms of the two bf16 backward entries (dx_tma_kernel,
+// dwdb_tma_kernel), for operands that TMA can describe (kernel.dx_plan and
+// kernel.dwdb_plan): no copy widths; dx takes the plan's split as above and
+// its cluster size along K (1, or 2 where the K blocks pair up), dw/db its
+// persistent grid of `ctas` CTAs and M <= 96. The tensor maps are encoded
+// here, per launch; one that does not encode returns kEncodeError (10000)
+// + its CUresult.
+extern "C" int fused_linear_bwd_dx_tma_bf16(
+    const uint16_t* dy, const uint16_t* y, const uint16_t* w, uint16_t* dx,
+    float* part, int B, int M, int K, int N, long long sdb, long long sdm,
+    long long syb, long long sym, long long swb, long long swk, long long sxb,
+    long long sxm, int relu, int splits, int nchunk, int cluster,
+    void* stream) {
+  const DxArgsT<uint16_t> a{dy, y, w, dx, part, B, M, K, N, splits, nchunk,
+                            sdb, sdm, syb, sym, swb, swk, sxb, sxm};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = relu ? launch_dx_tma<true>(a, cluster, st)
+                       : launch_dx_tma<false>(a, cluster, st);
+  if (err != 0 || splits == 1) return err;
+  FwdArgsT<uint16_t> r{};
+  r.y = dx;
+  r.part = part;
+  r.batch = B, r.M = M, r.N = K, r.splits = splits;
+  r.syb = sxb, r.sym = sxm;
+  return static_cast<int>(reduce_splits<false, uint16_t>(r, st));
+}
+
+extern "C" int fused_linear_bwd_dw_db_tma_bf16(
+    const uint16_t* x, const uint16_t* dy, const uint16_t* y, uint16_t* dw,
+    uint16_t* db, int B, int M, int K, int N, long long sxb, long long sxm,
+    long long sdb, long long sdm, long long syb, long long sym, long long swb,
+    long long swk, long long sbb, int relu, int ctas, void* stream) {
+  const DwArgsT<uint16_t> a{x, dy, y, dw, db, M, K, N, sxb, sxm, sdb, sdm,
+                            syb, sym, swb, swk, sbb};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return relu ? launch_dwdb_tma<true>(a, B, ctas, st)
+              : launch_dwdb_tma<false>(a, B, ctas, st);
 }

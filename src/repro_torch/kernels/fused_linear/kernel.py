@@ -16,8 +16,8 @@ name with ``_bf16`` appended.
 
 How the kernels launch is decided here, in pure Python, by
 :func:`fwd_plan`, :func:`dx_plan` and :func:`dwdb_plan` (slot fold, split
-count, copy widths), so the CPU tests can check every plan the card would
-run.
+count, copy widths; for the bf16 backward the form, tile, stages and
+cluster), so the CPU tests can check every plan the card would run.
 
 Operands are float32 or bfloat16, all of one dtype per call (mixed dtypes
 raise). bf16 operands launch the ``*_bf16`` entries of the same source:
@@ -25,6 +25,14 @@ bf16 tensor-core products accumulated in f32, bias and activation in f32,
 and the result rounded to bf16 at the store, as the reference's kernels
 do. Split-K partials stay f32 in both. A bf16 launch that fails raises,
 as an f32 one does: there is no fallback to the plain version.
+
+The bf16 backward has two forms. Where TMA can describe every operand
+(:func:`tma_map`: 16-byte aligned pointers, strides of multiples of 8
+elements) dx and dw/db launch their Hopper forms (``form="tma"``: TMA
+rings, wgmma; dw/db also M <= :data:`TW_MR`); elsewhere (fc3's 10-wide
+rows, odd widths, unaligned views) the ``mma.sync`` forms. The plan picks
+the form from the operands alone; a tensor map that does not encode, like
+any failed launch, raises.
 """
 from __future__ import annotations
 
@@ -56,6 +64,13 @@ _ARGTYPES = {
 }
 # the bf16 entries take the same arguments as their f32 twins
 _ARGTYPES.update({f"{fn}_bf16": types for fn, types in _ARGTYPES.items()})
+# the Hopper forms of the bf16 backward: no copy widths; dw/db's CTA count
+_ARGTYPES.update({
+    "fused_linear_bwd_dx_tma_bf16": [_P] * 5 + [_I] * 4 + [_L] * 8
+                                    + [_I] * 4 + [_P],
+    "fused_linear_bwd_dw_db_tma_bf16": [_P] * 5 + [_I] * 4 + [_L] * 9
+                                       + [_I] * 2 + [_P],
+})
 
 # The kernels' tile shapes (csrc/fused_linear.cu): forward CTAs cover 96 x
 # 64 of the output, 32 reduction steps per stage; dx CTAs 96 x 64 of dx, 32
@@ -71,6 +86,19 @@ BF16_BK = 64
 CTAS_PER_SM = 2
 # Split a reduction no finer than this many steps per split.
 MIN_SPLIT_K = 128
+# The Hopper forms (dx_tma_kernel, dwdb_tma_kernel; one CTA per SM): dx
+# CTAs cover TX_BM rows x TX_BK columns of dx, the reduction N in TX_BN-deep
+# stages, a ring of TX_STAGES; dw/db tiles are TW_KT x TW_NT of dw, the
+# whole reduction M (at most TW_MR rows, in 16-row steps) staged at once, x
+# in a ring of TW_STAGES. Neither runs in clusters: dx can pair its CTAs
+# along K, multicasting dz and y (DxPlan.cluster = 2), but the pairs ran
+# at half the speed on the H100 (tools/fused_linear_variants.py,
+# tx_multicast), so the plans keep clusters of one.
+TX_BM, TX_BK, TX_BN, TX_STAGES = 96, 192, 64, 4
+TW_KT, TW_NT, TW_MR, TW_STAGES = 128, 128, 96, 2
+# TMA: every box side at most 256 elements, and under the 128-byte swizzle
+# an inner box side of at most 128 bytes
+TMA_BOX_MAX, TMA_SWIZZLE_BYTES = 256, 128
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -129,17 +157,60 @@ def fwd_plan(nb: int, m: int, k: int, n: int, *, sxb: int, sxm: int,
                    build.copy_width(w_align, swb, swk, itemsize=itemsize))
 
 
-def _split(ctas: int, depth: int, step: int, sms: int) -> tuple:
+def _split(ctas: int, depth: int, step: int, sms: int,
+           per_sm: int = CTAS_PER_SM) -> tuple:
     """(splits, chunk) of a reduction of ``depth`` steps for a grid of
-    ``ctas`` CTAs: split only where the grid is under CTAS_PER_SM x
-    ``sms``, into chunks that are multiples of the stage depth ``step``
-    and no shorter than MIN_SPLIT_K."""
-    target, ctas = CTAS_PER_SM * sms, max(1, ctas)
+    ``ctas`` CTAs: split only where the grid is under ``per_sm`` x ``sms``,
+    into chunks that are multiples of the stage depth ``step`` and no
+    shorter than MIN_SPLIT_K. With one CTA per SM (the Hopper forms) no
+    more splits than fill one wave: a CTA past it would wait for a whole
+    CTA's time."""
+    target, ctas = per_sm * sms, max(1, ctas)
     splits = 1
     if ctas < target:
-        splits = max(1, min(_cdiv(target, ctas), depth // MIN_SPLIT_K))
+        want = target // ctas if per_sm == 1 else _cdiv(target, ctas)
+        splits = max(1, min(want, depth // MIN_SPLIT_K))
     chunk = step * max(1, _cdiv(_cdiv(depth, splits), step))
     return max(1, _cdiv(depth, chunk)), chunk
+
+
+@dataclasses.dataclass(frozen=True)
+class TmaMap:
+    """A bf16 operand as ``encode_bf16_3d`` (csrc/hopper.cuh) hands it to
+    ``cuTensorMapEncodeTiled``: ``dims`` (inner, rows, batch) in elements,
+    the byte ``strides`` of a row and of a batch matrix, and the ``box``
+    (inner, rows, 1) copied per TMA load or store, 128-byte swizzled."""
+    dims: tuple
+    strides: tuple
+    box: tuple
+
+
+def tma_map(inner: int, rows: int, batch: int, row_stride: int,
+            batch_stride: int, box_inner: int, box_rows: int,
+            align: int) -> TmaMap | None:
+    """The tensor map of a bf16 operand of ``batch`` x ``rows`` x ``inner``
+    elements (strides in elements, unit inner stride; a batch stride of 0,
+    one matrix for every slot, maps one matrix) whose pointer is aligned to
+    ``align`` bytes, or None where TMA cannot describe it:
+    cuTensorMapEncodeTiled takes a 16-byte aligned base, byte strides that
+    are multiples of 16 below 2^40, dims of 1 to 2^32 and box sides of 1 to
+    256 elements, the inner one at most the swizzle's 128 bytes. Rows that
+    overlap (a row stride under the row, a batch stride under the matrix)
+    are left to the mma.sync forms too."""
+    if batch_stride == 0:
+        batch, batch_stride = 1, rows * row_stride
+    dims = (inner, rows, batch)
+    strides = (2 * row_stride, 2 * batch_stride)
+    box = (box_inner, box_rows, 1)
+    ok = (align % 16 == 0
+          and all(1 <= d <= 2 ** 32 for d in dims)
+          and all(s % 16 == 0 and 0 < s < 2 ** 40 for s in strides)
+          and row_stride >= inner
+          and (batch == 1 or batch_stride >= rows * row_stride)
+          and all(1 <= b <= TMA_BOX_MAX for b in box)
+          and 2 * box_inner <= TMA_SWIZZLE_BYTES
+          and (2 * box_inner) % 16 == 0)
+    return TmaMap(dims, strides, box) if ok else None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,7 +220,11 @@ class DxPlan:
     row strides ``sdm`` (dy) and ``sym`` (y). Above 1, ``splits`` ranges of
     the reduction N, ``n_chunk`` deep (a multiple of :data:`DX_BK`), each
     sum into a scratch buffer; ``vec_dz`` (dy and y) and ``vec_w`` are copy
-    widths in bytes as in :class:`FwdPlan`."""
+    widths in bytes as in :class:`FwdPlan`. ``form`` "tma" launches the
+    Hopper form (TX_BM x TX_BK CTAs, stages of TX_BN, no copy widths;
+    ``cluster`` 2 pairs the CTAs along K, where the K blocks pair up, to
+    multicast dz and y), "mma_sync" the f32 or bf16 mma.sync form (DX_BM
+    x DX_BN CTAs)."""
     fold: bool
     batch: int
     rows: int
@@ -162,10 +237,22 @@ class DxPlan:
     n_chunk: int
     vec_dz: int
     vec_w: int
+    form: str = "mma_sync"
+    cluster: int = 1
+
+    @property
+    def tile(self) -> tuple:
+        """(rows of M, columns of K) of dx per CTA."""
+        return (TX_BM, TX_BK) if self.form == "tma" else (DX_BM, DX_BN)
+
+    @property
+    def stages(self) -> int:
+        return TX_STAGES if self.form == "tma" else 2
 
     @property
     def grid(self) -> tuple:
-        return (_cdiv(self.rows, DX_BM), _cdiv(self.k, DX_BN),
+        bm, bk = self.tile
+        return (_cdiv(self.rows, bm), _cdiv(self.k, bk),
                 self.batch * self.splits)
 
 
@@ -185,39 +272,97 @@ def dx_plan(nb: int, m: int, k: int, n: int, *, strides, swb: int, swk: int,
         if m == 1:
             sdm, sym = sdb, syb
         sdb = syb = 0
+    vecs = (build.copy_width(dz_align, sdb, sdm, syb, sym, itemsize=itemsize),
+            build.copy_width(w_align, swb, swk, itemsize=itemsize))
+    if itemsize == 2 and all(dx_maps(batch, rows, k, n, sdb, sdm, syb, sym,
+                                     swb, swk, dz_align, w_align)):
+        ctas = batch * _cdiv(rows, TX_BM) * _cdiv(k, TX_BK)
+        splits, n_chunk = _split(ctas, n, TX_BN, sms, per_sm=1)
+        return DxPlan(fold, batch, rows, k, sdb, sdm, syb, sym, splits,
+                      n_chunk, *vecs, form="tma")
     ctas = batch * _cdiv(rows, DX_BM) * _cdiv(k, DX_BN)
     splits, n_chunk = _split(ctas, n, _stage(DX_BK, itemsize), sms)
     return DxPlan(fold, batch, rows, k, sdb, sdm, syb, sym, splits, n_chunk,
-                  build.copy_width(dz_align, sdb, sdm, syb, sym,
-                                   itemsize=itemsize),
-                  build.copy_width(w_align, swb, swk, itemsize=itemsize))
+                  *vecs)
+
+
+def dx_maps(batch: int, rows: int, k: int, n: int, sdb: int, sdm: int,
+            syb: int, sym: int, swb: int, swk: int, dz_align: int,
+            w_align: int, cluster: int = 1) -> tuple:
+    """The tensor maps of dx's Hopper form (w, dy, y; slots folded as the
+    plan folds them; each CTA of a cluster fetches 1 / ``cluster`` of the
+    rows of dy and y), each None where TMA cannot describe the operand."""
+    box_rows = TX_BM // cluster
+    return (tma_map(n, k, batch, swk, swb, TX_BN, TX_BK, w_align),
+            tma_map(n, rows, batch, sdm, sdb, TX_BN, box_rows, dz_align),
+            tma_map(n, rows, batch, sym, syb, TX_BN, box_rows, dz_align))
 
 
 @dataclasses.dataclass(frozen=True)
 class DwPlan:
-    """One dw/db launch: a CTA per DW_BK x DW_BN dw tile of each slot, each
-    summing all of M; K = 0 keeps the first K tile, whose CTAs write db.
-    ``vec_x`` and ``vec_dz`` (dy and y) as in :class:`FwdPlan`."""
+    """One dw/db launch. ``form`` "mma_sync": a CTA per DW_BK x DW_BN dw
+    tile of each slot, each summing all of M; K = 0 keeps the first K tile,
+    whose CTAs write db; ``vec_x`` and ``vec_dz`` (dy and y) as in
+    :class:`FwdPlan`. ``form`` "tma": ``ctas`` persistent CTAs share the
+    ``tiles`` TW_KT x TW_NT tiles of dw (slot, n-tile, k-tile; k fastest)
+    in contiguous ranges; the CTA whose range holds a (slot, n-tile)'s
+    k-tile 0 writes its db columns."""
     batch: int
     k: int
     n: int
     vec_x: int
     vec_dz: int
+    form: str = "mma_sync"
+    ctas: int = 0
+    tiles: int = 0
+
+    @property
+    def tile(self) -> tuple:
+        """(rows of K, columns of N) of dw per tile."""
+        return (TW_KT, TW_NT) if self.form == "tma" else (DW_BK, DW_BN)
+
+    @property
+    def stages(self) -> int:
+        return TW_STAGES if self.form == "tma" else 3
+
+    cluster = 1
 
     @property
     def grid(self) -> tuple:
+        if self.form == "tma":
+            return (self.ctas, 1, 1)
         return (_cdiv(self.n, DW_BN), max(1, _cdiv(self.k, DW_BK)),
                 self.batch)
 
 
 def dwdb_plan(nb: int, m: int, k: int, n: int, *, strides, x_align: int,
-              dz_align: int, itemsize: int = 4) -> DwPlan:
+              dz_align: int, itemsize: int = 4, sms: int = 132) -> DwPlan:
     """The dw/db launch plan; ``strides``: the batch and row strides of x,
     dy and y; ``x_align`` / ``dz_align``: the alignment in bytes of x's
-    pointer, or of dy's and y's."""
-    return DwPlan(nb, k, n,
-                  build.copy_width(x_align, *strides[:2], itemsize=itemsize),
-                  build.copy_width(dz_align, *strides[2:], itemsize=itemsize))
+    pointer, or of dy's and y's; ``sms``: the card's SMs (an H100's 132 by
+    default)."""
+    vecs = (build.copy_width(x_align, *strides[:2], itemsize=itemsize),
+            build.copy_width(dz_align, *strides[2:], itemsize=itemsize))
+    if itemsize == 2 and 1 <= m <= TW_MR and all(
+            dw_maps(nb, m, k, n, strides, x_align, dz_align)):
+        tiles = nb * _cdiv(n, TW_NT) * _cdiv(k, TW_KT)
+        return DwPlan(nb, k, n, *vecs, form="tma", ctas=min(tiles, sms),
+                      tiles=tiles)
+    return DwPlan(nb, k, n, *vecs)
+
+
+def dw_maps(nb: int, m: int, k: int, n: int, strides, x_align: int,
+            dz_align: int) -> tuple:
+    """The tensor maps of dw/db's Hopper form (x, dy, y, and dw: contiguous
+    (nb, k, n), allocated by the wrapper and so aligned, stored 64 rows at
+    a time, a warpgroup's share of a tile), each None where TMA cannot
+    describe the operand."""
+    sxb, sxm, sdb, sdm, syb, sym = strides
+    rows = 16 * _cdiv(m, 16)
+    return (tma_map(k, m, nb, sxm, sxb, 64, rows, x_align),
+            tma_map(n, m, nb, sdm, sdb, 64, rows, dz_align),
+            tma_map(n, m, nb, sym, syb, 64, rows, dz_align),
+            tma_map(n, k, nb, n, k * n, 64, 64, 16))
 
 
 @functools.lru_cache(maxsize=None)
@@ -349,12 +494,17 @@ def fused_linear_bwd_dx(dy: torch.Tensor, w: torch.Tensor,
                             device=dy.device, dtype=torch.float32)
                 if plan.splits > 1 else None)
         sxb, sxm = (0, k) if plan.fold else (dx.stride(0), dx.stride(1))
-        _launch("fused_linear_bwd_dx", "fused_linear_bwd_dx", dt, dy.device,
-                dy.data_ptr(), y.data_ptr(), w.data_ptr(), dx.data_ptr(),
+        args = (dy.data_ptr(), y.data_ptr(), w.data_ptr(), dx.data_ptr(),
                 None if part is None else part.data_ptr(), plan.batch,
                 plan.rows, k, n, plan.sdb, plan.sdm, plan.syb, plan.sym,
                 w.stride(0), w.stride(1), sxb, sxm, int(relu), plan.splits,
-                plan.n_chunk, plan.vec_dz, plan.vec_w)
+                plan.n_chunk)
+        if plan.form == "tma":
+            _launch("fused_linear_bwd_dx", "fused_linear_bwd_dx_tma", dt,
+                    dy.device, *args, plan.cluster)
+        else:
+            _launch("fused_linear_bwd_dx", "fused_linear_bwd_dx", dt,
+                    dy.device, *args, plan.vec_dz, plan.vec_w)
     return dx
 
 
@@ -370,7 +520,8 @@ def fused_linear_bwd_dw_db_plan(x: torch.Tensor, dy: torch.Tensor,
     nb, m, k = x.shape
     return dwdb_plan(nb, m, k, dy.shape[2], strides=_dw_strides(x, dy, y),
                      x_align=_align(x), dz_align=_align(dy, y),
-                     itemsize=x.element_size())
+                     itemsize=x.element_size(),
+                     sms=_sm_count(x.device.index))
 
 
 def fused_linear_bwd_dw_db(x: torch.Tensor, dy: torch.Tensor,
@@ -392,10 +543,13 @@ def fused_linear_bwd_dw_db(x: torch.Tensor, dy: torch.Tensor,
     db = torch.empty((nb, n), device=x.device, dtype=dy.dtype)
     if db.numel():
         plan = fused_linear_bwd_dw_db_plan(x, dy, y)
-        _launch("fused_linear_bwd_dw_db", "fused_linear_bwd_dw_db", dt,
-                x.device, x.data_ptr(), dy.data_ptr(), y.data_ptr(),
-                dw.data_ptr(), db.data_ptr(), nb, m, k, n,
-                *_dw_strides(x, dy, y),
-                dw.stride(0), dw.stride(1), db.stride(0), int(relu),
-                plan.vec_x, plan.vec_dz)
+        args = (x.data_ptr(), dy.data_ptr(), y.data_ptr(), dw.data_ptr(),
+                db.data_ptr(), nb, m, k, n, *_dw_strides(x, dy, y),
+                dw.stride(0), dw.stride(1), db.stride(0), int(relu))
+        if plan.form == "tma":
+            _launch("fused_linear_bwd_dw_db", "fused_linear_bwd_dw_db_tma",
+                    dt, x.device, *args, plan.ctas)
+        else:
+            _launch("fused_linear_bwd_dw_db", "fused_linear_bwd_dw_db", dt,
+                    x.device, *args, plan.vec_x, plan.vec_dz)
     return dw, db

@@ -21,6 +21,10 @@ the same bf16 values. Tolerances, each with its reason:
   (``tests/test_mixed_precision.py``: losses 5e-2, params 3e-2); the
   measured differences are far smaller and stated beside each test.
 """
+import importlib.util
+import pathlib
+import re
+
 import jax
 import jax.experimental
 
@@ -321,3 +325,252 @@ def test_bf16_simulation_matches_reference(kw):
     for g, w in zip(params_to_numpy(s.plan, s.params), r.params):
         for k in g:
             np.testing.assert_allclose(g[k], np.asarray(w[k]), **PARAM_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the Hopper forms of the bf16 backward (dx_tma_kernel, dwdb_tma_kernel):
+# what the card cannot show here, their plans, tensor maps and arithmetic
+# ---------------------------------------------------------------------------
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("_chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# (B, M, K, N, shared): chip_smoke.py's bf16 cases and ragged shapes
+TMA_CASES = [c[1:5] + (c[6],) for c in _chip_smoke().BF16_CASES] + [
+    (3, 37, 200, 136, False), (2, 1, 4097, 264, True), (5, 96, 1000, 72,
+                                                        False),
+    (1, 95, 64, 8, False), (7, 3, 0, 16, False)]
+
+
+def _bf16_dx_plan(nb, m, k, n, shared, **change):
+    kw = dict(strides=(m * n, n, m * n, n), swb=0 if shared else k * n,
+              swk=n, dz_align=16, w_align=16, sms=132, itemsize=2)
+    kw.update(change)
+    return kernel.dx_plan(nb, m, k, n, **kw)
+
+
+def _bf16_dw_plan(nb, m, k, n, **change):
+    kw = dict(strides=(m * k, k, m * n, n, m * n, n), x_align=16,
+              dz_align=16, itemsize=2, sms=132)
+    kw.update(change)
+    return kernel.dwdb_plan(nb, m, k, n, **kw)
+
+
+@pytest.mark.parametrize("case", TMA_CASES, ids=str)
+def test_bf16_backward_plans_cover_every_output_once(case):
+    """Whichever form the plan picks: dx's grid covers each dx element of
+    every slot once per split, the splits partitioning N in stage-deep
+    pieces; dw/db's persistent CTAs (Hopper form) cover each dw tile once
+    between them, and each (slot, n-tile)'s k-tile 0, whose CTA writes db,
+    once; the mma.sync form's grid as before."""
+    nb, m, k, n, shared = case
+    plan = _bf16_dx_plan(*case)
+    bm, bk = plan.tile
+    gx, gy, gz = plan.grid
+    assert gz == plan.batch * plan.splits and plan.batch * plan.rows == nb * m
+    cover = np.zeros((plan.batch, plan.rows, k), np.int32)
+    for bx in range(gx):
+        for by in range(gy):
+            cover[:, bx * bm:(bx + 1) * bm, by * bk:(by + 1) * bk] += 1
+    assert (cover == 1).all()
+    assert plan.n_chunk % (kernel.TX_BN if plan.form == "tma"
+                           else kernel.BF16_BK) == 0
+    assert plan.splits * plan.n_chunk >= n > (plan.splits - 1) * plan.n_chunk
+
+    dw = _bf16_dw_plan(nb, m, k, n)
+    kt, nt = dw.tile
+    cover = np.zeros((nb, k, n), np.int32)
+    db_cover = np.zeros((nb, n), np.int32)
+    if dw.form == "tma":
+        ktiles, ntiles = -(-k // kt), -(-n // nt)
+        assert dw.tiles == nb * ktiles * ntiles
+        assert dw.grid == (dw.ctas, 1, 1) and dw.ctas == min(dw.tiles, 132)
+        for c in range(dw.ctas):
+            begin, end = dw.tiles * c // dw.ctas, dw.tiles * (c + 1) // dw.ctas
+            for t in range(begin, end):
+                ki, ni, slot = t % ktiles, t // ktiles % ntiles, \
+                    t // ktiles // ntiles
+                cover[slot, ki * kt:(ki + 1) * kt, ni * nt:(ni + 1) * nt] += 1
+                if ki == 0:
+                    db_cover[slot, ni * nt:(ni + 1) * nt] += 1
+    else:
+        gx, gy, gz = dw.grid
+        for bx in range(gx):
+            for by in range(gy):
+                cover[:, by * kt:(by + 1) * kt, bx * nt:(bx + 1) * nt] += 1
+            db_cover[:, bx * nt:(bx + 1) * nt] += 1
+    assert (cover == 1).all() and (db_cover == 1).all()
+
+
+def test_bf16_backward_form_follows_the_operands_layout():
+    """The Hopper form wherever TMA can describe every operand, else the
+    mma.sync form: fc3's N = 10 (20-byte rows), the odd width, a pointer
+    off 16 bytes, a stride that is no multiple of 8, dw/db's M > 96, f32,
+    and empty K or N."""
+    round_fc = [(6, 95, 512, 4096, False), (6, 95, 4096, 4096, False),
+                (12, 95, 4096, 4096, True), (8, 1, 4096, 4096, True)]
+    for case in round_fc:
+        assert _bf16_dx_plan(*case).form == "tma", case
+        assert _bf16_dw_plan(*case[:4]).form == "tma", case
+    for case in [(6, 95, 4096, 10, False), (2, 33, 33, 7, False)]:
+        assert _bf16_dx_plan(*case).form == "mma_sync", case
+        assert _bf16_dw_plan(*case[:4]).form == "mma_sync", case
+    fc2 = (6, 95, 4096, 4096, False)
+    for change in (dict(dz_align=8), dict(w_align=8),
+                   dict(strides=(95 * 4100, 4100, 95 * 4096, 4096)),
+                   dict(swk=4100), dict(itemsize=4)):
+        assert _bf16_dx_plan(*fc2, **change).form == "mma_sync", change
+    for change in (dict(x_align=8), dict(dz_align=8),
+                   dict(strides=(95 * 4096 + 4, 4096, 95 * 4096, 4096,
+                                 95 * 4096, 4096)), dict(itemsize=4)):
+        assert _bf16_dw_plan(*fc2[:4], **change).form == "mma_sync", change
+    # one CTA per SM: a split fills one wave and no more
+    for case in round_fc + [(1, 232, 512, 4096, True)]:
+        gx, gy, gz = _bf16_dx_plan(*case).grid
+        assert gx * gy * gz <= 132 or _bf16_dx_plan(*case).splits == 1
+    assert _bf16_dx_plan(6, 95, 512, 4096, False).splits == 7
+    # no clusters: the multicast pairs measured slower
+    assert all(_bf16_dx_plan(*case).cluster == 1 for case in round_fc)
+    assert _bf16_dw_plan(1, 232, 512, 4096).form == "mma_sync"   # M > 96
+    assert _bf16_dw_plan(1, 96, 512, 4096).form == "tma"
+    assert _bf16_dw_plan(7, 3, 0, 16).form == "mma_sync"         # K = 0
+    # a stride-0 w that does not fold (slots not row-contiguous) maps one
+    # matrix for every slot
+    plan = _bf16_dx_plan(6, 95, 4096, 4096, True,
+                         strides=(96 * 4096, 4096, 96 * 4096, 4096))
+    assert plan.form == "tma" and not plan.fold
+    w_map = kernel.dx_maps(6, 95, 4096, 4096, 96 * 4096, 4096, 96 * 4096,
+                           4096, 0, 4096, 16, 16)[0]
+    assert w_map.dims == (4096, 4096, 1)
+
+
+@pytest.mark.parametrize("case", [(6, 95, 512, 4096, False),
+                                  (6, 95, 4096, 4096, False),
+                                  (12, 95, 4096, 4096, True),
+                                  (8, 1, 4096, 4096, True)], ids=str)
+def test_tma_maps_are_valid_for_the_encoder(case):
+    """The maps the Hopper forms encode at the round's, the statistics
+    pass's and the per-sample pass's shapes: dims of 1 to 2^32, byte
+    strides of multiples of 16 below 2^40, boxes of at most 256 elements a
+    side whose inner side is the 128-byte swizzle row; the boxes are the
+    kernels' tiles, so the bytes each stage expects are what TMA
+    delivers."""
+    nb, m, k, n, shared = case
+    dx = _bf16_dx_plan(*case)
+    maps = kernel.dx_maps(dx.batch, dx.rows, k, n, dx.sdb, dx.sdm, dx.syb,
+                          dx.sym, 0 if shared else k * n, n, 16, 16,
+                          dx.cluster)
+    maps += kernel.dw_maps(nb, m, k, n, (m * k, k, m * n, n, m * n, n), 16,
+                           16)
+    for tm in maps:
+        assert tm is not None
+        assert all(1 <= d <= 2 ** 32 for d in tm.dims)
+        assert all(s % 16 == 0 and s < 2 ** 40 for s in tm.strides)
+        assert all(1 <= b <= 256 for b in tm.box) and tm.box[2] == 1
+        assert 2 * tm.box[0] == 128
+    w_map, dz_map, y_map = maps[:3]
+    assert w_map.box[:2] == (kernel.TX_BN, kernel.TX_BK)
+    assert dz_map.box[:2] == y_map.box[:2] == (
+        kernel.TX_BN, kernel.TX_BM // dx.cluster)
+    # one dx stage: w, and the cluster's dz and y boxes, 128-byte rows
+    assert 2 * (w_map.box[0] * w_map.box[1] + dx.cluster * (
+        dz_map.box[0] * dz_map.box[1] + y_map.box[0] * y_map.box[1])) == \
+        128 * (kernel.TX_BK + 2 * kernel.TX_BM)
+    rows = 16 * -(-m // 16)
+    assert rows <= kernel.TW_MR
+    # x, dy and y: the whole reduction; dw: a warpgroup's 64 rows
+    assert [tm.box[1] for tm in maps[3:]] == [rows] * 3 + [64]
+    # a pair along K (cluster 2) fetches half of dz's and y's rows each
+    pair = kernel.dx_maps(dx.batch, dx.rows, k, n, dx.sdb, dx.sdm, dx.syb,
+                          dx.sym, 0 if shared else k * n, n, 16, 16, 2)
+    assert pair[0] == w_map and pair[1].box[:2] == pair[2].box[:2] == (
+        kernel.TX_BN, kernel.TX_BM // 2)
+    # the maps refuse what the encoder would
+    assert kernel.tma_map(4096, 95, 6, 4096, 95 * 4096, 64, 96, 8) is None
+    assert kernel.tma_map(10, 95, 6, 10, 950, 64, 96, 16) is None
+    assert kernel.tma_map(4096, 95, 6, 4096, 95 * 4096, 128, 96, 16) is None
+    assert kernel.tma_map(4096, 95, 6, 4096, 95 * 4096, 64, 257, 16) is None
+    assert kernel.tma_map(0, 95, 6, 8, 95 * 8, 64, 96, 16) is None
+
+
+def test_tma_tile_constants_match_the_source():
+    """The plans' tile constants are the CUDA source's."""
+    src = kernel.SOURCE.read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+)", src).group(1))
+    assert kernel.TX_BK == 64 * const("kTxGroups")
+    assert (kernel.TX_BM, kernel.TX_BN, kernel.TX_STAGES) == (
+        const("kTxBM"), const("kTxBN"), const("kTxStages"))
+    assert kernel.TW_KT == 64 * const("kTwGroups")
+    assert (kernel.TW_NT, kernel.TW_MR, kernel.TW_STAGES) == (
+        const("kTwNT"), const("kTwMR"), const("kTwStages"))
+
+
+def _trunc_add(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """a + b rounded toward zero to f32: a tensor core's accumulation at
+    its least exact (it may drop the bits a round-to-nearest add keeps)."""
+    s = a.astype(np.float64) + b.astype(np.float64)
+    r = s.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(s)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+def _wgmma_dx(dz: np.ndarray, w: np.ndarray, stage: int, order: str):
+    """dx = dz (M, N) @ w (K, N)^T in the Hopper form's order: each
+    wgmma k-step's 16 products exact, added to its accumulator with
+    truncation; ``order`` "stage": a zeroed set per ``stage``-deep stage,
+    added to the running sum with a round-to-nearest f32 add (the kernel's
+    per-stage add); "chain": every k-step into the running sum; "bf16":
+    the running sum kept in bf16 (a control that must fail)."""
+    acc = np.zeros((dz.shape[0], w.shape[0]), np.float32)
+    step = np.zeros_like(acc)
+    for n0 in range(0, dz.shape[1], 16):
+        prod = dz[:, n0:n0 + 16].astype(np.float64) @ \
+            w[:, n0:n0 + 16].T.astype(np.float64)
+        if order == "chain":
+            acc = _trunc_add(acc, prod)
+        elif order == "bf16":
+            acc = _bf16(_trunc_add(acc, prod))
+        else:
+            step = _trunc_add(np.zeros_like(acc) if n0 % stage == 0
+                              else step, prod)
+            if (n0 + 16) % stage == 0:
+                acc = (acc.astype(np.float64) + step).astype(np.float32)
+    return acc
+
+
+def test_wgmma_stage_add_emulation_holds_the_bf16_tolerance():
+    """dx at the round's fc2 depth (N = 4096) for 128 columns: the
+    per-stage f32 add over 64-deep stages lies within one bf16 ulp plus
+    RTOL of the scale of the plain version (f32 matmul, one rounding), and
+    closer to the f64 product than one chain of all 256 k-steps; a bf16
+    running sum does not hold, so the check has teeth."""
+    rng = np.random.default_rng(13)
+    m, n, k = 95, 4096, 128
+    dy, y = _bf16(rng.normal(size=(m, n))), _bf16(rng.normal(size=(m, n)))
+    dz = np.where(y > 0, dy, np.float32(0))
+    w = _bf16(rng.normal(size=(k, n)) * np.sqrt(2 / n))
+    plain = ref.fused_linear_bwd_dx_ref(_t(dy)[None], _t(w)[None], _t(y)[None],
+                                        "relu")[0]
+    want = _f32(plain)
+    exact = dz.astype(np.float64) @ w.astype(np.float64).T
+    scale = np.abs(want).max()
+    errs = {}
+    for order in ("stage", "chain", "bf16"):
+        got = _wgmma_dx(dz, w, kernel.TX_BN, order)
+        excess = np.abs(_bf16(got) - want) - _ulp(want)
+        errs[order] = (excess.max() / scale,
+                       np.abs(got - exact).max() / np.abs(exact).max())
+    assert errs["stage"][0] <= RTOL, errs
+    assert errs["stage"][1] < errs["chain"][1], errs
+    assert errs["bf16"][0] > RTOL, errs

@@ -19,10 +19,16 @@ mask costs. Two dx variants change the launch plan instead of the source
 it is) runs first and again last, which shows the run's spread. Prints each
 kernel's registers and spills, then one line per case and variant, in
 milliseconds. With ``--bf16`` it does the same for the bf16 forms
-(BF16_VARIANTS) at chip_smoke.py's bf16 shapes, through the wrappers
+(BF16_VARIANTS: the mma.sync forms' and the Hopper backward forms' design
+choices) at chip_smoke.py's bf16 shapes, through the wrappers
 (``kernel.library`` pointed at each variant), each held to
 chip_smoke.py's ``BF16_RTOL`` (one bf16 ulp per element plus that
-fraction of the scale), with the round's fc1-fc3 summed per variant.
+fraction of the scale; each line prints the excess over one ulp), then
+the base source under plan variants (BF16_PLANS: dx with cluster
+multicast, the backward's mma.sync forms where the plan picks the Hopper
+ones, dw/db with one tile per CTA, dx's split for half the card), with
+bf16 cuBLAS (and, for dw/db's write floor, a fill of a tensor of dw's
+size) beside each case and the round's fc1-fc3 summed per variant.
 """
 from __future__ import annotations
 
@@ -131,6 +137,98 @@ BF16_FRAGMENT_STORES = """\
 BF16_STAGING = ("  cp_async_wait<0>();\n"
                 "  __syncthreads();              // every warp is done with "
                 "the stages\n")
+# dwdb_tma_kernel's stores: the TMA stores of a tile, and the whole
+# epilogue from the staging buffer's wait to the stores
+TW_STORE = """\
+      for (int q = 0; q < kTwNT / 64; ++q)
+        tma_store_3d(&tdw, out + q * L::OUT_REGION + wg * 64 * 128,
+                     nt * kTwNT + 64 * q, kt * kTwKT + 64 * wg, slot);
+      bulk_commit();"""
+TW_EPILOGUE = """\
+    if (elected) bulk_wait_read<kTwOutBufs - 1>();
+    named_sync(2 + wg, 128);
+    uint8_t* out = smem + L::OUT + (i % kTwOutBufs) * L::OUT_BUF;
+#pragma unroll
+    for (int j = 0; j < kTwNT / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r + 8 * h;   // row % 8 == g
+        *reinterpret_cast<uint32_t*>(out + (j / 8) * L::OUT_REGION +
+                                     row * 128 + (((j % 8) ^ g) << 4) +
+                                     t4 * 4) =
+            bf16x2_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    fence_proxy_async();
+    named_sync(2 + wg, 128);
+    if (elected) {
+""" + TW_STORE + """
+    }"""
+TW_FRAGMENT_STORES = """\
+    uint16_t* dwp = a.dw + slot * a.swb;
+#pragma unroll
+    for (int j = 0; j < kTwNT / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = kt * kTwKT + r + 8 * h, n = nt * kTwNT + 8 * j + 2 * t4;
+        if (k < a.K && n < a.N)
+          *reinterpret_cast<uint32_t*>(dwp + k * a.swk + n) =
+              bf16x2_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }"""
+# dw/db's staging buffer copied out by its warpgroup's threads, 16 bytes
+# a store (a warp two rows of 256 bytes), in place of TMA stores
+TW_LSU_EPILOGUE = """\
+    named_sync(2 + wg, 128);
+    uint8_t* out = smem + L::OUT;
+#pragma unroll
+    for (int j = 0; j < kTwNT / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r + 8 * h;   // row % 8 == g
+        *reinterpret_cast<uint32_t*>(out + (j / 8) * L::OUT_REGION +
+                                     row * 128 + (((j % 8) ^ g) << 4) +
+                                     t4 * 4) =
+            bf16x2_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    named_sync(2 + wg, 128);
+    for (int e = tid & 127; e < 64 * (kTwNT / 8); e += 128) {
+      const int row = e / (kTwNT / 8), c = e % (kTwNT / 8);
+      const int k = kt * kTwKT + 64 * wg + row, n = nt * kTwNT + 8 * c;
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          out + (c / 8) * L::OUT_REGION + (64 * wg + row) * 128 +
+          (((c % 8) ^ (row % 8)) << 4));
+      uint16_t* dst = a.dw + slot * a.swb + static_cast<long long>(k) * a.swk;
+      if (k < a.K && n + 8 <= a.N)
+        *reinterpret_cast<uint4*>(dst + n) = v;
+      else if (k < a.K)
+        for (int q = 0; q < 8 && n + q < a.N; ++q)
+          dst[n + q] = reinterpret_cast<const uint16_t*>(&v)[q];
+    }"""
+# dw/db's epilogue with the software bf16 rounding (from_f32) and both
+# warpgroups in step, one thread storing the whole tile
+TW_JOINT_EPILOGUE = """\
+    if (tid == 0) bulk_wait_read<kTwOutBufs - 1>();
+    named_sync(1, kTwConsumers);
+    uint8_t* out = smem + L::OUT + (i % kTwOutBufs) * L::OUT_BUF;
+#pragma unroll
+    for (int j = 0; j < kTwNT / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r + 8 * h;   // row % 8 == g
+        *reinterpret_cast<uint32_t*>(out + (j / 8) * L::OUT_REGION +
+                                     row * 128 + (((j % 8) ^ g) << 4) +
+                                     t4 * 4) =
+            from_f32<uint16_t>(acc[4 * j + 2 * h]) |
+            (uint32_t(from_f32<uint16_t>(acc[4 * j + 2 * h + 1])) << 16);
+      }
+    fence_proxy_async();
+    named_sync(1, kTwConsumers);
+    if (tid == 0) {
+      for (int q = 0; q < kTwNT / 64; ++q)
+        for (int half = 0; half < 2; ++half)
+          tma_store_3d(&tdw, out + q * L::OUT_REGION + half * 64 * 128,
+                       nt * kTwNT + 64 * q, kt * kTwKT + 64 * half, slot);
+      bulk_commit();
+    }"""
 # bf16 forms: name -> [(text in the source, its replacement)]
 BF16_VARIANTS = {
     "bf16_base": [],
@@ -142,6 +240,76 @@ BF16_VARIANTS = {
     # results stored straight from the fragments
     "bf16_fragment_stores": [(BF16_STAGING,
                               BF16_FRAGMENT_STORES + BF16_STAGING)],
+    # the Hopper backward forms: dx's ring of 2 or 3 stages, not 4
+    "tx_ring_2": [("constexpr int kTxStages = 4;",
+                   "constexpr int kTxStages = 2;")],
+    "tx_ring_3": [("constexpr int kTxStages = 4;",
+                   "constexpr int kTxStages = 3;")],
+    # dx CTAs of 128 or 64 columns of K (dz and y fetched 1.5x, 3x as often)
+    "tx_k128": [("constexpr int kTxGroups = 3;",
+                 "constexpr int kTxGroups = 2;")],
+    "tx_k64": [("constexpr int kTxGroups = 3;",
+                "constexpr int kTxGroups = 1;")],
+    # dx: one wgmma chain over all of N, no per-stage f32 add
+    "tx_one_chain": [("constexpr bool kTxStageAdd = true;",
+                      "constexpr bool kTxStageAdd = false;")],
+    # dw/db: tiles of 128 x 256 (wgmma n256), x read half as often
+    "tw_n256": [("constexpr int kTwNT = 128;", "constexpr int kTwNT = 256;")],
+    # dw/db: two staging buffers, so two tiles' stores drain at once
+    "tw_two_out": [("constexpr int kTwOutBufs = 1;",
+                    "constexpr int kTwOutBufs = 2;")],
+    # dw/db without its dw stores (what the stores cost; output not checked)
+    "tw_no_store": [(TW_STORE, "      bulk_commit();")],
+    # dw/db storing dw straight from the accumulators (4 bytes a thread, a
+    # warp 8 rows x 16 bytes), no staging or TMA store
+    "tw_fragment_stores": [(TW_EPILOGUE, TW_FRAGMENT_STORES)],
+    # dw/db: dw copied out of the staging buffer by LSU stores, no TMA
+    "tw_lsu_stores": [(TW_EPILOGUE, TW_LSU_EPILOGUE)],
+    # dw/db: the two warpgroups' epilogues in step (one thread stores the
+    # tile) with the software bf16 rounding
+    "tw_joint_epilogue": [(TW_EPILOGUE, TW_JOINT_EPILOGUE),
+                          ("  if (elected) bulk_wait<0>();",
+                           "  if (tid == 0) bulk_wait<0>();")],
+    # dw/db: x staged once a tile, no ring ahead of the multiply
+    "tw_x_ring_1": [("constexpr int kTwStages = 2;",
+                     "constexpr int kTwStages = 1;")],
+}
+
+
+def _mma_sync_dx(plan, nb, m, k, n):
+    """dx's mma.sync form with the split that form's plan gives it."""
+    ctas = plan.batch * kernel._cdiv(plan.rows, kernel.DX_BM) * \
+        kernel._cdiv(k, kernel.DX_BN)
+    splits, chunk = kernel._split(ctas, n, kernel.BF16_BK,
+                                  kernel._sm_count(0))
+    return dataclasses.replace(plan, form="mma_sync", splits=splits,
+                               n_chunk=chunk)
+
+
+def _half_card_dx(plan, nb, m, k, n):
+    """dx's Hopper form split for half the card's SMs (fewer f32
+    partials to write and sum)."""
+    if plan.form != "tma":
+        return plan
+    ctas = plan.batch * kernel._cdiv(plan.rows, kernel.TX_BM) * \
+        kernel._cdiv(k, kernel.TX_BK)
+    splits, chunk = kernel._split(ctas, n, kernel.TX_BN,
+                                  kernel._sm_count(0) // 2, per_sm=1)
+    return dataclasses.replace(plan, splits=splits, n_chunk=chunk)
+
+
+# plan variants of the base source: name -> (dx plan change, dw plan change)
+BF16_PLANS = {
+    # dx's CTAs in pairs along K where the K blocks pair up, each fetching
+    # half of every dz and y stage and multicasting it to both
+    "tx_multicast": (lambda plan, nb, m, k, n: dataclasses.replace(
+        plan, cluster=2) if plan.form == "tma" and kernel._cdiv(
+            k, kernel.TX_BK) % 2 == 0 else plan, None),
+    "mma_sync_forms": (_mma_sync_dx, lambda plan: dataclasses.replace(
+        plan, form="mma_sync")),
+    "tw_one_tile_per_cta": (None, lambda plan: dataclasses.replace(
+        plan, ctas=plan.tiles) if plan.form == "tma" else plan),
+    "tx_split_half_card": (_half_card_dx, None),
 }
 BF16_CASES = ("round fc1", "round fc2", "round fc3", "stats fc2 shared",
               "sigma fc2 M=1")
@@ -177,8 +345,11 @@ def build_variants(variants: dict) -> dict:
             text = text.replace(old, new)
         src = out_dir / f"{name}.cu"
         src.write_text(text)
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-               str(out_dir / f"{name}.so"), str(src)]
+        # -I: the source's headers (csrc/*.cuh), which it includes by
+        # relative path
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+               str(kernel.SOURCE.parent), "-o", str(out_dir / f"{name}.so"),
+               str(src)]
         jobs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True)
     libs = {}
@@ -189,8 +360,8 @@ def build_variants(variants: dict) -> dict:
         lines = log.splitlines()
         for i, line in enumerate(lines):
             found = re.search(
-                r"\d((?:fwd|dwdb|dx)(?:_bf16)?_kernel\w*?)(?:vNS_|ENS_)",
-                line)
+                r"\d((?:fwd|dwdb|dx)(?:_bf16|_tma)?_kernel\w*?)"
+                r"(?:vNS_|ENS_|Ev14CU)", line)
             if "Compiling entry" in line and found:
                 fn = found.group(1)
                 info = " ".join(lines[i + 1:i + 5])
@@ -370,9 +541,14 @@ def main() -> int:
 
 
 def bf16_main() -> int:
-    """The bf16 forms' variants at BF16_CASES, through the wrappers."""
+    """The bf16 forms' variants at BF16_CASES, through the wrappers: the
+    source variants, then the base source under each plan variant."""
     libs = build_variants(BF16_VARIANTS)
-    order = list(libs) + ["bf16_base"]
+    runs = [(name, name, None) for name in libs]
+    runs += [("bf16_base_again", "bf16_base", None)]   # the run's spread
+    runs += [(name, "bf16_base", change) for name, change in BF16_PLANS.items()]
+    plans = (kernel.fused_linear_bwd_dx_plan,
+             kernel.fused_linear_bwd_dw_db_plan)
     g = torch.Generator(device="cuda").manual_seed(3)
     rounds: dict = {}
     for label, nb, m, k, n, act, shared in chip_smoke.BF16_CASES:
@@ -380,26 +556,47 @@ def bf16_main() -> int:
             continue
         x, w, b, dy = chip_smoke.case_operands(g, torch.bfloat16, nb, m, k,
                                                n, shared)
-        for i, name in enumerate(order):
-            kernel.library = lambda lib=libs[name]: lib
-            if i == len(libs):
-                name += "_again"       # base's second run: the spread
-            fns = chip_smoke._bf16_case_fns(x, w, b, dy, act)
+        fns = chip_smoke._bf16_case_fns(x, w, b, dy, act)
+        lib_line = []
+        for fn_name, (_, _, lib) in fns.items():
+            ms = chip_smoke.device_ms(lib)
+            _add(rounds, label, "bf16_cublas", fn_name, ms)
+            lib_line.append(f"{fn_name}={ms:.4f}")
+        # dw/db's write floor: one fill of a tensor of dw's size
+        dw = torch.empty(nb, k, n, device="cuda", dtype=torch.bfloat16)
+        lib_line.append(f"dw_fill={chip_smoke.device_ms(dw.zero_):.4f}")
+        print(f"variant {label:16s} {'bf16_cublas':20s} " + " ".join(lib_line),
+              flush=True)
+        for name, lib_name, change in runs:
+            kernel.library = lambda lib=libs[lib_name]: lib
+            dx_change, dw_change = change or (None, None)
+            kernel.fused_linear_bwd_dx_plan = (
+                plans[0] if dx_change is None else
+                lambda *a, f=dx_change: f(plans[0](*a), nb, m, k, n))
+            kernel.fused_linear_bwd_dw_db_plan = (
+                plans[1] if dw_change is None else
+                lambda *a, f=dw_change: f(plans[1](*a)))
             line = []
             for fn_name, (fn, plain, _) in fns.items():
                 excess = chip_smoke._bf16_excess(fn(), plain())
                 ms = chip_smoke.device_ms(fn)
-                if label.startswith("round"):
-                    key = (name, fn_name)
-                    rounds[key] = rounds.get(key, 0.0) + ms
-                over = excess > chip_smoke.BF16_RTOL
-                line.append(f"{fn_name}={ms:.4f}{' OVER' if over else ''}")
+                _add(rounds, label, name, fn_name, ms)
+                over = " OVER" if excess > chip_smoke.BF16_RTOL else ""
+                line.append(f"{fn_name}={ms:.4f} (excess {excess:.1e}{over})")
             print(f"variant {label:16s} {name:20s} " + " ".join(line),
                   flush=True)
+        kernel.fused_linear_bwd_dx_plan, kernel.fused_linear_bwd_dw_db_plan = \
+            plans
     for (name, fn_name), ms in rounds.items():
         print(f"variant round fc1-fc3 {name:20s} {fn_name}={ms:.4f}",
               flush=True)
     return 0
+
+
+def _add(rounds: dict, label: str, name: str, fn_name: str, ms: float):
+    """Sum the round's fc1-fc3 per variant and kernel."""
+    if label.startswith("round"):
+        rounds[name, fn_name] = rounds.get((name, fn_name), 0.0) + ms
 
 
 if __name__ == "__main__":
