@@ -20,11 +20,12 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
      width (K = 33, N = 7: the 2-byte copies) and on unaligned views (the
      round's fc1 with every operand 8 bytes off 16-byte alignment), against
      their plain bf16 versions, with bf16 cuBLAS (``baddbmm`` + relu,
-     ``bmm``, ``bmm`` and a sum) as the library yardstick; dx and dw/db run
-     their Hopper forms (TMA, wgmma) wherever TMA can describe the operands
-     and their mma.sync forms elsewhere (fc3's N = 10, the odd width, the
-     unaligned views), so both forms of each are held; each case line
-     prints the plan's form, tile, stages and cluster;
+     ``bmm``, ``bmm`` and a sum) as the library yardstick; the forward, dx
+     and dw/db run their Hopper forms (TMA, wgmma) wherever TMA can
+     describe the operands and their mma.sync forms elsewhere (fc3's
+     N = 10, the odd width, the unaligned views), so both forms of each
+     are held; each case line prints the plan's form, tile, stages and
+     cluster;
    - flash attention forward, dq and dk/dv at the transformer path's
      shapes (S = 32, D = 32, causal; the round's 6 slots x 95 rows x 2
      heads, the statistics pass's 12 x 95 x 2, the per-sample pass's
@@ -59,7 +60,12 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
    eval_every=3)`` on the default network and both again in bf16
    (``transformer-bf16``, ``ssm-bf16``: their rounds run the attention and
    SSD bf16 forms), all on ``device="cuda"``: statistics pass plus three
-   rounds, the last one profiled.
+   rounds, the last one profiled. The fused linear paths must launch
+   every form of their kernels (``FORMS``; in bf16 the Hopper forms at fc1
+   and fc2, the mma.sync forms at fc3's N = 10), counted per CUDA kernel
+   by the wrapper (``kernel.KERNEL_LAUNCHES``), and where a path's layers
+   fix the forms' proportion (``FORM_SHARES``: ``vgg-bf16``'s forward, two
+   Hopper launches to one mma.sync), launch them in it.
 
 Any failure raises, which exits non-zero before the result line. The line
 before last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
@@ -146,12 +152,20 @@ FA_BF16_NAMES = tuple(f"{name}_bf16" for name in FA_NAMES)
 # the CUDA kernels of the port's sources, by function name
 PORT_KERNELS = ("fwd_kernel", "splitk_reduce_kernel", "dx_kernel",
                 "dwdb_kernel", "fwd_bf16_kernel", "dx_bf16_kernel",
-                "dwdb_bf16_kernel", "dx_tma_kernel", "dwdb_tma_kernel",
+                "dwdb_bf16_kernel", "fwd_tma_kernel", "dx_tma_kernel",
+                "dwdb_tma_kernel",
                 "fwd_short_kernel", "fwd_tc_kernel",
                 "dq_kernel", "dkdv_kernel", "dq_short_kernel",
                 "dkdv_short_kernel", "ssd_kernel", "ssd_chunk_scan_kernel")
+# the CUDA kernels (forms) behind each fused linear wrapper, counted by
+# the wrapper per launch (kernel.KERNEL_LAUNCHES): a path that launches a
+# wrapper must launch each of its forms
+FORMS = {f"{name}{dt}": tuple(f"{kind}{form}_kernel" for form in forms)
+         for name, kind in zip(NAMES, ("fwd", "dx", "dwdb"))
+         for dt, forms in (("", ("",)), ("_bf16", ("_tma", "_bf16")))}
 # every launch counter and every plain-version call counter of the port
-LAUNCH_COUNTS = (kernel.LAUNCHES, fa_kernel.LAUNCHES, ssd_kernel.LAUNCHES)
+LAUNCH_COUNTS = (kernel.LAUNCHES, kernel.KERNEL_LAUNCHES, fa_kernel.LAUNCHES,
+                 ssd_kernel.LAUNCHES)
 CALL_COUNTS = (ref.CALLS, fa_ref.CALLS, ssd_ref.CALLS)
 # kernel vs plain version on the same card: both f32 with f32
 # accumulation, summed in different orders over K up to 4096
@@ -193,13 +207,15 @@ def device_ms(fn, reps: int = 10) -> float:
     taken until three caught a whole number of launches per call (every
     timed callable launches the same kernels each call), ten at most, and
     only those that caught the most count: the median of their times.
-    Where all ten missed (the SSD bf16 phase, once), the call is timed by
+    Where all ten missed (the SSD bf16 phase, once; in one run every call
+    after the f32 SSD phase's long plain windows), the call is timed by
     CUDA events instead (:func:`time_ms`: the elapsed time on the card,
-    launch gaps included) and a line says so, rather than failing the whole
-    run on the tracer."""
+    launch gaps included) and a line says so, with the last profile's
+    launches of the kernels it did not catch whole, rather than failing
+    the whole run on the tracer."""
     fn()
     torch.cuda.synchronize()
-    runs = []
+    runs, broken = [], {}
     for _ in range(10):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -212,12 +228,16 @@ def device_ms(fn, reps: int = 10) -> float:
         if count and count % reps == 0:
             runs.append((count, sum(e.self_device_time_total
                                     for e in kernels)))
+        else:
+            broken = {e.key[:50]: e.count for e in kernels
+                      if e.count % reps}
         if len(runs) == 3:
             break
     if not runs:
         ms = time_ms(fn, reps)
         print(f"device_ms: ten profiles caught no whole window; event-timed "
-              f"{ms:.4f} ms a call", flush=True)
+              f"{ms:.4f} ms a call; the last caught {count} launches of "
+              f"{reps} calls, not whole: {broken}", flush=True)
         return ms
     most = max(count for count, _ in runs)
     kept = sorted(us for count, us in runs if count == most)
@@ -303,8 +323,11 @@ def _plan_of(name: str, x, w, b, dy, act) -> str:
     name = name.removesuffix("_bf16")
     if name == "fused_linear":
         p = kernel.fused_linear_plan(x, w, b)
-        return (f" plan: fold={int(p.fold)} splits={p.splits} "
-                f"vec_x={p.vec_x} vec_w={p.vec_w}")
+        rest = (f"fold={int(p.fold)} splits={p.splits} k_chunk={p.k_chunk}"
+                + ("" if p.form == "tma"
+                   else f" vec_x={p.vec_x} vec_w={p.vec_w}"))
+        return (f" plan: form={p.form} tile={p.tile[0]}x{p.tile[1]} "
+                f"stages={p.stages} {rest}")
     y = kernel.fused_linear(x, w, b, act) if act == "relu" else dy
     if name == "fused_linear_bwd_dx":
         p = kernel.fused_linear_bwd_dx_plan(dy, w, y)
@@ -752,6 +775,10 @@ PATHS = {
     "ssm-bf16": (Scenario(model="ssm", rounds=3, eval_every=3,
                           dtype="bf16"), ("ssd_scan_bf16",), 72_216),
 }
+# a path's launches of a kernel's forms, in proportion, where its layers
+# fix them: VGG's fc1 and fc2 take the bf16 forward's Hopper form, fc3
+# (N = 10) its mma.sync form, once each per local step
+FORM_SHARES = {"vgg-bf16": {"fwd_tma_kernel": 2, "fwd_bf16_kernel": 1}}
 
 
 def _print_breakdown(label: str, prof, wall: float) -> None:
@@ -764,7 +791,7 @@ def _print_breakdown(label: str, prof, wall: float) -> None:
     busy_s = sum(r[0] for r in rows) / 1e6
     print(f"{label} profile round: wall_s={wall:.3f} device_busy_s="
           f"{busy_s:.3f} busy_share={busy_s / wall:.3f}")
-    for us, count, key in sorted(rows, reverse=True)[:12]:
+    for us, count, key in sorted(rows, reverse=True)[:20]:
         print(f"{label} profile {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
     # the port's own kernels, wherever they rank
     ours = [r for r in rows if any(f"::{k}" in r[2] for k in PORT_KERNELS)]
@@ -814,8 +841,15 @@ def path_phase(label: str) -> dict:
         plain_calls.update(counts)
     print(f"{label} path launches={launches} plain_calls={plain_calls}")
 
-    check(all(launches[k] > 0 for k in names),
+    forms = tuple(f for k in names for f in FORMS.get(k, ()))
+    check(all(launches[k] > 0 for k in names + forms),
           f"a kernel of the {label} path never launched: {launches}")
+    shares = FORM_SHARES.get(label, {})
+    total = sum(launches[f] for f in shares)
+    check(all(launches[f] * sum(shares.values()) == share * total
+              for f, share in shares.items()),
+          f"{label}: forms launched out of the proportion {shares} of its "
+          f"layers: {launches}")
     check(not any(plain_calls.values()),
           f"the plain versions ran on the card: {plain_calls}")
     stats = sim.stats
@@ -836,7 +870,7 @@ def path_phase(label: str) -> dict:
           "non-finite losses")
     acc = records[-1].accuracy
     check(acc is not None and 0.0 <= acc <= 1.0, f"accuracy {acc}")
-    return {k: launches[k] for k in names}
+    return {k: launches[k] for k in names + forms}
 
 
 def main() -> int:
@@ -864,8 +898,11 @@ def main() -> int:
         print(f"phase {name} s={time.perf_counter() - t:.1f}", flush=True)
         return out
     totals, launches = {}, {}
-    for bf16 in (False, True):
-        for phase in (kernel_phase, attention_phase, ssd_phase):
+    # the SSD phases last: their long plain windows (thousands of launches
+    # a profile) came just before the tracer stopped catching whole
+    # windows, in the one run where it did
+    for phase in (kernel_phase, attention_phase, ssd_phase):
+        for bf16 in (False, True):
             totals.update(timed(f"{phase.__name__} bf16={int(bf16)}", phase,
                                 bf16=bf16))
     for label in AGREE:
@@ -877,7 +914,10 @@ def main() -> int:
                 replaces=REPLACES[name], launches=launches[name],
                 bound_by=("operations" if totals[name].pop("ops_ms")
                           >= totals[name]["bound_ms"] / 2 else "bytes"),
-                **totals[name])
+                **totals[name],
+                # the fused linear wrappers' launches by CUDA kernel (form)
+                **({"forms": {f: launches[f] for f in FORMS[name]}}
+                   if name in FORMS else {}))
            for name in REPLACES]
     print(f"card: {card}")
     print(json.dumps({"kernels": out}))

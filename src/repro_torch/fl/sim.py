@@ -61,8 +61,9 @@ BF16_MODELS = ("vgg", "mlp", "transformer", "ssm")
 class Scenario:
     """Frozen, JSON-serializable spec of one FL experiment.
 
-    The reference's fields and defaults. This slice runs ``engine="cohort"``
-    with ``dtype="f32"`` and ``data_plane="host"``; the fault axes and
+    The reference's fields and defaults. The port runs ``engine="cohort"``
+    and ``data_plane="host"``, with ``dtype="f32"`` for every model and
+    ``dtype="bf16"`` for the models of ``BF16_MODELS``; the fault axes and
     ``buffer_k`` belong to the async engine, which is not ported yet.
     """
     model: str = "vgg"                 # repro_torch.models.registry key
@@ -359,6 +360,11 @@ class CohortEngine(Engine):
             sim.plan, sim.params, batch, l_slot, w_slot, slot_gw,
             sc.k_iters, sc.lr, compute_dtype=sc.dtype, device=sim.device)
         sim.params = new_global
+        # padded-vs-real sample accounting, as the reference's
+        sim.padding_stats["real_samples"] += float(
+            sum(t.mask.sum() for t in batch.tiers))
+        sim.padding_stats["padded_samples"] += float(
+            batch.layout.padded_samples)
         gw_loss = gw_loss.cpu().numpy()
         for m in trained:
             sim.losses[m] = float(gw_loss[m])
@@ -506,6 +512,9 @@ class Simulation:
         self.queues = np.zeros(ncfg.n_gateways)
         self.losses = np.full(ncfg.n_gateways, self.plan.init_loss)
         self.delay_sum = 0.0
+        # cumulative padded-vs-real sample counts (the cohort engine fills
+        # them)
+        self.padding_stats = {"real_samples": 0.0, "padded_samples": 0.0}
         self._policy = None
 
     def reset(self, seed: Optional[int] = None) -> "Simulation":
@@ -603,7 +612,51 @@ class Simulation:
 
     # -- statistics ------------------------------------------------------
 
-    def estimate_stats(self, params=None) -> DataStats:
-        """Online estimators for sigma_n, delta_n, L_n (paper Sec. VII-A)."""
-        return self.engine.estimate_stats(
+    def estimate_stats(self, params=None,
+                       engine: Optional[str] = None) -> DataStats:
+        """Online estimators for sigma_n, delta_n, L_n (paper Sec. VII-A),
+        by ``engine``'s estimator (default: this simulation's engine). The
+        reference's sequential engine is not ported yet."""
+        if engine == "sequential":
+            _unported("estimate_stats(engine='sequential')", "M4")
+        eng = self.engine if engine is None else make_engine(engine)
+        return eng.estimate_stats(
             self, self.params if params is None else params)
+
+    # -- not ported yet (ROADMAP.md, section 1) ---------------------------
+
+    def save(self, path, keep_last: Optional[int] = None, *,
+             block: bool = False):
+        _unported("Simulation.save", "M4")
+
+    @classmethod
+    def resume(cls, path) -> "Simulation":
+        _unported("Simulation.resume", "M4")
+
+    def flush(self) -> None:
+        _unported("Simulation.flush", "M4")
+
+    def state_dict(self):
+        _unported("Simulation.state_dict", "M4")
+
+    def load_state_dict(self, state) -> None:
+        _unported("Simulation.load_state_dict", "M4")
+
+    def fused_rounds(self, policy: PolicyLike = None, *,
+                     rounds: Optional[int] = None) -> List[RoundRecord]:
+        _unported("Simulation.fused_rounds", "M7")
+
+    def run_fused(self, policy: PolicyLike = None) -> FLResult:
+        _unported("Simulation.run_fused", "M7")
+
+    def sweep(self, v_values, seeds=None, *, rounds: Optional[int] = None,
+              policies=None):
+        _unported("Simulation.sweep", "M7")
+
+    @property
+    def data_key(self):
+        _unported("Simulation.data_key (the traced data plane's key)", "M7")
+
+
+def _unported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")

@@ -99,11 +99,11 @@
 // cannot move, 2 bytes by plain loads) is an argument, not a template
 // choice: one kernel per form (and relu mask) keeps the build short.
 //
-// The bf16 backward has Hopper forms besides (dx_tma_kernel,
-// dwdb_tma_kernel, built on hopper.cuh: TMA rings, wgmma, dw stored by
-// TMA from persistent CTAs), which take every operand TMA can describe;
-// the mma.sync forms above keep the rest. Their design is set out where
-// they are defined.
+// All three bf16 forms have Hopper forms besides (fwd_tma_kernel,
+// dx_tma_kernel, dwdb_tma_kernel, built on hopper.cuh: TMA rings, wgmma,
+// dw stored by TMA from persistent CTAs), which take every operand TMA can
+// describe; the mma.sync forms above keep the rest. Their design is set
+// out where they are defined.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -1544,6 +1544,216 @@ dwdb_tma_kernel(const __grid_constant__ CUtensorMap tx,
   if (elected) bulk_wait<0>();
 }
 
+// ---------------------------------------------------------------------------
+// the bf16 forward for Hopper: a TMA ring and wgmma (hopper.cuh)
+// ---------------------------------------------------------------------------
+//
+// fwd_tma_kernel takes the bf16 forward wherever TMA can describe x and w
+// (kernel.fwd_plan); fwd_bf16_kernel keeps the rest (fc3's 10-wide rows,
+// odd widths, unaligned views). At the round's fc2 (6 slots of 95 x 4096
+// by 4096 x 4096) the forward is bound by HBM bytes: each slot's 32 MB w
+// is read once, and 2 M K N = 19 GFLOP take under a third of the time
+// those bytes do at the bf16 tensor-core rate. The mma.sync form reached
+// 57 % of that bound with CTAs of 96 x 64, three to an SM and a cp.async
+// ring of three stages, each CTA re-reading its slot's whole x. Here, as in
+// dx_tma_kernel, a CTA covers kTfBN = 192 columns of y (three consumer
+// warpgroups of 64), so x is fetched a third as often and the round's fc2
+// is one wave of 22 x 6 = 132 CTAs with no split; a producer warp keeps a
+// ring of kTfStages 64-deep stages of w (three 64 x 64 boxes) and x (one
+// 96 x 64 box) in flight by TMA (128-byte swizzle); wgmma computes y^T,
+// N filling its 64-row M and the 96 rows of M (95 at the round, row 96
+// read as zero) its N: A = w[k][n] is MN-major (n runs along its rows) and
+// B = x[m][k] K-major. Each stage's products go to a zeroed set, added to
+// the running sum in f32 (one chain over K = 4096 drifted to 2.5e-6 of
+// scale beyond one bf16 ulp, against 4.5e-7); bias and activation are
+// applied in f32 on the accumulators, and y leaves through shared memory
+// (the ring, free by then) in 16-byte stores of bf16, rounded once
+// (cvt.rn.bf16x2.f32): stored by TMA from a swizzled bf16 tile instead
+// (tools/fused_linear_variants.py's tf_tma_store), it measured slower.
+// Split-K partials, where the grid cannot fill one wave, stay f32 for
+// splitk_reduce_kernel, which adds bias and activation: in order, no
+// atomics. Measured on the H100 (tools/fused_linear_variants.py):
+// the round's fc2 at 85 % of its bytes bound, under bf16 cuBLAS.
+
+constexpr int kTfGroups = 3;                  // consumer warpgroups
+constexpr int kTfBN = 64 * kTfGroups;         // y columns (N) per CTA
+constexpr int kTfBM = 96;                     // y rows (M) per CTA
+constexpr int kTfBK = 64;                     // reduction (K) per stage
+constexpr int kTfStages = 4;
+// each stage's products into a zeroed set, then added to the running sum
+constexpr bool kTfStageAdd = true;
+constexpr int kTfConsumers = 128 * kTfGroups;
+constexpr int kTfThreads = kTfConsumers + 32;   // and one producer warp
+
+struct TfSmem {   // byte offsets in the 1024-aligned dynamic shared memory
+  static constexpr int W_BOX = kTfBK * 128;   // 64 k rows of 64 n, swizzled
+  static constexpr int W = kTfGroups * W_BOX;
+  static constexpr int X = kTfBM * 128;       // 96 m rows of 64 k, swizzled
+  static constexpr int STAGE = W + X;
+  static constexpr int RING = kTfStages * STAGE;
+  static constexpr int P = kTfBN + 4;         // f32 epilogue tile pitch
+  static constexpr int TILE = kTfBM * P * 4;
+  // the epilogue's tile reuses the ring once every stage is consumed
+  static constexpr int BAR = RING > TILE ? RING : TILE;
+  static constexpr int BYTES = BAR + 2 * kTfStages * 8 + 1024;
+};
+
+// fwd_tma_kernel's consumer warpgroups: the stages' wgmmas, then bias,
+// activation and the store of the CTA's tile (or its split's partials).
+__device__ __forceinline__ void fwd_tma_consumer(
+    uint8_t* smem, uint64_t* full, uint64_t* empty,
+    const FwdArgsT<uint16_t>& a, int m0, int n0, int slot, int split,
+    int nk) {
+  using L = TfSmem;
+  using namespace hopper;
+  const int tid = threadIdx.x, wg = tid / 128;
+  float acc[kTfBM / 2], step[kTfBM / 2];
+#pragma unroll
+  for (int i = 0; i < kTfBM / 2; ++i) acc[i] = step[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kTfStages;
+    mbar_wait(&full[s], (kt / kTfStages) & 1);
+    uint8_t* stage = smem + s * L::STAGE;
+    // A: this warpgroup's w box, n along its 128-byte rows (MN-major; one
+    // 64-column block, so the leading offset is unused); B: x, k along its
+    // rows (K-major)
+    const uint64_t da = sw128_desc(stage + wg * L::W_BOX, L::W_BOX, 1024);
+    const uint64_t db = sw128_desc(stage + L::W, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTfBK / 16; ++kk) {   // 16 rows of w (2048 bytes),
+      if constexpr (kTfStageAdd)                // 32 bytes of x's rows
+        wgmma_bf16<1, 0>(step, da + 128 * kk, db + 2 * kk, kk > 0);
+      else
+        wgmma_bf16<1, 0>(acc, da + 128 * kk, db + 2 * kk, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(step);
+    fence_regs(acc);
+    __syncwarp();
+    if ((tid & 31) == 0) mbar_arrive(&empty[s]);   // this warp is done
+    if constexpr (kTfStageAdd) {
+#pragma unroll
+      for (int i = 0; i < kTfBM / 2; ++i) acc[i] += step[i];
+    }
+  }
+
+  // The fragment is y^T: thread (warp w, lane 4 g + t) holds n = r and
+  // r + 8 (r below) of the CTA's columns, at m = 8 j + 2 t (+1), j < 12.
+  // Bias and activation apply in f32 to the columns below N (rows past M
+  // are not stored); a split's partials go out without them.
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r = wg * 64 + ((tid & 127) >> 5) * 16 + g;   // n in the tile
+  const bool direct = a.splits == 1;
+  if (direct) {
+    const uint16_t* bias = a.bias + slot * a.sbb;
+    const float b0 = n0 + r < a.N ? to_f32(bias[n0 + r]) : 0.f;
+    const float b1 = n0 + r + 8 < a.N ? to_f32(bias[n0 + r + 8]) : 0.f;
+#pragma unroll
+    for (int i = 0; i < kTfBM / 2; ++i)
+      acc[i] = activate(acc[i] + ((i & 2) ? b1 : b0), a.act);
+  }
+  // every warpgroup is done with the ring before it becomes the tile
+  fence_proxy_async();
+  named_sync(1, kTfConsumers);
+  const int rows = min(kTfBM, a.M - m0);
+  float* tile = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int j = 0; j < kTfBM / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      tile[(8 * j + 2 * t + (e & 1)) * L::P + r + 8 * (e >> 1)] =
+          acc[4 * j + e];
+  named_sync(1, kTfConsumers);
+  if (direct) {
+    uint16_t* out = a.y + slot * a.syb;
+    const bool vec =
+        (a.sym & 7) == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+    for (int e = tid; e < kTfBM * (kTfBN / 8); e += kTfConsumers) {
+      const int rr = e / (kTfBN / 8), c = (e % (kTfBN / 8)) * 8;
+      const int gn = n0 + c;
+      if (rr >= rows || gn >= a.N) continue;
+      const float* src = tile + rr * L::P + c;
+      uint16_t* dst = out + (m0 + rr) * a.sym + gn;
+      if (vec && gn + 8 <= a.N) {
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(bf16x2_rn(src[0], src[1]), bf16x2_rn(src[2], src[3]),
+                       bf16x2_rn(src[4], src[5]), bf16x2_rn(src[6], src[7]));
+      } else {
+        for (int q = 0; q < 8 && gn + q < a.N; ++q)
+          dst[q] = from_f32<uint16_t>(src[q]);
+      }
+    }
+  } else {
+    float* part = a.part + (static_cast<long long>(split) * a.batch + slot) *
+                               a.M * a.N;
+    const bool vec = (a.N & 3) == 0;
+    for (int e = tid; e < kTfBM * (kTfBN / 4); e += kTfConsumers) {
+      const int rr = e / (kTfBN / 4), c = (e % (kTfBN / 4)) * 4;
+      const int gn = n0 + c;
+      if (rr >= rows || gn >= a.N) continue;
+      const float* src = tile + rr * L::P + c;
+      float* dst = part + static_cast<long long>(m0 + rr) * a.N + gn;
+      if (vec) {
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(src[0], src[1], src[2], src[3]);
+      } else {
+        for (int q = 0; q < 4 && gn + q < a.N; ++q) dst[q] = src[q];
+      }
+    }
+  }
+}
+
+// One CTA: y rows [m0, m0 + 96) x columns [n0, n0 + kTfBN) of one slot,
+// over the K range of its split. Consumer warpgroup g computes y^T rows
+// [n0 + 64 g, +64) x the 96 rows of M: wgmma m64n96k16 with A = w[k][n]
+// and B = x[m][k] from the stage. wb: w has one matrix per slot (else
+// every slot reads matrix 0). The split's K range is a multiple of kTfBK
+// deep except at K, where TMA reads zeros past the operand.
+__global__ void __launch_bounds__(kTfThreads, 1)
+fwd_tma_kernel(const __grid_constant__ CUtensorMap tx,
+               const __grid_constant__ CUtensorMap tw,
+               const FwdArgsT<uint16_t> a, const int wb) {
+  using L = TfSmem;
+  using namespace hopper;
+  extern __shared__ uint8_t tf_raw[];
+  uint8_t* smem = align1024(tf_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* empty = full + kTfStages;
+  const int m0 = blockIdx.x * kTfBM, n0 = blockIdx.y * kTfBN;
+  const int slot = blockIdx.z % a.batch, split = blockIdx.z / a.batch;
+  const int kbeg = split * a.kchunk, kend = min(a.K, kbeg + a.kchunk);
+  const int nk = (kend - kbeg + kTfBK - 1) / kTfBK;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kTfStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kTfConsumers / 32);   // a warp's arrival
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kTfConsumers) {   // the producer warp: one thread issues
+    if (tid == kTfConsumers) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kTfStages;
+        if (kt >= kTfStages) mbar_wait(&empty[s], (kt / kTfStages - 1) & 1);
+        uint8_t* stage = smem + s * L::STAGE;
+        const int k0 = kbeg + kt * kTfBK;
+        mbar_expect_tx(&full[s], L::STAGE);
+        for (int g = 0; g < kTfGroups; ++g)
+          tma_load_3d(stage + g * L::W_BOX, &tw, &full[s], n0 + 64 * g, k0,
+                      wb ? slot : 0);
+        tma_load_3d(stage + L::W, &tx, &full[s], k0, m0, slot);
+      }
+    }
+    return;
+  }
+  fwd_tma_consumer(smem, full, empty, a, m0, n0, slot, split, nk);
+}
+
 // Above 48 KB a block's shared memory must be asked for explicitly: allow
 // each kernel the card's opt-in maximum, once per process (the launch
 // itself fails, and reports it, if a block asks for more).
@@ -1743,6 +1953,24 @@ int launch_dwdb_tma(const DwArgsT<uint16_t>& a, int batch, int ctas,
   return cudaGetLastError();
 }
 
+int launch_fwd_tma(const FwdArgsT<uint16_t>& a, cudaStream_t stream) {
+  static const cudaError_t attr = allow_max_smem(fwd_tma_kernel);
+  if (attr != cudaSuccess) return attr;
+  constexpr CUtensorMapSwizzle kSw = CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap tx, tw;
+  CUresult r = hopper::encode_bf16_3d(&tx, a.x, a.K, a.M, a.batch, a.sxm,
+                                      a.sxb, kTfBK, kTfBM, kSw);
+  if (r == CUDA_SUCCESS)   // a warpgroup's 64 columns of w per box
+    r = hopper::encode_bf16_3d(&tw, a.w, a.N, a.K, a.batch, a.swk, a.swb,
+                               64, kTfBK, kSw);
+  if (r != CUDA_SUCCESS) return kEncodeError + static_cast<int>(r);
+  const dim3 grid((a.M + kTfBM - 1) / kTfBM, (a.N + kTfBN - 1) / kTfBN,
+                  a.batch * a.splits);
+  fwd_tma_kernel<<<grid, kTfThreads, TfSmem::BYTES, stream>>>(
+      tx, tw, a, a.swb != 0);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Every operand is row-major in
@@ -1900,6 +2128,26 @@ extern "C" int fused_linear_bwd_dx_tma_bf16(
   r.batch = B, r.M = M, r.N = K, r.splits = splits;
   r.syb = sxb, r.sym = sxm;
   return static_cast<int>(reduce_splits<false, uint16_t>(r, st));
+}
+
+// The Hopper form of the bf16 forward (fwd_tma_kernel), for x and w that
+// TMA can describe (kernel.fwd_plan): the arguments of
+// fused_linear_fwd_bf16 without the copy widths; a split plan's partials
+// are summed, with bias and activation, by a second launch.
+extern "C" int fused_linear_fwd_tma_bf16(const uint16_t* x, const uint16_t* w,
+                                         const uint16_t* bias, uint16_t* y,
+                                         float* part, int B, int M, int K,
+                                         int N, long long sxb, long long sxm,
+                                         long long swb, long long swk,
+                                         long long sbb, long long syb,
+                                         long long sym, int act, int splits,
+                                         int kchunk, void* stream) {
+  const FwdArgsT<uint16_t> a{x, w, bias, y, part, B, M, K, N, act, splits,
+                             kchunk, sxb, sxm, swb, swk, sbb, syb, sym};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = launch_fwd_tma(a, st);
+  if (err != 0 || splits == 1) return err;
+  return static_cast<int>(reduce_splits<true, uint16_t>(a, st));
 }
 
 extern "C" int fused_linear_bwd_dw_db_tma_bf16(

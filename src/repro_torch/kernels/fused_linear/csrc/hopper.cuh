@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks: tensor maps, mbarriers, TMA copies and
 // warpgroup MMAs (wgmma), as inline PTX and host calls, for kernels written
-// by hand (the fused linear kernels' bf16 backward forms first).
+// by hand (the fused linear kernels' bf16 Hopper forms: forward, dx and
+// dw/db).
 //
 // - Tensor maps: encode_bf16_3d describes a (batch, rows, inner) bf16
 //   operand for the Tensor Memory Accelerator. cuTensorMapEncodeTiled is a

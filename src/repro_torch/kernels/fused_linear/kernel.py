@@ -12,12 +12,14 @@ first use, or the call raises. ``LAUNCHES`` counts the kernel launches of
 each wrapper and nothing else: one per wrapper call, also where the
 forward's or dx's split-K plan makes it two launches (the partial
 products and their ordered sum); bf16 launches count under the wrapper's
-name with ``_bf16`` appended.
+name with ``_bf16`` appended. ``KERNEL_LAUNCHES`` counts the same calls
+by the CUDA kernel (the form) that each one ran.
 
 How the kernels launch is decided here, in pure Python, by
 :func:`fwd_plan`, :func:`dx_plan` and :func:`dwdb_plan` (slot fold, split
 count, copy widths; for the bf16 backward the form, tile, stages and
-cluster), so the CPU tests can check every plan the card would run.
+cluster; for the bf16 forward its form, tile and stages), so the CPU
+tests can check every plan the card would run.
 
 Operands are float32 or bfloat16, all of one dtype per call (mixed dtypes
 raise). bf16 operands launch the ``*_bf16`` entries of the same source:
@@ -26,13 +28,13 @@ and the result rounded to bf16 at the store, as the reference's kernels
 do. Split-K partials stay f32 in both. A bf16 launch that fails raises,
 as an f32 one does: there is no fallback to the plain version.
 
-The bf16 backward has two forms. Where TMA can describe every operand
+Each bf16 kernel has two forms. Where TMA can describe every operand
 (:func:`tma_map`: 16-byte aligned pointers, strides of multiples of 8
-elements) dx and dw/db launch their Hopper forms (``form="tma"``: TMA
-rings, wgmma; dw/db also M <= :data:`TW_MR`); elsewhere (fc3's 10-wide
-rows, odd widths, unaligned views) the ``mma.sync`` forms. The plan picks
-the form from the operands alone; a tensor map that does not encode, like
-any failed launch, raises.
+elements) the forward, dx and dw/db launch their Hopper forms
+(``form="tma"``: TMA rings, wgmma; dw/db also M <= :data:`TW_MR`);
+elsewhere (fc3's 10-wide rows, odd widths, unaligned views) the
+``mma.sync`` forms. The plan picks the form from the operands alone; a
+tensor map that does not encode, like any failed launch, raises.
 """
 from __future__ import annotations
 
@@ -52,6 +54,11 @@ LAUNCHES = {"fused_linear": 0, "fused_linear_bwd_dx": 0,
             "fused_linear_bwd_dw_db": 0, "fused_linear_bf16": 0,
             "fused_linear_bwd_dx_bf16": 0, "fused_linear_bwd_dw_db_bf16": 0}
 
+# the same launches by the CUDA kernel that ran: the f32 form, the bf16
+# mma.sync form and the bf16 Hopper form of each wrapper
+KERNEL_LAUNCHES = {f"{k}{form}_kernel": 0 for k in ("fwd", "dx", "dwdb")
+                   for form in ("", "_bf16", "_tma")}
+
 _MASKS = ("none", "relu")
 # activation codes of the forward kernel's epilogue
 ACT_CODES = {"none": 0, "relu": 1, "silu": 2, "gelu": 3}
@@ -64,8 +71,10 @@ _ARGTYPES = {
 }
 # the bf16 entries take the same arguments as their f32 twins
 _ARGTYPES.update({f"{fn}_bf16": types for fn, types in _ARGTYPES.items()})
-# the Hopper forms of the bf16 backward: no copy widths; dw/db's CTA count
+# the Hopper forms of the bf16 kernels: no copy widths; dw/db's CTA count
 _ARGTYPES.update({
+    "fused_linear_fwd_tma_bf16": [_P] * 5 + [_I] * 4 + [_L] * 7 + [_I] * 3
+                                 + [_P],
     "fused_linear_bwd_dx_tma_bf16": [_P] * 5 + [_I] * 4 + [_L] * 8
                                     + [_I] * 4 + [_P],
     "fused_linear_bwd_dw_db_tma_bf16": [_P] * 5 + [_I] * 4 + [_L] * 9
@@ -96,6 +105,12 @@ MIN_SPLIT_K = 128
 # tx_multicast), so the plans keep clusters of one.
 TX_BM, TX_BK, TX_BN, TX_STAGES = 96, 192, 64, 4
 TW_KT, TW_NT, TW_MR, TW_STAGES = 128, 128, 96, 2
+# The forward's Hopper form (fwd_tma_kernel, one CTA per SM): CTAs cover
+# TF_BM rows x TF_BN columns of y, the reduction K in TF_BK-deep stages of
+# x and of w (64-column boxes, one per consumer warpgroup), a ring of
+# TF_STAGES. The mma.sync forms' rings: FWD_STAGES (f32), BF16_FWD_STAGES.
+TF_BM, TF_BN, TF_BK, TF_STAGES = 96, 192, 64, 4
+FWD_STAGES, BF16_FWD_STAGES = 4, 3
 # TMA: every box side at most 256 elements, and under the 128-byte swizzle
 # an inner box side of at most 128 bytes
 TMA_BOX_MAX, TMA_SWIZZLE_BYTES = 256, 128
@@ -116,7 +131,10 @@ class FwdPlan:
     operands take 4-byte copies of two elements where the pointer and the
     strides are even, else 2-byte ones, one element at a time: cp.async
     moves 4, 8 or 16 bytes, so an odd row width of bf16 is copied by plain
-    loads)."""
+    loads). ``form`` "tma" launches the bf16 Hopper form (TF_BM x TF_BN
+    CTAs, stages of TF_BK, ``k_chunk`` a multiple of it; no copy widths),
+    "mma_sync" the f32 or bf16 mma.sync form (FWD_BM x FWD_BN CTAs);
+    ``itemsize`` is the operands' (4 f32, 2 bf16)."""
     fold: bool
     batch: int
     rows: int
@@ -127,10 +145,24 @@ class FwdPlan:
     k_chunk: int
     vec_x: int
     vec_w: int
+    form: str = "mma_sync"
+    itemsize: int = 4
+
+    @property
+    def tile(self) -> tuple:
+        """(rows of M, columns of N) of y per CTA."""
+        return (TF_BM, TF_BN) if self.form == "tma" else (FWD_BM, FWD_BN)
+
+    @property
+    def stages(self) -> int:
+        if self.form == "tma":
+            return TF_STAGES
+        return FWD_STAGES if self.itemsize == 4 else BF16_FWD_STAGES
 
     @property
     def grid(self) -> tuple:
-        return (_cdiv(self.rows, FWD_BM), _cdiv(self.n, FWD_BN),
+        bm, bn = self.tile
+        return (_cdiv(self.rows, bm), _cdiv(self.n, bn),
                 self.batch * self.splits)
 
 
@@ -150,11 +182,28 @@ def fwd_plan(nb: int, m: int, k: int, n: int, *, sxb: int, sxm: int,
     batch, rows = nb, m
     if fold:
         batch, rows, sxb, sxm = 1, nb * m, 0, (sxb if m == 1 else sxm)
+    vecs = (build.copy_width(x_align, sxb, sxm, itemsize=itemsize),
+            build.copy_width(w_align, swb, swk, itemsize=itemsize))
+    if itemsize == 2 and all(fwd_maps(batch, rows, k, n, sxb, sxm, swb, swk,
+                                      x_align, w_align)):
+        ctas = batch * _cdiv(rows, TF_BM) * _cdiv(n, TF_BN)
+        splits, k_chunk = _split(ctas, k, TF_BK, sms, per_sm=1)
+        return FwdPlan(fold, batch, rows, n, sxb, sxm, splits, k_chunk,
+                       *vecs, form="tma", itemsize=itemsize)
     ctas = batch * _cdiv(rows, FWD_BM) * _cdiv(n, FWD_BN)
     splits, k_chunk = _split(ctas, k, _stage(FWD_BK, itemsize), sms)
-    return FwdPlan(fold, batch, rows, n, sxb, sxm, splits, k_chunk,
-                   build.copy_width(x_align, sxb, sxm, itemsize=itemsize),
-                   build.copy_width(w_align, swb, swk, itemsize=itemsize))
+    return FwdPlan(fold, batch, rows, n, sxb, sxm, splits, k_chunk, *vecs,
+                   itemsize=itemsize)
+
+
+def fwd_maps(batch: int, rows: int, k: int, n: int, sxb: int, sxm: int,
+             swb: int, swk: int, x_align: int, w_align: int) -> tuple:
+    """The tensor maps of the forward's Hopper form (x, and w in boxes of
+    a consumer warpgroup's 64 columns; slots folded as the plan folds
+    them), each None where TMA cannot describe the operand. y leaves by
+    the threads' stores, 16 bytes where its rows allow."""
+    return (tma_map(k, rows, batch, sxm, sxb, TF_BK, TF_BM, x_align),
+            tma_map(n, k, batch, swk, swb, 64, TF_BK, w_align))
 
 
 def _split(ctas: int, depth: int, step: int, sms: int,
@@ -411,10 +460,22 @@ def _check_mask(mask: str, y) -> None:
         raise ValueError("mask='relu' needs the saved forward output y")
 
 
-def _launch(name: str, fn: str, dtype, device, *args) -> None:
-    """Launch C entry ``fn``, or its ``_bf16`` twin for bf16 operands,
-    counted under ``name`` (``_bf16`` appended likewise)."""
-    build.launch(library(), fn, name, LAUNCHES, device, *args, dtype=dtype)
+# each C entry's CUDA kernel, by the prefix of its name
+_KERNEL_PREFIX = {"fused_linear_fwd": "fwd", "fused_linear_bwd_dx": "dx",
+                  "fused_linear_bwd_dw_db": "dwdb"}
+
+
+def _launch(name: str, fn: str, form: str, dtype, device, *args) -> None:
+    """Launch C entry ``fn`` (``_tma`` appended for the Hopper ``form``),
+    or its ``_bf16`` twin for bf16 operands, counted under ``name``
+    (``_bf16`` appended likewise) and, in KERNEL_LAUNCHES, under the CUDA
+    kernel of the form: ``fn``'s prefix (fwd, dx or dwdb) + ``_tma`` or,
+    for the bf16 mma.sync form, ``_bf16`` + ``_kernel``."""
+    tma = form == "tma"
+    build.launch(library(), fn + "_tma" * tma, name, LAUNCHES, device, *args,
+                 dtype=dtype)
+    suffix = "_tma" if tma else build.DTYPES[dtype]
+    KERNEL_LAUNCHES[f"{_KERNEL_PREFIX[fn]}{suffix}_kernel"] += 1
 
 
 def fused_linear_plan(x: torch.Tensor, w: torch.Tensor,
@@ -449,12 +510,14 @@ def fused_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                             device=x.device, dtype=torch.float32)
                 if plan.splits > 1 else None)
         syb, sym = (0, n) if plan.fold else (y.stride(0), y.stride(1))
-        _launch("fused_linear", "fused_linear_fwd", dt, x.device,
-                x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+        args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                 None if part is None else part.data_ptr(),
                 plan.batch, plan.rows, k, n, plan.sxb, plan.sxm, w.stride(0),
                 w.stride(1), b.stride(0), syb, sym, ACT_CODES[activation],
-                plan.splits, plan.k_chunk, plan.vec_x, plan.vec_w)
+                plan.splits, plan.k_chunk)
+        vecs = () if plan.form == "tma" else (plan.vec_x, plan.vec_w)
+        _launch("fused_linear", "fused_linear_fwd", plan.form, dt, x.device,
+                *args, *vecs)
     return y
 
 
@@ -499,12 +562,10 @@ def fused_linear_bwd_dx(dy: torch.Tensor, w: torch.Tensor,
                 plan.rows, k, n, plan.sdb, plan.sdm, plan.syb, plan.sym,
                 w.stride(0), w.stride(1), sxb, sxm, int(relu), plan.splits,
                 plan.n_chunk)
-        if plan.form == "tma":
-            _launch("fused_linear_bwd_dx", "fused_linear_bwd_dx_tma", dt,
-                    dy.device, *args, plan.cluster)
-        else:
-            _launch("fused_linear_bwd_dx", "fused_linear_bwd_dx", dt,
-                    dy.device, *args, plan.vec_dz, plan.vec_w)
+        rest = ((plan.cluster,) if plan.form == "tma"
+                else (plan.vec_dz, plan.vec_w))
+        _launch("fused_linear_bwd_dx", "fused_linear_bwd_dx", plan.form, dt,
+                dy.device, *args, *rest)
     return dx
 
 
@@ -546,10 +607,8 @@ def fused_linear_bwd_dw_db(x: torch.Tensor, dy: torch.Tensor,
         args = (x.data_ptr(), dy.data_ptr(), y.data_ptr(), dw.data_ptr(),
                 db.data_ptr(), nb, m, k, n, *_dw_strides(x, dy, y),
                 dw.stride(0), dw.stride(1), db.stride(0), int(relu))
-        if plan.form == "tma":
-            _launch("fused_linear_bwd_dw_db", "fused_linear_bwd_dw_db_tma",
-                    dt, x.device, *args, plan.ctas)
-        else:
-            _launch("fused_linear_bwd_dw_db", "fused_linear_bwd_dw_db", dt,
-                    x.device, *args, plan.vec_x, plan.vec_dz)
+        rest = ((plan.ctas,) if plan.form == "tma"
+                else (plan.vec_x, plan.vec_dz))
+        _launch("fused_linear_bwd_dw_db", "fused_linear_bwd_dw_db",
+                plan.form, dt, x.device, *args, *rest)
     return dw, db

@@ -100,19 +100,31 @@ def mlp_layer_costs(sizes=(3072, 128, 64, 10), sf: int = 4) -> List[LayerCost]:
 
 def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """relu(conv3x3 SAME + b) on NHWC slots x (S, B, H, W, C), in x's
-    dtype (w and b in the same)."""
+    dtype (w and b in the same).
+
+    In bf16 the bias is added after the conv, as the reference does: the
+    conv's sum is rounded to bf16 once, then the bf16 bias add rounds
+    again. A bias passed to the conv would join its f32 sum before the
+    one rounding (the CPU's fused bias does). In f32 the conv takes the
+    bias: adding it inside or after the conv gives the same f32 value."""
     s, n, h, wd, c = x.shape
+    inside = b if x.dtype == torch.float32 else None
     if w.dim() == 4:
         # one weight for every slot: fold the slots into the batch; the
         # NCHW view of NHWC memory is channels-last, so no copy is made
-        y = F.conv2d(x.reshape(s * n, h, wd, c).permute(0, 3, 1, 2), w, b,
-                     padding=1)
+        y = F.conv2d(x.reshape(s * n, h, wd, c).permute(0, 3, 1, 2), w,
+                     inside, padding=1)
+        if inside is None:
+            y = y + b.reshape(-1, 1, 1)
         return F.relu(y).permute(0, 2, 3, 1).reshape(s, n, h, wd, -1)
     # a weight per slot: one grouped conv with the slots as groups
     co = w.shape[1]
     xg = x.permute(1, 0, 4, 2, 3).reshape(n, s * c, h, wd)
-    y = F.conv2d(xg, w.reshape(s * co, c, 3, 3), b.reshape(s * co),
-                 padding=1, groups=s)
+    y = F.conv2d(xg, w.reshape(s * co, c, 3, 3),
+                 None if inside is None else b.reshape(s * co), padding=1,
+                 groups=s)
+    if inside is None:
+        y = y + b.reshape(s * co, 1, 1)
     return F.relu(y).reshape(n, s, co, h, wd).permute(1, 0, 3, 4, 2)
 
 

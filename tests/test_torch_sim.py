@@ -130,6 +130,59 @@ def test_unported_options_raise(reference):
         next(s.rounds(boundary=True))
 
 
+def test_padding_stats_match_reference(reference):
+    """The cohort engine's padded-vs-real sample counts after the
+    reference's two rounds, from its statistics and batch stream; a
+    restart zeroes them, as the reference's does."""
+    s = sim.Simulation(sim.Scenario(**SC), reference["stats"], device="cpu",
+                       init_params=reference["params0"])
+    s.rng.bit_generator.state = reference["rng0"]
+    assert s.padding_stats == {"real_samples": 0.0, "padded_samples": 0.0}
+    list(s.rounds())
+    assert s.padding_stats == reference["sim"].padding_stats
+    assert s.padding_stats["padded_samples"] > s.padding_stats[
+        "real_samples"] > 0
+    s.restart()
+    assert s.padding_stats == {"real_samples": 0.0, "padded_samples": 0.0}
+
+
+@pytest.mark.parametrize("name,kwargs,item", [
+    ("save", dict(path="unused"), "M4"),
+    ("resume", dict(path="unused"), "M4"),
+    ("flush", {}, "M4"),
+    ("state_dict", {}, "M4"),
+    ("load_state_dict", dict(state={}), "M4"),
+    ("estimate_stats", dict(engine="sequential"), "M4"),
+    ("fused_rounds", {}, "M7"),
+    ("run_fused", {}, "M7"),
+    ("sweep", dict(v_values=[0.01]), "M7"),
+    ("data_key", None, "M7"),              # a property
+], ids=lambda v: v if isinstance(v, str) else "")
+def test_unported_api_raises_not_implemented(reference, name, kwargs, item):
+    """The reference's Simulation API that the port lacks (its engines'
+    state_dict / load_state_dict included) raises NotImplementedError
+    naming its ROADMAP.md item, not AttributeError or TypeError."""
+    assert hasattr(ref_sim.Simulation, name) or hasattr(ref_sim.Engine, name)
+    s = sim.Simulation(sim.Scenario(**SC), reference["stats"], device="cpu")
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+        member = getattr(s, name)
+        member(**kwargs)
+
+
+def test_estimate_stats_by_engine_name(reference):
+    """``estimate_stats(engine="cohort")`` is the cohort engine's estimator,
+    as the reference's ``make_engine`` gives it: the same statistics as the
+    default from the same seed."""
+    by_name, default = (
+        sim.Simulation(sim.Scenario(**SC), reference["stats"], device="cpu")
+        for _ in range(2))
+    got = by_name.estimate_stats(engine="cohort")
+    want = default.estimate_stats()
+    for field in ("sigma", "delta", "lipschitz", "d_tilde"):
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(want, field))
+
+
 def test_cuda_requested_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")

@@ -19,16 +19,18 @@ mask costs. Two dx variants change the launch plan instead of the source
 it is) runs first and again last, which shows the run's spread. Prints each
 kernel's registers and spills, then one line per case and variant, in
 milliseconds. With ``--bf16`` it does the same for the bf16 forms
-(BF16_VARIANTS: the mma.sync forms' and the Hopper backward forms' design
-choices) at chip_smoke.py's bf16 shapes, through the wrappers
-(``kernel.library`` pointed at each variant), each held to
-chip_smoke.py's ``BF16_RTOL`` (one bf16 ulp per element plus that
-fraction of the scale; each line prints the excess over one ulp), then
-the base source under plan variants (BF16_PLANS: dx with cluster
-multicast, the backward's mma.sync forms where the plan picks the Hopper
-ones, dw/db with one tile per CTA, dx's split for half the card), with
-bf16 cuBLAS (and, for dw/db's write floor, a fill of a tensor of dw's
-size) beside each case and the round's fc1-fc3 summed per variant.
+(BF16_VARIANTS: the mma.sync forms' and the Hopper forms' design choices)
+at chip_smoke.py's bf16 shapes, through the wrappers (``kernel.library``
+pointed at each variant), each held to chip_smoke.py's ``BF16_RTOL`` (one
+bf16 ulp per element plus that fraction of the scale; each line prints
+the excess over one ulp), then the base source under plan variants
+(BF16_PLANS: dx with cluster multicast, the mma.sync forms where the
+plans pick the Hopper ones, dw/db with one tile per CTA, dx's split for
+half the card), with bf16 cuBLAS (and, for dw/db's write floor, a fill
+of a tensor of dw's size) beside each case and the round's fc1-fc3
+summed per variant; the base source runs first and again last. Last for
+each case, the base source and bf16 cuBLAS again with the L2 flushed
+before each call (``cold_l2``), as the path reads its operands from HBM.
 """
 from __future__ import annotations
 
@@ -229,6 +231,60 @@ TW_JOINT_EPILOGUE = """\
                        nt * kTwNT + 64 * q, kt * kTwKT + 64 * half, slot);
       bulk_commit();
     }"""
+# fwd_tma_kernel's epilogue from its f32 staging tile on, and the same
+# with y stored by TMA instead: each warpgroup's 64 columns rounded to bf16
+# into a 96-row box of 128-byte swizzled rows (the ring, free by then), one
+# TMA store a warpgroup, clipped at y's edges; a split's partials as before
+TF_TILE = """\
+  float* tile = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int j = 0; j < kTfBM / 8; ++j)"""
+TF_TMA_STORE = """\
+  if (direct) {
+    uint8_t* out = smem + wg * (kTfBM * 128);
+    const int nl = r - wg * 64;
+#pragma unroll
+    for (int j = 0; j < kTfBM / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = 8 * j + 2 * t + (e & 1), n = nl + 8 * (e >> 1);
+        *reinterpret_cast<uint16_t*>(out + m * 128 +
+                                     (((n >> 3) ^ (m & 7)) << 4) +
+                                     (n & 7) * 2) =
+            from_f32<uint16_t>(acc[4 * j + e]);
+      }
+    fence_proxy_async();
+    named_sync(2 + wg, 128);
+    if ((tid & 127) == 0) {
+      tma_store_3d(ty, out, n0 + 64 * wg, m0, slot);
+      bulk_commit();
+      bulk_wait<0>();
+    }
+    return;
+  }
+""" + TF_TILE
+# ... and y's tensor map, encoded on the host and passed to the consumers
+TF_Y_MAP = [
+    ("""    uint8_t* smem, uint64_t* full, uint64_t* empty,
+    const FwdArgsT<uint16_t>& a,""",
+     """    uint8_t* smem, uint64_t* full, uint64_t* empty, const CUtensorMap* ty,
+    const FwdArgsT<uint16_t>& a,"""),
+    ("""               const __grid_constant__ CUtensorMap tw,
+               const FwdArgsT<uint16_t> a, const int wb) {""",
+     """               const __grid_constant__ CUtensorMap tw,
+               const __grid_constant__ CUtensorMap ty,
+               const FwdArgsT<uint16_t> a, const int wb) {"""),
+    ("fwd_tma_consumer(smem, full, empty, a,",
+     "fwd_tma_consumer(smem, full, empty, &ty, a,"),
+    ("""  CUtensorMap tx, tw;
+  CUresult r = hopper::encode_bf16_3d(&tx,""",
+     """  CUtensorMap tx, tw, ty;
+  CUresult r = hopper::encode_bf16_3d(&ty, a.y, a.N, a.M, a.batch, a.sym,
+                                      a.syb, 64, kTfBM, kSw);
+  if (r == CUDA_SUCCESS)
+    r = hopper::encode_bf16_3d(&tx,"""),
+    ("      tx, tw, a, a.swb != 0);", "      tx, tw, ty, a, a.swb != 0);"),
+]
 # bf16 forms: name -> [(text in the source, its replacement)]
 BF16_VARIANTS = {
     "bf16_base": [],
@@ -273,7 +329,32 @@ BF16_VARIANTS = {
     # dw/db: x staged once a tile, no ring ahead of the multiply
     "tw_x_ring_1": [("constexpr int kTwStages = 2;",
                      "constexpr int kTwStages = 1;")],
+    # the Hopper forward: a ring of 3 stages, not 4
+    "tf_ring_3": [("constexpr int kTfStages = 4;",
+                   "constexpr int kTfStages = 3;")],
+    # forward CTAs of 128 columns of N (x fetched 1.5x as often; the
+    # round's fc2 192 CTAs, two waves)
+    "tf_n128": [("constexpr int kTfGroups = 3;",
+                 "constexpr int kTfGroups = 2;")],
+    # the forward: one wgmma chain over all of K, no per-stage f32 add
+    "tf_one_chain": [("constexpr bool kTfStageAdd = true;",
+                      "constexpr bool kTfStageAdd = false;")],
+    # the forward's y stored by TMA from a swizzled bf16 tile, per
+    # warpgroup, not by the threads in 16-byte stores (the box, 24 KB a
+    # warpgroup, fits in the ring)
+    "tf_tma_store": [(TF_TILE, TF_TMA_STORE)] + TF_Y_MAP,
 }
+
+
+def _mma_sync_fwd(plan, nb, m, k, n):
+    """The forward's mma.sync form with the split that form's plan gives
+    it."""
+    ctas = plan.batch * kernel._cdiv(plan.rows, kernel.FWD_BM) * \
+        kernel._cdiv(n, kernel.FWD_BN)
+    splits, chunk = kernel._split(ctas, k, kernel.BF16_BK,
+                                  kernel._sm_count(0))
+    return dataclasses.replace(plan, form="mma_sync", splits=splits,
+                               k_chunk=chunk)
 
 
 def _mma_sync_dx(plan, nb, m, k, n):
@@ -298,18 +379,20 @@ def _half_card_dx(plan, nb, m, k, n):
     return dataclasses.replace(plan, splits=splits, n_chunk=chunk)
 
 
-# plan variants of the base source: name -> (dx plan change, dw plan change)
+# plan variants of the base source: name -> (forward plan change, dx plan
+# change, dw plan change)
 BF16_PLANS = {
     # dx's CTAs in pairs along K where the K blocks pair up, each fetching
     # half of every dz and y stage and multicasting it to both
-    "tx_multicast": (lambda plan, nb, m, k, n: dataclasses.replace(
+    "tx_multicast": (None, lambda plan, nb, m, k, n: dataclasses.replace(
         plan, cluster=2) if plan.form == "tma" and kernel._cdiv(
             k, kernel.TX_BK) % 2 == 0 else plan, None),
-    "mma_sync_forms": (_mma_sync_dx, lambda plan: dataclasses.replace(
-        plan, form="mma_sync")),
-    "tw_one_tile_per_cta": (None, lambda plan: dataclasses.replace(
+    "mma_sync_forms": (_mma_sync_fwd, _mma_sync_dx,
+                       lambda plan: dataclasses.replace(plan,
+                                                        form="mma_sync")),
+    "tw_one_tile_per_cta": (None, None, lambda plan: dataclasses.replace(
         plan, ctas=plan.tiles) if plan.form == "tma" else plan),
-    "tx_split_half_card": (_half_card_dx, None),
+    "tx_split_half_card": (None, _half_card_dx, None),
 }
 BF16_CASES = ("round fc1", "round fc2", "round fc3", "stats fc2 shared",
               "sigma fc2 M=1")
@@ -361,7 +444,7 @@ def build_variants(variants: dict) -> dict:
         for i, line in enumerate(lines):
             found = re.search(
                 r"\d((?:fwd|dwdb|dx)(?:_bf16|_tma)?_kernel\w*?)"
-                r"(?:vNS_|ENS_|Ev14CU)", line)
+                r"(?:vNS_|ENS_|Ev14CU|E14CU)", line)
             if "Compiling entry" in line and found:
                 fn = found.group(1)
                 info = " ".join(lines[i + 1:i + 5])
@@ -545,11 +628,12 @@ def bf16_main() -> int:
     source variants, then the base source under each plan variant."""
     libs = build_variants(BF16_VARIANTS)
     runs = [(name, name, None) for name in libs]
-    runs += [("bf16_base_again", "bf16_base", None)]   # the run's spread
     runs += [(name, "bf16_base", change) for name, change in BF16_PLANS.items()]
-    plans = (kernel.fused_linear_bwd_dx_plan,
+    runs += [("bf16_base_again", "bf16_base", None)]   # the run's spread
+    plans = (kernel.fused_linear_plan, kernel.fused_linear_bwd_dx_plan,
              kernel.fused_linear_bwd_dw_db_plan)
     g = torch.Generator(device="cuda").manual_seed(3)
+    flush = torch.empty(64 * 2 ** 20, device="cuda", dtype=torch.float32)
     rounds: dict = {}
     for label, nb, m, k, n, act, shared in chip_smoke.BF16_CASES:
         if label not in BF16_CASES:
@@ -569,13 +653,16 @@ def bf16_main() -> int:
               flush=True)
         for name, lib_name, change in runs:
             kernel.library = lambda lib=libs[lib_name]: lib
-            dx_change, dw_change = change or (None, None)
+            fwd_change, dx_change, dw_change = change or (None,) * 3
+            kernel.fused_linear_plan = (
+                plans[0] if fwd_change is None else
+                lambda *a, f=fwd_change: f(plans[0](*a), nb, m, k, n))
             kernel.fused_linear_bwd_dx_plan = (
-                plans[0] if dx_change is None else
-                lambda *a, f=dx_change: f(plans[0](*a), nb, m, k, n))
+                plans[1] if dx_change is None else
+                lambda *a, f=dx_change: f(plans[1](*a), nb, m, k, n))
             kernel.fused_linear_bwd_dw_db_plan = (
-                plans[1] if dw_change is None else
-                lambda *a, f=dw_change: f(plans[1](*a)))
+                plans[2] if dw_change is None else
+                lambda *a, f=dw_change: f(plans[2](*a)))
             line = []
             for fn_name, (fn, plain, _) in fns.items():
                 excess = chip_smoke._bf16_excess(fn(), plain())
@@ -585,12 +672,55 @@ def bf16_main() -> int:
                 line.append(f"{fn_name}={ms:.4f} (excess {excess:.1e}{over})")
             print(f"variant {label:16s} {name:20s} " + " ".join(line),
                   flush=True)
-        kernel.fused_linear_bwd_dx_plan, kernel.fused_linear_bwd_dw_db_plan = \
-            plans
+        (kernel.fused_linear_plan, kernel.fused_linear_bwd_dx_plan,
+         kernel.fused_linear_bwd_dw_db_plan) = plans
+        # the base source and bf16 cuBLAS with the L2 flushed before each
+        # call: the operands come from HBM, as on the path, where other
+        # layers' work runs between launches
+        kernel.library = lambda lib=libs["bf16_base"]: lib
+        line = []
+        for fn_name, (fn, _, lib) in fns.items():
+            for who, f in (("base", fn), ("cublas", lib)):
+                ms = cold_l2_ms(f, flush)
+                if ms is not None:
+                    _add(rounds, label, f"cold_l2_{who}", fn_name, ms)
+                line.append(f"{fn_name}_{who}="
+                            + ("not measured" if ms is None else f"{ms:.4f}"))
+        print(f"variant {label:16s} {'cold_l2':20s} " + " ".join(line),
+              flush=True)
     for (name, fn_name), ms in rounds.items():
         print(f"variant round fc1-fc3 {name:20s} {fn_name}={ms:.4f}",
               flush=True)
     return 0
+
+
+def cold_l2_ms(fn, flush: torch.Tensor, reps: int = 10) -> float | None:
+    """Device ms per call of ``fn`` with the L2 flushed before each call
+    (``flush.zero_()``: 256 MB, five times the H100's 50 MB L2), from
+    torch.profiler's kernel times without the flush's fill kernels: the
+    median of three profiles that caught every launch (ten at most; None
+    where none did)."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(10):
+        with chip_smoke.profile(activities=[
+                chip_smoke.ProfilerActivity.CPU,
+                chip_smoke.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == chip_smoke.DeviceType.CUDA]
+        fills = sum(e.count for e in kernels if "FillFunctor" in e.key)
+        rest = [e for e in kernels if "FillFunctor" not in e.key]
+        count = sum(e.count for e in rest)
+        if fills == reps and count and count % reps == 0:
+            runs.append(sum(e.self_device_time_total for e in rest))
+        if len(runs) == 3:
+            break
+    return sorted(runs)[len(runs) // 2] / 1e3 / reps if runs else None
 
 
 def _add(rounds: dict, label: str, name: str, fn_name: str, ms: float):
