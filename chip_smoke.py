@@ -40,12 +40,17 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
      p = 32, ds = 16, a_log per slot or stride-0 shared) and two multi-chunk
      shapes ((2, 512, 8, 64), ds = 64, chunk 64: the chunk-parallel form;
      264 rows of 128 steps: the sequential walk); each case line prints the
-     launch plan;
+     launch plan (the bf16 scan takes its tensor-core form at chunk 32,
+     ds 16, p 32);
    - the bf16 forms of flash attention (forward, dq, dk/dv) and of the SSD
      scan at the same shapes, against their plain bf16 versions (one bf16
      ulp plus FA_RTOL or SSD_RTOL of scale; lse, f32, at FA_RTOL), with
      bf16 ``scaled_dot_product_attention`` as the attention's library
      yardstick;
+   - the SSD scan's backward kernel, f32 and bf16, at the SSD shapes: all
+     five gradients against the plain version (autograd through the
+     sequential recurrence), each at SSD_RTOL of its own scale (bf16: one
+     ulp plus that; ddt, f32, at SSD_RTOL); each case line prints its plan;
 3. agreement phases: narrow simulations on the card against the same on
    the CPU, whose plain path the CPU tests hold against the JAX reference:
    VGG, the FL transformer, the FL Mamba-2, VGG, the transformer and the
@@ -139,6 +144,10 @@ REPLACES = {
     "flash_attention_bwd_dkdv_bf16":
         "src/repro/kernels/flash_attention/kernel.py:227",
     "ssd_scan_bf16": "src/repro/kernels/ssd_scan/kernel.py:77",
+    # no Pallas kernel: the reference's backward is jax.vjp through its
+    # sequential oracle, which XLA compiles into one scan
+    "ssd_scan_bwd": "src/repro/kernels/ssd_scan/ops.py:64",
+    "ssd_scan_bwd_bf16": "src/repro/kernels/ssd_scan/ops.py:64",
 }
 SOURCES = {name: (SOURCE if name.startswith("fused") else FA_SOURCE
                   if name.startswith("flash") else SSD_SOURCE)
@@ -156,7 +165,8 @@ PORT_KERNELS = ("fwd_kernel", "splitk_reduce_kernel", "dx_kernel",
                 "dwdb_tma_kernel",
                 "fwd_short_kernel", "fwd_tc_kernel",
                 "dq_kernel", "dkdv_kernel", "dq_short_kernel",
-                "dkdv_short_kernel", "ssd_kernel", "ssd_chunk_scan_kernel")
+                "dkdv_short_kernel", "ssd_kernel", "ssd_chunk_scan_kernel",
+                "ssd_mma_kernel", "ssd_bwd_kernel", "ssd_bwd_sum_kernel")
 # the CUDA kernels (forms) behind each fused linear wrapper, counted by
 # the wrapper per launch (kernel.KERNEL_LAUNCHES): a path that launches a
 # wrapper must launch each of its forms
@@ -201,21 +211,22 @@ def device_ms(fn, reps: int = 10) -> float:
     times, summed from torch.profiler. Where the host launches more slowly
     than the card runs (small kernels, plain versions of many small ops),
     the event-timed :func:`time_ms` measures the host instead. The tracer
-    now and then drops part or all of a window (all of it in three
-    profiles running, once; part of the SSD bf16 form's, whose calls
-    launch two kernels, in all three of another run), so profiles are
-    taken until three caught a whole number of launches per call (every
-    timed callable launches the same kernels each call), ten at most, and
-    only those that caught the most count: the median of their times.
-    Where all ten missed (the SSD bf16 phase, once; in one run every call
-    after the f32 SSD phase's long plain windows), the call is timed by
-    CUDA events instead (:func:`time_ms`: the elapsed time on the card,
-    launch gaps included) and a line says so, with the last profile's
-    launches of the kernels it did not catch whole, rather than failing
-    the whole run on the tracer."""
+    now and then drops launches from a window (all of them in three
+    profiles running, once; one launch in ten of the SSD kernels in every
+    window after the SSD phases' long plain windows, in two runs), so
+    profiles are taken until three caught a whole number of launches per
+    call (every timed callable launches the same kernels each call) or
+    three did not, ten at most. Whole ones count first, and of those only
+    the ones that caught the most: the median of their times. Where none
+    was whole, each kernel's time is its mean over the launches caught
+    times its launches per call (the median over the partial profiles),
+    and a line says so, with the last profile's launches of the kernels it
+    did not catch whole; where no profile caught any launch, the call is
+    timed by CUDA events (:func:`time_ms`: the elapsed time on the card,
+    launch gaps included), and a line says that."""
     fn()
     torch.cuda.synchronize()
-    runs, broken = [], {}
+    runs, partial, broken, count = [], [], {}, 0
     for _ in range(10):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -228,20 +239,30 @@ def device_ms(fn, reps: int = 10) -> float:
         if count and count % reps == 0:
             runs.append((count, sum(e.self_device_time_total
                                     for e in kernels)))
-        else:
+        elif count:
             broken = {e.key[:50]: e.count for e in kernels
                       if e.count % reps}
-        if len(runs) == 3:
+            partial.append(sum(e.self_device_time_total / e.count
+                               * max(1, round(e.count / reps))
+                               for e in kernels) / 1e3)
+        if len(runs) == 3 or (len(partial) == 3 and not runs):
             break
-    if not runs:
-        ms = time_ms(fn, reps)
-        print(f"device_ms: ten profiles caught no whole window; event-timed "
-              f"{ms:.4f} ms a call; the last caught {count} launches of "
-              f"{reps} calls, not whole: {broken}", flush=True)
+    if runs:
+        most = max(count for count, _ in runs)
+        kept = sorted(us for count, us in runs if count == most)
+        return kept[len(kept) // 2] / 1e3 / reps
+    if partial:
+        ms = sorted(partial)[len(partial) // 2]
+        print(f"device_ms: {len(partial)} profiles caught no whole number of "
+              f"launches a call; per-kernel means over the launches caught: "
+              f"{ms:.4f} "
+              f"ms a call; the last caught {count} launches of {reps} "
+              f"calls, not whole: {broken}", flush=True)
         return ms
-    most = max(count for count, _ in runs)
-    kept = sorted(us for count, us in runs if count == most)
-    return kept[len(kept) // 2] / 1e3 / reps
+    ms = time_ms(fn, reps)
+    print(f"device_ms: ten profiles caught no launch; event-timed "
+          f"{ms:.4f} ms a call", flush=True)
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -454,9 +475,10 @@ def _fmt(ms) -> str:
 
 def _hold(totals: dict, name: str, label: str, fn, plain, lib, rtol: float,
           bound: tuple, record: bool, shape: str, bf16: bool = False,
-          plain_reps: int = 10) -> None:
+          plain_reps: int = 10, each: bool = False) -> None:
     """Check one kernel against its plain version at ``rtol`` x its output
-    scale (``bf16``: one bf16 ulp per element plus that); time kernel,
+    scale (``each``: every output at its own scale; ``bf16``: one bf16 ulp
+    per element plus that, each output at its own scale); time kernel,
     plain version (over ``plain_reps`` calls) and library call on the
     device (and print their event-timed wall times); keep the largest
     error, and add the case to the record when ``record``."""
@@ -468,9 +490,11 @@ def _hold(totals: dict, name: str, label: str, fn, plain, lib, rtol: float,
               f"bf16 ulp by {excess:.3e} x scale > {rtol}")
         shape += f" ulp_excess={excess:.3e}"
     else:
-        check(err <= rtol * max(scale, 1.0),
-              f"{name} {label}: max |kernel - plain| = {err:.3e} > {rtol} x "
-              f"{scale:.3e}")
+        for a, r in zip(*((got, want) if each else ((got,), (want,)))):
+            e, sc = _max_err(name, label, a, r)
+            check(e <= rtol * max(sc, 1.0),
+                  f"{name} {label}: max |kernel - plain| = {e:.3e} > {rtol} "
+                  f"x {sc:.3e}")
     fns = dict(ms=fn, plain_ms=plain, library_ms=lib)
     reps = dict(ms=10, plain_ms=plain_reps, library_ms=10)
     dev = {k: None if f is None else device_ms(f, reps[k])
@@ -633,17 +657,8 @@ def ssd_phase(bf16: bool = False) -> dict:
     size = 2 if bf16 else 4
     totals: dict = {}
     for label, rows, s, n, p, ds, chunk, slots in SSD_CASES:
-        # x, b and c as the model hands them over: split views of one conv
-        # output, read through their row and step strides
-        conv = torch.randn(rows, s, n * p + 2 * ds, device="cuda",
-                           generator=g).to(dtype)
-        x = conv[..., :n * p].reshape(rows, s, n, p)
-        bm, cm = conv[..., n * p:n * p + ds], conv[..., n * p + ds:]
-        dt = F.softplus(torch.randn(rows, s, n, device="cuda", generator=g))
-        a_log = 0.5 * (torch.randn(n, device="cuda", generator=g)
-                       .expand(12, n) if slots == 0 else
-                       torch.randn(slots, n, device="cuda", generator=g))
-        a_log = a_log.to(dtype)
+        x, dt, a_log, bm, cm = ssd_operands(g, dtype, rows, s, n, p, ds,
+                                            slots)
         pairs = chunk * (chunk + 1) // 2
         ops = rows * (s // chunk) * (2 * pairs * ds + n * (
             2 * pairs * p + 4 * chunk * ds * p))
@@ -660,11 +675,60 @@ def ssd_phase(bf16: bool = False) -> dict:
               _bound(ops, nbytes, PEAK_BF16_FLOPS if bf16
                      else PEAK_F32_FLOPS), label == "round",
               f"rows={rows} S={s} n={n} p={p} ds={ds} chunk={chunk} "
-              f"slots={slots}" + " bf16" * bf16 + f" plan: heads="
-              f"{plan.heads} warps={plan.warps} "
+              f"slots={slots}" + " bf16" * bf16 + f" plan: form={plan.form} "
+              f"heads={plan.heads} warps={plan.warps} "
               f"chunk_parallel={int(plan.chunk_parallel)} "
               f"vec_x={plan.vec_x} vec_bc={plan.vec_bc}", bf16=bf16,
               plain_reps=10 if s <= 32 else 1)
+    return totals
+
+
+def ssd_operands(g, dtype, rows, s, n, p, ds, slots) -> tuple:
+    """(x, dt, a_log, b, c) of one SSD case: x, b and c split views of one
+    conv output, as the model hands them over; a_log per slot, or (slots =
+    0) a stride-0 view of 12 slots of one; all but dt in ``dtype``."""
+    conv = torch.randn(rows, s, n * p + 2 * ds, device="cuda",
+                       generator=g).to(dtype)
+    x = conv[..., :n * p].reshape(rows, s, n, p)
+    bm, cm = conv[..., n * p:n * p + ds], conv[..., n * p + ds:]
+    dt = F.softplus(torch.randn(rows, s, n, device="cuda", generator=g))
+    a_log = 0.5 * (torch.randn(n, device="cuda", generator=g).expand(12, n)
+                   if slots == 0 else
+                   torch.randn(slots, n, device="cuda", generator=g))
+    return x, dt, a_log.to(dtype), bm, cm
+
+
+def ssd_bwd_phase(bf16: bool = False) -> dict:
+    """The SSD scan's backward kernel (``bf16``: ``ssd_scan_bwd_bf16``, bf16
+    x, b, c, a_log and dy with f32 dt) against its plain version, autograd
+    through the sequential recurrence, at SSD_CASES: each of the five
+    gradients at SSD_RTOL of its own scale (bf16: one ulp plus that)."""
+    g = torch.Generator(device="cuda").manual_seed(7 if bf16 else 6)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    size = 2 if bf16 else 4
+    totals: dict = {}
+    for label, rows, s, n, p, ds, chunk, slots in SSD_CASES:
+        args = ssd_operands(g, dtype, rows, s, n, p, ds, slots)
+        dy = torch.randn(rows, s, n, p, device="cuda", generator=g).to(dtype)
+        pairs = chunk * (chunk + 1) // 2
+        # twice the forward's operations (each product of the chunked form
+        # has two gradient products); x, dy, dx, b, c, db, dc and a_log,
+        # da_log at the operands' size, dt and ddt at 4 bytes
+        ops = 2 * rows * (s // chunk) * (2 * pairs * ds + n * (
+            2 * pairs * p + 4 * chunk * ds * p))
+        nbytes = size * (3 * rows * s * n * p + 4 * rows * s * ds
+                         + 2 * max(slots, 1) * n) + 8 * rows * s * n
+        plan = ssd_kernel.ssd_bwd_plan(rows, s, n, p, ds,
+                                       sms=ssd_kernel._sm_count(0))
+        _hold(totals, "ssd_scan_bwd" + "_bf16" * bf16, label,
+              lambda: ssd_kernel.ssd_scan_bwd(*args, dy),
+              lambda: ssd_ref.ssd_bwd_ref(*args, dy), None, SSD_RTOL,
+              _bound(ops, nbytes, PEAK_BF16_FLOPS if bf16
+                     else PEAK_F32_FLOPS), label == "round",
+              f"rows={rows} S={s} n={n} p={p} ds={ds} slots={slots}"
+              + " bf16" * bf16 + f" plan: segment={plan.segment} "
+              f"segments={plan.segments} cols={plan.cols}", bf16=bf16,
+              plain_reps=2 if s <= 32 else 1, each=True)
     return totals
 
 
@@ -677,8 +741,9 @@ def ssd_phase(bf16: bool = False) -> dict:
 # statistics, which divide gradient differences by a step of size lr, to
 # rtol 1e-4 as in the CPU parity tests. The SSM's params and losses to the
 # reference's SSD tolerance of 1e-4: the card runs the chunked kernel
-# forward and the sequential recurrence backward, the CPU the chunked dual
-# form both ways, which sum in different orders.
+# forward and the backward kernel (the recurrence's adjoint, recomputed
+# segment by segment), the CPU the chunked dual form both ways, which sum
+# in different orders.
 # The bf16 rounds: cuDNN's bf16 convolutions and the CPU's round to bf16
 # at different points of different sums (the token models': the card's
 # bf16 attention and SSD kernels against the CPU's plain attention and
@@ -767,13 +832,14 @@ PATHS = {
                  None),
     "transformer": (Scenario(model="transformer", rounds=3, eval_every=3),
                     FA_NAMES, 98_624),
-    "ssm": (Scenario(model="ssm", rounds=3, eval_every=3), ("ssd_scan",),
-            72_216),
+    "ssm": (Scenario(model="ssm", rounds=3, eval_every=3),
+            ("ssd_scan", "ssd_scan_bwd"), 72_216),
     "transformer-bf16": (Scenario(model="transformer", rounds=3,
                                   eval_every=3, dtype="bf16"),
                          FA_BF16_NAMES, 98_624),
     "ssm-bf16": (Scenario(model="ssm", rounds=3, eval_every=3,
-                          dtype="bf16"), ("ssd_scan_bf16",), 72_216),
+                          dtype="bf16"),
+                 ("ssd_scan_bf16", "ssd_scan_bwd_bf16"), 72_216),
 }
 # a path's launches of a kernel's forms, in proportion, where its layers
 # fix them: VGG's fc1 and fc2 take the bf16 forward's Hopper form, fc3
@@ -790,7 +856,8 @@ def _print_breakdown(label: str, prof, wall: float) -> None:
             if e.device_type == DeviceType.CUDA]
     busy_s = sum(r[0] for r in rows) / 1e6
     print(f"{label} profile round: wall_s={wall:.3f} device_busy_s="
-          f"{busy_s:.3f} busy_share={busy_s / wall:.3f}")
+          f"{busy_s:.3f} busy_share={busy_s / wall:.3f} "
+          f"launches={sum(r[1] for r in rows)}")
     for us, count, key in sorted(rows, reverse=True)[:20]:
         print(f"{label} profile {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
     # the port's own kernels, wherever they rank
@@ -901,7 +968,7 @@ def main() -> int:
     # the SSD phases last: their long plain windows (thousands of launches
     # a profile) came just before the tracer stopped catching whole
     # windows, in the one run where it did
-    for phase in (kernel_phase, attention_phase, ssd_phase):
+    for phase in (kernel_phase, attention_phase, ssd_phase, ssd_bwd_phase):
         for bf16 in (False, True):
             totals.update(timed(f"{phase.__name__} bf16={int(bf16)}", phase,
                                 bf16=bf16))

@@ -1,25 +1,36 @@
-"""Wrapper around the SSD chunked-scan CUDA kernel (``csrc/ssd_scan.cu``).
+"""Wrappers around the SSD scan CUDA kernels (``csrc/ssd_scan.cu``).
 
-The counterpart of ``repro.kernels.ssd_scan.kernel.ssd_scan``: the Mamba-2
-SSD forward over chunks of ``chunk`` steps, state carried across chunks.
-xh (B, S, n, p), dt (B, S, n), b/c (B, S, ds) with any row and step strides
-(the last dimension unit-stride); a_log (n,) for every row or (G, n), one
-per slot of B // G consecutive rows (a stride-0 expanded view is read in
-place). y (B, S, n, p) comes back contiguous, in xh's dtype. xh, b and c
-are all float32 or all bfloat16 (the kernel's bf16 form: every product,
-decay and state in f32, y rounded once to bf16); dt is float32 in both,
-as both packages compute it; a_log is any float dtype (a cast param under
-bf16), upcast here as the Pallas kernel's ``astype`` does.
+:func:`ssd_scan` is the counterpart of
+``repro.kernels.ssd_scan.kernel.ssd_scan``: the Mamba-2 SSD forward over
+chunks of ``chunk`` steps, state carried across chunks. xh (B, S, n, p), dt
+(B, S, n), b/c (B, S, ds) with any row and step strides (the last dimension
+unit-stride); a_log (n,) for every row or (G, n), one per slot of B // G
+consecutive rows (a stride-0 expanded view is read in place). y (B, S, n,
+p) comes back contiguous, in xh's dtype. xh, b and c are all float32 or all
+bfloat16 (the kernel's bf16 forms: every product, decay and state in f32, y
+rounded once to bf16); dt is float32 in both, as both packages compute it;
+a_log is float32 or bfloat16 (a cast param under bf16), read by the kernel
+in its own dtype (any other float dtype is upcast here, as the Pallas
+kernel's ``astype`` does).
 
-Dispatch is by tensor device only: CPU tensors go to the plain version in
-:mod:`.ref`; CUDA tensors launch the kernel, which is built with ``nvcc`` at
-first use, or the call raises. ``LAUNCHES`` counts one per wrapper call
-that reaches the card, also where the plan's chunk-parallel form makes
-three launches (chunk states, the scan over them, the outputs).
+:func:`ssd_scan_bwd` is the op's backward, which the reference leaves to
+``jax.vjp`` through its sequential oracle: the adjoint of the recurrence,
+(dxh, ddt, da_log, db, dc) from the same operands and the cotangent dy (xh's
+dtype, any strides with a unit last one). dxh, db and dc come back in xh's
+dtype, ddt in float32, da_log in a_log's dtype and shape.
 
-How the kernel launches is decided here, in pure Python, by
-:func:`ssd_plan` (heads per block, warps, sequential or chunk-parallel), so
-the CPU tests can check every plan the card would run.
+Dispatch is by tensor device only: CPU tensors go to the plain versions in
+:mod:`.ref`; CUDA tensors launch the kernels, which are built with ``nvcc``
+at first use, or the call raises. ``LAUNCHES`` counts one per wrapper call
+that reaches the card, also where the plan makes several launches (the
+forward's chunk-parallel form: chunk states, the scan over them, the
+outputs; the backward: the scan, then the ordered sums over heads and
+rows).
+
+How the kernels launch is decided here, in pure Python, by :func:`ssd_plan`
+(form, heads per block, warps, sequential or chunk-parallel) and
+:func:`ssd_bwd_plan` (steps per recomputed segment), so the CPU tests can
+check every plan the card would run.
 """
 from __future__ import annotations
 
@@ -35,12 +46,15 @@ from repro_torch.kernels.ssd_scan import ref
 
 SOURCE = pathlib.Path(__file__).parent / "csrc" / "ssd_scan.cu"
 
-LAUNCHES = {"ssd_scan": 0, "ssd_scan_bf16": 0}
+LAUNCHES = {"ssd_scan": 0, "ssd_scan_bf16": 0, "ssd_scan_bwd": 0,
+            "ssd_scan_bwd_bf16": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# the bf16 entry takes the same arguments as the f32 one
-_ARGTYPES = {fn: [_P] * 8 + [_I] * 12 + [_P, _P]
-             for fn in ("ssd_scan_fwd", "ssd_scan_fwd_bf16")}
+# each bf16 entry takes the same arguments as its f32 one
+_ARGTYPES = {**{fn: [_P] * 8 + [_I] * 14 + [_P, _P]
+                for fn in ("ssd_scan_fwd", "ssd_scan_fwd_bf16")},
+             **{fn: [_P] * 14 + [_I] * 10 + [_P, _P]
+                for fn in ("ssd_scan_bwd", "ssd_scan_bwd_bf16")}}
 
 # A grid of fewer blocks than BLOCKS_PER_SM x SMs leaves the card part idle.
 BLOCKS_PER_SM = 2
@@ -52,6 +66,16 @@ MAX_WARPS = 4
 # heads share a block, and the opt-in maximum in any case.
 SMEM_SHARE = 232448 // 4 // BLOCKS_PER_SM
 SMEM_MAX = 232448 // 4
+# The bf16 tensor-core form's one shape (csrc/ssd_scan.cu kMmaQ, kMmaDs,
+# kMmaP): the FL path's chunk, state width and head width.
+MMA_SHAPE = (32, 16, 32)
+# The backward's p columns per lane (csrc/ssd_scan.cu kBwdCols): p <= 128.
+BWD_COLS = 4
+# An SM's shared memory in bytes, what the card reserves of it per block,
+# and the most blocks an SM holds (H100)
+SMEM_SM = 233472
+SMEM_RESERVE = 1024
+MAX_BLOCKS_PER_SM = 32
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -76,9 +100,13 @@ def smem_floats(chunk: int, p: int, ds: int, heads: int,
 
 @dataclasses.dataclass(frozen=True)
 class SsdPlan:
-    """One wrapper call. A block takes one batch row and ``heads`` heads
-    (they share the row's c b^T scores) with ``warps`` warps sharing the
-    heads' tiles. ``chunk_parallel``: the three-pass form (each chunk's own
+    """One wrapper call. ``form`` "fma": a block takes one batch row and
+    ``heads`` heads (they share the row's c b^T scores) with ``warps``
+    warps sharing the heads' tiles, products by FMA on f32 tiles. ``form``
+    "mma" (bf16 at MMA_SHAPE, sequential): a persistent grid of one wave
+    whose blocks walk rows through a two-deep cp.async ring of bf16 tiles,
+    a warp per head (``heads`` = ``warps`` = n), products on bf16
+    ``mma.sync``. ``chunk_parallel``: the three-pass form (each chunk's own
     end state in parallel, a scan over the ``chunks`` chunk states, the
     outputs in parallel) instead of one block walking a row's chunks in
     order. ``vec_x`` and ``vec_bc`` are the copy widths in bytes of x, and
@@ -90,6 +118,7 @@ class SsdPlan:
     chunks: int
     vec_x: int
     vec_bc: int
+    form: str = "fma"
 
 
 def ssd_plan(bsz: int, s: int, n: int, p: int, ds: int, chunk: int, *,
@@ -97,9 +126,11 @@ def ssd_plan(bsz: int, s: int, n: int, p: int, ds: int, chunk: int, *,
              bc_aligned: bool = False, itemsize: int = 4) -> SsdPlan:
     """The launch plan for ``bsz`` rows of ``s`` steps, ``n`` heads of
     width ``p``, state width ``ds``, in chunks of ``chunk`` steps, on a card
-    with ``sms`` SMs. Up to 4 heads share a block while the grid still
-    fills the card; the chunk-parallel form where it does not and there
-    are several chunks. ``x_strides`` (row, step, head) and ``bc_strides``
+    with ``sms`` SMs. bf16 at MMA_SHAPE (chunk, ds, p) with up to 8 heads,
+    walked in order with 16-byte copies, takes the tensor-core form. The
+    FMA form: up to 4 heads share a block while the grid still fills the
+    card; the chunk-parallel form where it does not and there are several
+    chunks. ``x_strides`` (row, step, head) and ``bc_strides``
     (b's and c's row and step strides) with ``x_aligned`` / ``bc_aligned``
     (the pointers are 16-byte aligned; else taken as aligned to the element
     only) set the copy widths, counted in ``itemsize``-byte elements (4:
@@ -121,9 +152,13 @@ def ssd_plan(bsz: int, s: int, n: int, p: int, ds: int, chunk: int, *,
     def vec(aligned, width, strides):
         return build.copy_width(16 if aligned else itemsize, width, *strides,
                                 itemsize=itemsize)
+    vec_x, vec_bc = vec(x_aligned, p, x_strides), vec(bc_aligned, ds,
+                                                      bc_strides)
+    if (itemsize == 2 and (chunk, ds, p) == MMA_SHAPE and n <= 8
+            and not chunk_parallel and vec_x == vec_bc == 16):
+        return SsdPlan(n, n, False, chunks, vec_x, vec_bc, "mma")
     return SsdPlan(heads, max(1, min(MAX_WARPS, tasks)), chunk_parallel,
-                   chunks, vec(x_aligned, p, x_strides),
-                   vec(bc_aligned, ds, bc_strides))
+                   chunks, vec_x, vec_bc)
 
 
 def ssd_scan_plan(xh: torch.Tensor, b_ssm: torch.Tensor, c_ssm: torch.Tensor,
@@ -152,7 +187,7 @@ def library():
 
 def _operand(t: torch.Tensor, ndim: int, name: str,
              dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Check one CUDA operand: ``dtype`` (xh's for b and c, float32 for
+    """Check one CUDA operand: ``dtype`` (xh's for b, c and dy, float32 for
     dt), ``ndim`` dims; make its last dimension unit-stride."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: the CUDA kernel takes {dtype} here "
@@ -163,12 +198,10 @@ def _operand(t: torch.Tensor, ndim: int, name: str,
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
-def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
-             b_ssm: torch.Tensor, c_ssm: torch.Tensor, *,
-             chunk: int = 128) -> torch.Tensor:
-    """y (B, S, n, p) of the chunked SSD scan (chunk clamped to S)."""
-    if not build.on_cuda("ssd_scan", xh, dt, a_log, b_ssm, c_ssm):
-        return ref.ssd_ref(xh, dt, a_log, b_ssm, c_ssm)
+def _operands(xh, dt, a_log, b_ssm, c_ssm) -> tuple:
+    """The checked CUDA operands of either kernel: (xh, dt, a2, b, c) with
+    a2 the (G, n) rates in float32 or bfloat16 (another float dtype is
+    upcast), each with a unit last stride."""
     if xh.dtype not in build.DTYPES:
         raise TypeError(f"xh: the CUDA kernel takes float32 or bfloat16, "
                         f"not {xh.dtype}")
@@ -184,13 +217,25 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                          f"{tuple(c_ssm.shape)}")
     if not a_log.is_floating_point():
         raise TypeError(f"a_log: expected a float dtype, not {a_log.dtype}")
-    # (G, n): the Pallas kernel's astype, on the small per-slot rates
-    a2 = _operand((a_log if a_log.dim() == 2 else a_log[None]).float(), 2,
-                  "a_log")
-    groups = a2.shape[0]
-    if a2.shape[1] != n or bsz % groups:
+    a2 = a_log if a_log.dim() == 2 else a_log[None]
+    if a2.dtype not in build.DTYPES:   # the Pallas kernel's astype
+        a2 = a2.float()
+    a2 = _operand(a2, 2, "a_log", a2.dtype)
+    if a2.shape[1] != n or bsz % a2.shape[0]:
         raise ValueError(f"a_log {tuple(a_log.shape)} for {bsz} rows of "
                          f"{n} heads")
+    return xh, dt, a2, b_ssm, c_ssm
+
+
+def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+             b_ssm: torch.Tensor, c_ssm: torch.Tensor, *,
+             chunk: int = 128) -> torch.Tensor:
+    """y (B, S, n, p) of the chunked SSD scan (chunk clamped to S)."""
+    if not build.on_cuda("ssd_scan", xh, dt, a_log, b_ssm, c_ssm):
+        return ref.ssd_ref(xh, dt, a_log, b_ssm, c_ssm)
+    xh, dt, a2, b_ssm, c_ssm = _operands(xh, dt, a_log, b_ssm, c_ssm)
+    bsz, s, n, p = xh.shape
+    ds, groups = b_ssm.shape[-1], a2.shape[0]
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"S={s} is not a multiple of chunk={chunk}")
@@ -214,6 +259,117 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                  None if states is None else states.data_ptr(),
                  None if decays is None else decays.data_ptr(), bsz, s, n, p,
                  ds, chunk, plan.heads, plan.warps, int(plan.chunk_parallel),
-                 bsz // groups, plan.vec_x, plan.vec_bc, strides,
-                 dtype=xh.dtype)
+                 bsz // groups, plan.vec_x, plan.vec_bc,
+                 int(a2.dtype == torch.bfloat16), int(plan.form == "mma"),
+                 strides, dtype=xh.dtype)
     return y
+
+
+def bwd_smem_floats(segment: int, p: int, ds: int) -> int:
+    """The backward kernel's shared memory in floats (csrc/ssd_scan.cu
+    ``ssd_bwd_kernel``): dL/dh and the state before each step of a
+    segment, ds rows of 32 x cols floats each; the per-step sums over p of
+    db and dc (2 ds rows of 33); the segment's b, c, x, dy and dt."""
+    pp = 32 * _cdiv(p, 32)
+    return ((segment + 1) * ds * pp + 2 * ds * 33
+            + segment * (2 * ds + 2 * pp + 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class SsdBwdPlan:
+    """One backward call: a one-warp block per (row, head), lane j owning p
+    columns j, j + 32, ... (``cols`` of them). A forward sweep saves the
+    state entering every ``segment`` steps (``segments`` - 1 states a row
+    and head, in float32 scratch); the reverse walk recomputes each
+    segment's states into shared memory (``smem_floats``) and steps back
+    through it. A second launch sums db and dc over heads and da_log over
+    a slot's rows, in order."""
+    segment: int
+    segments: int
+    cols: int
+    smem_floats: int
+
+
+def ssd_bwd_plan(bsz: int, s: int, n: int, p: int, ds: int, *,
+                 sms: int) -> SsdBwdPlan:
+    """The backward's plan for ``bsz`` rows of ``s`` steps, ``n`` heads of
+    width ``p`` and state width ``ds`` on a card with ``sms`` SMs: the
+    longest segment (a power of two up to 32 steps, at most S) whose
+    shared memory lets the (row, head) blocks run in one wave; where none
+    does, the longest within a twelfth of an SM's. Each segment is one more
+    state saved and read back, but a second wave runs the whole serial
+    chain again (segments of 2, 4, 8: 0.308, 0.378, 0.428 ms at the FL
+    round's 2,280 blocks, one wave only at 2; PERF.md §6)."""
+    if p > 32 * BWD_COLS:
+        raise ValueError(f"p={p}: the backward kernel takes p <= "
+                         f"{32 * BWD_COLS}")
+    per_sm = _cdiv(bsz * n, sms)
+
+    def resident(seg):   # blocks an SM holds
+        need = 4 * bwd_smem_floats(seg, p, ds) + SMEM_RESERVE
+        return min(MAX_BLOCKS_PER_SM, SMEM_SM // need)
+    segs = [seg for seg in (32, 16, 8, 4, 2, 1)
+            if bwd_smem_floats(seg, p, ds) <= SMEM_MAX]
+    if not segs:
+        raise ValueError(f"p={p}, ds={ds}: the backward block's shared "
+                         "memory exceeds the card's")
+    one_wave = [seg for seg in segs if resident(seg) >= per_sm]
+    segment = (one_wave or [seg for seg in segs if bwd_smem_floats(
+        seg, p, ds) <= SMEM_MAX // 12] or [1])[0]
+    segment = min(segment, s)
+    return SsdBwdPlan(segment, _cdiv(s, segment), _cdiv(p, 32),
+                      bwd_smem_floats(segment, p, ds))
+
+
+def _bwd_operands(xh, dt, a_log, b_ssm, c_ssm, dy) -> tuple:
+    """:func:`_operands` plus dy: y's shape, in xh's dtype."""
+    xh, dt, a2, b_ssm, c_ssm = _operands(xh, dt, a_log, b_ssm, c_ssm)
+    dy = _operand(dy, 4, "dy", xh.dtype)
+    if dy.shape != xh.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} for y {tuple(xh.shape)}")
+    return xh, dt, a2, b_ssm, c_ssm, dy
+
+
+def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                 b_ssm: torch.Tensor, c_ssm: torch.Tensor,
+                 dy: torch.Tensor) -> tuple:
+    """(dxh, ddt, da_log, db, dc): the adjoint of the SSD recurrence at
+    these operands for the cotangent ``dy`` of y."""
+    if not build.on_cuda("ssd_scan_bwd", xh, dt, a_log, b_ssm, c_ssm, dy):
+        return ref.ssd_bwd_ref(xh, dt, a_log, b_ssm, c_ssm, dy)
+    xh, dt, a2, b_ssm, c_ssm, dy = _bwd_operands(xh, dt, a_log, b_ssm,
+                                                 c_ssm, dy)
+    bsz, s, n, p = xh.shape
+    ds, groups = b_ssm.shape[-1], a2.shape[0]
+    dev, f32 = xh.device, torch.float32
+    dxh = torch.empty((bsz, s, n, p), device=dev, dtype=xh.dtype)
+    ddt = torch.empty((bsz, s, n), device=dev, dtype=f32)
+    db = torch.empty((bsz, s, ds), device=dev, dtype=xh.dtype)
+    dc = torch.empty((bsz, s, ds), device=dev, dtype=xh.dtype)
+    da = torch.empty(a2.shape, device=dev, dtype=a2.dtype)
+    if not dxh.numel():
+        da.zero_()
+    else:
+        plan = ssd_bwd_plan(bsz, s, n, p, ds, sms=_sm_count(dev.index))
+        states = (torch.empty(bsz * n * (plan.segments - 1) * ds * p,
+                              device=dev, dtype=f32)
+                  if plan.segments > 1 else None)
+        part_bc = torch.empty(2 * bsz * s * n * ds, device=dev, dtype=f32)
+        part_da = torch.empty(bsz * n, device=dev, dtype=f32)
+        strides = (ctypes.c_longlong * 13)(
+            xh.stride(0), xh.stride(1), xh.stride(2), dt.stride(0),
+            dt.stride(1), b_ssm.stride(0), b_ssm.stride(1), c_ssm.stride(0),
+            c_ssm.stride(1), dy.stride(0), dy.stride(1), dy.stride(2),
+            a2.stride(0) if groups > 1 else 0)
+        build.launch(library(), "ssd_scan_bwd", "ssd_scan_bwd", LAUNCHES, dev,
+                     xh.data_ptr(), dt.data_ptr(), a2.data_ptr(),
+                     b_ssm.data_ptr(), c_ssm.data_ptr(), dy.data_ptr(),
+                     dxh.data_ptr(), ddt.data_ptr(), db.data_ptr(),
+                     dc.data_ptr(), da.data_ptr(),
+                     None if states is None else states.data_ptr(),
+                     part_bc.data_ptr(), part_da.data_ptr(), bsz, s, n, p, ds,
+                     plan.segment, bsz // groups, groups,
+                     int(a2.dtype == torch.bfloat16), plan.cols, strides,
+                     dtype=xh.dtype)
+    da = (da if a_log.dim() == 2 else da[0]).to(a_log.dtype)
+    return dxh, ddt, da, db, dc

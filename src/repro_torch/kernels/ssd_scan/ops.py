@@ -1,18 +1,18 @@
 """Differentiable SSD chunked scan (port of ``repro.kernels.ssd_scan.ops``).
 
-An ``autograd.Function`` whose forward is the kernel of :mod:`.kernel`
-(CUDA on the card, its plain version on the CPU). There is no backward
-kernel, in the reference or here: the op saves its five inputs and its
-backward is autograd through the sequential recurrence
-(:func:`~repro_torch.kernels.ssd_scan.ref.ssd_sequential`), the exact
-adjoint of the chunked forward, as the reference's ``jax.vjp`` through
-``ssd_ref`` is.
+An ``autograd.Function`` whose forward and backward are the kernels of
+:mod:`.kernel` (CUDA on the card, their plain versions on the CPU). The op
+saves its five inputs; its backward is the adjoint of the sequential
+recurrence (``kernel.ssd_scan_bwd``: the CUDA backward kernel, or on the CPU
+autograd through :func:`~repro_torch.kernels.ssd_scan.ref.ssd_sequential`),
+the exact adjoint of the chunked forward, as the reference's ``jax.vjp``
+through ``ssd_ref`` is.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ssd_scan import kernel, ref
+from repro_torch.kernels.ssd_scan import kernel
 
 
 class _SSD(torch.autograd.Function):
@@ -24,10 +24,7 @@ class _SSD(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            y = ref.ssd_sequential(*inputs)
-        return (*torch.autograd.grad(y, inputs, dy), None)
+        return (*kernel.ssd_scan_bwd(*ctx.saved_tensors, dy), None)
 
 
 def ssd(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,

@@ -1,12 +1,13 @@
-"""Plain PyTorch version of the SSD chunked-scan kernel: the sequential
-(non-chunked) SSM recurrence, numerically exact.
+"""Plain PyTorch versions of the SSD scan kernels: the sequential
+(non-chunked) SSM recurrence, numerically exact, and its adjoint.
 
-The CPU path of the wrapper in :mod:`.kernel` and the yardstick the kernel
-is held against on the card. ``CALLS`` counts calls of :func:`ssd_ref`, the
-plain version standing in for the kernel. :func:`ssd_sequential` is the
-same recurrence uncounted: the op's backward runs autograd through it on
-every device, as the reference's backward runs ``jax.vjp`` through its
-oracle, so it is not a stand-in for the forward kernel.
+The CPU path of the wrappers in :mod:`.kernel` and the yardstick the
+kernels are held against on the card. :func:`ssd_sequential` is the
+recurrence itself; it is reached only through :func:`ssd_ref` (the forward
+kernel's plain version) and :func:`ssd_bwd_ref` (the backward kernel's:
+autograd through it, as the reference's backward runs ``jax.vjp`` through
+its oracle). ``CALLS`` counts both, so a run on the card can show that
+neither ran there.
 
 ``a_log`` is ``(n,)`` (one for every row) or ``(G, n)``: rows are grouped
 by slot, row ``r`` using ``a_log[r // (B // G)]``, as the slot-batched
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-CALLS = {"ssd_scan": 0}
+CALLS = {"ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
 def decay_rates(a_log: torch.Tensor, bsz: int) -> torch.Tensor:
@@ -53,3 +54,16 @@ def ssd_ref(xh, dt, a_log, b_ssm, c_ssm) -> torch.Tensor:
     """The kernel's plain version: :func:`ssd_sequential`, counted."""
     CALLS["ssd_scan"] += 1
     return ssd_sequential(xh, dt, a_log, b_ssm, c_ssm)
+
+
+def ssd_bwd_ref(xh, dt, a_log, b_ssm, c_ssm, dy) -> tuple:
+    """The backward kernel's plain version, counted: (dxh, ddt, da_log, db,
+    dc), each in its input's dtype and shape, by autograd through
+    :func:`ssd_sequential` with cotangent ``dy`` (a stride-0 expanded
+    a_log gets its full-shape gradient)."""
+    CALLS["ssd_scan_bwd"] += 1
+    inputs = [t.detach().requires_grad_()
+              for t in (xh, dt, a_log, b_ssm, c_ssm)]
+    with torch.enable_grad():
+        y = ssd_sequential(*inputs)
+    return torch.autograd.grad(y, inputs, dy)

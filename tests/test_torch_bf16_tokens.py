@@ -36,6 +36,7 @@ from repro.kernels.flash_attention import kernel as ref_fa  # noqa: E402
 from repro.kernels.flash_attention import ops as ref_fa_ops  # noqa: E402
 from repro.kernels.ssd_scan import kernel as ref_ssd  # noqa: E402
 from repro.kernels.ssd_scan import ops as ref_ssd_ops  # noqa: E402
+from repro.kernels.ssd_scan import ref as ref_ssd_ref  # noqa: E402
 from repro_torch.fl import sim  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -263,6 +264,89 @@ def test_ssd_op_gradients_match_reference_bf16():
                 <= SSD_RTOL * np.abs(w).max()
 
 
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_bwd_plain_version_matches_reference_bf16(shape):
+    """ssd_bwd_ref (the backward kernel's plain version) with bf16 xh, b,
+    c, a_log and dy and f32 dt against jax.vjp of the reference's
+    sequential ssd_ref: the bf16 cotangents within one bf16 ulp plus
+    SSD_RTOL of scale, dt's f32 one within SSD_RTOL of its scale, each in
+    its input's dtype."""
+    b, s, n, p, ds, _ = shape
+    args = _ssd_inputs(b, s, n, p, ds, seed=s + 7)
+    dy = _bf16(np.random.default_rng(s).normal(size=(b, s, n, p)))
+    _, vjp = jax.vjp(ref_ssd_ref.ssd_ref, *_ssd_args(*args, _j))
+    want = vjp(_j(dy))
+    got = ssd_ref.ssd_bwd_ref(*_ssd_args(*args, _t), _t(dy))
+    for t, g, w in zip(_ssd_args(*args, _t), got, want):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        if g.dtype == torch.bfloat16:
+            assert bf16_excess(g, w) <= SSD_RTOL
+        else:
+            w = np.asarray(w)
+            assert np.abs(g.numpy() - w).max() <= SSD_RTOL * np.abs(w).max()
+
+
+def _split(v: torch.Tensor) -> tuple:
+    """An f32 tensor as ssd_mma_kernel's split_bf16x2 takes it: the bf16
+    rounding and the bf16 rounding of what it left out."""
+    big = v.bfloat16().float()
+    return big, (v - big).bfloat16().float()
+
+
+def _mma_emulation(xh, dt, a_log, bm, cm, chunk=32):
+    """ssd_mma_kernel's arithmetic for each row and head in f32 from bf16
+    operands: the scores c b^T (exact bf16 products), W = scores
+    exp2(cum_q - cum_k) dt_k split into bf16 big and small parts, each
+    multiplied by x; the inter term exp2(cum_q) c (h split likewise); the
+    state updated as h exp2(cum_last) + (b wk, split)^T x; y rounded once
+    to bf16."""
+    x, b, c = (torch.from_numpy(v) for v in (xh, bm, cm))
+    d = torch.from_numpy(dt)
+    rate = -torch.exp(torch.from_numpy(a_log))               # (n,)
+    bsz, s, n, p = x.shape
+    ys = torch.zeros(bsz, s, n, p)
+    causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    for ci in range(s // chunk):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        cum2 = torch.cumsum(d[:, sl] * rate, dim=1) * LOG2E   # (B, Q, n)
+        last2 = cum2[:, -1:]
+        scores = torch.einsum("bqs,bks->bqk", c[:, sl], b[:, sl])
+        dec = torch.exp2(cum2[:, :, None] - cum2[:, None, :])  # (B,q,k,n)
+        w = torch.where(causal[None, :, :, None],
+                        scores[..., None] * dec * d[:, sl][:, None], 0.0)
+        wb, wsm = _split(w)
+        y = (torch.einsum("bqkn,bknp->bqnp", wsm, x[:, sl])
+             + torch.einsum("bqkn,bknp->bqnp", wb, x[:, sl]))
+        if ci:
+            hb, hsm = _split(h)
+            inter = (torch.einsum("bqs,bnsp->bqnp", c[:, sl], hsm)
+                     + torch.einsum("bqs,bnsp->bqnp", c[:, sl], hb))
+            y = torch.exp2(cum2)[..., None] * inter + y
+        ys[:, sl] = y
+        if ci + 1 < s // chunk:
+            wk = torch.exp2(last2 - cum2) * d[:, sl]           # (B, Q, n)
+            ab, asm = _split(b[:, sl, None, :] * wk[..., None])  # (B,k,n,s)
+            upd = (torch.einsum("bkns,bknp->bnsp", asm, x[:, sl])
+                   + torch.einsum("bkns,bknp->bnsp", ab, x[:, sl]))
+            h = upd if ci == 0 else h * torch.exp2(last2[:, 0])[
+                ..., None, None] + upd
+    return ys.bfloat16()
+
+
+LOG2E = 1.4426950408889634
+
+
+@pytest.mark.parametrize("seq", [32, 128])
+def test_ssd_mma_form_arithmetic_matches_reference_bf16(seq):
+    """The bf16 tensor-core form's arithmetic (W and the state in split
+    bf16 parts on the tensor cores) at its one shape (chunk 32, ds 16,
+    p 32), in one chunk and over four, against the reference's Pallas
+    kernel in interpret mode: one bf16 ulp plus SSD_RTOL of scale."""
+    args = _ssd_inputs(4, seq, 4, 32, 16, seed=seq + 1)
+    want = ref_ssd.ssd_scan(*_ssd_args(*args, _j), chunk=32, interpret=True)
+    assert bf16_excess(_mma_emulation(*args), want) <= SSD_RTOL
+
+
 # ---------------------------------------------------------------------------
 # the launch plans' bf16 copy widths and the wrappers' dtype checks
 # ---------------------------------------------------------------------------
@@ -331,6 +415,32 @@ def test_ssd_plan_bf16_copy_width(itemsize, step, ds, vec):
                         bc_strides=(32 * step, step, 32 * step, step),
                         x_aligned=True, bc_aligned=True, itemsize=itemsize)
     assert (plan.vec_x, plan.vec_bc) == vec
+
+
+@pytest.mark.parametrize("rows,seq,p,ds,aligned,want", [
+    # the FL path's round and statistics pass, and four chunks of it: the
+    # tensor-core form, a warp per head
+    (570, 32, 32, 16, True, ("mma", 4, 4)),
+    (1140, 32, 32, 16, True, ("mma", 4, 4)),
+    (264, 128, 32, 16, True, ("mma", 4, 4)),
+    # another shape, or 16-byte copies impossible: the FMA form
+    (570, 32, 64, 16, True, ("fma", 4, 4)),
+    (570, 32, 32, 32, True, ("fma", 4, 4)),
+    (570, 32, 32, 16, False, ("fma", 4, 4)),
+    # few rows over many chunks: the chunk-parallel FMA form
+    (2, 128, 32, 16, True, ("fma", 1, 1)),
+])
+def test_ssd_plan_bf16_form(rows, seq, p, ds, aligned, want):
+    """bf16 at chunk 32, ds 16, p 32 with 16-byte copies, walked in order,
+    runs ssd_mma_kernel; everything else, and f32 always, the FMA form."""
+    width = 4 * p + 2 * ds
+    kw = dict(sms=132, x_strides=(seq * width, width, p),
+              bc_strides=(seq * width, width) * 2, x_aligned=aligned,
+              bc_aligned=aligned)
+    plan = ssd.ssd_plan(rows, seq, 4, p, ds, 32, itemsize=2, **kw)
+    assert (plan.form, plan.heads, plan.warps) == want
+    assert ssd.ssd_plan(rows, seq, 4, p, ds, 32, itemsize=4,
+                        **kw).form == "fma"
 
 
 def test_attention_operands_refuse_a_mix_of_dtypes():

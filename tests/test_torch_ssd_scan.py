@@ -125,8 +125,8 @@ def test_per_slot_a_log_groups_rows():
 
 
 def test_dispatch_is_by_device_only():
-    """CPU tensors take the plain version and launch nothing; the op's
-    backward recomputes through the uncounted recurrence; a device that is
+    """CPU tensors take the plain versions and launch nothing: the op's
+    forward and backward each count one plain call; a device that is
     neither CPU nor CUDA raises."""
     t = [torch.from_numpy(a) for a in _inputs(1, 32, 2, 8, 4)]
     before_l, before_c = dict(kernel.LAUNCHES), dict(ref.CALLS)
@@ -134,6 +134,7 @@ def test_dispatch_is_by_device_only():
     ops.ssd(*t, chunk=32).sum().backward()
     assert kernel.LAUNCHES == before_l
     assert ref.CALLS["ssd_scan"] == before_c["ssd_scan"] + 1
+    assert ref.CALLS["ssd_scan_bwd"] == before_c["ssd_scan_bwd"] + 1
     with pytest.raises(ValueError):
         kernel.ssd_scan(*(a.detach().to("meta") for a in t))
 
@@ -321,3 +322,238 @@ def test_ssd_plan_copy_width_is_16_bytes_only_where_aligned(change, vec):
     # widths that are not a multiple of 4 floats take 4-byte copies
     odd = kernel.ssd_plan(570, 32, 4, 30, 14, 32, **{**kw, **change})
     assert (odd.vec_x, odd.vec_bc) == (4, 4)
+
+
+# ---------------------------------------------------------------------------
+# the backward: its plain version against the reference's jax.vjp, the
+# kernel's plan and order of work, the wrapper's checks and the op's route
+# ---------------------------------------------------------------------------
+
+GRADS = ("dxh", "ddt", "da_log", "db", "dc")
+
+
+def _assert_grads(got, want, what=""):
+    """Each cotangent within SSD_RTOL (1e-4) of its own largest magnitude:
+    the reference's SSD tolerance, as the chip holds the kernel."""
+    for name, g, w in zip(GRADS, got, want):
+        g, w = _np(g) if isinstance(g, torch.Tensor) else g, np.asarray(w)
+        assert g.shape == w.shape, (what, name, g.shape, w.shape)
+        err = np.abs(g - w).max() / max(np.abs(w).max(), 1e-30)
+        assert err <= TOL["rtol"], (what, name, err)
+
+
+def _ref_vjp(xh, dt, a_log, bm, cm, dy):
+    _, vjp = jax.vjp(ref_ref.ssd_ref, xh, dt, a_log, bm, cm)
+    return vjp(jnp.asarray(dy))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bwd_plain_version_matches_reference_vjp(shape):
+    """ssd_bwd_ref (the backward kernel's plain version) against jax.vjp of
+    the reference's sequential ssd_ref, all five cotangents, over four
+    chunks and over the FL path's one."""
+    *dims, _ = shape
+    args = _inputs(*dims, seed=dims[1] + 3)
+    dy = np.random.default_rng(dims[1]).normal(size=dims[:4]).astype(
+        np.float32)
+    before = ref.CALLS["ssd_scan_bwd"]
+    got = ref.ssd_bwd_ref(*(torch.from_numpy(a) for a in args + (dy,)))
+    assert ref.CALLS["ssd_scan_bwd"] == before + 1
+    _assert_grads(got, _ref_vjp(*args, dy))
+
+
+def test_bwd_plain_version_per_slot_and_shared_rates():
+    """a_log (G, n): slot g's gradient is the reference's on its rows
+    alone; a stride-0 expanded a_log gets a (G, n) gradient whose sum over
+    slots is the reference's shared-rate gradient."""
+    xh, dt, a_log, bm, cm = _inputs(6, 64, 4, 16, 8, seed=12, groups=3)
+    dy = np.random.default_rng(13).normal(size=xh.shape).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (xh, dt, a_log, bm, cm, dy)]
+    got = ref.ssd_bwd_ref(*t)
+    assert got[2].shape == (3, 4)
+    for g in range(3):
+        rows = slice(2 * g, 2 * g + 2)
+        want = _ref_vjp(xh[rows], dt[rows], a_log[g], bm[rows], cm[rows],
+                        dy[rows])
+        _assert_grads([got[0][rows], got[1][rows], got[2][g], got[3][rows],
+                       got[4][rows]], want, f"slot {g}")
+    shared = t[2][0].expand(3, 4)
+    assert shared.stride(0) == 0
+    got = ref.ssd_bwd_ref(t[0], t[1], shared, *t[3:])
+    assert got[2].shape == (3, 4)
+    want = _ref_vjp(xh, dt, a_log[0], bm, cm, dy)
+    _assert_grads([got[0], got[1], got[2].sum(0), got[3], got[4]], want)
+
+
+def _bwd_emulation(xh, dt, a_log, bm, cm, dy, segment):
+    """ssd_bwd_kernel's order of work for every (row, head) at once, in
+    f32: a forward sweep saving the state entering each segment but the
+    first; the reverse walk over segments, each recomputing its states
+    h_{t-1} from its saved entry state, then stepping back with
+    g_t = c_t dy_t^T + exp(dt_{t+1} a) g_{t+1}; per-head db, dc and per-row
+    a dL/da partials, then ssd_bwd_sum_kernel's ordered sums over heads and
+    over a slot's rows."""
+    x, d, b, c, dyt = (torch.from_numpy(v) for v in (xh, dt, bm, cm, dy))
+    bsz, s, n, p = x.shape
+    ds = b.shape[-1]
+    a2 = torch.from_numpy(a_log)
+    a2 = a2 if a2.dim() == 2 else a2[None]
+    rate = ref.decay_rates(a2, bsz)                      # (B, n)
+    nseg = -(-s // segment)
+
+    def upd(t):
+        return (d[:, t, :, None, None] * b[:, t, None, :, None]
+                * x[:, t, :, None, :])
+    h, saved = torch.zeros(bsz, n, ds, p), []
+    for t in range((nseg - 1) * segment):
+        h = h * torch.exp(d[:, t] * rate)[..., None, None] + upd(t)
+        if (t + 1) % segment == 0:
+            saved.append(h)
+    g = torch.zeros(bsz, n, ds, p)
+    e_next, da = torch.zeros(bsz, n), torch.zeros(bsz, n)
+    dx, ddt = torch.zeros(bsz, s, n, p), torch.zeros(bsz, s, n)
+    pdb, pdc = torch.zeros(bsz, s, n, ds), torch.zeros(bsz, s, n, ds)
+    for k in reversed(range(nseg)):
+        t0, t1 = k * segment, min(s, (k + 1) * segment)
+        hs = [saved[k - 1] if k else torch.zeros(bsz, n, ds, p)]
+        for t in range(t0, t1 - 1):
+            hs.append(hs[-1] * torch.exp(d[:, t] * rate)[..., None, None]
+                      + upd(t))
+        for t in reversed(range(t0, t1)):
+            e = torch.exp(d[:, t] * rate)
+            hprev = hs[t - t0]
+            ht = hprev * e[..., None, None] + upd(t)
+            g = (g * e_next[..., None, None]
+                 + c[:, t, None, :, None] * dyt[:, t, :, None, :])
+            gb = torch.einsum("bnsp,bs->bnp", g, b[:, t])
+            dx[:, t] = d[:, t, :, None] * gb
+            pdb[:, t] = d[:, t, :, None] * torch.einsum("bnsp,bnp->bns", g,
+                                                        x[:, t])
+            pdc[:, t] = torch.einsum("bnsp,bnp->bns", ht, dyt[:, t])
+            s2 = (g * hprev).sum((-2, -1))
+            ddt[:, t] = (x[:, t] * gb).sum(-1) + rate * e * s2
+            da = da + d[:, t] * e * s2
+            e_next = e
+    db, dc = torch.zeros(bsz, s, ds), torch.zeros(bsz, s, ds)
+    for hh in range(n):
+        db, dc = db + pdb[:, :, hh], dc + pdc[:, :, hh]
+    part = (rate * da).reshape(a2.shape[0], -1, n)
+    dlog = torch.zeros(a2.shape)
+    for r in range(part.shape[1]):
+        dlog = dlog + part[:, r]
+    return dx, ddt, dlog if a_log.ndim == 2 else dlog[0], db, dc
+
+
+@pytest.mark.parametrize("segment", [32, 4, 5], ids=lambda v: f"seg{v}")
+@pytest.mark.parametrize("groups", [0, 3])
+def test_bwd_kernel_order_of_work_matches_plain_version(segment, groups):
+    """The backward kernel's order of work (segments' entry states saved by
+    a forward sweep, each segment recomputed in reverse, heads and a
+    slot's rows summed in order) against ssd_bwd_ref and the reference's
+    vjp, over 64 steps: two segments, or many, with a ragged last one."""
+    args = _inputs(6, 64, 4, 16, 8, seed=segment + groups, groups=groups)
+    dy = np.random.default_rng(segment).normal(size=args[0].shape).astype(
+        np.float32)
+    got = _bwd_emulation(*args, dy, segment)
+    _assert_grads(got, ref.ssd_bwd_ref(*(torch.from_numpy(a)
+                                         for a in args + (dy,))))
+    if groups == 0:
+        _assert_grads(got, _ref_vjp(*args, dy))
+
+
+@pytest.mark.parametrize("label,want", [
+    # 570 x 4 one-warp blocks: segments of 2 steps (11 KB a block: 19
+    # blocks an SM, one wave of 2,280)
+    ("round", (2, 16, 1)),
+    # 4,560 blocks fit no wave: segments of 4, within a twelfth of an SM
+    ("stats", (4, 8, 1)),
+    # 16 blocks: the longest segment that fits, 8 steps of 16 KB
+    ("multi-chunk", (8, 64, 2)),
+    ("long rows", (8, 16, 1)),
+])
+def test_ssd_bwd_plan_for_chip_smoke_cases(label, want):
+    rows, s, n, p, ds, _ = _chip_smoke_ssd_cases()[label]
+    plan = kernel.ssd_bwd_plan(rows, s, n, p, ds, sms=132)
+    assert (plan.segment, plan.segments, plan.cols) == want
+    assert plan.smem_floats == kernel.bwd_smem_floats(plan.segment, p, ds)
+    assert plan.smem_floats <= kernel.SMEM_MAX
+
+    def waves(seg):
+        per_sm = min(kernel.MAX_BLOCKS_PER_SM, kernel.SMEM_SM // (
+            4 * kernel.bwd_smem_floats(seg, p, ds) + kernel.SMEM_RESERVE))
+        return -(-rows * n // (per_sm * 132))
+    # one wave where any segment gives one, and no longer segment does
+    if waves(1) == 1:
+        assert waves(plan.segment) == 1
+        longer = 2 * plan.segment
+        assert (plan.segment == min(32, s)
+                or kernel.bwd_smem_floats(longer, p, ds) > kernel.SMEM_MAX
+                or waves(longer) > 1)
+
+
+def test_ssd_bwd_plan_limits():
+    """p beyond four columns a lane is refused; a short sequence is one
+    segment; a state too wide for shared memory is refused."""
+    with pytest.raises(ValueError, match="p <= 128"):
+        kernel.ssd_bwd_plan(2, 32, 1, 160, 16, sms=132)
+    assert kernel.ssd_bwd_plan(2, 3, 1, 32, 16, sms=132).segments == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel.ssd_bwd_plan(2, 32, 1, 128, 256, sms=132)
+
+
+def test_bwd_wrapper_checks_operands():
+    """The backward's CUDA-side checks, reached here on CPU tensors: dy in
+    xh's dtype and y's shape, b and c in xh's dtype, dt in f32, a_log of
+    n rates or (G, n) with G dividing B; a bf16 a_log is read as it is, a
+    float16 one upcast."""
+    xh, dt, a_log, bm, cm = (torch.from_numpy(a)
+                             for a in _inputs(4, 32, 2, 8, 4, groups=2))
+    dy = torch.zeros_like(xh)
+    got = kernel._bwd_operands(xh, dt, a_log, bm, cm, dy)
+    assert got[2].shape == (2, 2) and got[5] is dy
+    with pytest.raises(TypeError):
+        kernel._bwd_operands(xh, dt, a_log, bm, cm, dy.bfloat16())
+    with pytest.raises(ValueError, match="dy"):
+        kernel._bwd_operands(xh, dt, a_log, bm, cm, dy[:, :16])
+    with pytest.raises(TypeError):
+        kernel._bwd_operands(xh, dt.double(), a_log, bm, cm, dy)
+    with pytest.raises(TypeError):
+        kernel._bwd_operands(xh, dt, a_log, bm.bfloat16(), cm, dy)
+    with pytest.raises(ValueError, match="a_log"):
+        kernel._bwd_operands(xh, dt, torch.zeros(3, 2), bm, cm, dy)
+    with pytest.raises(ValueError, match="shapes"):
+        kernel._bwd_operands(xh, dt[:, :, :1], a_log, bm, cm, dy)
+    with pytest.raises(TypeError, match="float dtype"):
+        kernel._bwd_operands(xh, dt, a_log.int(), bm, cm, dy)
+    assert kernel._bwd_operands(xh, dt, a_log.bfloat16(), bm, cm,
+                                dy)[2].dtype == torch.bfloat16
+    assert kernel._bwd_operands(xh, dt, a_log.half(), bm, cm,
+                                dy)[2].dtype == torch.float32
+    # a transposed dy is made unit-stride in its last dim
+    dyt = torch.zeros(4, 32, 8, 2).transpose(2, 3)
+    assert kernel._bwd_operands(xh, dt, a_log, bm, cm,
+                                dyt)[5].stride(-1) == 1
+
+
+def test_op_backward_goes_through_the_backward_wrapper(monkeypatch):
+    """_SSD.backward calls kernel.ssd_scan_bwd once with the saved inputs
+    and dy, and passes its five gradients through: the op's gradients are
+    the wrapper's (on the CPU, its plain version, counted)."""
+    t = [torch.from_numpy(a).requires_grad_()
+         for a in _inputs(2, 32, 2, 8, 4, seed=3, groups=2)]
+    seen = []
+    real = kernel.ssd_scan_bwd
+
+    def spy(*args):
+        seen.append(args)
+        return real(*args)
+    monkeypatch.setattr(kernel, "ssd_scan_bwd", spy)
+    before = ref.CALLS["ssd_scan_bwd"]
+    dy = torch.randn(2, 32, 2, 8)
+    ops.ssd(*t, chunk=32).backward(dy)
+    assert len(seen) == 1 and ref.CALLS["ssd_scan_bwd"] == before + 1
+    assert all(a is b or torch.equal(a, b) for a, b in zip(seen[0][:5], t))
+    assert torch.equal(seen[0][5], dy)
+    want = real(*(a.detach() for a in t), dy)
+    for a, w in zip(t, want):
+        assert torch.equal(a.grad, w)

@@ -1,20 +1,22 @@
 """Design variants of the SSD scan CUDA kernel, side by side on one card.
 
-    python3 tools/ssd_scan_variants.py
+    python3 tools/ssd_scan_variants.py [--bf16]
 
 Run from the root of a checkout on a machine with a CUDA card. Source
 variants are ``src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu`` with one
 piece of a chunk's work removed (a text substitution, listed in VARIANTS:
-what the piece costs; their outputs are wrong and not checked); plan
-variants run the source as it is with one choice of the launch plan undone
-(PLANS). All are compiled in parallel with the port's nvcc flags into
-``build/ssd_variants/``, loaded with ctypes, and driven through the
-wrapper at chip_smoke.py's SSD shapes, timed on the device
-(chip_smoke.py's ``device_ms``). Plan variants are held against the plain
-version (chip_smoke.py's SSD_RTOL x the output scale). ``base`` runs first
-and again last, which shows the run's spread. Prints each source variant's
-registers and spills, then one line per case and variant, in
-milliseconds.
+what the piece costs; their outputs are wrong and not checked) or, with
+``--bf16``, one choice of the tensor-core form undone (BF16_VARIANTS; their
+outputs are checked); plan variants run the source as it is with one choice
+of the launch plan undone (PLANS, BF16_PLANS). All are compiled in parallel
+with the port's nvcc flags into ``build/ssd_variants/``, loaded with
+ctypes, and driven through the wrapper at chip_smoke.py's SSD shapes, on
+f32 operands or (``--bf16``) bf16 ones, timed on the device (chip_smoke.py's
+``device_ms``). Checked variants are held against the plain version
+(chip_smoke.py's SSD_RTOL x the output scale; bf16: one bf16 ulp plus
+that). ``base`` runs first and again last, which shows the run's spread.
+Prints each source variant's registers and spills, then one line per case
+and variant, in milliseconds.
 """
 from __future__ import annotations
 
@@ -26,7 +28,6 @@ import subprocess
 import sys
 
 import torch
-import torch.nn.functional as F
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
@@ -65,6 +66,24 @@ VARIANTS = {
     "no_store": [("        if (p < P) {\n          T* out = y",
                   "        if (p < -1) {\n          T* out = y")],
 }
+# the bf16 tensor-core form with one choice undone (outputs checked)
+BF16_VARIANTS = {
+    "base": [],
+    # W, the inter term's state and the state update's b wk in their big
+    # bf16 parts only: one mma.sync per product instead of two
+    "big_part_only": [
+        ("          mma_bf16(acc[np], ws[kk], fx[kk][np]);\n", ""),
+        ("          mma_bf16(acc[np], fc[mi], fhs[np]);\n", ""),
+        ("          mma_bf16(hreg[np], small, fx[kk][np]);\n", "")],
+    # no ring: a row's loads wait for the row before it
+    "ring_1": [("constexpr int kMmaRing = 2;", "constexpr int kMmaRing = 1;")],
+}
+# plan variants of the base source for bf16 operands
+BF16_PLANS = {
+    # the FMA form (ssd_kernel<bf16>: bf16 loads widened into f32 tiles,
+    # every product by FMA)
+    "fma_form": lambda p: dataclasses.replace(p, form="fma"),
+}
 # plan variants of the base source: name -> change to the plan
 PLANS = {
     # 4-byte staging copies everywhere
@@ -78,13 +97,13 @@ PLANS = {
 }
 
 
-def build_variants() -> dict:
+def build_variants(variants: dict) -> dict:
     """Compile every variant in parallel; print registers and spills."""
     out_dir = build.BUILD_DIR / "ssd_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     source = kernel.SOURCE.read_text()
     jobs = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in variants.items():
         text = source
         for old, new in subs:
             if text.count(old) != 1:
@@ -125,21 +144,18 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
-    libs = build_variants()
-    runs = [(name, None) for name in libs] + list(PLANS.items()) + [
-        ("base", None)]
+    bf16 = "--bf16" in sys.argv[1:]
+    libs = build_variants(BF16_VARIANTS if bf16 else VARIANTS)
+    runs = [(name, None) for name in libs] + list(
+        (BF16_PLANS if bf16 else PLANS).items()) + [("base", None)]
     plan_of = kernel.ssd_scan_plan
     g = torch.Generator(device="cuda").manual_seed(2)
+    dtype = torch.bfloat16 if bf16 else torch.float32
     for label, rows, s, n, p, ds, chunk, slots in chip_smoke.SSD_CASES:
-        conv = torch.randn(rows, s, n * p + 2 * ds, device="cuda",
-                           generator=g)
-        x = conv[..., :n * p].reshape(rows, s, n, p)
-        bm, cm = conv[..., n * p:n * p + ds], conv[..., n * p + ds:]
-        dt = F.softplus(torch.randn(rows, s, n, device="cuda", generator=g))
-        a_log = 0.5 * torch.randn(max(slots, 1), n, device="cuda",
-                                  generator=g)
+        x, dt, a_log, bm, cm = chip_smoke.ssd_operands(
+            g, dtype, rows, s, n, p, ds, max(slots, 1))
         want = ref.ssd_ref(x, dt, a_log, bm, cm)
-        scale = max(1.0, float(want.abs().max()))
+        scale = max(1.0, float(want.float().abs().max()))
 
         def fn():
             return kernel.ssd_scan(x, dt, a_log, bm, cm, chunk=chunk)
@@ -148,13 +164,16 @@ def main() -> int:
             kernel.library = lambda lib=lib: lib
             kernel.ssd_scan_plan = (plan_of if change is None else
                                     lambda *a, c=change: c(plan_of(*a)))
-            err = float((fn() - want).abs().max()) / scale
-            checked = change is not None or name == "base"
+            err = (chip_smoke._bf16_excess(fn(), want) if bf16 else
+                   float((fn() - want).abs().max()) / scale)
+            checked = bf16 or change is not None or name == "base"
             note = ("" if not checked else " OVER SSD_RTOL"
                     if err > chip_smoke.SSD_RTOL else "")
             print(f"variant {label:12s} {name:20s} "
+                  f"form={kernel.ssd_scan_plan(x, bm, cm, chunk).form} "
                   f"ms={chip_smoke.device_ms(fn):.4f} "
-                  f"err/scale={err:.1e}{note}", flush=True)
+                  f"{'ulp_excess' if bf16 else 'err/scale'}={err:.1e}{note}",
+                  flush=True)
         kernel.ssd_scan_plan = plan_of
     return 0
 
