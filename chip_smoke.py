@@ -47,10 +47,13 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
      ulp plus FA_RTOL or SSD_RTOL of scale; lse, f32, at FA_RTOL), with
      bf16 ``scaled_dot_product_attention`` as the attention's library
      yardstick;
-   - the SSD scan's backward kernel, f32 and bf16, at the SSD shapes: all
-     five gradients against the plain version (autograd through the
-     sequential recurrence), each at SSD_RTOL of its own scale (bf16: one
-     ulp plus that; ddt, f32, at SSD_RTOL); each case line prints its plan;
+   - the SSD scan's backward, f32 and bf16, at the SSD shapes: all five
+     gradients against the plain version (autograd through the sequential
+     recurrence), each at SSD_RTOL of its own scale (bf16: one ulp plus
+     that; ddt, f32, at SSD_RTOL); one chunk of (32, 16, 32) takes the
+     tensor-core forms (3xTF32 in f32, bf16 mma.sync), every other shape
+     the chunked form; each case line prints its plan (form, chunk,
+     chunks, heads a block, warps, ring, copy widths);
 3. agreement phases: narrow simulations on the card against the same on
    the CPU, whose plain path the CPU tests hold against the JAX reference:
    VGG, the FL transformer, the FL Mamba-2, VGG, the transformer and the
@@ -70,7 +73,9 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
    and fc2, the mma.sync forms at fc3's N = 10), counted per CUDA kernel
    by the wrapper (``kernel.KERNEL_LAUNCHES``), and where a path's layers
    fix the forms' proportion (``FORM_SHARES``: ``vgg-bf16``'s forward, two
-   Hopper launches to one mma.sync), launch them in it.
+   Hopper launches to one mma.sync), launch them in it; the SSM paths must
+   launch the SSD backward's tensor-core form of their dtype
+   (``ssd_kernel.KERNEL_LAUNCHES``).
 
 Any failure raises, which exits non-zero before the result line. The line
 before last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
@@ -166,16 +171,23 @@ PORT_KERNELS = ("fwd_kernel", "splitk_reduce_kernel", "dx_kernel",
                 "fwd_short_kernel", "fwd_tc_kernel",
                 "dq_kernel", "dkdv_kernel", "dq_short_kernel",
                 "dkdv_short_kernel", "ssd_kernel", "ssd_chunk_scan_kernel",
-                "ssd_mma_kernel", "ssd_bwd_kernel", "ssd_bwd_sum_kernel")
+                "ssd_mma_kernel", "ssd_bwd_chunk_kernel",
+                "ssd_bwd_mma_kernel", "ssd_bwd_tf32_kernel",
+                "ssd_bwd_sum_kernel")
 # the CUDA kernels (forms) behind each fused linear wrapper, counted by
 # the wrapper per launch (kernel.KERNEL_LAUNCHES): a path that launches a
 # wrapper must launch each of its forms
 FORMS = {f"{name}{dt}": tuple(f"{kind}{form}_kernel" for form in forms)
          for name, kind in zip(NAMES, ("fwd", "dx", "dwdb"))
          for dt, forms in (("", ("",)), ("_bf16", ("_tma", "_bf16")))}
+# the SSD backward's forms (ssd_kernel.KERNEL_LAUNCHES): the SSM paths'
+# shape (one chunk of 32 steps, ds 16, p 32) takes the tensor-core forms,
+# bf16 mma.sync and 3xTF32
+FORMS.update(ssd_scan_bwd=("ssd_bwd_tf32_kernel",),
+             ssd_scan_bwd_bf16=("ssd_bwd_mma_kernel",))
 # every launch counter and every plain-version call counter of the port
 LAUNCH_COUNTS = (kernel.LAUNCHES, kernel.KERNEL_LAUNCHES, fa_kernel.LAUNCHES,
-                 ssd_kernel.LAUNCHES)
+                 ssd_kernel.LAUNCHES, ssd_kernel.KERNEL_LAUNCHES)
 CALL_COUNTS = (ref.CALLS, fa_ref.CALLS, ssd_ref.CALLS)
 # kernel vs plain version on the same card: both f32 with f32
 # accumulation, summed in different orders over K up to 4096
@@ -215,15 +227,16 @@ def device_ms(fn, reps: int = 10) -> float:
     profiles running, once; one launch in ten of the SSD kernels in every
     window after the SSD phases' long plain windows, in two runs), so
     profiles are taken until three caught a whole number of launches per
-    call (every timed callable launches the same kernels each call) or
-    three did not, ten at most. Whole ones count first, and of those only
-    the ones that caught the most: the median of their times. Where none
-    was whole, each kernel's time is its mean over the launches caught
-    times its launches per call (the median over the partial profiles),
-    and a line says so, with the last profile's launches of the kernels it
-    did not catch whole; where no profile caught any launch, the call is
-    timed by CUDA events (:func:`time_ms`: the elapsed time on the card,
-    launch gaps included), and a line says that."""
+    call of every kernel (every timed callable launches the same kernels
+    each call) or three did not, ten at most. Whole ones count first, and
+    of those only the ones that caught the most: the median of their
+    times. Where none was whole, each kernel's time is its mean over the
+    launches caught times its launches per call (the median over the
+    partial profiles), and a line says so, with the last profile's
+    launches of the kernels it did not catch whole; where no profile
+    caught any launch, the call is timed by CUDA events (:func:`time_ms`:
+    the elapsed time on the card, launch gaps included), and a line says
+    that."""
     fn()
     torch.cuda.synchronize()
     runs, partial, broken, count = [], [], {}, 0
@@ -236,7 +249,10 @@ def device_ms(fn, reps: int = 10) -> float:
         kernels = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA]
         count = sum(e.count for e in kernels)
-        if count and count % reps == 0:
+        # whole: every kernel caught a whole number of launches a call (a
+        # window that lost half of each of a call's two kernels would have
+        # a whole total and read half the time)
+        if count and all(e.count % reps == 0 for e in kernels):
             runs.append((count, sum(e.self_device_time_total
                                     for e in kernels)))
         elif count:
@@ -718,16 +734,18 @@ def ssd_bwd_phase(bf16: bool = False) -> dict:
             2 * pairs * p + 4 * chunk * ds * p))
         nbytes = size * (3 * rows * s * n * p + 4 * rows * s * ds
                          + 2 * max(slots, 1) * n) + 8 * rows * s * n
-        plan = ssd_kernel.ssd_bwd_plan(rows, s, n, p, ds,
-                                       sms=ssd_kernel._sm_count(0))
+        x, _, _, bm, cm = args
+        plan = ssd_kernel.ssd_bwd_scan_plan(x, bm, cm, dy)
         _hold(totals, "ssd_scan_bwd" + "_bf16" * bf16, label,
               lambda: ssd_kernel.ssd_scan_bwd(*args, dy),
               lambda: ssd_ref.ssd_bwd_ref(*args, dy), None, SSD_RTOL,
               _bound(ops, nbytes, PEAK_BF16_FLOPS if bf16
                      else PEAK_F32_FLOPS), label == "round",
               f"rows={rows} S={s} n={n} p={p} ds={ds} slots={slots}"
-              + " bf16" * bf16 + f" plan: segment={plan.segment} "
-              f"segments={plan.segments} cols={plan.cols}", bf16=bf16,
+              + " bf16" * bf16 + f" plan: form={plan.form} "
+              f"chunk={plan.chunk} chunks={plan.chunks} heads={plan.heads} "
+              f"warps={plan.warps} ring={plan.ring} vec_x={plan.vec_x} "
+              f"vec_bc={plan.vec_bc}", bf16=bf16,
               plain_reps=2 if s <= 32 else 1, each=True)
     return totals
 
@@ -741,9 +759,9 @@ def ssd_bwd_phase(bf16: bool = False) -> dict:
 # statistics, which divide gradient differences by a step of size lr, to
 # rtol 1e-4 as in the CPU parity tests. The SSM's params and losses to the
 # reference's SSD tolerance of 1e-4: the card runs the chunked kernel
-# forward and the backward kernel (the recurrence's adjoint, recomputed
-# segment by segment), the CPU the chunked dual form both ways, which sum
-# in different orders.
+# forward and the backward kernel (the chunked form's adjoint, its products
+# in 3xTF32), the CPU the chunked dual form both ways, which sum in
+# different orders.
 # The bf16 rounds: cuDNN's bf16 convolutions and the CPU's round to bf16
 # at different points of different sums (the token models': the card's
 # bf16 attention and SSD kernels against the CPU's plain attention and

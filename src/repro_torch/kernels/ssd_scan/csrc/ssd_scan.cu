@@ -12,11 +12,12 @@
 // below) for every shape, and for bf16 at the FL path's shape (chunk 32,
 // ds 16, p 32) the tensor-core form (ssd_mma_kernel, further down).
 //
-// The backward (ssd_bwd_kernel<T>, ssd_bwd_sum_kernel<T>, at the end) has
-// no Pallas counterpart: the reference's op takes jax.vjp through its
-// sequential oracle (src/repro/kernels/ssd_scan/ops.py:64 `_ssd_bwd`),
-// which XLA compiles into one scan. It is the adjoint of that recurrence,
-// the exact adjoint of the chunked forward.
+// The backward (ssd_bwd_chunk_kernel<T, TA>, ssd_bwd_mma_kernel,
+// ssd_bwd_sum_kernel<T>, at the end) has no Pallas counterpart: the
+// reference's op takes jax.vjp through its sequential oracle
+// (src/repro/kernels/ssd_scan/ops.py:64 `_ssd_bwd`). It is the adjoint of
+// the chunked form, computed chunk by chunk; its own note is at its
+// section.
 //
 // What bounds it on an H100: per chunk and head it does about
 // Q^2 (ds + p) + 2 Q ds p FMAs on Q (p + ds + ds + 1) inputs, a few tens of
@@ -863,12 +864,81 @@ ssd_mma_kernel(const Args<bf16> a) {
 }
 
 // ---------------------------------------------------------------------------
-// The backward: the adjoint of the recurrence (ssd_bwd_kernel), then the
-// ordered sums over heads and rows (ssd_bwd_sum_kernel)
+// The backward: the adjoint of the chunked dual form (ssd_bwd_chunk_kernel,
+// and for bf16 at the FL path's shape ssd_bwd_mma_kernel), then the ordered
+// sums over head groups and a slot's rows (ssd_bwd_sum_kernel)
 // ---------------------------------------------------------------------------
+//
+// No Pallas kernel is replaced: the reference's op takes jax.vjp through its
+// sequential oracle (src/repro/kernels/ssd_scan/ops.py:64 `_ssd_bwd`), which
+// XLA compiles into one scan. These kernels compute the same gradients as
+// the adjoint of the chunked form, chunk by chunk with matrix products.
+//
+// For one row, one head and one chunk of Q = 32 steps (local q, k), with
+// A_k = dt_k a, cum the inclusive cumsum of A (log2 units here), S = C B^T
+// (Q x Q, shared by the heads), L_qk = exp(cum_q - cum_k) for q >= k else 0,
+// W = S o L o dt_k, e_q = exp(cum_q), u_k = exp(cum_last - cum_k) dt_k, h_in
+// the state entering the chunk, G = dL/dh at its end, dY its cotangent:
+//   dX   = W^T dY + diag(u) B G
+//   dW   = dY X^T (q >= k),  M = dW o W,  dS_h = dW o L o dt_k
+//   dC   = (sum_h dS_h) B + sum_h diag(e) dY h_in^T
+//   dB   = (sum_h dS_h)^T C + sum_h diag(u) X G^T
+//   ddt_k = sum_q dW_qk S_qk L_qk + exp(cum_last - cum_k) <G, b_k x_k^T>
+//           + a dA_k
+//   dA_j = sum_{q >= j > k} M_qk + sum_{q >= j} e_q <dY_q, h_in^T c_q>
+//          + sum_{k < j} u_k <G, b_k x_k^T> + exp(cum_last) <G, h_in>
+//   da  += sum_j dt_j dA_j,  da_log = a da (summed over a slot's rows)
+//   G   <- exp(cum_last) G + C^T diag(e) dY   (the chunk before's G)
+// The states entering each chunk come from a forward sweep over chunks
+// (h_out = exp(cum_last) h_in + B^T diag(u) X), saved in f32 scratch. On
+// the FL path S = Q = 32: one chunk, h_in = 0 and G = 0, so neither the
+// sweep nor the state terms run.
+//
+// Numerics. dA's first term is summed as the straddle it is (each M_qk once,
+// for the j with k < j <= q), never as the reverse cumsum of M's row sums
+// minus its column sums, where the diagonal and most of each sum cancel.
+// Nothing is divided by a decay or by dt; only differences that are <= 0
+// are exponentiated (log2 units, exp2f). Sums over heads and over a slot's
+// rows run in a fixed order, with no float atomics: a block holds all of a
+// row's heads and sums dS over them in head order before its products,
+// writing dB and dC once; where the rows alone cannot fill the card (few
+// rows over many chunks) the plan splits heads across blocks and
+// ssd_bwd_sum_kernel sums the head groups' f32 partials in order.
+//
+// What bounds it on an H100: bytes. At the FL path's shapes (Q = 32,
+// ds = 16, p = 32, 4 heads) a row reads x, dy, b, c, dt and writes dx, db,
+// dc, ddt once (about 58 KB in f32) for about 0.8 MFLOP of products (the
+// count chip_smoke.py bounds it by): 14 operations a byte, under the
+// card's 20 for f32 FMA, 49 for 3xTF32 and 295 for bf16 tensor cores. The
+// design therefore reads every operand once, keeps every intermediate (S,
+// W, dW, dS, the straddle sums) in registers or shared memory, and runs
+// the products where they cost least:
+// - ssd_bwd_chunk_kernel<T, TA> (every shape, f32 and bf16 operands, f32
+//   arithmetic): a block per (row, head group), a warp per head. Per chunk
+//   the block stages c, b and each head's x, dy and dt (bf16 widened to f32
+//   on load) and forms S; each head's warp scans its cumsum, then lane k
+//   takes step k: column k of dW by FMA from registers (x's row k against
+//   dy's rows, broadcast float4s), then W, M, dS and the column sums of
+//   dW o S o L in one pass down the column, the straddle's suffix sums
+//   through a 32 x 33 tile, and dX's row k as W^T dY; the state terms where
+//   a chunk has them. A second phase sums dS over heads in order and forms
+//   dB and dC, updates G, and stores dX from shared memory in whole rows.
+// - ssd_bwd_mma_kernel (bf16 at S = 32, ds = 16, p = 32): a persistent grid
+//   whose blocks walk rows through a two-deep cp.async ring, a warp per
+//   head, every product on bf16 mma.sync m16n8k16: S^T = B C^T and
+//   dW^T = X dY^T exact in one product each (bf16 operands, f32
+//   accumulators), W^T dY and the dS products with their f32 operand as two
+//   bf16 parts (split_bf16x2), dS summed over heads in shared memory.
+// - ssd_bwd_tf32_kernel (f32 at the same shape): the same walk on f32
+//   tiles, one row staged at a time (a second stage halves the blocks an
+//   SM holds and lost, tools/ssd_scan_variants.py), every product in
+//   3xTF32 on mma.sync m16n8k8 (each operand split into TF32 big and small
+//   parts as it leaves shared memory, small * small dropped); it replaced
+//   the chunked form at this shape by a measured variant (PERF.md §6).
 
-constexpr int kBwdCols = 4;    // p columns per lane at most: p <= 128
-constexpr int kRedPitch = 33;  // the per-step sums' rows: conflict-free
+constexpr int kBwdQ = 32;            // the chunk: lane = step
+constexpr int kBwdMaxThreads = 256;  // a warp per head, up to 8
+constexpr int kTp = 33;              // pitch of the 32 x 32 step tiles
 
 template <typename T>
 struct BwdArgs {
@@ -882,14 +952,16 @@ struct BwdArgs {
   float* ddt;          // (B, S, n), contiguous
   T* db;               // (B, S, ds), contiguous
   T* dc;               // (B, S, ds), contiguous
-  void* da_log;        // (slots, n), contiguous, in a_log's dtype
-  float* states;       // (B, n, segments - 1, ds, p): the state entering
-                       // every segment but the first
-  float* part_bc;      // (2, B, S, n, ds): per head, dt g x and h dy
+  void* da_log;        // (groups, n), contiguous, in a_log's dtype
+  float* states;       // (B, n, chunks - 1, ds, p): the state entering
+                       // every chunk but the first
+  float* part_bc;      // (2, n / heads, B, S, ds): db and dc per head group
+                       // (only where heads < n)
   float* part_da;      // (B, n): per row and head, a dL/da
   long long sx_b, sx_s, sx_h, sdt_b, sdt_s, sb_b, sb_s, sc_b, sc_s, sdy_b,
       sdy_s, sdy_h, sa_slot;
-  int batch, seq, n, p, ds, seg, rows_per_slot, groups, a_bf16, cols;
+  int batch, seq, n, p, ds, heads, chunks, rows_per_slot, groups, a_bf16;
+  int vec_x, vec_bc;   // copy widths in bytes of x and dy, and of b and c
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -899,206 +971,1214 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The adjoint of h_t = h_{t-1} exp(dt_t a) + dt_t b_t x_t^T, y_t = h_t^T c_t
-// for one (row, head): a one-warp block, lane j owning p columns j,
-// j + 32, ... (a.cols of them). Every state, decay and sum in f32.
-// Each segment of a.seg steps has its b, c, x, dy and dt staged into
-// shared memory first, so the serial walk reads no device memory. A
-// forward sweep saves the state entering each segment but the first
-// (global scratch; never rebuilt by dividing by a decay, which can be near
-// 0). The reverse walk then recomputes each segment's states h_{t-1} into
-// shared memory (the lane's own columns: no barrier) and steps back
-// through it with g_t = dL/dh_t = c_t dy_t^T + exp(dt_{t+1} a)
-// g_{t+1}:
-//   dx_t = dt_t g_t^T b_t                         (per lane),
-//   db_t = dt_t g_t x_t, dc_t = h_t dy_t          (per head: summed over p
-//                                                  through shared memory),
-//   ddt_t = <g_t, b_t x_t^T> + a exp(dt_t a) <g_t, h_{t-1}>,
-//   dL/da += dt_t exp(dt_t a) <g_t, h_{t-1}>     (warp sums).
-// Per-head db and dc and per-row a dL/da go to f32 partials, which
-// ssd_bwd_sum_kernel sums in order: no float atomics.
-template <typename T>
-__global__ void __launch_bounds__(32) ssd_bwd_kernel(const BwdArgs<T> a) {
-  extern __shared__ __align__(16) float smem[];
-  const int row = blockIdx.x, h = blockIdx.y, lane = threadIdx.x;
-  const int S = a.seq, P = a.p, DS = a.ds, L = a.seg, NC = a.cols;
-  const int PP = 32 * NC, hsz = DS * PP;
-  float* g = smem;                       // dL/dh_t (DS rows of PP)
-  float* hs = g + hsz;                   // h_{t-1} of the segment's steps
-  float* red = hs + L * hsz;             // the step's db and dc lanes
-  float* bsg = red + 2 * DS * kRedPitch;   // the segment's b, c (L x DS),
-  float* csg = bsg + L * DS;               // x and dy (L x PP, the lane's
-  float* xsg = csg + L * DS;               // columns) and dt (L)
-  float* dysg = xsg + L * PP;
-  float* dsg = dysg + L * PP;
-  const T* x = a.x + row * a.sx_b + h * a.sx_h;
-  const float* dt = a.dt + row * a.sdt_b + h;
-  const T* bg = a.b + row * a.sb_b;
-  const T* cg = a.c + row * a.sc_b;
-  const T* dy = a.dy + row * a.sdy_b + h * a.sdy_h;
-  const float rate = -expf(
-      load_f32(a.a_log, (row / a.rows_per_slot) * a.sa_slot + h, a.a_bf16));
-  const int nseg = (S + L - 1) / L;
-  float* st = nseg > 1 ? a.states + (static_cast<long long>(row) * a.n + h) *
-                                        (nseg - 1) * DS * P
-                       : nullptr;
-  // steps [t0, t1) into shared memory, every lane's loads in flight at
-  // once (the serial walk below then reads no device memory); with
-  // `back`, c and dy too
-  auto stage = [&](int t0, int t1, bool back) {
-    __syncwarp();   // the previous segment's readers are done
-    for (int e = lane; e < (t1 - t0) * DS; e += 32) {
-      const int i = e / DS, s = e - i * DS;
-      bsg[e] = to_f32(bg[(t0 + i) * a.sb_s + s]);
-      if (back) csg[e] = to_f32(cg[(t0 + i) * a.sc_s + s]);
-    }
-    for (int i = 0; i < t1 - t0; ++i)
-      for (int j = 0; j < NC; ++j) {
-        const int col = lane + 32 * j;
-        const bool in = col < P;
-        xsg[i * PP + col] = in ? to_f32(x[(t0 + i) * a.sx_s + col]) : 0.f;
-        if (back)
-          dysg[i * PP + col] = in ? to_f32(dy[(t0 + i) * a.sdy_s + col]) : 0.f;
-      }
-    for (int i = lane; i < t1 - t0; i += 32) dsg[i] = dt[(t0 + i) * a.sdt_s];
-    __syncwarp();
-  };
-  // h_{t+1} = h_t exp(dt a) + dt b x^T for the lane's columns, step i of
-  // the staged segment (in place where hn == hp)
-  auto step = [&](const float* hp, float* hn, int i) {
-    const float d = dsg[i], e = expf(d * rate);
-    for (int j = 0; j < NC; ++j) {
-      const int col = lane + 32 * j;
-      const float xv = xsg[i * PP + col];
-      for (int s = 0; s < DS; ++s)
-        hn[s * PP + col] = hp[s * PP + col] * e + d * bsg[i * DS + s] * xv;
-    }
-  };
+inline __host__ __device__ int round8(int v) { return (v + 7) & ~7; }
 
-  // forward sweep: the state entering each segment but the first
-  for (int e = lane; e < hsz; e += 32) g[e] = 0.f;
-  for (int k = 0; k + 1 < nseg; ++k) {
-    stage(k * L, (k + 1) * L, false);
-    for (int i = 0; i < L; ++i) step(g, g, i);
-    float* out = st + static_cast<long long>(k) * DS * P;
-    for (int s = 0; s < DS; ++s)
-      for (int col = lane; col < P; col += 32)
-        out[s * P + col] = g[s * PP + col];
-  }
+// Shared memory of ssd_bwd_chunk_kernel, in floats. Rows of c, b and the
+// state products are DSP = ds rounded up to 8, plus 4 (4 mod 8: lane k's
+// float4 reads of row k are conflict-free), rows of x and dy PP = p rounded
+// up to 4, or-ed with 4. Once per block: c, b (Q rows each), S (S[q][k],
+// pitch kTp). Per head: x (dX once x is read), dy, the step tile (the
+// straddle's suffix sums, then dS_h[q][k]), and dt, cum (log2 units), u,
+// e. Where a row has several chunks, per head: the state entering the chunk
+// and G (DSR = ds rounded up to 4 rows of PP), X G^T scaled by u and
+// dY h_in^T scaled by e (Q rows of DSP); and each head's exp(cum_last).
+struct BwdLayout {
+  int pp, dsp, dsr, cs, bs, sc, xs, dys, tile, dts, cum, us, es, hs, gs,
+      pb, pc, dec, total;
+};
 
-  // reverse walk
-  for (int e = lane; e < hsz; e += 32) g[e] = 0.f;
-  float e_next = 0.f, da = 0.f;
-  for (int k = nseg - 1; k >= 0; --k) {
-    const int t0 = k * L, t1 = min(S, t0 + L);
-    stage(t0, t1, true);
-    for (int s = 0; s < DS; ++s)
-      for (int j = 0; j < NC; ++j) {
-        const int col = lane + 32 * j;
-        hs[s * PP + col] =
-            k > 0 && col < P
-                ? st[static_cast<long long>(k - 1) * DS * P + s * P + col]
-                : 0.f;
-      }
-    for (int i = 0; i + 1 < t1 - t0; ++i)
-      step(hs + i * hsz, hs + (i + 1) * hsz, i);
-    for (int i = t1 - t0 - 1; i >= 0; --i) {
-      const int t = t0 + i;
-      const float d = dsg[i], e = expf(d * rate);
-      const float* hp = hs + i * hsz;
-      const float* bv = bsg + i * DS;
-      const float* cv = csg + i * DS;
-      float xv[kBwdCols], dyv[kBwdCols], dxa[kBwdCols];
-#pragma unroll
-      for (int j = 0; j < kBwdCols; ++j) {
-        xv[j] = j < NC ? xsg[i * PP + lane + 32 * j] : 0.f;
-        dyv[j] = j < NC ? dysg[i * PP + lane + 32 * j] : 0.f;
-        dxa[j] = 0.f;
-      }
-      float s2 = 0.f;   // <g_t, h_{t-1}>, this lane's columns
-      for (int s = 0; s < DS; ++s) {
-        float pdb = 0.f, pdc = 0.f;
-#pragma unroll
-        for (int j = 0; j < kBwdCols; ++j) {
-          if (j < NC) {
-            const int q = s * PP + lane + 32 * j;
-            const float hprev = hp[q];
-            const float ht = hprev * e + d * bv[s] * xv[j];
-            const float gv = g[q] * e_next + cv[s] * dyv[j];
-            g[q] = gv;
-            pdc += ht * dyv[j];
-            pdb += gv * xv[j];
-            dxa[j] += bv[s] * gv;
-            s2 += gv * hprev;
-          }
-        }
-        red[s * kRedPitch + lane] = pdb;
-        red[(DS + s) * kRedPitch + lane] = pdc;
-      }
-      float s1 = 0.f;   // <g_t, b_t x_t^T>, this lane's columns
-#pragma unroll
-      for (int j = 0; j < kBwdCols; ++j) {
-        const int col = lane + 32 * j;
-        if (j < NC && col < P)
-          a.dx[((static_cast<long long>(row) * S + t) * a.n + h) * P + col] =
-              from_f32<T>(d * dxa[j]);
-        s1 += xv[j] * dxa[j];
-      }
-      s1 = warp_sum(s1);
-      s2 = warp_sum(s2);
-      __syncwarp();
-      const long long rth = (static_cast<long long>(row) * S + t) * a.n + h;
-      float* pb = a.part_bc + rth * DS;
-      float* pc = pb + static_cast<long long>(a.batch) * S * a.n * DS;
-      for (int r = lane; r < 2 * DS; r += 32) {
-        float acc = 0.f;
-        for (int q = 0; q < 32; ++q) acc += red[r * kRedPitch + q];
-        if (r < DS)
-          pb[r] = d * acc;
-        else
-          pc[r - DS] = acc;
-      }
-      __syncwarp();
-      if (lane == 0) a.ddt[rth] = s1 + rate * e * s2;
-      da += d * e * s2;
-      e_next = e;
-    }
-  }
-  if (lane == 0) a.part_da[static_cast<long long>(row) * a.n + h] = rate * da;
+inline __host__ __device__ BwdLayout bwd_layout(int p, int ds, int heads,
+                                                bool state) {
+  constexpr int Q = kBwdQ;
+  BwdLayout l;
+  l.pp = round4(p) | 4;
+  l.dsp = round8(ds) | 4;
+  l.dsr = round4(ds);
+  l.cs = 0;
+  l.bs = l.cs + Q * l.dsp;
+  l.sc = l.bs + Q * l.dsp;
+  l.xs = l.sc + Q * kTp;
+  l.dys = l.xs + heads * Q * l.pp;
+  l.tile = l.dys + heads * Q * l.pp;
+  l.dts = l.tile + heads * Q * kTp;
+  l.cum = l.dts + heads * Q;
+  l.us = l.cum + heads * Q;
+  l.es = l.us + heads * Q;
+  l.hs = l.es + heads * Q;
+  const int sz = state ? heads * l.dsr * l.pp : 0;
+  l.gs = l.hs + sz;
+  l.pb = l.gs + sz;
+  l.pc = l.pb + (state ? heads * Q * l.dsp : 0);
+  l.dec = l.pc + (state ? heads * Q * l.dsp : 0);
+  l.total = round4(l.dec + heads);
+  return l;
 }
 
-// db and dc: the per-head partials summed over heads in order, rounded once
-// to T; da_log: a dL/da summed over a slot's rows in order, in a_log's dtype
+// rows [rows, Q) of a staged tile set to zero (a ragged last chunk)
+__device__ __forceinline__ void zero_rows(float* dst, int pitch, int rows) {
+  for (int e = threadIdx.x; e < (kBwdQ - rows) * pitch; e += blockDim.x)
+    dst[rows * pitch + e] = 0.f;
+}
+
+// dst[r][0, cols) = src rows (pitch `pitch`) in T, by the whole block,
+// four elements at a time where the rows allow it
 template <typename T>
-__global__ void ssd_bwd_sum_kernel(const BwdArgs<T> a) {
-  const long long nbc = static_cast<long long>(a.batch) * a.seq * a.ds;
-  const long long half = nbc * a.n;
-  const long long total = nbc + static_cast<long long>(a.groups) * a.n;
-  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       e < total; e += static_cast<long long>(gridDim.x) * blockDim.x) {
-    if (e < nbc) {
-      const long long rt = e / a.ds;
-      const float* pb = a.part_bc + rt * a.n * a.ds + (e - rt * a.ds);
+__device__ __forceinline__ void store_rows(T* dst, long long ld,
+                                           const float* src, int pitch,
+                                           int rows, int cols) {
+  if (cols % 4 == 0) {
+    const int per = cols >> 2;
+    for (int e = threadIdx.x; e < rows * per; e += blockDim.x) {
+      const int r = e / per, c = (e - r * per) << 2;
+      const float4 v = *reinterpret_cast<const float4*>(src + r * pitch + c);
+      T* d = dst + r * ld + c;
+      if constexpr (std::is_same<T, float>::value) {
+        *reinterpret_cast<float4*>(d) = v;
+      } else {
+        uint2 u;
+        u.x = bf16x2_rn(v.x, v.y);
+        u.y = bf16x2_rn(v.z, v.w);
+        *reinterpret_cast<uint2*>(d) = u;
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
+      const int r = e / cols, c = e - r * cols;
+      dst[r * ld + c] = from_f32<T>(src[r * pitch + c]);
+    }
+  }
+}
+
+// acc[0, 8) to out[0, min(8, n)): one 32-byte (f32) or 16-byte (bf16)
+// store where all 8 are in and `vec` says the row allows it
+template <typename T>
+__device__ __forceinline__ void store8(T* out, const float (&acc)[8], int n,
+                                       bool vec) {
+  if (vec && n >= 8) {
+    if constexpr (std::is_same<T, float>::value) {
+      reinterpret_cast<float4*>(out)[0] =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
+      reinterpret_cast<float4*>(out)[1] =
+          make_float4(acc[4], acc[5], acc[6], acc[7]);
+    } else {
+      uint4 u;
+      u.x = bf16x2_rn(acc[0], acc[1]);
+      u.y = bf16x2_rn(acc[2], acc[3]);
+      u.z = bf16x2_rn(acc[4], acc[5]);
+      u.w = bf16x2_rn(acc[6], acc[7]);
+      *reinterpret_cast<uint4*>(out) = u;
+    }
+  } else {
+    for (int i = 0; i < 8 && i < n; ++i) out[i] = from_f32<T>(acc[i]);
+  }
+}
+
+// acc[0, 32) += sum over the chunk's steps q of w_q c[q][s0 + i] x_q, lane
+// owning column `col` of x (a state tile: 32 state rows, one column)
+__device__ __forceinline__ void state_tile(float (&acc)[kTile],
+                                           const float* rows, int rpitch,
+                                           int s0, int DS, const float* xcol,
+                                           int xpitch, const float* w) {
+  for (int q = 0; q < kBwdQ; ++q) {
+    const float xw = xcol[q * xpitch] * w[q];
+    const float* r = rows + q * rpitch + s0;
+#pragma unroll
+    for (int i = 0; i < kTile; i += 4)
+      if (s0 + i < DS) {
+        const float4 v = *reinterpret_cast<const float4*>(r + i);
+        acc[i] = fmaf(v.x, xw, acc[i]);
+        acc[i + 1] = fmaf(v.y, xw, acc[i + 1]);
+        acc[i + 2] = fmaf(v.z, xw, acc[i + 2]);
+        acc[i + 3] = fmaf(v.w, xw, acc[i + 3]);
+      }
+  }
+}
+
+// T: x, b, c, dy and their gradients; TA: a_log (float or bf16)
+template <typename T, typename TA>
+__global__ void __launch_bounds__(kBwdMaxThreads, 2)
+ssd_bwd_chunk_kernel(const BwdArgs<T> a) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int Q = kBwdQ;
+  const int P = a.p, DS = a.ds, H = a.heads, chunks = a.chunks;
+  const bool state = chunks > 1;
+  const BwdLayout L = bwd_layout(P, DS, H, state);
+  const int PP = L.pp, DSP = L.dsp;
+  float* cs = smem + L.cs;
+  float* bs = smem + L.bs;
+  float* sc = smem + L.sc;
+  const int row = blockIdx.x, h0 = blockIdx.y * H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const T* xg = a.x + row * a.sx_b;
+  const float* dtg = a.dt + row * a.sdt_b;
+  const T* bg = a.b + row * a.sb_b;
+  const T* cg = a.c + row * a.sc_b;
+  const T* dyg = a.dy + row * a.sdy_b;
+  const long long hsz = static_cast<long long>(DS) * P;
+  // head hh's state entering chunk ci (ci >= 1) in the scratch
+  auto state_at = [&](int hh, int ci) {
+    return a.states + ((static_cast<long long>(row) * a.n + h0 + hh) *
+                           (chunks - 1) + ci - 1) * hsz;
+  };
+  // warp hh < H takes head h0 + hh in the per-head phases
+  const bool head_warp = warp < H;
+  const int hh = warp;
+  const float rate =
+      head_warp ? -expf(to_f32(static_cast<const TA*>(a.a_log)[
+                      (row / a.rows_per_slot) * a.sa_slot + h0 + hh]))
+                : 0.f;
+
+  for (int e = 4 * threadIdx.x; e < L.total; e += 4 * blockDim.x)
+    *reinterpret_cast<float4*>(smem + e) = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+
+  // stage chunk ci: b, x and dt, and with `back` c, dy and the entering
+  // states; rows past a ragged chunk's end are zero
+  auto stage = [&](int ci, bool back) {
+    const int c0 = ci * Q, qv = min(Q, a.seq - c0);
+    stage_rows(bs, DSP, bg + c0 * a.sb_s, a.sb_s, qv, DS, a.vec_bc);
+    if (back) stage_rows(cs, DSP, cg + c0 * a.sc_s, a.sc_s, qv, DS, a.vec_bc);
+    for (int h = 0; h < H; ++h) {
+      stage_rows(smem + L.xs + h * Q * PP, PP,
+                 xg + c0 * a.sx_s + (h0 + h) * a.sx_h, a.sx_s, qv, P,
+                 a.vec_x);
+      if (back)
+        stage_rows(smem + L.dys + h * Q * PP, PP,
+                   dyg + c0 * a.sdy_s + (h0 + h) * a.sdy_h, a.sdy_s, qv, P,
+                   a.vec_x);
+      if (back && ci > 0)
+        stage_rows(smem + L.hs + h * L.dsr * PP, PP, state_at(h, ci), P, DS,
+                   P, P % 4 ? 4 : 16);
+    }
+    for (int e = threadIdx.x; e < H * Q; e += blockDim.x) {
+      const int h = e / Q, t = e - h * Q;
+      if (t < qv)
+        cp_async4(smem + L.dts + e, dtg + (c0 + t) * a.sdt_s + h0 + h);
+      else
+        smem[L.dts + e] = 0.f;
+    }
+    if (qv < Q) {
+      zero_rows(bs, DSP, qv);
+      if (back) zero_rows(cs, DSP, qv);
+      for (int h = 0; h < H; ++h) {
+        zero_rows(smem + L.xs + h * Q * PP, PP, qv);
+        if (back) zero_rows(smem + L.dys + h * Q * PP, PP, qv);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  };
+  // each head's cumsum (log2 units), u and exp(cum_last); returns cum_last
+  auto scan = [&]() {
+    float last = 0.f;
+    if (head_warp) {
+      last = warp_scan(smem + L.dts + hh * Q, smem + L.cum + hh * Q,
+                       smem + L.us + hh * Q, rate, Q);
+      if (lane == 0) smem[L.dec + hh] = exp2f(last);
+    }
+    return last;
+  };
+
+  // forward sweep: the state entering each chunk but the first, h = h
+  // exp(cum_last) + B^T diag(u) X, in shared memory and to the scratch
+  const int pt = (P + kTile - 1) / kTile, st = (DS + kTile - 1) / kTile;
+  for (int ci = 0; ci + 1 < chunks; ++ci) {
+    __syncthreads();   // the previous chunk's readers are done
+    stage(ci, false);
+    scan();
+    __syncthreads();
+    for (int task = warp; task < H * st * pt; task += warps) {
+      const int h = task / (st * pt), s0 = task / pt % st * kTile;
+      const int p = task % pt * kTile + lane, pc = min(p, PP - 1);
+      float acc[kTile] = {};
+      state_tile(acc, bs, DSP, s0, DS, smem + L.xs + h * Q * PP + pc, PP,
+                 smem + L.us + h * Q);
+      if (p >= P) continue;
+      const float decay = smem[L.dec + h];
+      float* hcol = smem + L.hs + h * L.dsr * PP + p;
+      float* out = state_at(h, ci + 1) + p;
+#pragma unroll
+      for (int i = 0; i < kTile; ++i)
+        if (s0 + i < DS) {
+          const float v = hcol[(s0 + i) * PP] * decay + acc[i];
+          hcol[(s0 + i) * PP] = v;
+          out[(s0 + i) * P] = v;
+        }
+    }
+  }
+
+  // the reverse walk over chunks
+  const int hgroups = a.n / H;
+  float da = 0.f;
+  for (int ci = chunks - 1; ci >= 0; --ci) {
+    const int c0 = ci * Q, qv = min(Q, a.seq - c0);
+    const bool has_g = ci + 1 < chunks, has_h = ci > 0;
+    __syncthreads();
+    stage(ci, true);
+    // S[q][k] = c_q . b_k
+    for (int e = threadIdx.x; e < Q * Q; e += blockDim.x) {
+      const int q = e >> 5, k = e & 31;
+      float acc = 0.f;
+      for (int s = 0; s < DS; s += 4) {
+        const float4 cv = *reinterpret_cast<const float4*>(cs + q * DSP + s);
+        const float4 bv = *reinterpret_cast<const float4*>(bs + k * DSP + s);
+        acc = fmaf(cv.x, bv.x, acc);
+        acc = fmaf(cv.y, bv.y, acc);
+        acc = fmaf(cv.z, bv.z, acc);
+        acc = fmaf(cv.w, bv.w, acc);
+      }
+      sc[q * kTp + k] = acc;
+    }
+    const float last = scan();
+    __syncthreads();
+
+    // per head, lane = step: R (the straddle), ddt's first term, v_k =
+    // <G, b_k x_k^T> and r_q = e_q <dY_q, h_in^T c_q>, hg = <G, h_in>
+    float R = 0.f, ddt1 = 0.f, v = 0.f, r = 0.f, hg = 0.f;
+    if (head_warp) {
+      float* xh = smem + L.xs + hh * Q * PP;
+      const float* dyh = smem + L.dys + hh * Q * PP;
+      float* tl = smem + L.tile + hh * Q * kTp;
+      const float* cum = smem + L.cum + hh * Q;
+      const int k = lane;
+      const float cumk = cum[k], dtk = smem[L.dts + hh * Q + k];
+      const float uk = smem[L.us + hh * Q + k];
+      smem[L.es + hh * Q + k] = exp2f(cumk);
+      // column k of dW = dY X^T
+      float acc[Q], w[Q];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) acc[q] = 0.f;
+      for (int p4 = 0; p4 < P; p4 += 4) {
+        const float4 xv = *reinterpret_cast<const float4*>(xh + k * PP + p4);
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          const float4 d = *reinterpret_cast<const float4*>(dyh + q * PP + p4);
+          acc[q] = fmaf(d.x, xv.x, acc[q]);
+          acc[q] = fmaf(d.y, xv.y, acc[q]);
+          acc[q] = fmaf(d.z, xv.z, acc[q]);
+          acc[q] = fmaf(d.w, xv.w, acc[q]);
+        }
+      }
+      // down the column, last step first: W, the column sum of dW o S o L,
+      // M's suffix sums (tile[k][q] = sum_{q' >= q} M[q'][k]), dS_h
+      float tsum = 0.f;
+#pragma unroll
+      for (int q = Q - 1; q >= 0; --q) {
+        const float l = q >= k ? exp2f(cum[q] - cumk) : 0.f;
+        const float sl = sc[q * kTp + k] * l;
+        const float dw = acc[q];
+        w[q] = sl * dtk;
+        const float dm = dw * sl;
+        ddt1 += dm;
+        tsum = fmaf(dm, dtk, tsum);
+        tl[k * kTp + q] = tsum;
+        acc[q] = dw * l * dtk;
+      }
+      __syncwarp();
+      // R_j = sum_{k < j} sum_{q >= j} M[q][k], lane j
+      for (int kk = 0; kk < Q; ++kk)
+        if (kk < lane) R += tl[kk * kTp + lane];
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < Q; ++q) tl[q * kTp + k] = acc[q];   // dS_h[q][k]
+      const float* gh = smem + L.gs + hh * L.dsr * PP;
+      const float* hin = smem + L.hs + hh * L.dsr * PP;
+      if (has_g) {
+        // row k of X G^T: v_k, and u_k X G^T for dB
+        float* pbh = smem + L.pb + hh * Q * DSP;
+        for (int s4 = 0; s4 < DS; s4 += 4) {
+          float o[4] = {};
+          for (int p4 = 0; p4 < P; p4 += 4) {
+            const float4 xv =
+                *reinterpret_cast<const float4*>(xh + k * PP + p4);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float4 g =
+                  *reinterpret_cast<const float4*>(gh + (s4 + i) * PP + p4);
+              o[i] = fmaf(xv.x, g.x, o[i]);
+              o[i] = fmaf(xv.y, g.y, o[i]);
+              o[i] = fmaf(xv.z, g.z, o[i]);
+              o[i] = fmaf(xv.w, g.w, o[i]);
+            }
+          }
+          const float4 bv =
+              *reinterpret_cast<const float4*>(bs + k * DSP + s4);
+          v = fmaf(bv.x, o[0], v);
+          v = fmaf(bv.y, o[1], v);
+          v = fmaf(bv.z, o[2], v);
+          v = fmaf(bv.w, o[3], v);
+          *reinterpret_cast<float4*>(pbh + k * DSP + s4) =
+              make_float4(uk * o[0], uk * o[1], uk * o[2], uk * o[3]);
+        }
+      }
+      if (has_h) {
+        // row q = lane of dY h_in^T: r_q, and e_q dY h_in^T for dC
+        const float eq = exp2f(cumk);
+        float* pch = smem + L.pc + hh * Q * DSP;
+        for (int s4 = 0; s4 < DS; s4 += 4) {
+          float o[4] = {};
+          for (int p4 = 0; p4 < P; p4 += 4) {
+            const float4 dv =
+                *reinterpret_cast<const float4*>(dyh + k * PP + p4);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float4 hv =
+                  *reinterpret_cast<const float4*>(hin + (s4 + i) * PP + p4);
+              o[i] = fmaf(dv.x, hv.x, o[i]);
+              o[i] = fmaf(dv.y, hv.y, o[i]);
+              o[i] = fmaf(dv.z, hv.z, o[i]);
+              o[i] = fmaf(dv.w, hv.w, o[i]);
+            }
+          }
+          const float4 cv =
+              *reinterpret_cast<const float4*>(cs + k * DSP + s4);
+          r = fmaf(cv.x, o[0], r);
+          r = fmaf(cv.y, o[1], r);
+          r = fmaf(cv.z, o[2], r);
+          r = fmaf(cv.w, o[3], r);
+          *reinterpret_cast<float4*>(pch + k * DSP + s4) =
+              make_float4(eq * o[0], eq * o[1], eq * o[2], eq * o[3]);
+        }
+        r *= eq;
+        if (has_g) {
+          for (int s = 0; s < DS; ++s)
+            for (int p = lane; p < P; p += 32)
+              hg = fmaf(gh[s * PP + p], hin[s * PP + p], hg);
+          hg = warp_sum(hg);
+        }
+      }
+      // row k of dX = W^T dY + u_k B G, over x's row k (read only by lane k)
+      for (int p4 = 0; p4 < P; p4 += 4) {
+        float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          const float4 d = *reinterpret_cast<const float4*>(dyh + q * PP + p4);
+          o.x = fmaf(w[q], d.x, o.x);
+          o.y = fmaf(w[q], d.y, o.y);
+          o.z = fmaf(w[q], d.z, o.z);
+          o.w = fmaf(w[q], d.w, o.w);
+        }
+        if (has_g) {
+          float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+          for (int s4 = 0; s4 < DS; s4 += 4) {
+            const float4 bv =
+                *reinterpret_cast<const float4*>(bs + k * DSP + s4);
+            const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float4 g =
+                  *reinterpret_cast<const float4*>(gh + (s4 + i) * PP + p4);
+              t.x = fmaf(bb[i], g.x, t.x);
+              t.y = fmaf(bb[i], g.y, t.y);
+              t.z = fmaf(bb[i], g.z, t.z);
+              t.w = fmaf(bb[i], g.w, t.w);
+            }
+          }
+          o.x = fmaf(uk, t.x, o.x);
+          o.y = fmaf(uk, t.y, o.y);
+          o.z = fmaf(uk, t.z, o.z);
+          o.w = fmaf(uk, t.w, o.w);
+        }
+        *reinterpret_cast<float4*>(xh + k * PP + p4) = o;
+      }
+    }
+    __syncthreads();
+
+    if (head_warp) {
+      // dA_j = R_j + sum_{q >= j} r_q + sum_{k < j} u_k v_k
+      //        + exp(cum_last) <G, h_in>; then ddt and da
+      float rs = r, uv = smem[L.us + hh * Q + lane] * v;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float dn = __shfl_down_sync(0xffffffffu, rs, off);
+        const float up = __shfl_up_sync(0xffffffffu, uv, off);
+        if (lane + off < 32) rs += dn;
+        if (lane >= off) uv += up;
+      }
+      float before = __shfl_up_sync(0xffffffffu, uv, 1);
+      if (lane == 0) before = 0.f;
+      const float dA = R + rs + before + exp2f(last) * hg;
+      const float cj = smem[L.cum + hh * Q + lane];
+      if (lane < qv)
+        a.ddt[(static_cast<long long>(row) * a.seq + c0 + lane) * a.n + h0 +
+              hh] = ddt1 + exp2f(last - cj) * v + rate * dA;
+      da += warp_sum(smem[L.dts + hh * Q + lane] * dA);
+    }
+    // dX rows out; dS summed over the block's heads in order, in S's place
+    for (int h = 0; h < H; ++h)
+      store_rows(a.dx + ((static_cast<long long>(row) * a.seq + c0) * a.n +
+                         h0 + h) * P,
+                 static_cast<long long>(a.n) * P, smem + L.xs + h * Q * PP,
+                 PP, qv, P);
+    for (int e = threadIdx.x; e < Q * kTp; e += blockDim.x) {
+      float d = smem[L.tile + e];
+      for (int h = 1; h < H; ++h) d += smem[L.tile + h * Q * kTp + e];
+      sc[e] = d;
+    }
+    __syncthreads();
+    // dC[q] = sum_k dS[q][k] b_k + e_q dY h_in^T, dB[k] = sum_q dS[q][k] c_q
+    // + u_k X G^T, the state terms summed over the block's heads in order
+    const int nsc = (DS + 7) / 8;
+    for (int task = threadIdx.x; task < 2 * Q * nsc; task += blockDim.x) {
+      const int rq = task & 31, s0 = (task >> 5) % nsc * 8;
+      const bool is_dc = task < Q * nsc;
+      if (rq >= qv) continue;
+      float acc[8] = {};
+#pragma unroll 4
+      for (int j = 0; j < Q; ++j) {
+        const float d = is_dc ? sc[rq * kTp + j] : sc[j * kTp + rq];
+        const float* o = (is_dc ? bs : cs) + j * DSP + s0;
+        const float4 v0 = *reinterpret_cast<const float4*>(o);
+        const float4 v1 = *reinterpret_cast<const float4*>(o + 4);
+        acc[0] = fmaf(d, v0.x, acc[0]);
+        acc[1] = fmaf(d, v0.y, acc[1]);
+        acc[2] = fmaf(d, v0.z, acc[2]);
+        acc[3] = fmaf(d, v0.w, acc[3]);
+        acc[4] = fmaf(d, v1.x, acc[4]);
+        acc[5] = fmaf(d, v1.y, acc[5]);
+        acc[6] = fmaf(d, v1.z, acc[6]);
+        acc[7] = fmaf(d, v1.w, acc[7]);
+      }
+      if (is_dc ? has_h : has_g)
+        for (int h = 0; h < H; ++h) {
+          const float* o = smem + (is_dc ? L.pc : L.pb) + h * Q * DSP +
+                           rq * DSP + s0;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[i] += o[i];
+        }
+      const long long at =
+          (static_cast<long long>(row) * a.seq + c0 + rq) * DS + s0;
+      if (hgroups == 1)
+        store8((is_dc ? a.dc : a.db) + at, acc, DS - s0, DS % 8 == 0);
+      else
+        store8(a.part_bc + ((is_dc ? hgroups : 0) + blockIdx.y) *
+                               (static_cast<long long>(a.batch) * a.seq *
+                                DS) + at,
+               acc, DS - s0, DS % 8 == 0);
+    }
+    // the chunk before's G = exp(cum_last) G + C^T diag(e) dY: state tiles,
+    // lane = column
+    if (has_h)
+      for (int task = warp; task < H * st * pt; task += warps) {
+        const int h = task / (st * pt), s0 = task / pt % st * kTile;
+        const int p = task % pt * kTile + lane, pc = min(p, PP - 1);
+        float acc[kTile] = {};
+        state_tile(acc, cs, DSP, s0, DS, smem + L.dys + h * Q * PP + pc, PP,
+                   smem + L.es + h * Q);
+        if (p >= P) continue;
+        const float decay = smem[L.dec + h];
+        float* gcol = smem + L.gs + h * L.dsr * PP + p;
+#pragma unroll
+        for (int i = 0; i < kTile; ++i)
+          if (s0 + i < DS)
+            gcol[(s0 + i) * PP] = (has_g ? gcol[(s0 + i) * PP] * decay : 0.f) +
+                                  acc[i];
+      }
+  }
+  if (head_warp && lane == 0)
+    a.part_da[static_cast<long long>(row) * a.n + h0 + hh] = rate * da;
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 tensor-core form of the backward (ssd_bwd_mma_kernel): S = 32,
+// ds = 16, p = 32, one chunk
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdRing = 2;   // cp.async stages: rows in flight a block
+constexpr int kDsPitch = 36;  // f32 rows of a head's dS^T tile
+
+// bytes of one ring stage: c and b, then per head its x and dy (bf16),
+// then dt (Q rows of n floats). A head's x and dy, once read into
+// fragments, hold its f32 step tiles (M, then dS^T) and its bf16 dX.
+__host__ __device__ inline int bwd_mma_stage_bytes(int heads) {
+  return 2 * (2 * kMmaQ * kBcPitch + 2 * heads * kMmaQ * kXPitch) +
+         4 * kMmaQ * heads;
+}
+
+// Per row, warp hh = head hh:
+// - the cumsum of dt * rate as a warp scan (lane = step, log2 units);
+// - S^T = B C^T and dW^T = X dY^T on mma.sync (rows k, columns q; the
+//   tiles below the diagonal, q < k, skipped), exact bf16 products;
+// - in their accumulators: W^T = S^T exp2(cum_q - cum_k) dt_k, split into
+//   bf16 big and small parts as the A fragments of dX = W^T dY; dS^T =
+//   dW^T exp2(cum_q - cum_k) dt_k; M = dW^T o W^T to the step tile for the
+//   straddle sums; the row sums of dW^T o S^T o L (ddt's first term);
+// - dX rounded once to bf16 through its x and dy area, stored in whole
+//   64-byte rows; ddt and the row's a dL/da partial;
+// - dS^T (f32) to its step tile; after a block barrier four warp tasks sum
+//   the heads' tiles in order, split the sum in two and form dB = dS^T C
+//   and dC = dS B on mma.sync, rounded once to bf16.
+__global__ void __launch_bounds__(32 * kMmaMaxHeads)
+ssd_bwd_mma_kernel(const BwdArgs<bf16> a) {
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  constexpr int Q = kMmaQ, P = kMmaP, DS = kMmaDs, RING = kBwdRing;
+  const int H = a.n;
+  const int hh = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int stage = bwd_mma_stage_bytes(H);
+  const int items = (a.batch - static_cast<int>(blockIdx.x) +
+                     static_cast<int>(gridDim.x) - 1) /
+                    static_cast<int>(gridDim.x);
+  auto item_row = [&](int k) {
+    return static_cast<int>(blockIdx.x) + k * static_cast<int>(gridDim.x);
+  };
+  auto head_area = [&](int slot, int h) {   // x, then dy, of head h
+    return reinterpret_cast<bf16*>(smem_b + slot * stage) +
+           2 * Q * kBcPitch + 2 * h * Q * kXPitch;
+  };
+
+  // stage row item k: c, b, x and dy by 16-byte copies, dt by 4
+  auto stage_item = [&](int k) {
+    if (k < items) {
+      const int row = item_row(k);
+      bf16* cs = reinterpret_cast<bf16*>(smem_b + (k % RING) * stage);
+      bf16* bs = cs + Q * kBcPitch;
+      float* dts = reinterpret_cast<float*>(head_area(k % RING, H));
+      const bf16* cg = a.c + row * a.sc_b;
+      const bf16* bg = a.b + row * a.sb_b;
+      for (int e = threadIdx.x; e < 2 * Q; e += blockDim.x) {
+        const int r = e >> 1, part = (e & 1) * 8;
+        cp_async16_b(cs + r * kBcPitch + part, cg + r * a.sc_s + part);
+        cp_async16_b(bs + r * kBcPitch + part, bg + r * a.sb_s + part);
+      }
+      const bf16* xg = a.x + row * a.sx_b;
+      const bf16* dyg = a.dy + row * a.sdy_b;
+      for (int e = threadIdx.x; e < H * Q * 4; e += blockDim.x) {
+        const int h = e / (4 * Q), r = (e >> 2) % Q, part = (e & 3) * 8;
+        bf16* xs = head_area(k % RING, h);
+        cp_async16_b(xs + r * kXPitch + part,
+                     xg + r * a.sx_s + h * a.sx_h + part);
+        cp_async16_b(xs + (Q + r) * kXPitch + part,
+                     dyg + r * a.sdy_s + h * a.sdy_h + part);
+      }
+      const float* dg = a.dt + row * a.sdt_b;
+      for (int e = threadIdx.x; e < Q * H; e += blockDim.x)
+        cp_async4_b(dts + e, dg + (e / H) * a.sdt_s + e % H);
+    }
+    cp_async_commit();   // an empty group past the last item
+  };
+
+  for (int k = 0; k < RING; ++k) stage_item(k);
+  float da = 0.f;
+  for (int k = 0; k < items; ++k) {
+    cp_async_wait<RING - 1>();
+    __syncthreads();
+    const int row = item_row(k), slot = k % RING;
+    const bf16* cs = reinterpret_cast<const bf16*>(smem_b + slot * stage);
+    const bf16* bs = cs + Q * kBcPitch;
+    bf16* xs = head_area(slot, hh);
+    const bf16* dys = xs + Q * kXPitch;
+    float* tile = reinterpret_cast<float*>(xs);
+    const float* dts = reinterpret_cast<const float*>(head_area(slot, H));
+    const float rate = -expf(load_f32(
+        a.a_log, (row / a.rows_per_slot) * a.sa_slot + hh, a.a_bf16));
+
+    // inclusive cumsum of dt * rate, lane = step, in log2 units
+    const float dtq = dts[lane * H + hh];
+    float v = dtq * rate;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, v, off);
+      if (lane >= off) v += u;
+    }
+    const float cum2 = v * kLog2e;
+    // the fragments' steps: rows k = 16 mi + g + 8 h2, columns q =
+    // 8 j + 2 t4 + i
+    float ck[2][2], dk[2][2], cq[4][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        ck[mi][h2] = __shfl_sync(0xffffffffu, cum2, 16 * mi + 8 * h2 + g);
+        dk[mi][h2] = __shfl_sync(0xffffffffu, dtq, 16 * mi + 8 * h2 + g);
+      }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        cq[j][i] = __shfl_sync(0xffffffffu, cum2, 8 * j + 2 * t4 + i);
+
+    // B fragments of c and of dy (n = q: per n-tile of 8 steps; dy per
+    // k-step of 16 columns), of dy^T for dX (k = q, n = p), and the A
+    // fragments of b and x (rows k)
+    uint32_t fc[4][2], fdy[2][4][2], fdyt[2][4][2], fb[2][4], fx[2][2][4];
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      uint32_t r4[4];
+      ldmatrix_x4<false>(r4, cs + (16 * jj + (lane >> 4) * 8 + (lane & 7)) *
+                                      kBcPitch + ((lane >> 3) & 1) * 8);
+      fc[2 * jj][0] = r4[0], fc[2 * jj][1] = r4[1];
+      fc[2 * jj + 1][0] = r4[2], fc[2 * jj + 1][1] = r4[3];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        ldmatrix_x4<false>(r4, dys + (16 * jj + (lane >> 4) * 8 +
+                                      (lane & 7)) * kXPitch +
+                                   16 * kk + ((lane >> 3) & 1) * 8);
+        fdy[kk][2 * jj][0] = r4[0], fdy[kk][2 * jj][1] = r4[1];
+        fdy[kk][2 * jj + 1][0] = r4[2], fdy[kk][2 * jj + 1][1] = r4[3];
+        ldmatrix_x4<true>(r4, dys + (16 * kk + ((lane >> 3) & 1) * 8 +
+                                     (lane & 7)) * kXPitch +
+                                  8 * (2 * jj + (lane >> 4)));
+        fdyt[kk][2 * jj][0] = r4[0], fdyt[kk][2 * jj][1] = r4[1];
+        fdyt[kk][2 * jj + 1][0] = r4[2], fdyt[kk][2 * jj + 1][1] = r4[3];
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int rr = 16 * mi + (lane & 7) + ((lane >> 3) & 1) * 8;
+      ldmatrix_x4<false>(fb[mi], bs + rr * kBcPitch + (lane >> 4) * 8);
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+        ldmatrix_x4<false>(fx[mi][kk],
+                           xs + rr * kXPitch + 16 * kk + (lane >> 4) * 8);
+    }
+    __syncwarp();   // x and dy read: the step tile may land on them
+
+    // S^T and dW^T per (m-tile mi, n-tile j >= 2 mi); W^T's A fragments
+    // (big, small), dS^T kept, M to the tile (pitch kTp), ddt's first term
+    uint32_t wb[2][2][4], wsm[2][2][4];
+    float dsr[2][4][4], rowsum[2][2] = {};
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 2 * mi; j < 4; ++j) {
+        float st[4] = {}, dw[4] = {};
+        mma_bf16(st, fb[mi], fc[j]);
+        mma_bf16(dw, fx[mi][0], fdy[0][j]);
+        mma_bf16(dw, fx[mi][1], fdy[1][j]);
+        float w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h2 = e >> 1, i = e & 1;
+          const int kr = 16 * mi + g + 8 * h2, qc = 8 * j + 2 * t4 + i;
+          const float l =
+              qc >= kr ? exp2f(cq[j][i] - ck[mi][h2]) : 0.f;
+          const float sl = st[e] * l;
+          w[e] = sl * dk[mi][h2];
+          const float dm = dw[e] * sl;
+          rowsum[mi][h2] += dm;
+          tile[kr * kTp + qc] = dm * dk[mi][h2];
+          dsr[mi][j][e] = dw[e] * l * dk[mi][h2];
+        }
+        const int kk = j >> 1, base = (j & 1) * 2;
+        split_bf16x2(w[0], w[1], wb[mi][kk][base], wsm[mi][kk][base]);
+        split_bf16x2(w[2], w[3], wb[mi][kk][base + 1],
+                     wsm[mi][kk][base + 1]);
+      }
+    // ddt's first term by row: over the four lanes of a row, then lane k
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        rowsum[mi][h2] += __shfl_xor_sync(0xffffffffu, rowsum[mi][h2], 1);
+        rowsum[mi][h2] += __shfl_xor_sync(0xffffffffu, rowsum[mi][h2], 2);
+      }
+    float ddt1 = 0.f;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const float t = __shfl_sync(0xffffffffu, rowsum[mi][h2],
+                                    (lane & 7) * 4);
+        if ((lane >> 4) == mi && ((lane >> 3) & 1) == h2) ddt1 = t;
+      }
+    __syncwarp();
+    // the straddle: lane k's suffix sums of its row of M, then R_j, lane j
+    {
+      float tsum = 0.f;
+#pragma unroll
+      for (int q = Q - 1; q >= 0; --q) {
+        if (q > lane) tsum += tile[lane * kTp + q];
+        tile[lane * kTp + q] = tsum;
+      }
+    }
+    __syncwarp();
+    float R = 0.f;
+    for (int kk = 0; kk < Q; ++kk)
+      if (kk < lane) R += tile[kk * kTp + lane];
+    __syncwarp();
+    a.ddt[(static_cast<long long>(row) * Q + lane) * H + hh] =
+        ddt1 + rate * R;
+    da += warp_sum(dtq * R);
+
+    // dX = W^T dY, rows k, rounded once into the head's area
+    bf16* dxs = xs;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      float acc[4][4] = {};
+#pragma unroll
+      for (int kk = mi; kk < 2; ++kk)
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          mma_bf16(acc[np], wsm[mi][kk], fdyt[kk][np]);
+          mma_bf16(acc[np], wb[mi][kk], fdyt[kk][np]);
+        }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        const int kr = 16 * mi + g, col = 8 * np + 2 * t4;
+        *reinterpret_cast<uint32_t*>(dxs + kr * kXPitch + col) =
+            bf16x2_rn(acc[np][0], acc[np][1]);
+        *reinterpret_cast<uint32_t*>(dxs + (kr + 8) * kXPitch + col) =
+            bf16x2_rn(acc[np][2], acc[np][3]);
+      }
+    }
+    __syncwarp();
+    bf16* dx = a.dx + static_cast<long long>(row) * Q * H * P + hh * P;
+    for (int e = lane; e < Q * 4; e += 32) {
+      const int q = e >> 2, part = (e & 3) * 8;
+      *reinterpret_cast<uint4*>(dx + static_cast<long long>(q) * H * P +
+                                part) =
+          *reinterpret_cast<const uint4*>(dxs + q * kXPitch + part);
+    }
+    __syncwarp();
+    // dS^T to the step tile (pitch kDsPitch), zero below the diagonal tiles
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kr = 16 * mi + g, qc = 8 * j + 2 * t4;
+        const bool on = j >= 2 * mi;
+        *reinterpret_cast<float2*>(tile + kr * kDsPitch + qc) =
+            on ? make_float2(dsr[mi][j][0], dsr[mi][j][1])
+               : make_float2(0.f, 0.f);
+        *reinterpret_cast<float2*>(tile + (kr + 8) * kDsPitch + qc) =
+            on ? make_float2(dsr[mi][j][2], dsr[mi][j][3])
+               : make_float2(0.f, 0.f);
+      }
+    __syncthreads();
+
+    // dB (rows k) = dS^T C and dC (rows q) = dS B: A fragments of the sum
+    // of the heads' tiles in order, split in two; C and B as B fragments
+    // (k = step, n = s) by ldmatrix.trans
+    for (int task = hh; task < 4; task += H) {
+      const bool is_dc = task >= 2;
+      const int mi = task & 1;
+      const bf16* src = is_dc ? bs : cs;
+      float acc[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        float f[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          // A element e: row 16 mi + g + 8 (e / 2 % 2), column
+          // 16 kk + 2 t4 + e % 2 + 8 (e / 4)
+          const int rr = 16 * mi + g + 8 * ((e >> 1) & 1);
+          const int cc = 16 * kk + 2 * t4 + (e & 1) + 8 * (e >> 2);
+          const int at = is_dc ? cc * kDsPitch + rr : rr * kDsPitch + cc;
+          float s = 0.f;
+          for (int h = 0; h < H; ++h)
+            s += reinterpret_cast<const float*>(head_area(slot, h))[at];
+          f[e] = s;
+        }
+        uint32_t big[4], small[4];
+#pragma unroll
+        for (int r4 = 0; r4 < 4; ++r4)
+          split_bf16x2(f[2 * r4], f[2 * r4 + 1], big[r4], small[r4]);
+        uint32_t r4[4], fo[2][2];
+        ldmatrix_x4<true>(r4, src + (16 * kk + ((lane >> 3) & 1) * 8 +
+                                     (lane & 7)) * kBcPitch +
+                                  8 * (lane >> 4));
+        fo[0][0] = r4[0], fo[0][1] = r4[1];
+        fo[1][0] = r4[2], fo[1][1] = r4[3];
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          mma_bf16(acc[np], small, fo[np]);
+          mma_bf16(acc[np], big, fo[np]);
+        }
+      }
+      bf16* out = (is_dc ? a.dc : a.db) + static_cast<long long>(row) * Q * DS;
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        const int rr = 16 * mi + g, col = 8 * np + 2 * t4;
+        *reinterpret_cast<uint32_t*>(out + rr * DS + col) =
+            bf16x2_rn(acc[np][0], acc[np][1]);
+        *reinterpret_cast<uint32_t*>(out + (rr + 8) * DS + col) =
+            bf16x2_rn(acc[np][2], acc[np][3]);
+      }
+    }
+    if (lane == 0)
+      a.part_da[static_cast<long long>(row) * H + hh] = rate * da;
+    da = 0.f;
+    __syncthreads();   // every warp is done with this stage
+    stage_item(k + RING);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The f32 tensor-core form of the backward (ssd_bwd_tf32_kernel): S = 32,
+// ds = 16, p = 32, one chunk, every product in 3xTF32 on mma.sync m16n8k8
+// ---------------------------------------------------------------------------
+
+constexpr int kTfRing = 1;     // cp.async stages: rows in flight a block
+constexpr int kTfBcPitch = 20;  // f32 rows of c and b (4 mod 8: fragment
+                                // loads conflict-free)
+constexpr int kTfXPitch = 36;   // f32 rows of x, dy and the step tiles
+
+// floats of one ring stage: c and b, then per head its x and dy, then dt
+// (Q rows of n floats). A head's x area, once read into fragments, holds
+// its step tiles (M, W^T, dX, then dS^T) in turn.
+__host__ __device__ inline int bwd_tf32_stage_floats(int heads) {
+  return 2 * kMmaQ * kTfBcPitch + 2 * heads * kMmaQ * kTfXPitch +
+         kMmaQ * heads;
+}
+
+// cvt.rna.tf32.f32 on the integer units: the magnitude rounded to 10
+// mantissa bits, ties away from zero
+__device__ __forceinline__ uint32_t rna_tf32(float a) {
+  return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+}
+
+// a = big + small, each a TF32 value: 3xTF32 drops only small * small
+__device__ __forceinline__ void split_tf32(float a, uint32_t& big,
+                                           uint32_t& small) {
+  big = rna_tf32(a);
+  small = rna_tf32(a - __uint_as_float(big));
+}
+
+// c (16 x 8, f32) += a (16 x 8, tf32) * b (8 x 8, tf32)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// An A fragment (16 x 8) of a row-major f32 tile at (row0, k0), split
+struct Tf32A {
+  uint32_t big[4], small[4];
+};
+struct Tf32B {
+  uint32_t big[2], small[2];
+};
+
+__device__ __forceinline__ Tf32A tf32_a(const float* t, int pitch, int row0,
+                                        int k0) {
+  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
+  const float* r = t + (row0 + g) * pitch + k0 + t4;
+  Tf32A f;
+  split_tf32(r[0], f.big[0], f.small[0]);
+  split_tf32(r[8 * pitch], f.big[1], f.small[1]);
+  split_tf32(r[4], f.big[2], f.small[2]);
+  split_tf32(r[8 * pitch + 4], f.big[3], f.small[3]);
+  return f;
+}
+
+// a B fragment (8 x 8, k x n) of a tile stored n-major (row n holds its k
+// values: c, b and dy rows against steps) or k-major (row k holds its n
+// values)
+template <bool KMAJOR>
+__device__ __forceinline__ Tf32B tf32_b(const float* t, int pitch, int n0,
+                                        int k0) {
+  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
+  Tf32B f;
+  if constexpr (KMAJOR) {
+    split_tf32(t[(k0 + t4) * pitch + n0 + g], f.big[0], f.small[0]);
+    split_tf32(t[(k0 + t4 + 4) * pitch + n0 + g], f.big[1], f.small[1]);
+  } else {
+    split_tf32(t[(n0 + g) * pitch + k0 + t4], f.big[0], f.small[0]);
+    split_tf32(t[(n0 + g) * pitch + k0 + t4 + 4], f.big[1], f.small[1]);
+  }
+  return f;
+}
+
+// c += a b in 3xTF32: the small products first
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const Tf32A& a,
+                                           const Tf32B& b) {
+  mma_tf32(c, a.small, b.big);
+  mma_tf32(c, a.big, b.small);
+  mma_tf32(c, a.big, b.big);
+}
+
+// Per row, warp hh = head hh, as ssd_bwd_mma_kernel but on f32 tiles
+// staged by 16-byte cp.async, every fragment split into TF32 big and small
+// parts as it leaves shared memory: S^T = B C^T and dW^T = X dY^T (rows k,
+// columns q; tiles below the diagonal skipped); W^T, dS^T, M and ddt's
+// first term in their accumulators; W^T through the head's x area as dX's
+// A fragments; dS^T summed over heads in order for dB and dC.
+__global__ void __launch_bounds__(32 * kMmaMaxHeads)
+ssd_bwd_tf32_kernel(const BwdArgs<float> a) {
+  extern __shared__ __align__(16) float smem_f[];
+  constexpr int Q = kMmaQ, P = kMmaP, DS = kMmaDs, RING = kTfRing;
+  const int H = a.n;
+  const int hh = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int stage = bwd_tf32_stage_floats(H);
+  const int items = (a.batch - static_cast<int>(blockIdx.x) +
+                     static_cast<int>(gridDim.x) - 1) /
+                    static_cast<int>(gridDim.x);
+  auto item_row = [&](int k) {
+    return static_cast<int>(blockIdx.x) + k * static_cast<int>(gridDim.x);
+  };
+  auto head_area = [&](int slot, int h) {   // x, then dy, of head h
+    return smem_f + slot * stage + 2 * Q * kTfBcPitch + 2 * h * Q * kTfXPitch;
+  };
+
+  auto stage_item = [&](int k) {
+    if (k < items) {
+      const int row = item_row(k);
+      float* cs = smem_f + (k % RING) * stage;
+      float* bs = cs + Q * kTfBcPitch;
+      float* dts = head_area(k % RING, H);
+      const float* cg = a.c + row * a.sc_b;
+      const float* bg = a.b + row * a.sb_b;
+      for (int e = threadIdx.x; e < 4 * Q; e += blockDim.x) {
+        const int r = e >> 2, part = (e & 3) * 4;
+        cp_async16(cs + r * kTfBcPitch + part, cg + r * a.sc_s + part);
+        cp_async16(bs + r * kTfBcPitch + part, bg + r * a.sb_s + part);
+      }
+      const float* xg = a.x + row * a.sx_b;
+      const float* dyg = a.dy + row * a.sdy_b;
+      for (int e = threadIdx.x; e < H * Q * 8; e += blockDim.x) {
+        const int h = e / (8 * Q), r = (e >> 3) % Q, part = (e & 7) * 4;
+        float* xs = head_area(k % RING, h);
+        cp_async16(xs + r * kTfXPitch + part,
+                   xg + r * a.sx_s + h * a.sx_h + part);
+        cp_async16(xs + (Q + r) * kTfXPitch + part,
+                   dyg + r * a.sdy_s + h * a.sdy_h + part);
+      }
+      const float* dg = a.dt + row * a.sdt_b;
+      for (int e = threadIdx.x; e < Q * H; e += blockDim.x)
+        cp_async4(dts + e, dg + (e / H) * a.sdt_s + e % H);
+    }
+    cp_async_commit();   // an empty group past the last item
+  };
+
+  for (int k = 0; k < RING; ++k) stage_item(k);
+  for (int k = 0; k < items; ++k) {
+    cp_async_wait<RING - 1>();
+    __syncthreads();
+    const int row = item_row(k), slot = k % RING;
+    const float* cs = smem_f + slot * stage;
+    const float* bs = cs + Q * kTfBcPitch;
+    float* xs = head_area(slot, hh);
+    const float* dys = xs + Q * kTfXPitch;
+    const float* dts = head_area(slot, H);
+    const float rate = -expf(load_f32(
+        a.a_log, (row / a.rows_per_slot) * a.sa_slot + hh, a.a_bf16));
+
+    const float dtq = dts[lane * H + hh];
+    float v = dtq * rate;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, v, off);
+      if (lane >= off) v += u;
+    }
+    const float cum2 = v * kLog2e;
+    float ck[2][2], dk[2][2], cq[4][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        ck[mi][h2] = __shfl_sync(0xffffffffu, cum2, 16 * mi + 8 * h2 + g);
+        dk[mi][h2] = __shfl_sync(0xffffffffu, dtq, 16 * mi + 8 * h2 + g);
+      }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        cq[j][i] = __shfl_sync(0xffffffffu, cum2, 8 * j + 2 * t4 + i);
+
+    // S^T and dW^T per (m-tile mi, n-tile j >= 2 mi): W^T and dS^T kept,
+    // M's entries and ddt's first term
+    float wt[2][4][4], dsr[2][4][4], mt[2][4][4], rowsum[2][2] = {};
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      Tf32A fb[2], fx[4];
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) fb[ks] = tf32_a(bs, kTfBcPitch, 16 * mi,
+                                                     8 * ks);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) fx[ks] = tf32_a(xs, kTfXPitch, 16 * mi,
+                                                     8 * ks);
+#pragma unroll
+      for (int j = 2 * mi; j < 4; ++j) {
+        float st[4] = {}, dw[4] = {};
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks)
+          mma_3xtf32(st, fb[ks], tf32_b<false>(cs, kTfBcPitch, 8 * j, 8 * ks));
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          mma_3xtf32(dw, fx[ks], tf32_b<false>(dys, kTfXPitch, 8 * j, 8 * ks));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h2 = e >> 1, i = e & 1;
+          const int kr = 16 * mi + g + 8 * h2, qc = 8 * j + 2 * t4 + i;
+          const float l = qc >= kr ? exp2f(cq[j][i] - ck[mi][h2]) : 0.f;
+          const float sl = st[e] * l;
+          wt[mi][j][e] = sl * dk[mi][h2];
+          const float dm = dw[e] * sl;
+          rowsum[mi][h2] += dm;
+          mt[mi][j][e] = dm * dk[mi][h2];
+          dsr[mi][j][e] = dw[e] * l * dk[mi][h2];
+        }
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        rowsum[mi][h2] += __shfl_xor_sync(0xffffffffu, rowsum[mi][h2], 1);
+        rowsum[mi][h2] += __shfl_xor_sync(0xffffffffu, rowsum[mi][h2], 2);
+      }
+    float ddt1 = 0.f;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const float t = __shfl_sync(0xffffffffu, rowsum[mi][h2],
+                                    (lane & 7) * 4);
+        if ((lane >> 4) == mi && ((lane >> 3) & 1) == h2) ddt1 = t;
+      }
+    // the head's step tile from C-layout registers (`tri`: zero below
+    // the diagonal tiles)
+    auto put = [&](int pitch, const float (&v)[2][4][4], bool tri) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int kr = 16 * mi + g, qc = 8 * j + 2 * t4;
+          const bool on = !tri || j >= 2 * mi;
+          xs[kr * pitch + qc] = on ? v[mi][j][0] : 0.f;
+          xs[kr * pitch + qc + 1] = on ? v[mi][j][1] : 0.f;
+          xs[(kr + 8) * pitch + qc] = on ? v[mi][j][2] : 0.f;
+          xs[(kr + 8) * pitch + qc + 1] = on ? v[mi][j][3] : 0.f;
+        }
+    };
+    __syncwarp();   // x read: its area takes the step tiles
+    put(kTp, mt, true);
+    __syncwarp();
+    {
+      float tsum = 0.f;
+#pragma unroll
+      for (int q = Q - 1; q >= 0; --q) {
+        if (q > lane) tsum += xs[lane * kTp + q];
+        xs[lane * kTp + q] = tsum;
+      }
+    }
+    __syncwarp();
+    float R = 0.f;
+    for (int kk = 0; kk < Q; ++kk)
+      if (kk < lane) R += xs[kk * kTp + lane];
+    a.ddt[(static_cast<long long>(row) * Q + lane) * H + hh] =
+        ddt1 + rate * R;
+    const float da = warp_sum(dtq * R);
+    if (lane == 0) a.part_da[static_cast<long long>(row) * H + hh] = rate * da;
+    __syncwarp();
+
+    // dX = W^T dY (rows k): W^T through the x area as A fragments
+    put(kTfXPitch, wt, true);
+    __syncwarp();
+    float dxa[2][4][4] = {};
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int kq = 2 * mi; kq < 4; ++kq) {
+        const Tf32A fw = tf32_a(xs, kTfXPitch, 16 * mi, 8 * kq);
+#pragma unroll
+        for (int np = 0; np < 4; ++np)
+          mma_3xtf32(dxa[mi][np], fw,
+                     tf32_b<true>(dys, kTfXPitch, 8 * np, 8 * kq));
+      }
+    __syncwarp();
+    put(kTfXPitch, dxa, false);
+    __syncwarp();
+    float* dx = a.dx + static_cast<long long>(row) * Q * H * P + hh * P;
+    for (int e = lane; e < Q * 8; e += 32) {
+      const int q = e >> 3, part = (e & 7) * 4;
+      *reinterpret_cast<float4*>(dx + static_cast<long long>(q) * H * P +
+                                 part) =
+          *reinterpret_cast<const float4*>(xs + q * kTfXPitch + part);
+    }
+    __syncwarp();
+    put(kTfXPitch, dsr, true);   // dS^T
+    __syncthreads();
+
+    // dB (rows k) = dS^T C and dC (rows q) = dS B, A fragments of the sum
+    // of the heads' dS^T tiles in order
+    for (int task = hh; task < 4; task += H) {
+      const bool is_dc = task >= 2;
+      const int mi = task & 1;
+      float acc[2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        float f[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // A element e: row 16 mi + g + 8 (e % 2), column 8 ks + t4 +
+          // 4 (e / 2)
+          const int rr = 16 * mi + g + 8 * (e & 1);
+          const int cc = 8 * ks + t4 + 4 * (e >> 1);
+          const int at = is_dc ? cc * kTfXPitch + rr : rr * kTfXPitch + cc;
+          float s = 0.f;
+          for (int h = 0; h < H; ++h) s += head_area(slot, h)[at];
+          f[e] = s;
+        }
+        Tf32A fa;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(f[e], fa.big[e], fa.small[e]);
+#pragma unroll
+        for (int np = 0; np < 2; ++np)
+          mma_3xtf32(acc[np], fa,
+                     tf32_b<true>(is_dc ? bs : cs, kTfBcPitch, 8 * np,
+                                  8 * ks));
+      }
+      float* out =
+          (is_dc ? a.dc : a.db) + static_cast<long long>(row) * Q * DS;
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        const int rr = 16 * mi + g, col = 8 * np + 2 * t4;
+        *reinterpret_cast<float2*>(out + rr * DS + col) =
+            make_float2(acc[np][0], acc[np][1]);
+        *reinterpret_cast<float2*>(out + (rr + 8) * DS + col) =
+            make_float2(acc[np][2], acc[np][3]);
+      }
+    }
+    __syncthreads();   // every warp is done with this stage
+    stage_item(k + RING);
+  }
+}
+
+// db and dc: the head groups' f32 partials summed in order, rounded once to
+// T (where heads < n; the first bc_blocks blocks, a thread an element);
+// da_log: a dL/da summed over a slot's rows, in a_log's dtype (the blocks
+// after them, a warp per (slot, head): lane l adds rows l, l + 32, ... in
+// order, then a butterfly over the lanes, the same order every run)
+template <typename T>
+__global__ void ssd_bwd_sum_kernel(const BwdArgs<T> a, int bc_blocks) {
+  if (static_cast<int>(blockIdx.x) < bc_blocks) {
+    const int hgroups = a.n / a.heads;
+    const long long nbc = static_cast<long long>(a.batch) * a.seq * a.ds;
+    for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
+                       threadIdx.x;
+         e < nbc; e += static_cast<long long>(bc_blocks) * blockDim.x) {
       float sb = 0.f, sc = 0.f;
-      for (int h = 0; h < a.n; ++h) {
-        sb += pb[h * a.ds];
-        sc += pb[half + h * a.ds];
+      for (int h = 0; h < hgroups; ++h) {
+        sb += a.part_bc[h * nbc + e];
+        sc += a.part_bc[(hgroups + h) * nbc + e];
       }
       a.db[e] = from_f32<T>(sb);
       a.dc[e] = from_f32<T>(sc);
-    } else {
-      const int i = static_cast<int>(e - nbc), slot = i / a.n;
-      const float* pd = a.part_da +
-                        static_cast<long long>(slot) * a.rows_per_slot * a.n +
-                        (i - slot * a.n);
-      float acc = 0.f;
-      for (int r = 0; r < a.rows_per_slot; ++r) acc += pd[r * a.n];
-      if (a.a_bf16)
-        static_cast<bf16*>(a.da_log)[i] = __float2bfloat16_rn(acc);
-      else
-        static_cast<float*>(a.da_log)[i] = acc;
     }
+    return;
+  }
+  const int i = ((static_cast<int>(blockIdx.x) - bc_blocks) * blockDim.x +
+                 threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (i >= a.groups * a.n) return;   // whole warps
+  const int slot = i / a.n;
+  const float* pd = a.part_da +
+                    static_cast<long long>(slot) * a.rows_per_slot * a.n +
+                    (i - slot * a.n);
+  float acc = 0.f;
+  for (int r = lane; r < a.rows_per_slot; r += 32) acc += pd[r * a.n];
+  acc = warp_sum(acc);
+  if (lane == 0) {
+    if (a.a_bf16)
+      static_cast<bf16*>(a.da_log)[i] = __float2bfloat16_rn(acc);
+    else
+      static_cast<float*>(a.da_log)[i] = acc;
   }
 }
 
@@ -1221,36 +2301,104 @@ int ssd_entry(const T* x, const float* dt, const void* a_log, const T* b,
                                        chunk_parallel, stream);
 }
 
+// The f32 tensor-core form: as launch_bwd_mma.
+cudaError_t launch_bwd_tf32(const BwdArgs<float>& a, cudaStream_t stream) {
+  static const cudaError_t attr = allow_smem(ssd_bwd_tf32_kernel);
+  if (attr != cudaSuccess) return attr;
+  const int threads = 32 * a.n;
+  const int smem = 4 * kTfRing * bwd_tf32_stage_floats(a.n);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, ssd_bwd_tf32_kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm <= 0) return cudaErrorInvalidConfiguration;
+  const int blocks = a.batch < per_sm * sms ? a.batch : per_sm * sms;
+  ssd_bwd_tf32_kernel<<<blocks, threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The chunked form: a block per (row, head group) of `warps` warps.
+template <typename T, typename TA>
+cudaError_t launch_bwd_chunk(const BwdArgs<T>& a, int warps,
+                             cudaStream_t stream) {
+  static const cudaError_t attr = allow_smem(ssd_bwd_chunk_kernel<T, TA>);
+  if (attr != cudaSuccess) return attr;
+  const size_t smem =
+      sizeof(float) * bwd_layout(a.p, a.ds, a.heads, a.chunks > 1).total;
+  ssd_bwd_chunk_kernel<T, TA><<<dim3(a.batch, a.n / a.heads), 32 * warps,
+                                 smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The bf16 tensor-core form: a persistent grid of as many blocks as fit on
+// the card at once (at most one per row).
+cudaError_t launch_bwd_mma(const BwdArgs<bf16>& a, cudaStream_t stream) {
+  static const cudaError_t attr = allow_smem(ssd_bwd_mma_kernel);
+  if (attr != cudaSuccess) return attr;
+  const int threads = 32 * a.n;
+  const int smem = kBwdRing * bwd_mma_stage_bytes(a.n);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, ssd_bwd_mma_kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm <= 0) return cudaErrorInvalidConfiguration;
+  const int blocks = a.batch < per_sm * sms ? a.batch : per_sm * sms;
+  ssd_bwd_mma_kernel<<<blocks, threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int ssd_bwd_entry(const T* x, const float* dt, const void* a_log, const T* b,
                   const T* c, const T* dy, T* dx, float* ddt, T* db, T* dc,
                   void* da_log, float* states, float* part_bc,
                   float* part_da, int batch, int seq, int n, int p, int ds,
-                  int segment, int rows_per_slot, int groups, int a_bf16,
-                  int cols, const long long* strides, cudaStream_t stream) {
-  if (segment <= 0 || cols <= 0 || cols > kBwdCols || p > 32 * cols ||
-      rows_per_slot <= 0 || groups * rows_per_slot != batch ||
-      (seq > segment && !states))
+                  int heads, int warps, int rows_per_slot, int groups,
+                  int a_bf16, int vec_x, int vec_bc, int form,
+                  const long long* strides, cudaStream_t stream) {
+  const int chunks = (seq + kBwdQ - 1) / kBwdQ;
+  if (heads <= 0 || n % heads || heads > kMmaMaxHeads || warps < heads ||
+      32 * warps > kBwdMaxThreads || rows_per_slot <= 0 ||
+      groups * rows_per_slot != batch || (chunks > 1 && !states) ||
+      (heads < n && !part_bc) || !copy_ok<T>(vec_x, p) ||
+      !copy_ok<T>(vec_bc, ds))
     return cudaErrorInvalidValue;
   BwdArgs<T> a{x, dt, a_log, b, c, dy, dx, ddt, db, dc, da_log, states,
                part_bc, part_da, strides[0], strides[1], strides[2],
                strides[3], strides[4], strides[5], strides[6], strides[7],
                strides[8], strides[9], strides[10], strides[11], strides[12],
-               batch, seq, n, p, ds, segment, rows_per_slot, groups, a_bf16,
-               cols};
-  static const cudaError_t attr = allow_smem(ssd_bwd_kernel<T>);
-  if (attr != cudaSuccess) return attr;
-  const size_t smem =
-      sizeof(float) * ((segment + 1) * ds * 32 * cols + 2 * ds * kRedPitch +
-                       segment * (2 * ds + 2 * 32 * cols + 1));
-  ssd_bwd_kernel<T><<<dim3(batch, n), 32, smem, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
+               batch, seq, n, p, ds, heads, chunks, rows_per_slot, groups,
+               a_bf16, vec_x, vec_bc};
+  cudaError_t err = cudaErrorInvalidValue;
+  if (form) {
+    // the tensor-core forms: one chunk of (kMmaQ, kMmaDs, kMmaP), a warp
+    // per head, 16-byte copies; bf16 mma.sync, or 3xTF32 for f32
+    if (seq != kMmaQ || ds != kMmaDs || p != kMmaP || n > kMmaMaxHeads ||
+        heads != n || warps != n || vec_x != 16 || vec_bc != 16)
+      return cudaErrorInvalidValue;
+    if constexpr (std::is_same<T, bf16>::value)
+      err = launch_bwd_mma(a, stream);
+    else
+      err = launch_bwd_tf32(a, stream);
+  } else {
+    err = a_bf16 ? launch_bwd_chunk<T, bf16>(a, warps, stream)
+                 : launch_bwd_chunk<T, float>(a, warps, stream);
+  }
   if (err != cudaSuccess) return err;
-  const long long total = static_cast<long long>(batch) * seq * ds +
-                          static_cast<long long>(groups) * n;
-  const long long want = (total + 255) / 256;
-  ssd_bwd_sum_kernel<T><<<static_cast<int>(want < 4096 ? want : 4096), 256, 0,
-                          stream>>>(a);
+  const long long nbc =
+      heads < n ? static_cast<long long>(batch) * seq * ds : 0;
+  const int bc_blocks = static_cast<int>(nbc < 4096 * 256LL ? (nbc + 255) / 256
+                                                           : 4096);
+  const int da_blocks = (groups * n * 32 + 255) / 256;
+  ssd_bwd_sum_kernel<T><<<bc_blocks + da_blocks, 256, 0, stream>>>(
+      a, bc_blocks);
   return cudaGetLastError();
 }
 
@@ -1304,24 +2452,29 @@ extern "C" int ssd_scan_fwd_bf16(const bf16* x, const float* dt,
 // and head strides after c's in `strides`, then a_log's slot stride) ->
 // dx (B, S, n, p) and db, dc (B, S, ds) in x's dtype, ddt (B, S, n) f32 and
 // da_log (groups, n) in a_log's dtype, all contiguous. The plan comes from
-// the wrapper (kernel.ssd_bwd_plan): `segment` steps recomputed per pass,
-// `cols` p columns per lane (p <= 32 cols, cols <= 4). Scratch: `states`
-// (B * n * (ceil(S / segment) - 1) * ds * p floats; unused for one
-// segment), `part_bc` (2 * B * S * n * ds), `part_da` (B * n). Two launches:
-// the scan, then the ordered sums over heads and a slot's rows.
+// the wrapper (kernel.ssd_bwd_plan): form 0, the chunked form with `heads`
+// heads per block of `warps` warps; form 1 (at S = 32, ds = 16, p = 32,
+// heads = warps = n <= 8, 16-byte copies), the tensor-core form (bf16
+// mma.sync, or 3xTF32 for f32); vec_x and vec_bc the copy widths in bytes
+// of x and dy, and of b and c.
+// Scratch: `states` (B * n * (ceil(S / 32) - 1) * ds * p floats; unused
+// for one chunk), `part_bc` (2 * B * S * ds * n / heads; unused where
+// heads = n), `part_da` (B * n). Two launches: the backward, then the
+// ordered sums over head groups and a slot's rows.
 extern "C" int ssd_scan_bwd(const float* x, const float* dt,
                             const void* a_log, const float* b,
                             const float* c, const float* dy, float* dx,
                             float* ddt, float* db, float* dc, void* da_log,
                             float* states, float* part_bc, float* part_da,
                             int batch, int seq, int n, int p, int ds,
-                            int segment, int rows_per_slot, int groups,
-                            int a_bf16, int cols, const long long* strides,
+                            int heads, int warps, int rows_per_slot,
+                            int groups, int a_bf16, int vec_x, int vec_bc,
+                            int form, const long long* strides,
                             cudaStream_t stream) {
   return ssd_bwd_entry(x, dt, a_log, b, c, dy, dx, ddt, db, dc, da_log,
-                       states, part_bc, part_da, batch, seq, n, p, ds,
-                       segment, rows_per_slot, groups, a_bf16, cols, strides,
-                       stream);
+                       states, part_bc, part_da, batch, seq, n, p, ds, heads,
+                       warps, rows_per_slot, groups, a_bf16, vec_x, vec_bc,
+                       form, strides, stream);
 }
 
 extern "C" int ssd_scan_bwd_bf16(const bf16* x, const float* dt,
@@ -1330,12 +2483,13 @@ extern "C" int ssd_scan_bwd_bf16(const bf16* x, const float* dt,
                                  float* ddt, bf16* db, bf16* dc,
                                  void* da_log, float* states, float* part_bc,
                                  float* part_da, int batch, int seq, int n,
-                                 int p, int ds, int segment,
+                                 int p, int ds, int heads, int warps,
                                  int rows_per_slot, int groups, int a_bf16,
-                                 int cols, const long long* strides,
+                                 int vec_x, int vec_bc, int form,
+                                 const long long* strides,
                                  cudaStream_t stream) {
   return ssd_bwd_entry(x, dt, a_log, b, c, dy, dx, ddt, db, dc, da_log,
-                       states, part_bc, part_da, batch, seq, n, p, ds,
-                       segment, rows_per_slot, groups, a_bf16, cols, strides,
-                       stream);
+                       states, part_bc, part_da, batch, seq, n, p, ds, heads,
+                       warps, rows_per_slot, groups, a_bf16, vec_x, vec_bc,
+                       form, strides, stream);
 }

@@ -14,7 +14,7 @@ in its own dtype (any other float dtype is upcast here, as the Pallas
 kernel's ``astype`` does).
 
 :func:`ssd_scan_bwd` is the op's backward, which the reference leaves to
-``jax.vjp`` through its sequential oracle: the adjoint of the recurrence,
+``jax.vjp`` through its sequential oracle: the adjoint of the chunked form,
 (dxh, ddt, da_log, db, dc) from the same operands and the cotangent dy (xh's
 dtype, any strides with a unit last one). dxh, db and dc come back in xh's
 dtype, ddt in float32, da_log in a_log's dtype and shape.
@@ -24,13 +24,14 @@ Dispatch is by tensor device only: CPU tensors go to the plain versions in
 at first use, or the call raises. ``LAUNCHES`` counts one per wrapper call
 that reaches the card, also where the plan makes several launches (the
 forward's chunk-parallel form: chunk states, the scan over them, the
-outputs; the backward: the scan, then the ordered sums over heads and
-rows).
+outputs; the backward: the adjoint, then the ordered sums over head groups
+and rows); ``KERNEL_LAUNCHES`` counts the backward's calls again by the
+CUDA kernel its plan launched (the chunked or the tensor-core form).
 
 How the kernels launch is decided here, in pure Python, by :func:`ssd_plan`
 (form, heads per block, warps, sequential or chunk-parallel) and
-:func:`ssd_bwd_plan` (steps per recomputed segment), so the CPU tests can
-check every plan the card would run.
+:func:`ssd_bwd_plan` (tensor-core or chunked form, heads per block, copy
+widths), so the CPU tests can check every plan the card would run.
 """
 from __future__ import annotations
 
@@ -48,12 +49,15 @@ SOURCE = pathlib.Path(__file__).parent / "csrc" / "ssd_scan.cu"
 
 LAUNCHES = {"ssd_scan": 0, "ssd_scan_bf16": 0, "ssd_scan_bwd": 0,
             "ssd_scan_bwd_bf16": 0}
+# the backward's calls again, by the CUDA kernel (form) the plan launched
+KERNEL_LAUNCHES = {"ssd_bwd_chunk_kernel": 0, "ssd_bwd_mma_kernel": 0,
+                   "ssd_bwd_tf32_kernel": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # each bf16 entry takes the same arguments as its f32 one
 _ARGTYPES = {**{fn: [_P] * 8 + [_I] * 14 + [_P, _P]
                 for fn in ("ssd_scan_fwd", "ssd_scan_fwd_bf16")},
-             **{fn: [_P] * 14 + [_I] * 10 + [_P, _P]
+             **{fn: [_P] * 14 + [_I] * 13 + [_P, _P]
                 for fn in ("ssd_scan_bwd", "ssd_scan_bwd_bf16")}}
 
 # A grid of fewer blocks than BLOCKS_PER_SM x SMs leaves the card part idle.
@@ -69,13 +73,6 @@ SMEM_MAX = 232448 // 4
 # The bf16 tensor-core form's one shape (csrc/ssd_scan.cu kMmaQ, kMmaDs,
 # kMmaP): the FL path's chunk, state width and head width.
 MMA_SHAPE = (32, 16, 32)
-# The backward's p columns per lane (csrc/ssd_scan.cu kBwdCols): p <= 128.
-BWD_COLS = 4
-# An SM's shared memory in bytes, what the card reserves of it per block,
-# and the most blocks an SM holds (H100)
-SMEM_SM = 233472
-SMEM_RESERVE = 1024
-MAX_BLOCKS_PER_SM = 32
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -265,60 +262,108 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return y
 
 
-def bwd_smem_floats(segment: int, p: int, ds: int) -> int:
-    """The backward kernel's shared memory in floats (csrc/ssd_scan.cu
-    ``ssd_bwd_kernel``): dL/dh and the state before each step of a
-    segment, ds rows of 32 x cols floats each; the per-step sums over p of
-    db and dc (2 ds rows of 33); the segment's b, c, x, dy and dt."""
-    pp = 32 * _cdiv(p, 32)
-    return ((segment + 1) * ds * pp + 2 * ds * 33
-            + segment * (2 * ds + 2 * pp + 1))
+# The backward's chunk (csrc/ssd_scan.cu kBwdQ: lane = step) and its most
+# warps a block (kBwdMaxThreads / 32: a warp per head)
+BWD_CHUNK = 32
+BWD_MAX_WARPS = 8
+# The tensor-core backwards' cp.async rings (csrc/ssd_scan.cu kBwdRing,
+# kTfRing)
+BWD_RING = 2
+TF32_RING = 1
+
+
+def _round8(v: int) -> int:
+    return -(-v // 8) * 8
+
+
+def bwd_smem_floats(p: int, ds: int, heads: int, state: bool) -> int:
+    """The chunked backward's shared memory in floats (csrc/ssd_scan.cu
+    ``bwd_layout``): c and b (rows of ds rounded up to 8, plus 4) and the
+    32 x 33 scores once per block; per head x (then dX) and dy (rows of p
+    rounded up to 4, or-ed with 4), a 32 x 33 step tile and four per-step
+    vectors; where a row has several chunks (``state``), per head the
+    entering state and G (ds rounded up to 4 rows) and two 32-row state
+    products; each head's total decay."""
+    q, pp, dsp = BWD_CHUNK, _round(p, 4) | 4, _round8(ds) | 4
+    per_head = 2 * q * pp + q * 33 + 4 * q + 1
+    if state:
+        per_head += 2 * _round(ds, 4) * pp + 2 * q * dsp
+    return _round(2 * q * dsp + q * 33 + heads * per_head, 4)
 
 
 @dataclasses.dataclass(frozen=True)
 class SsdBwdPlan:
-    """One backward call: a one-warp block per (row, head), lane j owning p
-    columns j, j + 32, ... (``cols`` of them). A forward sweep saves the
-    state entering every ``segment`` steps (``segments`` - 1 states a row
-    and head, in float32 scratch); the reverse walk recomputes each
-    segment's states into shared memory (``smem_floats``) and steps back
-    through it. A second launch sums db and dc over heads and da_log over
-    a slot's rows, in order."""
-    segment: int
-    segments: int
-    cols: int
-    smem_floats: int
+    """One backward call. ``form`` "chunk": the adjoint of the chunked form
+    in ``chunks`` chunks of ``chunk`` (32) steps, the last ragged where S is
+    not a multiple; a block per (row, ``heads`` heads) of ``warps`` warps, a
+    warp per head, products by FMA in f32 (bf16 loads widened). Where
+    ``heads`` < n the heads are split across blocks and the second launch
+    sums the head groups' db and dc partials in order. ``form`` "mma" (bf16)
+    and "tf32" (f32), at one chunk of MMA_SHAPE: a persistent grid of one
+    wave whose blocks walk rows through a ``ring``-deep cp.async ring, a
+    warp per head (``heads`` = ``warps`` = n), products on ``mma.sync``
+    (bf16, or 3xTF32). ``vec_x`` (x and dy) and ``vec_bc`` (b and c) are
+    the copy widths in bytes."""
+    form: str
+    chunk: int
+    chunks: int
+    heads: int
+    warps: int
+    ring: int
+    vec_x: int
+    vec_bc: int
 
 
-def ssd_bwd_plan(bsz: int, s: int, n: int, p: int, ds: int, *,
-                 sms: int) -> SsdBwdPlan:
+def ssd_bwd_plan(bsz: int, s: int, n: int, p: int, ds: int, *, sms: int,
+                 x_strides=(), bc_strides=(), x_aligned: bool = False,
+                 bc_aligned: bool = False, itemsize: int = 4) -> SsdBwdPlan:
     """The backward's plan for ``bsz`` rows of ``s`` steps, ``n`` heads of
-    width ``p`` and state width ``ds`` on a card with ``sms`` SMs: the
-    longest segment (a power of two up to 32 steps, at most S) whose
-    shared memory lets the (row, head) blocks run in one wave; where none
-    does, the longest within a twelfth of an SM's. Each segment is one more
-    state saved and read back, but a second wave runs the whole serial
-    chain again (segments of 2, 4, 8: 0.308, 0.378, 0.428 ms at the FL
-    round's 2,280 blocks, one wave only at 2; PERF.md §6)."""
-    if p > 32 * BWD_COLS:
-        raise ValueError(f"p={p}: the backward kernel takes p <= "
-                         f"{32 * BWD_COLS}")
-    per_sm = _cdiv(bsz * n, sms)
+    width ``p`` and state width ``ds`` on a card with ``sms`` SMs. One
+    chunk of MMA_SHAPE (S, ds, p) with up to 8 heads and 16-byte copies
+    takes a tensor-core form (bf16 "mma", f32 "tf32"). Otherwise the
+    chunked form: all of a row's heads in one block (up to 8, the block's
+    dS summed over them in order) where the rows alone give every SM a
+    block, else a block per head (few rows over many chunks). ``x_strides``
+    (x's and dy's row, step and head strides), ``bc_strides`` (b's and c's
+    row and step strides) and ``x_aligned`` / ``bc_aligned`` (the pointers
+    are 16-byte aligned) set the copy widths, counted in ``itemsize``-byte
+    elements."""
+    if p > 128:
+        raise ValueError(f"p={p}: the backward kernel takes p <= 128")
 
-    def resident(seg):   # blocks an SM holds
-        need = 4 * bwd_smem_floats(seg, p, ds) + SMEM_RESERVE
-        return min(MAX_BLOCKS_PER_SM, SMEM_SM // need)
-    segs = [seg for seg in (32, 16, 8, 4, 2, 1)
-            if bwd_smem_floats(seg, p, ds) <= SMEM_MAX]
-    if not segs:
+    def vec(aligned, width, strides):
+        return build.copy_width(16 if aligned else itemsize, width, *strides,
+                                itemsize=itemsize)
+    vec_x, vec_bc = vec(x_aligned, p, x_strides), vec(bc_aligned, ds,
+                                                      bc_strides)
+    chunks = _cdiv(s, BWD_CHUNK)
+    if (s, ds, p) == MMA_SHAPE and n <= 8 and vec_x == vec_bc == 16:
+        if itemsize == 2:
+            return SsdBwdPlan("mma", BWD_CHUNK, 1, n, n, BWD_RING, vec_x,
+                              vec_bc)
+        return SsdBwdPlan("tf32", BWD_CHUNK, 1, n, n, TF32_RING, vec_x,
+                          vec_bc)
+    heads = n if n <= BWD_MAX_WARPS and bsz >= sms else 1
+    if bwd_smem_floats(p, ds, heads, chunks > 1) > SMEM_MAX:
+        heads = 1
+    if bwd_smem_floats(p, ds, heads, chunks > 1) > SMEM_MAX:
         raise ValueError(f"p={p}, ds={ds}: the backward block's shared "
                          "memory exceeds the card's")
-    one_wave = [seg for seg in segs if resident(seg) >= per_sm]
-    segment = (one_wave or [seg for seg in segs if bwd_smem_floats(
-        seg, p, ds) <= SMEM_MAX // 12] or [1])[0]
-    segment = min(segment, s)
-    return SsdBwdPlan(segment, _cdiv(s, segment), _cdiv(p, 32),
-                      bwd_smem_floats(segment, p, ds))
+    return SsdBwdPlan("chunk", BWD_CHUNK, chunks, heads, max(heads, 4), 0,
+                      vec_x, vec_bc)
+
+
+def ssd_bwd_scan_plan(xh: torch.Tensor, b_ssm: torch.Tensor,
+                      c_ssm: torch.Tensor, dy: torch.Tensor) -> SsdBwdPlan:
+    """The backward's plan for these CUDA operands (unit last strides)."""
+    bsz, s, n, p = xh.shape
+    return ssd_bwd_plan(
+        bsz, s, n, p, b_ssm.shape[-1], sms=_sm_count(xh.device.index),
+        x_strides=xh.stride()[:3] + dy.stride()[:3],
+        bc_strides=b_ssm.stride()[:2] + c_ssm.stride()[:2],
+        x_aligned=xh.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0,
+        bc_aligned=b_ssm.data_ptr() % 16 == 0 and c_ssm.data_ptr() % 16 == 0,
+        itemsize=xh.element_size())
 
 
 def _bwd_operands(xh, dt, a_log, b_ssm, c_ssm, dy) -> tuple:
@@ -333,8 +378,10 @@ def _bwd_operands(xh, dt, a_log, b_ssm, c_ssm, dy) -> tuple:
 def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                  b_ssm: torch.Tensor, c_ssm: torch.Tensor,
                  dy: torch.Tensor) -> tuple:
-    """(dxh, ddt, da_log, db, dc): the adjoint of the SSD recurrence at
-    these operands for the cotangent ``dy`` of y."""
+    """(dxh, ddt, da_log, db, dc): the adjoint of the SSD scan at these
+    operands for the cotangent ``dy`` of y (on the card the chunked form's
+    adjoint, :func:`ssd_bwd_plan`; on the CPU autograd through the
+    sequential recurrence)."""
     if not build.on_cuda("ssd_scan_bwd", xh, dt, a_log, b_ssm, c_ssm, dy):
         return ref.ssd_bwd_ref(xh, dt, a_log, b_ssm, c_ssm, dy)
     xh, dt, a2, b_ssm, c_ssm, dy = _bwd_operands(xh, dt, a_log, b_ssm,
@@ -350,11 +397,13 @@ def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     if not dxh.numel():
         da.zero_()
     else:
-        plan = ssd_bwd_plan(bsz, s, n, p, ds, sms=_sm_count(dev.index))
-        states = (torch.empty(bsz * n * (plan.segments - 1) * ds * p,
+        plan = ssd_bwd_scan_plan(xh, b_ssm, c_ssm, dy)
+        states = (torch.empty(bsz * n * (plan.chunks - 1) * ds * p,
                               device=dev, dtype=f32)
-                  if plan.segments > 1 else None)
-        part_bc = torch.empty(2 * bsz * s * n * ds, device=dev, dtype=f32)
+                  if plan.chunks > 1 else None)
+        part_bc = (torch.empty(2 * bsz * s * ds * (n // plan.heads),
+                               device=dev, dtype=f32)
+                   if plan.heads < n else None)
         part_da = torch.empty(bsz * n, device=dev, dtype=f32)
         strides = (ctypes.c_longlong * 13)(
             xh.stride(0), xh.stride(1), xh.stride(2), dt.stride(0),
@@ -367,9 +416,12 @@ def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                      dxh.data_ptr(), ddt.data_ptr(), db.data_ptr(),
                      dc.data_ptr(), da.data_ptr(),
                      None if states is None else states.data_ptr(),
-                     part_bc.data_ptr(), part_da.data_ptr(), bsz, s, n, p, ds,
-                     plan.segment, bsz // groups, groups,
-                     int(a2.dtype == torch.bfloat16), plan.cols, strides,
+                     None if part_bc is None else part_bc.data_ptr(),
+                     part_da.data_ptr(), bsz, s, n, p, ds, plan.heads,
+                     plan.warps, bsz // groups, groups,
+                     int(a2.dtype == torch.bfloat16), plan.vec_x,
+                     plan.vec_bc, int(plan.form != "chunk"), strides,
                      dtype=xh.dtype)
+        KERNEL_LAUNCHES[f"ssd_bwd_{plan.form}_kernel"] += 1
     da = (da if a_log.dim() == 2 else da[0]).to(a_log.dtype)
     return dxh, ddt, da, db, dc

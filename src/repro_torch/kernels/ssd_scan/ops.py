@@ -2,11 +2,12 @@
 
 An ``autograd.Function`` whose forward and backward are the kernels of
 :mod:`.kernel` (CUDA on the card, their plain versions on the CPU). The op
-saves its five inputs; its backward is the adjoint of the sequential
-recurrence (``kernel.ssd_scan_bwd``: the CUDA backward kernel, or on the CPU
-autograd through :func:`~repro_torch.kernels.ssd_scan.ref.ssd_sequential`),
-the exact adjoint of the chunked forward, as the reference's ``jax.vjp``
-through ``ssd_ref`` is.
+saves its five inputs; its backward is ``kernel.ssd_scan_bwd``: on the card
+the CUDA backward kernels (the adjoint of the chunked form, chunk by
+chunk), on the CPU autograd through
+:func:`~repro_torch.kernels.ssd_scan.ref.ssd_sequential`; both are the exact
+adjoint of the chunked forward, as the reference's ``jax.vjp`` through
+``ssd_ref`` is.
 """
 from __future__ import annotations
 

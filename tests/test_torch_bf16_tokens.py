@@ -347,6 +347,87 @@ def test_ssd_mma_form_arithmetic_matches_reference_bf16(seq):
     assert bf16_excess(_mma_emulation(*args), want) <= SSD_RTOL
 
 
+def _bwd_mma_emulation(xh, dt, a_log, bm, cm, dy):
+    """ssd_bwd_mma_kernel's arithmetic for each row and head, one chunk of
+    32 steps, in f32 from bf16 operands: S^T = B C^T and dW^T = X dY^T from
+    exact bf16 products; W^T = S^T exp2(cum_q - cum_k) dt_k split into bf16
+    big and small parts, each multiplied by dY; ddt's first term the row
+    sums of dW^T o S^T o L; the straddle R_j from M = dW^T o W^T; dS^T =
+    dW^T exp2(cum_q - cum_k) dt_k summed over heads in order, split in two,
+    times C and B; dx, db and dc rounded once to bf16, ddt f32, da_log in
+    a_log's dtype."""
+    x, b, c, gy = (torch.from_numpy(v) for v in (xh, bm, cm, dy))
+    d = torch.from_numpy(dt)
+    a2 = torch.from_numpy(a_log)
+    a2 = a2 if a2.dim() == 2 else a2[None]
+    bsz, q, n, _ = x.shape
+    rate = ssd_ref.decay_rates(a2, bsz)                      # (B, n)
+    cum = (torch.cumsum(d * rate[:, None], 1) * LOG2E).transpose(1, 2)
+    dk = d.transpose(1, 2)                                   # (B, n, Q)
+    upper = torch.triu(torch.ones(q, q, dtype=torch.bool))   # [k][q]
+    lq = torch.where(upper, torch.exp2(torch.where(
+        upper, cum[..., None, :] - cum[..., :, None], 0.0)), 0.0)
+    st = torch.einsum("bks,bqs->bkq", b, c)[:, None]         # S^T
+    dwt = torch.einsum("bknp,bqnp->bnkq", x, gy)             # dW^T
+    sl = st * lq
+    wt = sl * dk[..., None]
+    dm = dwt * sl
+    ddt1 = dm.sum(-1)
+    suffix = torch.flip(torch.cumsum(torch.flip(dm * dk[..., None], [-1]),
+                                     -1), [-1])              # tile[k][j]
+    r_straddle = (suffix * torch.triu(torch.ones(q, q), 1)).sum(-2)
+    ddt = (ddt1 + rate[..., None] * r_straddle).transpose(1, 2)
+    wb, wsm = _split(wt)
+    dx = (torch.einsum("bnkq,bqnp->bknp", wsm, gy)
+          + torch.einsum("bnkq,bqnp->bknp", wb, gy))
+    dst = dwt * lq * dk[..., None]
+    dsum = dst[:, 0]
+    for h in range(1, n):
+        dsum = dsum + dst[:, h]
+    big, small = _split(dsum)
+    db = (torch.einsum("bkq,bqs->bks", small, c)
+          + torch.einsum("bkq,bqs->bks", big, c))
+    dc = (torch.einsum("bkq,bks->bqs", small, b)
+          + torch.einsum("bkq,bks->bqs", big, b))
+    part = (rate * (dk * r_straddle).sum(-1)).reshape(a2.shape[0], -1, n)
+    dlog = torch.zeros(a2.shape)
+    for r in range(part.shape[1]):
+        dlog = dlog + part[:, r]
+    dlog = dlog if a_log.ndim == 2 else dlog[0]
+    return (dx.bfloat16(), ddt, dlog.bfloat16(), db.bfloat16(),
+            dc.bfloat16())
+
+
+@pytest.mark.parametrize("groups", [0, 3])
+def test_ssd_bwd_mma_form_arithmetic_matches_reference_bf16(groups):
+    """The bf16 tensor-core backward's arithmetic (W^T and the head-summed
+    dS in split bf16 parts on the tensor cores) at its one shape (S = 32,
+    ds 16, p 32), against jax.vjp of the reference's ssd_ref (a_log shared)
+    or the port's plain version (a_log per slot): each bf16 gradient within
+    one bf16 ulp plus SSD_RTOL of its scale, ddt (f32) within SSD_RTOL."""
+    xh, dt, a_log, bm, cm = _ssd_inputs(6, 32, 4, 32, 16, seed=40 + groups)
+    if groups:
+        a_log = _bf16(np.random.default_rng(groups).normal(
+            size=(groups, 4)) * 0.5)
+    dy = _bf16(np.random.default_rng(41).normal(size=xh.shape))
+    got = _bwd_mma_emulation(xh, dt, a_log, bm, cm, dy)
+    targs = _ssd_args(xh, dt, a_log, bm, cm, _t)
+    if groups:
+        want = ssd_ref.ssd_bwd_ref(*targs, _t(dy))
+    else:
+        _, vjp = jax.vjp(ref_ssd_ref.ssd_ref,
+                         *_ssd_args(xh, dt, a_log, bm, cm, _j))
+        want = vjp(_j(dy))
+    for t, g, w in zip(targs, got, want):
+        assert g.shape == t.shape
+        if t.dtype == torch.bfloat16:
+            assert bf16_excess(g, w if groups == 0 else
+                               _j(w.float().numpy())) <= SSD_RTOL
+        else:
+            w = _f32(w)
+            assert np.abs(g.numpy() - w).max() <= SSD_RTOL * np.abs(w).max()
+
+
 # ---------------------------------------------------------------------------
 # the launch plans' bf16 copy widths and the wrappers' dtype checks
 # ---------------------------------------------------------------------------
@@ -441,6 +522,37 @@ def test_ssd_plan_bf16_form(rows, seq, p, ds, aligned, want):
     assert (plan.form, plan.heads, plan.warps) == want
     assert ssd.ssd_plan(rows, seq, 4, p, ds, 32, itemsize=4,
                         **kw).form == "fma"
+
+
+@pytest.mark.parametrize("rows,seq,p,ds,aligned,want", [
+    # the FL path's round and statistics pass: one chunk at (32, 16, 32),
+    # the tensor-core form, a warp per head, a ring of two rows
+    (570, 32, 32, 16, True, ("mma", 4, 4, 2)),
+    (1140, 32, 32, 16, True, ("mma", 4, 4, 2)),
+    # several chunks, a ragged one, another shape, or 16-byte copies
+    # impossible: the chunked form (bf16 loads widened, f32 arithmetic)
+    (264, 128, 32, 16, True, ("chunk", 4, 4, 0)),
+    (570, 33, 32, 16, True, ("chunk", 4, 4, 0)),
+    (570, 32, 64, 16, True, ("chunk", 4, 4, 0)),
+    (570, 32, 32, 16, False, ("chunk", 4, 4, 0)),
+    # few rows of one chunk: still the tensor-core form, a block a row;
+    # few rows over several chunks: the chunked form, a block per head
+    (2, 32, 32, 16, True, ("mma", 4, 4, 2)),
+    (2, 128, 32, 16, True, ("chunk", 1, 4, 0)),
+])
+def test_ssd_bwd_plan_bf16_form(rows, seq, p, ds, aligned, want):
+    """bf16 at one chunk of (32, 16, 32) with 16-byte copies of x, dy, b and
+    c runs ssd_bwd_mma_kernel (f32 there ssd_bwd_tf32_kernel); everything
+    else the chunked form."""
+    width = 4 * p + 2 * ds
+    kw = dict(sms=132, x_strides=(seq * width, width, p) * 2,
+              bc_strides=(seq * width, width) * 2, x_aligned=aligned,
+              bc_aligned=aligned)
+    plan = ssd.ssd_bwd_plan(rows, seq, 4, p, ds, itemsize=2, **kw)
+    assert (plan.form, plan.heads, plan.warps, plan.ring) == want
+    # f32 takes its own tensor-core form (3xTF32) where bf16 takes mma
+    assert ssd.ssd_bwd_plan(rows, seq, 4, p, ds, itemsize=4, **kw).form == (
+        "tf32" if plan.form == "mma" else "chunk")
 
 
 def test_attention_operands_refuse_a_mix_of_dtypes():

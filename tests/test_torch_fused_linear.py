@@ -560,10 +560,11 @@ def test_variant_tool_substitutions_match_the_source(name):
     does not)."""
     mod = _tool(name)
     source = mod.kernel.SOURCE.read_text()
-    variants = {**mod.VARIANTS, **getattr(mod, "BF16_VARIANTS", {})}
-    for variant, subs in variants.items():
-        for old, _ in subs:
-            assert source.count(old) == 1, (variant, old)
+    for group in ("VARIANTS", "BF16_VARIANTS", "BWD_VARIANTS",
+                  "BWD_TF32_VARIANTS", "BWD_BF16_VARIANTS"):
+        for variant, subs in getattr(mod, group, {}).items():
+            for old, _ in subs:
+                assert source.count(old) == 1, (group, variant, old)
 
 
 def test_variant_tools_import_neither_jax_nor_reference():

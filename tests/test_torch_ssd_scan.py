@@ -385,58 +385,109 @@ def test_bwd_plain_version_per_slot_and_shared_rates():
     _assert_grads([got[0], got[1], got[2].sum(0), got[3], got[4]], want)
 
 
-def _bwd_emulation(xh, dt, a_log, bm, cm, dy, segment):
-    """ssd_bwd_kernel's order of work for every (row, head) at once, in
-    f32: a forward sweep saving the state entering each segment but the
-    first; the reverse walk over segments, each recomputing its states
-    h_{t-1} from its saved entry state, then stepping back with
-    g_t = c_t dy_t^T + exp(dt_{t+1} a) g_{t+1}; per-head db, dc and per-row
-    a dL/da partials, then ssd_bwd_sum_kernel's ordered sums over heads and
-    over a slot's rows."""
-    x, d, b, c, dyt = (torch.from_numpy(v) for v in (xh, dt, bm, cm, dy))
+def _bwd_emulation(xh, dt, a_log, bm, cm, dy, heads=None):
+    """ssd_bwd_chunk_kernel's order of work for every row at once, in f32:
+    chunks of 32 steps (the last zero-padded past S); per head group of
+    ``heads`` heads a forward sweep saving the state entering each chunk,
+    then the reverse walk over chunks. Per chunk and head: the warp-scan
+    cumsum in log2 units, dW = dY X^T, one pass down each column (W, the
+    column sums of dW o S o L, M's suffix sums, dS), the straddle R_j =
+    sum_{k < j} sum_{q >= j} M[q][k] read back from the suffix sums, dX =
+    W^T dY, and the state terms (u X G^T, e dY h_in^T, <G, h_in>) where the
+    chunk has them; dS summed over the group's heads in order before dB and
+    dC, the state terms after; G carried to the chunk before. The head
+    groups' dB and dC, and a slot's rows' a dL/da, summed in order."""
+    x, d, b, c, gy = (torch.from_numpy(v) for v in (xh, dt, bm, cm, dy))
     bsz, s, n, p = x.shape
     ds = b.shape[-1]
+    heads = heads or n
     a2 = torch.from_numpy(a_log)
     a2 = a2 if a2.dim() == 2 else a2[None]
     rate = ref.decay_rates(a2, bsz)                      # (B, n)
-    nseg = -(-s // segment)
+    q = kernel.BWD_CHUNK
+    chunks = -(-s // q)
 
-    def upd(t):
-        return (d[:, t, :, None, None] * b[:, t, None, :, None]
-                * x[:, t, :, None, :])
-    h, saved = torch.zeros(bsz, n, ds, p), []
-    for t in range((nseg - 1) * segment):
-        h = h * torch.exp(d[:, t] * rate)[..., None, None] + upd(t)
-        if (t + 1) % segment == 0:
-            saved.append(h)
-    g = torch.zeros(bsz, n, ds, p)
-    e_next, da = torch.zeros(bsz, n), torch.zeros(bsz, n)
+    def chunk(t, ci):
+        v = t[:, ci * q:(ci + 1) * q]
+        return torch.cat([v, v.new_zeros((bsz, q - v.shape[1])
+                                          + v.shape[2:])], 1)
+    tri = torch.tril(torch.ones(q, q, dtype=torch.bool))  # [q][k]: q >= k
+    below = torch.tril(torch.ones(q, q), -1)              # [j][k]: k < j
     dx, ddt = torch.zeros(bsz, s, n, p), torch.zeros(bsz, s, n)
-    pdb, pdc = torch.zeros(bsz, s, n, ds), torch.zeros(bsz, s, n, ds)
-    for k in reversed(range(nseg)):
-        t0, t1 = k * segment, min(s, (k + 1) * segment)
-        hs = [saved[k - 1] if k else torch.zeros(bsz, n, ds, p)]
-        for t in range(t0, t1 - 1):
-            hs.append(hs[-1] * torch.exp(d[:, t] * rate)[..., None, None]
-                      + upd(t))
-        for t in reversed(range(t0, t1)):
-            e = torch.exp(d[:, t] * rate)
-            hprev = hs[t - t0]
-            ht = hprev * e[..., None, None] + upd(t)
-            g = (g * e_next[..., None, None]
-                 + c[:, t, None, :, None] * dyt[:, t, :, None, :])
-            gb = torch.einsum("bnsp,bs->bnp", g, b[:, t])
-            dx[:, t] = d[:, t, :, None] * gb
-            pdb[:, t] = d[:, t, :, None] * torch.einsum("bnsp,bnp->bns", g,
-                                                        x[:, t])
-            pdc[:, t] = torch.einsum("bnsp,bnp->bns", ht, dyt[:, t])
-            s2 = (g * hprev).sum((-2, -1))
-            ddt[:, t] = (x[:, t] * gb).sum(-1) + rate * e * s2
-            da = da + d[:, t] * e * s2
-            e_next = e
-    db, dc = torch.zeros(bsz, s, ds), torch.zeros(bsz, s, ds)
-    for hh in range(n):
-        db, dc = db + pdb[:, :, hh], dc + pdc[:, :, hh]
+    part_bc = torch.zeros(2, n // heads, bsz, s, ds)
+    da = torch.zeros(bsz, n)
+    for grp in range(n // heads):
+        group = range(grp * heads, (grp + 1) * heads)
+        h_in = {}
+        for h in group:
+            st = torch.zeros(bsz, ds, p)
+            for ci in range(chunks - 1):
+                xc, dc_, bc = chunk(x[:, :, h], ci), chunk(d[:, :, h], ci), \
+                    chunk(b, ci)
+                cum = _warp_scan_cumsum(dc_ * rate[:, h, None]) * LOG2E
+                u = torch.exp2(cum[:, -1:] - cum) * dc_
+                st = (st * torch.exp2(cum[:, -1])[:, None, None]
+                      + torch.einsum("bks,bkp->bsp", bc, u[..., None] * xc))
+                h_in[h, ci + 1] = st
+        g_state = {h: torch.zeros(bsz, ds, p) for h in group}
+        for ci in reversed(range(chunks)):
+            c0 = ci * q
+            qv = min(q, s - c0)
+            has_g, has_h = ci + 1 < chunks, ci > 0
+            cc, bc = chunk(c, ci), chunk(b, ci)
+            scores = cc @ bc.transpose(1, 2)              # S[q][k]
+            ds_sum = torch.zeros(bsz, q, q)
+            pb_sum, pc_sum = torch.zeros(bsz, q, ds), torch.zeros(bsz, q, ds)
+            for h in group:
+                xc, dc_, dyc = (chunk(t[:, :, h], ci) for t in (x, d, gy))
+                a = rate[:, h, None]
+                cum = _warp_scan_cumsum(dc_ * a) * LOG2E   # (B, Q)
+                last = cum[:, -1:]
+                u, e = torch.exp2(last - cum) * dc_, torch.exp2(cum)
+                dw = dyc @ xc.transpose(1, 2)             # dW[q][k]
+                lq = torch.where(tri, torch.exp2(torch.where(
+                    tri, cum[:, :, None] - cum[:, None, :], 0.0)), 0.0)
+                sl = scores * lq
+                w = sl * dc_[:, None, :]
+                dm = dw * sl
+                ddt1 = dm.sum(1)
+                # tile[k][j] = sum_{q >= j} M[q][k] (suffix sums down column
+                # k); R_j = sum_{k < j} tile[k][j]
+                suffix = torch.flip(torch.cumsum(torch.flip(
+                    dm * dc_[:, None, :], [1]), 1), [1])   # [j][k]
+                r_straddle = (suffix * below).sum(2)
+                ds_sum = ds_sum + dw * lq * dc_[:, None, :]
+                dxc = w.transpose(1, 2) @ dyc
+                v = r = hg = torch.zeros(bsz, 1)
+                if has_g:
+                    pb = xc @ g_state[h].transpose(1, 2)  # X G^T
+                    v = (bc * pb).sum(-1)
+                    pb_sum = pb_sum + u[..., None] * pb
+                    dxc = dxc + u[..., None] * (bc @ g_state[h])
+                if has_h:
+                    pc = dyc @ h_in[h, ci].transpose(1, 2)  # dY h_in^T
+                    r = e * (cc * pc).sum(-1)
+                    pc_sum = pc_sum + e[..., None] * pc
+                    if has_g:
+                        hg = (g_state[h] * h_in[h, ci]).sum((1, 2))[:, None]
+                r_suffix = torch.flip(torch.cumsum(torch.flip(
+                    r.expand(bsz, q), [1]), 1), [1])
+                uv = torch.cumsum((u * v).expand(bsz, q), 1)
+                before = torch.cat([torch.zeros(bsz, 1), uv[:, :-1]], 1)
+                d_a = r_straddle + r_suffix + before + torch.exp2(last) * hg
+                ddt[:, c0:c0 + qv, h] = (ddt1 + torch.exp2(last - cum) * v
+                                         + a * d_a)[:, :qv]
+                da[:, h] += (dc_ * d_a).sum(1)
+                dx[:, c0:c0 + qv, h] = dxc[:, :qv]
+                if has_h:
+                    g_state[h] = (torch.exp2(last)[..., None] * g_state[h]
+                                  + cc.transpose(1, 2) @ (e[..., None] * dyc))
+            part_bc[0, grp, :, c0:c0 + qv] = (ds_sum.transpose(1, 2) @ cc
+                                              + pb_sum)[:, :qv]
+            part_bc[1, grp, :, c0:c0 + qv] = (ds_sum @ bc + pc_sum)[:, :qv]
+    db, dc = part_bc[0, 0], part_bc[1, 0]
+    for grp in range(1, n // heads):
+        db, dc = db + part_bc[0, grp], dc + part_bc[1, grp]
     part = (rate * da).reshape(a2.shape[0], -1, n)
     dlog = torch.zeros(a2.shape)
     for r in range(part.shape[1]):
@@ -444,61 +495,181 @@ def _bwd_emulation(xh, dt, a_log, bm, cm, dy, segment):
     return dx, ddt, dlog if a_log.ndim == 2 else dlog[0], db, dc
 
 
-@pytest.mark.parametrize("segment", [32, 4, 5], ids=lambda v: f"seg{v}")
-@pytest.mark.parametrize("groups", [0, 3])
-def test_bwd_kernel_order_of_work_matches_plain_version(segment, groups):
-    """The backward kernel's order of work (segments' entry states saved by
-    a forward sweep, each segment recomputed in reverse, heads and a
-    slot's rows summed in order) against ssd_bwd_ref and the reference's
-    vjp, over 64 steps: two segments, or many, with a ragged last one."""
-    args = _inputs(6, 64, 4, 16, 8, seed=segment + groups, groups=groups)
-    dy = np.random.default_rng(segment).normal(size=args[0].shape).astype(
+@pytest.mark.parametrize("seq,heads,groups", [
+    (32, None, 0),     # the FL path's one chunk, a block's heads
+    (32, 1, 3),        # ... heads split across blocks, a_log per slot
+    (128, None, 3),    # four chunks: the sweep and the state terms
+    (128, 1, 0),
+    (75, None, 0),     # a ragged last chunk (11 steps)
+    (75, 1, 3),
+], ids=lambda v: str(v))
+def test_bwd_kernel_order_of_work_matches_plain_version(seq, heads, groups):
+    """The chunked backward's order of work against ssd_bwd_ref and the
+    reference's vjp (per slot where a_log is per slot), each gradient at
+    1e-4 of its own scale."""
+    args = _inputs(6, seq, 4, 16, 8, seed=seq + groups, groups=groups)
+    dy = np.random.default_rng(seq).normal(size=args[0].shape).astype(
         np.float32)
-    got = _bwd_emulation(*args, dy, segment)
+    got = _bwd_emulation(*args, dy, heads=heads)
     _assert_grads(got, ref.ssd_bwd_ref(*(torch.from_numpy(a)
                                          for a in args + (dy,))))
     if groups == 0:
         _assert_grads(got, _ref_vjp(*args, dy))
+        return
+    xh, dt, a_log, bm, cm = args
+    for g in range(groups):
+        rows = slice(2 * g, 2 * g + 2)
+        want = _ref_vjp(xh[rows], dt[rows], a_log[g], bm[rows], cm[rows],
+                        dy[rows])
+        _assert_grads([got[0][rows], got[1][rows], got[2][g], got[3][rows],
+                       got[4][rows]], want, f"slot {g}")
+
+
+def _tf32(v: torch.Tensor) -> torch.Tensor:
+    """v rounded to TF32 as rna_tf32 does: 10 mantissa bits, ties away."""
+    bits = (v.view(torch.int32) + 0x1000) & -0x2000
+    return bits.view(torch.float32)
+
+
+def _mm3(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum(eq, a, b) in 3xTF32: each operand split into a TF32 big part
+    and the TF32 rounding of the rest, small * small dropped, the small
+    products first."""
+    ab, bb = _tf32(a), _tf32(b)
+    asm, bsm = _tf32(a - ab), _tf32(b - bb)
+    return (torch.einsum(eq, asm, bb) + torch.einsum(eq, ab, bsm)
+            + torch.einsum(eq, ab, bb))
+
+
+def _bwd_tf32_emulation(xh, dt, a_log, bm, cm, dy):
+    """ssd_bwd_tf32_kernel's arithmetic for each row and head, one chunk of
+    32 steps, in f32: S^T = B C^T, dW^T = X dY^T, dX = W^T dY and the
+    head-summed dS times C and B, each product in 3xTF32; W^T, dS^T, M and
+    ddt's first term from the accumulators; the straddle R_j."""
+    x, d, b, c, gy = (torch.from_numpy(v) for v in (xh, dt, bm, cm, dy))
+    a2 = torch.from_numpy(a_log)
+    a2 = a2 if a2.dim() == 2 else a2[None]
+    bsz, q, n, _ = x.shape
+    rate = ref.decay_rates(a2, bsz)
+    cum = (_warp_scan_cumsum((d * rate[:, None]).transpose(1, 2))
+           * LOG2E)                                          # (B, n, Q)
+    dk = d.transpose(1, 2)
+    upper = torch.triu(torch.ones(q, q, dtype=torch.bool))   # [k][q]
+    lq = torch.where(upper, torch.exp2(torch.where(
+        upper, cum[..., None, :] - cum[..., :, None], 0.0)), 0.0)
+    st = _mm3("bks,bqs->bkq", b, c)[:, None]                 # S^T
+    dwt = _mm3("bknp,bqnp->bnkq", x, gy)                     # dW^T
+    sl = st * lq
+    wt = sl * dk[..., None]
+    dm = dwt * sl
+    suffix = torch.flip(torch.cumsum(torch.flip(dm * dk[..., None], [-1]),
+                                     -1), [-1])
+    r_straddle = (suffix * torch.triu(torch.ones(q, q), 1)).sum(-2)
+    ddt = (dm.sum(-1) + rate[..., None] * r_straddle).transpose(1, 2)
+    dx = _mm3("bnkq,bqnp->bknp", wt, gy)
+    dst = dwt * lq * dk[..., None]
+    dsum = dst[:, 0]
+    for h in range(1, n):
+        dsum = dsum + dst[:, h]
+    db = _mm3("bkq,bqs->bks", dsum, c)
+    dc = _mm3("bkq,bks->bqs", dsum, b)
+    part = (rate * (dk * r_straddle).sum(-1)).reshape(a2.shape[0], -1, n)
+    dlog = torch.zeros(a2.shape)
+    for r in range(part.shape[1]):
+        dlog = dlog + part[:, r]
+    return dx, ddt, dlog if a_log.ndim == 2 else dlog[0], db, dc
+
+
+@pytest.mark.parametrize("groups", [0, 3])
+def test_bwd_tf32_form_arithmetic_matches_reference(groups):
+    """The f32 tensor-core backward's arithmetic (every product in 3xTF32)
+    at its one shape (S = 32, ds 16, p 32) against ssd_bwd_ref and the
+    reference's vjp (per slot where a_log is per slot), each gradient at
+    1e-4 of its own scale; one TF32 product alone does not hold that."""
+    args = _inputs(6, 32, 4, 32, 16, seed=50 + groups, groups=groups)
+    dy = np.random.default_rng(51).normal(size=args[0].shape).astype(
+        np.float32)
+    got = _bwd_tf32_emulation(*args, dy)
+    _assert_grads(got, ref.ssd_bwd_ref(*(torch.from_numpy(a)
+                                         for a in args + (dy,))))
+    xh, dt, a_log, bm, cm = args
+    for g in range(max(groups, 1)):
+        rows = slice(2 * g, 2 * g + 2) if groups else slice(None)
+        want = _ref_vjp(xh[rows], dt[rows], a_log[g] if groups else a_log,
+                        bm[rows], cm[rows], dy[rows])
+        _assert_grads([got[0][rows], got[1][rows],
+                       got[2][g] if groups else got[2], got[3][rows],
+                       got[4][rows]], want, f"slot {g}")
+
+
+def _straddle(m: torch.Tensor) -> torch.Tensor:
+    """R_j = sum_{q >= j > k} M[q][k] as the kernels take it: suffix sums
+    down each column k into tile[k][j], then lane j's sum over k < j."""
+    q = m.shape[0]
+    tile = torch.flip(torch.cumsum(torch.flip(m, [0]), 0), [0]).T
+    return torch.stack([tile[:j, j].sum() for j in range(q)])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bwd_straddle_equals_row_minus_column_sums(seed):
+    """The straddle sum equals, in f64, the reverse cumsum of M's row sums
+    minus that of its column sums (the form the kernels avoid: there the
+    diagonal and most of each sum cancel)."""
+    m = torch.tril(torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(32, 32))))
+    rows = torch.flip(torch.cumsum(torch.flip(m.sum(1), [0]), 0), [0])
+    cols = torch.flip(torch.cumsum(torch.flip(m.sum(0), [0]), 0), [0])
+    torch.testing.assert_close(_straddle(m), rows - cols, rtol=1e-12,
+                               atol=1e-12)
+    # and it is M summed over q >= j > k, term by term
+    want = torch.stack([m[j:, :j].sum() for j in range(32)])
+    torch.testing.assert_close(_straddle(m), want, rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("label,want", [
-    # 570 x 4 one-warp blocks: segments of 2 steps (11 KB a block: 19
-    # blocks an SM, one wave of 2,280)
-    ("round", (2, 16, 1)),
-    # 4,560 blocks fit no wave: segments of 4, within a twelfth of an SM
-    ("stats", (4, 8, 1)),
-    # 16 blocks: the longest segment that fits, 8 steps of 16 KB
-    ("multi-chunk", (8, 64, 2)),
-    ("long rows", (8, 16, 1)),
+    # the FL round and statistics pass: one chunk at (32, 16, 32), the f32
+    # tensor-core form (3xTF32), a warp per head, one row staged at a time
+    ("round", ("tf32", 1, 4, 4, 1)),
+    ("stats", ("tf32", 1, 4, 4, 1)),
+    # 2 rows cannot fill 132 SMs: the chunked form, a block per (row, head)
+    # of 4 warps, the heads' dB and dC partials summed by the second
+    # launch; 16 chunks
+    ("multi-chunk", ("chunk", 16, 1, 4, 0)),
+    # 264 rows fill the card: all heads a block, 4 chunks
+    ("long rows", ("chunk", 4, 4, 4, 0)),
 ])
 def test_ssd_bwd_plan_for_chip_smoke_cases(label, want):
+    """The plan at chip_smoke's operands: x, b and c split views of one
+    (rows, S, n p + 2 ds) conv output, dy contiguous, all 16-byte aligned;
+    with 4-byte copies only, every case takes the chunked form."""
     rows, s, n, p, ds, _ = _chip_smoke_ssd_cases()[label]
-    plan = kernel.ssd_bwd_plan(rows, s, n, p, ds, sms=132)
-    assert (plan.segment, plan.segments, plan.cols) == want
-    assert plan.smem_floats == kernel.bwd_smem_floats(plan.segment, p, ds)
-    assert plan.smem_floats <= kernel.SMEM_MAX
-
-    def waves(seg):
-        per_sm = min(kernel.MAX_BLOCKS_PER_SM, kernel.SMEM_SM // (
-            4 * kernel.bwd_smem_floats(seg, p, ds) + kernel.SMEM_RESERVE))
-        return -(-rows * n // (per_sm * 132))
-    # one wave where any segment gives one, and no longer segment does
-    if waves(1) == 1:
-        assert waves(plan.segment) == 1
-        longer = 2 * plan.segment
-        assert (plan.segment == min(32, s)
-                or kernel.bwd_smem_floats(longer, p, ds) > kernel.SMEM_MAX
-                or waves(longer) > 1)
+    width = n * p + 2 * ds
+    kw = dict(sms=132, x_strides=(s * width, width, p, s * n * p, n * p, p),
+              bc_strides=(s * width, width) * 2, x_aligned=True,
+              bc_aligned=True)
+    plan = kernel.ssd_bwd_plan(rows, s, n, p, ds, **kw)
+    assert (plan.form, plan.chunks, plan.heads, plan.warps,
+            plan.ring) == want
+    assert plan.chunk == 32 and (plan.vec_x, plan.vec_bc) == (16, 16)
+    assert kernel.bwd_smem_floats(p, ds, plan.heads,
+                                  plan.chunks > 1) <= kernel.SMEM_MAX
+    plain = kernel.ssd_bwd_plan(rows, s, n, p, ds, sms=132)
+    assert (plain.form, plain.heads, plain.vec_x) == ("chunk", want[2], 4)
 
 
 def test_ssd_bwd_plan_limits():
-    """p beyond four columns a lane is refused; a short sequence is one
-    segment; a state too wide for shared memory is refused."""
+    """p above 128 is refused; a short or ragged sequence is one chunk or a
+    partial last one; more heads than a block's 8 warps split; a state too
+    wide for shared memory is refused."""
     with pytest.raises(ValueError, match="p <= 128"):
         kernel.ssd_bwd_plan(2, 32, 1, 160, 16, sms=132)
-    assert kernel.ssd_bwd_plan(2, 3, 1, 32, 16, sms=132).segments == 1
+    assert kernel.ssd_bwd_plan(2, 3, 1, 32, 16, sms=132).chunks == 1
+    assert kernel.ssd_bwd_plan(2, 33, 1, 32, 16, sms=132).chunks == 2
+    assert kernel.ssd_bwd_plan(500, 32, 16, 32, 16, sms=132).heads == 1
+    assert kernel.ssd_bwd_plan(500, 32, 8, 32, 16, sms=132).warps == 8
+    assert kernel.ssd_bwd_plan(500, 32, 2, 32, 16, sms=132).warps == 4
     with pytest.raises(ValueError, match="shared memory"):
-        kernel.ssd_bwd_plan(2, 32, 1, 128, 256, sms=132)
+        kernel.ssd_bwd_plan(2, 64, 1, 128, 256, sms=132)
 
 
 def test_bwd_wrapper_checks_operands():

@@ -1,6 +1,7 @@
 """Design variants of the SSD scan CUDA kernel, side by side on one card.
 
-    python3 tools/ssd_scan_variants.py [--bf16]
+    python3 tools/ssd_scan_variants.py [--bwd] [--bf16]
+    python3 tools/ssd_scan_variants.py --parent DIR
 
 Run from the root of a checkout on a machine with a CUDA card. Source
 variants are ``src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu`` with one
@@ -14,7 +15,12 @@ ctypes, and driven through the wrapper at chip_smoke.py's SSD shapes, on
 f32 operands or (``--bf16``) bf16 ones, timed on the device (chip_smoke.py's
 ``device_ms``). Checked variants are held against the plain version
 (chip_smoke.py's SSD_RTOL x the output scale; bf16: one bf16 ulp plus
-that). ``base`` runs first and again last, which shows the run's spread.
+that). With ``--bwd`` the same for the backward: its chunked form with one
+piece removed (BWD_VARIANTS), its tensor-core forms with one choice undone
+(BWD_TF32_VARIANTS, BWD_BF16_VARIANTS), and plan variants (BWD_PLANS,
+BWD_BF16_PLANS), every gradient held at its own scale. ``base`` runs first and again last, which
+shows the run's spread. With ``--parent DIR`` it times the backward
+against the one of another checkout (DIR, this, this, DIR), both checked.
 Prints each source variant's registers and spills, then one line per case
 and variant, in milliseconds.
 """
@@ -22,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import importlib.util
 import pathlib
 import re
 import subprocess
@@ -77,6 +84,71 @@ BF16_VARIANTS = {
         ("          mma_bf16(hreg[np], small, fx[kk][np]);\n", "")],
     # no ring: a row's loads wait for the row before it
     "ring_1": [("constexpr int kMmaRing = 2;", "constexpr int kMmaRing = 1;")],
+}
+# the backward's chunked form with one piece of a chunk's work removed
+# (``--bwd``; outputs wrong, not checked): what each piece costs
+BWD_VARIANTS = {
+    "base": [],
+    # no c b^T scores
+    "no_scores": [("    for (int e = threadIdx.x; e < Q * Q; e += blockDim.x) "
+                   "{\n      const int q = e >> 5, k = e & 31;",
+                   "    for (int e = threadIdx.x; e < 0; e += blockDim.x) "
+                   "{\n      const int q = e >> 5, k = e & 31;")],
+    # no dW = dY X^T (lane k's column)
+    "no_dw": [("      for (int q = 0; q < Q; ++q) acc[q] = 0.f;\n"
+               "      for (int p4 = 0; p4 < P; p4 += 4) {",
+               "      for (int q = 0; q < Q; ++q) acc[q] = 0.f;\n"
+               "      for (int p4 = 0; p4 < 0; p4 += 4) {")],
+    # no pass down the column (W, M's suffix sums, dS, ddt's first term)
+    "no_column": [("      for (int q = Q - 1; q >= 0; --q) {\n"
+                   "        const float l = q >= k",
+                   "      for (int q = Q - 1; q >= Q; --q) {\n"
+                   "        const float l = q >= k")],
+    # no dX = W^T dY
+    "no_dx": [("      // row k of dX = W^T dY + u_k B G, over x's row k "
+               "(read only by lane k)\n"
+               "      for (int p4 = 0; p4 < P; p4 += 4) {",
+               "      for (int p4 = 0; p4 < 0; p4 += 4) {")],
+    # no dB, dC products
+    "no_dbdc": [("task < 2 * Q * nsc;", "task < 0;")],
+    # no dX stores
+    "no_dx_store": [("      store_rows(a.dx +",
+                     "      if (P < 0) store_rows(a.dx +")],
+}
+# the backward's f32 tensor-core form with one choice undone (outputs
+# checked)
+BWD_TF32_VARIANTS = {
+    "base": [],
+    # a ring of two rows (twice the shared memory: two blocks an SM)
+    "ring_2": [("constexpr int kTfRing = 1;", "constexpr int kTfRing = 2;")],
+}
+# the backward's bf16 tensor-core form with one choice undone (outputs
+# checked)
+BWD_BF16_VARIANTS = {
+    "base": [],
+    # no ring: a row's loads wait for the row before it
+    "ring_1": [("constexpr int kBwdRing = 2;", "constexpr int kBwdRing = 1;")],
+    # W^T and the head-summed dS in their big bf16 parts only: one mma.sync
+    # per product instead of two
+    "big_part_only": [
+        ("          mma_bf16(acc[np], wsm[mi][kk], fdyt[kk][np]);\n", ""),
+        ("          mma_bf16(acc[np], small, fo[np]);\n", "")],
+}
+# plan variants of the backward (f32: the chunked FMA form against the
+# 3xTF32 tensor-core form where both run)
+BWD_PLANS = {
+    "chunk_form": lambda p: dataclasses.replace(p, form="chunk",
+                                                warps=max(p.heads, 4)),
+    # a block per (row, head): heads split across blocks, dB and dC summed
+    # over heads by the second launch
+    "one_head_per_block": lambda p: dataclasses.replace(
+        p, form="chunk", heads=1, warps=4),
+}
+# the bf16 backward forced into the chunked form (bf16 loads widened, f32
+# FMA)
+BWD_BF16_PLANS = {
+    "chunk_form": lambda p: dataclasses.replace(p, form="chunk",
+                                                warps=max(p.heads, 4)),
 }
 # plan variants of the base source for bf16 operands
 BF16_PLANS = {
@@ -138,6 +210,105 @@ def build_variants(variants: dict) -> dict:
     return libs
 
 
+def _bwd_error(got, want, bf16: bool) -> float:
+    """The largest gradient error: each gradient against its own scale
+    (bf16: one ulp plus that, ddt by its scale alone)."""
+    if bf16:
+        return max(chip_smoke._bf16_excess(g, w) if g.dtype == torch.bfloat16
+                   else float((g - w).abs().max())
+                   / max(float(w.abs().max()), 1.0)
+                   for g, w in zip(got, want))
+    return max(float((g.float() - w.float()).abs().max())
+               / max(float(w.float().abs().max()), 1.0)
+               for g, w in zip(got, want))
+
+
+def bwd_main(bf16: bool) -> int:
+    """The backward's variants at chip_smoke.py's SSD shapes. f32: the
+    plan's form (3xTF32 at the FL shape), its ring of one, the chunked FMA
+    form, a block per head, and the chunked form with each piece removed
+    (unchecked); bf16: the tensor-core form's variants and the chunked
+    form."""
+    if bf16:
+        libs = build_variants(BWD_BF16_VARIANTS)
+        runs = [(name, name, None) for name in libs] + [
+            (name, "base", change) for name, change in BWD_BF16_PLANS.items()]
+    else:
+        libs = build_variants({**BWD_VARIANTS, **{
+            f"tf32_{k}": v for k, v in BWD_TF32_VARIANTS.items()
+            if k != "base"}})
+        chunk = BWD_PLANS["chunk_form"]
+        runs = ([("base", "base", None)]
+                + [(name, name, None) for name in libs
+                   if name.startswith("tf32_")]
+                + [(name, "base", change)
+                   for name, change in BWD_PLANS.items()]
+                + [(f"chunk_{name}", name, chunk) for name in BWD_VARIANTS
+                   if name != "base"])
+    runs.append(("base", "base", None))
+    plan_of = kernel.ssd_bwd_scan_plan
+    g = torch.Generator(device="cuda").manual_seed(6)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    for label, rows, s, n, p, ds, _, slots in chip_smoke.SSD_CASES:
+        args = chip_smoke.ssd_operands(g, dtype, rows, s, n, p, ds, slots)
+        dy = torch.randn(rows, s, n, p, device="cuda", generator=g).to(dtype)
+        want = ref.ssd_bwd_ref(*args, dy)
+
+        def fn():
+            return kernel.ssd_scan_bwd(*args, dy)
+        for name, lib_name, change in runs:
+            lib = libs[lib_name]
+            kernel.library = lambda lib=lib: lib
+            kernel.ssd_bwd_scan_plan = (plan_of if change is None else
+                                        lambda *a, c=change: c(plan_of(*a)))
+            err = _bwd_error(fn(), want, bf16)
+            checked = lib_name == "base" or lib_name not in BWD_VARIANTS
+            note = ("" if not checked else " OVER SSD_RTOL"
+                    if err > chip_smoke.SSD_RTOL else "")
+            plan = kernel.ssd_bwd_scan_plan(args[0], args[3], args[4], dy)
+            print(f"bwd variant {label:12s} {name:20s} form={plan.form} "
+                  f"heads={plan.heads} ms={chip_smoke.device_ms(fn):.4f} "
+                  f"err={err:.1e}{note}", flush=True)
+        kernel.ssd_bwd_scan_plan = plan_of
+    return 0
+
+
+def bwd_ab(parent: pathlib.Path) -> int:
+    """The backward against another checkout's (``--parent DIR``, e.g. a
+    ``git archive`` of the parent commit unpacked into an ignored
+    directory): its wrapper and source loaded from DIR, built beside this
+    one's, both held against the plain version and timed in turns (DIR,
+    this, this, DIR) at every SSD case, f32 and bf16."""
+    spec = importlib.util.spec_from_file_location(
+        "_parent_ssd_kernel",
+        parent / "src" / "repro_torch" / "kernels" / "ssd_scan" / "kernel.py")
+    other = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = other   # its dataclasses look their module up
+    spec.loader.exec_module(other)
+    build.build_all([other.SOURCE, kernel.SOURCE])
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for bf16 in (False, True):
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        for label, rows, s, n, p, ds, _, slots in chip_smoke.SSD_CASES:
+            args = chip_smoke.ssd_operands(g, dtype, rows, s, n, p, ds, slots)
+            dy = torch.randn(rows, s, n, p, device="cuda",
+                             generator=g).to(dtype)
+            want = ref.ssd_bwd_ref(*args, dy)
+            fns = {"parent": lambda: other.ssd_scan_bwd(*args, dy),
+                   "this": lambda: kernel.ssd_scan_bwd(*args, dy)}
+            errs = {k: _bwd_error(f(), want, bf16) for k, f in fns.items()}
+            ms = [chip_smoke.device_ms(fns[k])
+                  for k in ("parent", "this", "this", "parent")]
+            print(f"bwd ab {label:12s} bf16={int(bf16)} parent/this/this/"
+                  f"parent ms=" + " ".join(f"{m:.4f}" for m in ms)
+                  + f" err parent={errs['parent']:.1e} "
+                  f"this={errs['this']:.1e}", flush=True)
+            chip_smoke.check(max(errs.values()) <= chip_smoke.SSD_RTOL,
+                             f"{label}: a backward disagrees with the plain "
+                             f"version: {errs}")
+    return 0
+
+
 def main() -> int:
     chip_smoke.check(torch.cuda.is_available(), "needs one CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -145,6 +316,10 @@ def main() -> int:
                          text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
     bf16 = "--bf16" in sys.argv[1:]
+    if "--parent" in sys.argv[1:]:
+        return bwd_ab(pathlib.Path(sys.argv[sys.argv.index("--parent") + 1]))
+    if "--bwd" in sys.argv[1:]:
+        return bwd_main(bf16)
     libs = build_variants(BF16_VARIANTS if bf16 else VARIANTS)
     runs = [(name, None) for name in libs] + list(
         (BF16_PLANS if bf16 else PLANS).items()) + [("base", None)]
