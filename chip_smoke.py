@@ -46,7 +46,11 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
      scan at the same shapes, against their plain bf16 versions (one bf16
      ulp plus FA_RTOL or SSD_RTOL of scale; lse, f32, at FA_RTOL), with
      bf16 ``scaled_dot_product_attention`` as the attention's library
-     yardstick;
+     yardstick; and at every case whose bf16 backward plan is ``"mma"``
+     (S <= 32, D = 32, 16-byte copies) the fused backward
+     (``flash_attention_bwd_bf16``: dq, dk and dv in one tensor-core
+     launch, ``bwd_short_mma_kernel``) against ``attention_ref_bwd``, with
+     bf16 SDPA's whole backward as its library time;
    - the SSD scan's backward, f32 and bf16, at the SSD shapes: all five
      gradients against the plain version (autograd through the sequential
      recurrence), each at SSD_RTOL of its own scale (bf16: one ulp plus
@@ -67,7 +71,9 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
    rounds=3, eval_every=3)`` and ``Scenario(model="ssm", rounds=3,
    eval_every=3)`` on the default network and both again in bf16
    (``transformer-bf16``, ``ssm-bf16``: their rounds run the attention and
-   SSD bf16 forms), all on ``device="cuda"``: statistics pass plus three
+   SSD bf16 forms; ``transformer-bf16``'s backward the fused kernel on
+   every call and never the bf16 dq or dk/dv kernel), all on
+   ``device="cuda"``: statistics pass plus three
    rounds, the last one profiled. The fused linear paths must launch
    every form of their kernels (``FORMS``; in bf16 the Hopper forms at fc1
    and fc2, the mma.sync forms at fc3's N = 10), counted per CUDA kernel
@@ -148,6 +154,9 @@ REPLACES = {
         "src/repro/kernels/flash_attention/kernel.py:227",
     "flash_attention_bwd_dkdv_bf16":
         "src/repro/kernels/flash_attention/kernel.py:227",
+    # both halves of the same reference function, in one launch
+    "flash_attention_bwd_bf16":
+        "src/repro/kernels/flash_attention/kernel.py:227",
     "ssd_scan_bf16": "src/repro/kernels/ssd_scan/kernel.py:77",
     # no Pallas kernel: the reference's backward is jax.vjp through its
     # sequential oracle, which XLA compiles into one scan
@@ -162,7 +171,6 @@ NAMES = ("fused_linear", "fused_linear_bwd_dx", "fused_linear_bwd_dw_db")
 FA_NAMES = ("flash_attention", "flash_attention_bwd_dq",
             "flash_attention_bwd_dkdv")
 BF16_NAMES = tuple(f"{name}_bf16" for name in NAMES)
-FA_BF16_NAMES = tuple(f"{name}_bf16" for name in FA_NAMES)
 # the CUDA kernels of the port's sources, by function name
 PORT_KERNELS = ("fwd_kernel", "splitk_reduce_kernel", "dx_kernel",
                 "dwdb_kernel", "fwd_bf16_kernel", "dx_bf16_kernel",
@@ -170,7 +178,8 @@ PORT_KERNELS = ("fwd_kernel", "splitk_reduce_kernel", "dx_kernel",
                 "dwdb_tma_kernel",
                 "fwd_short_kernel", "fwd_tc_kernel",
                 "dq_kernel", "dkdv_kernel", "dq_short_kernel",
-                "dkdv_short_kernel", "ssd_kernel", "ssd_chunk_scan_kernel",
+                "dkdv_short_kernel", "bwd_short_mma_kernel", "ssd_kernel",
+                "ssd_chunk_scan_kernel",
                 "ssd_mma_kernel", "ssd_bwd_chunk_kernel",
                 "ssd_bwd_mma_kernel", "ssd_bwd_tf32_kernel",
                 "ssd_bwd_sum_kernel")
@@ -185,9 +194,15 @@ FORMS = {f"{name}{dt}": tuple(f"{kind}{form}_kernel" for form in forms)
 # bf16 mma.sync and 3xTF32
 FORMS.update(ssd_scan_bwd=("ssd_bwd_tf32_kernel",),
              ssd_scan_bwd_bf16=("ssd_bwd_mma_kernel",))
+# the fused bf16 attention backward's one kernel
+# (fa_kernel.KERNEL_LAUNCHES), which the bf16 transformer path must launch
+# on every backward call
+FORMS.update(flash_attention_bwd_bf16=("bwd_short_mma_kernel",))
+EVERY_CALL = {"flash_attention_bwd_bf16": "bwd_short_mma_kernel"}
 # every launch counter and every plain-version call counter of the port
 LAUNCH_COUNTS = (kernel.LAUNCHES, kernel.KERNEL_LAUNCHES, fa_kernel.LAUNCHES,
-                 ssd_kernel.LAUNCHES, ssd_kernel.KERNEL_LAUNCHES)
+                 fa_kernel.KERNEL_LAUNCHES, ssd_kernel.LAUNCHES,
+                 ssd_kernel.KERNEL_LAUNCHES)
 CALL_COUNTS = (ref.CALLS, fa_ref.CALLS, ssd_ref.CALLS)
 # kernel vs plain version on the same card: both f32 with f32
 # accumulation, summed in different orders over K up to 4096
@@ -556,7 +571,8 @@ FA_CASES = [
 # tensors and (B, H, S) rows read or written once
 FA_WORK = {"flash_attention": (4, 4, 1),           # q k v o, lse
            "flash_attention_bwd_dq": (6, 5, 2),    # q k v do dq, lse delta
-           "flash_attention_bwd_dkdv": (8, 6, 2)}  # q k v do dk dv, ...
+           "flash_attention_bwd_dkdv": (8, 6, 2),  # q k v do dk dv, ...
+           "flash_attention_bwd": (10, 7, 2)}      # q k v do dq dk dv, ...
 
 
 def _visible(s: int, causal: bool, window) -> torch.Tensor:
@@ -573,7 +589,8 @@ def _visible(s: int, causal: bool, window) -> torch.Tensor:
 def attention_phase(bf16: bool = False) -> dict:
     """Flash attention's three kernels (``bf16``: their bf16 forms, named
     with ``_bf16``, on bf16 operands with f32 lse and delta, held to one
-    bf16 ulp plus FA_RTOL) against their plain versions at FA_CASES."""
+    bf16 ulp plus FA_RTOL) against their plain versions at FA_CASES; in
+    bf16 also the fused backward where its plan applies."""
     g = torch.Generator(device="cuda").manual_seed(4 if bf16 else 1)
     dtype = torch.bfloat16 if bf16 else torch.float32
     sfx = "_bf16" * bf16
@@ -604,7 +621,9 @@ def attention_phase(bf16: bool = False) -> dict:
         args = (q, k, v, do, lse, delta)
         plans = {"flash_attention": fa_kernel.attention_fwd_plan(q, k, v, o)}
         plans["flash_attention_bwd_dq"] = plans["flash_attention_bwd_dkdv"] \
-            = fa_kernel.attention_bwd_plan(q, k, v, do)
+            = fa_kernel._pair_plan(q, k, v, do)
+        plans["flash_attention_bwd"] = fa_kernel.attention_bwd_plan(q, k, v,
+                                                                    do)
         fns = {
             "flash_attention": (
                 lambda: fa_kernel.flash_attention(q, k, v, causal, window),
@@ -625,6 +644,13 @@ def attention_phase(bf16: bool = False) -> dict:
                 lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do,
                                             retain_graph=True)),
         }
+        if plans["flash_attention_bwd"].form == "mma":
+            fns["flash_attention_bwd"] = (
+                lambda: fa_kernel.flash_attention_bwd(*args, causal, window),
+                lambda: fa_ref.attention_ref_bwd(*args, causal=causal,
+                                                 window=window),
+                lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do,
+                                            retain_graph=True))
         for name, (fn, plain, lib) in fns.items():
             per_pair, tensors, rows = FA_WORK[name]
             plan = plans[name]
@@ -854,7 +880,8 @@ PATHS = {
             ("ssd_scan", "ssd_scan_bwd"), 72_216),
     "transformer-bf16": (Scenario(model="transformer", rounds=3,
                                   eval_every=3, dtype="bf16"),
-                         FA_BF16_NAMES, 98_624),
+                         ("flash_attention_bf16", "flash_attention_bwd_bf16"),
+                         98_624),
     "ssm-bf16": (Scenario(model="ssm", rounds=3, eval_every=3,
                           dtype="bf16"),
                  ("ssd_scan_bf16", "ssd_scan_bwd_bf16"), 72_216),
@@ -863,6 +890,10 @@ PATHS = {
 # fix them: VGG's fc1 and fc2 take the bf16 forward's Hopper form, fc3
 # (N = 10) its mma.sync form, once each per local step
 FORM_SHARES = {"vgg-bf16": {"fwd_tma_kernel": 2, "fwd_bf16_kernel": 1}}
+# kernels a path must not launch: the bf16 transformer's backward is the
+# fused kernel, never the bf16 dq or dk/dv one
+ABSENT = {"transformer-bf16": ("flash_attention_bwd_dq_bf16",
+                               "flash_attention_bwd_dkdv_bf16")}
 
 
 def _print_breakdown(label: str, prof, wall: float) -> None:
@@ -929,6 +960,12 @@ def path_phase(label: str) -> dict:
     forms = tuple(f for k in names for f in FORMS.get(k, ()))
     check(all(launches[k] > 0 for k in names + forms),
           f"a kernel of the {label} path never launched: {launches}")
+    absent = ABSENT.get(label, ())
+    check(not any(launches[k] for k in absent),
+          f"the {label} path launched one of {absent}: {launches}")
+    check(all(launches[k] == launches[EVERY_CALL[k]]
+              for k in names if k in EVERY_CALL),
+          f"{label}: a wrapper call did not launch its kernel: {launches}")
     shares = FORM_SHARES.get(label, {})
     total = sum(launches[f] for f in shares)
     check(all(launches[f] * sum(shares.values()) == share * total
@@ -955,7 +992,7 @@ def path_phase(label: str) -> dict:
           "non-finite losses")
     acc = records[-1].accuracy
     check(acc is not None and 0.0 <= acc <= 1.0, f"accuracy {acc}")
-    return {k: launches[k] for k in names + forms}
+    return {k: launches[k] for k in names + forms + absent}
 
 
 def main() -> int:

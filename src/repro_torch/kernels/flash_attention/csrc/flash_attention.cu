@@ -69,6 +69,17 @@
 // of Q, K and V's 3xTF32 split are zero there: right, not fast. Each output
 // is rounded once, to nearest even (__float2bfloat16_rn); lse and delta
 // are f32 in both forms.
+//
+// The bf16 backward on the tensor cores (bwd_short_mma_kernel, the plan's
+// "mma" form: S <= 32, D = 32, 16-byte copies, every bf16 backward of the
+// FL path). dq, dk and dv of a head in one launch, where the dq and dk/dv
+// short forms each stage all four operands and form S and dP again, as FMA
+// chains on widened f32 rows. q, k, v and do stay bf16 in shared memory;
+// the scores are taken transposed (rows keys), so P^T and dS^T, split into
+// two bf16 parts each (one part alone lies 1.2e-3 of scale beyond one
+// ulp), are dV's and dK's A fragments in the registers they were formed
+// in; dQ reads dS^T's parts back transposed from shared memory. Below,
+// before the kernel.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -434,6 +445,15 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Rows [0, seq) of one head's operand (global row stride `ld`) into
 // dst[seq][kShortPitch], copied by the warp's 32 lanes: 8 lanes per row in
 // 16-byte pieces, or a lane per column in 4-byte pieces.
@@ -723,6 +743,471 @@ dkdv_short_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// the bf16 backward on the tensor cores: dq, dk and dv of a head in one pass
+// ---------------------------------------------------------------------------
+
+// bf16 rows of 80 bytes: 16-byte aligned for cp.async and the stores, and
+// the eight rows an ldmatrix phase reads fall in distinct banks
+constexpr int kMmaPitch = kShortD + 8;
+constexpr int kMmaTile = kShortMaxSeq * kMmaPitch;  // bf16 per staged tile
+// The design's choices, as measured (tools/flash_attention_variants.py
+// --bwd, H100, the round's 1,140 heads and the statistics pass's 2,280):
+// Heads staged ahead (a ring of kBwdRing items: the next head's copies in
+// flight while the warps work on this one) on a persistent grid (as many
+// blocks as fit at once, walking the heads): a block per
+// `heads_per_block` heads is 5 % (round) and 14 % (statistics) slower,
+// the persistent grid without the ring 4 % and 2 %.
+constexpr int kBwdRing = 2;
+constexpr bool kBwdPersistent = true;
+// Warps per head: each owns 32 / kBwdWarpsPerHead keys (dK, dV) and as
+// many queries (dQ). Two halve each warp's chain of dependent work and
+// double the warps that hide its latency: one is 19 % (round) and 12 %
+// (statistics) slower.
+constexpr int kBwdWarpsPerHead = 2;
+
+// a head's shared memory: kBwdRing stages of q, k, v and do, then dS^T's
+// big and small parts
+__host__ __device__ constexpr int bwd_mma_head_bytes() {
+  return 2 * kMmaTile * (4 * kBwdRing + 2);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global to shared, of which `bytes` (0 or 16) are read and the
+// rest zero-filled
+__device__ __forceinline__ void cp_async16_b(void* dst, const void* src,
+                                             int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// Four 8 x 8 b16 matrices from shared memory (lane l gives row l % 8 of
+// matrix l / 8); with TRANS each is transposed in the load (ssd_scan.cu's
+// twin).
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  if constexpr (TRANS) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_u32(p)));
+  } else {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_u32(p)));
+  }
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16) * b (16 x 8, bf16): the products of
+// two bf16 are exact in f32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two floats rounded to bf16 (to nearest even) in one instruction: lo in
+// the low half, hi in the high half
+__device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// (lo, hi) as a bf16 pair `big` plus the pair of what rounding left out,
+// `small`: big + small holds an f32 to about 2^-17 of itself, so an f32 x
+// bf16 product runs as two bf16 products
+__device__ __forceinline__ void split_bf16x2(float lo, float hi,
+                                             uint32_t& big, uint32_t& small) {
+  big = bf16x2_rn(lo, hi);
+  small = bf16x2_rn(lo - __uint_as_float(big << 16),
+                    hi - __uint_as_float(big & 0xffff0000u));
+}
+
+// Under a causal mask a tile of queries [q0, q0 + nq) and keys [k0, k0 +
+// nk) holds a visible pair only where k0 <= q0 + nq - 1: the kernel skips
+// the MMAs of the others (2-3 % of its time). Tiles are fixed at compile
+// time, so the skip costs no branch and leaves the other tiles' MMA chains
+// free to interleave: a run-time test per tile, which also skipped the
+// tiles a window hides, read 0.0129 ms at the round where the same kernel
+// with the compile-time skip read 0.0111 (one warp a head, two calls).
+constexpr bool kBwdCausalSkip = true;
+
+template <bool CAUSAL>
+__device__ __forceinline__ constexpr bool tile_on(int q0, int nq, int k0) {
+  return !(CAUSAL && kBwdCausalSkip) || k0 <= q0 + nq - 1;
+}
+
+// P's exponent base: 2 (exp2f of log2(e)-scaled scores and lse: one
+// MUFU.EX2 where expf adds its own range reduction) or e (expf: 7-12 %
+// slower at the FL path's shapes)
+constexpr bool kBwdExp2 = true;
+constexpr float kBwdLog2e = 1.4426950408889634f;
+
+// lse, or the scores' scale, in P's exponent base
+__device__ __forceinline__ float in_base(float x) {
+  return kBwdExp2 ? x * kBwdLog2e : x;
+}
+
+// p = exp(s * scale - lse) of a visible pair's score s, from scale and lse
+// in the exponent's base (in_base)
+__device__ __forceinline__ float bwd_exp(float s, float scale_b,
+                                         float lse_b) {
+  return kBwdExp2 ? exp2f(s * scale_b - lse_b) : expf(s * scale_b - lse_b);
+}
+
+// B fragments (k16 x n8) of a [k][n] tile by ldmatrix.trans: k-steps kk of
+// rows k, n-tiles of columns n; f[kk][n] for n-tiles 0-3 (32 columns)
+__device__ __forceinline__ void b_frags_kn(uint32_t (&f)[2][4][2],
+                                           const bf16* t, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      uint32_t r4[4];
+      ldmatrix_x4<true>(r4, t + (16 * kk + ((lane >> 3) & 1) * 8 +
+                                 (lane & 7)) * kMmaPitch +
+                                8 * (2 * jj + (lane >> 4)));
+      f[kk][2 * jj][0] = r4[0], f[kk][2 * jj][1] = r4[1];
+      f[kk][2 * jj + 1][0] = r4[2], f[kk][2 * jj + 1][1] = r4[3];
+    }
+}
+
+// B fragments (k16 x n8) of an [n][k] tile: n-tiles n of rows, k-steps kk
+// of columns; f[n][kk]
+__device__ __forceinline__ void b_frags_nk(uint32_t (&f)[4][2][2],
+                                           const bf16* t, int lane) {
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      uint32_t r4[4];
+      ldmatrix_x4<false>(r4, t + (16 * jj + (lane >> 4) * 8 + (lane & 7)) *
+                                     kMmaPitch + 16 * kk +
+                                 ((lane >> 3) & 1) * 8);
+      f[2 * jj][kk][0] = r4[0], f[2 * jj][kk][1] = r4[1];
+      f[2 * jj + 1][kk][0] = r4[2], f[2 * jj + 1][kk][1] = r4[3];
+    }
+}
+
+// The transposed scores of a head as accumulator tiles (m-tiles MI0 ..
+// MI0 + MT - 1 of 16 keys, n-tiles n of 8 queries; rows r, columns c):
+// S^T = K Q^T and dP^T = V dO^T from A fragments of K and V (the warp's
+// m-tiles) and B fragments of Q and dO (every query), exact bf16 products;
+// P^T = exp(S^T * scale - lse_c) (exactly 0 where the pair is not
+// visible), dS^T = P^T (dP^T - delta_c), each split into bf16 big and
+// small parts laid out as the A fragments of the next product (k = c:
+// n-tiles 2 kk and 2 kk + 1 are k-step kk, so no shuffle). lse_q (in P's
+// exponent base) and delta_q hold the queries 8 n + 2 t + e.
+template <bool CAUSAL, int MI0, int MT>
+__device__ __forceinline__ void probs(
+    const Problem& pr, const uint32_t (&fk)[MT][2][4],
+    const uint32_t (&fq)[4][2][2], const uint32_t (&fv)[MT][2][4],
+    const uint32_t (&fdo)[4][2][2], const float (&lse_q)[4][2],
+    const float (&delta_q)[4][2], uint32_t (&pb)[MT][2][4],
+    uint32_t (&ps)[MT][2][4], uint32_t (&db)[MT][2][4],
+    uint32_t (&dsm)[MT][2][4], int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+  const float scale_b = in_base(pr.scale);
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int m = MI0 + mi;
+      float st[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+      if (tile_on<CAUSAL>(8 * n, 8, 16 * m)) {
+        mma_bf16(st, fk[mi][0], fq[n][0]);
+        mma_bf16(st, fk[mi][1], fq[n][1]);
+        mma_bf16(dp, fv[mi][0], fdo[n][0]);
+        mma_bf16(dp, fv[mi][1], fdo[n][1]);
+      }
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * m + g + 8 * (e >> 1), c = 8 * n + 2 * t4 + (e & 1);
+        p[e] = visible(pr, c, r) ? bwd_exp(st[e], scale_b, lse_q[n][e & 1])
+                                 : 0.f;
+        ds[e] = p[e] * (dp[e] - delta_q[n][e & 1]);
+      }
+      const int kk = n >> 1, base = (n & 1) * 2;
+      split_bf16x2(p[0], p[1], pb[mi][kk][base], ps[mi][kk][base]);
+      split_bf16x2(p[2], p[3], pb[mi][kk][base + 1], ps[mi][kk][base + 1]);
+      split_bf16x2(ds[0], ds[1], db[mi][kk][base], dsm[mi][kk][base]);
+      split_bf16x2(ds[2], ds[3], db[mi][kk][base + 1],
+                   dsm[mi][kk][base + 1]);
+    }
+}
+
+// (A big + A small) B * scale for the warp's m-tiles MI0 .. MI0 + MT - 1,
+// each element rounded once to bf16, as packed pairs out[mi][np][h] (rows
+// 16 (MI0 + mi) + g + 8 h, columns 8 np + 2 t): per m-tile the k-steps
+// whose A is not all zero (ON(m, kk), fixed at compile time), small part
+// then big part per k-step, two k-steps chained on the tensor cores
+template <int MI0, int MT, typename On>
+__device__ __forceinline__ void product(uint32_t (&out)[MT][4][2],
+                                        const uint32_t (&ab)[MT][2][4],
+                                        const uint32_t (&as)[MT][2][4],
+                                        const uint32_t (&fb)[2][4][2],
+                                        float scale, On on) {
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+    float acc[4][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      if (!on(MI0 + mi, kk)) continue;
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        mma_bf16(acc[np], as[mi][kk], fb[kk][np]);
+        mma_bf16(acc[np], ab[mi][kk], fb[kk][np]);
+      }
+    }
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      out[mi][np][0] = bf16x2_rn(acc[np][0] * scale, acc[np][1] * scale);
+      out[mi][np][1] = bf16x2_rn(acc[np][2] * scale, acc[np][3] * scale);
+    }
+  }
+}
+
+// packed bf16 pairs (product's layout) of rows 16 MI0 .. into a tile
+template <int MI0, int MT>
+__device__ __forceinline__ void pairs_to_tile(bf16* tile,
+                                              const uint32_t (&v)[MT][4][2],
+                                              int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int np = 0; np < 4; ++np)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<uint32_t*>(
+            tile + (16 * (MI0 + mi) + g + 8 * hh) * kMmaPitch + 8 * np +
+            2 * t4) = v[mi][np][hh];
+}
+
+// The warps of one head meet: a named barrier over their threads (id 1 +
+// the head's place in the block; 0 is __syncthreads'), or __syncwarp for
+// a head of one warp.
+__device__ __forceinline__ void head_sync(int head) {
+  if constexpr (kBwdWarpsPerHead == 1) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + head),
+                 "r"(32 * kBwdWarpsPerHead)
+                 : "memory");
+  }
+}
+
+// One head's dq, dk and dv from its staged tiles, by the warp that owns
+// m-tiles MI0 .. MI0 + MT - 1: keys 16 MI0 .. for dK and dV, queries
+// 16 MI0 .. for dQ. Every warp of the head meets twice (head_sync): once
+// dS^T's parts are all written and every read of Q, V and dO is done (the
+// outputs then go to the warp's rows of those tiles), and (in the kernel)
+// before the stage is refilled.
+template <bool CAUSAL, int MI0>
+__device__ __forceinline__ void bwd_mma_head(
+    const Problem& pr, bf16* qs, bf16* ks, bf16* vs, bf16* dos, bf16* dsh,
+    bf16* dsl, float lse_l, float delta_l, int head, int lane) {
+  constexpr int MT = 2 / kBwdWarpsPerHead, P = kMmaPitch;
+  const int t4 = lane & 3;
+  // the queries' lse and delta at the accumulators' columns
+  float lse_c[4][2], delta_c[4][2];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      lse_c[n][e] = __shfl_sync(kFull, lse_l, 8 * n + 2 * t4 + e);
+      delta_c[n][e] = __shfl_sync(kFull, delta_l, 8 * n + 2 * t4 + e);
+    }
+  uint32_t pb[MT][2][4], ps[MT][2][4], db[MT][2][4], dsm[MT][2][4];
+  {
+    uint32_t fk[MT][2][4], fv[MT][2][4], fq[4][2][2], fdo[4][2][2];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const int at = (16 * (MI0 + mi) + (lane & 7) +
+                        ((lane >> 3) & 1) * 8) * P + 16 * kk +
+                       (lane >> 4) * 8;
+        ldmatrix_x4<false>(fk[mi][kk], ks + at);
+        ldmatrix_x4<false>(fv[mi][kk], vs + at);
+      }
+    b_frags_nk(fq, qs, lane);
+    b_frags_nk(fdo, dos, lane);
+    probs<CAUSAL, MI0, MT>(pr, fk, fq, fv, fdo, lse_c, delta_c, pb, ps, db,
+                           dsm, lane);
+  }
+  // dS^T's parts (rows: the warp's keys) for every warp's dQ: A fragment
+  // register 2 (n % 2) + h of k-step n / 2 is the pair of n-tile n at row
+  // g + 8 h
+  {
+    uint32_t big[MT][4][2], small[MT][4][2];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          big[mi][n][hh] = db[mi][n >> 1][(n & 1) * 2 + hh];
+          small[mi][n][hh] = dsm[mi][n >> 1][(n & 1) * 2 + hh];
+        }
+    pairs_to_tile<MI0, MT>(dsh, big, lane);
+    pairs_to_tile<MI0, MT>(dsl, small, lane);
+  }
+  // dV = P^T dO and dK = dS^T Q, A fragments from registers: k-step kk
+  // (queries 16 kk ..) of m-tile mi (keys 16 mi ..)
+  auto keys_on = [](int mi, int kk) {
+    return tile_on<CAUSAL>(16 * kk, 16, 16 * mi);
+  };
+  uint32_t fb[2][4][2], dvp[MT][4][2], dkp[MT][4][2], dqp[MT][4][2];
+  b_frags_kn(fb, dos, lane);
+  product<MI0, MT>(dvp, pb, ps, fb, 1.f, keys_on);
+  b_frags_kn(fb, qs, lane);
+  product<MI0, MT>(dkp, db, dsm, fb, pr.scale, keys_on);
+  head_sync(head);   // dS^T written; Q, V and dO read by every warp
+  {
+    // dQ = dS K: dS's A fragments (m-tile mq: queries 16 mq .., k-step kj:
+    // keys 16 kj ..) by ldmatrix.trans of dS^T's parts
+    uint32_t ab[MT][2][4], as[MT][2][4];
+#pragma unroll
+    for (int mq = 0; mq < MT; ++mq)
+#pragma unroll
+      for (int kj = 0; kj < 2; ++kj) {
+        const int at = (16 * kj + (lane & 7) + ((lane >> 4) << 3)) * P +
+                       16 * (MI0 + mq) + ((lane >> 3) & 1) * 8;
+        ldmatrix_x4<true>(ab[mq][kj], dsh + at);
+        ldmatrix_x4<true>(as[mq][kj], dsl + at);
+      }
+    b_frags_kn(fb, ks, lane);
+    auto queries_on = [](int mq, int kj) {
+      return tile_on<CAUSAL>(16 * mq, 16, 16 * kj);
+    };
+    product<MI0, MT>(dqp, ab, as, fb, pr.scale, queries_on);
+  }
+  pairs_to_tile<MI0, MT>(vs, dvp, lane);    // dV: the warp's rows of V
+  pairs_to_tile<MI0, MT>(dos, dkp, lane);   // dK: the warp's rows of dO
+  pairs_to_tile<MI0, MT>(qs, dqp, lane);    // dQ: the warp's rows of Q
+}
+
+// dq, dk and dv of one (batch, head) per kBwdWarpsPerHead warps, on bf16
+// mma.sync m16n8k16 with f32 accumulators, at S <= 32 and D = 32. A block
+// holds `heads_per_block` heads that share nothing; head slot w takes heads
+// w, w + (the grid's head slots), ... (one each unless the grid is
+// persistent), staging q, k, v and do as bf16 by 16-byte cp.async into
+// tiles of pitch kMmaPitch (rows past S zero-filled), kBwdRing heads ahead.
+// Per head, each warp for its 32 / kBwdWarpsPerHead keys and queries:
+// - S^T = K Q^T and dP^T = V dO^T (rows keys j, columns queries i), exact
+//   bf16 products; with CAUSAL (pr.causal) the tiles above the diagonal
+//   skipped;
+// - P^T = exp(S^T * scale - lse_i) (by exp2f, kBwdExp2; exactly 0 where
+//   (i, j) is not visible, rows and columns past S included), dS^T = P^T
+//   (dP^T - delta_i) in f32, each split into bf16 big and small parts in
+//   the accumulators' registers, which are the A fragments of dV = P^T dO
+//   and dK = dS^T Q (dO and Q as B fragments by ldmatrix.trans);
+// - dQ = dS K: dS^T's two parts written to the head's tiles as bf16 and
+//   read back by ldmatrix.trans as dS's A fragments, K by ldmatrix.trans
+//   (forming S and dP again with rows = queries measured 27 % slower);
+// - dk and dq times scale, each output rounded once to bf16 into rows its
+//   operands left (dV: V's, dK: dO's, dQ: Q's), then stored as 16-byte
+//   rows.
+// lse_i (in P's exponent base) and delta_i come from lane i by shuffle.
+template <bool CAUSAL>
+__global__ void __launch_bounds__(32 * kMaxHeadsPerBlock)
+bwd_short_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dq,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sq,
+                     Strides sk, Strides sv, Strides sdo, Strides sdq,
+                     Strides sdk, Strides sdv, Problem pr, int n_heads) {
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  constexpr int RING = kBwdRing, P = kMmaPitch, TILE = kMmaTile;
+  constexpr int W = kBwdWarpsPerHead, ROWS = 32 / W;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int head = warp / W, wh = warp % W, tid = threadIdx.x % (32 * W);
+  const int seq = pr.seq;
+  bf16* area = reinterpret_cast<bf16*>(mma_smem + head * bwd_mma_head_bytes());
+  bf16* dsh = area + 4 * RING * TILE;   // dS^T's big part
+  bf16* dsl = dsh + TILE;               // ... and its small part
+  const int heads_per_block = blockDim.x / (32 * W);
+  const int first = blockIdx.x * heads_per_block + head;
+  const int stride = gridDim.x * heads_per_block;
+  const int items = first < n_heads ? (n_heads - first + stride - 1) / stride
+                                    : 0;
+
+  // item it's q, k, v and do into its stage by the head's threads; an empty
+  // group past the last
+  auto stage = [&](int it) {
+    if (it < items) {
+      const int bh = first + it * stride, b = bh / pr.heads, h = bh % pr.heads;
+      bf16* dst = area + (it % RING) * 4 * TILE;
+      const bf16* src[4] = {q + b * sq.b + h * sq.h, k + b * sk.b + h * sk.h,
+                            v + b * sv.b + h * sv.h,
+                            dout + b * sdo.b + h * sdo.h};
+      const long long ld[4] = {sq.s, sk.s, sv.s, sdo.s};
+#pragma unroll
+      for (int op = 0; op < 4; ++op)
+#pragma unroll
+        for (int e = tid; e < kShortMaxSeq * 4; e += 32 * W) {
+          const int r = e >> 2, c = (e & 3) * 8;
+          const bool in = r < seq;
+          cp_async16_b(dst + op * TILE + r * P + c,
+                       in ? src[op] + r * ld[op] + c : src[op], in ? 16 : 0);
+        }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int it = 0; it < RING; ++it) stage(it);
+
+  for (int it = 0; it < items; ++it) {
+    const int bh = first + it * stride, b = bh / pr.heads, h = bh % pr.heads;
+    const long long row0 = static_cast<long long>(bh) * seq;
+    const float lse_l = lane < seq ? in_base(lse[row0 + lane]) : 0.f;
+    const float delta_l = lane < seq ? delta[row0 + lane] : 0.f;
+    cp_async_wait<RING - 1>();
+    head_sync(head);   // every thread's copies of this stage are in
+    bf16* qs = area + (it % RING) * 4 * TILE;
+    bf16* ks = qs + TILE;
+    bf16* vs = ks + TILE;
+    bf16* dos = vs + TILE;
+    if (W == 1 || wh == 0)
+      bwd_mma_head<CAUSAL, 0>(pr, qs, ks, vs, dos, dsh, dsl, lse_l, delta_l,
+                              head, lane);
+    else if constexpr (W == 2)
+      bwd_mma_head<CAUSAL, 1>(pr, qs, ks, vs, dos, dsh, dsl, lse_l, delta_l,
+                              head, lane);
+    __syncwarp();
+    // the warp's whole rows out: dv from V's rows, dk from dO's, dq from
+    // Q's
+    bf16* dvg = dv + b * sdv.b + h * sdv.h;
+    bf16* dkg = dk + b * sdk.b + h * sdk.h;
+    bf16* dqg = dq + b * sdq.b + h * sdq.h;
+    const int r0 = wh * ROWS, r1 = min(r0 + ROWS, seq);
+    for (int e = lane; e < (r1 - r0) * 4; e += 32) {
+      const int r = r0 + (e >> 2), c = (e & 3) * 8;
+      *reinterpret_cast<uint4*>(dvg + r * sdv.s + c) =
+          *reinterpret_cast<const uint4*>(vs + r * P + c);
+      *reinterpret_cast<uint4*>(dkg + r * sdk.s + c) =
+          *reinterpret_cast<const uint4*>(dos + r * P + c);
+      *reinterpret_cast<uint4*>(dqg + r * sdq.s + c) =
+          *reinterpret_cast<const uint4*>(qs + r * P + c);
+    }
+    head_sync(head);   // this stage and dS^T's tiles are read: refill
+    stage(it + RING);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // the tiled forward on the tensor cores (3xTF32)
 // ---------------------------------------------------------------------------
 
@@ -766,15 +1251,6 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[N][4],
   for (int j = 0; j < N; ++j) mma_tf32(c[j], ab, bs[j]);
 #pragma unroll
   for (int j = 0; j < N; ++j) mma_tf32(c[j], ab, bb[j]);
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Rows [r0, r0 + rows) of one head's operand (global row stride `ld`) into
@@ -1223,13 +1699,64 @@ int launch_dkdv_short(const T* q, const T* k, const T* v, const T* dout,
   return cudaGetLastError();
 }
 
+// The bf16 backward on the tensor cores: a block of `hpb` warps, a warp
+// per (batch, head); with kBwdPersistent as many blocks as fit on the card
+// at once, walking the heads.
+template <bool CAUSAL>
+int launch_bwd_mma(const bf16* q, const bf16* k, const bf16* v,
+                   const bf16* dout, const float* lse, const float* delta,
+                   bf16* dq, bf16* dk, bf16* dv, int batch,
+                   const long long* st, Problem pr, int hpb,
+                   cudaStream_t stream) {
+  static const cudaError_t attr =
+      allow_max_smem(bwd_short_mma_kernel<CAUSAL>);
+  if (attr != cudaSuccess) return attr;
+  const int n_heads = batch * pr.heads;
+  const size_t smem = static_cast<size_t>(hpb) * bwd_mma_head_bytes();
+  int blocks = (n_heads + hpb - 1) / hpb;
+  if (kBwdPersistent) {
+    // the blocks that fit on the card at once, per block size (queried
+    // once per process)
+    static int wave[kMaxHeadsPerBlock + 1] = {};
+    if (wave[hpb] == 0) {
+      int dev = 0, sms = 0, per_sm = 0;
+      cudaError_t err = cudaGetDevice(&dev);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, bwd_short_mma_kernel<CAUSAL>,
+            32 * kBwdWarpsPerHead * hpb, smem);
+      if (err != cudaSuccess) return err;
+      wave[hpb] = max(1, sms * per_sm);
+    }
+    blocks = min(blocks, wave[hpb]);
+  }
+  bwd_short_mma_kernel<CAUSAL>
+      <<<blocks, 32 * kBwdWarpsPerHead * hpb, smem, stream>>>(
+      q, k, v, dout, lse, delta, dq, dk, dv, strides_at(st, 0),
+      strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
+      strides_at(st, 4), strides_at(st, 5), strides_at(st, 6), pr, n_heads);
+  return cudaGetLastError();
+}
+
+// The plan's forms (kernel.py `_FORMS`): the tiled kernels, the short
+// forms, the bf16 backward on the tensor cores.
+constexpr int kFormTiled = 0, kFormShort = 1, kFormMma = 2;
+
 // The plan's short form runs only where it applies; a 16-byte copy plan
 // with a stride or pointer that is not 16-byte aligned is the caller's
-// error (the plan checks both).
+// error (the plan checks both). The mma form (the fused bf16 backward)
+// runs where the short form does, only with 16-byte copies, and with at
+// most kMaxHeadsPerBlock warps a block.
 template <typename T>
-bool short_plan_ok(int seq, int d, int hpb, int vec) {
-  return d == kShortD && seq >= 1 && seq <= kShortMaxSeq && hpb >= 1 &&
-         hpb <= kMaxHeadsPerBlock && vec_ok<T>(vec);
+bool short_plan_ok(int form, int seq, int d, int hpb, int vec) {
+  const bool mma = form == kFormMma;
+  return (form == kFormShort || (mma && sizeof(T) == 2 && vec == 16)) &&
+         d == kShortD && seq >= 1 && seq <= kShortMaxSeq && hpb >= 1 &&
+         hpb * (mma ? kBwdWarpsPerHead : 1) <= kMaxHeadsPerBlock &&
+         vec_ok<T>(vec);
 }
 
 // The short form's launch at the plan's copy width: `launch(VEC)` is
@@ -1245,11 +1772,12 @@ int by_vec(int vec, Launch launch) {
 template <typename T>
 int fwd_entry(const T* q, const T* k, const T* v, T* o, float* lse,
               int batch, int heads, int seq, int d, const long long* strides,
-              float scale, int causal, int window, int short_form,
+              float scale, int causal, int window, int form,
               int heads_per_block, int vec, cudaStream_t stream) {
   const Problem pr{heads, seq, scale, causal, window};
-  if (short_form) {
-    if (!short_plan_ok<T>(seq, d, heads_per_block, vec))
+  if (form != kFormTiled) {
+    if (form != kFormShort ||
+        !short_plan_ok<T>(form, seq, d, heads_per_block, vec))
       return cudaErrorInvalidValue;
     return by_vec<T>(vec, [&](auto w) {
       return launch_fwd_short<T, decltype(w)::value>(
@@ -1269,11 +1797,12 @@ template <typename T>
 int dq_entry(const T* q, const T* k, const T* v, const T* dout,
              const float* lse, const float* delta, T* dq, int batch,
              int heads, int seq, int d, const long long* strides,
-             float scale, int causal, int window, int short_form,
+             float scale, int causal, int window, int form,
              int heads_per_block, int vec, cudaStream_t stream) {
   const Problem pr{heads, seq, scale, causal, window};
-  if (short_form) {
-    if (!short_plan_ok<T>(seq, d, heads_per_block, vec))
+  if (form != kFormTiled) {
+    if (form != kFormShort ||
+        !short_plan_ok<T>(form, seq, d, heads_per_block, vec))
       return cudaErrorInvalidValue;
     return by_vec<T>(vec, [&](auto w) {
       return launch_dq_short<T, decltype(w)::value>(
@@ -1293,11 +1822,12 @@ template <typename T>
 int dkdv_entry(const T* q, const T* k, const T* v, const T* dout,
                const float* lse, const float* delta, T* dk, T* dv, int batch,
                int heads, int seq, int d, const long long* strides,
-               float scale, int causal, int window, int short_form,
+               float scale, int causal, int window, int form,
                int heads_per_block, int vec, cudaStream_t stream) {
   const Problem pr{heads, seq, scale, causal, window};
-  if (short_form) {
-    if (!short_plan_ok<T>(seq, d, heads_per_block, vec))
+  if (form != kFormTiled) {
+    if (form != kFormShort ||
+        !short_plan_ok<T>(form, seq, d, heads_per_block, vec))
       return cudaErrorInvalidValue;
     return by_vec<T>(vec, [&](auto w) {
       return launch_dkdv_short<T, decltype(w)::value>(
@@ -1320,23 +1850,25 @@ int dkdv_entry(const T* q, const T* k, const T* v, const T* dout,
 // the same kernels' bf16 forms); `strides` holds (b, h, s) element strides
 // per operand, in argument order. lse and delta are contiguous f32
 // (batch*heads, seq) in both. window <= 0 means no window. Every entry
-// also takes the launch plan (kernel.py `attention_plan`): short_form != 0
-// runs the short form (seq <= 32, d = 32) with `heads_per_block` warps per
-// block and `vec`-byte staging copies (16 needs every pointer and (b, h,
-// s) stride 16-byte aligned; 2, one bf16 at a time, only in the bf16
-// forms), else the tiled kernels: the forward's on the tensor cores with
-// `vec`-byte copies (heads_per_block unused), the backward's 64-row tiles.
+// also takes the launch plan (kernel.py `attention_plan`): form 1 runs the
+// short form (seq <= 32, d = 32) with `heads_per_block` warps per block and
+// `vec`-byte staging copies (16 needs every pointer and (b, h, s) stride
+// 16-byte aligned; 2, one bf16 at a time, only in the bf16 forms), form 0
+// the tiled kernels: the forward's on the tensor cores with `vec`-byte
+// copies (heads_per_block unused), the backward's 64-row tiles. The fused
+// bf16 backward, flash_attention_bwd_bf16 (dq, dk and dv in one launch),
+// takes form 2 only (seq <= 32, d = 32, 16-byte copies).
 // Returns the CUDA error code of the launch (0 on success); the kernels
 // run asynchronously on `stream`.
 extern "C" int flash_attention_fwd(const float* q, const float* k,
                                    const float* v, float* o, float* lse,
                                    int batch, int heads, int seq, int d,
                                    const long long* strides, float scale,
-                                   int causal, int window, int short_form,
+                                   int causal, int window, int form,
                                    int heads_per_block, int vec,
                                    cudaStream_t stream) {
   return fwd_entry(q, k, v, o, lse, batch, heads, seq, d, strides, scale,
-                   causal, window, short_form, heads_per_block, vec, stream);
+                   causal, window, form, heads_per_block, vec, stream);
 }
 
 extern "C" int flash_attention_fwd_bf16(const bf16* q, const bf16* k,
@@ -1344,10 +1876,10 @@ extern "C" int flash_attention_fwd_bf16(const bf16* q, const bf16* k,
                                         int batch, int heads, int seq, int d,
                                         const long long* strides, float scale,
                                         int causal, int window,
-                                        int short_form, int heads_per_block,
+                                        int form, int heads_per_block,
                                         int vec, cudaStream_t stream) {
   return fwd_entry(q, k, v, o, lse, batch, heads, seq, d, strides, scale,
-                   causal, window, short_form, heads_per_block, vec, stream);
+                   causal, window, form, heads_per_block, vec, stream);
 }
 
 extern "C" int flash_attention_bwd_dq(const float* q, const float* k,
@@ -1356,11 +1888,11 @@ extern "C" int flash_attention_bwd_dq(const float* q, const float* k,
                                       float* dq, int batch, int heads,
                                       int seq, int d,
                                       const long long* strides, float scale,
-                                      int causal, int window, int short_form,
+                                      int causal, int window, int form,
                                       int heads_per_block, int vec,
                                       cudaStream_t stream) {
   return dq_entry(q, k, v, dout, lse, delta, dq, batch, heads, seq, d,
-                  strides, scale, causal, window, short_form,
+                  strides, scale, causal, window, form,
                   heads_per_block, vec, stream);
 }
 
@@ -1368,10 +1900,10 @@ extern "C" int flash_attention_bwd_dq_bf16(
     const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
     const float* lse, const float* delta, bf16* dq, int batch, int heads,
     int seq, int d, const long long* strides, float scale, int causal,
-    int window, int short_form, int heads_per_block, int vec,
+    int window, int form, int heads_per_block, int vec,
     cudaStream_t stream) {
   return dq_entry(q, k, v, dout, lse, delta, dq, batch, heads, seq, d,
-                  strides, scale, causal, window, short_form,
+                  strides, scale, causal, window, form,
                   heads_per_block, vec, stream);
 }
 
@@ -1382,10 +1914,10 @@ extern "C" int flash_attention_bwd_dkdv(const float* q, const float* k,
                                         int heads, int seq, int d,
                                         const long long* strides,
                                         float scale, int causal, int window,
-                                        int short_form, int heads_per_block,
+                                        int form, int heads_per_block,
                                         int vec, cudaStream_t stream) {
   return dkdv_entry(q, k, v, dout, lse, delta, dk, dv, batch, heads, seq, d,
-                    strides, scale, causal, window, short_form,
+                    strides, scale, causal, window, form,
                     heads_per_block, vec, stream);
 }
 
@@ -1393,9 +1925,27 @@ extern "C" int flash_attention_bwd_dkdv_bf16(
     const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
     const float* lse, const float* delta, bf16* dk, bf16* dv, int batch,
     int heads, int seq, int d, const long long* strides, float scale,
-    int causal, int window, int short_form, int heads_per_block, int vec,
+    int causal, int window, int form, int heads_per_block, int vec,
     cudaStream_t stream) {
   return dkdv_entry(q, k, v, dout, lse, delta, dk, dv, batch, heads, seq, d,
-                    strides, scale, causal, window, short_form,
+                    strides, scale, causal, window, form,
                     heads_per_block, vec, stream);
+}
+
+extern "C" int flash_attention_bwd_bf16(
+    const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+    const float* lse, const float* delta, bf16* dq, bf16* dk, bf16* dv,
+    int batch, int heads, int seq, int d, const long long* strides,
+    float scale, int causal, int window, int form, int heads_per_block,
+    int vec, cudaStream_t stream) {
+  if (form != kFormMma ||
+      !short_plan_ok<bf16>(form, seq, d, heads_per_block, vec))
+    return cudaErrorInvalidValue;
+  const Problem pr{heads, seq, scale, causal, window};
+  return causal ? launch_bwd_mma<true>(q, k, v, dout, lse, delta, dq, dk, dv,
+                                       batch, strides, pr, heads_per_block,
+                                       stream)
+                : launch_bwd_mma<false>(q, k, v, dout, lse, delta, dq, dk,
+                                        dv, batch, strides, pr,
+                                        heads_per_block, stream);
 }

@@ -3,7 +3,11 @@
 
 The counterparts of ``repro.kernels.flash_attention.kernel``'s Pallas
 kernels: the forward (o and the f32 log-sum-exp) and the backward pair,
-dq and dk/dv. Operands are kernel-layout ``(B, H, S, D)`` with equal head
+dq and dk/dv, and :func:`flash_attention_bwd`, the counterpart of the
+reference function of that name, which runs both halves: in bf16 at the
+FL path's S <= 32, D = 32 one tensor-core kernel for dq, dk and dv
+(``bwd_short_mma_kernel``), elsewhere the pair. Operands are
+kernel-layout ``(B, H, S, D)`` with equal head
 counts and any batch, head and sequence strides (the last dimension
 unit-stride), so a transposed view of ``(B, S, H, D)`` activations is read
 in place; outputs take the layout of the matching input. q, k, v and do
@@ -16,14 +20,16 @@ sliding-window width (None: no window).
 Dispatch is by tensor device only: CPU tensors go to the plain versions in
 :mod:`.ref`; CUDA tensors launch the kernel, which is built with ``nvcc`` at
 first use, or the call raises. ``LAUNCHES`` counts the kernel launches of
-each wrapper and nothing else.
+each wrapper and nothing else; ``KERNEL_LAUNCHES`` counts the fused
+backward's launches again by its CUDA kernel.
 
 How every kernel launches is decided here, in pure Python, by
 :func:`attention_plan`: the short form (a warp per (b, h) head, a lane per
-row) where S <= 32 and D = 32, else the tiled kernels (the forward's on the
-tensor cores, the backward's 64-row tiles); heads per block and the
-staging copy width. The CPU tests check every plan the card
-would run.
+row) where S <= 32 and D = 32, and there the fused bf16 backward on the
+tensor cores (``"mma"``) where 16-byte copies apply, else the tiled
+kernels (the forward's on the tensor cores, the backward's 64-row tiles);
+heads per block and the staging copy width. The CPU tests check every
+plan the card would run.
 """
 from __future__ import annotations
 
@@ -42,13 +48,16 @@ SOURCE = pathlib.Path(__file__).parent / "csrc" / "flash_attention.cu"
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkdv": 0, "flash_attention_bf16": 0,
             "flash_attention_bwd_dq_bf16": 0,
-            "flash_attention_bwd_dkdv_bf16": 0}
+            "flash_attention_bwd_dkdv_bf16": 0,
+            "flash_attention_bwd_bf16": 0}
+# the fused backward's launches again, by its CUDA kernel
+KERNEL_LAUNCHES = {"bwd_short_mma_kernel": 0}
 
 HEAD_DIMS = (32, 64, 128)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PROBLEM = [_I] * 4 + [_P, _F, _I, _I]  # b, h, s, d, strides, scale,
 #                                           causal, window
-_PLAN = [_I] * 3                        # short form, heads per block, vec
+_PLAN = [_I] * 3                        # form, heads per block, vec
 _ARGTYPES = {
     "flash_attention_fwd": [_P] * 5 + _PROBLEM + _PLAN + [_P],
     "flash_attention_bwd_dq": [_P] * 7 + _PROBLEM + _PLAN + [_P],
@@ -56,6 +65,11 @@ _ARGTYPES = {
 }
 # the bf16 entries take the same arguments as their f32 twins
 _ARGTYPES.update({f"{fn}_bf16": types for fn, types in _ARGTYPES.items()})
+# the fused backward: bf16 only
+_ARGTYPES["flash_attention_bwd_bf16"] = [_P] * 9 + _PROBLEM + _PLAN + [_P]
+# the plan's form as the C entries take it (csrc kFormTiled, kFormShort,
+# kFormMma)
+_FORMS = {"tiled": 0, "short": 1, "mma": 2}
 
 # The short form (csrc kShortMaxSeq, kShortD): a lane per row of a head.
 SHORT_MAX_SEQ = 32
@@ -67,6 +81,10 @@ SHORT_HEAD_DIM = 32
 # kMaxHeadsPerBlock bounds it.
 HEADS_PER_BLOCK = 1
 MAX_HEADS_PER_BLOCK = 8
+# Heads per block of the fused bf16 backward (two warps each): one is
+# 21-27 % and four 6-11 % slower at the round's, the statistics pass's and
+# the non-causal 32's shapes (tools/flash_attention_variants.py --bwd).
+MMA_HEADS_PER_BLOCK = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,10 +93,14 @@ class AttentionPlan:
     ``heads_per_block`` warps per block, staging copies of ``vec`` bytes:
     16 where every pointer and (b, h, s) stride allows it, else 4, else
     (bf16) 2; f32 by cp.async, bf16 by loads widened to f32 on their way
-    into shared memory) or ``"tiled"``: the forward's tensor-core tiles (a
-    block of 4 warps per head and 64 query rows, copies of ``vec`` bytes by
-    the same rule) or the backward's 256-thread block per head and 64-row
-    tile (loads of one element: ``vec`` is the element size)."""
+    into shared memory), ``"mma"`` (the backward's bf16 form at the short
+    form's shapes with 16-byte copies: dq, dk and dv in one kernel on bf16
+    ``mma.sync``, two warps a head, ``heads_per_block`` heads a block,
+    operands staged as bf16 by cp.async)
+    or ``"tiled"``: the forward's tensor-core tiles (a block of 4 warps per
+    head and 64 query rows, copies of ``vec`` bytes by the same rule) or the
+    backward's 256-thread block per head and 64-row tile (loads of one
+    element: ``vec`` is the element size)."""
     form: str
     heads_per_block: int
     vec: int
@@ -95,6 +117,8 @@ def attention_plan(b: int, h: int, s: int, d: int, *,
     vec = build.copy_width(16 if aligned else itemsize, *strides,
                            itemsize=itemsize)
     if s <= SHORT_MAX_SEQ and d == SHORT_HEAD_DIM:
+        if not forward and itemsize == 2 and vec == 16:
+            return AttentionPlan("mma", MMA_HEADS_PER_BLOCK, vec)
         return AttentionPlan("short", HEADS_PER_BLOCK, vec)
     return AttentionPlan("tiled", 1, vec if forward else itemsize)
 
@@ -114,9 +138,19 @@ def attention_fwd_plan(*tensors: torch.Tensor) -> AttentionPlan:
 
 
 def attention_bwd_plan(*tensors: torch.Tensor) -> AttentionPlan:
-    """The backward pair's plan for these (B, H, S, D) operands, inputs and
-    outputs (unit last strides)."""
+    """The backward's plan for these (B, H, S, D) operands, inputs and
+    outputs (unit last strides): ``"mma"`` is the fused kernel's, which
+    :func:`flash_attention_bwd` launches."""
     return _plan_for(False, tensors)
+
+
+def _pair_plan(*tensors: torch.Tensor) -> AttentionPlan:
+    """The plan of the dq or the dk/dv kernel: the backward's, with the FMA
+    short form where the fused kernel would run."""
+    plan = attention_bwd_plan(*tensors)
+    if plan.form == "mma":
+        return AttentionPlan("short", HEADS_PER_BLOCK, plan.vec)
+    return plan
 
 
 def library():
@@ -169,7 +203,7 @@ def _problem(q, window, causal, *tensors):
 
 
 def _plan_args(plan: AttentionPlan) -> tuple:
-    return int(plan.form == "short"), plan.heads_per_block, plan.vec
+    return _FORMS[plan.form], plan.heads_per_block, plan.vec
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -202,7 +236,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
     dq = torch.empty_like(q)
     tail = _problem(q, window, causal, q, k, v, do, dq)
     if dq.numel():
-        tail += _plan_args(attention_bwd_plan(q, k, v, do, dq))
+        tail += _plan_args(_pair_plan(q, k, v, do, dq))
         build.launch(library(), "flash_attention_bwd_dq",
                      "flash_attention_bwd_dq", LAUNCHES, q.device,
                      q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -223,10 +257,40 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal: bool = True,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     tail = _problem(q, window, causal, q, k, v, do, dk, dv)
     if dk.numel():
-        tail += _plan_args(attention_bwd_plan(q, k, v, do, dk, dv))
+        tail += _plan_args(_pair_plan(q, k, v, do, dk, dv))
         build.launch(library(), "flash_attention_bwd_dkdv",
                      "flash_attention_bwd_dkdv", LAUNCHES, q.device,
                      q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                      lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                      dv.data_ptr(), *tail, dtype=q.dtype)
     return dk, dv
+
+
+def flash_attention_bwd(q, k, v, do, lse, delta, causal: bool = True,
+                        window: Optional[int] = None):
+    """(dq, dk, dv), each (B, H, S, D), from the forward's lse and ``delta
+    = sum(do * o, -1)``: the counterpart of the reference's
+    ``flash_attention_bwd``. One launch of the fused kernel where the plan
+    is ``"mma"`` (bf16, S <= 32, D = 32, 16-byte copies), else
+    :func:`flash_attention_bwd_dq` then :func:`flash_attention_bwd_dkdv`."""
+    if not build.on_cuda("flash_attention_bwd", q, k, v, do, lse, delta):
+        return ref.attention_ref_bwd(q, k, v, do, lse, delta, causal=causal,
+                                     window=window)
+    q, k, v, do = _operands(("q", "k", "v", "do"), q, k, v, do)
+    lse, delta = (_rows(t, *q.shape[:3]) for t in (lse, delta))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    plan = attention_bwd_plan(q, k, v, do, dq, dk, dv)
+    if plan.form != "mma":
+        return (flash_attention_bwd_dq(q, k, v, do, lse, delta, causal,
+                                       window),
+                *flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal,
+                                          window))
+    tail = _problem(q, window, causal, q, k, v, do, dq, dk, dv)
+    if dq.numel():
+        build.launch(library(), "flash_attention_bwd", "flash_attention_bwd",
+                     LAUNCHES, q.device, q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                     delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                     dv.data_ptr(), *tail, *_plan_args(plan), dtype=q.dtype)
+        KERNEL_LAUNCHES["bwd_short_mma_kernel"] += 1
+    return dq, dk, dv

@@ -2,8 +2,9 @@
 ``repro.kernels.flash_attention.ops``).
 
 An ``autograd.Function`` whose forward is the forward kernel of
-:mod:`.kernel` and whose backward is the dq and dk/dv kernels (CUDA on the
-card, their plain versions on the CPU). It saves ``(q, k, v, o, lse)`` as
+:mod:`.kernel` and whose backward is ``kernel.flash_attention_bwd`` (the
+fused bf16 kernel, or the dq and dk/dv kernels; CUDA on the card, their
+plain versions on the CPU). It saves ``(q, k, v, o, lse)`` as
 the reference's custom VJP does, and computes ``delta = sum(do * o, -1)``
 in torch, outside the kernels. :func:`gqa_attention` is the layout adapter
 the models call.
@@ -31,10 +32,8 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         delta = torch.sum(do.float() * o.float(), dim=-1)
-        dq = kernel.flash_attention_bwd_dq(q, k, v, do, lse, delta,
-                                           ctx.causal, ctx.window)
-        dk, dv = kernel.flash_attention_bwd_dkdv(q, k, v, do, lse, delta,
-                                                 ctx.causal, ctx.window)
+        dq, dk, dv = kernel.flash_attention_bwd(q, k, v, do, lse, delta,
+                                                ctx.causal, ctx.window)
         return dq, dk, dv, None, None
 
 

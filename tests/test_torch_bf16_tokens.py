@@ -428,9 +428,123 @@ def test_ssd_bwd_mma_form_arithmetic_matches_reference_bf16(groups):
             assert np.abs(g.numpy() - w).max() <= SSD_RTOL * np.abs(w).max()
 
 
+def _fa_bwd_mma_emulation(q, k, v, do, lse, delta, causal, window,
+                          parts=2):
+    """bwd_short_mma_kernel's arithmetic for each (b, h) head in f32 from
+    bf16 operands: S^T = K Q^T and dP^T = V dO^T from exact bf16 products;
+    P^T = exp2(S^T * (scale log2 e) - lse_i log2 e) (0 where (i, j) is not
+    visible) and dS^T = P^T (dP^T - delta_i); each split into ``parts`` bf16 parts (2:
+    the rounding and the rounding of what it left out; 1: the rounding
+    alone), each part times dO, Q or K (dV = P^T dO, dK = dS^T Q * scale,
+    dQ = dS K * scale), small part first; each output rounded once to
+    bf16."""
+    q, k, v, do, lse, delta = (torch.from_numpy(np.asarray(a, np.float32))
+                               for a in (q, k, v, do, lse, delta))
+    s, d = q.shape[2:]
+    scale = d ** -0.5
+    vis = fa_ref._mask(s, causal, window, "cpu").T          # [j][i]
+    st = torch.einsum("bhjd,bhid->bhji", k, q)
+    dpt = torch.einsum("bhjd,bhid->bhji", v, do)
+    scale2 = torch.tensor(scale, dtype=torch.float32) * LOG2E
+    pt = torch.where(vis, torch.exp2(st * scale2
+                                     - (lse * LOG2E)[..., None, :]), 0.0)
+    dst = pt * (dpt - delta[..., None, :])
+
+    def times(x, eq, y):
+        big, small = _split(x)
+        terms = (small, big) if parts == 2 else (big,)
+        out = torch.einsum(eq, terms[0], y)
+        for term in terms[1:]:
+            out = out + torch.einsum(eq, term, y)
+        return out
+    dv = times(pt, "bhji,bhid->bhjd", do)
+    dk = times(dst, "bhji,bhid->bhjd", q) * scale
+    dq = times(dst, "bhji,bhjd->bhid", k) * scale
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+def _fa_bwd_reference(case, seed):
+    """Inputs, lse and delta, and the reference's (dq, dk, dv) from its
+    Pallas kernels in interpret mode, all in bf16."""
+    b, h, s, d, causal, window = case
+    q, k, v, do = _fa_inputs(b, h, s, d, seed=seed)
+    o_ref, lse_ref = ref_fa.flash_attention(
+        _j(q), _j(k), _j(v), causal=causal, window=window, interpret=True,
+        return_lse=True)
+    lse_ref = np.array(lse_ref)
+    delta = np.sum(_f32(o_ref) * do, axis=-1)
+    want = ref_fa.flash_attention_bwd(
+        _j(q), _j(k), _j(v), _j(do), lse_ref, delta, causal=causal,
+        window=window, interpret=True)
+    return (q, k, v, do, lse_ref, delta), want
+
+
+# (B, H, S, D, causal, window): the FL round's shape at 4 rows, a ragged S
+# with a window, and S = 32 non-causal
+FA_MMA_SHAPES = [(4, 2, 32, 32, True, None), (4, 2, 20, 32, True, 8),
+                 (4, 2, 32, 32, False, None)]
+
+
+@pytest.mark.parametrize("case", FA_MMA_SHAPES)
+def test_attention_bwd_mma_form_arithmetic_matches_reference_bf16(case):
+    """The fused bf16 backward's arithmetic (P^T and dS^T in split bf16
+    parts on the tensor cores) against the reference's flash_attention_bwd
+    in interpret mode: dq, dk and dv each within one bf16 ulp plus FA_RTOL
+    of its scale."""
+    args, want = _fa_bwd_reference(case, seed=60 + case[2])
+    got = _fa_bwd_mma_emulation(*args, *case[4:])
+    for g, w in zip(got, want):
+        assert bf16_excess(g, w) <= FA_RTOL
+
+
+def test_attention_bwd_mma_form_needs_both_parts():
+    """One bf16 part of P^T and dS^T alone (the rounding, not its
+    remainder) lies beyond that limit at the round's shape: the error the
+    split removes is one this test can see."""
+    case = FA_MMA_SHAPES[0]
+    args, want = _fa_bwd_reference(case, seed=60 + case[2])
+    got = _fa_bwd_mma_emulation(*args, *case[4:], parts=1)
+    assert max(bf16_excess(g, w) for g, w in zip(got, want)) > 10 * FA_RTOL
+
+
 # ---------------------------------------------------------------------------
 # the launch plans' bf16 copy widths and the wrappers' dtype checks
 # ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("itemsize,s,d,aligned,form", [
+    (2, 32, 32, True, "mma"),      # the FL round's bf16 backward
+    (2, 1, 32, True, "mma"),
+    (2, 20, 32, True, "mma"),
+    (4, 32, 32, True, "short"),    # f32 keeps the FMA short form
+    (2, 32, 32, False, "short"),   # 2-byte copies: the FMA short form
+    (2, 33, 32, True, "tiled"),    # past the short form's rows
+    (2, 32, 64, True, "tiled"),
+])
+def test_attention_bwd_plan_mma_form(itemsize, s, d, aligned, form):
+    """The fused tensor-core backward exactly where bf16, S <= 32, D = 32
+    and 16-byte copies all hold; the forward never takes it."""
+    strides = (s * 2 * d, d, 2 * d) * 4
+    plan = fa.attention_plan(570, 2, s, d, strides=strides, aligned=aligned,
+                             itemsize=itemsize)
+    assert plan.form == form
+    if form == "mma":
+        assert plan.vec == 16
+        assert 1 <= plan.heads_per_block <= fa.MAX_HEADS_PER_BLOCK
+    fwd = fa.attention_plan(570, 2, s, d, strides=strides, aligned=aligned,
+                            itemsize=itemsize, forward=True)
+    assert fwd.form == ("tiled" if form == "tiled" else "short")
+
+
+def test_attention_pair_plan_keeps_the_fma_short_form():
+    """The dq and dk/dv wrappers, where the fused kernel's plan applies,
+    launch their FMA short forms (off the op's path, held on the card)."""
+    views = [torch.empty(570, 32, 2, 32, dtype=torch.bfloat16)
+             .transpose(1, 2) for _ in range(5)]
+    assert fa.attention_bwd_plan(*views).form == "mma"
+    plan = fa._pair_plan(*views)
+    assert (plan.form, plan.heads_per_block, plan.vec) == (
+        "short", fa.HEADS_PER_BLOCK, 16)
 
 
 @pytest.mark.parametrize("itemsize,strides,aligned,vec", [
@@ -445,10 +559,13 @@ def test_ssd_bwd_mma_form_arithmetic_matches_reference_bf16(groups):
 ])
 def test_attention_plan_bf16_copy_width(itemsize, strides, aligned, vec):
     """16-byte copies of bf16 need every stride a multiple of 8 elements
-    and every pointer 16-byte aligned; f32 as before, multiples of 4."""
+    and every pointer 16-byte aligned; f32 as before, multiples of 4. The
+    backward at the short form's shape takes the fused tensor-core form in
+    bf16 with 16-byte copies, the FMA short form otherwise."""
     plan = fa.attention_plan(570, 2, 32, 32, strides=strides * 4,
                              aligned=aligned, itemsize=itemsize)
-    assert (plan.form, plan.vec) == ("short", vec)
+    form = "mma" if (itemsize, vec) == (2, 16) else "short"
+    assert (plan.form, plan.vec) == (form, vec)
     fwd = fa.attention_plan(2, 2, 64, 64, strides=strides * 4,
                             aligned=aligned, itemsize=itemsize, forward=True)
     assert (fwd.form, fwd.vec) == ("tiled", vec)

@@ -137,6 +137,47 @@ def test_dispatch_is_by_device_only():
         kernel.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_backward_wrapper_is_the_plain_version_on_cpu(dtype):
+    """flash_attention_bwd on CPU tensors is attention_ref_bwd, bit for bit,
+    and launches nothing."""
+    q, k, v, do = (torch.from_numpy(a).to(dtype)
+                   for a in _qkv_do(3, 2, 20, 32, seed=7))
+    o, lse = kernel.flash_attention(q, k, v, True, 8)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    before_l, before_k = dict(kernel.LAUNCHES), dict(kernel.KERNEL_LAUNCHES)
+    got = kernel.flash_attention_bwd(q, k, v, do, lse, delta, True, 8)
+    want = ref.attention_ref_bwd(q, k, v, do, lse, delta, causal=True,
+                                 window=8)
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.equal(g, w)
+    assert kernel.LAUNCHES == before_l
+    assert kernel.KERNEL_LAUNCHES == before_k
+
+
+def test_op_backward_goes_through_the_fused_wrapper(monkeypatch):
+    """_FlashAttention.backward calls kernel.flash_attention_bwd once per
+    backward, and its gradients are that wrapper's."""
+    calls = []
+    fused = kernel.flash_attention_bwd
+
+    def spy(*args):
+        calls.append(args[-2:])
+        return fused(*args)
+    monkeypatch.setattr(kernel, "flash_attention_bwd", spy)
+    q, k, v, do = (torch.from_numpy(a) for a in _qkv_do(2, 2, 32, 32, 8))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    o = ops.attention(qg, kg, vg, causal=True, window=None)
+    o.backward(do)
+    assert calls == [(True, None)]
+    o_ref, lse = kernel.flash_attention(q, k, v, True, None)
+    delta = torch.sum(do * o_ref, dim=-1)
+    want = fused(q, k, v, do, lse, delta, True, None)
+    for g, w in zip((qg.grad, kg.grad, vg.grad), want):
+        assert torch.equal(g, w)
+
+
 # ---------------------------------------------------------------------------
 # the backward's launch plan and the short form's order of work, which the
 # card cannot show here

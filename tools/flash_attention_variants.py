@@ -1,7 +1,8 @@
 """Design and launch-plan variants of the flash-attention kernels, side by
 side on one card.
 
-    python3 tools/flash_attention_variants.py
+    python3 tools/flash_attention_variants.py [--bwd]
+    python3 tools/flash_attention_variants.py --parent DIR
 
 Run from the root of a checkout on a machine with a CUDA card. It prints
 the registers and spills of every kernel of the source as it is (``ptxas
@@ -22,6 +23,17 @@ FA_RTOL x the output scale) and timed on the device (chip_smoke.py's
    staging copy width, or the 64-row tiled form forced, at the round's and
    statistics shapes; SDPA's whole backward beside them.
 
+With ``--bwd`` only the fused bf16 backward (``bwd_short_mma_kernel``):
+its source variants (BWD_VARIANTS: the persistent grid and its ring of
+two undone, one warp a head, the causal skip undone, expf) and plan
+variants (BWD_MMA_PLANS: heads per block 1-8) at
+chip_smoke.py's bf16 cases whose plan is ``"mma"``, each held to one bf16
+ulp plus FA_RTOL, beside the pair of FMA short forms (dq, then dk/dv) and
+bf16 SDPA's whole backward. With ``--parent DIR`` the bf16 backward
+against another checkout's (a ``git archive`` of the parent unpacked into
+an ignored ``tmp_*/`` directory): its wrappers and source loaded from DIR,
+both held and timed in turns (DIR, this, this, DIR) at the same cases.
+
 ``base`` / ``plan`` (the source and the wrapper's plan as they are) runs
 first and again last, which shows the run's spread. One line per case,
 variant and kernel, in milliseconds.
@@ -29,6 +41,7 @@ variant and kernel, in milliseconds.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import pathlib
 import re
 import subprocess
@@ -138,6 +151,35 @@ VARIANTS = {
         "#pragma unroll\n"
         "    for (int e = 0; e < 4; ++e) c[j][e] += c2[j][e];\n"))],
 }
+# the fused bf16 backward with one choice undone (outputs checked)
+_RING = "constexpr int kBwdRing = 2;"
+_PERSISTENT = "constexpr bool kBwdPersistent = true;"
+BWD_VARIANTS = {
+    "base": [],
+    # a block per heads_per_block heads, each warp one head, no ring
+    "not_persistent": [
+        (_RING, "constexpr int kBwdRing = 1;"),
+        (_PERSISTENT, "constexpr bool kBwdPersistent = false;")],
+    # the persistent grid without the ring (a head staged only when the
+    # warp reaches it)
+    "persistent_ring_1": [(_RING, "constexpr int kBwdRing = 1;")],
+    # the causal mask's hidden tiles multiplied too
+    "no_causal_skip": [("constexpr bool kBwdCausalSkip = true;",
+                        "constexpr bool kBwdCausalSkip = false;")],
+    # a warp per head, not two
+    "one_warp_per_head": [("constexpr int kBwdWarpsPerHead = 2;",
+                           "constexpr int kBwdWarpsPerHead = 1;")],
+    # P by expf, not exp2f of log2(e)-scaled exponents
+    "expf": [("constexpr bool kBwdExp2 = true;",
+              "constexpr bool kBwdExp2 = false;")],
+}
+# the fused backward's plan variants: name -> change to the wrapper's plan
+# (two warps a head: at most four heads a block)
+BWD_MMA_PLANS = {
+    **{f"heads_per_block={n}":
+       (lambda p, n=n: dataclasses.replace(p, heads_per_block=n))
+       for n in (1, 2, 4)},
+}
 SHORT_CASES = ("round", "stats", "sigma M=1")
 TILED_CASES = ("causal 1024", "window 256", "full 256")
 
@@ -183,33 +225,40 @@ def print_registers() -> None:
     lines = (proc.stdout + proc.stderr).splitlines()
     for i, line in enumerate(lines):
         # a mangled name: ...<length><name>I<element type>Li<width>E...,
-        # the type f (float) or 13__nv_bfloat16
+        # the type f (float) or 13__nv_bfloat16; the fused backward's one
+        # parameter is its mask: ...<length><name>ILb<causal>EE...
         found = re.search(r"Compiling entry function '.*?\d+([a-z_]+kernel)"
                           r"I(f|13__nv_bfloat16)Li(\d+)E", line)
-        if not found:
+        plain = re.search(r"Compiling entry function '.*?\d+([a-z_]+kernel)"
+                          r"ILb([01])EE", line)
+        if not (found or plain):
             continue
         info = " ".join(lines[i + 1:i + 5])
         regs = re.search(r"Used (\d+) registers", info).group(1)
         spill = re.search(r"(\d+) bytes spill stores", info).group(1)
-        dtype = "float" if found.group(2) == "f" else "bf16"
-        name = f"{found.group(1)}<{dtype}, {found.group(3)}>"
+        if found:
+            dtype = "float" if found.group(2) == "f" else "bf16"
+            name = f"{found.group(1)}<{dtype}, {found.group(3)}>"
+        else:
+            name = f"{plain.group(1)}<causal={plain.group(2)}>"
         print(f"ptxas {name:30s} registers={regs} spill_bytes={spill}")
 
 
-def build_variants() -> dict:
-    """name -> loaded library of every VARIANTS source, built in parallel."""
+def build_variants(variants: dict = VARIANTS, tag: str = "") -> dict:
+    """name -> loaded library of every source of ``variants`` (VARIANTS),
+    built in parallel."""
     out_dir = build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     source = kernel.SOURCE.read_text()
     paths = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in variants.items():
         text = source
         for old, new in subs:
             if text.count(old) != 1:
                 raise RuntimeError(f"variant {name}: substitution does not "
                                    f"match the source once: {old[:60]!r}")
             text = text.replace(old, new)
-        path = out_dir / f"flash_attention_{name}.cu"
+        path = out_dir / f"flash_attention{tag}_{name}.cu"
         path.write_text(text)
         paths[name] = path
     build.build_all(list(paths.values()))
@@ -217,11 +266,11 @@ def build_variants() -> dict:
             for name, path in paths.items()}
 
 
-def _inputs(label: str, g: torch.Generator):
+def _inputs(label: str, g: torch.Generator, dtype=torch.float32):
     b, h, s, d, causal, window = {c[0]: c[1:]
                                   for c in chip_smoke.FA_CASES}[label]
     q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=g)
-                   .transpose(1, 2) for _ in range(4))
+                   .to(dtype).transpose(1, 2) for _ in range(4))
     return (b, h, s, d, causal, window), (q, k, v, do)
 
 
@@ -309,16 +358,113 @@ def backward_variants(g: torch.Generator) -> None:
         kernel.attention_bwd_plan = plan_of
 
 
+def _mma_cases(g: torch.Generator):
+    """chip_smoke.py's attention cases whose bf16 backward plan is "mma":
+    (label, causal, window, (q, k, v, do, lse, delta), want)."""
+    for label, *_ in chip_smoke.FA_CASES:
+        (b, h, s, d, causal, window), (q, k, v, do) = _inputs(
+            label, g, torch.bfloat16)
+        if kernel.attention_bwd_plan(q, k, v, do).form != "mma":
+            continue
+        o, lse = kernel.flash_attention(q, k, v, causal, window)
+        args = (q, k, v, do, lse, (do.float() * o.float()).sum(-1))
+        yield label, causal, window, args, ref.attention_ref_bwd(
+            *args, causal=causal, window=window)
+
+
+def _bwd_line(label, name, fn, want) -> None:
+    excess = chip_smoke._bf16_excess(fn(), want)
+    note = " OVER FA_RTOL" if excess > chip_smoke.FA_RTOL else ""
+    print(f"variant {label:14s} {name:22s} bwd  "
+          f"ms={chip_smoke.device_ms(fn):.4f} ulp_excess={excess:.1e}{note}",
+          flush=True)
+
+
+def fused_backward_variants(g: torch.Generator) -> None:
+    """The fused bf16 backward's source and plan variants, the FMA pair and
+    bf16 SDPA's whole backward beside them."""
+    libs = build_variants(BWD_VARIANTS, "_bwd")
+    library, plan_of = kernel.library, kernel.attention_bwd_plan
+    runs = ([(name, None) for name in BWD_VARIANTS]
+            + list(BWD_MMA_PLANS.items()) + [("base", None)])
+    for label, causal, window, args, want in _mma_cases(g):
+        def fn():
+            return kernel.flash_attention_bwd(*args, causal, window)
+        for name, change in runs:
+            kernel.library = lambda lib=libs["base" if change else name]: lib
+            kernel.attention_bwd_plan = (
+                plan_of if change is None else
+                lambda *t, c=change: c(plan_of(*t)))
+            _bwd_line(label, name, fn, want)
+        kernel.library, kernel.attention_bwd_plan = library, plan_of
+        _bwd_line(label, "fma_pair", lambda: (
+            kernel.flash_attention_bwd_dq(*args, causal, window),
+            *kernel.flash_attention_bwd_dkdv(*args, causal, window)), want)
+        q, k, v, do = args[:4]
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        lib_mask = (None if window is None else chip_smoke._visible(
+            q.shape[2], causal, window))
+        o_lib = F.scaled_dot_product_attention(
+            qg, kg, vg, attn_mask=lib_mask,
+            is_causal=causal and lib_mask is None)
+        sdpa_ms = chip_smoke.device_ms(lambda: torch.autograd.grad(
+            o_lib, (qg, kg, vg), do, retain_graph=True))
+        print(f"variant {label:14s} {'sdpa_backward':22s} bwd  "
+              f"ms={sdpa_ms:.4f}", flush=True)
+
+
+def parent_ab(parent: pathlib.Path) -> None:
+    """The bf16 backward against another checkout's (``--parent DIR``): its
+    wrapper module and source loaded from DIR, built beside this one's,
+    both held to one bf16 ulp plus FA_RTOL and timed in turns (DIR, this,
+    this, DIR). A parent without ``flash_attention_bwd`` runs its dq and
+    dk/dv wrappers in turn."""
+    spec = importlib.util.spec_from_file_location(
+        "_parent_fa_kernel", parent / "src" / "repro_torch" / "kernels"
+        / "flash_attention" / "kernel.py")
+    other = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = other   # its dataclasses look their module up
+    spec.loader.exec_module(other)
+    build.build_all([other.SOURCE, kernel.SOURCE])
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for label, causal, window, args, want in _mma_cases(g):
+        fns = {"parent": (
+                   lambda: other.flash_attention_bwd(*args, causal, window))
+               if hasattr(other, "flash_attention_bwd") else (
+                   lambda: (other.flash_attention_bwd_dq(*args, causal,
+                                                         window),
+                            *other.flash_attention_bwd_dkdv(*args, causal,
+                                                            window))),
+               "this": lambda: kernel.flash_attention_bwd(*args, causal,
+                                                          window)}
+        errs = {k: chip_smoke._bf16_excess(f(), want) for k, f in fns.items()}
+        ms = [chip_smoke.device_ms(fns[k])
+              for k in ("parent", "this", "this", "parent")]
+        print(f"bwd ab {label:14s} parent/this/this/parent ms="
+              + " ".join(f"{m:.4f}" for m in ms)
+              + f" ulp_excess parent={errs['parent']:.1e} "
+              f"this={errs['this']:.1e}", flush=True)
+        chip_smoke.check(max(errs.values()) <= chip_smoke.FA_RTOL,
+                         f"{label}: a backward disagrees with the plain "
+                         f"version: {errs}")
+
+
 def main() -> int:
     chip_smoke.check(torch.cuda.is_available(), "needs one CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
+    if "--parent" in sys.argv[1:]:
+        parent_ab(pathlib.Path(sys.argv[sys.argv.index("--parent") + 1]))
+        return 0
     print_registers()
     kernel.library()
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(1)
+    if "--bwd" in sys.argv[1:]:
+        fused_backward_variants(g)
+        return 0
     forward_variants(g)
     backward_variants(g)
     return 0
