@@ -46,11 +46,15 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
      scan at the same shapes, against their plain bf16 versions (one bf16
      ulp plus FA_RTOL or SSD_RTOL of scale; lse, f32, at FA_RTOL), with
      bf16 ``scaled_dot_product_attention`` as the attention's library
-     yardstick; and at every case whose bf16 backward plan is ``"mma"``
-     (S <= 32, D = 32, 16-byte copies) the fused backward
+     yardstick; at every case whose bf16 plan is ``"mma"`` (S <= 32,
+     D = 32, 16-byte copies) the forward is its tensor-core form
+     (``fwd_short_mma_kernel``) and the fused backward
      (``flash_attention_bwd_bf16``: dq, dk and dv in one tensor-core
-     launch, ``bwd_short_mma_kernel``) against ``attention_ref_bwd``, with
-     bf16 SDPA's whole backward as its library time;
+     launch, ``bwd_short_mma_kernel``) is held against
+     ``attention_ref_bwd``, with bf16 SDPA's whole backward as its library
+     time; the round's shape once more on views off 16-byte alignment
+     (``FA_UNALIGNED``) holds the FMA short forms, which such views take
+     in both dtypes;
    - the SSD scan's backward, f32 and bf16, at the SSD shapes: all five
      gradients against the plain version (autograd through the sequential
      recurrence), each at SSD_RTOL of its own scale (bf16: one ulp plus
@@ -71,8 +75,9 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
    rounds=3, eval_every=3)`` and ``Scenario(model="ssm", rounds=3,
    eval_every=3)`` on the default network and both again in bf16
    (``transformer-bf16``, ``ssm-bf16``: their rounds run the attention and
-   SSD bf16 forms; ``transformer-bf16``'s backward the fused kernel on
-   every call and never the bf16 dq or dk/dv kernel), all on
+   SSD bf16 forms; ``transformer-bf16``'s forward the tensor-core form
+   and its backward the fused kernel on every call, and never the bf16 dq
+   or dk/dv kernel; ``transformer`` neither tensor-core form), all on
    ``device="cuda"``: statistics pass plus three
    rounds, the last one profiled. The fused linear paths must launch
    every form of their kernels (``FORMS``; in bf16 the Hopper forms at fc1
@@ -176,7 +181,7 @@ PORT_KERNELS = ("fwd_kernel", "splitk_reduce_kernel", "dx_kernel",
                 "dwdb_kernel", "fwd_bf16_kernel", "dx_bf16_kernel",
                 "dwdb_bf16_kernel", "fwd_tma_kernel", "dx_tma_kernel",
                 "dwdb_tma_kernel",
-                "fwd_short_kernel", "fwd_tc_kernel",
+                "fwd_short_kernel", "fwd_short_mma_kernel", "fwd_tc_kernel",
                 "dq_kernel", "dkdv_kernel", "dq_short_kernel",
                 "dkdv_short_kernel", "bwd_short_mma_kernel", "ssd_kernel",
                 "ssd_chunk_scan_kernel",
@@ -194,11 +199,14 @@ FORMS = {f"{name}{dt}": tuple(f"{kind}{form}_kernel" for form in forms)
 # bf16 mma.sync and 3xTF32
 FORMS.update(ssd_scan_bwd=("ssd_bwd_tf32_kernel",),
              ssd_scan_bwd_bf16=("ssd_bwd_mma_kernel",))
-# the fused bf16 attention backward's one kernel
-# (fa_kernel.KERNEL_LAUNCHES), which the bf16 transformer path must launch
-# on every backward call
-FORMS.update(flash_attention_bwd_bf16=("bwd_short_mma_kernel",))
-EVERY_CALL = {"flash_attention_bwd_bf16": "bwd_short_mma_kernel"}
+# the bf16 attention forward's tensor-core form and the fused bf16
+# attention backward's one kernel (fa_kernel.KERNEL_LAUNCHES), which the
+# bf16 transformer path must launch on every forward and backward call: so
+# it never launches the bf16 FMA forward
+FORMS.update(flash_attention_bf16=("fwd_short_mma_kernel",),
+             flash_attention_bwd_bf16=("bwd_short_mma_kernel",))
+EVERY_CALL = {"flash_attention_bf16": "fwd_short_mma_kernel",
+              "flash_attention_bwd_bf16": "bwd_short_mma_kernel"}
 # every launch counter and every plain-version call counter of the port
 LAUNCH_COUNTS = (kernel.LAUNCHES, kernel.KERNEL_LAUNCHES, fa_kernel.LAUNCHES,
                  fa_kernel.KERNEL_LAUNCHES, ssd_kernel.LAUNCHES,
@@ -566,7 +574,12 @@ FA_CASES = [
     ("window 256", 2, 8, 1024, 128, True, 256),
     ("full 256", 2, 4, 256, 64, False, None),
     ("tiled S=100 D=32", 8, 2, 100, 32, True, 40),
+    ("round unaligned", 570, 2, 32, 32, True, None),
 ]
+# cases whose operands are views 2 elements into their storage: 4 bytes off
+# 16-byte alignment in bf16 (8 in f32), so both dtypes take the FMA short
+# forms, with copies of one element
+FA_UNALIGNED = ("round unaligned",)
 # operations per visible (query, key) pair per head dim, (B, H, S, D)
 # tensors and (B, H, S) rows read or written once
 FA_WORK = {"flash_attention": (4, 4, 1),           # q k v o, lse
@@ -586,6 +599,18 @@ def _visible(s: int, causal: bool, window) -> torch.Tensor:
     return mask
 
 
+def fa_operands(label: str, g, dtype) -> tuple:
+    """q, k, v and do of one FA_CASES case: (B, H, S, D) views of (B, S, H,
+    D) activations, as the model hands them to the kernels, drawn from
+    ``g`` in f32 and rounded to ``dtype``; in FA_UNALIGNED each 2 elements
+    into its storage."""
+    b, h, s, d, _, _ = {c[0]: c[1:] for c in FA_CASES}[label]
+    off = 2 if label in FA_UNALIGNED else 0
+    return tuple(torch.randn(b * s * h * d + off, device="cuda", generator=g)
+                 .to(dtype)[off:].view(b, s, h, d).transpose(1, 2)
+                 for _ in range(4))
+
+
 def attention_phase(bf16: bool = False) -> dict:
     """Flash attention's three kernels (``bf16``: their bf16 forms, named
     with ``_bf16``, on bf16 operands with f32 lse and delta, held to one
@@ -596,34 +621,46 @@ def attention_phase(bf16: bool = False) -> dict:
     sfx = "_bf16" * bf16
     totals: dict = {}
     for label, b, h, s, d, causal, window in FA_CASES:
-        # (B, S, H, D) activations read as (B, H, S, D) views, as the model
-        # hands them to the kernels
-        q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=g)
-                       .to(dtype).transpose(1, 2) for _ in range(4))
+        q, k, v, do = fa_operands(label, g, dtype)
         o, lse = fa_kernel.flash_attention(q, k, v, causal, window)
         delta = (do.float() * o.float()).sum(-1)
         mask = _visible(s, causal, window)
         pairs = int(mask.sum())
         # library yardstick: scaled_dot_product_attention, forward and its
-        # whole backward (dq, dk and dv in one call)
-        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-        lib_mask = None if window is None else mask
+        # whole backward (dq, dk and dv in one call); none on the views off
+        # 16-byte alignment, on which its f32 kernels fault (misaligned
+        # address) and its bf16 backward fails
+        lib_fwd = lib_bwd = None
+        if label not in FA_UNALIGNED:
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+            lib_mask = None if window is None else mask
 
-        def sdpa():
-            return F.scaled_dot_product_attention(
-                qg, kg, vg, attn_mask=lib_mask,
-                is_causal=causal and lib_mask is None)
-        o_lib = sdpa()
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qg, kg, vg, attn_mask=lib_mask,
+                    is_causal=causal and lib_mask is None)
+            o_lib = sdpa()
 
-        def lib_fwd():
-            with torch.no_grad():
-                return sdpa()
+            def lib_fwd():
+                with torch.no_grad():
+                    return sdpa()
+
+            def lib_bwd():
+                return torch.autograd.grad(o_lib, (qg, kg, vg), do,
+                                           retain_graph=True)
         args = (q, k, v, do, lse, delta)
         plans = {"flash_attention": fa_kernel.attention_fwd_plan(q, k, v, o)}
         plans["flash_attention_bwd_dq"] = plans["flash_attention_bwd_dkdv"] \
             = fa_kernel._pair_plan(q, k, v, do)
         plans["flash_attention_bwd"] = fa_kernel.attention_bwd_plan(q, k, v,
                                                                     do)
+        # bf16 at the short form's shapes: the tensor-core forms exactly
+        # where every view is 16-byte aligned
+        short = s <= fa_kernel.SHORT_MAX_SEQ and d == fa_kernel.SHORT_HEAD_DIM
+        want = "mma" if bf16 and label not in FA_UNALIGNED else "short"
+        check(not short or plans["flash_attention"].form ==
+              plans["flash_attention_bwd"].form == want,
+              f"attention {label}: plans {plans}, expected {want!r}")
         fns = {
             "flash_attention": (
                 lambda: fa_kernel.flash_attention(q, k, v, causal, window),
@@ -633,24 +670,19 @@ def attention_phase(bf16: bool = False) -> dict:
                 lambda: fa_kernel.flash_attention_bwd_dq(*args, causal,
                                                          window),
                 lambda: fa_ref.attention_ref_bwd_dq(*args, causal=causal,
-                                                    window=window),
-                lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do,
-                                            retain_graph=True)),
+                                                    window=window), lib_bwd),
             "flash_attention_bwd_dkdv": (
                 lambda: fa_kernel.flash_attention_bwd_dkdv(*args, causal,
                                                            window),
                 lambda: fa_ref.attention_ref_bwd_dkdv(*args, causal=causal,
                                                       window=window),
-                lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do,
-                                            retain_graph=True)),
+                lib_bwd),
         }
         if plans["flash_attention_bwd"].form == "mma":
             fns["flash_attention_bwd"] = (
                 lambda: fa_kernel.flash_attention_bwd(*args, causal, window),
                 lambda: fa_ref.attention_ref_bwd(*args, causal=causal,
-                                                 window=window),
-                lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do,
-                                            retain_graph=True))
+                                                 window=window), lib_bwd)
         for name, (fn, plain, lib) in fns.items():
             per_pair, tensors, rows = FA_WORK[name]
             plan = plans[name]
@@ -891,9 +923,11 @@ PATHS = {
 # (N = 10) its mma.sync form, once each per local step
 FORM_SHARES = {"vgg-bf16": {"fwd_tma_kernel": 2, "fwd_bf16_kernel": 1}}
 # kernels a path must not launch: the bf16 transformer's backward is the
-# fused kernel, never the bf16 dq or dk/dv one
+# fused kernel, never the bf16 dq or dk/dv one; the f32 transformer runs
+# neither bf16 tensor-core form
 ABSENT = {"transformer-bf16": ("flash_attention_bwd_dq_bf16",
-                               "flash_attention_bwd_dkdv_bf16")}
+                               "flash_attention_bwd_dkdv_bf16"),
+          "transformer": ("fwd_short_mma_kernel", "bwd_short_mma_kernel")}
 
 
 def _print_breakdown(label: str, prof, wall: float) -> None:

@@ -80,6 +80,13 @@
 // ulp), are dV's and dK's A fragments in the registers they were formed
 // in; dQ reads dS^T's parts back transposed from shared memory. Below,
 // before the kernel.
+//
+// The bf16 forward on the tensor cores (fwd_short_mma_kernel, the plan's
+// "mma" form at the same shapes: every bf16 forward of the FL path). S = Q
+// K^T from exact bf16 products; P, in f32, split into two bf16 parts, is
+// P V's A fragments in the registers it was formed in; the row max and the
+// row sum stay within the warp that owns the rows. Below, after the
+// backward.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -841,9 +848,9 @@ __device__ __forceinline__ void split_bf16x2(float lo, float hi,
 // with the compile-time skip read 0.0111 (one warp a head, two calls).
 constexpr bool kBwdCausalSkip = true;
 
-template <bool CAUSAL>
+template <bool CAUSAL, bool SKIP = kBwdCausalSkip>
 __device__ __forceinline__ constexpr bool tile_on(int q0, int nq, int k0) {
-  return !(CAUSAL && kBwdCausalSkip) || k0 <= q0 + nq - 1;
+  return !(CAUSAL && SKIP) || k0 <= q0 + nq - 1;
 }
 
 // P's exponent base: 2 (exp2f of log2(e)-scaled scores and lse: one
@@ -994,15 +1001,15 @@ __device__ __forceinline__ void pairs_to_tile(bf16* tile,
             2 * t4) = v[mi][np][hh];
 }
 
-// The warps of one head meet: a named barrier over their threads (id 1 +
+// The W warps of one head meet: a named barrier over their threads (id 1 +
 // the head's place in the block; 0 is __syncthreads'), or __syncwarp for
 // a head of one warp.
+template <int W>
 __device__ __forceinline__ void head_sync(int head) {
-  if constexpr (kBwdWarpsPerHead == 1) {
+  if constexpr (W == 1) {
     __syncwarp();
   } else {
-    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + head),
-                 "r"(32 * kBwdWarpsPerHead)
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + head), "r"(32 * W)
                  : "memory");
   }
 }
@@ -1073,7 +1080,8 @@ __device__ __forceinline__ void bwd_mma_head(
   product<MI0, MT>(dvp, pb, ps, fb, 1.f, keys_on);
   b_frags_kn(fb, qs, lane);
   product<MI0, MT>(dkp, db, dsm, fb, pr.scale, keys_on);
-  head_sync(head);   // dS^T written; Q, V and dO read by every warp
+  // dS^T written; Q, V and dO read by every warp
+  head_sync<kBwdWarpsPerHead>(head);
   {
     // dQ = dS K: dS's A fragments (m-tile mq: queries 16 mq .., k-step kj:
     // keys 16 kj ..) by ldmatrix.trans of dS^T's parts
@@ -1175,7 +1183,7 @@ bwd_short_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float lse_l = lane < seq ? in_base(lse[row0 + lane]) : 0.f;
     const float delta_l = lane < seq ? delta[row0 + lane] : 0.f;
     cp_async_wait<RING - 1>();
-    head_sync(head);   // every thread's copies of this stage are in
+    head_sync<W>(head);   // every thread's copies of this stage are in
     bf16* qs = area + (it % RING) * 4 * TILE;
     bf16* ks = qs + TILE;
     bf16* vs = ks + TILE;
@@ -1202,7 +1210,284 @@ bwd_short_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       *reinterpret_cast<uint4*>(dqg + r * sdq.s + c) =
           *reinterpret_cast<const uint4*>(qs + r * P + c);
     }
-    head_sync(head);   // this stage and dS^T's tiles are read: refill
+    head_sync<W>(head);   // this stage and dS^T's tiles are read: refill
+    stage(it + RING);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the bf16 forward on the tensor cores: o and lse of a head
+// ---------------------------------------------------------------------------
+
+// The design's choices, each undone by a variant of
+// tools/flash_attention_variants.py --fwd (H100, two calls; the round's
+// 1,140 heads and the statistics pass's 2,280; base 0.0050-0.0051 and
+// 0.0069-0.0073 ms). Staging and stores alone take 0.0038 and 0.0055: the
+// time follows the instructions a head executes, not one warp's chain of
+// dependent work (fewer instructions, not shorter chains, took the round
+// from 0.0063 to 0.0050).
+// - heads staged kFwdRing stages deep on a persistent grid
+//   (kFwdPersistent): a block per `heads_per_block` heads is 8-10 % and
+//   14-20 % slower; a ring of two, the next head's copies in flight while
+//   the warps work on this one, 0-6 % and 7-13 % slower (the copies of
+//   two heads share the card's bytes before the first head can start);
+// - kFwdWarpsPerHead warps a head, each owning 32 / kFwdWarpsPerHead
+//   queries: one is 6-10 % and 11-17 % slower;
+// - the causal mask's hidden tiles skipped at compile time: multiplying
+//   them is 4-10 % slower;
+// - P's exponent in base 2 by ex2.approx.ftz (fwd_exp): expf is 4-9 %
+//   slower, exp2f 1-9 %;
+// - P V as kFwdParts bf16 products (2: P's bf16 rounding and the rounding
+//   of what it left out; 1: the rounding alone, no faster, and 6e-4 to
+//   8e-4 of scale beyond one bf16 ulp).
+constexpr int kFwdRing = 1;
+constexpr bool kFwdPersistent = true;
+constexpr int kFwdWarpsPerHead = 2;
+constexpr bool kFwdCausalSkip = true;
+constexpr bool kFwdExp2 = true;
+constexpr int kFwdParts = 2;
+constexpr float kFwdLn2 = 0.6931471805599453f;
+
+// a head's shared memory: kFwdRing stages of q, k and v
+__host__ __device__ constexpr int fwd_mma_head_bytes() {
+  return 2 * kMmaTile * 3 * kFwdRing;
+}
+
+// P's exponential: ex2.approx.ftz, exp2f's own MUFU.EX2 without the three
+// instructions exp2f adds to keep a result below 2^-126 (which the forward
+// flushes to 0: it adds under 2^-126 of l >= 1 to a row's sum), or expf
+__device__ __forceinline__ float fwd_exp(float x) {
+  if constexpr (kFwdExp2) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+  } else {
+    return expf(x);
+  }
+}
+
+// o and lse of one head's queries 16 MI0 .. 16 (MI0 + MT) - 1 from its
+// staged tiles, by the warp that owns them (MT = 2 / kFwdWarpsPerHead
+// m-tiles). Per m-tile m (rows r: queries 16 m + g + 8 h; columns c):
+// - S = Q K^T, n-tiles n of 8 keys, from A fragments of Q and [n][k] B
+//   fragments of K: exact bf16 products, f32 sums;
+// - row r sees keys c in [lo_r, hi_r] (CAUSAL: hi_r = r; a window:
+//   lo_r = r - window + 1; rows past S none): the others' scores become
+//   -1e30; the row max m of the scores, then p = exp(s * scale - m *
+//   scale) in P's exponent base (one fma: scale > 0, so m * scale is the
+//   max of the scaled scores; exactly 0 where (r, c) is not visible) and
+//   l = sum p, each over the lane's values then the quad's four lanes (xor
+//   1, then xor 2);
+// - P V from P's big and small bf16 parts, which in the accumulators'
+//   layout are the A fragments of P V (k = keys: n-tiles 2 kk and 2 kk + 1
+//   are k-step kk), and [k][n] B fragments of V by ldmatrix.trans: small
+//   part then big part per k-step, into f32;
+// - o = acc * (1 / max(l, 1e-30)), each element rounded once to bf16 into
+//   the warp's own rows of Q (which no other warp reads), and lse =
+//   m * scale + log(max(l, 1e-30)) for rows < S.
+// Rows past S see no key and give garbage that is never stored; every
+// other row sees its own key, so its max is a visible score. P is formed
+// for every m-tile before V's fragments are loaded, so K's and V's are
+// never live at once.
+template <bool CAUSAL, int MI0>
+__device__ __forceinline__ void fwd_mma_head(const Problem& pr, bf16* qs,
+                                             const bf16* ks, const bf16* vs,
+                                             float* lse, int lane) {
+  constexpr int MT = 2 / kFwdWarpsPerHead, P = kMmaPitch;
+  const int g = lane >> 2, c0 = 2 * (lane & 3);
+  const float scale_b = kFwdExp2 ? pr.scale * kBwdLog2e : pr.scale;
+  uint32_t pb[MT][2][4], ps[MT][2][4];   // P's A fragments, k-step kk
+  float mx[MT][2], l[MT][2];
+  {
+    uint32_t fq[MT][2][4], fk[4][2][2];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+        ldmatrix_x4<false>(fq[mi][kk],
+                           qs + (16 * (MI0 + mi) + (lane & 7) +
+                                 ((lane >> 3) & 1) * 8) * P + 16 * kk +
+                               (lane >> 4) * 8);
+    b_frags_nk(fk, ks, lane);
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      const int m = MI0 + mi;
+      // the visible keys [lo, hi] of rows g and g + 8, less the lane's
+      // first column c0
+      int lo[2], hi[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * m + g + 8 * h;
+        hi[h] = (r < pr.seq ? (CAUSAL ? r : pr.seq - 1) : -1) - c0;
+        lo[h] = (pr.window > 0 ? r - pr.window + 1 : 0) - c0;
+      }
+      float s[4][4];
+      mx[mi][0] = mx[mi][1] = kNegInf;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+        if (tile_on<CAUSAL, kFwdCausalSkip>(16 * m, 16, 8 * n)) {
+          mma_bf16(s[n], fq[mi][0], fk[n][0]);
+          mma_bf16(s[n], fq[mi][1], fk[n][1]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * n + (e & 1), h = e >> 1;   // less c0
+          s[n][e] = c >= lo[h] && c <= hi[h] ? s[n][e] : kNegInf;
+          mx[mi][h] = fmaxf(mx[mi][h], s[n][e]);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[mi][h] = fmaxf(mx[mi][h], __shfl_xor_sync(kFull, mx[mi][h], 1));
+        mx[mi][h] = fmaxf(mx[mi][h], __shfl_xor_sync(kFull, mx[mi][h], 2));
+        mx[mi][h] *= scale_b;   // the max scaled score
+        l[mi][h] = 0.f;
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        // a tile the causal skip left out is all masked
+        const bool on = tile_on<CAUSAL, kFwdCausalSkip>(16 * m, 16, 8 * n);
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = on ? fwd_exp(fmaf(s[n][e], scale_b, -mx[mi][e >> 1]))
+                    : 0.f;
+          l[mi][e >> 1] += p[e];
+        }
+        const int kk = n >> 1, base = (n & 1) * 2;
+        split_bf16x2(p[0], p[1], pb[mi][kk][base], ps[mi][kk][base]);
+        split_bf16x2(p[2], p[3], pb[mi][kk][base + 1],
+                     ps[mi][kk][base + 1]);
+      }
+    }
+  }
+  uint32_t fv[2][4][2], out[MT][4][2];
+  b_frags_kn(fv, vs, lane);
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+    const int m = MI0 + mi;
+    float acc[4][4] = {}, inv[2];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      if (!tile_on<CAUSAL, kFwdCausalSkip>(16 * m, 16, 16 * kk)) continue;
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        if (kFwdParts == 2) mma_bf16(acc[np], ps[mi][kk], fv[kk][np]);
+        mma_bf16(acc[np], pb[mi][kk], fv[kk][np]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float sum = l[mi][h];
+      sum += __shfl_xor_sync(kFull, sum, 1);
+      sum += __shfl_xor_sync(kFull, sum, 2);
+      const float denom = fmaxf(sum, 1e-30f);
+      inv[h] = 1.f / denom;
+      const int row = 16 * m + g + 8 * h;
+      if (c0 == 0 && row < pr.seq)
+        lse[row] = (kFwdExp2 ? mx[mi][h] * kFwdLn2 : mx[mi][h]) +
+                   logf(denom);
+    }
+#pragma unroll
+    for (int np = 0; np < 4; ++np)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        out[mi][np][h] = bf16x2_rn(acc[np][2 * h] * inv[h],
+                                   acc[np][2 * h + 1] * inv[h]);
+  }
+  __syncwarp();   // every lane's fragments of Q are loaded
+  pairs_to_tile<MI0, MT>(qs, out, lane);
+}
+
+// o and lse of one (batch, head) per kFwdWarpsPerHead warps, on bf16
+// mma.sync m16n8k16 with f32 accumulators, at S <= 32 and D = 32: the
+// arithmetic of fwd_mma_head. A block holds `heads_per_block` heads that
+// share nothing; head slot w takes heads w, w + (the grid's head slots),
+// ... (one each unless the grid is persistent), staging q, k and v as bf16
+// by 16-byte cp.async into tiles of pitch kMmaPitch (rows past S
+// zero-filled) in a ring of kFwdRing stages (of one: the next head's
+// copies start when the warps are done with this one). The warps of a
+// head share the staged K and V and meet twice a head: once the stage is
+// in, and before it is refilled. Each warp stores its rows of o from its
+// rows of Q as 16-byte rows.
+template <bool CAUSAL>
+__global__ void __launch_bounds__(32 * kFwdWarpsPerHead * kMaxHeadsPerBlock)
+fwd_short_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, Strides sq, Strides sk,
+                     Strides sv, Strides so, Problem pr, int n_heads) {
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  constexpr int RING = kFwdRing, P = kMmaPitch, TILE = kMmaTile;
+  constexpr int W = kFwdWarpsPerHead, ROWS = 32 / W;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int head = warp / W, wh = warp % W, tid = threadIdx.x % (32 * W);
+  const int seq = pr.seq;
+  bf16* area = reinterpret_cast<bf16*>(mma_smem + head * fwd_mma_head_bytes());
+  const int heads_per_block = blockDim.x / (32 * W);
+  const int first = blockIdx.x * heads_per_block + head;
+  const int stride = gridDim.x * heads_per_block;
+  const int items = first < n_heads ? (n_heads - first + stride - 1) / stride
+                                    : 0;
+  // (batch, head) of the item to stage and of the item to compute, each
+  // moved on by `stride` heads per item without a division
+  const int step_b = stride / pr.heads, step_h = stride % pr.heads;
+  int stage_b = first / pr.heads, stage_h = first % pr.heads;
+  int b = stage_b, h = stage_h;
+  auto advance = [&](int& bb, int& hh) {
+    bb += step_b;
+    hh += step_h;
+    if (hh >= pr.heads) hh -= pr.heads, ++bb;
+  };
+
+  // item it's q, k and v into its stage by the head's threads (items in
+  // order, one call each); an empty group past the last
+  auto stage = [&](int it) {
+    if (it < items) {
+      const int sb = stage_b, sh = stage_h;
+      advance(stage_b, stage_h);
+      bf16* dst = area + (it % RING) * 3 * TILE;
+      const bf16* src[3] = {q + sb * sq.b + sh * sq.h,
+                            k + sb * sk.b + sh * sk.h,
+                            v + sb * sv.b + sh * sv.h};
+      const long long ld[3] = {sq.s, sk.s, sv.s};
+#pragma unroll
+      for (int op = 0; op < 3; ++op)
+#pragma unroll
+        for (int e = tid; e < kShortMaxSeq * 4; e += 32 * W) {
+          const int r = e >> 2, c = (e & 3) * 8;
+          const bool in = r < seq;
+          cp_async16_b(dst + op * TILE + r * P + c,
+                       in ? src[op] + r * ld[op] + c : src[op], in ? 16 : 0);
+        }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int it = 0; it < RING; ++it) stage(it);
+
+  for (int it = 0; it < items; ++it, advance(b, h)) {
+    cp_async_wait<RING - 1>();
+    head_sync<W>(head);   // every thread's copies of this stage are in
+    bf16* qs = area + (it % RING) * 3 * TILE;
+    const bf16* ks = qs + TILE;
+    const bf16* vs = ks + TILE;
+    float* lse_h = lse + static_cast<long long>(first + it * stride) * seq;
+    if (W == 1 || wh == 0)
+      fwd_mma_head<CAUSAL, 0>(pr, qs, ks, vs, lse_h, lane);
+    else if constexpr (W == 2)
+      fwd_mma_head<CAUSAL, 1>(pr, qs, ks, vs, lse_h, lane);
+    __syncwarp();
+    // the warp's whole rows of o out of its rows of Q
+    bf16* og = o + b * so.b + h * so.h;
+    const int r0 = wh * ROWS, r1 = min(r0 + ROWS, seq);
+    for (int e = lane; e < (r1 - r0) * 4; e += 32) {
+      const int r = r0 + (e >> 2), c = (e & 3) * 8;
+      *reinterpret_cast<uint4*>(og + r * so.s + c) =
+          *reinterpret_cast<const uint4*>(qs + r * P + c);
+    }
+    head_sync<W>(head);   // every warp is done with this stage: refill
     stage(it + RING);
   }
 }
@@ -1699,9 +1984,33 @@ int launch_dkdv_short(const T* q, const T* k, const T* v, const T* dout,
   return cudaGetLastError();
 }
 
-// The bf16 backward on the tensor cores: a block of `hpb` warps, a warp
-// per (batch, head); with kBwdPersistent as many blocks as fit on the card
-// at once, walking the heads.
+// The grid of a tensor-core short form: a block per `hpb` heads, or with
+// `persistent` at most as many blocks as fit on the card at once (queried
+// once per process and block size into the launcher's `wave`).
+template <typename Kernel>
+cudaError_t mma_grid(Kernel kernel, int n_heads, int hpb, int threads,
+                     size_t smem, bool persistent,
+                     int (&wave)[kMaxHeadsPerBlock + 1], int* blocks) {
+  *blocks = (n_heads + hpb - 1) / hpb;
+  if (!persistent) return cudaSuccess;
+  if (wave[hpb] == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          threads, smem);
+    if (err != cudaSuccess) return err;
+    wave[hpb] = max(1, sms * per_sm);
+  }
+  *blocks = min(*blocks, wave[hpb]);
+  return cudaSuccess;
+}
+
+// The bf16 backward on the tensor cores: a block of `hpb` heads of
+// kBwdWarpsPerHead warps; with kBwdPersistent as many blocks as fit on the
+// card at once, walking the heads.
 template <bool CAUSAL>
 int launch_bwd_mma(const bf16* q, const bf16* k, const bf16* v,
                    const bf16* dout, const float* lse, const float* delta,
@@ -1711,33 +2020,42 @@ int launch_bwd_mma(const bf16* q, const bf16* k, const bf16* v,
   static const cudaError_t attr =
       allow_max_smem(bwd_short_mma_kernel<CAUSAL>);
   if (attr != cudaSuccess) return attr;
-  const int n_heads = batch * pr.heads;
+  const int n_heads = batch * pr.heads, threads = 32 * kBwdWarpsPerHead * hpb;
   const size_t smem = static_cast<size_t>(hpb) * bwd_mma_head_bytes();
-  int blocks = (n_heads + hpb - 1) / hpb;
-  if (kBwdPersistent) {
-    // the blocks that fit on the card at once, per block size (queried
-    // once per process)
-    static int wave[kMaxHeadsPerBlock + 1] = {};
-    if (wave[hpb] == 0) {
-      int dev = 0, sms = 0, per_sm = 0;
-      cudaError_t err = cudaGetDevice(&dev);
-      if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                     dev);
-      if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, bwd_short_mma_kernel<CAUSAL>,
-            32 * kBwdWarpsPerHead * hpb, smem);
-      if (err != cudaSuccess) return err;
-      wave[hpb] = max(1, sms * per_sm);
-    }
-    blocks = min(blocks, wave[hpb]);
-  }
-  bwd_short_mma_kernel<CAUSAL>
-      <<<blocks, 32 * kBwdWarpsPerHead * hpb, smem, stream>>>(
+  static int wave[kMaxHeadsPerBlock + 1] = {};
+  int blocks = 0;
+  const cudaError_t err =
+      mma_grid(bwd_short_mma_kernel<CAUSAL>, n_heads, hpb, threads, smem,
+               kBwdPersistent, wave, &blocks);
+  if (err != cudaSuccess) return err;
+  bwd_short_mma_kernel<CAUSAL><<<blocks, threads, smem, stream>>>(
       q, k, v, dout, lse, delta, dq, dk, dv, strides_at(st, 0),
       strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
       strides_at(st, 4), strides_at(st, 5), strides_at(st, 6), pr, n_heads);
+  return cudaGetLastError();
+}
+
+// The bf16 forward on the tensor cores: a block of `hpb` heads of
+// kFwdWarpsPerHead warps; with kFwdPersistent as many blocks as fit on the
+// card at once, walking the heads.
+template <bool CAUSAL>
+int launch_fwd_mma(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                   float* lse, int batch, const long long* st, Problem pr,
+                   int hpb, cudaStream_t stream) {
+  static const cudaError_t attr =
+      allow_max_smem(fwd_short_mma_kernel<CAUSAL>);
+  if (attr != cudaSuccess) return attr;
+  const int n_heads = batch * pr.heads, threads = 32 * kFwdWarpsPerHead * hpb;
+  const size_t smem = static_cast<size_t>(hpb) * fwd_mma_head_bytes();
+  static int wave[kMaxHeadsPerBlock + 1] = {};
+  int blocks = 0;
+  const cudaError_t err =
+      mma_grid(fwd_short_mma_kernel<CAUSAL>, n_heads, hpb, threads, smem,
+               kFwdPersistent, wave, &blocks);
+  if (err != cudaSuccess) return err;
+  fwd_short_mma_kernel<CAUSAL><<<blocks, threads, smem, stream>>>(
+      q, k, v, o, lse, strides_at(st, 0), strides_at(st, 1),
+      strides_at(st, 2), strides_at(st, 3), pr, n_heads);
   return cudaGetLastError();
 }
 
@@ -1745,18 +2063,19 @@ int launch_bwd_mma(const bf16* q, const bf16* k, const bf16* v,
 // forms, the bf16 backward on the tensor cores.
 constexpr int kFormTiled = 0, kFormShort = 1, kFormMma = 2;
 
-// The plan's short form runs only where it applies; a 16-byte copy plan
+// The plan's short forms run only where they apply; a 16-byte copy plan
 // with a stride or pointer that is not 16-byte aligned is the caller's
-// error (the plan checks both). The mma form (the fused bf16 backward)
-// runs where the short form does, only with 16-byte copies, and with at
-// most kMaxHeadsPerBlock warps a block.
+// error (the plan checks both). The mma forms (bf16 on the tensor cores)
+// run where the short form does, only with 16-byte copies. A block holds
+// at most `max_hpb` heads: kMaxHeadsPerBlock, but the fused backward's
+// blocks at most kMaxHeadsPerBlock warps.
 template <typename T>
-bool short_plan_ok(int form, int seq, int d, int hpb, int vec) {
-  const bool mma = form == kFormMma;
-  return (form == kFormShort || (mma && sizeof(T) == 2 && vec == 16)) &&
+bool short_plan_ok(int form, int seq, int d, int hpb, int vec,
+                   int max_hpb = kMaxHeadsPerBlock) {
+  return (form == kFormShort ||
+          (form == kFormMma && sizeof(T) == 2 && vec == 16)) &&
          d == kShortD && seq >= 1 && seq <= kShortMaxSeq && hpb >= 1 &&
-         hpb * (mma ? kBwdWarpsPerHead : 1) <= kMaxHeadsPerBlock &&
-         vec_ok<T>(vec);
+         hpb <= max_hpb && vec_ok<T>(vec);
 }
 
 // The short form's launch at the plan's copy width: `launch(VEC)` is
@@ -1776,9 +2095,16 @@ int fwd_entry(const T* q, const T* k, const T* v, T* o, float* lse,
               int heads_per_block, int vec, cudaStream_t stream) {
   const Problem pr{heads, seq, scale, causal, window};
   if (form != kFormTiled) {
-    if (form != kFormShort ||
-        !short_plan_ok<T>(form, seq, d, heads_per_block, vec))
+    if (!short_plan_ok<T>(form, seq, d, heads_per_block, vec))
       return cudaErrorInvalidValue;
+    if (form == kFormMma) {
+      if constexpr (std::is_same_v<T, bf16>)
+        return causal ? launch_fwd_mma<true>(q, k, v, o, lse, batch, strides,
+                                             pr, heads_per_block, stream)
+                      : launch_fwd_mma<false>(q, k, v, o, lse, batch, strides,
+                                              pr, heads_per_block, stream);
+      return cudaErrorInvalidValue;
+    }
     return by_vec<T>(vec, [&](auto w) {
       return launch_fwd_short<T, decltype(w)::value>(
           q, k, v, o, lse, batch, strides, pr, heads_per_block, stream);
@@ -1855,9 +2181,12 @@ int dkdv_entry(const T* q, const T* k, const T* v, const T* dout,
 // `vec`-byte staging copies (16 needs every pointer and (b, h, s) stride
 // 16-byte aligned; 2, one bf16 at a time, only in the bf16 forms), form 0
 // the tiled kernels: the forward's on the tensor cores with `vec`-byte
-// copies (heads_per_block unused), the backward's 64-row tiles. The fused
-// bf16 backward, flash_attention_bwd_bf16 (dq, dk and dv in one launch),
-// takes form 2 only (seq <= 32, d = 32, 16-byte copies).
+// copies (heads_per_block unused), the backward's 64-row tiles. Form 2,
+// bf16 on the tensor cores at seq <= 32, d = 32 with 16-byte copies and
+// `heads_per_block` heads a block, is the bf16 forward's
+// (flash_attention_fwd_bf16: fwd_short_mma_kernel) and the only form of
+// the fused bf16 backward, flash_attention_bwd_bf16 (dq, dk and dv in one
+// launch).
 // Returns the CUDA error code of the launch (0 on success); the kernels
 // run asynchronously on `stream`.
 extern "C" int flash_attention_fwd(const float* q, const float* k,
@@ -1939,7 +2268,8 @@ extern "C" int flash_attention_bwd_bf16(
     float scale, int causal, int window, int form, int heads_per_block,
     int vec, cudaStream_t stream) {
   if (form != kFormMma ||
-      !short_plan_ok<bf16>(form, seq, d, heads_per_block, vec))
+      !short_plan_ok<bf16>(form, seq, d, heads_per_block, vec,
+                           kMaxHeadsPerBlock / kBwdWarpsPerHead))
     return cudaErrorInvalidValue;
   const Problem pr{heads, seq, scale, causal, window};
   return causal ? launch_bwd_mma<true>(q, k, v, dout, lse, delta, dq, dk, dv,

@@ -2,12 +2,13 @@
 (``csrc/flash_attention.cu``).
 
 The counterparts of ``repro.kernels.flash_attention.kernel``'s Pallas
-kernels: the forward (o and the f32 log-sum-exp) and the backward pair,
-dq and dk/dv, and :func:`flash_attention_bwd`, the counterpart of the
-reference function of that name, which runs both halves: in bf16 at the
-FL path's S <= 32, D = 32 one tensor-core kernel for dq, dk and dv
-(``bwd_short_mma_kernel``), elsewhere the pair. Operands are
-kernel-layout ``(B, H, S, D)`` with equal head
+kernels: the forward (o and the f32 log-sum-exp; in bf16 at the FL path's
+S <= 32, D = 32 a tensor-core kernel, ``fwd_short_mma_kernel``) and the
+backward pair, dq and dk/dv, and :func:`flash_attention_bwd`, the
+counterpart of the reference function of that name, which runs both
+halves: in bf16 at the FL path's S <= 32, D = 32 one tensor-core kernel
+for dq, dk and dv (``bwd_short_mma_kernel``), elsewhere the pair.
+Operands are kernel-layout ``(B, H, S, D)`` with equal head
 counts and any batch, head and sequence strides (the last dimension
 unit-stride), so a transposed view of ``(B, S, H, D)`` activations is read
 in place; outputs take the layout of the matching input. q, k, v and do
@@ -20,13 +21,14 @@ sliding-window width (None: no window).
 Dispatch is by tensor device only: CPU tensors go to the plain versions in
 :mod:`.ref`; CUDA tensors launch the kernel, which is built with ``nvcc`` at
 first use, or the call raises. ``LAUNCHES`` counts the kernel launches of
-each wrapper and nothing else; ``KERNEL_LAUNCHES`` counts the fused
-backward's launches again by its CUDA kernel.
+each wrapper and nothing else; ``KERNEL_LAUNCHES`` counts the launches
+of the two bf16 tensor-core kernels (the forward's and the fused
+backward's) again by CUDA kernel.
 
 How every kernel launches is decided here, in pure Python, by
 :func:`attention_plan`: the short form (a warp per (b, h) head, a lane per
-row) where S <= 32 and D = 32, and there the fused bf16 backward on the
-tensor cores (``"mma"``) where 16-byte copies apply, else the tiled
+row) where S <= 32 and D = 32, and there in bf16 the tensor-core forward
+and fused backward (``"mma"``) where 16-byte copies apply, else the tiled
 kernels (the forward's on the tensor cores, the backward's 64-row tiles);
 heads per block and the staging copy width. The CPU tests check every
 plan the card would run.
@@ -50,8 +52,9 @@ LAUNCHES = {"flash_attention": 0, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dq_bf16": 0,
             "flash_attention_bwd_dkdv_bf16": 0,
             "flash_attention_bwd_bf16": 0}
-# the fused backward's launches again, by its CUDA kernel
-KERNEL_LAUNCHES = {"bwd_short_mma_kernel": 0}
+# the bf16 tensor-core forward's and fused backward's launches again, by
+# CUDA kernel
+KERNEL_LAUNCHES = {"fwd_short_mma_kernel": 0, "bwd_short_mma_kernel": 0}
 
 HEAD_DIMS = (32, 64, 128)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -81,9 +84,12 @@ SHORT_HEAD_DIM = 32
 # kMaxHeadsPerBlock bounds it.
 HEADS_PER_BLOCK = 1
 MAX_HEADS_PER_BLOCK = 8
-# Heads per block of the fused bf16 backward (two warps each): one is
-# 21-27 % and four 6-11 % slower at the round's, the statistics pass's and
-# the non-causal 32's shapes (tools/flash_attention_variants.py --bwd).
+# Heads per block of the bf16 tensor-core forms (two warps each), as
+# measured (tools/flash_attention_variants.py --bwd, --fwd): in the fused
+# backward one is 21-27 % and four 6-11 % slower at the round's, the
+# statistics pass's and the non-causal 32's shapes; in the forward one is
+# 24-36 %, four 3-10 % and eight 30-40 % slower at the round's and the
+# statistics pass's.
 MMA_HEADS_PER_BLOCK = 2
 
 
@@ -93,10 +99,11 @@ class AttentionPlan:
     ``heads_per_block`` warps per block, staging copies of ``vec`` bytes:
     16 where every pointer and (b, h, s) stride allows it, else 4, else
     (bf16) 2; f32 by cp.async, bf16 by loads widened to f32 on their way
-    into shared memory), ``"mma"`` (the backward's bf16 form at the short
-    form's shapes with 16-byte copies: dq, dk and dv in one kernel on bf16
-    ``mma.sync``, two warps a head, ``heads_per_block`` heads a block,
-    operands staged as bf16 by cp.async)
+    into shared memory), ``"mma"`` (bf16 at the short form's shapes with
+    16-byte copies, on bf16 ``mma.sync``, two warps a head,
+    ``heads_per_block`` heads a block, operands staged as bf16 by
+    cp.async: the forward's o and lse, or the backward's dq, dk and dv in
+    one kernel)
     or ``"tiled"``: the forward's tensor-core tiles (a block of 4 warps per
     head and 64 query rows, copies of ``vec`` bytes by the same rule) or the
     backward's 256-thread block per head and 64-row tile (loads of one
@@ -117,7 +124,7 @@ def attention_plan(b: int, h: int, s: int, d: int, *,
     vec = build.copy_width(16 if aligned else itemsize, *strides,
                            itemsize=itemsize)
     if s <= SHORT_MAX_SEQ and d == SHORT_HEAD_DIM:
-        if not forward and itemsize == 2 and vec == 16:
+        if itemsize == 2 and vec == 16:
             return AttentionPlan("mma", MMA_HEADS_PER_BLOCK, vec)
         return AttentionPlan("short", HEADS_PER_BLOCK, vec)
     return AttentionPlan("tiled", 1, vec if forward else itemsize)
@@ -133,7 +140,7 @@ def _plan_for(forward: bool, tensors) -> AttentionPlan:
 
 def attention_fwd_plan(*tensors: torch.Tensor) -> AttentionPlan:
     """The forward's plan for these (B, H, S, D) operands, q, k, v and o
-    (unit last strides)."""
+    (unit last strides): ``"mma"`` is ``fwd_short_mma_kernel``'s."""
     return _plan_for(True, tensors)
 
 
@@ -208,7 +215,9 @@ def _plan_args(plan: AttentionPlan) -> tuple:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None):
-    """(o (B, H, S, D), lse (B, H, S) f32) of softmax attention."""
+    """(o (B, H, S, D), lse (B, H, S) f32) of softmax attention: where the
+    plan is ``"mma"`` (bf16, S <= 32, D = 32, 16-byte copies) one launch
+    of ``fwd_short_mma_kernel``, else the short or the tiled forward."""
     if not build.on_cuda("flash_attention", q, k, v):
         return ref.attention_ref_lse(q, k, v, causal=causal, window=window)
     q, k, v = _operands("qkv", q, k, v)
@@ -216,11 +225,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty(q.shape[:3], device=q.device, dtype=torch.float32)
     tail = _problem(q, window, causal, q, k, v, o)
     if o.numel():
-        tail += _plan_args(attention_fwd_plan(q, k, v, o))
+        plan = attention_fwd_plan(q, k, v, o)
         build.launch(library(), "flash_attention_fwd", "flash_attention",
                      LAUNCHES, q.device, q.data_ptr(), k.data_ptr(),
                      v.data_ptr(), o.data_ptr(), lse.data_ptr(), *tail,
-                     dtype=q.dtype)
+                     *_plan_args(plan), dtype=q.dtype)
+        if plan.form == "mma":
+            KERNEL_LAUNCHES["fwd_short_mma_kernel"] += 1
     return o, lse
 
 

@@ -334,6 +334,7 @@ def _mma_emulation(xh, dt, a_log, bm, cm, chunk=32):
 
 
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 
 
 @pytest.mark.parametrize("seq", [32, 128])
@@ -497,6 +498,74 @@ def test_attention_bwd_mma_form_arithmetic_matches_reference_bf16(case):
         assert bf16_excess(g, w) <= FA_RTOL
 
 
+def _fa_fwd_mma_emulation(q, k, v, causal, window, parts=2):
+    """fwd_short_mma_kernel's arithmetic for each (b, h) head in f32 from
+    bf16 operands: S = Q K^T from exact bf16 products; the row max m of S
+    over the visible keys; p = exp2(S c - m c) with c = scale log2 e, the
+    product and the difference rounded once (the kernel's fma; here in
+    f64, rounded to f32), 0 where (i, j) is not visible, and l = sum p, in
+    f32; P V from ``parts`` bf16 parts of p (2: the rounding and the
+    rounding of what it left out, small part first; 1: the rounding
+    alone); o = P V * (1 / max(l, 1e-30)) rounded once to bf16, lse =
+    m c ln 2 + log(max(l, 1e-30)) in f32."""
+    q, k, v = (torch.from_numpy(np.asarray(a, np.float32)) for a in (q, k, v))
+    s, d = q.shape[2:]
+    vis = fa_ref._mask(s, causal, window, "cpu")             # [i][j]
+    c = torch.tensor(d ** -0.5, dtype=torch.float32) * LOG2E
+    sc = torch.where(vis, torch.einsum("bhid,bhjd->bhij", q, k), -1e30)
+    mc = sc.max(-1).values * c
+    arg = (sc.double() * c.double() - mc.double()[..., None]).float()
+    p = torch.where(vis, torch.exp2(arg), 0.0)
+    denom = torch.clamp(p.sum(-1), min=1e-30)
+    big, small = _split(p)
+    terms = (small, big) if parts == 2 else (big,)
+    acc = torch.einsum("bhij,bhjd->bhid", terms[0], v)
+    for term in terms[1:]:
+        acc = acc + torch.einsum("bhij,bhjd->bhid", term, v)
+    o = (acc * (1.0 / denom)[..., None]).bfloat16()
+    return o, mc * LN2 + torch.log(denom)
+
+
+def _fa_fwd_reference(case, seed):
+    """Inputs and the reference's (o, lse) from its Pallas forward in
+    interpret mode, in bf16."""
+    b, h, s, d, causal, window = case
+    q, k, v, _ = _fa_inputs(b, h, s, d, seed=seed)
+    o_ref, lse_ref = ref_fa.flash_attention(
+        _j(q), _j(k), _j(v), causal=causal, window=window, interpret=True,
+        return_lse=True)
+    return (q, k, v), (o_ref, np.array(lse_ref))
+
+
+# (B, H, S, D, causal, window): the FL round's shape at 4 rows, non-causal,
+# a ragged S with a window, and a single row
+FA_FWD_MMA_SHAPES = [(4, 2, 32, 32, True, None), (4, 2, 32, 32, False, None),
+                     (4, 2, 20, 32, True, 8), (4, 2, 1, 32, True, None)]
+
+
+@pytest.mark.parametrize("case", FA_FWD_MMA_SHAPES)
+def test_attention_fwd_mma_form_arithmetic_matches_reference_bf16(case):
+    """The bf16 tensor-core forward's arithmetic (exp2 of log2(e)-scaled
+    scores, P in two bf16 parts) against the reference's flash_attention in
+    interpret mode: o within one bf16 ulp plus FA_RTOL of its scale, lse
+    within FA_RTOL of its scale."""
+    args, (o_ref, lse_ref) = _fa_fwd_reference(case, seed=70 + case[2])
+    o, lse = _fa_fwd_mma_emulation(*args, *case[4:])
+    assert bf16_excess(o, o_ref) <= FA_RTOL
+    assert np.abs(lse.numpy() - lse_ref).max() \
+        <= FA_RTOL * np.abs(lse_ref).max()
+
+
+def test_attention_fwd_mma_form_needs_both_parts():
+    """P V from P's bf16 rounding alone lies beyond that limit at the
+    round's shape: the error the second part removes is one this test can
+    see."""
+    case = FA_FWD_MMA_SHAPES[0]
+    args, (o_ref, _) = _fa_fwd_reference(case, seed=70 + case[2])
+    o, _ = _fa_fwd_mma_emulation(*args, *case[4:], parts=1)
+    assert bf16_excess(o, o_ref) > 10 * FA_RTOL
+
+
 def test_attention_bwd_mma_form_needs_both_parts():
     """One bf16 part of P^T and dS^T alone (the rounding, not its
     remainder) lies beyond that limit at the round's shape: the error the
@@ -523,7 +592,8 @@ def test_attention_bwd_mma_form_needs_both_parts():
 ])
 def test_attention_bwd_plan_mma_form(itemsize, s, d, aligned, form):
     """The fused tensor-core backward exactly where bf16, S <= 32, D = 32
-    and 16-byte copies all hold; the forward never takes it."""
+    and 16-byte copies all hold; the forward takes its tensor-core form
+    there too."""
     strides = (s * 2 * d, d, 2 * d) * 4
     plan = fa.attention_plan(570, 2, s, d, strides=strides, aligned=aligned,
                              itemsize=itemsize)
@@ -533,7 +603,48 @@ def test_attention_bwd_plan_mma_form(itemsize, s, d, aligned, form):
         assert 1 <= plan.heads_per_block <= fa.MAX_HEADS_PER_BLOCK
     fwd = fa.attention_plan(570, 2, s, d, strides=strides, aligned=aligned,
                             itemsize=itemsize, forward=True)
-    assert fwd.form == ("tiled" if form == "tiled" else "short")
+    assert fwd.form == form
+
+
+@pytest.mark.parametrize("itemsize,s,d,strides,aligned,want", [
+    # the FL round's bf16 forward, S = 1 and a ragged S: the tensor-core
+    # form, 16-byte copies
+    (2, 32, 32, (2048, 32, 64), True, ("mma", 16)),
+    (2, 1, 32, (64, 32, 64), True, ("mma", 16)),
+    (2, 20, 32, (1280, 32, 64), True, ("mma", 16)),
+    # f32: the FMA short form
+    (4, 32, 32, (2048, 32, 64), True, ("short", 16)),
+    # bf16 with 4- or 2-byte copies: the FMA short form
+    (2, 32, 32, (2050, 34, 66), True, ("short", 4)),
+    (2, 32, 32, (2048, 32, 65), True, ("short", 2)),
+    (2, 32, 32, (2048, 32, 64), False, ("short", 2)),
+    # past the short form's rows or head dim: the tiled form
+    (2, 33, 32, (2112, 32, 64), True, ("tiled", 16)),
+    (2, 32, 64, (4096, 64, 128), True, ("tiled", 16)),
+])
+def test_attention_fwd_plan_mma_form(itemsize, s, d, strides, aligned, want):
+    """The bf16 forward takes fwd_short_mma_kernel exactly where bf16,
+    S <= 32, D = 32 and 16-byte copies all hold, with
+    MMA_HEADS_PER_BLOCK heads a block."""
+    plan = fa.attention_plan(570, 2, s, d, strides=strides * 4,
+                             aligned=aligned, itemsize=itemsize,
+                             forward=True)
+    assert (plan.form, plan.vec) == want
+    if plan.form == "mma":
+        assert plan.heads_per_block == fa.MMA_HEADS_PER_BLOCK
+        assert 1 <= plan.heads_per_block <= fa.MAX_HEADS_PER_BLOCK
+
+
+def test_fl_path_bf16_forward_plan_is_the_mma_form():
+    """The FL round's bf16 q, k, v and o, (B, H, S, D) views of (B, S, H,
+    D) activations, take the tensor-core forward; the same views in f32
+    keep the FMA short form."""
+    views = [torch.empty(570, 32, 2, 32, dtype=torch.bfloat16)
+             .transpose(1, 2) for _ in range(4)]
+    assert fa.attention_fwd_plan(*views) == fa.AttentionPlan(
+        "mma", fa.MMA_HEADS_PER_BLOCK, 16)
+    assert fa.attention_fwd_plan(*(t.float() for t in views)).form == \
+        "short"
 
 
 def test_attention_pair_plan_keeps_the_fma_short_form():

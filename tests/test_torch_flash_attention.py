@@ -156,6 +156,23 @@ def test_fused_backward_wrapper_is_the_plain_version_on_cpu(dtype):
     assert kernel.KERNEL_LAUNCHES == before_k
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_op_forward_on_cpu_is_the_plain_version(dtype):
+    """_FlashAttention.forward on CPU tensors (bf16 at the tensor-core
+    form's shape too) is attention_ref_lse's o, bit for bit, through one
+    plain call, and launches nothing."""
+    q, k, v = (torch.from_numpy(a).to(dtype)
+               for a in _qkv_do(3, 2, 32, 32, seed=9)[:3])
+    before_l, before_k = dict(kernel.LAUNCHES), dict(kernel.KERNEL_LAUNCHES)
+    before_c = ref.CALLS["flash_attention"]
+    o = ops.attention(q, k, v, causal=True, window=None)
+    assert ref.CALLS["flash_attention"] == before_c + 1
+    assert kernel.LAUNCHES == before_l
+    assert kernel.KERNEL_LAUNCHES == before_k
+    want, _ = ref.attention_ref_lse(q, k, v, causal=True, window=None)
+    assert o.dtype == dtype and torch.equal(o, want)
+
+
 def test_op_backward_goes_through_the_fused_wrapper(monkeypatch):
     """_FlashAttention.backward calls kernel.flash_attention_bwd once per
     backward, and its gradients are that wrapper's."""
@@ -365,12 +382,13 @@ def _launchable(plan, s, d, forward) -> bool:
     """The plan is one the C entries take (csrc short_plan_ok and the
     forward's check of its copy width): the short form within S <= 32,
     D = 32, 1-8 heads per block and 4- or 16-byte copies; the forward's
-    tiled form with 4- or 16-byte copies; the backward's tiled form as it
-    is."""
-    if plan.form == "short":
+    bf16 tensor-core form there with 16-byte copies; the forward's tiled
+    form with 4- or 16-byte copies; the backward's tiled form as it is."""
+    if plan.form in ("short", "mma"):
         return (s <= kernel.SHORT_MAX_SEQ and d == kernel.SHORT_HEAD_DIM
                 and 1 <= plan.heads_per_block <= kernel.MAX_HEADS_PER_BLOCK
-                and plan.vec in (4, 16))
+                and plan.vec in ((16,) if plan.form == "mma" else (4, 16))
+                and (forward or plan.form == "short"))
     return plan.form == "tiled" and (not forward or plan.vec in (4, 16))
 
 
@@ -404,6 +422,35 @@ def test_variant_tool_plans_are_launchable():
             assert _launchable(plan, s, d, forward=True), (label, name)
             assert plan.form == ("tiled" if name == "tiled_form"
                                  else base.form), (label, name)
+
+
+def test_variant_tool_fwd_mma_plans_are_launchable():
+    """Every plan variant of the bf16 tensor-core forward in
+    tools/flash_attention_variants.py --fwd is one the C entry takes, at
+    each of chip_smoke.py's five aligned cases of S <= 32, D = 32, whose
+    bf16 forward plan is "mma", and stays in that form."""
+    import importlib.util
+    import pathlib
+    path = (pathlib.Path(__file__).resolve().parents[1] / "tools"
+            / "flash_attention_variants.py")
+    spec = importlib.util.spec_from_file_location("_fa_variants", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mma = 0
+    for label, (b, h, s, d, _, _) in _chip_smoke_fa_cases().items():
+        if label in mod.chip_smoke.FA_UNALIGNED:
+            continue   # views off 16-byte alignment: the FMA short form
+        views = [torch.empty(b, s, h, d, dtype=torch.bfloat16).transpose(1, 2)
+                 for _ in range(4)]
+        base = kernel.attention_fwd_plan(*views)
+        if base.form != "mma":
+            continue
+        mma += 1
+        for name, change in mod.FWD_MMA_PLANS.items():
+            plan = change(base)
+            assert plan.form == "mma", (label, name)
+            assert _launchable(plan, s, d, forward=True), (label, name)
+    assert mma == 5
 
 
 # ---------------------------------------------------------------------------

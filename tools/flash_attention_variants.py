@@ -1,8 +1,8 @@
 """Design and launch-plan variants of the flash-attention kernels, side by
 side on one card.
 
-    python3 tools/flash_attention_variants.py [--bwd]
-    python3 tools/flash_attention_variants.py --parent DIR
+    python3 tools/flash_attention_variants.py [--bwd | --fwd]
+    python3 tools/flash_attention_variants.py --parent DIR [--fwd]
 
 Run from the root of a checkout on a machine with a CUDA card. It prints
 the registers and spills of every kernel of the source as it is (``ptxas
@@ -26,13 +26,20 @@ FA_RTOL x the output scale) and timed on the device (chip_smoke.py's
 With ``--bwd`` only the fused bf16 backward (``bwd_short_mma_kernel``):
 its source variants (BWD_VARIANTS: the persistent grid and its ring of
 two undone, one warp a head, the causal skip undone, expf) and plan
-variants (BWD_MMA_PLANS: heads per block 1-8) at
+variants (BWD_MMA_PLANS: heads per block 1, 2, 4) at
 chip_smoke.py's bf16 cases whose plan is ``"mma"``, each held to one bf16
 ulp plus FA_RTOL, beside the pair of FMA short forms (dq, then dk/dv) and
-bf16 SDPA's whole backward. With ``--parent DIR`` the bf16 backward
-against another checkout's (a ``git archive`` of the parent unpacked into
-an ignored ``tmp_*/`` directory): its wrappers and source loaded from DIR,
-both held and timed in turns (DIR, this, this, DIR) at the same cases.
+bf16 SDPA's whole backward. With ``--fwd`` the same for the bf16
+tensor-core forward (``fwd_short_mma_kernel``; FWD_MMA_VARIANTS: the
+persistent grid undone, a ring of two, one warp a head, the causal skip
+undone, copies through L1, staging and stores alone, expf, exp2f, P V
+from P's big part alone, whose excess the line prints; FWD_MMA_PLANS:
+heads per block 1-8), beside the FMA short form and bf16 SDPA's
+forward. With ``--parent DIR`` the bf16 backward
+(with ``--fwd``: the bf16 forward) against another checkout's (a ``git
+archive`` of the parent unpacked into an ignored ``tmp_*/`` directory):
+its wrappers and source loaded from DIR, both held and timed in turns
+(DIR, this, this, DIR) at the same cases, bf16 SDPA beside them.
 
 ``base`` / ``plan`` (the source and the wrapper's plan as they are) runs
 first and again last, which shows the run's spread. One line per case,
@@ -180,6 +187,48 @@ BWD_MMA_PLANS = {
        (lambda p, n=n: dataclasses.replace(p, heads_per_block=n))
        for n in (1, 2, 4)},
 }
+# the bf16 tensor-core forward with one choice undone (outputs checked)
+FWD_MMA_VARIANTS = {
+    "base": [],
+    # a block per heads_per_block heads
+    "not_persistent": [("constexpr bool kFwdPersistent = true;",
+                        "constexpr bool kFwdPersistent = false;")],
+    # a ring of two heads: the next head's copies in flight while the warps
+    # work on this one
+    "ring_2": [("constexpr int kFwdRing = 1;", "constexpr int kFwdRing = 2;")],
+    # the causal mask's hidden tiles multiplied too
+    "no_causal_skip": [("constexpr bool kFwdCausalSkip = true;",
+                        "constexpr bool kFwdCausalSkip = false;")],
+    # one warp a head (both m-tiles), not two
+    "one_warp_per_head": [("constexpr int kFwdWarpsPerHead = 2;",
+                           "constexpr int kFwdWarpsPerHead = 1;")],
+    # the 16-byte copies through L1 (.ca), as the f32 short forms take them
+    "copies_ca": [("cp.async.cg.shared.global [%0], [%1], 16, %2;",
+                   "cp.async.ca.shared.global [%0], [%1], 16, %2;")],
+    # no arithmetic: the staged q rows stored as o, lse left unwritten (its
+    # outputs are wrong: the floor that staging and stores set)
+    "staging_and_stores_only": [(
+        "  const float scale_b = kFwdExp2 ? pr.scale * kBwdLog2e : pr.scale;\n"
+        "  uint32_t pb[MT][2][4]",
+        "  if (P) return;\n"
+        "  const float scale_b = kFwdExp2 ? pr.scale * kBwdLog2e : pr.scale;\n"
+        "  uint32_t pb[MT][2][4]")],
+    # P by expf, not exp2 of log2(e)-scaled scores
+    "expf": [("constexpr bool kFwdExp2 = true;",
+              "constexpr bool kFwdExp2 = false;")],
+    # exp2f, which keeps results below 2^-126, not ex2.approx.ftz
+    "exp2f": [('    asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
+               "    y = exp2f(x);")],
+    # P V from P's bf16 rounding alone (its excess printed, over FA_RTOL)
+    "one_part": [("constexpr int kFwdParts = 2;",
+                  "constexpr int kFwdParts = 1;")],
+}
+# the bf16 forward's plan variants: heads per block (csrc kMaxHeadsPerBlock
+# bounds them)
+FWD_MMA_PLANS = {
+    f"heads_per_block={n}":
+    (lambda p, n=n: dataclasses.replace(p, heads_per_block=n))
+    for n in (1, 2, 4, 8)}
 SHORT_CASES = ("round", "stats", "sigma M=1")
 TILED_CASES = ("causal 1024", "window 256", "full 256")
 
@@ -267,11 +316,8 @@ def build_variants(variants: dict = VARIANTS, tag: str = "") -> dict:
 
 
 def _inputs(label: str, g: torch.Generator, dtype=torch.float32):
-    b, h, s, d, causal, window = {c[0]: c[1:]
-                                  for c in chip_smoke.FA_CASES}[label]
-    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=g)
-                   .to(dtype).transpose(1, 2) for _ in range(4))
-    return (b, h, s, d, causal, window), (q, k, v, do)
+    case = {c[0]: c[1:] for c in chip_smoke.FA_CASES}[label]
+    return case, chip_smoke.fa_operands(label, g, dtype)
 
 
 def _err(got, want) -> float:
@@ -358,12 +404,18 @@ def backward_variants(g: torch.Generator) -> None:
         kernel.attention_bwd_plan = plan_of
 
 
-def _mma_cases(g: torch.Generator):
-    """chip_smoke.py's attention cases whose bf16 backward plan is "mma":
-    (label, causal, window, (q, k, v, do, lse, delta), want)."""
+def _mma_cases(g: torch.Generator, forward: bool = False):
+    """chip_smoke.py's attention cases whose bf16 backward plan (with
+    ``forward``: forward plan) is "mma": (label, causal, window, the
+    wrapper's tensor arguments, the plain version's outputs)."""
     for label, *_ in chip_smoke.FA_CASES:
         (b, h, s, d, causal, window), (q, k, v, do) = _inputs(
             label, g, torch.bfloat16)
+        if forward:
+            if kernel.attention_fwd_plan(q, k, v, q).form == "mma":
+                yield label, causal, window, (q, k, v), ref.attention_ref_lse(
+                    q, k, v, causal=causal, window=window)
+            continue
         if kernel.attention_bwd_plan(q, k, v, do).form != "mma":
             continue
         o, lse = kernel.flash_attention(q, k, v, causal, window)
@@ -372,53 +424,77 @@ def _mma_cases(g: torch.Generator):
             *args, causal=causal, window=window)
 
 
-def _bwd_line(label, name, fn, want) -> None:
+def _mma_line(label, name, which, fn, want) -> None:
     excess = chip_smoke._bf16_excess(fn(), want)
     note = " OVER FA_RTOL" if excess > chip_smoke.FA_RTOL else ""
-    print(f"variant {label:14s} {name:22s} bwd  "
+    print(f"variant {label:14s} {name:22s} {which:4s} "
           f"ms={chip_smoke.device_ms(fn):.4f} ulp_excess={excess:.1e}{note}",
           flush=True)
 
 
-def fused_backward_variants(g: torch.Generator) -> None:
-    """The fused bf16 backward's source and plan variants, the FMA pair and
-    bf16 SDPA's whole backward beside them."""
-    libs = build_variants(BWD_VARIANTS, "_bwd")
-    library, plan_of = kernel.library, kernel.attention_bwd_plan
-    runs = ([(name, None) for name in BWD_VARIANTS]
-            + list(BWD_MMA_PLANS.items()) + [("base", None)])
-    for label, causal, window, args, want in _mma_cases(g):
+def _sdpa_ms(args, causal, window, forward: bool) -> float:
+    """bf16 SDPA's forward, or its whole backward, on the same operands."""
+    q, k, v = args[:3]
+    lib_mask = (None if window is None else chip_smoke._visible(
+        q.shape[2], causal, window))
+
+    def sdpa(*t):
+        return F.scaled_dot_product_attention(
+            *t, attn_mask=lib_mask, is_causal=causal and lib_mask is None)
+    if forward:
+        with torch.no_grad():
+            return chip_smoke.device_ms(lambda: sdpa(q, k, v))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    o_lib = sdpa(qg, kg, vg)
+    return chip_smoke.device_ms(lambda: torch.autograd.grad(
+        o_lib, (qg, kg, vg), args[3], retain_graph=True))
+
+
+def mma_variants(g: torch.Generator, forward: bool) -> None:
+    """The bf16 tensor-core forward's (``forward``) or fused backward's
+    source and plan variants, the FMA form (the short forward; the dq and
+    dk/dv pair) and bf16 SDPA beside them."""
+    which = "fwd" if forward else "bwd"
+    variants = FWD_MMA_VARIANTS if forward else BWD_VARIANTS
+    libs = build_variants(variants, f"_{which}")
+    plan_name = "attention_fwd_plan" if forward else "attention_bwd_plan"
+    library, plan_of = kernel.library, getattr(kernel, plan_name)
+    runs = ([(name, None) for name in variants]
+            + list((FWD_MMA_PLANS if forward else BWD_MMA_PLANS).items())
+            + [("base", None)])
+    wrapper = kernel.flash_attention if forward else \
+        kernel.flash_attention_bwd
+    for label, causal, window, args, want in _mma_cases(g, forward):
         def fn():
-            return kernel.flash_attention_bwd(*args, causal, window)
+            return wrapper(*args, causal, window)
         for name, change in runs:
             kernel.library = lambda lib=libs["base" if change else name]: lib
-            kernel.attention_bwd_plan = (
-                plan_of if change is None else
-                lambda *t, c=change: c(plan_of(*t)))
-            _bwd_line(label, name, fn, want)
-        kernel.library, kernel.attention_bwd_plan = library, plan_of
-        _bwd_line(label, "fma_pair", lambda: (
-            kernel.flash_attention_bwd_dq(*args, causal, window),
-            *kernel.flash_attention_bwd_dkdv(*args, causal, window)), want)
-        q, k, v, do = args[:4]
-        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-        lib_mask = (None if window is None else chip_smoke._visible(
-            q.shape[2], causal, window))
-        o_lib = F.scaled_dot_product_attention(
-            qg, kg, vg, attn_mask=lib_mask,
-            is_causal=causal and lib_mask is None)
-        sdpa_ms = chip_smoke.device_ms(lambda: torch.autograd.grad(
-            o_lib, (qg, kg, vg), do, retain_graph=True))
-        print(f"variant {label:14s} {'sdpa_backward':22s} bwd  "
-              f"ms={sdpa_ms:.4f}", flush=True)
+            setattr(kernel, plan_name, plan_of if change is None else
+                    lambda *t, c=change: c(plan_of(*t)))
+            _mma_line(label, name, which, fn, want)
+        kernel.library = library
+        if forward:
+            kernel.attention_fwd_plan = lambda *t: kernel.AttentionPlan(
+                "short", kernel.HEADS_PER_BLOCK, plan_of(*t).vec)
+            _mma_line(label, "fma_short", which, fn, want)
+        else:
+            _mma_line(label, "fma_pair", which, lambda: (
+                kernel.flash_attention_bwd_dq(*args, causal, window),
+                *kernel.flash_attention_bwd_dkdv(*args, causal, window)),
+                want)
+        setattr(kernel, plan_name, plan_of)
+        print(f"variant {label:14s} {'sdpa':22s} {which:4s} "
+              f"ms={_sdpa_ms(args, causal, window, forward):.4f}",
+              flush=True)
 
 
-def parent_ab(parent: pathlib.Path) -> None:
-    """The bf16 backward against another checkout's (``--parent DIR``): its
-    wrapper module and source loaded from DIR, built beside this one's,
-    both held to one bf16 ulp plus FA_RTOL and timed in turns (DIR, this,
-    this, DIR). A parent without ``flash_attention_bwd`` runs its dq and
-    dk/dv wrappers in turn."""
+def parent_ab(parent: pathlib.Path, forward: bool = False) -> None:
+    """The bf16 backward (``forward``: the bf16 forward) against another
+    checkout's (``--parent DIR``): its wrapper module and source loaded
+    from DIR, built beside this one's, both held to one bf16 ulp plus
+    FA_RTOL and timed in turns (DIR, this, this, DIR), bf16 SDPA beside
+    them. A parent without ``flash_attention_bwd`` runs its dq and dk/dv
+    wrappers in turn."""
     spec = importlib.util.spec_from_file_location(
         "_parent_fa_kernel", parent / "src" / "repro_torch" / "kernels"
         / "flash_attention" / "kernel.py")
@@ -427,25 +503,34 @@ def parent_ab(parent: pathlib.Path) -> None:
     spec.loader.exec_module(other)
     build.build_all([other.SOURCE, kernel.SOURCE])
     g = torch.Generator(device="cuda").manual_seed(5)
-    for label, causal, window, args, want in _mma_cases(g):
-        fns = {"parent": (
-                   lambda: other.flash_attention_bwd(*args, causal, window))
-               if hasattr(other, "flash_attention_bwd") else (
-                   lambda: (other.flash_attention_bwd_dq(*args, causal,
-                                                         window),
-                            *other.flash_attention_bwd_dkdv(*args, causal,
-                                                            window))),
-               "this": lambda: kernel.flash_attention_bwd(*args, causal,
+    which = "fwd" if forward else "bwd"
+    for label, causal, window, args, want in _mma_cases(g, forward):
+        if forward:
+            fns = {"parent": lambda: other.flash_attention(*args, causal,
+                                                           window),
+                   "this": lambda: kernel.flash_attention(*args, causal,
                                                           window)}
+        else:
+            fns = {"parent": (
+                       lambda: other.flash_attention_bwd(*args, causal,
+                                                         window))
+                   if hasattr(other, "flash_attention_bwd") else (
+                       lambda: (other.flash_attention_bwd_dq(*args, causal,
+                                                             window),
+                                *other.flash_attention_bwd_dkdv(
+                                    *args, causal, window))),
+                   "this": lambda: kernel.flash_attention_bwd(
+                       *args, causal, window)}
         errs = {k: chip_smoke._bf16_excess(f(), want) for k, f in fns.items()}
         ms = [chip_smoke.device_ms(fns[k])
               for k in ("parent", "this", "this", "parent")]
-        print(f"bwd ab {label:14s} parent/this/this/parent ms="
+        print(f"{which} ab {label:14s} parent/this/this/parent ms="
               + " ".join(f"{m:.4f}" for m in ms)
+              + f" sdpa={_sdpa_ms(args, causal, window, forward):.4f}"
               + f" ulp_excess parent={errs['parent']:.1e} "
               f"this={errs['this']:.1e}", flush=True)
         chip_smoke.check(max(errs.values()) <= chip_smoke.FA_RTOL,
-                         f"{label}: a backward disagrees with the plain "
+                         f"{label}: a {which} disagrees with the plain "
                          f"version: {errs}")
 
 
@@ -455,15 +540,17 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
+    forward = "--fwd" in sys.argv[1:]
     if "--parent" in sys.argv[1:]:
-        parent_ab(pathlib.Path(sys.argv[sys.argv.index("--parent") + 1]))
+        parent_ab(pathlib.Path(sys.argv[sys.argv.index("--parent") + 1]),
+                  forward)
         return 0
     print_registers()
     kernel.library()
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(1)
-    if "--bwd" in sys.argv[1:]:
-        fused_backward_variants(g)
+    if forward or "--bwd" in sys.argv[1:]:
+        mma_variants(g, forward)
         return 0
     forward_variants(g)
     backward_variants(g)
