@@ -12,7 +12,9 @@ closes the round.
 exactly the same parameter update as unsplit SGD (the boundary
 activation/error exchange is transparent, ``tests/test_torch_models.py``),
 so the round runs the unsplit forward/backward once per slot and the cut
-only prices the round (``repro_torch.core.costmodel``), as in the paper.
+prices the round (``repro_torch.core.costmodel``), as in the paper; it
+also picks which block's output the boundary telemetry reports (the
+tensor that would cross the device->gateway link).
 
 Fixed-shape batching contract: inputs come from
 ``repro_torch.fl.data.sample_cohort_batch`` — padded slots with a
@@ -110,6 +112,40 @@ def _local_train(model: SplitModel, params: Params, xs, ys, masks,
     return tuple(finals), tuple(losses)
 
 
+def _masked_rms(a: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Per-slot RMS over the valid rows of a slot-batched (S, B, ...)
+    activation, in f32."""
+    a2 = a.reshape(a.shape[0], a.shape[1], -1).float()
+    denom = mask.sum(dim=1).clamp_min(1.0) * a2.shape[2]
+    return torch.sqrt((a2 * a2 * mask[..., None]).sum(dim=(1, 2)) / denom)
+
+
+@torch.no_grad()
+def _boundary_rms(model: SplitModel, params: Params, x, mask,
+                  l) -> torch.Tensor:
+    """Each slot's RMS of the activation crossing the device->gateway
+    boundary at its cut ``l`` (S,): l = 0 ships the raw input, l =
+    model.n_blocks the logits (everything ran device-side)."""
+    norms = torch.stack([_masked_rms(a, mask)
+                         for a in model.activations_slots(params, x)])
+    return norms[l, torch.arange(x.shape[0], device=x.device)]
+
+
+def _boundary_tiers(model: SplitModel, finals, xs, masks, ls):
+    """Per-slot boundary-activation RMS, one slot-batched pass per tier."""
+    return tuple(_boundary_rms(model, f, x, m, l)
+                 for f, x, m, l in zip(finals, xs, masks, ls))
+
+
+def _split_tiers(v, sizes: Tuple[int, ...]):
+    """Split a tier-major per-slot vector/matrix into per-tier pieces."""
+    out, off = [], 0
+    for s in sizes:
+        out.append(v[off:off + s])
+        off += s
+    return tuple(out)
+
+
 def _concat_tiers(tiers) -> Params:
     """Concatenate per-tier per-slot params along the slot axis."""
     if len(tiers) == 1:
@@ -126,34 +162,41 @@ def stack_params(models: List[Params]) -> Params:
 
 def weighted_mean(stacked: Params, w: torch.Tensor) -> Params:
     """Contract every leaf's leading (model) axis with the weights ``w`` —
-    the FedAvg of a stack of models."""
+    the FedAvg of a stack of models; a (G, S) ``w`` gives G averages on a
+    new leading axis."""
     return [{k: torch.tensordot(w, v, dims=1) for k, v in p.items()}
             for p in stacked]
 
 
 def cohort_round(model: SplitModel, params: Params, batch, l_n, weights,
-                 gw_onehot, k_iters: int, lr, with_boundary: bool = False,
+                 gw_onehot, k_iters: int, lr, with_boundary: bool = True,
                  with_gateway_models: bool = False,
                  compute_dtype: str = "f32", device="cuda") -> Tuple:
     """Run one FL round for the whole cohort.
 
     batch: ``repro_torch.fl.data.CohortBatch`` (single padded width) or
     ``TieredCohortBatch`` (tiered slot widths, one segment per tier).
-    l_n: (S,) partition point per slot (prices the round; see the module
-    docstring). weights: (S,) FedAvg weights (d_tilde for participants, 0
+    l_n: (S,) partition point per slot: it prices the round (see the module
+    docstring) and picks the cut whose activation ``with_boundary``
+    reports. weights: (S,) FedAvg weights (d_tilde for participants, 0
     otherwise). gw_onehot: (S, M) slot->gateway incidence.
+    with_boundary: also report each slot's boundary-activation RMS at its
+    cut (one more forward pass, in f32 on the trained f32 per-slot params
+    whatever ``compute_dtype``); zeros otherwise.
+    with_gateway_models: also return the per-gateway shop-floor FedAvg
+    models (leading gateway axis M), before the global mix — the
+    intermediate the Fig. 2 divergence experiment measures.
 
     Returns (new_global_params, per_gateway_loss (M,), per_gateway_count
-    (M,), per_slot_loss (S,), boundary_rms (S,) — zeros, as the reference
-    reports without ``with_boundary``), tensors on ``device``.
+    (M,), per_slot_loss (S,), boundary_rms (S,)), plus the gateway models
+    as a sixth element when ``with_gateway_models`` is set; tensors on
+    ``device``. The reference's traced form of the round
+    (``cohort_round_traced``, ``train_scan``: the fused loop) is not
+    ported yet (ROADMAP.md M7), nor its sharded mapping (M9).
     """
-    if with_boundary or with_gateway_models:
-        raise NotImplementedError(
-            "boundary RMS and per-gateway models are not ported yet")
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype={compute_dtype!r}: expected one of "
                          f"{sorted(COMPUTE_DTYPES)}")
-    del l_n
     device = resolve_device(device)
     xs, ys, masks = _batch_tiers(batch, device)
     xs = tuple(model.prepare_inputs(x) for x in xs)
@@ -174,8 +217,25 @@ def cohort_round(model: SplitModel, params: Params, batch, l_n, weights,
     active = (weights > 0).float()
     gw_count = gw.T @ active                                        # (M,)
     gw_loss = (gw.T @ (dev_losses * active)) / gw_count.clamp_min(1.0)
-    boundary = torch.zeros_like(weights)
-    return new_global, gw_loss, gw_count, dev_losses, boundary
+    if with_boundary:
+        l_n = np.asarray(l_n)
+        if ((l_n < 0) | (l_n > model.n_blocks)).any():
+            raise ValueError(f"partition points {l_n.tolist()} outside "
+                             f"[0, {model.n_blocks}]")
+        l_n = torch.as_tensor(l_n, dtype=torch.long, device=device)
+        boundary = torch.cat(_boundary_tiers(
+            model, final_t, xs, masks,
+            _split_tiers(l_n, tuple(x.shape[0] for x in xs))))
+    else:
+        boundary = torch.zeros_like(weights)
+    out = (new_global, gw_loss, gw_count, dev_losses, boundary)
+    if not with_gateway_models:
+        return out
+    # per-gateway shop-floor FedAvg before the global mix: columns of the
+    # (S, M) incidence, weighted by d_tilde and normalized per gateway
+    gw_w = gw * weights[:, None]
+    gw_w = gw_w / gw_w.sum(dim=0, keepdim=True).clamp_min(1e-12)
+    return (*out, weighted_mean(final, gw_w.T))
 
 
 def buffer_fedavg(models: List[Params], weights) -> Params:

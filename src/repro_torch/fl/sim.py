@@ -8,21 +8,35 @@
   the reference's, so a scenario round-trips between the two packages.
 * **Policy** — any object with ``schedule(ctx) -> RoundDecision``; named
   policies come from the registry in ``repro_torch.core.schedulers``.
-* **Engine** — how a scheduled round is executed: this slice has the
-  stepwise ``CohortEngine`` (``repro_torch.fl.cohort``).
+* **Engine** — how a scheduled round is executed: ``CohortEngine`` (one
+  slot-batched round, ``repro_torch.fl.cohort``) or ``SequentialEngine``
+  (the per-device loop, kept as the parity reference). The reference's
+  ``"sharded"`` and ``"async"`` engines are not ported yet (ROADMAP.md M9,
+  M8): naming them raises ``NotImplementedError``.
 
 On top sits :class:`Simulation`: a streaming ``rounds()`` generator yielding
-one :class:`RoundRecord` per round, ``run()`` returning the classic
-:class:`FLResult`, and ``reset(seed)`` restoring params, batch RNG **and**
-network channel-state RNG together. The control plane (network draws,
-DDSRA, queues) is the reference's numpy, drawn from the same generators in
-the same order, so decisions, queues and delays are bit-identical to
-``repro``'s for the same statistics; the data plane runs in PyTorch on
-``device`` (``"cuda"`` unless the caller passes ``"cpu"``).
+one :class:`RoundRecord` per round (decision, delay, gateway losses, queue
+state, optional boundary-activation RMS), ``run()`` returning the classic
+:class:`FLResult`, ``reset(seed)`` restoring params, batch RNG **and**
+network channel-state RNG together, and ``save()``/``Simulation.resume()``
+through ``repro_torch.checkpoint.store`` for bit-identical
+checkpoint-resume, in the reference's file format. The control plane
+(network draws, DDSRA, queues) is the reference's numpy, drawn from the
+same generators in the same order, so decisions, queues and delays are
+bit-identical to ``repro``'s for the same statistics; the data plane runs in
+PyTorch on ``device`` (``"cuda"`` unless the caller passes ``"cpu"``). The
+fused loop (``fused_rounds``, ``run_fused``, ``sweep``) is not ported yet
+(ROADMAP.md M7).
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
+import json
+import pathlib
+import queue
+import re
+import threading
 import time
 import warnings
 from typing import Dict, Iterator, List, Optional, Tuple, Type, Union
@@ -30,19 +44,23 @@ from typing import Dict, Iterator, List, Optional, Tuple, Type, Union
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import store
 from repro_torch.core import costmodel as cm
 from repro_torch.core.ddsra import RoundDecision, Workload
 from repro_torch.core.network import Network, NetworkConfig
 from repro_torch.core.participation import (DataStats, divergence_bound,
                                             participation_rates)
-from repro_torch.core.schedulers import RoundContext, make_policy
+from repro_torch.core.schedulers import (POLICIES, RoundContext, make_policy,
+                                         policy_state, set_policy_state)
 from repro_torch.device import resolve_device, use_f32_numerics
 from repro_torch.fl import cohort as cohort_lib
+from repro_torch.fl import split as split_lib
 from repro_torch.fl.data import (CohortLayout, make_fl_dataset,
-                                 make_token_fl_dataset, sample_cohort_batch)
+                                 make_token_fl_dataset, sample_batch,
+                                 sample_cohort_batch)
 from repro_torch.fl.roles import BaseStation, Device, Gateway
 from repro_torch.models import registry as model_registry
-from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.convert import params_from_numpy, params_to_numpy
 
 
 # ---------------------------------------------------------------------------
@@ -62,9 +80,11 @@ class Scenario:
     """Frozen, JSON-serializable spec of one FL experiment.
 
     The reference's fields and defaults. The port runs ``engine="cohort"``
-    and ``data_plane="host"``, with ``dtype="f32"`` for every model and
-    ``dtype="bf16"`` for the models of ``BF16_MODELS``; the fault axes and
-    ``buffer_k`` belong to the async engine, which is not ported yet.
+    and ``"sequential"`` and ``data_plane="host"``, with ``dtype="f32"``
+    for every model and ``dtype="bf16"`` on the cohort engine for the
+    models of ``BF16_MODELS``; the fault axes and ``buffer_k`` belong to
+    the async engine, which is not ported yet (ROADMAP.md M8), and
+    ``mesh_shape`` to the sharded one (M9).
     """
     model: str = "vgg"                 # repro_torch.models.registry key
     width_mult: float = 0.25
@@ -245,8 +265,14 @@ def register_engine(name: str):
     return deco
 
 
+# the reference's engines that the port has not yet, by ROADMAP.md item
+UNPORTED_ENGINES = {"sharded": "M9", "async": "M8"}
+
+
 def make_engine(name: str) -> "Engine":
     """Instantiate a registered engine by name (see ``ENGINES``)."""
+    if name in UNPORTED_ENGINES:
+        _unported(f"engine {name!r}", UNPORTED_ENGINES[name])
     if name not in ENGINES:
         raise ValueError(f"unknown engine {name!r}: "
                          f"expected one of {sorted(ENGINES)}")
@@ -261,12 +287,25 @@ class RoundOutcome:
     policy's own queue update stands.
     """
     delay: float                       # realized time advanced this round
+    boundary_rms: Optional[np.ndarray] = None
     aggregations: int = 0
 
 
 class Engine:
-    """Protocol: how a scheduled round is executed on the model."""
+    """Protocol: how a scheduled round is executed on the model.
+
+    The synchronous protocol of the reference's ``Engine``, implemented by
+    ``CohortEngine`` and ``SequentialEngine``. Its async hooks
+    (``inflight_counts``, realized participation) come with the async
+    engine (ROADMAP.md M8), its ``fused_train`` with the fused loop (M7),
+    the sharded engine with M9; ``make_engine`` raises
+    ``NotImplementedError`` for ``"async"`` and ``"sharded"``.
+    """
     name: str
+    # compute dtypes this engine can run the data plane in; Simulation
+    # rejects a Scenario whose ``dtype`` the chosen engine cannot honor
+    # (silently training in f32 would falsify the priced upload_bits)
+    supported_dtypes: Tuple[str, ...] = ("f32",)
 
     def estimate_stats(self, sim: "Simulation", params) -> DataStats:
         """Estimate the per-device sigma_n/delta_n/L_n statistics the
@@ -274,20 +313,41 @@ class Engine:
         raise NotImplementedError
 
     def train_round(self, sim: "Simulation", trained: List[int],
-                    l_n: np.ndarray) -> None:
+                    l_n: np.ndarray,
+                    with_boundary: bool = False) -> Optional[np.ndarray]:
         """Train one round in-place on ``sim`` (params + per-gateway
-        losses)."""
+        losses); returns the (N,) boundary-activation RMS when requested
+        and supported, else None."""
         raise NotImplementedError
 
     def run_round(self, sim: "Simulation", dec: RoundDecision,
                   trained: List[int], l_n: np.ndarray,
-                  gw_delay: Dict[int, float]) -> RoundOutcome:
+                  gw_delay: Dict[int, float],
+                  boundary: bool = False) -> RoundOutcome:
         """Execute one scheduled round: train the scheduled cohort and
         realize exactly the scheduled delays (the FedAvg barrier waits for
         the slowest gateway, ``max`` over ``gw_delay``)."""
-        self.train_round(sim, trained, l_n)
+        rms = self.train_round(sim, trained, l_n, with_boundary=boundary)
         return RoundOutcome(delay=max(gw_delay.values(), default=0.0),
+                            boundary_rms=rms,
                             aggregations=1 if trained else 0)
+
+    def reset(self, sim: "Simulation") -> None:
+        """Discard engine-internal *run* state (default: none). Called from
+        :meth:`Simulation.restart`, and so from ``run()`` and ``reset()``."""
+        return None
+
+    def state_dict(self, sim: "Simulation"):
+        """Engine-internal state to checkpoint, as ``(meta, arrays)`` —
+        ``meta`` a JSON-serializable dict stored in the ``sim_*.json``
+        manifest, ``arrays`` a tree written beside the params (prefix
+        ``engine_``) — or ``None`` for stateless engines (the default)."""
+        return None
+
+    def load_state_dict(self, sim: "Simulation", meta: dict, path,
+                        step: int) -> None:
+        """Restore what :meth:`state_dict` captured (default: nothing)."""
+        return None
 
 
 @register_engine("cohort")
@@ -298,6 +358,8 @@ class CohortEngine(Engine):
     (``repro_torch.fl.data.CohortLayout``; ``Scenario.tiers`` sets how many
     distinct slot widths are used).
     """
+
+    supported_dtypes = ("f32", "bf16")
 
     def _layout(self, sim: "Simulation", capacity: int) -> CohortLayout:
         """The (cached) fixed slot layout for ``capacity``-slot rounds."""
@@ -326,8 +388,8 @@ class CohortEngine(Engine):
         """Pack the scheduled devices into the fixed slot layout.
 
         Draws come from ``sim.rng`` in gateway-major device order, as the
-        reference's packing makes them. Returns (batch, l_slot, w_slot,
-        slot_gw).
+        reference's packing makes them. Returns (device_ids, batch, l_slot,
+        w_slot, slot_gw).
         """
         device_ids: List[int] = []
         for m in trained:
@@ -346,19 +408,23 @@ class CohortEngine(Engine):
             l_slot[s] = l_n[n]
             w_slot[s] = sim.d_tilde[n]
             slot_gw[s, sim.net.assign[n]] = 1.0
-        return batch, l_slot, w_slot, slot_gw
+        return device_ids, batch, l_slot, w_slot, slot_gw
 
     def train_round(self, sim: "Simulation", trained: List[int],
-                    l_n: np.ndarray) -> None:
+                    l_n: np.ndarray,
+                    with_boundary: bool = False) -> Optional[np.ndarray]:
         """Pack the scheduled devices and run the cohort round in place on
-        ``sim``."""
+        ``sim``; with ``with_boundary``, the slots' boundary RMS scattered
+        back to device order (0 for devices that did not train)."""
         if not trained:
-            return
+            return None
         sc = sim.scenario
-        batch, l_slot, w_slot, slot_gw = self._pack_round(sim, trained, l_n)
-        new_global, gw_loss, _, _, _ = cohort_lib.cohort_round(
+        device_ids, batch, l_slot, w_slot, slot_gw = self._pack_round(
+            sim, trained, l_n)
+        new_global, gw_loss, _, _, boundary = cohort_lib.cohort_round(
             sim.plan, sim.params, batch, l_slot, w_slot, slot_gw,
-            sc.k_iters, sc.lr, compute_dtype=sc.dtype, device=sim.device)
+            sc.k_iters, sc.lr, with_boundary=with_boundary,
+            compute_dtype=sc.dtype, device=sim.device)
         sim.params = new_global
         # padded-vs-real sample accounting, as the reference's
         sim.padding_stats["real_samples"] += float(
@@ -368,6 +434,109 @@ class CohortEngine(Engine):
         gw_loss = gw_loss.cpu().numpy()
         for m in trained:
             sim.losses[m] = float(gw_loss[m])
+        if not with_boundary:
+            return None
+        rms = np.zeros(sim.net.cfg.n_devices)
+        rms[device_ids] = boundary.cpu().numpy()[batch.slot_of]
+        return rms
+
+    def shop_floor_round(self, sim: "Simulation", device_ids: List[int],
+                         l_n: np.ndarray, params=None,
+                         rng: Optional[np.random.Generator] = None):
+        """A cohort round over ``device_ids`` that also returns the
+        per-gateway shop-floor models (the intermediate the Fig. 2
+        divergence experiment compares against a centralized twin).
+
+        Batches are drawn from ``rng`` (default ``sim.rng``) in
+        ``device_ids`` order — the draws the sequential per-device loop
+        makes — and returned, so the caller can pool them. This path keeps
+        the all-devices layout (row n = device n), so ``l_n`` and the
+        weights index devices directly.
+
+        Returns (new_global, gateway_models (leading M axis),
+        gateway_losses (M,) numpy, CohortBatch).
+        """
+        sc = sim.scenario
+        rng = sim.rng if rng is None else rng
+        params = sim.params if params is None else params
+        ids = list(device_ids)
+        weights = np.zeros(sim.net.cfg.n_devices, np.float32)
+        weights[ids] = sim.d_tilde[ids]
+        batch = sample_cohort_batch(rng, sim.ds, ids, sim.d_tilde,
+                                    int(sim.d_tilde.max()))
+        new_global, gw_loss, _, _, _, gw_models = cohort_lib.cohort_round(
+            sim.plan, params, batch, l_n, weights, sim.net.a, sc.k_iters,
+            sc.lr, with_boundary=False, with_gateway_models=True,
+            compute_dtype=sc.dtype, device=sim.device)
+        return new_global, gw_models, gw_loss.cpu().numpy(), batch
+
+
+@register_engine("sequential")
+class SequentialEngine(Engine):
+    """Per-device loop (kept as the parity reference): one model at a time,
+    on the same kernels as the cohort round."""
+
+    def estimate_stats(self, sim: "Simulation", params) -> DataStats:
+        """sigma/delta/Lipschitz estimated one device at a time, from the
+        same draws of ``sim.rng`` as the reference's loop: each device's
+        batch gradient, ``sigma_samples`` per-sample gradients and the
+        gradient one SGD step along the batch gradient."""
+        sc = sim.scenario
+        grads, sigmas, lips = [], [], []
+        w0 = split_lib.flat_params(params)
+        for n in range(sim.net.cfg.n_devices):
+            x, y = (torch.as_tensor(a, device=sim.device)
+                    for a in sample_batch(sim.rng, sim.ds, n,
+                                          sim.d_tilde[n]))
+            g = split_lib.flat_grad(sim.plan, params, x, y)
+            grads.append(g)
+            # sigma: per-sample gradient spread
+            per = torch.stack([
+                split_lib.flat_grad(sim.plan, params, x[i:i + 1],
+                                    y[i:i + 1])
+                for i in range(min(sc.sigma_samples, len(y)))])
+            sigmas.append(float(torch.linalg.vector_norm(
+                per - per.mean(dim=0), dim=1).mean()))
+            # L_n: two-point secant
+            pert = split_lib._like(
+                [w - sc.lr * gi for w, gi in zip(
+                    split_lib.leaves(params), _unflatten_like(g, params))],
+                params)
+            g2 = split_lib.flat_grad(sim.plan, pert, x, y)
+            dw = torch.linalg.vector_norm(split_lib.flat_params(pert) - w0)
+            lips.append(float(torch.linalg.vector_norm(g2 - g)
+                              / dw.clamp_min(1e-9)))
+        # delta: divergence from the D_n-weighted global gradient, in f64
+        # as the reference's numpy sums it
+        weights = sim.d_sizes / sim.d_sizes.sum()
+        global_g = torch.zeros_like(grads[0], dtype=torch.float64)
+        for w, g in zip(weights, grads):
+            global_g += float(w) * g.double()
+        deltas = [float(torch.linalg.vector_norm(g.double() - global_g))
+                  for g in grads]
+        return DataStats(np.asarray(sigmas), np.asarray(deltas),
+                         np.maximum(np.asarray(lips), 0.1),
+                         sim.d_tilde.astype(float))
+
+    def train_round(self, sim: "Simulation", trained: List[int],
+                    l_n: np.ndarray,
+                    with_boundary: bool = False) -> Optional[np.ndarray]:
+        """One round as the seed ran it: a loop over gateways and their
+        devices (``Gateway.shop_floor_round``), then the base station's
+        FedAvg. Reports no boundary RMS (None), as the reference's."""
+        sc = sim.scenario
+        models, weights = [], []
+        for m in trained:
+            gw = sim.gateways[m]
+            l_splits = np.asarray([l_n[d.idx] for d in gw.devices])
+            combined, gw_loss, w_m = gw.shop_floor_round(
+                sim.plan, sim.params, sim.ds, l_splits, sc.k_iters, sc.lr,
+                sim.rng)
+            models.append(combined)
+            weights.append(w_m)
+            sim.losses[m] = gw_loss
+        sim.bs.aggregate(models, np.asarray(weights))
+        return None
 
 
 # ---------------------------------------------------------------------------
@@ -377,12 +546,68 @@ class CohortEngine(Engine):
 PolicyLike = Union[str, object, None]
 
 
+class _CheckpointWriter:
+    """One daemon thread draining checkpoint write jobs in FIFO order.
+
+    ``submit`` returns at once; ``flush`` blocks until every submitted job
+    has finished and re-raises the first exception any job hit. Jobs must
+    close over host *snapshots* (numpy arrays, encoded bytes) taken on the
+    calling thread: the caller's tensors may change in place, and on the
+    card they live on another stream, so the writer touches only numpy and
+    the disk, never CUDA.
+
+    The thread is a daemon, so an atexit hook drains the queue at
+    interpreter shutdown: every submitted checkpoint lands even if
+    ``flush`` is never called (a swallowed error becomes a warning there).
+    """
+
+    def __init__(self):
+        self._q: "queue.Queue" = queue.Queue()
+        self._err: Optional[BaseException] = None
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name="ckpt-writer")
+        self._thread.start()
+        atexit.register(self._drain_at_exit)
+
+    def _drain_at_exit(self) -> None:
+        self._q.join()
+        if self._err is not None:
+            warnings.warn(f"background checkpoint write failed and was "
+                          f"never flush()ed: {self._err!r}")
+
+    def _loop(self):
+        while True:
+            job = self._q.get()
+            try:
+                job()
+            except BaseException as e:      # surfaced at the next flush()
+                if self._err is None:
+                    self._err = e
+            finally:
+                self._q.task_done()
+
+    def submit(self, job) -> None:
+        self._q.put(job)
+
+    def flush(self) -> None:
+        self._q.join()
+        err, self._err = self._err, None
+        if err is not None:
+            raise err
+
+
 class Simulation:
     """Composable FL simulation over a :class:`Scenario`.
 
     State is resolved once at construction (topology, dataset, model, layer
     cost model, per-device statistics); ``rounds()`` then streams
-    :class:`RoundRecord` telemetry one round at a time.
+    :class:`RoundRecord` telemetry one round at a time, with
+    ``boundary=True`` the per-device boundary RMS; ``save``, ``flush`` and
+    ``resume`` checkpoint and continue a run, on the cohort or the
+    sequential engine. ``fused_rounds``, ``run_fused``, ``sweep`` and
+    ``data_key`` (the fused loop, ROADMAP.md M7) raise
+    ``NotImplementedError``, as does a Scenario naming the async (M8) or
+    sharded (M9) engine.
 
     ``device``: where the data plane runs (``"cuda"`` unless the caller
     passes ``"cpu"``). ``init_params``: numpy params in the reference's
@@ -399,9 +624,14 @@ class Simulation:
         self.device = resolve_device(device)
         use_f32_numerics()
         self.engine: Engine = make_engine(sc.engine)
-        if sc.dtype not in ("f32", "bf16"):
-            raise ValueError(f"Scenario.dtype={sc.dtype!r}: expected 'f32' "
-                             "or 'bf16'")
+        if sc.dtype not in cohort_lib.COMPUTE_DTYPES:
+            raise ValueError(
+                f"Scenario.dtype={sc.dtype!r}: expected one of "
+                f"{sorted(cohort_lib.COMPUTE_DTYPES)}")
+        if sc.dtype not in self.engine.supported_dtypes:
+            raise ValueError(
+                f"engine {sc.engine!r} supports dtypes "
+                f"{self.engine.supported_dtypes}, not {sc.dtype!r}")
         if sc.dtype == "bf16" and sc.model not in BF16_MODELS:
             raise NotImplementedError(
                 f"Scenario(model={sc.model!r}, dtype='bf16'): the bf16 data "
@@ -487,6 +717,7 @@ class Simulation:
 
         self._policy = None
         self.run_seed = sc.seed   # threaded into stochastic policies
+        self._ckpt_writer: Optional[_CheckpointWriter] = None
         self.restart()
 
     def _build_params(self, seed: int):
@@ -506,7 +737,8 @@ class Simulation:
 
     def restart(self) -> None:
         """Reset the *run* state (round counter, queues, losses, delay) while
-        keeping params and RNG streams — what a fresh ``run()`` call does."""
+        keeping params and RNG streams — what a fresh ``run()`` call does.
+        The engine's own run state goes too (:meth:`Engine.reset`)."""
         ncfg = self.net.cfg
         self.t = 0
         self.queues = np.zeros(ncfg.n_gateways)
@@ -516,6 +748,8 @@ class Simulation:
         # them)
         self.padding_stats = {"real_samples": 0.0, "padded_samples": 0.0}
         self._policy = None
+        self._policy_unresumable = False
+        self.engine.reset(self)
 
     def reset(self, seed: Optional[int] = None) -> "Simulation":
         """Full reset for fair multi-policy sweeps.
@@ -540,25 +774,44 @@ class Simulation:
 
     # -- the round loop --------------------------------------------------
 
+    def _resolve_policy(self, policy: PolicyLike):
+        if policy is None:
+            policy = self.scenario.policy
+        if isinstance(policy, str):
+            return make_policy(policy, seed=self.run_seed)
+        return policy
+
     def _ensure_policy(self, policy: PolicyLike):
-        """Resolve/install the active policy (override > scenario default)."""
-        if policy is not None or self._policy is None:
-            policy = self.scenario.policy if policy is None else policy
-            self._policy = make_policy(policy, seed=self.run_seed) \
-                if isinstance(policy, str) else policy
+        """Resolve/install the active policy (override > restored >
+        scenario default), refusing to silently swap out an unresumable
+        checkpointed custom policy."""
+        if policy is not None:
+            self._policy = self._resolve_policy(policy)
+            self._policy_unresumable = False
+        elif self._policy is None:
+            if self._policy_unresumable:
+                raise ValueError(
+                    "this checkpoint was taken with an unregistered custom "
+                    "policy; pass that policy explicitly to rounds()/run() "
+                    "to continue")
+            self._policy = self._resolve_policy(None)
         return self._policy
 
     def rounds(self, policy: PolicyLike = None, *,
                boundary: bool = False) -> Iterator[RoundRecord]:
-        """Stream one RoundRecord per remaining round. ``policy`` (name or
-        instance) overrides the scenario default."""
-        if boundary:
-            raise NotImplementedError("boundary-activation telemetry")
+        """Stream one RoundRecord per remaining round.
+
+        ``policy`` (name or instance) overrides the scenario default; when
+        resuming from a checkpoint the restored policy is kept unless a new
+        one is passed. ``boundary=True`` adds per-device boundary-activation
+        RMS telemetry to each record (the cohort engine's one extra forward
+        per round; the sequential engine reports none).
+        """
         self._ensure_policy(policy)
         while self.t < self.scenario.rounds:
-            yield self._step(self._policy)
+            yield self._step(self._policy, boundary)
 
-    def _step(self, policy) -> RoundRecord:
+    def _step(self, policy, boundary: bool) -> RoundRecord:
         sc = self.scenario
         ncfg = self.net.cfg
         t = self.t
@@ -572,7 +825,8 @@ class Simulation:
         trained, l_n, gw_delay, failures = resolve_decision(
             dec, self.gateways, ncfg.n_devices)
 
-        out = self.engine.run_round(self, dec, trained, l_n, gw_delay)
+        out = self.engine.run_round(self, dec, trained, l_n, gw_delay,
+                                    boundary=boundary)
         self.delay_sum += out.delay
         self.t = t + 1
 
@@ -585,9 +839,11 @@ class Simulation:
                            cum_delay=self.delay_sum,
                            queues=self.queues.copy(),
                            losses=self.losses.copy(), failures=failures,
-                           accuracy=acc, aggregations=out.aggregations)
+                           boundary_rms=out.boundary_rms, accuracy=acc,
+                           aggregations=out.aggregations)
 
-    def run(self, policy: PolicyLike = None) -> FLResult:
+    def run(self, policy: PolicyLike = None, *,
+            boundary: bool = False) -> FLResult:
         """Consume the full round loop into an :class:`FLResult`.
 
         Restarts the run state (round counter, queues, losses) but keeps the
@@ -595,7 +851,9 @@ class Simulation:
         from-scratch fair run.
         """
         self.restart()
-        return self.result_of(list(self.rounds(policy)))
+        records = list(self.rounds(policy, boundary=boundary))
+        self.flush()     # any per-round save() has fully landed on return
+        return self.result_of(records)
 
     def result_of(self, records: List[RoundRecord]) -> FLResult:
         """Fold a list of streamed RoundRecords into an :class:`FLResult`."""
@@ -615,32 +873,140 @@ class Simulation:
     def estimate_stats(self, params=None,
                        engine: Optional[str] = None) -> DataStats:
         """Online estimators for sigma_n, delta_n, L_n (paper Sec. VII-A),
-        by ``engine``'s estimator (default: this simulation's engine). The
-        reference's sequential engine is not ported yet."""
-        if engine == "sequential":
-            _unported("estimate_stats(engine='sequential')", "M4")
+        by ``engine``'s estimator (default: this simulation's engine)."""
         eng = self.engine if engine is None else make_engine(engine)
         return eng.estimate_stats(
             self, self.params if params is None else params)
 
-    # -- not ported yet (ROADMAP.md, section 1) ---------------------------
+    # -- checkpointing ---------------------------------------------------
 
     def save(self, path, keep_last: Optional[int] = None, *,
-             block: bool = False):
-        _unported("Simulation.save", "M4")
+             block: bool = False) -> pathlib.Path:
+        """Checkpoint params + full run state at round ``self.t``, in the
+        reference's format (params in its layout, ``convert``), so either
+        package resumes the other's checkpoints.
 
-    @classmethod
-    def resume(cls, path) -> "Simulation":
-        _unported("Simulation.resume", "M4")
+        Non-blocking by default: the run state is snapshotted on the
+        calling thread (one host copy of the params, the RNG states,
+        queues, losses, statistics and policy state, encoded), then one
+        background writer thread writes the files, each through tmp +
+        ``os.replace``. The returned path may not exist yet: call
+        :meth:`flush` before reading it (or pass ``block=True``).
+
+        ``keep_last`` (default: ``Scenario.keep_last``) rotates the
+        directory: after this save only the newest ``keep_last`` round
+        checkpoints survive — ``step_*`` param files, their ``sim_*.json``
+        manifests and any ``engine_*`` side-cars alike.
+        """
+        if keep_last is None:
+            keep_last = self.scenario.keep_last
+        path = pathlib.Path(path)
+        step = self.t
+        params = params_to_numpy(self.plan, self.params)   # host copies
+        pol = None
+        if self._policy is not None:
+            name = getattr(self._policy, "name", None)
+            # only registered names can be rebuilt at resume time; a custom
+            # instance is recorded as such, so resume can refuse to swap in
+            # the scenario default silently
+            pol = {"name": name if name in POLICIES else None,
+                   "state": policy_state(self._policy)}
+        eng = self.engine.state_dict(self)
+        eng_meta, eng_arrays = eng if eng is not None else (None, None)
+        state = {
+            "scenario": self.scenario.to_json(),
+            "t": step,
+            "run_seed": self.run_seed,
+            "queues": self.queues.tolist(),
+            "losses": self.losses.tolist(),
+            "delay_sum": self.delay_sum,
+            "rng": self.rng.bit_generator.state,
+            "net_rng": self.net.rng.bit_generator.state,
+            # stats with exact dtypes: phi/gamma recomputed at resume are
+            # then bit-identical, and the estimation pass is skipped
+            "stats": {f.name: _arr_to_json(getattr(self.stats, f.name))
+                      for f in dataclasses.fields(self.stats)},
+            "policy": pol,
+            "engine": eng_meta,
+        }
+        payload = json.dumps(state).encode()       # serialized pre-submit
+        fname = path / f"sim_{step:08d}.json"
+
+        def job():
+            store.save_pytree(path, params, step=step, keep_last=keep_last)
+            if eng_arrays is not None:
+                store.save_pytree(path, eng_arrays, step=step,
+                                  prefix="engine")
+            store.atomic_write_bytes(fname, lambda f: f.write(payload))
+            if keep_last is not None:
+                kept = set(store.all_steps(path))  # post-GC param ckpts
+                for fam in ("sim", "engine"):
+                    for f in path.glob(f"{fam}_*.*"):
+                        m = re.match(rf"{fam}_(\d+)\.(json|npz)", f.name)
+                        if m and int(m.group(1)) not in kept:
+                            f.unlink(missing_ok=True)
+
+        if block:
+            self.flush()      # keep FIFO order with pending async saves
+            job()
+        else:
+            if self._ckpt_writer is None:
+                self._ckpt_writer = _CheckpointWriter()
+            self._ckpt_writer.submit(job)
+        return fname
 
     def flush(self) -> None:
-        _unported("Simulation.flush", "M4")
+        """Block until every pending non-blocking :meth:`save` has fully
+        landed on disk; re-raises the first error any background write hit.
+        A no-op when nothing is pending."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.flush()
 
-    def state_dict(self):
-        _unported("Simulation.state_dict", "M4")
+    @classmethod
+    def resume(cls, path, *, device="cuda") -> "Simulation":
+        """Rebuild a Simulation on ``device`` from the latest checkpoint in
+        ``path`` (written by this package or by the reference).
 
-    def load_state_dict(self, state) -> None:
-        _unported("Simulation.load_state_dict", "M4")
+        The scenario is re-resolved deterministically (topology, dataset;
+        the per-device statistics come from the manifest, skipping the
+        estimation pass), then params and every RNG/queue/loss/policy
+        stream are restored, so the continued round loop is bit-identical
+        to an uninterrupted run.
+        """
+        path = pathlib.Path(path)
+        step = store.latest_step(path)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {path}")
+        state = json.loads((path / f"sim_{step:08d}.json").read_text())
+        stats = None
+        if "stats" in state:
+            stats = DataStats(**{k: _arr_from_json(v)
+                                 for k, v in state["stats"].items()})
+        sim = cls(Scenario.from_json(state["scenario"]), _stats=stats,
+                  device=device)
+        saved = store.load_pytree(path / f"step_{step:08d}.npz",
+                                  like=params_to_numpy(sim.plan, sim.params))
+        sim.params = params_from_numpy(sim.plan, saved, sim.device)
+        sim.t = state["t"]
+        sim.run_seed = state.get("run_seed", sim.scenario.seed)
+        sim.queues = np.asarray(state["queues"])
+        sim.losses = np.asarray(state["losses"])
+        sim.delay_sum = state["delay_sum"]
+        sim.rng.bit_generator.state = state["rng"]
+        sim.net.rng.bit_generator.state = state["net_rng"]
+        pol = state.get("policy")
+        if pol:
+            if pol.get("name"):
+                sim._policy = make_policy(pol["name"], seed=sim.run_seed)
+                set_policy_state(sim._policy, pol.get("state"))
+            else:
+                sim._policy_unresumable = True
+        eng_meta = state.get("engine")
+        if eng_meta is not None:
+            sim.engine.load_state_dict(sim, eng_meta, path, step)
+        return sim
+
+    # -- not ported yet (ROADMAP.md, section 1) ---------------------------
 
     def fused_rounds(self, policy: PolicyLike = None, *,
                      rounds: Optional[int] = None) -> List[RoundRecord]:
@@ -656,6 +1022,25 @@ class Simulation:
     @property
     def data_key(self):
         _unported("Simulation.data_key (the traced data plane's key)", "M7")
+
+
+def _arr_to_json(a: np.ndarray) -> dict:
+    a = np.asarray(a)
+    return {"data": a.tolist(), "dtype": str(a.dtype)}
+
+
+def _arr_from_json(d: dict) -> np.ndarray:
+    return np.asarray(d["data"], dtype=d["dtype"])
+
+
+def _unflatten_like(flat: torch.Tensor, params) -> List[torch.Tensor]:
+    """Split a flat vector back into views shaped like ``params``'s leaves
+    (``split.leaves`` order)."""
+    out, i = [], 0
+    for leaf in split_lib.leaves(params):
+        out.append(flat[i:i + leaf.numel()].view(leaf.shape))
+        i += leaf.numel()
+    return out
 
 
 def _unported(what: str, item: str):

@@ -43,6 +43,15 @@ def flat_params(params: Params) -> torch.Tensor:
     return torch.cat([t.reshape(-1) for t in leaves(params)])
 
 
+def flat_grad(model: SplitModel, params: Params, x, y) -> torch.Tensor:
+    """The gradient of one model's loss on (x, y), flat in :func:`leaves`
+    order (the participation-rate estimators' per-device gradient)."""
+    p = _trainable(params)
+    loss = model.loss(model.forward(p, x), y)
+    return torch.cat([g.reshape(-1)
+                      for g in torch.autograd.grad(loss, leaves(p))])
+
+
 def device_forward(model: SplitModel, bottom: Params, x: torch.Tensor,
                    l: int):
     """Bottom-block forward with a VJP handle kept device-side:

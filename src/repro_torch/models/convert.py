@@ -60,14 +60,16 @@ def params_from_numpy(model, np_params: NpParams, device="cuda"):
 
 def params_to_numpy(model, params) -> NpParams:
     """The inverse of :func:`params_from_numpy`: numpy in the reference's
-    layout and nesting."""
+    layout and nesting, each array a host copy of its own (a later
+    in-place change of ``params`` does not reach it)."""
     out = []
     for kind, layer in zip(model.block_kinds, params):
         d = {}
         for name, t in layer.items():
-            t = t.detach().cpu()
+            t = t.detach()
             if kind == "conv" and name == "w":
                 t = t.permute(2, 3, 1, 0)                # OIHW -> HWIO
-            d[name] = t.contiguous().numpy()
+            d[name] = t.to("cpu", memory_format=torch.contiguous_format,
+                           copy=True).numpy()
         out.append(_unflatten(d))
     return out

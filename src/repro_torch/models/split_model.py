@@ -84,13 +84,36 @@ class SplitModel:
     def forward_slots(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         return self.forward_range_slots(params, x, 0, self.n_blocks)
 
+    def one_slot(self, params: Params) -> Params:
+        """One model's params in the slot-batched form its blocks take
+        (the layer-list blocks take a weight without a slot axis as one
+        shared by every slot)."""
+        return params
+
     def forward_range(self, params: Params, x: torch.Tensor,
                       lo: int, hi: int) -> torch.Tensor:
         """Blocks [lo, hi) of one model on x (B, ...)."""
-        return self.forward_range_slots(params, x[None], lo, hi)[0]
+        return self.forward_range_slots(self.one_slot(params), x[None], lo,
+                                        hi)[0]
 
     def forward(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         return self.forward_range(params, x, 0, self.n_blocks)
+
+    def activations_slots(self, params: Params,
+                          x: torch.Tensor) -> List[torch.Tensor]:
+        """The tensor crossing each cut, slot-batched (S, B, ...): a[0] =
+        the input, a[i] = the output of block i."""
+        acts = [x]
+        for i in range(self.n_blocks):
+            x = self.apply_block(i, params[i], x)
+            acts.append(x)
+        return acts
+
+    def activations(self, params: Params,
+                    x: torch.Tensor) -> List[torch.Tensor]:
+        """:meth:`activations_slots` of one model on x (B, ...)."""
+        return [a[0] for a in self.activations_slots(self.one_slot(params),
+                                                     x[None])]
 
     def prepare_inputs(self, x: torch.Tensor) -> torch.Tensor:
         """Reshape packed batches (lead-2 axes = slots, width) for block 0."""
@@ -272,11 +295,10 @@ class SeqSplitModel(SplitModel):
                            for k, v in block.items()})
         return blocks
 
-    def forward_range(self, params, x, lo, hi):
+    def one_slot(self, params):
         # one model: every weight becomes a single slot (a view)
-        params = [p if p is None else {k: v[None] for k, v in p.items()}
-                  for p in params]
-        return self.forward_range_slots(params, x[None], lo, hi)[0]
+        return [p if p is None else {k: v[None] for k, v in p.items()}
+                for p in params]
 
     def apply_block(self, i, p, x):
         """Block ``i`` on slot-batched x: tokens (S, B, seq) for the

@@ -307,7 +307,8 @@ def test_cohort_round_bf16_matches_reference(family):
     out = cohort.cohort_round(model, params_from_numpy(model, np_params,
                                                        "cpu"),
                               batch, l_n, weights, gw_onehot, k_iters=2,
-                              lr=0.05, compute_dtype="bf16", device="cpu")
+                              lr=0.05, with_boundary=False,
+                              compute_dtype="bf16", device="cpu")
     ref_out = ref_cohort.cohort_round(
         ref_model, [{k: jnp.asarray(v) for k, v in p.items()}
                     for p in np_params],
@@ -323,7 +324,7 @@ def test_cohort_round_bf16_matches_reference(family):
     f32 = cohort.cohort_round(model, params_from_numpy(model, np_params,
                                                        "cpu"),
                               batch, l_n, weights, gw_onehot, k_iters=2,
-                              lr=0.05, device="cpu")
+                              lr=0.05, with_boundary=False, device="cpu")
     assert not torch.equal(f32[3], out[3])
 
 

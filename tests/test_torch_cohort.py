@@ -164,25 +164,31 @@ def test_cohort_round_matches_reference(datasets, family, tiers):
     ref_batch = ref_data.sample_cohort_batch(
         np.random.default_rng(2), rds, [1, 3, 4], D_TILDE,
         layout=ref_data.CohortLayout.build(D_TILDE, 4, tiers))
-    l_n = np.array([3, 5, 0, 0])
+    # partition points within the model's blocks: the boundary telemetry
+    # reports the activation at each slot's cut
+    l_n = np.array([3, min(5, model.n_blocks), 0, 0])
     weights = np.zeros(4, np.float32)
     gw_onehot = np.zeros((4, 3), np.float32)
     for dev, slot in zip([1, 3, 4], batch.slot_of):
         weights[slot] = D_TILDE[dev]
         gw_onehot[slot, dev % 3] = 1.0
+    # both packages' defaults: with_boundary=True (F6)
     out = cohort.cohort_round(model, params_from_numpy(model, np_params,
                                                        "cpu"),
                               batch, l_n, weights, gw_onehot, k_iters=2,
                               lr=0.05, device="cpu")
     ref_out = ref_cohort.cohort_round(ref_model, _jax_params(np_params),
                                       ref_batch, l_n, weights, gw_onehot,
-                                      k_iters=2, lr=0.05,
-                                      with_boundary=False)
+                                      k_iters=2, lr=0.05)
     _assert_params_close(params_to_numpy(model, out[0]), ref_out[0], **TOL)
-    for got, want in zip(out[1:4], ref_out[1:4]):
+    for got, want in zip(out[1:5], ref_out[1:5]):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     assert float(out[3][3]) == 0.0                  # the empty slot
-    np.testing.assert_array_equal(out[4].numpy(), np.asarray(ref_out[4]))
+    assert float(out[4][3]) == 0.0 and (out[4][:3] > 0).all()
+    with pytest.raises(ValueError, match="partition points"):
+        cohort.cohort_round(model, params_from_numpy(model, np_params, "cpu"),
+                            batch, l_n + model.n_blocks, weights, gw_onehot,
+                            k_iters=1, lr=0.05, device="cpu")
 
 
 def test_cohort_stats_match_reference(datasets):

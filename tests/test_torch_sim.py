@@ -19,6 +19,7 @@ if not hasattr(jax.experimental, "enable_x64"):
     jax.experimental.enable_x64 = lambda v=True: jax.enable_x64(v)
 
 import dataclasses  # noqa: E402
+import inspect  # noqa: E402
 import os  # noqa: E402
 import pathlib  # noqa: E402
 import subprocess  # noqa: E402
@@ -119,15 +120,51 @@ def test_scenario_json_interchange():
     assert sim.Scenario.from_json(port.to_json()) == port
 
 
-def test_unported_options_raise(reference):
-    for kw, err in ((dict(data_plane="traced"), NotImplementedError),
-                    (dict(churn=0.1), ValueError),
-                    (dict(engine="sequential"), ValueError)):
-        with pytest.raises(err):
+def test_unported_options_raise():
+    for kw, err, match in (
+            (dict(data_plane="traced"), NotImplementedError, "traced"),
+            (dict(churn=0.1), ValueError, "synchronous"),
+            (dict(engine="sharded"), NotImplementedError, "ROADMAP.md M9"),
+            (dict(engine="async"), NotImplementedError, "ROADMAP.md M8")):
+        with pytest.raises(err, match=match):
             sim.Simulation(sim.Scenario(**SC, **kw), device="cpu")
+
+
+@pytest.mark.parametrize("name,item", [("sharded", "M9"), ("async", "M8")])
+def test_unported_engines_raise_naming_their_item(name, item):
+    """F5: the reference registers these engines; the port names the
+    ROADMAP.md item that ports each, not an unknown name."""
+    assert name in ref_sim.ENGINES
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+        sim.make_engine(name)
+    with pytest.raises(ValueError, match="unknown engine"):
+        sim.make_engine("nope")
+
+
+def test_engine_api_matches_reference(reference):
+    """F5 and F7: ``run`` takes ``boundary`` and the cohort engine has
+    ``shop_floor_round``, as in the reference; ``state_dict`` and
+    ``load_state_dict`` are engine methods (None and a no-op on both
+    engines), not Simulation's; each engine states its dtypes."""
+    for ref_fn, fn in ((ref_sim.Simulation.run, sim.Simulation.run),
+                       (ref_sim.Simulation.rounds, sim.Simulation.rounds),
+                       (ref_sim.CohortEngine.shop_floor_round,
+                        sim.CohortEngine.shop_floor_round),
+                       (ref_sim.Engine.run_round, sim.Engine.run_round),
+                       (ref_sim.Engine.train_round, sim.Engine.train_round)):
+        assert list(inspect.signature(fn).parameters) == \
+            list(inspect.signature(ref_fn).parameters), fn
+    for cls in (sim.Simulation, ref_sim.Simulation):
+        assert not hasattr(cls, "state_dict")
+        assert not hasattr(cls, "load_state_dict")
     s = sim.Simulation(sim.Scenario(**SC), reference["stats"], device="cpu")
-    with pytest.raises(NotImplementedError):
-        next(s.rounds(boundary=True))
+    for name in ("cohort", "sequential"):
+        eng = sim.make_engine(name)
+        assert eng.supported_dtypes == ref_sim.ENGINES[name].supported_dtypes
+        assert eng.state_dict(s) is None
+        assert eng.load_state_dict(s, {}, "unused", 0) is None
+    res = s.run(boundary=False)
+    assert len(res.cum_delay) == SC["rounds"]
 
 
 def test_padding_stats_match_reference(reference):
@@ -147,22 +184,16 @@ def test_padding_stats_match_reference(reference):
 
 
 @pytest.mark.parametrize("name,kwargs,item", [
-    ("save", dict(path="unused"), "M4"),
-    ("resume", dict(path="unused"), "M4"),
-    ("flush", {}, "M4"),
-    ("state_dict", {}, "M4"),
-    ("load_state_dict", dict(state={}), "M4"),
-    ("estimate_stats", dict(engine="sequential"), "M4"),
     ("fused_rounds", {}, "M7"),
     ("run_fused", {}, "M7"),
     ("sweep", dict(v_values=[0.01]), "M7"),
     ("data_key", None, "M7"),              # a property
 ], ids=lambda v: v if isinstance(v, str) else "")
 def test_unported_api_raises_not_implemented(reference, name, kwargs, item):
-    """The reference's Simulation API that the port lacks (its engines'
-    state_dict / load_state_dict included) raises NotImplementedError
-    naming its ROADMAP.md item, not AttributeError or TypeError."""
-    assert hasattr(ref_sim.Simulation, name) or hasattr(ref_sim.Engine, name)
+    """The reference's Simulation API that the port lacks (the fused loop)
+    raises NotImplementedError naming its ROADMAP.md item, not
+    AttributeError or TypeError."""
+    assert hasattr(ref_sim.Simulation, name)
     s = sim.Simulation(sim.Scenario(**SC), reference["stats"], device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         member = getattr(s, name)
@@ -209,7 +240,8 @@ def test_port_imports_neither_jax_nor_reference():
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "for m in ('fl.sim', 'configs.base', 'models.layers', "
+        "for m in ('fl.sim', 'fl.trainer', 'checkpoint.store', "
+        "'configs.base', 'models.layers', "
         "'models.model', 'models.ssm', 'kernels.flash_attention.kernel', "
         "'kernels.flash_attention.ops', 'kernels.ssd_scan.kernel', "
         "'kernels.ssd_scan.ops'):\n"
