@@ -106,9 +106,24 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
    state bit-identical to the saved one, the resumed rounds, with the
    boundary pass, bit-identical to the uninterrupted ones under
    ``cudnn.deterministic``; how far cuDNN's default algorithms leave one
-   round run twice) and ``trainer`` (``FLTrainer(FLConfig(model="mlp",
-   rounds=2, boundary_telemetry=True)).run("ddsra")``). Each must launch
-   the f32 fused linear kernels and no plain version.
+   round run twice), ``control`` (the batched DDSRA control plane in torch
+   f64, one CUDA graph per plan and lane count: (a) the paper's network
+   with the full-width VGG-11 workload and ten-fold energy arrivals over
+   30 rounds, the graphed ``DDSRAPlan.round``, the eager ``_round`` and
+   the numpy oracle, decisions identical, Lambda and tau within 1e-6, the
+   eager round bit-identical to the graph, one capture, ms per round for
+   each, the launches of a round by ``torch.profiler``; (b)
+   ``benchmarks/scheduler_bench.py``'s (16, 8, 32), (32, 12, 64) and (64,
+   16, 128), ms per round and 2 rounds against the oracle; (c)
+   ``Simulation(policy="ddsra_jax")`` at full width against
+   ``policy="ddsra"``, 2 rounds; (d) the Figs. 4-6 grid, four policies x
+   seeds 0-2 x 30 rounds through ``Simulation.sweep(policies=...)``, one
+   stepwise lane per policy; (e) Theorem 2's ``simulate_v_sweep`` at V in
+   {0.01, 1, 100, 1e4} over 150 rounds, small V within 0.2 of every
+   participation target) and ``trainer`` (``FLTrainer(FLConfig(
+   model="mlp", rounds=2, boundary_telemetry=True)).run("ddsra")``). Each
+   of them but ``control`` must launch the f32 fused linear kernels and
+   no plain version (``control`` checks that for (c), its only training).
 
 Any failure raises, which exits non-zero before the result line. The line
 before last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
@@ -135,8 +150,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.core.network import NetworkConfig  # noqa: E402
+from repro_torch.core import costmodel as cm  # noqa: E402
+from repro_torch.core import ddsra_batched  # noqa: E402
+from repro_torch.core.ddsra import Workload, ddsra_round  # noqa: E402
+from repro_torch.core.network import (ChannelStateT, Network,  # noqa: E402
+                                      NetworkConfig)
+from repro_torch.core.participation import participation_rates  # noqa
 from repro_torch.fl import cohort as cohort_lib  # noqa: E402
+from repro_torch.fl.fused_sim import _seed_states  # noqa: E402
 from repro_torch.fl.sim import Scenario, Simulation  # noqa: E402
 from repro_torch.fl.trainer import FLConfig, FLTrainer  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -145,6 +166,7 @@ from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.fused_linear import kernel, ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
+from repro_torch.models.vgg import mlp_layer_costs  # noqa: E402
 
 # H100 SXM data sheet: f32 outside the tensor cores, HBM3 bandwidth. The
 # attention backward, the forward's short form and the SSD kernels are
@@ -1433,6 +1455,286 @@ def checkpoint_phase() -> None:
           f"slots x {x.shape[1]} rows)")
 
 
+# ---------------------------------------------------------------------------
+# control phase: the batched DDSRA control plane (torch f64, CUDA graphs)
+# ---------------------------------------------------------------------------
+
+CONTROL_ROUNDS = 30                   # (a): the paper's network
+# (b): benchmarks/scheduler_bench.py's larger (M, J, N), timed over
+# CONTROL_BENCH_ROUNDS graphed rounds, the first CONTROL_ORACLE_ROUNDS held
+# against the numpy oracle
+CONTROL_SIZES = [(16, 8, 32), (32, 12, 64), (64, 16, 128)]
+CONTROL_BENCH_ROUNDS, CONTROL_ORACLE_ROUNDS = 5, 2
+GRID_POLICIES = ["ddsra_jax", "round_robin", "random", "delay_driven"]
+GRID_SEEDS, GRID_ROUNDS = [0, 1, 2], 30               # (d): Figs. 4-6
+THEOREM2_V, THEOREM2_ROUNDS = [0.01, 1.0, 100.0, 1e4], 150   # (e)
+
+
+def _control_parity(label: str, want, got, exact: bool = False) -> tuple:
+    """One round of the batched plane against one of the numpy oracle (or
+    of the eager round, ``exact``): identical assignments, selections and
+    per-device cuts on assigned pairs, queues bit-identical, Lambda (finite
+    entries) and tau within 1e-6. Returns (max Lambda, tau) error."""
+    finite = np.isfinite(want.lam)
+    check(np.array_equal(want.assignment, got.assignment)
+          and np.array_equal(want.selected, got.selected)
+          and np.array_equal(finite, np.isfinite(got.lam))
+          and np.array_equal(want.queues, got.queues),
+          f"{label}: decisions differ")
+    for key, sol in got.solutions.items():
+        check(np.array_equal(sol.l_split, want.solutions[key].l_split),
+              f"{label}: cuts differ at {key}")
+    lam_err = float(np.max(np.abs(want.lam[finite] - got.lam[finite]),
+                           initial=0.0))
+    tau_err = abs(want.delay - got.delay)
+    check(lam_err <= (0.0 if exact else 1e-6)
+          and tau_err <= (0.0 if exact else 1e-6),
+          f"{label}: Lambda {lam_err:.3e} or tau {tau_err:.3e} beyond "
+          "the contract")
+    return lam_err, tau_err
+
+
+def _decide_loop(decide, states, m_gw: int) -> tuple:
+    """(decisions, ms per round) of ``decide(st, queues)`` over ``states``,
+    threading the queues; each decision reaches the host."""
+    q, out = np.zeros(m_gw), []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for st in states:
+        out.append(decide(st, q))
+        q = out[-1].queues
+    return out, (time.perf_counter() - t0) * 1e3 / len(states)
+
+
+def _kernel_launches(fn) -> tuple:
+    """(CUDA kernels, their device ms) of one call of ``fn``, by
+    torch.profiler (device activity only: the host side of ten thousand
+    small launches would cost the profiler seconds)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    return (sum(e.count for e in kernels),
+            sum(e.self_device_time_total for e in kernels) / 1e3)
+
+
+def _control_paper(sim) -> None:
+    """(a) The paper's network (6 gateways, 3 channels, 12 devices) with
+    the full-width VGG-11 workload and ten-fold energy arrivals: the
+    graphed ``DDSRAPlan.round``, the eager ``_round`` and the numpy oracle
+    over CONTROL_ROUNDS host-drawn rounds."""
+    t_start = time.perf_counter()
+    w, net, gamma, v = sim.workload, sim.net, sim.gamma, sim.scenario.v
+    m_gw = net.cfg.n_gateways
+    states = _seed_states(sim, sim.scenario.seed, CONTROL_ROUNDS)
+    captures0 = ddsra_batched.CAPTURE_COUNTS["round"]
+    plan = ddsra_batched.DDSRAPlan.build(w, net, device="cuda")
+    t0 = time.perf_counter()
+    plan.round(states[0], np.zeros(m_gw), gamma, v)
+    capture_s = time.perf_counter() - t0
+    oracle, oracle_ms = _decide_loop(
+        lambda st, q: ddsra_round(w, net, st, q, gamma, v), states, m_gw)
+    graphed, graphed_ms = _decide_loop(
+        lambda st, q: plan.round(st, q, gamma, v), states, m_gw)
+
+    def eager_arrays(st, q):
+        return ddsra_batched._round(
+            plan.statics, ChannelStateT.of(st, "cuda").map(lambda x: x[None]),
+            ddsra_batched.RoundContextT(plan._t(q)[None], plan._t(gamma),
+                                        plan._t([v])))
+
+    eager, eager_ms = _decide_loop(
+        lambda st, q: plan.host_decision(eager_arrays(st, q)), states, m_gw)
+    lam_err = tau_err = 0.0
+    for t, (o, g, e) in enumerate(zip(oracle, graphed, eager)):
+        errs = _control_parity(f"control (a) round {t}", o, g)
+        lam_err, tau_err = max(lam_err, errs[0]), max(tau_err, errs[1])
+        _control_parity(f"control (a) eager round {t}", e, g, exact=True)
+    check(sum(bool(d.selected.any()) for d in oracle) > 0,
+          "control (a): no round scheduled a gateway")
+    captures = ddsra_batched.CAPTURE_COUNTS["round"] - captures0
+    check(plan.captures == 1 and captures == 1,
+          f"control (a): {captures} graphs captured, expected 1")
+    q = np.zeros(m_gw)
+    step_in = (*ChannelStateT.of(states[0], "cuda").map(lambda x: x[None]),
+               plan._t(q)[None], plan._t(gamma), plan._t([v]))
+    t0 = time.perf_counter()
+    graph_kernels, graph_kernel_ms = _kernel_launches(
+        lambda: plan._step(*step_in))
+    eager_kernels, _ = _kernel_launches(lambda: eager_arrays(states[0], q))
+    profile_s = time.perf_counter() - t0
+    replay_ms = time_ms(lambda: plan._step(*step_in), reps=10)
+    print(f"control (a) paper network M=6 J=3 N=12, full-width VGG-11 "
+          f"workload, {CONTROL_ROUNDS} rounds: numpy oracle "
+          f"{oracle_ms:.3f} ms/round, graphed DDSRAPlan.round "
+          f"{graphed_ms:.3f} ms/round (host to host), eager _round "
+          f"{eager_ms:.3f} ms/round; graph replay on the card "
+          f"{replay_ms:.4f} ms (events, inputs copied in), its kernels "
+          f"{graph_kernel_ms:.4f} ms in {graph_kernels} launches; eager "
+          f"round {eager_kernels} launches (profile_s {profile_s:.1f}); "
+          f"captures {captures} (capture_s {capture_s:.3f}); scheduled rounds "
+          f"{sum(bool(d.selected.any()) for d in oracle)}; max Lambda err "
+          f"{lam_err:.3e} tau err {tau_err:.3e}; eager == graphed "
+          f"bit for bit; s={time.perf_counter() - t_start:.1f}",
+          flush=True)
+
+
+def _bench_workload(n_devices: int, seed: int) -> Workload:
+    """benchmarks/scheduler_bench.py's MLP workload."""
+    layers = mlp_layer_costs((3072, 512, 512, 10))
+    o, g = cm.flops_vector(layers), cm.mem_vector(layers, batch=50)
+    rng = np.random.default_rng(seed)
+    d_tilde = np.maximum(
+        (rng.uniform(0, 2000, n_devices) * 0.05).astype(int), 4)
+    return Workload(o, g, cm.model_size_bytes(layers), 5,
+                    d_tilde.astype(float))
+
+
+def _control_sizes() -> None:
+    """(b) scheduler_bench's larger networks at V = 10: graphed ms per
+    round, and the first rounds held against the numpy oracle."""
+    for m_gw, j_ch, n_dev in CONTROL_SIZES:
+        t_start = time.perf_counter()
+        net = Network(NetworkConfig(n_gateways=m_gw, n_channels=j_ch,
+                                    n_devices=n_dev),
+                      np.random.default_rng(0))
+        w = _bench_workload(n_dev, 0)
+        gamma = participation_rates(
+            np.random.default_rng(1).uniform(0.5, 2, m_gw), j_ch)
+        states = [net.draw() for _ in range(CONTROL_BENCH_ROUNDS)]
+        plan = ddsra_batched.DDSRAPlan.build(w, net, device="cuda")
+        t0 = time.perf_counter()
+        plan.round(states[0], np.zeros(m_gw), gamma, 10.0)
+        capture_s = time.perf_counter() - t0
+        graphed, graphed_ms = _decide_loop(
+            lambda st, q: plan.round(st, q, gamma, 10.0), states, m_gw)
+        oracle, oracle_ms = _decide_loop(
+            lambda st, q: ddsra_round(w, net, st, q, gamma, 10.0),
+            states[:CONTROL_ORACLE_ROUNDS], m_gw)
+        for t, (o, g) in enumerate(zip(oracle, graphed)):
+            _control_parity(f"control (b) M={m_gw} round {t}", o, g)
+        check(plan.captures == 1, f"control (b): {plan.captures} captures")
+        print(f"control (b) M={m_gw} J={j_ch} N={n_dev}: graphed "
+              f"{graphed_ms:.3f} ms/round over {CONTROL_BENCH_ROUNDS} "
+              f"rounds (capture_s {capture_s:.3f}), numpy oracle "
+              f"{oracle_ms:.3f} ms/round over {CONTROL_ORACLE_ROUNDS}, "
+              f"held: selected per round "
+              f"{[int(d.selected.sum()) for d in graphed]}; "
+              f"s={time.perf_counter() - t_start:.1f}", flush=True)
+
+
+def _control_simulation(sim) -> None:
+    """(c) ``Simulation`` at full width, 2 rounds under ``ddsra_jax`` on the
+    card against the same rounds under ``ddsra``."""
+    t_start = time.perf_counter()
+    reset_counts()
+    oracle = list(sim.reset().rounds("ddsra"))
+    batched = list(sim.reset().rounds("ddsra_jax"))
+    torch.cuda.synchronize()
+    check(len(oracle) == len(batched) == sim.scenario.rounds
+          and any(r.trained for r in oracle), "control (c) rounds")
+    worst = 0.0
+    for a, b in zip(oracle, batched):
+        check(np.array_equal(a.selected, b.selected)
+              and a.trained == b.trained and np.array_equal(a.l_n, b.l_n)
+              and np.array_equal(a.queues, b.queues)
+              and abs(a.delay - b.delay) <= 1e-6,
+              f"control (c) round {a.t}: ddsra_jax decides otherwise")
+        worst = max(worst, float(np.max(np.abs(a.losses - b.losses))))
+    check(worst <= TIE_AGREE["losses"], f"control (c) losses {worst:.3e}")
+    check_launched("control (c)", NAMES)
+    print(f"control (c) Simulation(policy='ddsra_jax') at full width: "
+          f"rounds {[r.t for r in batched]} trained "
+          f"{[r.trained for r in batched]} as under 'ddsra', losses max "
+          f"diff {worst:.3e}; s={time.perf_counter() - t_start:.1f}",
+          flush=True)
+
+
+def _control_grid() -> None:
+    """(d) The Figs. 4-6 grid (benchmarks/fig456_schedulers.py ``grid``):
+    GRID_POLICIES x GRID_SEEDS x V 0.01 x GRID_ROUNDS as one
+    ``Simulation.sweep``, once to capture and once replaying; one stepwise
+    lane per policy (seed 1) against its rows."""
+    t_start = time.perf_counter()
+    sim = Simulation(Scenario(model="mlp", width_mult=0.25,
+                              rounds=GRID_ROUNDS, v=0.01, seed=0,
+                              eval_every=GRID_ROUNDS + 1), device="cuda")
+    secs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        res = sim.sweep([0.01], seeds=GRID_SEEDS, rounds=GRID_ROUNDS,
+                        policies=GRID_POLICIES)
+        secs.append(time.perf_counter() - t0)
+    si = GRID_SEEDS.index(1)
+    for pi, pol in enumerate(GRID_POLICIES):
+        recs = list(sim.reset(1).rounds(pol))
+        check(np.allclose(res.taus[pi, si, 0], [r.delay for r in recs],
+                          rtol=1e-9, atol=0)
+              and np.array_equal(res.selected[pi, si, 0],
+                                 [r.selected for r in recs])
+              and np.allclose(res.queues[pi, si, 0],
+                              [r.queues for r in recs], rtol=0, atol=1e-12),
+              f"control (d): the {pol} lane differs from its stepwise run")
+    cum = dict(zip(GRID_POLICIES, np.round(
+        res.taus.sum(axis=-1)[..., 0].mean(axis=1), 2).tolist()))
+    rates = dict(zip(GRID_POLICIES, np.round(
+        res.selected[:, :, 0].mean(axis=(1, 2)), 2).tolist()))
+    print(f"control (d) Figs. 4-6 grid {len(GRID_POLICIES)} policies x "
+          f"{len(GRID_SEEDS)} seeds x {GRID_ROUNDS} rounds: sweep_s first "
+          f"(captures) {secs[0]:.3f}, again {secs[1]:.3f}; stepwise lanes "
+          f"agree; mean cumulative delay {cum}; participation {rates} "
+          f"(targets {np.round(sim.gamma, 2).tolist()}); "
+          f"s={time.perf_counter() - t_start:.1f}", flush=True)
+
+
+def _control_theorem2() -> None:
+    """(e) Theorem 2 (benchmarks/theorem2_tradeoff.py's network): the V
+    sweep with device draws over THEOREM2_ROUNDS rounds; small V must hold
+    every gateway's participation within 0.2 of its target."""
+    t_start = time.perf_counter()
+    net = Network(NetworkConfig(dist_range=(300.0, 4000.0)),
+                  np.random.default_rng(0))
+    w = _bench_workload(net.cfg.n_devices, 0)
+    gamma = participation_rates(
+        np.random.default_rng(0).uniform(0.3, 3.0, net.cfg.n_gateways),
+        net.cfg.n_channels)
+    plan = ddsra_batched.DDSRAPlan.build(w, net, device="cuda")
+    t0 = time.perf_counter()
+    taus, sel = plan.simulate_v_sweep(torch.Generator("cuda").manual_seed(0),
+                                      gamma, THEOREM2_V, THEOREM2_ROUNDS)
+    sweep_s = time.perf_counter() - t0
+    rates = sel.mean(axis=1)
+    check(bool(np.all(rates[0] >= gamma - 0.2)),
+          f"control (e): V={THEOREM2_V[0]} rates {rates[0]} under targets "
+          f"{gamma} - 0.2")
+    delays = [float(np.nanmean(np.where(np.isfinite(t), t, np.nan)))
+              for t in taus]
+    gaps = np.maximum(gamma - rates, 0).max(axis=1)
+    print(f"control (e) Theorem 2 V sweep {THEOREM2_V} x "
+          f"{THEOREM2_ROUNDS} rounds: sweep_s {sweep_s:.3f} (capture "
+          f"included); mean delay {np.round(delays, 3).tolist()}; "
+          f"participation gap {np.round(gaps, 3).tolist()}; "
+          f"s={time.perf_counter() - t_start:.1f}", flush=True)
+
+
+def control_phase() -> None:
+    """The batched DDSRA control plane on the card: (a) the paper's network
+    at the full-width workload against the eager round and the numpy
+    oracle, (b) scheduler_bench's larger networks, (c) ``Simulation(
+    policy="ddsra_jax")`` against ``"ddsra"``, (d) the Figs. 4-6 sweep
+    grid, (e) Theorem 2's V sweep."""
+    sim = Simulation(dataclasses.replace(FULL_WIDTH, rounds=2),
+                     device="cuda")
+    _control_paper(sim)
+    _control_sizes()
+    _control_simulation(sim)
+    _control_grid()
+    _control_theorem2()
+
+
 def trainer_phase() -> None:
     """The deprecated shim on the card: ``FLTrainer(FLConfig(model="mlp",
     rounds=2, boundary_telemetry=True)).run("ddsra")``."""
@@ -1488,6 +1790,7 @@ def main() -> int:
     for name, phase in (("shop-floor", shop_floor_phase),
                         ("sequential", sequential_phase),
                         ("checkpoint", checkpoint_phase),
+                        ("control", control_phase),
                         ("trainer", trainer_phase)):
         timed(name, phase)
 

@@ -1,17 +1,30 @@
 """Lyapunov virtual queues and drift-plus-penalty (paper Sec. V-A).
 
 ``update_queues`` is the host-side (numpy) Eq. (14) update the DDSRA
-scheduler applies every round; the (M,) float64 queue vector is the only
-state threaded between scheduling rounds.
+scheduler applies every round; ``update_queues_t`` is its tensor twin,
+used inside the batched control plane (``repro_torch.core.ddsra_batched``)
+so the queue recursion stays on the device across a whole scan. The (M,)
+float64 queue vector is the only state threaded between scheduling
+rounds; both updates do the same f64 operations in the same order, so a
+scan of the tensor update is bit-identical to the stepwise numpy loop.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def update_queues(q: np.ndarray, selected: np.ndarray, gamma: np.ndarray) -> np.ndarray:
     """Eq. (14): Q_m(t+1) = max(Q_m(t) - 1_m^t + Gamma_m, 0)."""
     return np.maximum(q - selected.astype(float) + gamma, 0.0)
+
+
+def update_queues_t(q: torch.Tensor, selected: torch.Tensor,
+                    gamma: torch.Tensor) -> torch.Tensor:
+    """Eq. (14) on tensors (port of ``repro.core.lyapunov.
+    update_queues_jax``); ``selected`` may be bool, promoted like the
+    numpy update's ``astype(float)``."""
+    return torch.clamp_min(q - selected.to(q.dtype) + gamma, 0.0)
 
 
 def update_queues_realized(q: np.ndarray, realized: np.ndarray,

@@ -4,14 +4,19 @@ IID block-fading channels, OFDM uplink/downlink between gateways and the BS,
 energy-harvesting arrivals at devices and gateways. The simulation
 environment is host-side numpy (``Network.draw``), drawn from the same
 generator in the same order as ``repro.core.network`` so both packages see
-identical channel states for a seed.
+identical channel states for a seed. :func:`draw_state` is the same law
+drawn with a ``torch.Generator`` on the control plane's device (another
+stream), for sweeps whose draws never leave the device
+(``repro_torch.core.ddsra_batched.DDSRAPlan.simulate_v_sweep``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -59,6 +64,45 @@ class ChannelState:
     i_down: np.ndarray     # (M, J)
     e_dev: np.ndarray      # (N,) energy arrivals
     e_gw: np.ndarray       # (M,)
+
+
+class ChannelStateT(NamedTuple):
+    """:class:`ChannelState` with tensor leaves, for the batched control
+    plane (port of ``repro.core.network.ChannelStateT``).
+
+    The same six leaves as the dataclass, each with any leading axes
+    (rounds, lanes): ``(..., M, J)`` gains and interference, ``(..., N)``
+    and ``(..., M)`` energy arrivals."""
+    h_up: torch.Tensor
+    h_down: torch.Tensor
+    i_up: torch.Tensor
+    i_down: torch.Tensor
+    e_dev: torch.Tensor
+    e_gw: torch.Tensor
+
+    @classmethod
+    def of(cls, st: ChannelState, device="cpu",
+           dtype=torch.float64) -> "ChannelStateT":
+        """Lift one host-drawn :class:`ChannelState` onto ``device`` (f64
+        by default: the control plane's precision contract)."""
+        return cls(*[torch.as_tensor(np.asarray(getattr(st, f)), dtype=dtype)
+                     .to(device) for f in cls._fields])
+
+    def map(self, fn) -> "ChannelStateT":
+        """The state with ``fn`` applied to every leaf."""
+        return ChannelStateT(*[fn(x) for x in self])
+
+
+def stack_states(states: Sequence[ChannelState], device="cpu",
+                 dtype=torch.float64) -> ChannelStateT:
+    """Stack host-drawn :class:`ChannelState` draws into one
+    :class:`ChannelStateT` with a leading round axis. Stacking nests:
+    ``stack_states`` per seed, then ``torch.stack`` leaf by leaf over
+    seeds, gives (S, T, ...) leaves for the seeds x V sweep."""
+    return ChannelStateT(*[
+        torch.as_tensor(np.stack([np.asarray(getattr(s, f)) for s in states]),
+                        dtype=dtype).to(device)
+        for f in ChannelStateT._fields])
 
 
 class Network:
@@ -115,3 +159,36 @@ class Network:
     def uplink_energy(self, m: int, j: int, p: float, gamma: float, st: ChannelState) -> float:
         """Eq. (8)."""
         return p * self.uplink_time(m, j, p, gamma, st)
+
+
+def draw_state(generator: torch.Generator, path: torch.Tensor,
+               n_channels: int, n_devices: int, *, e_dev_max: float,
+               e_gw_max: float, i_up_var: float, i_down_var: float,
+               shape: tuple = ()) -> ChannelStateT:
+    """``Network.draw`` with a ``torch.Generator`` (port of
+    ``repro.core.network.draw_state_jax``): the same distributions
+    (exponential fading on the path-loss factor, folded-normal
+    interference, uniform energy arrivals), drawn on ``path``'s device
+    in ``path``'s dtype with leading axes ``shape`` (one draw per round
+    of a trajectory: ``shape=(rounds,)``). ``path`` is the (M,)
+    per-gateway path-loss factor ``h0 * (d0 / dist)^nu``; the generator
+    lives on the same device. Leaf by leaf, each over all of ``shape``.
+
+    The stream is neither numpy's nor jax's, so this is for sweeps whose
+    draws stay on the device, not for runs that replay ``Network.draw``.
+    """
+    m_gw = path.shape[0]
+    kw = dict(generator=generator, device=path.device, dtype=path.dtype)
+    mj = (*shape, m_gw, n_channels)
+
+    def exponential():
+        return torch.empty(mj, device=path.device,
+                           dtype=path.dtype).exponential_(generator=generator)
+
+    h_up = path[:, None] * exponential()
+    h_down = path[:, None] * exponential()
+    i_up = torch.abs(torch.randn(mj, **kw) * math.sqrt(i_up_var))
+    i_down = torch.abs(torch.randn(mj, **kw) * math.sqrt(i_down_var))
+    e_dev = torch.rand((*shape, n_devices), **kw) * e_dev_max
+    e_gw = torch.rand((*shape, m_gw), **kw) * e_gw_max
+    return ChannelStateT(h_up, h_down, i_up, i_down, e_dev, e_gw)

@@ -8,9 +8,20 @@ schemes fix the transmit power, computation frequency and the DNN partition
 point", Sec. VII-C); a baseline round *fails* for a gateway whose fixed
 resources violate the energy/memory constraints. Host numpy, the same
 arithmetic in the same order as the reference's, so decisions, queues and
-delays are bit-identical. The reference's fused-loop hooks
-(``_TracedBaseline.plan_for``, ``traced_chosen``, ``traced_decide``) wait
-for the port of the fused simulation loop.
+delays are bit-identical.
+
+Two class-level flags say what a policy can do beyond ``schedule``:
+
+* ``traced_decide``: the policy's whole decide trajectory can run as
+  batched tensor rounds on the device (``ddsra_jax`` through
+  ``repro_torch.core.ddsra_batched``; the fixed-resource ``round_robin``,
+  ``random`` and ``delay_driven`` through
+  ``repro_torch.core.baseline_batched``), which ``Simulation.sweep``
+  uses; ``plan_for`` gives the plan and ``traced_chosen`` the baselines'
+  gateway picks.
+* ``reads_losses``: the policy's decisions depend on training feedback
+  (``ctx.losses``), so decide and train cannot be phase-separated (only
+  ``loss_driven``).
 """
 from __future__ import annotations
 
@@ -176,8 +187,73 @@ class DDSRAScheduler:
                            ctx.gamma_rates, ctx.v)
 
 
+@register_policy("ddsra_jax", kwargs=("device",))
+class DDSRAJaxScheduler:
+    """Algorithm 1 as batched torch float64 on ``device`` (the registry
+    name is the reference's, ``repro.core.schedulers.DDSRAJaxScheduler``;
+    the plan is ``repro_torch.core.ddsra_batched.DDSRAPlan``): one CUDA
+    graph replay a round on a card, eager tensor rounds on the CPU. Emits
+    the same :class:`RoundDecision` as ``"ddsra"``: identical assignments
+    and cuts, Lambda and tau within 1e-6, while capturing exactly one graph
+    per network shape."""
+
+    # the decide trajectory runs as batched rounds on the device
+    traced_decide = True
+
+    def __init__(self, device="cuda"):
+        self.device = device
+        self._plans: Dict[int, Tuple[Any, Any, Any]] = {}
+
+    def plan_for(self, workload, net):
+        """One DDSRAPlan per (net, workload) pair on this policy's device,
+        keyed by identity (both are built once per Simulation and reused
+        across rounds)."""
+        from repro_torch.core.ddsra_batched import DDSRAPlan
+        key = (id(net), id(workload))
+        hit = self._plans.get(key)
+        if hit is None or hit[0] is not net or hit[1] is not workload:
+            self._plans[key] = (net, workload,
+                                DDSRAPlan.build(workload, net, self.device))
+        return self._plans[key][2]
+
+    def schedule(self, ctx: RoundContext) -> RoundDecision:
+        return self.plan_for(ctx.workload, ctx.net).round(
+            ctx.state, ctx.queues, ctx.gamma_rates, ctx.v)
+
+
+class _TracedBaseline:
+    """Mixin: batched decide support for the fixed-resource baselines.
+
+    A baseline round at fixed resources is pure data (the gateway picks)
+    plus the feasibility/delay evaluation ``repro_torch.core.
+    baseline_batched`` runs on tensors. Subclasses supply the picks via
+    :meth:`traced_chosen`, which :meth:`BaselinePlan.decide_scan` takes as
+    its round axis."""
+
+    traced_decide = True
+
+    def plan_for(self, workload, net, device="cuda"):
+        """One BaselinePlan per (net, workload, device), keyed by identity
+        (the DDSRAJaxScheduler caching contract). The baselines decide on
+        the host, so the plan's device is the caller's to name."""
+        from repro_torch.core.baseline_batched import BaselinePlan
+        cache = getattr(self, "_plans", None)
+        if cache is None:
+            cache = self._plans = {}
+        key = (id(net), id(workload), str(device))
+        hit = cache.get(key)
+        if hit is None or hit[0] is not net or hit[1] is not workload:
+            cache[key] = (net, workload,
+                          BaselinePlan.build(workload, net, device=device))
+        return cache[key][2]
+
+    def traced_chosen(self, t0: int, rounds: int, net: Network) -> np.ndarray:
+        """(rounds, J) gateway picks for rounds ``t0 .. t0+rounds-1``."""
+        raise NotImplementedError
+
+
 @register_policy("random", kwargs=("seed",))
-class RandomScheduler:
+class RandomScheduler(_TracedBaseline):
     """Random Scheduling [26]: uniform J gateways per round, drawn from the
     policy's own generator (checkpointed by :func:`policy_state`)."""
 
@@ -189,9 +265,17 @@ class RandomScheduler:
         chosen = self.rng.choice(m, size=j, replace=False)
         return _decision_for(ctx, chosen)
 
+    def traced_chosen(self, t0: int, rounds: int, net: Network) -> np.ndarray:
+        """Pre-draw every round's picks from the policy RNG: one
+        ``rng.choice`` per round, exactly the stepwise draws, so the policy
+        RNG state afterwards matches stepwise."""
+        m, j = net.cfg.n_gateways, net.cfg.n_channels
+        return np.stack([self.rng.choice(m, size=j, replace=False)
+                         for _ in range(rounds)])
+
 
 @register_policy("round_robin")
-class RoundRobinScheduler:
+class RoundRobinScheduler(_TracedBaseline):
     """Round Robin [26]: consecutive groups of J gateways."""
 
     def schedule(self, ctx: RoundContext) -> RoundDecision:
@@ -199,6 +283,11 @@ class RoundRobinScheduler:
         start = (ctx.t * j) % m
         chosen = (start + np.arange(j)) % m
         return _decision_for(ctx, chosen)
+
+    def traced_chosen(self, t0: int, rounds: int, net: Network) -> np.ndarray:
+        m, j = net.cfg.n_gateways, net.cfg.n_channels
+        starts = (np.arange(t0, t0 + rounds) * j) % m
+        return (starts[:, None] + np.arange(j)[None, :]) % m
 
 
 @register_policy("loss_driven")
@@ -216,7 +305,7 @@ class LossDrivenScheduler:
 
 
 @register_policy("delay_driven")
-class DelayDrivenScheduler:
+class DelayDrivenScheduler(_TracedBaseline):
     """Select the J gateways with the smallest fixed-resource delay."""
 
     def schedule(self, ctx: RoundContext) -> RoundDecision:
@@ -227,6 +316,12 @@ class DelayDrivenScheduler:
             for mm in range(m)])
         chosen = np.argsort(delays)[:j]
         return _decision_for(ctx, chosen)
+
+    def traced_chosen(self, t0: int, rounds: int, net: Network) -> None:
+        """The greedy pick is a function of the round's channel draws, not
+        data: None tells :meth:`BaselinePlan.decide_scan` to compute it in
+        each round."""
+        return None
 
 
 # legacy name -> class view of the registry (prefer make_policy / POLICIES)

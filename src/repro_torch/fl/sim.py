@@ -24,9 +24,10 @@ checkpoint-resume, in the reference's file format. The control plane
 (network draws, DDSRA, queues) is the reference's numpy, drawn from the
 same generators in the same order, so decisions, queues and delays are
 bit-identical to ``repro``'s for the same statistics; the data plane runs in
-PyTorch on ``device`` (``"cuda"`` unless the caller passes ``"cpu"``). The
-fused loop (``fused_rounds``, ``run_fused``, ``sweep``) is not ported yet
-(ROADMAP.md M7).
+PyTorch on ``device`` (``"cuda"`` unless the caller passes ``"cpu"``), and
+so does the batched control plane of ``policy="ddsra_jax"`` and of
+``sweep`` (``repro_torch.fl.fused_sim``), in float64. The fused loop
+(``fused_rounds``, ``run_fused``) is not ported yet (ROADMAP.md M7).
 """
 from __future__ import annotations
 
@@ -54,6 +55,7 @@ from repro_torch.core.schedulers import (POLICIES, RoundContext, make_policy,
                                          policy_state, set_policy_state)
 from repro_torch.device import resolve_device, use_f32_numerics
 from repro_torch.fl import cohort as cohort_lib
+from repro_torch.fl import fused_sim
 from repro_torch.fl import split as split_lib
 from repro_torch.fl.data import (CohortLayout, make_fl_dataset,
                                  make_token_fl_dataset, sample_batch,
@@ -604,10 +606,11 @@ class Simulation:
     :class:`RoundRecord` telemetry one round at a time, with
     ``boundary=True`` the per-device boundary RMS; ``save``, ``flush`` and
     ``resume`` checkpoint and continue a run, on the cohort or the
-    sequential engine. ``fused_rounds``, ``run_fused``, ``sweep`` and
-    ``data_key`` (the fused loop, ROADMAP.md M7) raise
-    ``NotImplementedError``, as does a Scenario naming the async (M8) or
-    sharded (M9) engine.
+    sequential engine; ``sweep`` runs a scheduling sweep on the device.
+    ``fused_rounds``, ``run_fused`` and ``data_key`` (the fused loop,
+    ROADMAP.md M7) raise ``NotImplementedError``, as does a Scenario
+    naming the traced data plane (M7), the async (M8) or sharded (M9)
+    engine.
 
     ``device``: where the data plane runs (``"cuda"`` unless the caller
     passes ``"cpu"``). ``init_params``: numpy params in the reference's
@@ -641,7 +644,7 @@ class Simulation:
                 f"Scenario.data_plane={sc.data_plane!r}: expected 'host' "
                 "or 'traced'")
         if sc.data_plane == "traced":
-            raise NotImplementedError("Scenario.data_plane='traced'")
+            _unported("Scenario.data_plane='traced'", "M7")
         if (sc.churn or sc.dropout or sc.straggler_frac
                 or sc.buffer_k is not None):
             raise ValueError(
@@ -717,6 +720,7 @@ class Simulation:
 
         self._policy = None
         self.run_seed = sc.seed   # threaded into stochastic policies
+        self._sweep_plan = None   # built by the first sweep()
         self._ckpt_writer: Optional[_CheckpointWriter] = None
         self.restart()
 
@@ -778,7 +782,8 @@ class Simulation:
         if policy is None:
             policy = self.scenario.policy
         if isinstance(policy, str):
-            return make_policy(policy, seed=self.run_seed)
+            return make_policy(policy, seed=self.run_seed,
+                               device=self.device)
         return policy
 
     def _ensure_policy(self, policy: PolicyLike):
@@ -997,7 +1002,8 @@ class Simulation:
         pol = state.get("policy")
         if pol:
             if pol.get("name"):
-                sim._policy = make_policy(pol["name"], seed=sim.run_seed)
+                sim._policy = make_policy(pol["name"], seed=sim.run_seed,
+                                          device=sim.device)
                 set_policy_state(sim._policy, pol.get("state"))
             else:
                 sim._policy_unresumable = True
@@ -1005,6 +1011,26 @@ class Simulation:
         if eng_meta is not None:
             sim.engine.load_state_dict(sim, eng_meta, path, step)
         return sim
+
+    # -- scheduling sweeps ----------------------------------------------
+
+    def sweep(self, v_values, seeds=None, *, rounds: Optional[int] = None,
+              policies=None):
+        """Run a scheduling sweep on the simulation's device.
+
+        Draws each seed's channel trajectory on the host under the
+        ``reset(seed)`` fairness contract (so sweep lane (s, v) sees
+        exactly the ChannelStates a stepwise ``reset(s)`` run at that V
+        would), stacks them, and runs the grid as batched decide rounds:
+        with ``policies=None`` the scenario policy's (``ddsra_jax``)
+        ``DDSRAPlan.sweep_states`` over seeds x V lanes; with
+        ``policies=[...]`` (traced-decide policy names) the policies x
+        seeds x V grid of ``repro_torch.core.policy_sweep`` (the Figs. 4-6
+        comparison). Leaves ``net.rng`` untouched. Returns a
+        ``repro_torch.fl.fused_sim.SweepResult``.
+        """
+        return fused_sim.sweep(self, v_values, seeds=seeds, rounds=rounds,
+                               policies=policies)
 
     # -- not ported yet (ROADMAP.md, section 1) ---------------------------
 
@@ -1014,10 +1040,6 @@ class Simulation:
 
     def run_fused(self, policy: PolicyLike = None) -> FLResult:
         _unported("Simulation.run_fused", "M7")
-
-    def sweep(self, v_values, seeds=None, *, rounds: Optional[int] = None,
-              policies=None):
-        _unported("Simulation.sweep", "M7")
 
     @property
     def data_key(self):

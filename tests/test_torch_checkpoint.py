@@ -263,3 +263,26 @@ def test_reference_resumes_a_port_checkpoint(tmp_path):
     assert resumed.t == 1
     _records_agree(want, list(resumed.rounds()))
     _port_params_close(s, resumed.params)
+
+
+def test_port_resumes_a_reference_ddsra_jax_checkpoint(tmp_path):
+    """F8: a checkpoint the reference saved under its policy for scale,
+    ``ddsra_jax``, resumes in the port, whose batched control plane then
+    decides the next round as the reference's does (selected, trained and
+    cuts identical, queues bit-identical, delay within 1e-6)."""
+    r = ref_sim.Simulation(ref_sim.Scenario(**CROSS))
+    it = r.rounds("ddsra_jax")
+    next(it)
+    r.save(tmp_path)
+    r.flush()
+    want = next(it)
+    s = sim.Simulation.resume(tmp_path, device="cpu")
+    assert s.t == 1 and s._policy.name == "ddsra_jax"
+    assert s._policy.device == s.device
+    got = next(s.rounds())
+    assert got.t == want.t and got.trained == want.trained
+    np.testing.assert_array_equal(got.selected, want.selected)
+    np.testing.assert_array_equal(got.l_n, want.l_n)
+    np.testing.assert_array_equal(got.queues, want.queues)
+    assert abs(got.delay - want.delay) <= 1e-6
+    np.testing.assert_allclose(got.losses, want.losses, **TOL)

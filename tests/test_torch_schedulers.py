@@ -69,13 +69,19 @@ def _assert_decisions_equal(dec, rdec):
 
 
 def test_registry_names_the_reference_policies():
-    """Every policy the reference registers on the host is registered, with
-    the same constructor kwargs; the SCHEDULERS view lists them all."""
-    host = set(ref_sched.POLICIES) - {"ddsra_jax"}
-    assert set(schedulers.POLICIES) == host == set(schedulers.SCHEDULERS)
-    for name in host:
+    """Every policy the reference registers is registered, with the same
+    constructor kwargs (``ddsra_jax`` also takes the device its batched
+    control plane runs on); the SCHEDULERS view lists them all, and the
+    same policies decide on tensors (``traced_decide``)."""
+    names = set(ref_sched.POLICIES)
+    assert set(schedulers.POLICIES) == names == set(schedulers.SCHEDULERS)
+    for name in names:
+        extra = ("device",) if name == "ddsra_jax" else ()
         assert schedulers.POLICIES[name].kwargs == \
-            ref_sched.POLICIES[name].kwargs
+            ref_sched.POLICIES[name].kwargs + extra
+        assert getattr(schedulers.POLICIES[name].cls, "traced_decide",
+                       False) == getattr(ref_sched.POLICIES[name].cls,
+                                         "traced_decide", False), name
     assert schedulers.LossDrivenScheduler.reads_losses
 
 

@@ -122,7 +122,8 @@ def test_scenario_json_interchange():
 
 def test_unported_options_raise():
     for kw, err, match in (
-            (dict(data_plane="traced"), NotImplementedError, "traced"),
+            (dict(data_plane="traced"), NotImplementedError,
+             "traced.*ROADMAP.md M7"),
             (dict(churn=0.1), ValueError, "synchronous"),
             (dict(engine="sharded"), NotImplementedError, "ROADMAP.md M9"),
             (dict(engine="async"), NotImplementedError, "ROADMAP.md M8")):
@@ -186,16 +187,19 @@ def test_padding_stats_match_reference(reference):
 @pytest.mark.parametrize("name,kwargs,item", [
     ("fused_rounds", {}, "M7"),
     ("run_fused", {}, "M7"),
-    ("sweep", dict(v_values=[0.01]), "M7"),
+    ("sweep", dict(v_values=[0.01]), None),
     ("data_key", None, "M7"),              # a property
 ], ids=lambda v: v if isinstance(v, str) else "")
 def test_unported_api_raises_not_implemented(reference, name, kwargs, item):
     """The reference's Simulation API that the port lacks (the fused loop)
     raises NotImplementedError naming its ROADMAP.md item, not
-    AttributeError or TypeError."""
+    AttributeError or TypeError. ``sweep`` is ported (``item`` None): on
+    this scenario's host policy it refuses as the reference's does."""
     assert hasattr(ref_sim.Simulation, name)
     s = sim.Simulation(sim.Scenario(**SC), reference["stats"], device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+    err, match = ((NotImplementedError, f"ROADMAP.md {item}") if item
+                  else (ValueError, "traced-decide"))
+    with pytest.raises(err, match=match):
         member = getattr(s, name)
         member(**kwargs)
 
