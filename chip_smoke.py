@@ -120,10 +120,30 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
    seeds 0-2 x 30 rounds through ``Simulation.sweep(policies=...)``, one
    stepwise lane per policy; (e) Theorem 2's ``simulate_v_sweep`` at V in
    {0.01, 1, 100, 1e4} over 150 rounds, small V within 0.2 of every
-   participation target) and ``trainer`` (``FLTrainer(FLConfig(
-   model="mlp", rounds=2, boundary_telemetry=True)).run("ddsra")``). Each
-   of them but ``control`` must launch the f32 fused linear kernels and
-   no plain version (``control`` checks that for (c), its only training).
+   participation target), ``fused`` (the fused round loop, one CUDA
+   graph a trained round, every sub-check under ``cudnn.deterministic``
+   from one ``reset()``: a capturing fused block, then stepwise and
+   fused each timed over the whole run and each profiled over
+   FUSED_PROFILED_ROUNDS rounds, s a round, busy share and launches a
+   round, fused held against stepwise (decisions, cuts, queues, both RNG
+   streams identical, delays at rtol 1e-9, losses and params at the
+   dtype's contract, accuracies within 1e-3), whether the params are
+   bit-identical, one train and one eval graph captured and never again:
+   (a) full-width VGG-11 f32 under ``ddsra_jax``, ten-fold energy
+   arrivals, 8 rounds, ``eval_every=4``; (b) the same on the traced data
+   plane, and ``traced_batch_indices`` on the card identical to the CPU's
+   at every device and five rounds; (c) VGG-11 bf16 under
+   ``round_robin``, 4 rounds; (d) the bf16 transformer and the f32 SSM,
+   6 rounds; (e) ``benchmarks/fl_round_bench.py``'s fused scenario,
+   rounds per second stepwise against fused, best of 3 alternated
+   passes; (f) a checkpoint saved after a fused block, resumed and
+   continued stepwise, bit-identical to the uninterrupted run) and
+   ``trainer`` (``FLTrainer(FLConfig(model="mlp", rounds=2,
+   boundary_telemetry=True)).run("ddsra")``). Each of them but
+   ``control`` must launch the f32 fused linear kernels and no plain
+   version (``control`` checks that for (c), its only training; ``fused``
+   the kernels of every model it trains, whose launches its warm runs and
+   captures count: a replay launches them through its graph).
 
 Any failure raises, which exits non-zero before the result line. The line
 before last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
@@ -151,12 +171,14 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.core import costmodel as cm  # noqa: E402
+from repro_torch import graphs  # noqa: E402
 from repro_torch.core import ddsra_batched  # noqa: E402
 from repro_torch.core.ddsra import Workload, ddsra_round  # noqa: E402
 from repro_torch.core.network import (ChannelStateT, Network,  # noqa: E402
                                       NetworkConfig)
 from repro_torch.core.participation import participation_rates  # noqa
 from repro_torch.fl import cohort as cohort_lib  # noqa: E402
+from repro_torch.fl.data import traced_batch_indices  # noqa: E402
 from repro_torch.fl.fused_sim import _seed_states  # noqa: E402
 from repro_torch.fl.sim import Scenario, Simulation  # noqa: E402
 from repro_torch.fl.trainer import FLConfig, FLTrainer  # noqa: E402
@@ -1530,7 +1552,7 @@ def _control_paper(sim) -> None:
     w, net, gamma, v = sim.workload, sim.net, sim.gamma, sim.scenario.v
     m_gw = net.cfg.n_gateways
     states = _seed_states(sim, sim.scenario.seed, CONTROL_ROUNDS)
-    captures0 = ddsra_batched.CAPTURE_COUNTS["round"]
+    captures0 = graphs.CAPTURE_COUNTS["round"]
     plan = ddsra_batched.DDSRAPlan.build(w, net, device="cuda")
     t0 = time.perf_counter()
     plan.round(states[0], np.zeros(m_gw), gamma, v)
@@ -1555,7 +1577,7 @@ def _control_paper(sim) -> None:
         _control_parity(f"control (a) eager round {t}", e, g, exact=True)
     check(sum(bool(d.selected.any()) for d in oracle) > 0,
           "control (a): no round scheduled a gateway")
-    captures = ddsra_batched.CAPTURE_COUNTS["round"] - captures0
+    captures = graphs.CAPTURE_COUNTS["round"] - captures0
     check(plan.captures == 1 and captures == 1,
           f"control (a): {captures} graphs captured, expected 1")
     q = np.zeros(m_gw)
@@ -1735,6 +1757,307 @@ def control_phase() -> None:
     _control_theorem2()
 
 
+# ---------------------------------------------------------------------------
+# fused phase: the fused round loop (one CUDA graph a trained round) and
+# the traced data plane
+# ---------------------------------------------------------------------------
+
+# (a), (b), (f): full-width VGG-11 under ddsra_jax with ten-fold energy
+# arrivals, 8 rounds, evaluated at rounds 4 and 8
+FUSED_VGG = Scenario(width_mult=1.0, rounds=8, eval_every=4,
+                     net=FULL_WIDTH_NET, policy="ddsra_jax")
+# (c), (d): the bf16 VGG round and the host-bound token rounds of PERF.md
+# section 5 (the default network), with the tolerances of their dtype
+FUSED_MORE = {
+    "vgg-bf16": (dataclasses.replace(FUSED_VGG, rounds=4, dtype="bf16",
+                                     policy="round_robin"), BF16_AGREE),
+    "transformer-bf16": (Scenario(model="transformer", dtype="bf16",
+                                  rounds=6, eval_every=3,
+                                  policy="ddsra_jax"), BF16_AGREE),
+    # the agreement phase's ssm tolerance (on the CPU the embedding's
+    # backward sums in a thread-dependent order; on the card two stepwise
+    # ssm runs and the fused one came out bit-identical)
+    "ssm": (Scenario(model="ssm", rounds=6, eval_every=3,
+                     policy="ddsra_jax"), AGREE["ssm"][1]),
+}
+# the rounds of each profiled block: the profiler's post-processing grows
+# with the launches it caught, about 13,000 a round under ddsra_jax
+# (e): benchmarks/fl_round_bench.py's fused scenario (its bench_fused)
+FUSED_BENCH = Scenario(model="mlp", mlp_hidden=(32,), rounds=30,
+                       eval_every=31, seed=0, alpha=0.03, k_iters=1,
+                       max_dataset=200, policy="ddsra_jax",
+                       data_plane="traced",
+                       net=NetworkConfig(n_gateways=10, n_devices=20,
+                                         n_channels=2))
+FUSED_BENCH_PASSES = 3
+FUSED_PROFILED_ROUNDS = 2
+
+
+def _end_state(sim) -> dict:
+    """Copies of what a block leaves on the simulation."""
+    return dict(params=[{k: v.clone() for k, v in p.items()}
+                        for p in sim.params],
+                queues=sim.queues.copy(), losses=sim.losses.copy(),
+                rng=sim.rng.bit_generator.state,
+                net_rng=sim.net.rng.bit_generator.state, t=sim.t,
+                delay_sum=sim.delay_sum)
+
+
+def _block(sim, policy, fused: bool, profiled: bool = False) -> tuple:
+    """``reset()``, then every round, stepwise or fused: (records, wall
+    s, end state, device busy s, kernel launches). Profiled, the block
+    runs its first FUSED_PROFILED_ROUNDS rounds under torch.profiler
+    (device activity only), whose kernels give the busy time and
+    launches; otherwise those are None."""
+    sim.reset()
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA]) if profiled \
+        else contextlib.nullcontext()
+    n = FUSED_PROFILED_ROUNDS if profiled else sim.scenario.rounds
+    t0 = time.perf_counter()
+    with prof:
+        if fused:
+            recs = sim.fused_rounds(policy, rounds=n)
+        else:
+            it = sim.rounds(policy)
+            recs = [next(it) for _ in range(n)]
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy = launches = None
+    if profiled:
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e6
+        launches = sum(e.count for e in kernels)
+    return recs, wall, _end_state(sim), busy, launches
+
+
+def _hold_fused(label: str, want: tuple, got: tuple, tol: dict) -> tuple:
+    """Fused (``got``) against stepwise (``want``), (records, end state)
+    each: decisions, cuts, failures, queues and both RNG streams
+    identical, delays at rtol 1e-9, losses and params (per leaf, of its
+    largest entry) at ``tol``, accuracies within one test sample in a
+    thousand. Returns (whether the params are bit-identical, the largest
+    param error, the largest accuracy difference)."""
+    (recs_a, st_a), (recs_b, st_b) = want, got
+    check(len(recs_a) == len(recs_b), f"{label}: record counts")
+    acc = 0.0
+    for a, b in zip(recs_a, recs_b):
+        check(a.t == b.t and np.array_equal(a.selected, b.selected)
+              and a.trained == b.trained and np.array_equal(a.l_n, b.l_n)
+              and a.failures == b.failures
+              and np.array_equal(a.queues, b.queues),
+              f"{label} round {a.t}: decisions differ")
+        check(abs(b.delay - a.delay) <= 1e-9 * abs(a.delay)
+              and abs(b.cum_delay - a.cum_delay) <= 1e-9 * a.cum_delay,
+              f"{label} round {a.t}: delay {b.delay} != {a.delay}")
+        check(float(np.abs(b.losses - a.losses).max()) <= tol["losses"],
+              f"{label} round {a.t}: losses {b.losses} != {a.losses}")
+        check((a.accuracy is None) == (b.accuracy is None),
+              f"{label} round {a.t}: evaluation rounds differ")
+        if a.accuracy is not None:
+            acc = max(acc, abs(a.accuracy - b.accuracy))
+    check(acc <= 1e-3, f"{label}: accuracies {acc} apart")
+    check(st_a["rng"] == st_b["rng"] and st_a["net_rng"] == st_b["net_rng"]
+          and st_a["t"] == st_b["t"]
+          and np.array_equal(st_a["queues"], st_b["queues"])
+          and abs(st_a["delay_sum"] - st_b["delay_sum"])
+          <= 1e-9 * st_a["delay_sum"],
+          f"{label}: end state differs")
+    check(float(np.abs(st_a["losses"] - st_b["losses"]).max())
+          <= tol["losses"], f"{label}: end losses differ")
+    pairs = [(a[k], b[k]) for a, b in zip(st_a["params"], st_b["params"])
+             for k in a]
+    worst = max(_leaf_rel_err(b, a) for a, b in pairs)
+    check(worst <= tol["params"], f"{label}: params {worst:.3e} apart")
+    return all(torch.equal(a, b) for a, b in pairs), worst, acc
+
+
+def _fused_captures(label: str, sim, before: dict) -> dict:
+    """The graphs a sub-check captured: one trained round and one
+    evaluation, each once."""
+    got = {k: graphs.CAPTURE_COUNTS[k] - before[k]
+           for k in ("train_scan", "eval")}
+    steps = [step for (plane, _), pair in sim._fused_graphs.items()
+             for step in pair]
+    check(got == {"train_scan": 1, "eval": 1}
+          and all(len(step.graphs) == 1 for step in steps),
+          f"{label}: captures {got}, graphs "
+          f"{[len(step.graphs) for step in steps]}")
+    return got
+
+
+def _fused_vs_stepwise(label: str, sim, tol: dict) -> None:
+    """One scenario's stepwise and fused runs from ``reset()``: a fused
+    warm run (it captures), then each path timed, then each profiled;
+    held to ``tol`` and printed."""
+    t_start = time.perf_counter()
+    policy = sim._resolve_policy(None)       # one plan: captured once
+    before = dict(graphs.CAPTURE_COUNTS)
+    warm = _block(sim, policy, fused=True)
+    captures = _fused_captures(label, sim, before)
+    step = _block(sim, policy, fused=False)
+    fused = _block(sim, policy, fused=True)
+    step_p = _block(sim, policy, fused=False, profiled=True)
+    fused_p = _block(sim, policy, fused=True, profiled=True)
+    same, worst, acc = _hold_fused(label, (step[0], step[2]),
+                                   (fused[0], fused[2]), tol)
+    _hold_fused(f"{label} profiled", (step_p[0], step_p[2]),
+                (fused_p[0], fused_p[2]), tol)
+    step_twice = all(np.array_equal(a.losses, b.losses)
+                     for a, b in zip(step[0], step_p[0]))
+    replays_same = all(torch.equal(a[k], b[k]) for a, b in zip(
+        warm[2]["params"], fused[2]["params"]) for k in a)
+    check(_fused_captures(label, sim, before) == captures,
+          f"{label}: a later block captured again")
+    rounds, n_p = len(step[0]), FUSED_PROFILED_ROUNDS
+    print(f"fused {label}: {rounds} rounds, trained "
+          f"{sum(bool(r.trained) for r in step[0])}; s a round stepwise "
+          f"{step[1] / rounds:.4f}, fused {fused[1] / rounds:.4f} (first "
+          f"fused block, capturing: {warm[1] / rounds:.4f}); profiled "
+          f"({n_p} rounds): s a round {step_p[1] / n_p:.4f}, "
+          f"{fused_p[1] / n_p:.4f}, busy share stepwise "
+          f"{step_p[3] / step_p[1]:.3f}, fused {fused_p[3] / fused_p[1]:.3f};"
+          f" device s a round {step_p[3] / n_p:.4f}, "
+          f"{fused_p[3] / n_p:.4f}; launches a round {step_p[4] / n_p:.1f},"
+          f" {fused_p[4] / n_p:.1f}; captures {captures}; params "
+          f"bit-identical to stepwise: {same} (max rel err {worst:.3e}); "
+          f"stepwise losses repeat bit for bit: {step_twice}; fused "
+          f"replays bit-identical: {replays_same}; max accuracy "
+          f"difference {acc}; accuracies "
+          f"{[r.accuracy for r in fused[0] if r.accuracy is not None]}; "
+          f"s={time.perf_counter() - t_start:.1f}", flush=True)
+
+
+def _fused_indices(sim) -> None:
+    """(b) The card's counter-based draws against the CPU's, at every
+    device and a grid of rounds."""
+    x_all, _, pool = sim.engine._data_stacks(sim)
+    n_dev, l_max = len(pool), x_all.shape[1]
+    devs = torch.arange(n_dev)
+    width = int(sim.d_tilde.max())
+    for t in (0, 1, 7, 1000, 2 ** 31 - 1):
+        cpu = traced_batch_indices(sim.data_key, t, devs,
+                                   torch.as_tensor(pool), width, l_max)
+        card = traced_batch_indices(sim.data_key.cuda(), t, devs.cuda(),
+                                    torch.as_tensor(pool).cuda(), width,
+                                    l_max)
+        check(torch.equal(cpu, card.cpu()),
+              f"fused (b): the card's draws at round {t} differ")
+    print(f"fused (b): traced_batch_indices on the card identical to the "
+          f"CPU's at rounds 0, 1, 7, 1000, 2**31 - 1 x {n_dev} devices x "
+          f"width {width} (pool {l_max})", flush=True)
+
+
+def _fused_bench() -> None:
+    """(e) fl_round_bench's fused scenario: rounds per second stepwise
+    against fused, best of FUSED_BENCH_PASSES alternated passes after a
+    warm pass of each."""
+    sim = Simulation(FUSED_BENCH, device="cuda")
+    policy = sim._resolve_policy(None)
+    before = dict(graphs.CAPTURE_COUNTS)
+    warm_step = _block(sim, policy, fused=False)
+    check(all(r.trained for r in warm_step[0]),
+          "fused (e): a round trained nobody")
+    _block(sim, policy, fused=True)
+    step_s, fused_s = [], []
+    for _ in range(FUSED_BENCH_PASSES):
+        step_s.append(_block(sim, policy, fused=False)[1])
+        fused = _block(sim, policy, fused=True)
+        fused_s.append(fused[1])
+    _hold_fused("fused (e)", (warm_step[0], warm_step[2]),
+                (fused[0], fused[2]), F32_AGREE)
+    captures = _fused_captures("fused (e)", sim, before)
+    rounds = FUSED_BENCH.rounds
+    print(f"fused (e) fl_round_bench's fused scenario (mlp 32, 10 gateways, "
+          f"20 devices, 2 channels, K=1, traced plane, {rounds} rounds): "
+          f"stepwise {rounds / min(step_s):.2f} rounds/s (passes "
+          f"{[round(x, 4) for x in step_s]} s), fused "
+          f"{rounds / min(fused_s):.2f} rounds/s (passes "
+          f"{[round(x, 4) for x in fused_s]} s): "
+          f"{min(step_s) / min(fused_s):.2f}x; captures {captures}",
+          flush=True)
+
+
+def _fused_checkpoint(sim) -> None:
+    """(f) Save after a fused block of 4 rounds, resume, continue
+    stepwise: bit-identical to the same run uninterrupted."""
+    policy = sim._resolve_policy(None)
+    sim.reset()
+    head = sim.fused_rounds(policy, rounds=4)
+    with tempfile.TemporaryDirectory() as tmp:
+        sim.save(tmp)
+        sim.flush()
+        resumed = Simulation.resume(tmp, device="cuda")
+    tail = list(sim.rounds(policy))
+    tail_r = list(resumed.rounds(policy))
+    check(len(head) == 4 and len(tail) == len(tail_r) == 4,
+          "fused (f) rounds")
+    for a, b in zip(tail, tail_r):
+        check(np.array_equal(a.selected, b.selected)
+              and a.trained == b.trained and a.delay == b.delay
+              and np.array_equal(a.queues, b.queues)
+              and np.array_equal(a.losses, b.losses)
+              and a.accuracy == b.accuracy,
+              f"fused (f) round {a.t}: the resumed run differs")
+    check(all(torch.equal(a[k], b[k]) for a, b in zip(sim.params,
+                                                      resumed.params)
+              for k in a), "fused (f): the resumed params differ")
+    print(f"fused (f): saved after fused rounds {[r.t for r in head]}, "
+          f"resumed and continued stepwise over {[r.t for r in tail_r]}: "
+          f"bit-identical to the uninterrupted run (cudnn.deterministic): "
+          f"True", flush=True)
+
+
+def fused_phase() -> None:
+    """The fused round loop on the card, every sub-check under
+    ``cudnn.deterministic``: (a) full-width VGG-11, f32, ``ddsra_jax``,
+    stepwise against fused; (b) the same on the traced data plane, and
+    its draws on the card against the CPU's; (c) VGG-11 in bf16 under
+    ``round_robin``; (d) the bf16 transformer and the f32 SSM; (e)
+    fl_round_bench's fused scenario, rounds per second; (f) a checkpoint
+    after a fused block, resumed."""
+    reset_counts()
+    # the tracer's first window on a process pays its start-up: not in a
+    # measured block
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        sim = Simulation(FUSED_VGG, device="cuda")
+        _fused_vs_stepwise("(a) vgg f32", sim, F32_AGREE)
+        print(f"fused (a) s={time.perf_counter() - t0:.1f}", flush=True)
+        t0 = time.perf_counter()
+        traced = Simulation(dataclasses.replace(FUSED_VGG,
+                                                data_plane="traced"),
+                            device="cuda")
+        _fused_indices(traced)
+        _fused_vs_stepwise("(b) vgg f32 traced", traced, F32_AGREE)
+        print(f"fused (b) s={time.perf_counter() - t0:.1f}", flush=True)
+        for label, (scenario, tol) in FUSED_MORE.items():
+            t0 = time.perf_counter()
+            _fused_vs_stepwise(f"({'c' if label == 'vgg-bf16' else 'd'}) "
+                               f"{label}",
+                               Simulation(scenario, device="cuda"), tol)
+            print(f"fused {label} s={time.perf_counter() - t0:.1f}",
+                  flush=True)
+        t0 = time.perf_counter()
+        _fused_bench()
+        print(f"fused (e) s={time.perf_counter() - t0:.1f}", flush=True)
+        t0 = time.perf_counter()
+        _fused_checkpoint(sim)
+        print(f"fused (f) s={time.perf_counter() - t0:.1f}", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    launches = check_launched("fused", NAMES + BF16_NAMES + (
+        "flash_attention_bf16", "flash_attention_bwd_bf16", "ssd_scan",
+        "ssd_scan_bwd"))
+    print(f"fused: wrapper launches (warm runs and captures; a replay "
+          f"launches through its graph) {launches}", flush=True)
+
+
 def trainer_phase() -> None:
     """The deprecated shim on the card: ``FLTrainer(FLConfig(model="mlp",
     rounds=2, boundary_telemetry=True)).run("ddsra")``."""
@@ -1791,6 +2114,7 @@ def main() -> int:
                         ("sequential", sequential_phase),
                         ("checkpoint", checkpoint_phase),
                         ("control", control_phase),
+                        ("fused", fused_phase),
                         ("trainer", trainer_phase)):
         timed(name, phase)
 

@@ -12,7 +12,7 @@ random's picks pre-drawn from the policy RNG in stepwise order) or, for
 draws. The evaluation reuses the link algebra and the padded statics of
 :mod:`repro_torch.core.ddsra_batched`, over the same leading lane axis,
 and on CUDA each rule's round is one graph per lane count
-(:class:`~repro_torch.core.ddsra_batched.GraphedStep`).
+(:class:`~repro_torch.graphs.GraphedStep`).
 """
 from __future__ import annotations
 
@@ -23,11 +23,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.ddsra import Workload, _cum, _train_times
-from repro_torch.core.ddsra_batched import (DDSRAPlan, GraphedStep,
-                                            RoundDecisionT, _downlink_time,
-                                            _mall, scan_rounds, _uplink_time)
+from repro_torch.core.ddsra_batched import (DDSRAPlan, RoundDecisionT,
+                                            _downlink_time, _mall,
+                                            _uplink_time)
 from repro_torch.core.lyapunov import update_queues_t
 from repro_torch.core.network import ChannelStateT, Network
+from repro_torch.graphs import GraphedStep, scan_rounds
 
 class _Fixed(NamedTuple):
     """What the fixed operating point (cut ``l0``, ``f_gw_max / n_loc``,

@@ -21,7 +21,8 @@ algorithm as tensor programs:
 * nothing in a round reads a tensor on the host, so on CUDA one round over
   all of a plan's lanes is captured once as a ``torch.cuda.CUDAGraph``
   per lane count and replayed every round (the counterpart of the
-  reference's one compile per network shape; :data:`CAPTURE_COUNTS`). On
+  reference's one compile per network shape;
+  :data:`repro_torch.graphs.CAPTURE_COUNTS`). On
   the CPU the same functions run eagerly.
 
 Precision: the oracle is float64 and the bisections resolve constraint
@@ -39,7 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,17 +51,13 @@ from repro_torch.core.hungarian import assign_channels_t
 from repro_torch.core.lyapunov import update_queues_t
 from repro_torch.core.network import (ChannelState, ChannelStateT, Network,
                                       draw_state)
+from repro_torch.graphs import GraphedStep, scan_rounds
 
 _BCD_ITERS = 4        # block-coordinate descent sweeps (oracle: bcd_iters)
 _PART_ITERS = 40      # bisection trips for (21), (22), (23)/(24)
 _FREQ_ITERS = 40
 _POW_ITERS = 60
 _INF = math.inf
-
-# CUDA graphs captured, by step: "round" a DDSRA round (a plan captures one
-# per lane count), "baseline" a fixed-resource round (one per rule and lane
-# count). The CPU captures none. chip_smoke.py reads it.
-CAPTURE_COUNTS = {"round": 0, "baseline": 0}
 
 
 class _Cfg(NamedTuple):
@@ -505,66 +502,6 @@ def resolve_decision_arrays(s: _Statics, out: DecisionArrays,
     return RoundDecisionT(selected=out.selected, trained=trained,
                           l_dev=l_dev, gw_delay=gw_delay, delay=delay,
                           tau=out.tau, failures=failures, queues=out.queues)
-
-
-class GraphedStep:
-    """``fn`` over a flat tuple of tensors, returning a tuple of tensors.
-
-    On the CPU it runs eagerly. On CUDA the first call for each set of
-    input shapes captures it as one ``torch.cuda.CUDAGraph`` (after one
-    warm-up run on a side stream) into static input and output buffers;
-    every call copies its inputs in and replays. The outputs are the
-    graph's own buffers: the next call overwrites them, so a caller keeps
-    them by copying. A capture that fails raises: no call runs eagerly
-    on CUDA."""
-
-    def __init__(self, fn, key: str):
-        self.fn, self.key = fn, key      # key: the CAPTURE_COUNTS entry
-        self.graphs: Dict[tuple, tuple] = {}
-
-    def __call__(self, *args):
-        if args[0].device.type != "cuda":
-            return self.fn(*args)
-        shapes = tuple(tuple(a.shape) for a in args)
-        hit = self.graphs.get(shapes)
-        if hit is None:
-            hit = self.graphs[shapes] = self._capture(args)
-        graph, static_in, static_out = hit
-        for dst, src in zip(static_in, args):
-            dst.copy_(src)
-        graph.replay()
-        return static_out
-
-    def _capture(self, args):
-        static_in = tuple(a.clone() for a in args)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self.fn(*static_in)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            static_out = self.fn(*static_in)
-        CAPTURE_COUNTS[self.key] += 1
-        return graph, static_in, static_out
-
-
-def scan_rounds(step, rounds: int, inputs_at, queues0):
-    """``rounds`` calls of ``step(*inputs_at(t, queues))``, threading the
-    queues (the step's last output) from each round into the next; returns
-    each output stacked over a leading round axis. Nothing is read on the
-    host."""
-    outs = None
-    queues = queues0
-    for t in range(rounds):
-        got = step(*inputs_at(t, queues))
-        if outs is None:
-            outs = [torch.empty((rounds, *x.shape), dtype=x.dtype,
-                                device=x.device) for x in got]
-        for buf, x in zip(outs, got):
-            buf[t].copy_(x)
-        queues = outs[-1][t]
-    return outs
 
 
 def _lanes(st: ChannelStateT, t: int, v_count: int) -> ChannelStateT:

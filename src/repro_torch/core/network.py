@@ -18,6 +18,8 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 
 @dataclasses.dataclass
 class NetworkConfig:
@@ -81,10 +83,11 @@ class ChannelStateT(NamedTuple):
     e_gw: torch.Tensor
 
     @classmethod
-    def of(cls, st: ChannelState, device="cpu",
+    def of(cls, st: ChannelState, device="cuda",
            dtype=torch.float64) -> "ChannelStateT":
         """Lift one host-drawn :class:`ChannelState` onto ``device`` (f64
         by default: the control plane's precision contract)."""
+        device = resolve_device(device)
         return cls(*[torch.as_tensor(np.asarray(getattr(st, f)), dtype=dtype)
                      .to(device) for f in cls._fields])
 
@@ -93,12 +96,13 @@ class ChannelStateT(NamedTuple):
         return ChannelStateT(*[fn(x) for x in self])
 
 
-def stack_states(states: Sequence[ChannelState], device="cpu",
+def stack_states(states: Sequence[ChannelState], device="cuda",
                  dtype=torch.float64) -> ChannelStateT:
     """Stack host-drawn :class:`ChannelState` draws into one
-    :class:`ChannelStateT` with a leading round axis. Stacking nests:
-    ``stack_states`` per seed, then ``torch.stack`` leaf by leaf over
-    seeds, gives (S, T, ...) leaves for the seeds x V sweep."""
+    :class:`ChannelStateT` with a leading round axis, on ``device``.
+    Stacking nests: ``stack_states`` per seed, then ``torch.stack`` leaf by
+    leaf over seeds, gives (S, T, ...) leaves for the seeds x V sweep."""
+    device = resolve_device(device)
     return ChannelStateT(*[
         torch.as_tensor(np.stack([np.asarray(getattr(s, f)) for s in states]),
                         dtype=dtype).to(device)

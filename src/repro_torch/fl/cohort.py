@@ -33,6 +33,12 @@ each local step casts them and the inputs to bf16, so autograd runs
 through the cast and the gradients come back f32 onto the f32 masters,
 and the logits are promoted to f32 before the loss. The statistics pass
 and evaluation stay f32, as in the reference.
+
+The fused loop's training half (:func:`train_scan`,
+:func:`train_scan_traced`, driven by ``repro_torch.fl.fused_sim``) runs a
+block of rounds with nothing read on the host: on CUDA one trained round
+is captured once as a CUDA graph (``repro_torch.graphs.GraphedStep``) and
+replayed every round, threading (params, losses) on the device.
 """
 from __future__ import annotations
 
@@ -42,8 +48,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.fl.data import TieredCohortBatch
+from repro_torch.fl.data import TieredCohortBatch, traced_batch_indices
 from repro_torch.fl.split import _like, flat_params, leaves
+from repro_torch.graphs import GraphedStep
 from repro_torch.models.split_model import Params, SplitModel
 
 # Scenario.dtype -> the dtype the round's activations and weights are
@@ -168,6 +175,55 @@ def weighted_mean(stacked: Params, w: torch.Tensor) -> Params:
             for p in stacked]
 
 
+def _check_dtype(compute_dtype: str) -> None:
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype={compute_dtype!r}: expected one of "
+                         f"{sorted(COMPUTE_DTYPES)}")
+
+
+def cohort_round_traced(model: SplitModel, params: Params, xs, ys, masks,
+                        l_n, weights, gw_onehot, lr, *, k_iters: int,
+                        with_boundary: bool,
+                        with_gateway_models: bool = False,
+                        compute_dtype: str = "f32"):
+    """The round on tensors already on the device, reading nothing on the
+    host: the body of :func:`cohort_round` and the step of the fused
+    loop's scans (:func:`train_scan`, :func:`train_scan_traced`), as the
+    reference's one traced function serves its per-round jit and its
+    scan. ``xs/ys/masks`` are per-tier tuples, ``l_n`` (S,) int64 (read
+    only with ``with_boundary``), ``weights`` (S,) and ``gw_onehot``
+    (S, M) float32. Returns (new_global, gw_loss, gw_count, slot_losses,
+    boundary, gw_models), ``gw_models`` None unless asked for."""
+    xs = tuple(model.prepare_inputs(x) for x in xs)
+    final_t, loss_t = _local_train(model, params, xs, ys, masks, k_iters,
+                                   lr, compute_dtype)
+    final = _concat_tiers(final_t)
+    dev_losses = torch.cat(loss_t)
+
+    # fused two-tier FedAvg: gateway-level then BS-level weighted averaging
+    # telescopes to one weighted average over participating devices.
+    new_global = weighted_mean(final,
+                               weights / weights.sum().clamp_min(1e-12))
+    active = (weights > 0).float()
+    gw_count = gw_onehot.T @ active                                 # (M,)
+    gw_loss = (gw_onehot.T @ (dev_losses * active)) / gw_count.clamp_min(1.0)
+    if with_boundary:
+        boundary = torch.cat(_boundary_tiers(
+            model, final_t, xs, masks,
+            _split_tiers(l_n, tuple(x.shape[0] for x in xs))))
+    else:    # skip the extra forward pass; l_n stays unused data
+        boundary = torch.zeros_like(weights)
+    gw_models = None
+    if with_gateway_models:
+        # per-gateway shop-floor FedAvg before the global mix: columns of
+        # the (S, M) incidence, weighted by d_tilde and normalized per
+        # gateway
+        gw_w = gw_onehot * weights[:, None]
+        gw_w = gw_w / gw_w.sum(dim=0, keepdim=True).clamp_min(1e-12)
+        gw_models = weighted_mean(final, gw_w.T)
+    return new_global, gw_loss, gw_count, dev_losses, boundary, gw_models
+
+
 def cohort_round(model: SplitModel, params: Params, batch, l_n, weights,
                  gw_onehot, k_iters: int, lr, with_boundary: bool = True,
                  with_gateway_models: bool = False,
@@ -190,52 +246,209 @@ def cohort_round(model: SplitModel, params: Params, batch, l_n, weights,
     Returns (new_global_params, per_gateway_loss (M,), per_gateway_count
     (M,), per_slot_loss (S,), boundary_rms (S,)), plus the gateway models
     as a sixth element when ``with_gateway_models`` is set; tensors on
-    ``device``. The reference's traced form of the round
-    (``cohort_round_traced``, ``train_scan``: the fused loop) is not
-    ported yet (ROADMAP.md M7), nor its sharded mapping (M9).
+    ``device``. The inputs go to the device and ``l_n`` is checked on the
+    host here; the round itself is :func:`cohort_round_traced`. Its
+    sharded mapping is not ported yet (ROADMAP.md M9).
     """
-    if compute_dtype not in COMPUTE_DTYPES:
-        raise ValueError(f"compute_dtype={compute_dtype!r}: expected one of "
-                         f"{sorted(COMPUTE_DTYPES)}")
+    _check_dtype(compute_dtype)
     device = resolve_device(device)
     xs, ys, masks = _batch_tiers(batch, device)
-    xs = tuple(model.prepare_inputs(x) for x in xs)
-    final_t, loss_t = _local_train(model, _on(params, device), xs, ys, masks,
-                                   k_iters, lr, compute_dtype)
-    final = _concat_tiers(final_t)
-    dev_losses = torch.cat(loss_t)
-
-    # fused two-tier FedAvg: gateway-level then BS-level weighted averaging
-    # telescopes to one weighted average over participating devices.
-    weights = torch.as_tensor(np.asarray(weights), dtype=torch.float32,
-                              device=device)
-    new_global = weighted_mean(final,
-                               weights / weights.sum().clamp_min(1e-12))
-
-    gw = torch.as_tensor(np.asarray(gw_onehot), dtype=torch.float32,
-                         device=device)
-    active = (weights > 0).float()
-    gw_count = gw.T @ active                                        # (M,)
-    gw_loss = (gw.T @ (dev_losses * active)) / gw_count.clamp_min(1.0)
     if with_boundary:
         l_n = np.asarray(l_n)
         if ((l_n < 0) | (l_n > model.n_blocks)).any():
             raise ValueError(f"partition points {l_n.tolist()} outside "
                              f"[0, {model.n_blocks}]")
         l_n = torch.as_tensor(l_n, dtype=torch.long, device=device)
-        boundary = torch.cat(_boundary_tiers(
-            model, final_t, xs, masks,
-            _split_tiers(l_n, tuple(x.shape[0] for x in xs))))
-    else:
-        boundary = torch.zeros_like(weights)
-    out = (new_global, gw_loss, gw_count, dev_losses, boundary)
-    if not with_gateway_models:
-        return out
-    # per-gateway shop-floor FedAvg before the global mix: columns of the
-    # (S, M) incidence, weighted by d_tilde and normalized per gateway
-    gw_w = gw * weights[:, None]
-    gw_w = gw_w / gw_w.sum(dim=0, keepdim=True).clamp_min(1e-12)
-    return (*out, weighted_mean(final, gw_w.T))
+    weights = torch.as_tensor(np.asarray(weights), dtype=torch.float32,
+                              device=device)
+    gw = torch.as_tensor(np.asarray(gw_onehot), dtype=torch.float32,
+                         device=device)
+    out = cohort_round_traced(
+        model, _on(params, device), xs, ys, masks, l_n, weights, gw, lr,
+        k_iters=k_iters, with_boundary=with_boundary,
+        with_gateway_models=with_gateway_models, compute_dtype=compute_dtype)
+    return out if with_gateway_models else out[:5]
+
+
+# ---------------------------------------------------------------------------
+# the fused loop's training half: every round of a block, one CUDA graph
+# replay a round (the reference's lax.scan programs)
+# ---------------------------------------------------------------------------
+
+
+def _eval_hits(model: SplitModel, params: Params, x_test: torch.Tensor,
+               y_test: torch.Tensor, batch: int = 256) -> torch.Tensor:
+    """Test-set hits of the f32 master params, a 0-d int64 tensor: the
+    forward in the ``batch``-row chunks of ``SplitModel.accuracy``, so the
+    count equals the stepwise loop's evaluation exactly."""
+    hits = torch.zeros((), dtype=torch.int64, device=x_test.device)
+    with torch.no_grad():
+        for i in range(0, len(x_test), batch):
+            logits = model.forward(params, x_test[i:i + batch])
+            hits = hits + (logits.argmax(-1) == y_test[i:i + batch]).sum()
+    return hits
+
+
+def _guarded_round(model: SplitModel, params: Params, losses, xs, ys,
+                   masks, w, gw, tr, lr, k_iters: int, compute_dtype: str):
+    """One round of the fused loop: :func:`cohort_round_traced` and the
+    reference scan's two guards. A round where nobody trained (all weights
+    0) keeps the old params, where the normalized FedAvg would average
+    into zeros (the stepwise loop skips such a round); a gateway's loss
+    updates only where it trained (``tr``, (M,) bool)."""
+    new_global, gw_loss, _, _, _, _ = cohort_round_traced(
+        model, params, xs, ys, masks, None, w, gw, lr, k_iters=k_iters,
+        with_boundary=False, compute_dtype=compute_dtype)
+    any_trained = w.sum() > 0
+    params = [{k: torch.where(any_trained, new[k], old[k]) for k in old}
+              for new, old in zip(new_global, params)]
+    return params, torch.where(tr, gw_loss, losses)
+
+
+def _scan(train: GraphedStep, evaluate: GraphedStep, params: Params,
+          losses0, rounds: int, inputs_at, eval_mask):
+    """``rounds`` replays of ``train`` threading (params, losses), and of
+    ``evaluate`` on the rounds ``eval_mask`` (host bools) marks; nothing
+    is read on the host. Returns (params, losses, loss history (T, M),
+    hits (T,), -1 where not evaluated), on the device."""
+    carry = (*leaves(params), losses0)
+    loss_hist = torch.empty((rounds, *losses0.shape), dtype=losses0.dtype,
+                            device=losses0.device)
+    hits = torch.full((rounds,), -1, dtype=torch.int64,
+                      device=losses0.device)
+    for t in range(rounds):
+        carry = train(*carry, *inputs_at(t))
+        loss_hist[t].copy_(carry[-1])
+        if eval_mask[t]:
+            hits[t].copy_(evaluate(*carry[:-1])[0])
+    # a graph's outputs are its own buffers, which its next replay
+    # overwrites: keep copies
+    return (_like([x.clone() for x in carry[:-1]], params),
+            carry[-1].clone(), loss_hist, hits)
+
+
+def _skeleton(params: Params) -> Params:
+    """``params``'s structure without its tensors (what :func:`_like`
+    reads), for closures that outlive a block."""
+    return [dict.fromkeys(p) for p in params]
+
+
+def _steps(graphs, plane: str, model: SplitModel, skeleton: Params,
+           train_fn, x_test, y_test):
+    """The (train, evaluate) GraphedSteps of ``plane`` from ``graphs``
+    (the caller's cache: a later block with the same shapes replays the
+    graphs captured before), made on first use."""
+    key = (plane, id(model))
+    if key not in graphs:
+        def eval_fn(*flat):
+            return (_eval_hits(model, _like(list(flat), skeleton), x_test,
+                               y_test),)
+        graphs[key] = (GraphedStep(train_fn, "train_scan"),
+                       GraphedStep(eval_fn, "eval"))
+    return graphs[key]
+
+
+def train_scan(model: SplitModel, params: Params, losses0, xs, ys, masks,
+               ls, ws, gws, trained, lr, eval_mask, x_test, y_test, *,
+               k_iters: int, compute_dtype: str = "f32", graphs=None):
+    """The whole training block: one trained round per replay of one
+    captured graph (on CUDA; eagerly on the CPU), the counterpart of the
+    reference's ``lax.scan`` of the fused round.
+
+    ``xs/ys/masks/ls/ws/gws`` are per-tier tuples of (T, S_k, ...) tensors
+    on the device and ``trained`` the (T, M) bool trained-gateway mask;
+    ``ls`` is accepted as the reference's scan takes it, and unused (the
+    scan reports no boundary RMS). The carry is (params, per-gateway f32
+    losses), with :func:`_guarded_round`'s guards. ``eval_mask`` is the
+    (T,) host bool ``eval_every`` schedule: a marked round replays a
+    second graph, the test-set hit count (:func:`_eval_hits`) on the
+    round's params. ``graphs``: a dict the caller keeps across blocks.
+
+    Returns (params, losses (M,), loss history (T, M) f32, test hits (T,)
+    int64, -1 where not evaluated), on the device. One capture of each
+    graph per (model, tier shapes, K, dtype); the graph's ``lr``, K and
+    dtype are those of its first capture, so one ``graphs`` dict serves
+    one scenario.
+    """
+    del ls
+    _check_dtype(compute_dtype)
+    skeleton = _skeleton(params)
+    n, n_tiers = len(leaves(params)), len(xs)
+
+    def train_fn(*flat):
+        p, losses = _like(list(flat[:n]), skeleton), flat[n]
+        xs_t = flat[n + 1:n + 1 + n_tiers]
+        ys_t = flat[n + 1 + n_tiers:n + 1 + 2 * n_tiers]
+        masks_t = flat[n + 1 + 2 * n_tiers:n + 1 + 3 * n_tiers]
+        w, gw, tr = flat[n + 1 + 3 * n_tiers:]
+        p, losses = _guarded_round(model, p, losses, xs_t, ys_t, masks_t, w,
+                                   gw, tr, lr, k_iters, compute_dtype)
+        return (*leaves(p), losses)
+
+    train, evaluate = _steps({} if graphs is None else graphs, "host", model,
+                             skeleton, train_fn, x_test, y_test)
+    w_all, gw_all = torch.cat(ws, dim=1), torch.cat(gws, dim=1)
+    return _scan(train, evaluate, params, losses0, trained.shape[0],
+                 lambda t: (*[x[t] for x in xs], *[y[t] for y in ys],
+                            *[m[t] for m in masks], w_all[t], gw_all[t],
+                            trained[t]), eval_mask)
+
+
+def _gather_tier(x_all, y_all, pool_lens, batch_lens, key, t, devs,
+                 width: int):
+    """One tier's round batch gathered from the device-resident stacks:
+    slot i reads device ``devs[i]``'s draw (:func:`traced_batch_indices`
+    at the tier's width), an empty slot (-1) device 0's rows under an
+    all-zero mask; rows past the device's batch length are masked too."""
+    d = devs.clamp_min(0)
+    idx = traced_batch_indices(key, t, d, pool_lens[d], width,
+                               x_all.shape[1])
+    rows = torch.arange(width, device=devs.device)
+    mask = ((rows < batch_lens[d][:, None]) & (devs >= 0)[:, None]).float()
+    return x_all[d[:, None], idx], y_all[d[:, None], idx], mask
+
+
+def train_scan_traced(model: SplitModel, params: Params, losses0, x_all,
+                      y_all, pool_lens, batch_lens, data_key, ts, slot_devs,
+                      ls, ws, gws, trained, lr, eval_mask, x_test, y_test, *,
+                      k_iters: int, compute_dtype: str = "f32",
+                      tier_widths: Tuple[int, ...], graphs=None):
+    """:func:`train_scan` with the data plane inside the graph: each round
+    gathers its batches from the device-resident shard stacks
+    (``repro_torch.fl.data.device_resident_stacks``) by the counter-based
+    draws, so the block ships only the decision tensors to the device.
+
+    ``slot_devs`` maps every tier-major slot to its device id (-1 empty),
+    per tier (T, S_k) int64; ``ts`` the (T,) absolute rounds the draws
+    fold in; ``pool_lens`` and ``batch_lens`` (N,) int64 and ``data_key``
+    (2,) on the device. Empty slots gather device 0's rows under an
+    all-zero mask, whose loss and gradients are exact zeros, as the host
+    plane's zero padding gives. Returns what :func:`train_scan` does.
+    """
+    del ls
+    _check_dtype(compute_dtype)
+    skeleton = _skeleton(params)
+    n, n_tiers = len(leaves(params)), len(slot_devs)
+
+    def train_fn(*flat):
+        p, losses, t, key = _like(list(flat[:n]), skeleton), *flat[n:n + 3]
+        devs = flat[n + 3:n + 3 + n_tiers]
+        w, gw, tr = flat[n + 3 + n_tiers:]
+        gathered = [_gather_tier(x_all, y_all, pool_lens, batch_lens, key,
+                                 t, d, width)
+                    for d, width in zip(devs, tier_widths)]
+        p, losses = _guarded_round(
+            model, p, losses, *(tuple(g[i] for g in gathered)
+                                for i in range(3)),
+            w, gw, tr, lr, k_iters, compute_dtype)
+        return (*leaves(p), losses)
+
+    train, evaluate = _steps({} if graphs is None else graphs, "traced",
+                             model, skeleton, train_fn, x_test, y_test)
+    w_all, gw_all = torch.cat(ws, dim=1), torch.cat(gws, dim=1)
+    return _scan(train, evaluate, params, losses0, trained.shape[0],
+                 lambda t: (ts[t], data_key, *[d[t] for d in slot_devs],
+                            w_all[t], gw_all[t], trained[t]), eval_mask)
 
 
 def buffer_fedavg(models: List[Params], weights) -> Params:

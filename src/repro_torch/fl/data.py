@@ -11,6 +11,11 @@ The port's copy of ``repro.fl.data``'s host data plane: every draw comes from
 the same numpy ``Generator`` in the same order, so datasets and packed
 cohort batches are byte-identical to the reference's for a seed. Arrays stay
 numpy here; the cohort engine moves them to the device.
+
+The traced data plane (``Scenario.data_plane="traced"``) draws each batch
+instead from a counter-based stream keyed by (data key, round, device):
+:func:`traced_batch_indices`, jax's threefry draws reproduced bit for bit
+(``repro_torch.fl.threefry``), so its batches are the reference's too.
 """
 from __future__ import annotations
 
@@ -18,6 +23,10 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.fl import threefry
 
 
 @dataclasses.dataclass
@@ -374,3 +383,99 @@ def sample_cohort_batch(rng: np.random.Generator, ds: FLDataset,
         y[row, :b] = yb
         mask[row, :b] = 1.0
     return CohortBatch(x, y, mask)
+
+
+# ---------------------------------------------------------------------------
+# the traced data plane: counter-based draws + device-resident shard stacks
+# ---------------------------------------------------------------------------
+
+
+def traced_batch_indices(data_key: torch.Tensor, t, dev, pool_len,
+                         width: int, l_max: int) -> torch.Tensor:
+    """(..., width) sample indices for device(s) ``dev`` at round ``t``:
+    the traced twin of :func:`sample_batch`'s draw without replacement
+    (the reference's ``traced_batch_indices``, bit for bit).
+
+    The key folds in the absolute round and the device id, so the host
+    oracle (:func:`sample_cohort_batch_traced`) and the fused scan's
+    in-graph gather derive the same indices with no stream state. A
+    uniform ``u`` weights the ``l_max`` padded pool positions, positions
+    at or past ``pool_len`` weigh ``+inf``, and the ``width`` smallest in
+    ascending order (ties to the lower index) are the draw, so a wider
+    slot's draw extends a narrower one's. ``u`` is its 23 mantissa bits
+    times 2**-23, so the order is taken on those bits: each position's
+    key is (bits, or 2**23 past the pool) * l_max + position, all keys
+    distinct. ``t``, ``dev`` and ``pool_len`` broadcast together (int64
+    tensors or ints on ``data_key``'s device)."""
+    device = data_key.device
+    dev = torch.as_tensor(dev, dtype=torch.int64, device=device)
+    pool_len = torch.as_tensor(pool_len, dtype=torch.int64, device=device)
+    t = torch.as_tensor(t, dtype=torch.int64, device=device)
+    key = threefry.fold_in(threefry.fold_in(data_key, t), dev)
+    pos = torch.arange(l_max, dtype=torch.int64, device=device)
+    bits = threefry.mantissas(key, l_max).masked_fill(
+        pos >= pool_len[..., None], 1 << 23)
+    return torch.sort(bits * l_max + pos, dim=-1).values[..., :width] % l_max
+
+
+def device_resident_stacks(ds: FLDataset, device="cuda"):
+    """Every device's private shard padded into one stack on ``device``.
+
+    Returns ``(x_all (N, L_max, *feat), y_all (N, L_max, *lab)`` tensors,
+    ``pool_lens (N,) int32`` numpy``)`` with zero padding past each
+    shard: the arrays the traced data plane gathers batches from (padding
+    rows are only ever gathered masked out)."""
+    pool = np.array([len(y) for y in ds.y_dev], np.int32)
+    l_max = int(pool.max())
+    n = len(ds.y_dev)
+    x_all = np.zeros((n, l_max) + ds.x_dev[0].shape[1:], ds.x_dev[0].dtype)
+    y_all = np.zeros((n, l_max) + ds.y_dev[0].shape[1:], ds.y_dev[0].dtype)
+    for i, (xd, yd) in enumerate(zip(ds.x_dev, ds.y_dev)):
+        x_all[i, :len(yd)] = xd
+        y_all[i, :len(yd)] = yd
+    device = resolve_device(device)
+    return (torch.as_tensor(x_all).to(device),
+            torch.as_tensor(y_all).to(device), pool)
+
+
+def sample_cohort_batch_traced(data_key: torch.Tensor, t: int,
+                               ds: FLDataset, device_ids,
+                               batch_sizes: np.ndarray,
+                               layout: CohortLayout) -> TieredCohortBatch:
+    """The traced data plane's host oracle: :func:`sample_cohort_batch`'s
+    tiered packing with every draw from :func:`traced_batch_indices`
+    instead of the numpy generator.
+
+    Consumes no host RNG (the draws are a function of (data_key, round,
+    device)), so the stepwise loop under ``data_plane="traced"`` equals
+    the fused scan's in-graph gathers: identical indices into identical
+    shards give byte-identical valid rows."""
+    device_ids = [int(n) for n in device_ids]
+    assert len(device_ids) <= layout.n_slots, \
+        "more participants than cohort slots"
+    l_max = max(len(y) for y in ds.y_dev)
+    pools = np.array([len(ds.y_dev[n]) for n in device_ids], dtype=int)
+    lens = np.minimum(np.asarray(batch_sizes)[device_ids], pools) \
+        if device_ids else np.zeros(0, dtype=int)
+    sample_shape = ds.x_dev[0].shape[1:]
+    label_shape = ds.y_dev[0].shape[1:]
+    tiers = [CohortBatch(
+        np.zeros((s, w) + sample_shape, ds.x_dev[0].dtype),
+        np.zeros((s, w) + label_shape, ds.y_dev[0].dtype),
+        np.zeros((s, w), np.float32))
+        for s, w in zip(layout.tier_slots, layout.tier_widths)]
+    slot_of = np.empty(len(device_ids), dtype=int)
+    if device_ids:
+        # every device's draw at the widest batch: a narrower one is its
+        # prefix
+        idx = traced_batch_indices(data_key.cpu(), t, device_ids, pools,
+                                   int(lens.max()), l_max).numpy()
+    for rank, di in enumerate(np.argsort(-lens, kind="stable")):
+        k, row = layout.locate(rank)
+        n, b = device_ids[di], int(lens[di])
+        assert b <= layout.tier_widths[k], (b, layout.tier_widths[k])
+        tiers[k].x[row, :b] = ds.x_dev[n][idx[di, :b]]
+        tiers[k].y[row, :b] = ds.y_dev[n][idx[di, :b]]
+        tiers[k].mask[row, :b] = 1.0
+        slot_of[di] = rank
+    return TieredCohortBatch(tuple(tiers), slot_of, layout)

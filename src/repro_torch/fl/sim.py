@@ -27,7 +27,12 @@ bit-identical to ``repro``'s for the same statistics; the data plane runs in
 PyTorch on ``device`` (``"cuda"`` unless the caller passes ``"cpu"``), and
 so does the batched control plane of ``policy="ddsra_jax"`` and of
 ``sweep`` (``repro_torch.fl.fused_sim``), in float64. The fused loop
-(``fused_rounds``, ``run_fused``) is not ported yet (ROADMAP.md M7).
+(``fused_rounds``, ``run_fused``; ``repro_torch.fl.fused_sim``) runs a
+block of rounds as one decide pass and one training pass, one CUDA graph
+replay a trained round, and leaves the stepwise loop's end state; under
+``Scenario.data_plane="traced"`` batches are counter-based draws
+(``repro_torch.fl.data.traced_batch_indices``), jax's threefry draws
+reproduced bit for bit, gathered on the device.
 """
 from __future__ import annotations
 
@@ -57,9 +62,11 @@ from repro_torch.device import resolve_device, use_f32_numerics
 from repro_torch.fl import cohort as cohort_lib
 from repro_torch.fl import fused_sim
 from repro_torch.fl import split as split_lib
-from repro_torch.fl.data import (CohortLayout, make_fl_dataset,
-                                 make_token_fl_dataset, sample_batch,
-                                 sample_cohort_batch)
+from repro_torch.fl import threefry
+from repro_torch.fl.data import (CohortLayout, device_resident_stacks,
+                                 make_fl_dataset, make_token_fl_dataset,
+                                 sample_batch, sample_cohort_batch,
+                                 sample_cohort_batch_traced)
 from repro_torch.fl.roles import BaseStation, Device, Gateway
 from repro_torch.models import registry as model_registry
 from repro_torch.models.convert import params_from_numpy, params_to_numpy
@@ -82,9 +89,10 @@ class Scenario:
     """Frozen, JSON-serializable spec of one FL experiment.
 
     The reference's fields and defaults. The port runs ``engine="cohort"``
-    and ``"sequential"`` and ``data_plane="host"``, with ``dtype="f32"``
-    for every model and ``dtype="bf16"`` on the cohort engine for the
-    models of ``BF16_MODELS``; the fault axes and ``buffer_k`` belong to
+    and ``"sequential"``, ``data_plane="host"`` on both and ``"traced"``
+    on the cohort engine, with ``dtype="f32"`` for every model and
+    ``dtype="bf16"`` on the cohort engine for the models of
+    ``BF16_MODELS``; the fault axes and ``buffer_k`` belong to
     the async engine, which is not ported yet (ROADMAP.md M8), and
     ``mesh_shape`` to the sharded one (M9).
     """
@@ -113,7 +121,9 @@ class Scenario:
     # data-plane dtype: "f32", or "bf16" (mixed precision: bf16 rounds over
     # f32 masters; the models of BF16_MODELS)
     dtype: str = "f32"
-    data_plane: str = "host"           # "host" ("traced" later)
+    # "host": batches drawn from the numpy stream; "traced": counter-based
+    # draws keyed by (data_key, round, device), gathered on the device
+    data_plane: str = "host"
     # model-upload compression: bits per parameter priced into the DDSRA
     # upload-delay/energy terms (None = the model's native precision)
     upload_bits: Optional[float] = None
@@ -299,15 +309,22 @@ class Engine:
     The synchronous protocol of the reference's ``Engine``, implemented by
     ``CohortEngine`` and ``SequentialEngine``. Its async hooks
     (``inflight_counts``, realized participation) come with the async
-    engine (ROADMAP.md M8), its ``fused_train`` with the fused loop (M7),
-    the sharded engine with M9; ``make_engine`` raises
-    ``NotImplementedError`` for ``"async"`` and ``"sharded"``.
+    engine (ROADMAP.md M8), the sharded engine with M9; ``make_engine``
+    raises ``NotImplementedError`` for ``"async"`` and ``"sharded"``.
     """
     name: str
     # compute dtypes this engine can run the data plane in; Simulation
     # rejects a Scenario whose ``dtype`` the chosen engine cannot honor
     # (silently training in f32 would falsify the priced upload_bits)
     supported_dtypes: Tuple[str, ...] = ("f32",)
+    # whether :meth:`fused_train` runs a whole block of rounds (the fused
+    # loop, ``repro_torch.fl.fused_sim``); engines without it are refused
+    # before any RNG stream is consumed
+    supports_fused: bool = False
+    # whether the engine honors ``Scenario.data_plane="traced"``;
+    # Simulation rejects the traced plane on engines that would keep
+    # sampling from the numpy stream (the planes draw different batches)
+    supports_traced_data: bool = False
 
     def estimate_stats(self, sim: "Simulation", params) -> DataStats:
         """Estimate the per-device sigma_n/delta_n/L_n statistics the
@@ -333,6 +350,23 @@ class Engine:
         return RoundOutcome(delay=max(gw_delay.values(), default=0.0),
                             boundary_rms=rms,
                             aggregations=1 if trained else 0)
+
+    def fused_train(self, sim: "Simulation", params, losses0, xs, ys,
+                    masks, ls, ws, gws, trained, eval_mask=None):
+        """Run a whole pre-packed block of rounds (the fused loop,
+        ``repro_torch.fl.fused_sim``).
+
+        ``xs/ys/masks/ls/ws/gws`` are per-tier tuples of tensors with a
+        leading round axis (tier k: ``(T, S_k, ...)``), ``trained`` the
+        (T, M) bool trained-gateway mask, ``eval_mask`` the (T,) bool
+        ``eval_every`` schedule (None: never evaluate). Returns (final
+        params, final (M,) losses, (T, M) loss history, (T,) test hits,
+        -1 on rounds not evaluated), on the device. Engines without a
+        scanned round raise: ``Simulation.rounds()`` is their only path.
+        """
+        raise NotImplementedError(
+            f"engine {self.name!r} has no fused scan path; use "
+            "Simulation.rounds()")
 
     def reset(self, sim: "Simulation") -> None:
         """Discard engine-internal *run* state (default: none). Called from
@@ -362,6 +396,8 @@ class CohortEngine(Engine):
     """
 
     supported_dtypes = ("f32", "bf16")
+    supports_fused = True
+    supports_traced_data = True
 
     def _layout(self, sim: "Simulation", capacity: int) -> CohortLayout:
         """The (cached) fixed slot layout for ``capacity``-slot rounds."""
@@ -385,22 +421,35 @@ class CohortEngine(Engine):
         return DataStats(sigma, delta, np.maximum(lips, 0.1),
                          sim.d_tilde.astype(float))
 
-    def _pack_round(self, sim: "Simulation", trained: List[int],
-                    l_n: np.ndarray):
-        """Pack the scheduled devices into the fixed slot layout.
-
-        Draws come from ``sim.rng`` in gateway-major device order, as the
-        reference's packing makes them. Returns (device_ids, batch, l_slot,
-        w_slot, slot_gw).
-        """
+    def _cohort(self, sim: "Simulation", trained: List[int]):
+        """The trained gateways' devices in gateway-major order, and the
+        fixed slot layout that holds them (the all-devices layout if they
+        ever outnumber the capacity)."""
         device_ids: List[int] = []
         for m in trained:
             device_ids.extend(dev.idx for dev in sim.gateways[m].devices)
         cap = sim.cohort_capacity if len(device_ids) <= sim.cohort_capacity \
             else sim.net.cfg.n_devices
-        layout = self._layout(sim, cap)
-        batch = sample_cohort_batch(sim.rng, sim.ds, device_ids, sim.d_tilde,
-                                    layout=layout)
+        return device_ids, self._layout(sim, cap)
+
+    def _pack_round(self, sim: "Simulation", trained: List[int],
+                    l_n: np.ndarray):
+        """Pack the scheduled devices into the fixed slot layout.
+
+        Draws come from ``sim.rng`` in gateway-major device order, as the
+        reference's packing makes them; under ``data_plane="traced"`` from
+        the counter-based draws of round ``sim.t`` (no host RNG consumed),
+        which the fused scan's in-graph gathers equal. Returns
+        (device_ids, batch, l_slot, w_slot, slot_gw).
+        """
+        device_ids, layout = self._cohort(sim, trained)
+        if sim.scenario.data_plane == "traced":
+            batch = sample_cohort_batch_traced(sim.data_key, sim.t, sim.ds,
+                                               device_ids, sim.d_tilde,
+                                               layout=layout)
+        else:
+            batch = sample_cohort_batch(sim.rng, sim.ds, device_ids,
+                                        sim.d_tilde, layout=layout)
         n_slots = layout.n_slots
         l_slot = np.zeros(n_slots, int)
         w_slot = np.zeros(n_slots, np.float32)
@@ -441,6 +490,105 @@ class CohortEngine(Engine):
         rms = np.zeros(sim.net.cfg.n_devices)
         rms[device_ids] = boundary.cpu().numpy()[batch.slot_of]
         return rms
+
+    def fused_train(self, sim: "Simulation", params, losses0, xs, ys,
+                    masks, ls, ws, gws, trained, eval_mask=None):
+        """A block as one captured round replayed once a round
+        (``repro_torch.fl.cohort.train_scan``) over the stacked packed
+        batches and decision tensors."""
+        sc = sim.scenario
+        trained = np.asarray(trained, bool)
+        if eval_mask is None:
+            eval_mask = np.zeros(trained.shape[0], bool)
+        x_test, y_test = self._eval_arrays(sim)
+        return cohort_lib.train_scan(
+            sim.plan, params, self._losses(sim, losses0), xs, ys, masks, ls,
+            ws, gws, torch.as_tensor(trained, device=sim.device), sc.lr,
+            np.asarray(eval_mask, bool), x_test, y_test,
+            k_iters=sc.k_iters, compute_dtype=sc.dtype,
+            graphs=sim._fused_graphs)
+
+    @staticmethod
+    def _losses(sim: "Simulation", losses0) -> torch.Tensor:
+        """The scan's f32 loss carry on the device."""
+        return torch.as_tensor(np.asarray(losses0), dtype=torch.float32,
+                               device=sim.device)
+
+    def _pack_round_meta(self, sim: "Simulation", trained: List[int],
+                         l_n: np.ndarray):
+        """:meth:`_pack_round`'s slot assignment without drawing a sample:
+        the traced data plane's packing, whose scan gathers each slot's
+        batch on the device from its device id, so the host ships only
+        the round's (slot -> device, l, weight, gateway) metadata.
+
+        Slot ranks are ``sample_cohort_batch_traced``'s (the same stable
+        argsort over the same clipped batch lengths), so per-slot outputs
+        scatter back to devices alike on both paths. Returns (device_ids,
+        layout, slot_dev (-1: empty slot), l_slot, w_slot, slot_gw,
+        real_samples).
+        """
+        device_ids, layout = self._cohort(sim, trained)
+        pools = np.array([len(sim.ds.y_dev[n]) for n in device_ids],
+                         dtype=int)
+        lens = np.minimum(sim.d_tilde[device_ids], pools) if device_ids \
+            else np.zeros(0, dtype=int)
+        n_slots = layout.n_slots
+        slot_dev = np.full(n_slots, -1, np.int32)
+        l_slot = np.zeros(n_slots, int)
+        w_slot = np.zeros(n_slots, np.float32)
+        slot_gw = np.zeros((n_slots, sim.net.cfg.n_gateways), np.float32)
+        for rank, di in enumerate(np.argsort(-lens, kind="stable")):
+            n = device_ids[di]
+            slot_dev[rank] = n
+            l_slot[rank] = l_n[n]
+            w_slot[rank] = sim.d_tilde[n]
+            slot_gw[rank, sim.net.assign[n]] = 1.0
+        return (device_ids, layout, slot_dev, l_slot, w_slot, slot_gw,
+                int(lens.sum()))
+
+    def _data_stacks(self, sim: "Simulation"):
+        """The device-resident shard stacks the traced plane gathers from
+        (``repro_torch.fl.data.device_resident_stacks``), made at first
+        use and kept for the simulation's life (its dataset is fixed, so
+        they survive reset and restart): (x_all, y_all) on the device,
+        ``pool`` (N,) numpy."""
+        if sim._resident_stacks is None:
+            sim._resident_stacks = device_resident_stacks(sim.ds, sim.device)
+        return sim._resident_stacks
+
+    def _eval_arrays(self, sim: "Simulation"):
+        """(x_test, y_test) on the device, kept as :meth:`_data_stacks`
+        is."""
+        if sim._resident_eval is None:
+            sim._resident_eval = tuple(
+                torch.as_tensor(np.asarray(a)).to(sim.device)
+                for a in (sim.ds.x_test, sim.ds.y_test))
+        return sim._resident_eval
+
+    def fused_train_traced(self, sim: "Simulation", params, losses0, ts,
+                           slot_devs, ls, ws, gws, trained, eval_mask,
+                           layout):
+        """:meth:`fused_train` with the data plane inside the graph
+        (``repro_torch.fl.cohort.train_scan_traced``): each round gathers
+        its batches on the device from the resident shard stacks, so the
+        host never builds the (T, S_k, W_k, ...) sample stacks.
+        ``slot_devs/ls/ws/gws`` are per-tier tensors with a leading round
+        axis; ``ts`` the absolute rounds the draws fold in."""
+        sc = sim.scenario
+        x_all, y_all, pool = self._data_stacks(sim)
+        x_test, y_test = self._eval_arrays(sim)
+
+        def ints(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.int64,
+                                   device=sim.device)
+        return cohort_lib.train_scan_traced(
+            sim.plan, params, self._losses(sim, losses0), x_all, y_all,
+            ints(pool), ints(np.minimum(sim.d_tilde, pool)),
+            sim.data_key.to(sim.device), ints(ts), slot_devs, ls, ws, gws,
+            torch.as_tensor(np.asarray(trained, bool), device=sim.device),
+            sc.lr, np.asarray(eval_mask, bool), x_test, y_test,
+            k_iters=sc.k_iters, compute_dtype=sc.dtype,
+            tier_widths=tuple(layout.tier_widths), graphs=sim._fused_graphs)
 
     def shop_floor_round(self, sim: "Simulation", device_ids: List[int],
                          l_n: np.ndarray, params=None,
@@ -606,16 +754,16 @@ class Simulation:
     :class:`RoundRecord` telemetry one round at a time, with
     ``boundary=True`` the per-device boundary RMS; ``save``, ``flush`` and
     ``resume`` checkpoint and continue a run, on the cohort or the
-    sequential engine; ``sweep`` runs a scheduling sweep on the device.
-    ``fused_rounds``, ``run_fused`` and ``data_key`` (the fused loop,
-    ROADMAP.md M7) raise ``NotImplementedError``, as does a Scenario
-    naming the traced data plane (M7), the async (M8) or sharded (M9)
-    engine.
+    sequential engine; ``sweep`` runs a scheduling sweep on the device;
+    ``fused_rounds`` and ``run_fused`` run rounds through the fused loop
+    on the cohort engine. A Scenario naming the async (ROADMAP.md M8) or
+    sharded (M9) engine raises ``NotImplementedError``.
 
     ``device``: where the data plane runs (``"cuda"`` unless the caller
     passes ``"cpu"``). ``init_params``: numpy params in the reference's
     layout (``jax.tree.map(np.asarray, params)``) to start from instead of
-    the port's own seeded init — the port cannot replay ``jax.random``.
+    the port's own seeded init, which draws from a torch generator, not
+    the reference's ``jax.random`` initializers.
     ``_stats``: skip the estimation pass (callers then restore the batch
     RNG state themselves, since no estimation draws are consumed).
     """
@@ -643,8 +791,11 @@ class Simulation:
             raise ValueError(
                 f"Scenario.data_plane={sc.data_plane!r}: expected 'host' "
                 "or 'traced'")
-        if sc.data_plane == "traced":
-            _unported("Scenario.data_plane='traced'", "M7")
+        if sc.data_plane == "traced" and \
+                not self.engine.supports_traced_data:
+            raise ValueError(
+                f"engine {sc.engine!r} samples batches host-side: it "
+                "cannot honor data_plane='traced'; use a cohort engine")
         if (sc.churn or sc.dropout or sc.straggler_frac
                 or sc.buffer_k is not None):
             raise ValueError(
@@ -721,6 +872,11 @@ class Simulation:
         self._policy = None
         self.run_seed = sc.seed   # threaded into stochastic policies
         self._sweep_plan = None   # built by the first sweep()
+        # the fused loop's captured graphs and device-resident data, made
+        # at first use (CohortEngine.fused_train*)
+        self._fused_graphs: Dict = {}
+        self._resident_stacks = None
+        self._resident_eval = None
         self._ckpt_writer: Optional[_CheckpointWriter] = None
         self.restart()
 
@@ -738,6 +894,16 @@ class Simulation:
     @params.setter
     def params(self, value):
         self.bs.params = value
+
+    @property
+    def data_key(self) -> torch.Tensor:
+        """Root key of the traced data plane's counter-based batch draws
+        (``repro_torch.fl.data.traced_batch_indices``): jax's
+        ``PRNGKey(run_seed + 2)``, a (2,) int64 tensor (0, run_seed + 2),
+        the reference's ``key_data``. One step past the batch-RNG seed
+        (``seed + 1``) and the channel-RNG seed (``seed``), so
+        ``reset(seed)`` and resume derive it with no state to save."""
+        return threefry.prng_key(self.run_seed + 2)
 
     def restart(self) -> None:
         """Reset the *run* state (round counter, queues, losses, delay) while
@@ -1032,18 +1198,31 @@ class Simulation:
         return fused_sim.sweep(self, v_values, seeds=seeds, rounds=rounds,
                                policies=policies)
 
-    # -- not ported yet (ROADMAP.md, section 1) ---------------------------
+    # -- the fused round loop (repro_torch.fl.fused_sim) ------------------
 
     def fused_rounds(self, policy: PolicyLike = None, *,
                      rounds: Optional[int] = None) -> List[RoundRecord]:
-        _unported("Simulation.fused_rounds", "M7")
+        """Run the remaining rounds (at most ``rounds`` of them) through
+        the fused loop instead of the stepwise one: the decide trajectory
+        in one pass (batched on the device for traced policies, the host
+        loop for the rest), then every training round as one replay of a
+        captured CUDA graph, nothing read on the host until the block
+        ends. The same :class:`RoundRecord` stream and end state as
+        ``rounds()`` (queues and both RNG streams bit-identical, params to
+        1e-5), so fused and stepwise blocks interleave and a checkpoint
+        taken after a fused block resumes into either; ``eval_every``
+        accuracies are evaluated inside the block."""
+        return fused_sim.fused_rounds(self, self._ensure_policy(policy),
+                                      rounds=rounds)
 
     def run_fused(self, policy: PolicyLike = None) -> FLResult:
-        _unported("Simulation.run_fused", "M7")
-
-    @property
-    def data_key(self):
-        _unported("Simulation.data_key (the traced data plane's key)", "M7")
+        """:meth:`run`, but through :meth:`fused_rounds`: restart the run
+        state, run every round fused, fold the records into an
+        :class:`FLResult`."""
+        self.restart()
+        records = self.fused_rounds(policy)
+        self.flush()
+        return self.result_of(records)
 
 
 def _arr_to_json(a: np.ndarray) -> dict:

@@ -290,11 +290,11 @@ def test_queue_twin_and_state_lifts():
         lyapunov.update_queues(q, sel, gamma))
     net = network.Network(network.NetworkConfig(), np.random.default_rng(0))
     states = [net.draw() for _ in range(3)]
-    stacked = network.stack_states(states)
+    stacked = network.stack_states(states, device="cpu")
     ref = ref_net.stack_states(states)
     for a, b in zip(stacked, ref):
         assert a.dtype == torch.float64 and np.array_equal(a.numpy(), b)
-    one = network.ChannelStateT.of(states[1])
+    one = network.ChannelStateT.of(states[1], device="cpu")
     for a, b in zip(one, ref_net.ChannelStateT.of(states[1])):
         assert np.array_equal(a.numpy(), b)
 
@@ -352,8 +352,8 @@ def test_baseline_decide_scan_matches_stepwise(policy, ci):
     assert isinstance(plan, BaselinePlan) and plan is pol.plan_for(
         w, net, device="cpu")
     q0 = np.zeros(net.cfg.n_gateways)
-    got = plan.decide_scan(network.stack_states(states), q0, gamma, 10.0,
-                           chosen=chosen)
+    got = plan.decide_scan(network.stack_states(states, device="cpu"), q0,
+                           gamma, 10.0, chosen=chosen)
     ref = RefBaselinePlan.build(rw, rnet).decide_scan(
         ref_net.stack_states(states), q0, gamma, 10.0, chosen=chosen)
 
@@ -392,7 +392,7 @@ def test_ddsra_decide_scan_matches_stepwise_rounds():
     net, _, w, _, gamma = _setup(1)
     states = [net.draw() for _ in range(5)]
     plan = DDSRAPlan.build(w, net, device="cpu")
-    got = plan.decide_scan(network.stack_states(states),
+    got = plan.decide_scan(network.stack_states(states, device="cpu"),
                            np.zeros(net.cfg.n_gateways), gamma, 10.0)
     q = np.zeros(net.cfg.n_gateways)
     for t, st in enumerate(states):

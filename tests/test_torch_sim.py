@@ -122,8 +122,8 @@ def test_scenario_json_interchange():
 
 def test_unported_options_raise():
     for kw, err, match in (
-            (dict(data_plane="traced"), NotImplementedError,
-             "traced.*ROADMAP.md M7"),
+            (dict(data_plane="traced", engine="sequential"), ValueError,
+             "cannot honor data_plane='traced'"),
             (dict(churn=0.1), ValueError, "synchronous"),
             (dict(engine="sharded"), NotImplementedError, "ROADMAP.md M9"),
             (dict(engine="async"), NotImplementedError, "ROADMAP.md M8")):
@@ -184,24 +184,31 @@ def test_padding_stats_match_reference(reference):
     assert s.padding_stats == {"real_samples": 0.0, "padded_samples": 0.0}
 
 
-@pytest.mark.parametrize("name,kwargs,item", [
-    ("fused_rounds", {}, "M7"),
-    ("run_fused", {}, "M7"),
-    ("sweep", dict(v_values=[0.01]), None),
-    ("data_key", None, "M7"),              # a property
-], ids=lambda v: v if isinstance(v, str) else "")
-def test_unported_api_raises_not_implemented(reference, name, kwargs, item):
-    """The reference's Simulation API that the port lacks (the fused loop)
-    raises NotImplementedError naming its ROADMAP.md item, not
-    AttributeError or TypeError. ``sweep`` is ported (``item`` None): on
-    this scenario's host policy it refuses as the reference's does."""
+@pytest.mark.parametrize("name,kwargs,match", [
+    ("fused_rounds", dict(policy="loss_driven"), "reads_losses"),
+    ("run_fused", dict(policy="loss_driven"), "reads_losses"),
+    ("sweep", dict(v_values=[0.01]), "traced-decide"),
+    ("data_key", None, None),              # a property
+], ids=["fused_rounds--M7", "run_fused--M7", "sweep--", "data_key--M7"])
+def test_unported_api_raises_not_implemented(reference, name, kwargs, match):
+    """The reference's Simulation API that was the port's last to come
+    (the fused loop, ROADMAP.md M7; ``sweep``, M6) is ported: each member
+    behaves as the reference's. ``fused_rounds`` and ``run_fused`` refuse
+    a policy that reads training losses, and ``sweep`` this scenario's
+    host policy, with the reference's errors; ``data_key`` is the
+    reference's key data."""
     assert hasattr(ref_sim.Simulation, name)
     s = sim.Simulation(sim.Scenario(**SC), reference["stats"], device="cpu")
-    err, match = ((NotImplementedError, f"ROADMAP.md {item}") if item
-                  else (ValueError, "traced-decide"))
-    with pytest.raises(err, match=match):
-        member = getattr(s, name)
-        member(**kwargs)
+    if match is None:
+        assert np.array_equal(
+            getattr(s, name).numpy(),
+            np.asarray(jax.random.key_data(getattr(reference["sim"], name))))
+        return
+    with pytest.raises(ValueError, match=match):
+        getattr(s, name)(**kwargs)
+    r = ref_sim.Simulation(ref_sim.Scenario(**SC), reference["stats"])
+    with pytest.raises(ValueError, match=match):
+        getattr(r, name)(**kwargs)
 
 
 def test_estimate_stats_by_engine_name(reference):
