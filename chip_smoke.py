@@ -65,7 +65,14 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
 3. agreement phases: narrow simulations on the card against the same on
    the CPU, whose plain path the CPU tests hold against the JAX reference:
    VGG, the FL transformer, the FL Mamba-2, VGG, the transformer and the
-   Mamba-2 in bf16 (``Scenario(dtype="bf16")``), and VGG under the
+   Mamba-2 in bf16 (``Scenario(dtype="bf16")``), the FL MoE decoder in
+   f32 and bf16 (every router call's top-k recorded on both sides: where
+   a token's experts differ, its k-th to (k+1)-th logit gap must lie
+   within the measured card-minus-CPU difference of the logits it
+   swapped, that difference not 0; at the first such call the gap is an
+   f32 tie, or the bf16 difference within the params contract,
+   ``ROUTE_TIE``, and the runs are then held at ``TIE_AGREE``), and VGG
+   under the
    ``round_robin`` and ``delay_driven`` baseline policies; VGG, the
    transformer and VGG in bf16 run ``rounds(boundary=True)`` and hold each
    round's per-device boundary-activation RMS against the CPU's (``vgg-bf16``'s
@@ -81,7 +88,11 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
    (``transformer-bf16``, ``ssm-bf16``: their rounds run the attention and
    SSD bf16 forms; ``transformer-bf16``'s forward the tensor-core form
    and its backward the fused kernel on every call, and never the bf16 dq
-   or dk/dv kernel; ``transformer`` neither tensor-core form), all on
+   or dk/dv kernel; ``transformer`` neither tensor-core form), and
+   ``Scenario(model="moe", rounds=3, eval_every=3)`` in f32 and bf16
+   (``moe``, ``moe-bf16``: the attention kernels as the transformer's,
+   through a GQA repeat of 2, and the MoE FFN alone at the round's shape
+   under the profiler, device ms by kernel kind), all on
    ``device="cuda"``: statistics pass plus three
    rounds, the last one profiled. The fused linear paths must launch
    every form of their kernels (``FORMS``; in bf16 the Hopper forms at fc1
@@ -137,7 +148,22 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
    6 rounds; (e) ``benchmarks/fl_round_bench.py``'s fused scenario,
    rounds per second stepwise against fused, best of 3 alternated
    passes; (f) a checkpoint saved after a fused block, resumed and
-   continued stepwise, bit-identical to the uninterrupted run) and
+   continued stepwise, bit-identical to the uninterrupted run; (g) the
+   bf16 MoE decoder under ``ddsra_jax``, 6 rounds, params bit-identical
+   to the stepwise loop's), ``async`` (the buffered async engine: (a)
+   full-width VGG-11, no faults, ``buffer_k=None``, 3 rounds against the
+   cohort engine from one starting point, decisions, queues and both RNG
+   streams identical, params at 1e-5; (b) the same with churn 0.1, a
+   straggler tail of (0.5, 3.0) and ``buffer_k=2``, 6 rounds, s a round
+   and the staleness telemetry, the host-side records identical to a
+   narrow CPU run given the full-width workload, timed with no sync
+   inside a round; (c) a save with updates in flight and one, at
+   ``buffer_k=4``, with updates parked in the buffer, each
+   ``resume(device="cuda")``, the continued rounds bit-identical; (d) ``fl_round_bench.py``'s churn point, both
+   aggregation modes, s a round and mean simulated round delay; (e)
+   ``fused_rounds`` refused with the reference's message; (a)-(c) under
+   ``cudnn.deterministic``; (a), (b), the resumed rounds of (c) and (d)
+   each check their own launches) and
    ``trainer`` (``FLTrainer(FLConfig(model="mlp", rounds=2,
    boundary_telemetry=True)).run("ddsra")``). Each of them but
    ``control`` must launch the f32 fused linear kernels and no plain
@@ -151,19 +177,27 @@ before last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
+import os
 import pathlib
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
-import numpy as np
-import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+# the profiled phases and the captured CUDA graphs share one process: keep
+# CUPTI attached between profiles (torch's own workaround when it profiles
+# CUDA graphs), so no CUPTI teardown lands in a later capture
+os.environ.setdefault("TEARDOWN_CUPTI", "0")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -188,6 +222,7 @@ from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.fused_linear import kernel, ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.vgg import mlp_layer_costs  # noqa: E402
 
 # H100 SXM data sheet: f32 outside the tensor cores, HBM3 bandwidth. The
@@ -948,6 +983,8 @@ AGREE = {
     "transformer-bf16": (dict(model="transformer", dtype="bf16"),
                          BF16_AGREE),
     "ssm-bf16": (dict(model="ssm", dtype="bf16"), BF16_AGREE),
+    "moe": (dict(model="moe"), F32_AGREE),
+    "moe-bf16": (dict(model="moe", dtype="bf16"), BF16_AGREE),
     "vgg-round_robin": (dict(width_mult=0.0625, policy="round_robin"),
                         TIE_AGREE),
     "vgg-delay_driven": (dict(width_mult=0.0625, policy="delay_driven"),
@@ -960,6 +997,118 @@ AGREE = {
 # forms, so its f32 forward launches come from the boundary pass (and the
 # evaluation: counted on the rounds that do not evaluate)
 BOUNDARY = {"vgg": (), "transformer": (), "vgg-bf16": ("fused_linear",)}
+# The MoE router picks each token's top-k experts: where the k-th and
+# (k+1)-th logits nearly tie, the card and the CPU, a few ulps apart, may
+# route a token differently, as a relu tie parts them (TIE_AGREE). So at
+# every router call each parted token must be explained by the logits the
+# two sides measured: its k-th to (k+1)-th logit gap (f64, the smaller of
+# the card's and the CPU's) at most the largest card-minus-CPU difference
+# of the experts it swapped (a swap needs no more), and that difference
+# not 0 (the same logits route the same, the lower expert first on a tie).
+# At the first call where routing parts, what the measured difference may
+# be is held to a limit: in f32 the gap is a tie, within 1e-5 of the
+# call's largest logit; in bf16 the logits are rounded to 8 significant
+# bits and come from bf16 products and steps, so the parted tokens'
+# measured difference is held to the bf16 params contract (3e-2) of the
+# largest logit. What follows that call descends from it (one token's
+# expert changes its output), so the runs are then held at TIE_AGREE.
+ROUTE_TIE = {"f32": 1e-5, "bf16": BF16_AGREE["params"]}
+# significant bits after the leading one, for the ulp of a logit
+ROUTE_MANTISSA = {"f32": 23, "bf16": 7}
+
+
+@contextlib.contextmanager
+def _routing_log(log: list, on: bool = True):
+    """Record every ``moe.router_topk`` call's logits (f64) and chosen
+    experts, on the host, into ``log`` (nothing when ``on`` is False)."""
+    if not on:
+        yield log
+        return
+    topk = moe_lib.router_topk
+
+    def record(logits, k):
+        gates, idx = topk(logits, k)
+        log.append((logits.detach().double().cpu(), idx.cpu()))
+        return gates, idx
+    moe_lib.router_topk = record
+    try:
+        yield log
+    finally:
+        moe_lib.router_topk = topk
+
+
+def _ulp(x: torch.Tensor, dtype: str) -> torch.Tensor:
+    """One ulp of each of ``x``'s values in ``dtype``."""
+    _, e = torch.frexp(x.abs())
+    return torch.ldexp(torch.ones_like(x), e - 1 - ROUTE_MANTISSA[dtype])
+
+
+def _routing_parts(label: str, cpu_log: list, gpu_log: list,
+                   dtype: str) -> int:
+    """Tokens whose set of chosen experts differs between the CPU's and
+    the card's calls, call by call; each parted token must be explained by
+    the card-minus-CPU difference of the logits it swapped, and at the
+    first call where routing parts that difference is held to ROUTE_TIE of
+    ``dtype`` (see there). Returns the parted tokens."""
+    check(len(cpu_log) == len(gpu_log),
+          f"{label}: {len(cpu_log)} router calls on the CPU, "
+          f"{len(gpu_log)} on the card")
+    parted, first = 0, None
+    for i, ((lc, ic), (lg, ig)) in enumerate(zip(cpu_log, gpu_log)):
+        k = ic.shape[-1]
+        lc, lg = lc.reshape(-1, lc.shape[-1]), lg.reshape(-1, lg.shape[-1])
+        ic, ig = ic.reshape(-1, k), ig.reshape(-1, k)
+        chosen_c = torch.zeros_like(lc, dtype=torch.bool).scatter_(1, ic, True)
+        chosen_g = torch.zeros_like(lg, dtype=torch.bool).scatter_(1, ig, True)
+        swapped = chosen_c != chosen_g
+        diff = swapped.any(-1)
+        n = int(diff.sum())
+        parted += n
+        if not n:
+            continue
+
+        def gap(logits):
+            top = logits.sort(-1, descending=True).values
+            return top[:, k - 1] - top[:, k]
+        gaps = torch.minimum(gap(lc), gap(lg))[diff]
+        delta = ((lg - lc).abs() * swapped).amax(-1)[diff]
+        check(bool((delta > 0).all()),
+              f"{label} router call {i}: the same logits routed "
+              f"differently on the card and the CPU")
+        check(bool((gaps <= delta).all()),
+              f"{label} router call {i}: a token parted at a logit gap "
+              f"beyond the measured difference: gaps {gaps.tolist()}, "
+              f"differences {delta.tolist()}")
+        if first is not None:
+            continue
+        first = i
+        scale = float(torch.maximum(lc.abs().max(), lg.abs().max()))
+        ulp = _ulp((lc.abs() * swapped).amax(-1)[diff], dtype)
+        order = gaps.argsort(descending=True)[:8]
+        readings = [(f"{float(gaps[j]):.3e}", f"{float(delta[j]):.3e}",
+                     f"{float(ulp[j]):.3e}") for j in order]
+        call_delta = float((lg - lc).abs().max())
+        print(f"agree {label}: routing parts first at router call {i} "
+              f"of {len(cpu_log)}: {n} tokens; largest gap "
+              f"{float(gaps.max()):.3e}, largest card-minus-CPU difference "
+              f"of the swapped logits {float(delta.max()):.3e} (scale "
+              f"{scale:.4f}; the call's largest logit difference "
+              f"{call_delta:.3e}); gaps in {dtype} ulps of the swapped "
+              f"logits up to {float((gaps / ulp).max()):.2f}, differences "
+              f"up to {float((delta / ulp).max()):.2f}; (gap, difference, "
+              f"ulp) of the widest: {readings}")
+        if dtype == "f32":
+            check(float(gaps.max()) <= ROUTE_TIE[dtype] * scale,
+                  f"{label}: routing parted at a gap of "
+                  f"{float(gaps.max()):.3e}, not a tie (scale {scale:.4f})")
+        else:
+            check(float(delta.max()) <= ROUTE_TIE[dtype] * scale,
+                  f"{label}: the parted logits differ by "
+                  f"{float(delta.max()):.3e} (scale {scale:.4f})")
+    tokens = sum(int(idx.numel() // idx.shape[-1]) for _, idx in cpu_log)
+    print(f"agree {label}: {parted} of {tokens} routed tokens parted over "
+          f"{len(cpu_log)} router calls")
+    return parted
 
 
 def agreement_phase(label: str) -> None:
@@ -967,9 +1116,16 @@ def agreement_phase(label: str) -> None:
     sc = Scenario(max_dataset=400, k_iters=2, sigma_samples=2, rounds=2,
                   eval_every=2, **kw)
     boundary = label in BOUNDARY
-    cpu = Simulation(sc, device="cpu")
+    moe = sc.model == "moe"
+    logs = {k: [] for k in ("cpu stats", "gpu stats", "cpu", "gpu")}
+    with _routing_log(logs["cpu stats"], moe):
+        cpu = Simulation(sc, device="cpu")
     rng0 = cpu.rng.bit_generator.state
-    gpu = Simulation(sc, device="cuda")
+    with _routing_log(logs["gpu stats"], moe):
+        gpu = Simulation(sc, device="cuda")
+    if moe:
+        _routing_parts(f"{label} stats", logs["cpu stats"],
+                       logs["gpu stats"], "f32")
     for f in ("sigma", "delta", "lipschitz"):
         a, r = getattr(gpu.stats, f), getattr(cpu.stats, f)
         rel = float(np.max(np.abs(a - r) / np.abs(r)))
@@ -977,20 +1133,26 @@ def agreement_phase(label: str) -> None:
         check(rel <= tol["stats"], f"{label} stats {f} disagree: {rel:.3e}")
     gpu = Simulation(sc, cpu.stats, device="cuda")
     gpu.rng.bit_generator.state = rng0
-    recs_c = list(cpu.rounds(boundary=boundary))
+    with _routing_log(logs["cpu"], moe):
+        recs_c = list(cpu.rounds(boundary=boundary))
     reset_counts()
     recs_g = []
-    for rec in gpu.rounds(boundary=boundary):
-        torch.cuda.synchronize()
-        launches, plain_calls = read_counts()
-        check(not any(plain_calls.values()),
-              f"{label} round {rec.t}: the plain versions ran on the card: "
-              f"{plain_calls}")
-        if boundary and rec.trained and rec.accuracy is None:
-            check_launched(f"{label} round {rec.t} boundary",
-                           BOUNDARY[label])
-        recs_g.append(rec)
-        reset_counts()
+    with _routing_log(logs["gpu"], moe):
+        for rec in gpu.rounds(boundary=boundary):
+            torch.cuda.synchronize()
+            launches, plain_calls = read_counts()
+            check(not any(plain_calls.values()),
+                  f"{label} round {rec.t}: the plain versions ran on the "
+                  f"card: {plain_calls}")
+            if boundary and rec.trained and rec.accuracy is None:
+                check_launched(f"{label} round {rec.t} boundary",
+                               BOUNDARY[label])
+            recs_g.append(rec)
+            reset_counts()
+    if moe and _routing_parts(f"{label} rounds", logs["cpu"], logs["gpu"],
+                              sc.dtype):
+        tol = {**tol, **{k: max(tol[k], TIE_AGREE[k])
+                         for k in ("params", "losses")}}
     for c, g in zip(recs_c, recs_g):
         check(np.array_equal(c.selected, g.selected)
               and np.array_equal(c.queues, g.queues)
@@ -1058,6 +1220,14 @@ PATHS = {
     "ssm-bf16": (Scenario(model="ssm", rounds=3, eval_every=3,
                           dtype="bf16"),
                  ("ssd_scan_bf16", "ssd_scan_bwd_bf16"), 72_216),
+    # the FL MoE decoder: attention with a GQA repeat of 2 (one KV head),
+    # the MoE FFN in torch (no Pallas kernel in the reference)
+    "moe": (Scenario(model="moe", rounds=3, eval_every=3), FA_NAMES,
+            140_096),
+    "moe-bf16": (Scenario(model="moe", rounds=3, eval_every=3,
+                          dtype="bf16"),
+                 ("flash_attention_bf16", "flash_attention_bwd_bf16"),
+                 140_096),
 }
 # a path's launches of a kernel's forms, in proportion, where its layers
 # fix them: VGG's fc1 and fc2 take the bf16 forward's Hopper form, fc3
@@ -1069,6 +1239,8 @@ FORM_SHARES = {"vgg-bf16": {"fwd_tma_kernel": 2, "fwd_bf16_kernel": 1}}
 ABSENT = {"transformer-bf16": ("flash_attention_bwd_dq_bf16",
                                "flash_attention_bwd_dkdv_bf16"),
           "transformer": ("fwd_short_mma_kernel", "bwd_short_mma_kernel")}
+ABSENT.update({"moe-bf16": ABSENT["transformer-bf16"],
+               "moe": ABSENT["transformer"]})
 
 
 def _print_breakdown(label: str, prof, wall: float) -> None:
@@ -1091,6 +1263,60 @@ def _print_breakdown(label: str, prof, wall: float) -> None:
               f"{key[:60]}")
     print(f"{label} port kernels: {sum(r[0] for r in ours) / 1e3:.3f} ms of "
           f"{busy_s * 1e3:.3f} ms device time")
+
+
+# the MoE FFN's kernels by kind (torch's own: no Pallas kernel in the
+# reference), by a substring of the CUDA kernel's name
+MOE_KINDS = (("sort", ("sort", "Sort", "radix", "Radix")),
+             ("scatter", ("scatter",)), ("gather", ("gather", "index")),
+             ("expert bmm (cuBLAS)", ("gemm", "Gemm", "cutlass", "xmma")))
+
+
+def _moe_breakdown(label: str, sim) -> None:
+    """The MoE FFN alone at the round's shape (the cohort's slots x the
+    widest tier's rows x seq_len tokens, per-slot weights of the first FFN
+    block, in the round's dtype), forward and backward, under
+    torch.profiler: device ms a call by kernel kind, and the calls a
+    round makes (K local steps x MoE layers)."""
+    layout = sim.engine._layout(sim, sim.cohort_capacity)
+    n, b = layout.n_slots, max(layout.tier_widths)
+    cfg = sim.plan.cfg
+    dt = torch.bfloat16 if sim.scenario.dtype == "bf16" else torch.float32
+    blk = sim.plan.block_kinds.index("ffn")
+    w = {k[4:]: v.detach().expand(n, *v.shape).to(dt).requires_grad_()
+         for k, v in sim.params[blk].items() if k.startswith("ffn.")}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(n, b, sim.scenario.seq_len, cfg.d_model, generator=g,
+                    device="cuda").to(dt).requires_grad_()
+
+    def call():
+        y = moe_lib.moe_ffn_slots(x, w, cfg.moe)
+        torch.autograd.grad(y.float().square().sum(), [x, *w.values()])
+    reps = 5
+    wall = time_ms(call, reps=reps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total / reps / 1e3, e.count / reps, e.key)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kinds = {kind: sum(r[0] for r in rows if any(m in r[2] for m in marks))
+             for kind, marks in MOE_KINDS}
+    total = sum(r[0] for r in rows)
+    calls = sim.scenario.k_iters * sum(k == "ffn"
+                                       for k in sim.plan.block_kinds)
+    print(f"{label} moe ffn at ({n} slots, {b} rows, "
+          f"{sim.scenario.seq_len} tokens, d {cfg.d_model}), capacity "
+          f"{moe_lib.capacity(b * sim.scenario.seq_len, cfg.moe)}, forward + "
+          f"backward: {total:.4f} device ms a call ({wall:.4f} ms by CUDA "
+          f"events), {sum(r[1] for r in rows):.1f} launches; by kind "
+          + ", ".join(f"{k} {v:.4f}" for k, v in kinds.items())
+          + f", other {total - sum(kinds.values()):.4f}; {calls} calls a "
+          f"round (K x MoE layers), the statistics pass and evaluation "
+          f"aside")
+    for ms, count, key in sorted(rows, reverse=True)[:8]:
+        print(f"{label} moe ffn kernel {ms:8.4f} ms x{count:<4.1f} "
+              f"{key[:80]}")
 
 
 def path_phase(label: str) -> dict:
@@ -1161,7 +1387,10 @@ def path_phase(label: str) -> dict:
           "non-finite losses")
     acc = records[-1].accuracy
     check(acc is not None and 0.0 <= acc <= 1.0, f"accuracy {acc}")
-    return {k: launches[k] for k in names + forms + absent}
+    out = {k: launches[k] for k in names + forms + absent}
+    if scenario.model == "moe":
+        _moe_breakdown(label, sim)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1650,12 +1879,20 @@ def _control_sizes() -> None:
 
 def _control_simulation(sim) -> None:
     """(c) ``Simulation`` at full width, 2 rounds under ``ddsra_jax`` on the
-    card against the same rounds under ``ddsra``."""
+    card against the same rounds under ``ddsra``, both under
+    ``cudnn.deterministic``: with the same decisions the two runs train
+    alike, where cuDNN's default weight-gradient algorithms (sums by
+    atomics) and relu ties part two identical full-width runs by up to
+    5.3e-3 of a loss in two rounds (H100)."""
     t_start = time.perf_counter()
     reset_counts()
-    oracle = list(sim.reset().rounds("ddsra"))
-    batched = list(sim.reset().rounds("ddsra_jax"))
-    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = True
+    try:
+        oracle = list(sim.reset().rounds("ddsra"))
+        batched = list(sim.reset().rounds("ddsra_jax"))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
     check(len(oracle) == len(batched) == sim.scenario.rounds
           and any(r.trained for r in oracle), "control (c) rounds")
     worst = 0.0
@@ -1791,6 +2028,10 @@ FUSED_BENCH = Scenario(model="mlp", mlp_hidden=(32,), rounds=30,
                                          n_channels=2))
 FUSED_BENCH_PASSES = 3
 FUSED_PROFILED_ROUNDS = 2
+# (g): the bf16 MoE decoder under ddsra_jax; its params must come out
+# bit-identical to the stepwise loop's
+FUSED_MOE = Scenario(model="moe", dtype="bf16", rounds=6, eval_every=3,
+                     policy="ddsra_jax")
 
 
 def _end_state(sim) -> dict:
@@ -1887,10 +2128,11 @@ def _fused_captures(label: str, sim, before: dict) -> dict:
     return got
 
 
-def _fused_vs_stepwise(label: str, sim, tol: dict) -> None:
+def _fused_vs_stepwise(label: str, sim, tol: dict) -> bool:
     """One scenario's stepwise and fused runs from ``reset()``: a fused
     warm run (it captures), then each path timed, then each profiled;
-    held to ``tol`` and printed."""
+    held to ``tol`` and printed. Returns whether the params came out
+    bit-identical."""
     t_start = time.perf_counter()
     policy = sim._resolve_policy(None)       # one plan: captured once
     before = dict(graphs.CAPTURE_COUNTS)
@@ -1927,6 +2169,7 @@ def _fused_vs_stepwise(label: str, sim, tol: dict) -> None:
           f"difference {acc}; accuracies "
           f"{[r.accuracy for r in fused[0] if r.accuracy is not None]}; "
           f"s={time.perf_counter() - t_start:.1f}", flush=True)
+    return same
 
 
 def _fused_indices(sim) -> None:
@@ -2016,7 +2259,8 @@ def fused_phase() -> None:
     its draws on the card against the CPU's; (c) VGG-11 in bf16 under
     ``round_robin``; (d) the bf16 transformer and the f32 SSM; (e)
     fl_round_bench's fused scenario, rounds per second; (f) a checkpoint
-    after a fused block, resumed."""
+    after a fused block, resumed; (g) the bf16 MoE decoder under
+    ``ddsra_jax``, its params bit-identical to the stepwise loop's."""
     reset_counts()
     # the tracer's first window on a process pays its start-up: not in a
     # measured block
@@ -2049,6 +2293,12 @@ def fused_phase() -> None:
         t0 = time.perf_counter()
         _fused_checkpoint(sim)
         print(f"fused (f) s={time.perf_counter() - t0:.1f}", flush=True)
+        t0 = time.perf_counter()
+        check(_fused_vs_stepwise("(g) moe-bf16",
+                                 Simulation(FUSED_MOE, device="cuda"),
+                                 BF16_AGREE),
+              "fused (g): the fused params differ from the stepwise ones")
+        print(f"fused (g) s={time.perf_counter() - t0:.1f}", flush=True)
     finally:
         torch.backends.cudnn.deterministic = False
     launches = check_launched("fused", NAMES + BF16_NAMES + (
@@ -2056,6 +2306,324 @@ def fused_phase() -> None:
         "ssd_scan_bwd"))
     print(f"fused: wrapper launches (warm runs and captures; a replay "
           f"launches through its graph) {launches}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# async phase: the buffered async engine with fault injection
+# ---------------------------------------------------------------------------
+
+# (b), (c): the fault axes at full width, 6 rounds
+ASYNC_FAULTS = dict(churn=0.1, straggler_frac=0.5, straggler_scale=3.0,
+                    buffer_k=2)
+ASYNC_ROUNDS = 6
+# (c)'s second save: a buffer of 4 parks what a round of 3 gateways sends
+ASYNC_PARKED_K = 4
+# (d): benchmarks/fl_round_bench.py's churn point (its _churn_run): churn
+# 0.3, a straggler tail of (0.5, 3.0), the barrier against buffer_k=2,
+# each run until 30 s of simulated time (its fast budget), 400 rounds at
+# most
+CHURN_NET = NetworkConfig(n_gateways=5, n_devices=20, n_channels=3)
+CHURN_BUDGET_S = 30.0
+# (e): the reference's refusal (src/repro/fl/async_engine.py:94-103)
+ASYNC_FUSED_MESSAGE = ("engine 'async' has no fused scan path (buffered "
+                       "aggregation is stateful across rounds); use "
+                       "Simulation.rounds()")
+# the fields the host side of a round decides
+HOST_FIELDS = ("t", "selected", "trained", "l_n", "delay", "cum_delay",
+               "queues", "failures", "aggregations", "staleness_mean",
+               "staleness_max", "stale_discarded", "dropped_devices",
+               "lost_devices", "straggler_devices", "buffer_fill",
+               "inflight")
+
+
+def _same_records(label: str, got, want, fields=HOST_FIELDS) -> None:
+    check(len(got) == len(want), f"{label}: record counts")
+    for a, b in zip(got, want):
+        for name in fields:
+            check(np.array_equal(getattr(a, name), getattr(b, name)),
+                  f"{label} round {a.t}: {name} {getattr(a, name)} != "
+                  f"{getattr(b, name)}")
+
+
+def _timed_rounds(sim, policy="ddsra") -> tuple:
+    """Every remaining round of ``sim``, each timed to a sync."""
+    recs, secs, it = [], [], sim.rounds(policy)
+    while True:
+        t0 = time.perf_counter()
+        rec = next(it, None)
+        torch.cuda.synchronize()
+        if rec is None:
+            return recs, secs
+        secs.append(time.perf_counter() - t0)
+        recs.append(rec)
+
+
+def _telemetry(recs) -> str:
+    return (f"aggregations {[r.aggregations for r in recs]}, staleness max "
+            f"{[r.staleness_max for r in recs]}, discarded "
+            f"{[r.stale_discarded for r in recs]}, buffer "
+            f"{[r.buffer_fill for r in recs]}, in flight "
+            f"{[r.inflight for r in recs]}, dropped "
+            f"{[r.dropped_devices for r in recs]}, stragglers "
+            f"{[r.straggler_devices for r in recs]}, delay "
+            f"{[round(r.delay, 4) for r in recs]}")
+
+
+def _async_parity(cohort) -> None:
+    """(a) No faults, ``buffer_k=None``: the async engine replays the
+    cohort engine from one starting point, round by round. Its FedAvg
+    (per gateway, then over the landed gateways) re-associates the cohort
+    round's sums, and at full width K local steps grow such an ulp into
+    1e-4 of a loss a round later (H100: relu ties), so each round's
+    aggregate is held at 1e-5 and the async engine then continues from
+    the cohort engine's params: the losses come out identical."""
+    sc = dataclasses.replace(FULL_WIDTH, engine="async")
+    asyn = Simulation(sc, cohort.stats, device="cuda")
+    asyn.rng.bit_generator.state = cohort._rng_state0
+    recs_c, recs_a, secs_c, secs_a, errs = [], [], [], [], []
+    it_c, it_a = cohort.rounds("ddsra"), asyn.rounds("ddsra")
+    launched = collections.Counter()
+    for _ in range(sc.rounds):
+        for it, recs, secs in ((it_c, recs_c, secs_c),
+                               (it_a, recs_a, secs_a)):
+            reset_counts()
+            t0 = time.perf_counter()
+            recs.append(next(it))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        # the async engine's round alone
+        launched.update(check_launched(f"async (a) round {recs_a[-1].t}",
+                                       ()))
+        errs.append(max(_leaf_rel_err(a[k], c[k]) for a, c in zip(
+            asyn.params, cohort.params) for k in a))
+        asyn.params = [{k: v.clone() for k, v in p.items()}
+                       for p in cohort.params]
+    check(all(launched[k] > 0 for k in NAMES),
+          f"async (a): a kernel of {NAMES} never launched in the async "
+          f"engine's rounds: {dict(launched)}")
+    _same_records("async (a)", recs_a, recs_c,
+                  ("t", "selected", "trained", "l_n", "queues", "failures",
+                   "aggregations", "losses"))
+    for a, c in zip(recs_a, recs_c):
+        check(abs(a.delay - c.delay) <= 1e-9 * abs(c.delay)
+              and (a.staleness_max, a.stale_discarded, a.buffer_fill,
+                   a.inflight) == (0, 0, 0, 0),
+              f"async (a) round {a.t}: {a} against {c}")
+    check(asyn.rng.bit_generator.state == cohort.rng.bit_generator.state
+          and asyn.net.rng.bit_generator.state
+          == cohort.net.rng.bit_generator.state,
+          "async (a): the RNG streams differ")
+    check(max(errs) <= F32_AGREE["params"],
+          f"async (a): params {errs} apart")
+    check(any(r.trained for r in recs_c), "async (a): nobody trained")
+    print(f"async (a) degenerate parity at full width ({len(recs_c)} "
+          f"rounds): decisions, queues, losses and both RNG streams "
+          f"identical to the cohort engine's, each round's params max rel "
+          f"err {[f'{e:.3e}' for e in errs]}; s a round cohort "
+          f"{[round(x, 4) for x in secs_c]}, async "
+          f"{[round(x, 4) for x in secs_a]}", flush=True)
+
+
+def _async_faulted(stats, rng0) -> object:
+    """(b) The fault axes at full width: the card's rounds, and the same
+    scenario's host side from a narrow CPU run given the full-width
+    workload (the DDSRA costs), record for record."""
+    sc = dataclasses.replace(FULL_WIDTH, engine="async",
+                             rounds=ASYNC_ROUNDS, **ASYNC_FAULTS)
+    sim = Simulation(sc, stats, device="cuda")
+    sim.rng.bit_generator.state = rng0
+    # the engine's landing and buffering on the host clock, and its FedAvg
+    # on the host clock (its launches) and by CUDA events (on the card):
+    # no sync inside the timed rounds, only clock reads and event records
+    spent = {"land": 0.0, "fedavg": 0.0, "events": []}
+    land, fedavg = sim.engine._land_and_aggregate, cohort_lib.buffer_fedavg
+
+    def timed_land(*a, **kw):
+        t0 = time.perf_counter()
+        out = land(*a, **kw)
+        spent["land"] += time.perf_counter() - t0
+        return out
+
+    def timed_fedavg(models, weights):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fedavg(models, weights)
+        end.record()
+        spent["fedavg"] += time.perf_counter() - t0
+        spent["events"].append((start, end, len(models)))
+        return out
+    sim.engine._land_and_aggregate = timed_land
+    cohort_lib.buffer_fedavg = timed_fedavg
+    reset_counts()
+    try:
+        recs, secs = _timed_rounds(sim)
+    finally:
+        del sim.engine._land_and_aggregate
+        cohort_lib.buffer_fedavg = fedavg
+    check_launched("async (b)", NAMES)
+    fedavg_dev = [a.elapsed_time(b) for a, b, _ in spent["events"]]
+    two = [sim.params, [{k: v.clone() for k, v in p.items()}
+                        for p in sim.params]]
+    fedavg_ms = time_ms(lambda: fedavg(two, [1.0, 2.0]), reps=5)
+    narrow = Simulation(dataclasses.replace(sc, width_mult=0.0625), stats,
+                        device="cpu")
+    narrow.workload = sim.workload
+    narrow.rng.bit_generator.state = rng0
+    _same_records("async (b) against the narrow CPU run",
+                  list(narrow.rounds("ddsra")), recs)
+    reset_counts()
+    check(sum(r.dropped_devices + r.straggler_devices for r in recs) > 0,
+          "async (b): no fault fired")
+    check(all(np.all(np.isfinite(r.losses)) for r in recs)
+          and all(bool(torch.isfinite(v).all()) for p in sim.params
+                  for v in p.values()), "async (b): non-finite values")
+    calls = len(fedavg_dev)
+    print(f"async (b) faulted at full width ({ASYNC_FAULTS}, "
+          f"{len(recs)} rounds, no sync inside a round): s a round "
+          f"{[round(x, 4) for x in secs]} (mean {np.mean(secs):.4f}); "
+          f"{_telemetry(recs)}; host ms a round landing and buffering "
+          f"{(spent['land'] - spent['fedavg']) * 1e3 / len(recs):.3f}, "
+          f"buffer_fedavg host ms a call {spent['fedavg'] * 1e3 / calls:.3f}"
+          f" and device ms a call by CUDA events "
+          f"{[round(x, 4) for x in fedavg_dev]} (models a call "
+          f"{[n for _, _, n in spent['events']]}), {fedavg_ms:.3f} ms by "
+          f"CUDA events for 2 full-width models alone; host-side records "
+          f"identical to a narrow CPU run's: True", flush=True)
+    return sim
+
+
+def _async_checkpoint(sim, held: str) -> None:
+    """(c) ``reset()``, rounds until one ends with the engine holding an
+    update where ``held`` says (``"heap"``: in flight; ``"buffer"``: parked
+    in an under-full buffer; a round never ends with both, as the buffer
+    keeps updates only once the heap ran dry), save, resume on the card,
+    and continue both: bit-identical, the resumed rounds on the kernels."""
+    sim.reset()
+    head, it = [], sim.rounds("ddsra")
+    for rec in it:
+        head.append(rec)
+        if (rec.inflight if held == "heap" else rec.buffer_fill) > 0:
+            break
+    saved = (len(sim.engine._pending), len(sim.engine._buffer))
+    check(saved[held == "buffer"] > 0 and head[-1].t < sim.scenario.rounds - 1,
+          f"async (c): no round ended with an update in the {held} before "
+          f"the last: (in flight, parked) {saved}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sim.save(tmp)
+        sim.flush()
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed = Simulation.resume(tmp, device="cuda")
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+    check((len(resumed.engine._pending), len(resumed.engine._buffer))
+          == saved, f"async (c): the resumed engine does not hold {saved}")
+    tail = list(sim.rounds())
+    reset_counts()
+    tail_r = list(resumed.rounds())
+    torch.cuda.synchronize()
+    check_launched(f"async (c) {held} resumed", NAMES)
+    _same_records(f"async (c) {held}", tail_r, tail)
+    check(len(tail) >= 1 and all(np.array_equal(a.losses, b.losses)
+                                 for a, b in zip(tail, tail_r)),
+          f"async (c) {held}: the resumed losses differ")
+    check(all(torch.equal(a[k], b[k]) for a, b in zip(sim.params,
+                                                      resumed.params)
+              for k in a), f"async (c) {held}: the resumed params differ")
+    print(f"async (c) {held}: saved after round {head[-1].t} with (in "
+          f"flight, parked) {saved}, save+flush {save_s:.3f} s, resume "
+          f"{resume_s:.3f} s; rounds {[r.t for r in tail_r]} bit-identical "
+          f"to the uninterrupted run (cudnn.deterministic): True",
+          flush=True)
+
+
+def _async_churn() -> None:
+    """(d) fl_round_bench's churn point, both aggregation modes, from one
+    statistics pass: rounds until 30 s of simulated time, s a round and
+    the mean simulated round delay."""
+    base = Scenario(model="mlp", rounds=1, seed=0, alpha=0.2,
+                    max_dataset=250, net=CHURN_NET)
+    stats = Simulation(base, device="cuda").stats
+    delays = {}
+    for mode, buffer_k in (("sync_barrier", None), ("async_buffered", 2)):
+        sc = dataclasses.replace(base, rounds=400, eval_every=401,
+                                 engine="async", churn=0.3,
+                                 straggler_frac=0.5, straggler_scale=3.0,
+                                 buffer_k=buffer_k)
+        sim = Simulation(sc, stats, device="cuda")
+        recs = []
+        t0 = time.perf_counter()
+        for rec in sim.rounds("ddsra"):
+            recs.append(rec)
+            if rec.cum_delay >= CHURN_BUDGET_S:
+                break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = len(recs)
+        delays[mode] = recs[-1].cum_delay / n
+        check(np.all(np.isfinite(recs[-1].losses)), f"async (d) {mode}")
+        print(f"async (d) churn 0.3, tail (0.5, 3.0), {mode}: {n} rounds "
+              f"in {CHURN_BUDGET_S:.0f} s simulated, s a round "
+              f"{wall / n:.4f}, mean simulated round delay "
+              f"{delays[mode]:.4f} s, loss at budget "
+              f"{float(np.mean(recs[-1].losses)):.4f}, aggregations "
+              f"{sum(r.aggregations for r in recs)}, dropped "
+              f"{sum(r.dropped_devices for r in recs)}, stragglers "
+              f"{sum(r.straggler_devices for r in recs)}, staleness max "
+              f"{max(r.staleness_max for r in recs)}", flush=True)
+    # the bench's own claim at every point: buffering wins on round delay
+    check(delays["async_buffered"] < delays["sync_barrier"],
+          f"async (d): buffered aggregation did not shorten the round: "
+          f"{delays}")
+
+
+def async_phase() -> None:
+    """The buffered async engine on the card, (a)-(c) under
+    ``cudnn.deterministic``: (a) no faults and ``buffer_k=None`` at full
+    width against the cohort engine; (b) the fault axes at full width,
+    against a narrow CPU run's host side; (c) a save with updates in
+    flight and one with updates parked, each resumed; (d) fl_round_bench's
+    churn point; (e) the fused loop's refusal. (a)-(d) each check the
+    launches of their own card rounds."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        cohort = Simulation(FULL_WIDTH, device="cuda")
+        _async_parity(cohort)
+        print(f"async (a) s={time.perf_counter() - t0:.1f}", flush=True)
+        t0 = time.perf_counter()
+        sim = _async_faulted(cohort.stats, cohort._rng_state0)
+        print(f"async (b) s={time.perf_counter() - t0:.1f}", flush=True)
+        t0 = time.perf_counter()
+        _async_checkpoint(sim, "heap")
+        # buffer_k above the 3 gateways a round trains: the first round's
+        # updates park in the buffer
+        parked = Simulation(dataclasses.replace(
+            sim.scenario, buffer_k=ASYNC_PARKED_K, rounds=4), cohort.stats,
+            device="cuda")
+        _async_checkpoint(parked, "buffer")
+        print(f"async (c) s={time.perf_counter() - t0:.1f}", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    reset_counts()
+    t0 = time.perf_counter()
+    _async_churn()
+    check_launched("async (d)", NAMES)
+    print(f"async (d) s={time.perf_counter() - t0:.1f}", flush=True)
+    sim.reset()
+    state = (sim.t, sim.net.rng.bit_generator.state)
+    try:
+        sim.fused_rounds()
+        check(False, "async (e): fused_rounds ran on the async engine")
+    except NotImplementedError as e:
+        check(str(e) == ASYNC_FUSED_MESSAGE, f"async (e): {e}")
+    check((sim.t, sim.net.rng.bit_generator.state) == state,
+          "async (e): the refusal consumed a stream")
+    print("async (e) fused_rounds on the async engine raises the "
+          "reference's message: True", flush=True)
 
 
 def trainer_phase() -> None:
@@ -2109,12 +2677,16 @@ def main() -> int:
     for label in AGREE:
         timed(f"agree {label}", agreement_phase, label)
     for label in PATHS:
-        launches.update(timed(f"path {label}", path_phase, label))
+        # a kernel's launches over every path that runs it (the bf16
+        # attention kernels: transformer-bf16 and moe-bf16)
+        for k, v in timed(f"path {label}", path_phase, label).items():
+            launches[k] = launches.get(k, 0) + v
     for name, phase in (("shop-floor", shop_floor_phase),
                         ("sequential", sequential_phase),
                         ("checkpoint", checkpoint_phase),
                         ("control", control_phase),
                         ("fused", fused_phase),
+                        ("async", async_phase),
                         ("trainer", trainer_phase)):
         timed(name, phase)
 
@@ -2135,5 +2707,24 @@ def main() -> int:
     return 0
 
 
+def _failed(e: BaseException) -> int:
+    """Print the traceback, then every exception of its chain on one
+    line each, the root cause first, where the end of a log shows them (a
+    CUDA graph's capture_end error hides the error that ended the
+    capture)."""
+    traceback.print_exc()
+    chain = []
+    while e is not None and len(chain) < 8:
+        chain.append(f"{type(e).__name__}: {e}".splitlines()[0][:400])
+        e = e.__cause__ or e.__context__
+    for line in reversed(chain):
+        print(f"failed: {line}", file=sys.stderr)
+    return 1
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    except Exception as err:        # noqa: BLE001: reported, exit 1
+        code = _failed(err)
+    sys.exit(code)

@@ -2,8 +2,7 @@
 
 The port's own copy of the dataclasses the token models are built from,
 with the reference's fields and defaults, so a config describes the same
-model in both packages. ``MoEConfig`` is carried as data only: no MoE FFN
-runs in the port yet.
+model in both packages (``MoEConfig`` drives ``repro_torch.models.moe``).
 """
 from __future__ import annotations
 

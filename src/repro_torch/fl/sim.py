@@ -9,10 +9,12 @@
 * **Policy** — any object with ``schedule(ctx) -> RoundDecision``; named
   policies come from the registry in ``repro_torch.core.schedulers``.
 * **Engine** — how a scheduled round is executed: ``CohortEngine`` (one
-  slot-batched round, ``repro_torch.fl.cohort``) or ``SequentialEngine``
-  (the per-device loop, kept as the parity reference). The reference's
-  ``"sharded"`` and ``"async"`` engines are not ported yet (ROADMAP.md M9,
-  M8): naming them raises ``NotImplementedError``.
+  slot-batched round, ``repro_torch.fl.cohort``), ``AsyncCohortEngine``
+  (buffered asynchronous aggregation over the same round, with the fault
+  axes, ``repro_torch.fl.async_engine``) or ``SequentialEngine`` (the
+  per-device loop, kept as the parity reference). The reference's
+  ``"sharded"`` engine is not ported yet (ROADMAP.md M9): naming it
+  raises ``NotImplementedError``.
 
 On top sits :class:`Simulation`: a streaming ``rounds()`` generator yielding
 one :class:`RoundRecord` per round (decision, delay, gateway losses, queue
@@ -53,6 +55,7 @@ import torch
 from repro_torch.checkpoint import store
 from repro_torch.core import costmodel as cm
 from repro_torch.core.ddsra import RoundDecision, Workload
+from repro_torch.core.lyapunov import update_queues_realized
 from repro_torch.core.network import Network, NetworkConfig
 from repro_torch.core.participation import (DataStats, divergence_bound,
                                             participation_rates)
@@ -67,6 +70,7 @@ from repro_torch.fl.data import (CohortLayout, device_resident_stacks,
                                  make_fl_dataset, make_token_fl_dataset,
                                  sample_batch, sample_cohort_batch,
                                  sample_cohort_batch_traced)
+from repro_torch.fl.faults import FaultModel
 from repro_torch.fl.roles import BaseStation, Device, Gateway
 from repro_torch.models import registry as model_registry
 from repro_torch.models.convert import params_from_numpy, params_to_numpy
@@ -77,24 +81,25 @@ from repro_torch.models.convert import params_from_numpy, params_to_numpy
 # ---------------------------------------------------------------------------
 
 
-# models whose Scenario(dtype="bf16") the port runs: VGG's and the MLP's
-# fc layers run the fused linear kernels' bf16 forms, the transformer's
+# models whose Scenario(dtype="bf16") the port runs (the reference's cohort
+# engine takes bf16 for any model): VGG's and the MLP's fc layers run the
+# fused linear kernels' bf16 forms, the transformer's and the MoE model's
 # attention and the SSM's scan the flash-attention and SSD kernels' bf16
 # forms
-BF16_MODELS = ("vgg", "mlp", "transformer", "ssm")
+BF16_MODELS = ("vgg", "mlp", "transformer", "moe", "ssm")
 
 
 @dataclasses.dataclass(frozen=True)
 class Scenario:
     """Frozen, JSON-serializable spec of one FL experiment.
 
-    The reference's fields and defaults. The port runs ``engine="cohort"``
-    and ``"sequential"``, ``data_plane="host"`` on both and ``"traced"``
-    on the cohort engine, with ``dtype="f32"`` for every model and
-    ``dtype="bf16"`` on the cohort engine for the models of
-    ``BF16_MODELS``; the fault axes and ``buffer_k`` belong to
-    the async engine, which is not ported yet (ROADMAP.md M8), and
-    ``mesh_shape`` to the sharded one (M9).
+    The reference's fields and defaults. The port runs ``engine="cohort"``,
+    ``"async"`` and ``"sequential"``, ``data_plane="host"`` on all three
+    and ``"traced"`` on the cohort engines, with ``dtype="f32"`` for every
+    model and ``dtype="bf16"`` on the cohort engines for the models of
+    ``BF16_MODELS``; the fault axes, ``buffer_k`` and the staleness knobs
+    belong to the async engine, ``mesh_shape`` to the sharded one, which
+    is not ported yet (ROADMAP.md M9).
     """
     model: str = "vgg"                 # repro_torch.models.registry key
     width_mult: float = 0.25
@@ -127,11 +132,20 @@ class Scenario:
     # model-upload compression: bits per parameter priced into the DDSRA
     # upload-delay/energy terms (None = the model's native precision)
     upload_bits: Optional[float] = None
+    # fault axes (engine="async" only; repro_torch.fl.faults): per-round,
+    # per-device probabilities of churning offline at dispatch, of losing
+    # the trained update mid-round, and of straggling by an
+    # Exp(mean=straggler_scale) multiplicative delay factor
     churn: float = 0.0
     dropout: float = 0.0
     straggler_frac: float = 0.0
     straggler_scale: float = 0.0
+    # buffered aggregation (engine="async"): aggregate once buffer_k
+    # gateway updates have landed; None = drain the round's whole cohort
+    # first (the barrier in buffered form)
     buffer_k: Optional[int] = None
+    # staleness weight (1 + tau)^(-staleness_alpha); updates older than
+    # max_staleness aggregation versions are discarded (None = keep)
     staleness_alpha: float = 0.5
     max_staleness: Optional[int] = None
     net: NetworkConfig = dataclasses.field(default_factory=NetworkConfig)
@@ -278,7 +292,7 @@ def register_engine(name: str):
 
 
 # the reference's engines that the port has not yet, by ROADMAP.md item
-UNPORTED_ENGINES = {"sharded": "M9", "async": "M8"}
+UNPORTED_ENGINES = {"sharded": "M9"}
 
 
 def make_engine(name: str) -> "Engine":
@@ -295,28 +309,45 @@ def make_engine(name: str) -> "Engine":
 class RoundOutcome:
     """What actually happened when an engine executed a scheduled round.
 
-    A synchronous engine realizes exactly what was scheduled, so the
-    policy's own queue update stands.
+    Synchronous engines realize exactly what was scheduled (``realized``
+    stays ``None``: the policy's own queue update stands); the buffered
+    async engine reports realized completion instead: the time actually
+    advanced (straggler tails included), which gateways' updates actually
+    landed, and the staleness/fault telemetry threaded into
+    :class:`RoundRecord`.
     """
     delay: float                       # realized time advanced this round
     boundary_rms: Optional[np.ndarray] = None
+    # (M,) bool realized participation indicator for the Lyapunov queue
+    # update (lyapunov.update_queues_realized); None = as scheduled
+    realized: Optional[np.ndarray] = None
     aggregations: int = 0
+    staleness_mean: float = 0.0
+    staleness_max: int = 0
+    stale_discarded: int = 0
+    dropped_devices: int = 0
+    lost_devices: int = 0
+    straggler_devices: int = 0
+    buffer_fill: int = 0
+    inflight: int = 0
 
 
 class Engine:
     """Protocol: how a scheduled round is executed on the model.
 
-    The synchronous protocol of the reference's ``Engine``, implemented by
-    ``CohortEngine`` and ``SequentialEngine``. Its async hooks
-    (``inflight_counts``, realized participation) come with the async
-    engine (ROADMAP.md M8), the sharded engine with M9; ``make_engine``
-    raises ``NotImplementedError`` for ``"async"`` and ``"sharded"``.
+    The reference's ``Engine``, implemented by ``CohortEngine``,
+    ``AsyncCohortEngine`` and ``SequentialEngine``; ``make_engine`` raises
+    ``NotImplementedError`` for ``"sharded"`` (ROADMAP.md M9).
     """
     name: str
     # compute dtypes this engine can run the data plane in; Simulation
     # rejects a Scenario whose ``dtype`` the chosen engine cannot honor
     # (silently training in f32 would falsify the priced upload_bits)
     supported_dtypes: Tuple[str, ...] = ("f32",)
+    # whether the engine honors the Scenario fault axes (churn/dropout/
+    # stragglers) and buffer_k; Simulation rejects active fault axes on
+    # engines that would silently train fault-free
+    supports_faults: bool = False
     # whether :meth:`fused_train` runs a whole block of rounds (the fused
     # loop, ``repro_torch.fl.fused_sim``); engines without it are refused
     # before any RNG stream is consumed
@@ -350,6 +381,12 @@ class Engine:
         return RoundOutcome(delay=max(gw_delay.values(), default=0.0),
                             boundary_rms=rms,
                             aggregations=1 if trained else 0)
+
+    def inflight_counts(self, sim: "Simulation") -> Optional[np.ndarray]:
+        """(M,) per-gateway count of dispatched-but-not-landed updates,
+        offered to policies via ``RoundContext.inflight``; synchronous
+        engines have none (``None``)."""
+        return None
 
     def fused_train(self, sim: "Simulation", params, losses0, xs, ys,
                     masks, ls, ws, gws, trained, eval_mask=None):
@@ -756,8 +793,9 @@ class Simulation:
     ``resume`` checkpoint and continue a run, on the cohort or the
     sequential engine; ``sweep`` runs a scheduling sweep on the device;
     ``fused_rounds`` and ``run_fused`` run rounds through the fused loop
-    on the cohort engine. A Scenario naming the async (ROADMAP.md M8) or
-    sharded (M9) engine raises ``NotImplementedError``.
+    on the cohort engine; the async engine runs the fault axes and
+    buffered aggregation stepwise. A Scenario naming the sharded engine
+    (ROADMAP.md M9) raises ``NotImplementedError``.
 
     ``device``: where the data plane runs (``"cuda"`` unless the caller
     passes ``"cpu"``). ``init_params``: numpy params in the reference's
@@ -796,11 +834,16 @@ class Simulation:
             raise ValueError(
                 f"engine {sc.engine!r} samples batches host-side: it "
                 "cannot honor data_plane='traced'; use a cohort engine")
-        if (sc.churn or sc.dropout or sc.straggler_frac
-                or sc.buffer_k is not None):
+        if sc.buffer_k is not None and sc.buffer_k < 1:
+            raise ValueError(f"Scenario.buffer_k must be >= 1 or None, "
+                             f"got {sc.buffer_k}")
+        self.faults = FaultModel.from_scenario(sc)
+        if ((self.faults.active or sc.buffer_k is not None)
+                and not self.engine.supports_faults):
             raise ValueError(
                 f"engine {sc.engine!r} is synchronous: it cannot honor "
-                "fault axes (churn/dropout/stragglers) or buffer_k")
+                f"fault axes (churn/dropout/stragglers) or buffer_k; use "
+                f"engine='async'")
         self.net = Network(sc.net, np.random.default_rng(sc.seed))
         self.rng = np.random.default_rng(sc.seed + 1)
         ncfg = self.net.cfg
@@ -902,8 +945,10 @@ class Simulation:
         ``PRNGKey(run_seed + 2)``, a (2,) int64 tensor (0, run_seed + 2),
         the reference's ``key_data``. One step past the batch-RNG seed
         (``seed + 1``) and the channel-RNG seed (``seed``), so
-        ``reset(seed)`` and resume derive it with no state to save."""
-        return threefry.prng_key(self.run_seed + 2)
+        ``reset(seed)`` and resume derive it with no state to save. On
+        the CPU: the host packing draws with it there, and the fused
+        loop moves it to the device."""
+        return threefry.prng_key(self.run_seed + 2, "cpu")
 
     def restart(self) -> None:
         """Reset the *run* state (round counter, queues, losses, delay) while
@@ -987,8 +1032,10 @@ class Simulation:
         ncfg = self.net.cfg
         t = self.t
         st = self.net.draw()
+        prev_queues = self.queues
         ctx = RoundContext(t, self.workload, self.net, st, self.queues,
-                           self.gamma, sc.v, losses=self.losses.copy())
+                           self.gamma, sc.v, losses=self.losses.copy(),
+                           inflight=self.engine.inflight_counts(self))
         dec: RoundDecision = policy.schedule(ctx)
         self.queues = dec.queues
 
@@ -998,6 +1045,16 @@ class Simulation:
 
         out = self.engine.run_round(self, dec, trained, l_n, gw_delay,
                                     boundary=boundary)
+        # Asynchronous engines report *realized* participation: updates
+        # that actually landed at the server this round (late arrivals
+        # included, churned ones excluded). When it differs from the
+        # schedule, redo Eq. (14) from the pre-decision queues with the
+        # realized indicator; when it matches (every synchronous engine,
+        # and fault-free async rounds) keep the scheduler's own queues.
+        if out.realized is not None and \
+                not np.array_equal(out.realized, dec.selected):
+            self.queues = update_queues_realized(prev_queues, out.realized,
+                                                 self.gamma)
         self.delay_sum += out.delay
         self.t = t + 1
 
@@ -1011,7 +1068,15 @@ class Simulation:
                            queues=self.queues.copy(),
                            losses=self.losses.copy(), failures=failures,
                            boundary_rms=out.boundary_rms, accuracy=acc,
-                           aggregations=out.aggregations)
+                           aggregations=out.aggregations,
+                           staleness_mean=out.staleness_mean,
+                           staleness_max=out.staleness_max,
+                           stale_discarded=out.stale_discarded,
+                           dropped_devices=out.dropped_devices,
+                           lost_devices=out.lost_devices,
+                           straggler_devices=out.straggler_devices,
+                           buffer_fill=out.buffer_fill,
+                           inflight=out.inflight)
 
     def run(self, policy: PolicyLike = None, *,
             boundary: bool = False) -> FLResult:
@@ -1246,3 +1311,8 @@ def _unflatten_like(flat: torch.Tensor, params) -> List[torch.Tensor]:
 
 def _unported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
+
+
+# Registers AsyncCohortEngine under "async" in ENGINES. Must stay at the
+# bottom: it subclasses CohortEngine from this module.
+import repro_torch.fl.async_engine  # noqa: E402,F401

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import resolve_device
+
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
@@ -48,11 +50,12 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
-def prng_key(seed: int, device="cpu") -> torch.Tensor:
-    """``jax.random.PRNGKey(seed)``'s key data: a (2,) int64 tensor."""
+def prng_key(seed: int, device="cuda") -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)``'s key data: a (2,) int64 tensor on
+    ``device`` (the card unless the caller passes ``"cpu"``)."""
     seed = int(seed)
     return torch.tensor([(seed >> 32) & MASK, seed & MASK],
-                        dtype=torch.int64, device=device)
+                        dtype=torch.int64, device=resolve_device(device))
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:

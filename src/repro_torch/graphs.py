@@ -10,6 +10,7 @@ step functions run eagerly.
 """
 from __future__ import annotations
 
+import gc
 from typing import Dict
 
 import torch
@@ -31,7 +32,17 @@ class GraphedStep:
     every call copies its inputs in and replays. The outputs are the
     graph's own buffers: the next call overwrites them, so a caller keeps
     them by copying. A capture that fails raises: no call runs eagerly
-    on CUDA."""
+    on CUDA.
+
+    Nothing outside the step may touch the device while it is captured.
+    Python's cyclic collector could run mid-capture and free a dead
+    object that holds an earlier graph (a finished simulation's), whose
+    teardown ends the capture; so the collector runs before the capture
+    and is held off during it. The capture mode is ``thread_local``, as
+    torch's own captures use: a call another thread makes meanwhile (the
+    profiler's CUPTI thread, a checkpoint writer) does not end it, while
+    an unsafe call on the capturing thread (a host read in the step)
+    still does."""
 
     def __init__(self, fn, key: str):
         self.fn, self.key = fn, key      # key: the CAPTURE_COUNTS entry
@@ -58,8 +69,15 @@ class GraphedStep:
             self.fn(*static_in)
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            static_out = self.fn(*static_in)
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                static_out = self.fn(*static_in)
+        finally:
+            if collecting:
+                gc.enable()
         CAPTURE_COUNTS[self.key] += 1
         return graph, static_in, static_out
 

@@ -6,9 +6,10 @@ Templates mirror the reference's leaf for leaf (shapes, logical axes,
 init kinds), so :func:`repro_torch.models.params.init_params` draws the
 same structure. The building blocks are slot-batched: activations are
 ``(S, B, seq, D)`` and every weight is per slot (a leading ``S`` axis; a
-stride-0 expanded view when shared). The encoder-decoder path, qkv
-biases, qk-norm, the MoE FFN and the LLM stack's forward are not ported
-yet: their templates raise (ROADMAP.md).
+stride-0 expanded view when shared); the FFN is SwiGLU or the MoE FFN
+(``repro_torch.models.moe``), whose routing groups are per slot. The
+encoder-decoder path, qkv biases, qk-norm and the LLM stack's forward
+come with the LLM side (ROADMAP.md M11): their templates raise.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import apply_rope, slot_mm, swiglu
+from repro_torch.models.moe import moe_ffn_slots
 from repro_torch.models.params import PSpec
 
 
@@ -37,7 +39,8 @@ def n_units(cfg: ArchConfig) -> int:
 def _attn_template(cfg: ArchConfig, u: int) -> Dict[str, PSpec]:
     if cfg.qkv_bias or cfg.qk_norm:
         raise NotImplementedError("qkv biases and qk-norm are not ported "
-                                  "yet (no FL config uses them)")
+                                  "yet (no FL config uses them; "
+                                  "ROADMAP.md M11)")
     d, hd = cfg.d_model, cfg.hd
     nh, kv = cfg.n_heads, cfg.n_kv_heads
     return {
@@ -55,8 +58,17 @@ def _ffn_template(cfg: ArchConfig, u: int,
     d, f = cfg.d_model, cfg.d_ff
     moe = cfg.moe
     if moe is not None and layer_in_unit % moe.every_n == moe.every_n - 1:
-        raise NotImplementedError("the MoE FFN (models/moe.py) is not "
-                                  "ported yet; see ROADMAP.md")
+        e = moe.n_experts
+        # expert weights get their own logical axes, as in the reference
+        return {
+            "router": PSpec((u, d, e), ("layers", "embed", None), "small"),
+            "w1": PSpec((u, e, d, f), ("layers", "experts", "moe_d",
+                                       "moe_f")),
+            "w3": PSpec((u, e, d, f), ("layers", "experts", "moe_d",
+                                       "moe_f")),
+            "w2": PSpec((u, e, f, d), ("layers", "experts", "moe_f",
+                                       "moe_d")),
+        }
     return {
         "w1": PSpec((u, d, f), ("layers", "embed", "mlp")),
         "w3": PSpec((u, d, f), ("layers", "embed", "mlp")),
@@ -104,7 +116,7 @@ def build_template(cfg: ArchConfig) -> Dict[str, Any]:
     """The decoder-only model's template (encoder-decoder configs raise)."""
     if cfg.enc_layers:
         raise NotImplementedError("encoder-decoder templates are not ported "
-                                  "yet (ROADMAP.md)")
+                                  "yet (ROADMAP.md M11)")
     d = cfg.d_model
     t: Dict[str, Any] = {
         "embed": PSpec((cfg.vocab, d), ("vocab", "embed"), "embed"),
@@ -132,7 +144,11 @@ def _proj_qkv(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ArchConfig,
 
 def _ffn_apply(x: torch.Tensor, p: Dict[str, torch.Tensor],
                cfg: ArchConfig) -> torch.Tensor:
-    """SwiGLU FFN on x (S, B, seq, D), one batched product per slot."""
+    """The FFN on x (S, B, seq, D): the MoE FFN where the block has a
+    router (each slot its own routing groups), else SwiGLU, one batched
+    product per slot."""
+    if "router" in p:
+        return moe_ffn_slots(x, p, cfg.moe)
     s, d = x.shape[0], x.shape[-1]
     y = swiglu(x.reshape(s, -1, d), p["w1"], p["w3"], p["w2"])
     return y.reshape(x.shape)

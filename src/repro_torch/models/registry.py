@@ -1,7 +1,7 @@
 """FL split-model registry: name -> builder producing the ``(SplitModel,
 params, layer costs)`` triple the FL simulation consumes (port of the FL
-half of ``repro.models.registry``: ``vgg``, ``mlp``, ``transformer`` and
-``ssm``; ``moe`` waits for the MoE FFN)."""
+half of ``repro.models.registry``: ``vgg``, ``mlp``, ``transformer``,
+``moe`` and ``ssm``)."""
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Tuple
@@ -54,6 +54,13 @@ def _build_transformer(generator, spec, device):
     from repro_torch.models import split_model as sm
     model = sm.SeqSplitModel(sm.FL_TRANSFORMER,
                              seq_len=getattr(spec, "seq_len", 32))
+    return model, model.init(generator, device), model.layer_costs()
+
+
+@register_fl_model("moe")
+def _build_moe(generator, spec, device):
+    from repro_torch.models import split_model as sm
+    model = sm.SeqSplitModel(sm.FL_MOE, seq_len=getattr(spec, "seq_len", 32))
     return model, model.init(generator, device), model.layer_costs()
 
 

@@ -18,7 +18,10 @@ x ``(S, B, ...)``, each weight shared or per slot, see
 ``repro_torch.models.vgg``); ``forward_range``/``forward`` are the
 single-model forms. Families: the layer-list models (VGG-11, MLP) and
 :class:`SeqSplitModel` over a decoder-only ``ArchConfig`` (the FL
-transformer and the FL Mamba-2; a MoE FFN is not ported yet).
+transformer, the FL MoE decoder and the FL Mamba-2). The MoE FFN routes
+each slot's tokens as one group (``repro_torch.models.moe``), as the
+reference's vmap over slots does; ``accuracy`` routes each 256-row chunk
+as one, the last chunk unpadded.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ArchConfig, SSMConfig
+from repro_torch.configs.base import ArchConfig, MoEConfig, SSMConfig
 from repro_torch.core import costmodel as cm
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -367,6 +370,12 @@ FL_TRANSFORMER = ArchConfig(
     name="fl-transformer", family="dense", n_layers=2, d_model=64,
     n_heads=2, n_kv_heads=2, d_ff=128, vocab=128,
     source="smoke-size GQA decoder for FL split training")
+
+FL_MOE = ArchConfig(
+    name="fl-moe", family="moe", n_layers=2, d_model=64,
+    n_heads=2, n_kv_heads=1, d_ff=64, vocab=128,
+    moe=MoEConfig(n_experts=4, top_k=2),
+    source="smoke-size MoE decoder for FL split training")
 
 FL_SSM = ArchConfig(
     name="fl-ssm", family="ssm", n_layers=2, d_model=64,

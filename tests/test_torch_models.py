@@ -213,5 +213,10 @@ def test_registry_builds_seeded_models():
         assert torch.equal(a, b)
     model, params, _ = registry.build_fl_model("mlp", g, Spec, "cpu")
     assert model.sizes == (3072, 32, 16, 10)
+    # every FL model the reference registers builds (moe since M5's FL
+    # item); an unknown name raises
+    model, _, costs = registry.build_fl_model("moe", g, Spec, "cpu")
+    assert model.cfg is sm.FL_MOE and model.seq_len == 32
+    assert len(costs) == model.n_blocks
     with pytest.raises(KeyError):
-        registry.build_fl_model("moe", g, Spec, "cpu")
+        registry.build_fl_model("nope", g, Spec, "cpu")

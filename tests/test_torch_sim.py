@@ -121,25 +121,40 @@ def test_scenario_json_interchange():
 
 
 def test_unported_options_raise():
+    """What the port refuses, with the reference's errors: the traced plane
+    on the sequential engine, fault axes on a synchronous engine (they run
+    on ``engine="async"``, which builds now) and the sharded engine."""
     for kw, err, match in (
             (dict(data_plane="traced", engine="sequential"), ValueError,
              "cannot honor data_plane='traced'"),
             (dict(churn=0.1), ValueError, "synchronous"),
-            (dict(engine="sharded"), NotImplementedError, "ROADMAP.md M9"),
-            (dict(engine="async"), NotImplementedError, "ROADMAP.md M8")):
+            (dict(engine="sharded"), NotImplementedError, "ROADMAP.md M9")):
         with pytest.raises(err, match=match):
             sim.Simulation(sim.Scenario(**SC, **kw), device="cpu")
+    s = sim.Simulation(sim.Scenario(**SC, engine="async", churn=0.1),
+                       device="cpu")
+    assert s.engine.name == "async" and s.faults.active
 
 
-@pytest.mark.parametrize("name,item", [("sharded", "M9"), ("async", "M8")])
+@pytest.mark.parametrize("name,item", [("sharded", "M9")])
 def test_unported_engines_raise_naming_their_item(name, item):
-    """F5: the reference registers these engines; the port names the
-    ROADMAP.md item that ports each, not an unknown name."""
+    """F5: the reference registers this engine; the port names the
+    ROADMAP.md item that ports it, not an unknown name."""
     assert name in ref_sim.ENGINES
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         sim.make_engine(name)
     with pytest.raises(ValueError, match="unknown engine"):
         sim.make_engine("nope")
+
+
+def test_every_reference_engine_but_sharded_is_registered():
+    """The async engine (M8) is ported: every engine the reference
+    registers is the port's too, but ``"sharded"`` (M9)."""
+    assert set(ref_sim.ENGINES) - set(sim.ENGINES) == {"sharded"}
+    assert sim.UNPORTED_ENGINES == {"sharded": "M9"}
+    eng = sim.make_engine("async")
+    assert eng.supports_faults and not eng.supports_fused
+    assert not sim.make_engine("cohort").supports_faults
 
 
 def test_engine_api_matches_reference(reference):

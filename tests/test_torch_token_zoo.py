@@ -214,8 +214,17 @@ def test_registry_builds_token_models_seeded():
         assert len(costs) == model.n_blocks == len(params)
         for a, b in zip(split.leaves(params), split.leaves(again)):
             assert torch.equal(a, b)
+    # the MoE model builds seeded too; an unknown name raises
+    model, params, costs = registry.build_fl_model(
+        "moe", torch.Generator().manual_seed(0), Spec, "cpu")
+    again = registry.build_fl_model(
+        "moe", torch.Generator().manual_seed(0), Spec, "cpu")[1]
+    assert isinstance(model, sm.SeqSplitModel) and model.cfg is sm.FL_MOE
+    assert len(costs) == model.n_blocks == len(params)
+    for a, b in zip(split.leaves(params), split.leaves(again)):
+        assert torch.equal(a, b)
     with pytest.raises(KeyError):
-        registry.build_fl_model("moe", torch.Generator(), Spec, "cpu")
+        registry.build_fl_model("nope", torch.Generator(), Spec, "cpu")
     if not torch.cuda.is_available():
         # the default device is the card: asking for it without one raises
         with pytest.raises(RuntimeError):

@@ -10,8 +10,8 @@ prefix property across widths), ``Simulation.data_key``,
 ``device_resident_stacks``, ``sample_cohort_batch_traced`` (valid rows
 byte-identical, masks and ``slot_of`` identical) and
 ``CohortEngine._pack_round_meta``, on ``tests/test_fused_sim.py``'s small
-MLP network. Also F9: ``ChannelStateT.of`` and ``stack_states`` default to
-the card.
+MLP network. Also F9 and F11: ``ChannelStateT.of``, ``stack_states`` and
+``threefry.prng_key`` default to the card.
 """
 import jax
 import jax.experimental
@@ -57,7 +57,7 @@ def test_threefry_matches_jax_random():
     broadcast over a batch of keys at once."""
     seeds = [0, 2, 9, 77, 2 ** 31 + 5]
     datas = [0, 1, 17, 2 ** 32 - 1]
-    keys = torch.stack([threefry.prng_key(s) for s in seeds])
+    keys = torch.stack([threefry.prng_key(s, "cpu") for s in seeds])
     for s, k in zip(seeds, keys):
         assert np.array_equal(
             k.numpy(), np.asarray(jax.random.key_data(jax.random.PRNGKey(s))))
@@ -82,7 +82,7 @@ def test_traced_batch_indices_grid(seed):
     (50, 50), (7, 120)} at widths inside and past the pool, each device
     drawn alone and all three in one vectorized call."""
     devs = [0, 1, 11]
-    key = threefry.prng_key(seed)
+    key = threefry.prng_key(seed, "cpu")
     for t in (0, 3, 17):
         for pool, l_max in ((40, 50), (50, 50), (7, 120)):
             for width in sorted({1, min(pool, 5), pool, l_max}):
@@ -111,8 +111,9 @@ def test_traced_batch_indices_property():
     def prop(seed, t, dev, l_max, more):
         pool = more.draw(st.integers(1, l_max))
         width = more.draw(st.integers(1, l_max))
-        got = data.traced_batch_indices(threefry.prng_key(seed), t, dev,
-                                        pool, width, l_max).numpy()
+        key = threefry.prng_key(seed, "cpu")
+        got = data.traced_batch_indices(key, t, dev, pool, width,
+                                        l_max).numpy()
         assert np.array_equal(got, _ref_indices(seed, t, dev, pool, width,
                                                 l_max))
         # without replacement, valid positions first, then the padding in
@@ -122,8 +123,8 @@ def test_traced_batch_indices_property():
         assert np.array_equal(got[pool:], np.arange(pool, width))
         narrow = more.draw(st.integers(1, width))
         assert np.array_equal(
-            data.traced_batch_indices(threefry.prng_key(seed), t, dev, pool,
-                                      narrow, l_max).numpy(), got[:narrow])
+            data.traced_batch_indices(key, t, dev, pool, narrow,
+                                      l_max).numpy(), got[:narrow])
 
     prop()
 
@@ -202,3 +203,14 @@ def test_channel_state_lifts_default_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         network.stack_states([st])
     assert network.stack_states([st], device="cpu").h_up.device.type == "cpu"
+
+
+def test_prng_key_defaults_to_the_card():
+    """F11: like every entry point of the port, ``threefry.prng_key`` asks
+    for the card unless the caller passes ``"cpu"``; ``data_key``, the
+    host oracle's key, asks for the CPU explicitly."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        threefry.prng_key(3)
+    assert threefry.prng_key(3, "cpu").tolist() == [0, 3]
