@@ -163,7 +163,23 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
    aggregation modes, s a round and mean simulated round delay; (e)
    ``fused_rounds`` refused with the reference's message; (a)-(c) under
    ``cudnn.deterministic``; (a), (b), the resumed rounds of (c) and (d)
-   each check their own launches) and
+   each check their own launches), ``sharded`` (the sharded cohort engine
+   on ``torch.distributed``, under ``cudnn.deterministic``: (a) a one-rank
+   NCCL mesh (``device_id`` set at init) against the cohort engine in
+   lockstep over 3 full-width VGG-11 f32 rounds at ten-fold energy
+   arrivals, decisions identical, params at 1e-5, s a round each, the
+   last sharded round profiled for its all-reduce (host op, NCCL kernels
+   and their device ms) and its launches, which count as a path's; (b)
+   ``fused_rounds`` under it, a round two graphs around its eager
+   all-reduce, the params bit-identical to its stepwise loop, one capture
+   of each graph; (c) two gloo ranks on the one card (spawned; the parent
+   built the kernels, the ranks load them), each round from (a)'s cohort
+   params: the statistics pass at rtol 1e-4, decisions identical, losses
+   and params at 1e-5, or at TIE_AGREE where a rank's half-size launches
+   compute the first local step other than the whole's (every differing
+   relu decision a tie), the reduction alone on random slot params at
+   KERNEL_RTOL, the ranks' params bit-identical, and the round's
+   all-reduce alone, wall ms) and
    ``trainer`` (``FLTrainer(FLConfig(model="mlp", rounds=2,
    boundary_telemetry=True)).run("ddsra")``). Each of them but
    ``control`` must launch the f32 fused linear kernels and no plain
@@ -196,6 +212,8 @@ os.environ.setdefault("TEARDOWN_CUPTI", "0")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+import torch.multiprocessing as mp  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
@@ -2626,6 +2644,430 @@ def async_phase() -> None:
           "reference's message: True", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# sharded phase: the sharded cohort engine on torch.distributed
+# ---------------------------------------------------------------------------
+
+# (a): full-width VGG-11 f32, ten-fold energy arrivals, the cohort and the
+# sharded engine in lockstep; rounds 1-2 timed, round 3 profiled
+SHARDED = dataclasses.replace(FULL_WIDTH, rounds=3, eval_every=3)
+# (b): the fused loop under the sharded engine, stepwise against fused
+SHARDED_FUSED = dataclasses.replace(FUSED_VGG, rounds=4, eval_every=2,
+                                    engine="sharded")
+# (c): gloo ranks on the one card (NCCL refuses two ranks on one GPU), the
+# statistics pass and SHARDED_GLOO_ROUNDS rounds, joined within the limit
+SHARDED_RANKS = 2
+SHARDED_GLOO_ROUNDS = 2
+SHARDED_RANK_LIMIT_S = 300
+ALLREDUCE_REPS = 3
+
+
+def _params_rel_err(got, want) -> float:
+    """The largest per-leaf relative difference (of the leaf's largest
+    |want|) between two param lists."""
+    return max(_leaf_rel_err(g[k], w[k]) for g, w in zip(got, want)
+               for k in w)
+
+
+def _same_decisions(label: str, a, b) -> None:
+    check(a.t == b.t and np.array_equal(a.selected, b.selected)
+          and a.trained == b.trained and np.array_equal(a.l_n, b.l_n)
+          and a.delay == b.delay and np.array_equal(a.queues, b.queues),
+          f"{label} round {a.t}: decisions differ")
+
+
+def _allreduce_seen(prof) -> tuple:
+    """(host all_reduce calls, NCCL device kernels, their device ms) in a
+    profile."""
+    rows = prof.key_averages()
+    host = sum(e.count for e in rows if e.device_type == DeviceType.CPU
+               and ("allreduce" in e.key or "all_reduce" in e.key))
+    nccl = [e for e in rows if e.device_type == DeviceType.CUDA
+            and "nccl" in e.key.lower()]
+    return (host, sum(e.count for e in nccl),
+            sum(e.self_device_time_total for e in nccl) / 1e3)
+
+
+def _sharded_lockstep() -> tuple:
+    """(a) The sharded engine on a one-rank NCCL mesh against the cohort
+    engine, round by round from one starting point: decisions identical,
+    losses and params at 1e-5 (whether bit-identical printed), s a round
+    each, the last sharded round profiled (the all-reduce on the host and
+    on the card, the f32 fused linear kernels launched). Returns (its
+    launches, the cohort run's records and params after each round, the
+    cohort simulation: (c) holds its ranks against them)."""
+    cohort = Simulation(SHARDED, device="cuda")
+    sharded = Simulation(dataclasses.replace(SHARDED, engine="sharded"),
+                         cohort.stats, device="cuda")
+    sharded.rng.bit_generator.state = cohort._rng_state0
+    mesh = sharded.engine._mesh(sharded)
+    check(mesh.size == 1 and mesh.group is not None,
+          f"sharded (a): mesh {mesh}")
+    launches = collections.Counter()
+    it_c, it_s = cohort.rounds(), sharded.rounds()
+    kept, s_c, s_s, worst, same = [], [], [], 0.0, True
+    seen = None
+    for t in range(SHARDED.rounds):
+        t0 = time.perf_counter()
+        rec_c = next(it_c)
+        torch.cuda.synchronize()
+        s_c.append(time.perf_counter() - t0)
+        kept.append((rec_c, [{k: v.clone() for k, v in p.items()}
+                             for p in cohort.params]))
+        reset_counts()
+        profiled = t == SHARDED.rounds - 1
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) if profiled \
+            else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with prof:
+            rec_s = next(it_s)
+            torch.cuda.synchronize()
+        s_s.append(time.perf_counter() - t0)
+        got, plain = read_counts()
+        check(not any(plain.values()),
+              f"sharded (a): the plain versions ran on the card: {plain}")
+        launches.update(got)
+        if profiled:
+            seen = _allreduce_seen(prof)
+        _same_decisions("sharded (a)", rec_c, rec_s)
+        check(float(np.abs(rec_s.losses - rec_c.losses).max())
+              <= F32_AGREE["losses"],
+              f"sharded (a) round {t}: losses {rec_s.losses} != "
+              f"{rec_c.losses}")
+        worst = max(worst, _params_rel_err(sharded.params, cohort.params))
+        same = same and all(torch.equal(a[k], b[k]) for a, b in zip(
+            sharded.params, cohort.params) for k in a)
+    check(worst <= F32_AGREE["params"],
+          f"sharded (a): params {worst:.3e} apart")
+    check(all(launches[k] > 0 for k in NAMES),
+          f"sharded (a): a kernel of {NAMES} never launched: {launches}")
+    host, nccl, nccl_ms = seen
+    check(host >= 1, "sharded (a): no all_reduce in the profiled round")
+    print(f"sharded (a) nccl world 1, full-width vgg f32, {SHARDED.rounds} "
+          f"rounds in lockstep: decisions identical, params max rel diff "
+          f"{worst:.3e} (bit-identical: {same}); s a round cohort "
+          f"{[round(x, 4) for x in s_c]}, sharded "
+          f"{[round(x, 4) for x in s_s]} (the last profiled); profiled "
+          f"round: host all_reduce calls {host}, NCCL kernels {nccl} "
+          f"({nccl_ms:.4f} device ms); fused linear launches "
+          f"{ {k: launches[k] for k in NAMES} }", flush=True)
+    return dict(launches), kept, cohort
+
+
+def _sharded_fused() -> None:
+    """(b) ``fused_rounds`` under the sharded engine on the one-rank NCCL
+    mesh: a round is two graphs around its eager all-reduce; the params
+    bit-identical to the stepwise sharded run; captured once each."""
+    sim = Simulation(SHARDED_FUSED, device="cuda")
+    policy = sim._resolve_policy(None)
+    before = dict(graphs.CAPTURE_COUNTS)
+    warm = _block(sim, policy, fused=True)
+    step = _block(sim, policy, fused=False)
+    fused = _block(sim, policy, fused=True)
+    same, worst, acc = _hold_fused("sharded (b)", (step[0], step[2]),
+                                   (fused[0], fused[2]), F32_AGREE)
+    captures = {k: graphs.CAPTURE_COUNTS[k] - before[k]
+                for k in ("train_local", "train_finish", "train_scan",
+                          "eval")}
+    check(captures == {"train_local": 1, "train_finish": 1, "train_scan": 0,
+                       "eval": 1}, f"sharded (b): captures {captures}")
+    check(same, f"sharded (b): fused params {worst:.3e} from stepwise")
+    rounds = SHARDED_FUSED.rounds
+    print(f"sharded (b) fused loop, nccl world 1, {rounds} rounds: params "
+          f"bit-identical to stepwise: {same}; s a round stepwise "
+          f"{step[1] / rounds:.4f}, fused {fused[1] / rounds:.4f} "
+          f"(capturing block {warm[1] / rounds:.4f}); captures {captures}; "
+          f"max accuracy difference {acc}", flush=True)
+
+
+def _gloo_rank(rank: int, world: int, init: str, out_dir: str,
+               stats: dict) -> None:
+    """(c) One gloo rank on the card: the sharded engine's statistics pass
+    (from the batch stream's point after the parent's) and its rounds
+    from the parent's statistics, each round from the parent's cohort
+    params before it (``params.pt``: an ulp of FedAvg re-association
+    grows to about 1e-4 of a loss a round later, as the async phase's
+    parity found, so each round's aggregate is held alone); its results, each
+    round's largest relative param difference from the parent's, its
+    launches, each round's seconds and the round's all-reduce alone go to
+    ``out_dir``."""
+    from repro_torch.core.participation import DataStats
+    from repro_torch.fl import shard
+    from repro_torch.fl.split import leaves
+    from repro_torch.sharding import cohort_mesh
+    for mod in (kernel, fa_kernel, ssd_kernel):
+        mod.library()                   # built by the parent: loads
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        sim = Simulation(dataclasses.replace(
+            SHARDED, engine="sharded", rounds=SHARDED_GLOO_ROUNDS),
+            DataStats(**stats), device="cuda")
+        reset_counts()
+        t0 = time.perf_counter()
+        est = sim.estimate_stats()
+        stats_s = time.perf_counter() - t0
+        cohort_params = torch.load(os.path.join(out_dir, "params.pt"))
+        recs, secs, errs, abs_errs = [], [], [], []
+        it = sim.rounds()
+        for t in range(SHARDED_GLOO_ROUNDS):
+            sim.params = [{k: v.to("cuda") for k, v in p.items()}
+                          for p in cohort_params[t]]
+            t0 = time.perf_counter()
+            recs.append(next(it))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            got = [{k: v.cpu() for k, v in p.items()} for p in sim.params]
+            errs.append(_params_rel_err(got, cohort_params[t + 1]))
+            abs_errs.append(max(float((g[k] - w[k]).abs().max())
+                                for g, w in zip(got, cohort_params[t + 1])
+                                for k in w))
+        launches, plain = read_counts()
+        # the round's one all-reduce alone: its buffer's size
+        layout = sim.engine._layout(sim, sim.cohort_capacity)
+        n = (sum(v.numel() for v in leaves(sim.params)) + 1
+             + 2 * sim.net.cfg.n_gateways + layout.n_slots)
+        buf = torch.ones(n, device="cuda")
+        mesh = cohort_mesh()
+        ms = []
+        for _ in range(ALLREDUCE_REPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mesh.all_reduce(buf)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        del buf
+        reduction = _reduction_alone(sim, layout.n_slots, mesh, shard)
+        torch.save(dict(
+            stats={f: getattr(est, f) for f in ("sigma", "delta",
+                                                "lipschitz")},
+            records=recs, secs=secs, stats_s=stats_s, errs=errs,
+            abs_errs=abs_errs,
+            reduction=reduction,
+            params=[{k: v.cpu() for k, v in p.items()} for p in sim.params],
+            launches=launches, plain=plain, allreduce_ms=ms[1:],
+            allreduce_mb=n * 4 / 1e6, block=[mesh.block(s) for s in
+                                              layout.tier_slots]),
+            os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _reduction_alone(sim, n_slots: int, mesh, shard) -> float:
+    """The round's reduction alone on a rank: seeded random per-slot
+    params of the model's shapes, weights and gateways for every slot (the
+    same on every rank), this rank's block's FedAvg sums reduced over the
+    mesh (``shard._fedavg_allreduce``) and finished, against the FedAvg of
+    every slot on the one device. Returns the largest relative difference
+    (per leaf of the global model and of the gateway losses)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    m = sim.net.cfg.n_gateways
+    finals = [{k: torch.randn((n_slots, *v.shape), generator=g,
+                              device="cuda") for k, v in p.items()}
+              for p in sim.params]
+    w = torch.rand(n_slots, generator=g, device="cuda") * 100
+    losses = torch.rand(n_slots, generator=g, device="cuda")
+    gw = torch.nn.functional.one_hot(
+        torch.randint(0, m, (n_slots,), generator=g, device="cuda"),
+        m).float()
+    blk = mesh.block(n_slots)
+    mine = cohort_lib.fedavg_partials(
+        [{k: v[blk] for k, v in p.items()} for p in finals], w[blk],
+        losses[blk], gw[blk])
+    summed, _ = shard._fedavg_allreduce(
+        mesh, mine, (), torch.zeros(0, dtype=torch.long, device="cuda"), 0)
+    shapes = cohort_lib._shapes(sim.params)
+    got = cohort_lib.fedavg_finish(summed, sim.params, shapes, m)
+    want = cohort_lib.fedavg_finish(
+        cohort_lib.fedavg_partials(finals, w, losses, gw), sim.params,
+        shapes, m)
+    return max(_params_rel_err(got[0], want[0]),
+               _leaf_rel_err(got[1], want[1]))
+
+
+def _halves_ties(sim, kept) -> tuple:
+    """The first local step of the first round, every slot at once against
+    each rank's block alone, from the global params (``sim``: (a)'s
+    cohort simulation, whose first round it packs again from its starting
+    point). Returns (largest relative difference of a block output, relu
+    decisions that differ, largest value at one, largest relative
+    difference of a slot's gradient, per leaf); each differing decision
+    must be a tie (within KERNEL_RTOL of the block's scale). A rank's
+    convolutions and fused linear launches over half the slots may take
+    another cuDNN algorithm or kernel plan than the whole's: where the
+    step differs, the rounds part by more than the reduction's order."""
+    rec0 = kept[0][0]
+    sim.reset()
+    _, batch, _, _, _ = sim.engine._pack_round(sim, rec0.trained, rec0.l_n)
+    tier = batch.tiers[0]
+    xs, ys, masks = (torch.as_tensor(np.asarray(a), device="cuda")
+                     for a in (tier.x, tier.y, tier.mask))
+    xs = sim.plan.prepare_inputs(xs)
+    n = xs.shape[0]
+    slots = [{k: v.expand(n, *v.shape).contiguous() for k, v in p.items()}
+             for p in sim.params]
+    worst, flips, tie_max, grad_worst = 0.0, 0, 0.0, 0.0
+    per = n // SHARDED_RANKS
+    whole_g = cohort_lib._slot_grads(sim.plan, slots, xs, ys, masks,
+                                     per_slot=True)
+    with torch.no_grad():
+        whole = sim.plan.activations_slots(slots, xs)
+    for r in range(SHARDED_RANKS):
+        blk = slice(r * per, (r + 1) * per)
+        mine = [{k: v[blk] for k, v in p.items()} for p in slots]
+        part_g = cohort_lib._slot_grads(sim.plan, mine, xs[blk], ys[blk],
+                                        masks[blk], per_slot=True)
+        grad_worst = max(grad_worst, max(
+            _leaf_rel_err(g, w[blk]) for g, w in zip(part_g, whole_g)))
+        with torch.no_grad():
+            part = sim.plan.activations_slots(mine, xs[blk])
+        for a, o in zip(part[1:], whole[1:]):
+            o = o[blk]
+            scale = float(o.abs().max())
+            worst = max(worst, float((a - o).abs().max()) / scale)
+            differ = (a == 0) != (o == 0)
+            if bool(differ.any()):
+                flips += int(differ.sum())
+                tie = float(torch.maximum(a, o)[differ].max())
+                tie_max = max(tie_max, tie)
+                check(tie <= KERNEL_RTOL * scale,
+                      f"sharded (c): a relu decision differs at {tie:.3e} "
+                      f"(scale {scale:.3e}): not a tie")
+    return worst, flips, tie_max, grad_worst
+
+
+def _sharded_gloo(cohort, kept) -> None:
+    """(c) SHARDED_RANKS gloo ranks on the one card against the parent's
+    cohort rounds of (a), each round from the same params: statistics at
+    TIE_AGREE's rtol, decisions identical, each round's losses and params
+    at 1e-5, or losses and the params' largest difference at TIE_AGREE
+    (as ``shop_floor_phase`` holds them) where the ranks' half-size
+    launches compute the first step other than the whole's
+    (:func:`_halves_ties`: every differing relu decision must be a tie);
+    the reduction alone (:func:`_reduction_alone`) at KERNEL_RTOL whatever
+    the launches do."""
+    stats = cohort.stats
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save([[{k: v.cpu() for k, v in p.items()} for p in params]
+                     for params in [cohort._init_params]
+                     + [p for _, p in kept[:SHARDED_GLOO_ROUNDS]]],
+                    os.path.join(tmp, "params.pt"))
+        ctx = mp.start_processes(
+            _gloo_rank, args=(SHARDED_RANKS, f"file://{tmp}/init", tmp,
+                              {f.name: np.asarray(getattr(stats, f.name))
+                               for f in dataclasses.fields(stats)}),
+            nprocs=SHARDED_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + SHARDED_RANK_LIMIT_S
+        try:
+            while not ctx.join(timeout=1.0):
+                check(time.monotonic() < deadline,
+                      f"sharded (c): the ranks ran past "
+                      f"{SHARDED_RANK_LIMIT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=False)
+                for r in range(SHARDED_RANKS)]
+    worst_step, flips, tie_max, grad_step = _halves_ties(cohort, kept)
+    errs = []
+    for r, out in enumerate(outs):
+        check(not any(out["plain"].values()),
+              f"sharded (c) rank {r}: plain versions ran")
+        check(all(out["launches"][k] > 0 for k in NAMES),
+              f"sharded (c) rank {r}: launches {out['launches']}")
+        for f in ("sigma", "delta", "lipschitz"):
+            got, want = out["stats"][f], getattr(stats, f)
+            check(np.allclose(got, want, rtol=TIE_AGREE["stats"], atol=0),
+                  f"sharded (c) rank {r}: {f} {got} != {want}")
+        loss = 0.0
+        for (want, _), got in zip(kept, out["records"]):
+            _same_decisions(f"sharded (c) rank {r}", want, got)
+            loss = max(loss, float(np.abs(got.losses - want.losses).max()))
+        errs.append((loss, max(out["errs"]), max(out["abs_errs"])))
+    loss, err, err_abs = (max(e[i] for e in errs) for i in range(3))
+    reduction = max(o["reduction"] for o in outs)
+    check(reduction <= KERNEL_RTOL,
+          f"sharded (c): the reduction alone is {reduction:.3e} from the "
+          f"one-device FedAvg")
+    # a rank's slots train as the whole's only where its half-size
+    # launches compute the first step as the whole's: then each leaf at
+    # 1e-5 of its scale; else the models and losses at TIE_AGREE, as
+    # shop-floor holds two paths on different algorithms
+    same_step = worst_step == 0 and grad_step == 0
+    if same_step:
+        check(loss <= F32_AGREE["losses"] and err <= F32_AGREE["params"],
+              f"sharded (c): losses {loss:.3e}, params {err:.3e} apart")
+    else:
+        check(loss <= TIE_AGREE["losses"]
+              and err_abs <= TIE_AGREE["params"],
+              f"sharded (c): losses {loss:.3e}, params {err_abs:.3e} apart "
+              f"(first step: blocks {worst_step:.3e} and gradients "
+              f"{grad_step:.3e} from the whole, relu decisions that differ "
+              f"{flips})")
+    check(all(torch.equal(a[k], b[k]) for a, b in zip(
+        outs[0]["params"], outs[1]["params"]) for k in a),
+        "sharded (c): the ranks' params differ")
+    print(f"sharded (c) {SHARDED_RANKS} gloo ranks on one card, full-width "
+          f"vgg f32: statistics within rtol {TIE_AGREE['stats']}, decisions "
+          f"identical, losses {loss:.3e} and params {err_abs:.3e} max abs, "
+          f"{err:.3e} max rel (per leaf) from the cohort engine, each round "
+          f"from its params (per rank and round, rel "
+          f"{[[f'{e:.3e}' for e in o['errs']] for o in outs]}, abs "
+          f"{[[f'{e:.3e}' for e in o['abs_errs']] for o in outs]}), held at "
+          f"{'1e-5' if same_step else 'TIE_AGREE'}; the reduction "
+          f"alone (random slot params) {reduction:.3e} from the one-device "
+          f"FedAvg;"
+          f" the ranks' params bit-identical; first step, each rank's block "
+          f"against the whole: outputs max rel diff {worst_step:.3e}, relu "
+          f"decisions that differ {flips} (largest value {tie_max:.3e}), "
+          f"gradients max rel diff {grad_step:.3e}; per rank: "
+          f"stats s {[round(o['stats_s'], 3) for o in outs]}, s a round "
+          f"{[[round(x, 4) for x in o['secs']] for o in outs]}; the round's "
+          f"all-reduce alone ({outs[0]['allreduce_mb']:.1f} MB, gloo, CUDA "
+          f"tensors) wall ms "
+          f"{[[round(x, 2) for x in o['allreduce_ms']] for o in outs]}; "
+          f"slot blocks {[o['block'] for o in outs]}", flush=True)
+
+
+def sharded_phase() -> dict:
+    """The sharded cohort engine on the card: (a) a one-rank NCCL mesh
+    against the cohort engine in lockstep; (b) the fused loop under it,
+    bit-identical to its stepwise loop; (c) two gloo ranks on the one card
+    against (a)'s cohort rounds. (a) and (b) under
+    ``cudnn.deterministic``, as (c)'s ranks. Returns (a)'s sharded rounds'
+    launches."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            dist.init_process_group(
+                "nccl", init_method=f"file://{tmp}/init", rank=0,
+                world_size=1, device_id=torch.device("cuda", 0))
+            try:
+                print(f"sharded: nccl world 1 up in "
+                      f"{time.perf_counter() - t0:.2f} s", flush=True)
+                t0 = time.perf_counter()
+                launches, kept, cohort = _sharded_lockstep()
+                print(f"sharded (a) s={time.perf_counter() - t0:.1f}",
+                      flush=True)
+                t0 = time.perf_counter()
+                _sharded_fused()
+                print(f"sharded (b) s={time.perf_counter() - t0:.1f}",
+                      flush=True)
+            finally:
+                dist.destroy_process_group()
+        t0 = time.perf_counter()
+        _sharded_gloo(cohort, kept)
+        print(f"sharded (c) s={time.perf_counter() - t0:.1f}", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return launches
+
+
 def trainer_phase() -> None:
     """The deprecated shim on the card: ``FLTrainer(FLConfig(model="mlp",
     rounds=2, boundary_telemetry=True)).run("ddsra")``."""
@@ -2687,8 +3129,13 @@ def main() -> int:
                         ("control", control_phase),
                         ("fused", fused_phase),
                         ("async", async_phase),
+                        ("sharded", sharded_phase),
                         ("trainer", trainer_phase)):
-        timed(name, phase)
+        got = timed(name, phase)
+        if name == "sharded":
+            # (a)'s sharded rounds: a path of their own
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
 
     out = [dict(name=name, route="cuda", source=SOURCES[name],
                 replaces=REPLACES[name], launches=launches[name],

@@ -176,7 +176,6 @@ class AsyncCohortEngine(CohortEngine):
         weight is zeroed so nothing of theirs aggregates. A gateway with no
         surviving contributor dispatches nothing.
         """
-        sc = sim.scenario
         device_ids, batch, l_slot, w_slot, slot_gw = self._pack_round(
             sim, trained, l_n)
         dead_slots = []
@@ -188,11 +187,9 @@ class AsyncCohortEngine(CohortEngine):
                     dead_slots.append(s)
         batch = zero_slot_rows(batch, dead_slots)
 
-        _, gw_loss, gw_count, _, bnd, gw_models = cohort_lib.cohort_round(
-            sim.plan, sim.params, batch, l_slot, w_slot, slot_gw,
-            sc.k_iters, sc.lr, with_boundary=boundary,
-            with_gateway_models=True, compute_dtype=sc.dtype,
-            device=sim.device)
+        _, gw_loss, gw_count, _, bnd, gw_models = self._fused_round(
+            sim, sim.params, batch, l_slot, w_slot, slot_gw,
+            with_boundary=boundary, with_gateway_models=True)
         sim.padding_stats["real_samples"] += float(
             sum(t.mask.sum() for t in batch.tiers))
         sim.padding_stats["padded_samples"] += float(

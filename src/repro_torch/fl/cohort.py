@@ -39,6 +39,14 @@ The fused loop's training half (:func:`train_scan`,
 block of rounds with nothing read on the host: on CUDA one trained round
 is captured once as a CUDA graph (``repro_torch.graphs.GraphedStep``) and
 replayed every round, threading (params, losses) on the device.
+
+Each round, stepwise or fused, is two halves: the slots' training and
+their FedAvg sums (:func:`local_partials`), then the division that
+finishes the averages (:func:`fedavg_finish`). The sharded engine
+(``repro_torch.fl.shard``) runs the first half on a rank's own slots and
+sums the halves' buffers over the ranks with one ``all_reduce`` before
+the second; the statistics pass splits the same way at the global
+gradient (:func:`stats_partials`, :func:`stats_delta`).
 """
 from __future__ import annotations
 
@@ -181,46 +189,107 @@ def _check_dtype(compute_dtype: str) -> None:
                          f"{sorted(COMPUTE_DTYPES)}")
 
 
-def cohort_round_traced(model: SplitModel, params: Params, xs, ys, masks,
-                        l_n, weights, gw_onehot, lr, *, k_iters: int,
-                        with_boundary: bool,
-                        with_gateway_models: bool = False,
-                        compute_dtype: str = "f32"):
-    """The round on tensors already on the device, reading nothing on the
-    host: the body of :func:`cohort_round` and the step of the fused
-    loop's scans (:func:`train_scan`, :func:`train_scan_traced`), as the
-    reference's one traced function serves its per-round jit and its
-    scan. ``xs/ys/masks`` are per-tier tuples, ``l_n`` (S,) int64 (read
-    only with ``with_boundary``), ``weights`` (S,) and ``gw_onehot``
-    (S, M) float32. Returns (new_global, gw_loss, gw_count, slot_losses,
-    boundary, gw_models), ``gw_models`` None unless asked for."""
+def fedavg_partials(final: Params, weights, losses, gw_onehot,
+                    with_gateway_models: bool = False) -> torch.Tensor:
+    """The two-tier FedAvg's sums over the given slots, in one flat f32
+    buffer: every leaf's sum of weight x slot params, the weight total,
+    each gateway's count of active slots and sum of their losses, and,
+    with ``with_gateway_models``, each gateway's weighted sum of its slots'
+    params and its weight total. Sums over disjoint sets of slots add up
+    to the sums over their union, so the sharded round reduces these
+    buffers with one ``all_reduce`` and :func:`fedavg_finish` divides."""
+    parts = [torch.tensordot(weights, v, dims=1).reshape(-1)
+             for v in leaves(final)]
+    active = (weights > 0).float()
+    parts += [weights.sum().reshape(1), gw_onehot.T @ active,
+              gw_onehot.T @ (losses * active)]
+    if with_gateway_models:
+        # per-gateway shop-floor FedAvg before the global mix: columns of
+        # the (S, M) incidence weighted by d_tilde, normalized per gateway
+        gw_w = gw_onehot * weights[:, None]
+        parts += [torch.tensordot(gw_w.T, v, dims=1).reshape(-1)
+                  for v in leaves(final)]
+        parts.append(gw_w.sum(dim=0))
+    return torch.cat(parts)
+
+
+def fedavg_finish(sums: torch.Tensor, skeleton: Params, shapes, n_gw: int,
+                  with_gateway_models: bool = False):
+    """(new_global, gw_loss, gw_count, w_sum, gw_models) from a buffer of
+    :func:`fedavg_partials` (summed over every slot): the gateway-level
+    then BS-level weighted averaging telescopes to one weighted average
+    over participating slots. ``shapes`` are the global params' leaf
+    shapes (:func:`leaves` order); ``gw_models`` None unless asked
+    for."""
+    off = 0
+
+    def take(n: int) -> torch.Tensor:
+        nonlocal off
+        off += n
+        return sums[off - n:off]
+    totals = [take(int(np.prod(s))).view(s) for s in shapes]
+    w_sum = take(1)[0]
+    new_global = _like([t / w_sum.clamp_min(1e-12) for t in totals],
+                       skeleton)
+    gw_count = take(n_gw)
+    gw_loss = take(n_gw) / gw_count.clamp_min(1.0)
+    gw_models = None
+    if with_gateway_models:
+        nums = [take(n_gw * int(np.prod(s))).view(n_gw, *s) for s in shapes]
+        den = take(n_gw).clamp_min(1e-12)
+        gw_models = _like([t / den.view(-1, *(1,) * (t.dim() - 1))
+                           for t in nums], skeleton)
+    return new_global, gw_loss, gw_count, w_sum, gw_models
+
+
+def _shapes(params: Params) -> List[Tuple[int, ...]]:
+    return [tuple(v.shape) for v in leaves(params)]
+
+
+def local_partials(model: SplitModel, params: Params, xs, ys, masks, l_n,
+                   weights, gw_onehot, lr, *, k_iters: int,
+                   with_boundary: bool, with_gateway_models: bool = False,
+                   compute_dtype: str = "f32"):
+    """A round up to its reduction, over the slots given: train them
+    (:func:`_local_train`), then their FedAvg sums
+    (:func:`fedavg_partials`). ``xs/ys/masks`` are per-tier tuples, ``l_n``
+    (S,) int64 (read only with ``with_boundary``), ``weights`` (S,) and
+    ``gw_onehot`` (S, M) float32. Returns (sums, slot losses (S,),
+    boundary RMS (S,), zeros without ``with_boundary``)."""
     xs = tuple(model.prepare_inputs(x) for x in xs)
     final_t, loss_t = _local_train(model, params, xs, ys, masks, k_iters,
                                    lr, compute_dtype)
-    final = _concat_tiers(final_t)
     dev_losses = torch.cat(loss_t)
-
-    # fused two-tier FedAvg: gateway-level then BS-level weighted averaging
-    # telescopes to one weighted average over participating devices.
-    new_global = weighted_mean(final,
-                               weights / weights.sum().clamp_min(1e-12))
-    active = (weights > 0).float()
-    gw_count = gw_onehot.T @ active                                 # (M,)
-    gw_loss = (gw_onehot.T @ (dev_losses * active)) / gw_count.clamp_min(1.0)
+    sums = fedavg_partials(_concat_tiers(final_t), weights, dev_losses,
+                           gw_onehot, with_gateway_models)
     if with_boundary:
         boundary = torch.cat(_boundary_tiers(
             model, final_t, xs, masks,
             _split_tiers(l_n, tuple(x.shape[0] for x in xs))))
     else:    # skip the extra forward pass; l_n stays unused data
         boundary = torch.zeros_like(weights)
-    gw_models = None
-    if with_gateway_models:
-        # per-gateway shop-floor FedAvg before the global mix: columns of
-        # the (S, M) incidence, weighted by d_tilde and normalized per
-        # gateway
-        gw_w = gw_onehot * weights[:, None]
-        gw_w = gw_w / gw_w.sum(dim=0, keepdim=True).clamp_min(1e-12)
-        gw_models = weighted_mean(final, gw_w.T)
+    return sums, dev_losses, boundary
+
+
+def cohort_round_traced(model: SplitModel, params: Params, xs, ys, masks,
+                        l_n, weights, gw_onehot, lr, *, k_iters: int,
+                        with_boundary: bool,
+                        with_gateway_models: bool = False,
+                        compute_dtype: str = "f32"):
+    """The round on tensors already on the device, reading nothing on the
+    host: :func:`local_partials` over every slot, then
+    :func:`fedavg_finish`. The body of :func:`cohort_round`; the sharded
+    round (``repro_torch.fl.shard``) runs the same two halves with an
+    ``all_reduce`` between. Arguments as :func:`local_partials`'. Returns
+    (new_global, gw_loss, gw_count, slot_losses, boundary, gw_models),
+    ``gw_models`` None unless asked for."""
+    sums, dev_losses, boundary = local_partials(
+        model, params, xs, ys, masks, l_n, weights, gw_onehot, lr,
+        k_iters=k_iters, with_boundary=with_boundary,
+        with_gateway_models=with_gateway_models, compute_dtype=compute_dtype)
+    new_global, gw_loss, gw_count, _, gw_models = fedavg_finish(
+        sums, params, _shapes(params), gw_onehot.shape[1],
+        with_gateway_models)
     return new_global, gw_loss, gw_count, dev_losses, boundary, gw_models
 
 
@@ -247,8 +316,8 @@ def cohort_round(model: SplitModel, params: Params, batch, l_n, weights,
     (M,), per_slot_loss (S,), boundary_rms (S,)), plus the gateway models
     as a sixth element when ``with_gateway_models`` is set; tensors on
     ``device``. The inputs go to the device and ``l_n`` is checked on the
-    host here; the round itself is :func:`cohort_round_traced`. Its
-    sharded mapping is not ported yet (ROADMAP.md M9).
+    host here; the round itself is :func:`cohort_round_traced`, whose
+    sharded mapping is ``repro_torch.fl.shard.sharded_cohort_round``.
     """
     _check_dtype(compute_dtype)
     device = resolve_device(device)
@@ -289,28 +358,27 @@ def _eval_hits(model: SplitModel, params: Params, x_test: torch.Tensor,
     return hits
 
 
-def _guarded_round(model: SplitModel, params: Params, losses, xs, ys,
-                   masks, w, gw, tr, lr, k_iters: int, compute_dtype: str):
-    """One round of the fused loop: :func:`cohort_round_traced` and the
-    reference scan's two guards. A round where nobody trained (all weights
-    0) keeps the old params, where the normalized FedAvg would average
-    into zeros (the stepwise loop skips such a round); a gateway's loss
-    updates only where it trained (``tr``, (M,) bool)."""
-    new_global, gw_loss, _, _, _, _ = cohort_round_traced(
-        model, params, xs, ys, masks, None, w, gw, lr, k_iters=k_iters,
-        with_boundary=False, compute_dtype=compute_dtype)
-    any_trained = w.sum() > 0
+def _guarded_finish(params: Params, losses, sums, tr):
+    """A round of the fused loop from its reduced FedAvg sums
+    (:func:`fedavg_finish`) with the reference scan's two guards: a round
+    where nobody trained (weight total 0) keeps the old params, where the
+    normalized FedAvg would average into zeros (the stepwise loop skips
+    such a round); a gateway's loss updates only where it trained (``tr``,
+    (M,) bool)."""
+    new_global, gw_loss, _, w_sum, _ = fedavg_finish(
+        sums, params, _shapes(params), tr.shape[0])
+    any_trained = w_sum > 0
     params = [{k: torch.where(any_trained, new[k], old[k]) for k in old}
               for new, old in zip(new_global, params)]
     return params, torch.where(tr, gw_loss, losses)
 
 
-def _scan(train: GraphedStep, evaluate: GraphedStep, params: Params,
-          losses0, rounds: int, inputs_at, eval_mask):
-    """``rounds`` replays of ``train`` threading (params, losses), and of
-    ``evaluate`` on the rounds ``eval_mask`` (host bools) marks; nothing
-    is read on the host. Returns (params, losses, loss history (T, M),
-    hits (T,), -1 where not evaluated), on the device."""
+def _scan(train, evaluate: GraphedStep, params: Params, losses0,
+          rounds: int, inputs_at, eval_mask):
+    """``rounds`` calls of ``train`` threading (params, losses), and
+    replays of ``evaluate`` on the rounds ``eval_mask`` (host bools)
+    marks; nothing is read on the host. Returns (params, losses, loss
+    history (T, M), hits (T,), -1 where not evaluated), on the device."""
     carry = (*leaves(params), losses0)
     loss_hist = torch.empty((rounds, *losses0.shape), dtype=losses0.dtype,
                             device=losses0.device)
@@ -333,24 +401,61 @@ def _skeleton(params: Params) -> Params:
     return [dict.fromkeys(p) for p in params]
 
 
-def _steps(graphs, plane: str, model: SplitModel, skeleton: Params,
-           train_fn, x_test, y_test):
-    """The (train, evaluate) GraphedSteps of ``plane`` from ``graphs``
-    (the caller's cache: a later block with the same shapes replays the
-    graphs captured before), made on first use."""
+def _steps(graphs, plane: str, model: SplitModel, params: Params, local_fn,
+           x_test, y_test, reduce):
+    """A trained round of ``plane`` as a callable over (params leaves,
+    losses, the round's inputs, its trained mask ``tr``), returning the
+    new (params leaves, losses), and the evaluation's GraphedStep.
+
+    ``local_fn(params, *inputs)`` is the round up to its reduction (the
+    FedAvg sums, :func:`local_partials`). With ``reduce`` None the round
+    is one GraphedStep ("train_scan"). A sharded round is split at its
+    collective, which a CUDA graph cannot hold under gloo: a captured
+    local half ("train_local"), ``reduce`` on its sums (an in-place
+    ``all_reduce``) run eagerly, and a captured half that finishes the
+    round (:func:`_guarded_finish`, "train_finish"). The GraphedSteps live
+    in ``graphs`` (the caller's cache: a later block with the same shapes
+    replays the graphs captured before), made on first use."""
     key = (plane, id(model))
+    skeleton, n = _skeleton(params), len(leaves(params))
     if key not in graphs:
         def eval_fn(*flat):
             return (_eval_hits(model, _like(list(flat), skeleton), x_test,
                                y_test),)
-        graphs[key] = (GraphedStep(train_fn, "train_scan"),
-                       GraphedStep(eval_fn, "eval"))
-    return graphs[key]
+
+        def finish_fn(*flat):      # params, losses, sums, tr
+            p, losses = _guarded_finish(_like(list(flat[:n]), skeleton),
+                                        *flat[n:])
+            return (*leaves(p), losses)
+
+        if reduce is None:
+            def train_fn(*flat):   # params, losses, inputs, tr
+                sums = local_fn(_like(list(flat[:n]), skeleton),
+                                *flat[n + 1:-1])
+                return finish_fn(*flat[:n + 1], sums, flat[-1])
+            steps = (GraphedStep(train_fn, "train_scan"),)
+        else:
+            def sums_fn(*flat):    # params, inputs
+                return (local_fn(_like(list(flat[:n]), skeleton),
+                                 *flat[n:]),)
+            steps = (GraphedStep(sums_fn, "train_local"),
+                     GraphedStep(finish_fn, "train_finish"))
+        graphs[key] = steps + (GraphedStep(eval_fn, "eval"),)
+    *steps, evaluate = graphs[key]
+    if reduce is None:
+        return steps[0], evaluate
+    local, finish = steps
+
+    def train(*flat):
+        sums = reduce(local(*flat[:n], *flat[n + 1:-1])[0])
+        return finish(*flat[:n + 1], sums, flat[-1])
+    return train, evaluate
 
 
 def train_scan(model: SplitModel, params: Params, losses0, xs, ys, masks,
                ls, ws, gws, trained, lr, eval_mask, x_test, y_test, *,
-               k_iters: int, compute_dtype: str = "f32", graphs=None):
+               k_iters: int, compute_dtype: str = "f32", graphs=None,
+               reduce=None):
     """The whole training block: one trained round per replay of one
     captured graph (on CUDA; eagerly on the CPU), the counterpart of the
     reference's ``lax.scan`` of the fused round.
@@ -359,10 +464,13 @@ def train_scan(model: SplitModel, params: Params, losses0, xs, ys, masks,
     on the device and ``trained`` the (T, M) bool trained-gateway mask;
     ``ls`` is accepted as the reference's scan takes it, and unused (the
     scan reports no boundary RMS). The carry is (params, per-gateway f32
-    losses), with :func:`_guarded_round`'s guards. ``eval_mask`` is the
+    losses), with :func:`_guarded_finish`'s guards. ``eval_mask`` is the
     (T,) host bool ``eval_every`` schedule: a marked round replays a
     second graph, the test-set hit count (:func:`_eval_hits`) on the
     round's params. ``graphs``: a dict the caller keeps across blocks.
+    ``reduce``: the sharded engine's in-place sum of a round's FedAvg
+    sums over the mesh; the slots are then this rank's, and the round
+    splits at the reduction (:func:`_steps`).
 
     Returns (params, losses (M,), loss history (T, M) f32, test hits (T,)
     int64, -1 where not evaluated), on the device. One capture of each
@@ -372,21 +480,18 @@ def train_scan(model: SplitModel, params: Params, losses0, xs, ys, masks,
     """
     del ls
     _check_dtype(compute_dtype)
-    skeleton = _skeleton(params)
-    n, n_tiers = len(leaves(params)), len(xs)
+    n_tiers = len(xs)
 
-    def train_fn(*flat):
-        p, losses = _like(list(flat[:n]), skeleton), flat[n]
-        xs_t = flat[n + 1:n + 1 + n_tiers]
-        ys_t = flat[n + 1 + n_tiers:n + 1 + 2 * n_tiers]
-        masks_t = flat[n + 1 + 2 * n_tiers:n + 1 + 3 * n_tiers]
-        w, gw, tr = flat[n + 1 + 3 * n_tiers:]
-        p, losses = _guarded_round(model, p, losses, xs_t, ys_t, masks_t, w,
-                                   gw, tr, lr, k_iters, compute_dtype)
-        return (*leaves(p), losses)
+    def local_fn(p, *inputs):
+        xs_t, ys_t, masks_t = (inputs[i * n_tiers:(i + 1) * n_tiers]
+                               for i in range(3))
+        w, gw = inputs[3 * n_tiers:]
+        return local_partials(model, p, xs_t, ys_t, masks_t, None, w, gw,
+                              lr, k_iters=k_iters, with_boundary=False,
+                              compute_dtype=compute_dtype)[0]
 
     train, evaluate = _steps({} if graphs is None else graphs, "host", model,
-                             skeleton, train_fn, x_test, y_test)
+                             params, local_fn, x_test, y_test, reduce)
     w_all, gw_all = torch.cat(ws, dim=1), torch.cat(gws, dim=1)
     return _scan(train, evaluate, params, losses0, trained.shape[0],
                  lambda t: (*[x[t] for x in xs], *[y[t] for y in ys],
@@ -412,7 +517,8 @@ def train_scan_traced(model: SplitModel, params: Params, losses0, x_all,
                       y_all, pool_lens, batch_lens, data_key, ts, slot_devs,
                       ls, ws, gws, trained, lr, eval_mask, x_test, y_test, *,
                       k_iters: int, compute_dtype: str = "f32",
-                      tier_widths: Tuple[int, ...], graphs=None):
+                      tier_widths: Tuple[int, ...], graphs=None,
+                      reduce=None):
     """:func:`train_scan` with the data plane inside the graph: each round
     gathers its batches from the device-resident shard stacks
     (``repro_torch.fl.data.device_resident_stacks``) by the counter-based
@@ -423,28 +529,26 @@ def train_scan_traced(model: SplitModel, params: Params, losses0, x_all,
     fold in; ``pool_lens`` and ``batch_lens`` (N,) int64 and ``data_key``
     (2,) on the device. Empty slots gather device 0's rows under an
     all-zero mask, whose loss and gradients are exact zeros, as the host
-    plane's zero padding gives. Returns what :func:`train_scan` does.
+    plane's zero padding gives. Under ``reduce`` the slots are this
+    rank's, so a rank gathers only its own slots' batches. Returns what
+    :func:`train_scan` does.
     """
     del ls
     _check_dtype(compute_dtype)
-    skeleton = _skeleton(params)
-    n, n_tiers = len(leaves(params)), len(slot_devs)
+    n_tiers = len(slot_devs)
 
-    def train_fn(*flat):
-        p, losses, t, key = _like(list(flat[:n]), skeleton), *flat[n:n + 3]
-        devs = flat[n + 3:n + 3 + n_tiers]
-        w, gw, tr = flat[n + 3 + n_tiers:]
+    def local_fn(p, t, key, *inputs):
+        devs, (w, gw) = inputs[:n_tiers], inputs[n_tiers:]
         gathered = [_gather_tier(x_all, y_all, pool_lens, batch_lens, key,
                                  t, d, width)
                     for d, width in zip(devs, tier_widths)]
-        p, losses = _guarded_round(
-            model, p, losses, *(tuple(g[i] for g in gathered)
-                                for i in range(3)),
-            w, gw, tr, lr, k_iters, compute_dtype)
-        return (*leaves(p), losses)
+        return local_partials(
+            model, p, *(tuple(g[i] for g in gathered) for i in range(3)),
+            None, w, gw, lr, k_iters=k_iters, with_boundary=False,
+            compute_dtype=compute_dtype)[0]
 
     train, evaluate = _steps({} if graphs is None else graphs, "traced",
-                             model, skeleton, train_fn, x_test, y_test)
+                             model, params, local_fn, x_test, y_test, reduce)
     w_all, gw_all = torch.cat(ws, dim=1), torch.cat(gws, dim=1)
     return _scan(train, evaluate, params, losses0, trained.shape[0],
                  lambda t: (ts[t], data_key, *[d[t] for d in slot_devs],
@@ -518,19 +622,33 @@ def _grads_sigma_lips(model: SplitModel, params: Params, x, y, mask, lr,
     return grads, sigma, lips
 
 
+def stats_partials(model: SplitModel, params: Params, x, y, mask, mix,
+                   lr, sigma_samples: int):
+    """The statistics pass over the given devices up to its reduction:
+    their flat batch gradients, sigma_n and L_n
+    (:func:`_grads_sigma_lips`, on ``x`` as the batch holds it), and their
+    share of the D_n-weighted global gradient (``mix`` their weights).
+    Returns (grads (N, P), sigma (N,), lips (N,), partial global (P,))."""
+    grads, sigma, lips = _grads_sigma_lips(
+        model, params, model.prepare_inputs(x), y, mask, lr, sigma_samples)
+    return grads, sigma, lips, torch.tensordot(mix, grads, dims=1)
+
+
+def stats_delta(grads: torch.Tensor, global_g: torch.Tensor) -> torch.Tensor:
+    """delta_n: each device's divergence from the global gradient."""
+    return torch.linalg.vector_norm(grads - global_g[None], dim=1)
+
+
 def cohort_stats(model: SplitModel, params: Params, batch, mix_weights, lr,
                  sigma_samples: int, device="cuda"):
     """sigma/delta/Lipschitz for every device of ``batch`` (a CohortBatch
-    with one row per device). Returns three (N,) float32 tensors."""
+    with one row per device): :func:`stats_partials` over every row, then
+    :func:`stats_delta` (the sharded pass reduces the global gradient
+    between them). Returns three (N,) float32 tensors."""
     device = resolve_device(device)
     (x,), (y,), (mask,) = _batch_tiers(batch, device)
-    params = _on(params, device)
-    grads, sigma, lips = _grads_sigma_lips(
-        model, params, model.prepare_inputs(x), y, mask, lr, sigma_samples)
-
-    # delta_n: divergence from the D_n-weighted global gradient.
     mix = torch.as_tensor(np.asarray(mix_weights), dtype=torch.float32,
                           device=device)
-    global_g = torch.tensordot(mix, grads, dims=1)
-    delta = torch.linalg.vector_norm(grads - global_g[None], dim=1)
-    return sigma, delta, lips
+    grads, sigma, lips, global_g = stats_partials(
+        model, _on(params, device), x, y, mask, mix, lr, sigma_samples)
+    return sigma, stats_delta(grads, global_g), lips

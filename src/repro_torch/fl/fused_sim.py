@@ -21,7 +21,9 @@ packing, and a training pass with nothing read on the host:
   autograd, the two-tier FedAvg, the guards), captured once and replayed
   once a round (``repro_torch.fl.cohort.train_scan``, ``train_scan_traced``),
   threading (params, losses) on the device; an ``eval_every`` round
-  replays a second graph, the test-set hit count.
+  replays a second graph, the test-set hit count. Under the sharded
+  engine each rank uploads and trains only its own slots, and a round is
+  two graphs with the FedAvg's ``all_reduce`` run eagerly between them.
 
 Decide and train separate because no fusable policy reads training
 outputs (``loss_driven``, ``reads_losses = True``, is refused), and the
@@ -237,17 +239,21 @@ def _fixed_layout(layout, layout0):
     return layout
 
 
-def _upload(sim, stacked):
-    """Per-tier tuples of numpy stacks to the simulation's device, each
-    in one copy."""
-    return tuple(tuple(torch.as_tensor(a).to(sim.device) for a in tier)
+def _upload(sim, stacked, sizes):
+    """Per-tier tuples of numpy stacks (T, S_k, ...) to the simulation's
+    device, each in one copy: only the slots this process trains
+    (``_slot_blocks``: all of them but under the sharded engine)."""
+    blocks = sim.engine._slot_blocks(sim, sizes)
+    return tuple(tuple(torch.as_tensor(np.ascontiguousarray(a[:, blk]))
+                       .to(sim.device) for a, blk in zip(tier, blocks))
                  for tier in stacked)
 
 
 def _replay_batches(sim, trained_mask: np.ndarray, l_rounds: np.ndarray):
-    """Pack every round through the engine's ``_pack_round``, consuming
-    ``sim.rng`` with exactly the stepwise draws, into per-tier stacks
-    with a leading round axis, uploaded to the device once.
+    """Pack every round through the engine's ``_pack_round`` (its layout,
+    which carries the engine's shard count), consuming ``sim.rng`` with
+    exactly the stepwise draws, into per-tier stacks with a leading round
+    axis, uploaded to the device once.
 
     Returns per-tier tuples (xs, ys, masks, ls, ws, gws): tier k carries
     (T, S_k, ...) tensors. Rounds where nobody trains pack too (no draws,
@@ -288,7 +294,7 @@ def _replay_batches(sim, trained_mask: np.ndarray, l_rounds: np.ndarray):
             ws[i][k] = w_slot[off:off + sizes[i]]
             gws[i][k] = slot_gw[off:off + sizes[i]]
             off += sizes[i]
-    return _upload(sim, stacked)
+    return _upload(sim, stacked, sizes)
 
 
 def _pack_rounds_traced(sim, trained_mask: np.ndarray,
@@ -297,7 +303,8 @@ def _pack_rounds_traced(sim, trained_mask: np.ndarray,
     metadata (``_pack_round_meta``), no sample drawn, uploaded once.
 
     Returns (slot_devs, ls, ws, gws, layout): per-tier tuples of
-    (T, S_k[, M]) tensors on the device, and the fixed layout."""
+    (T, S_k[, M]) tensors on the device (a rank's own slots under the
+    sharded engine), and the fixed layout."""
     T = trained_mask.shape[0]
     layout0 = stacked = None
     for k in range(T):
@@ -325,7 +332,7 @@ def _pack_rounds_traced(sim, trained_mask: np.ndarray,
             ws[i][k] = w_slot[off:off + s]
             gws[i][k] = slot_gw[off:off + s]
             off += s
-    return _upload(sim, stacked) + (layout0,)
+    return _upload(sim, stacked, sizes) + (layout0,)
 
 
 def fused_rounds(sim, policy, *, rounds: Optional[int] = None) -> List:

@@ -9,12 +9,14 @@
 * **Policy** — any object with ``schedule(ctx) -> RoundDecision``; named
   policies come from the registry in ``repro_torch.core.schedulers``.
 * **Engine** — how a scheduled round is executed: ``CohortEngine`` (one
-  slot-batched round, ``repro_torch.fl.cohort``), ``AsyncCohortEngine``
-  (buffered asynchronous aggregation over the same round, with the fault
-  axes, ``repro_torch.fl.async_engine``) or ``SequentialEngine`` (the
-  per-device loop, kept as the parity reference). The reference's
-  ``"sharded"`` engine is not ported yet (ROADMAP.md M9): naming it
-  raises ``NotImplementedError``.
+  slot-batched round, ``repro_torch.fl.cohort``), ``ShardedCohortEngine``
+  (the same round with its slots split over the ranks of a
+  ``torch.distributed`` process group, ``repro_torch.fl.shard``),
+  ``AsyncCohortEngine`` (buffered asynchronous aggregation over the same
+  round, with the fault axes, ``repro_torch.fl.async_engine``) or
+  ``SequentialEngine`` (the per-device loop, kept as the parity
+  reference). ``repro_torch.fl`` registers the sharded and async engines
+  when it imports them, as the reference's package does.
 
 On top sits :class:`Simulation`: a streaming ``rounds()`` generator yielding
 one :class:`RoundRecord` per round (decision, delay, gateway losses, queue
@@ -93,13 +95,14 @@ BF16_MODELS = ("vgg", "mlp", "transformer", "moe", "ssm")
 class Scenario:
     """Frozen, JSON-serializable spec of one FL experiment.
 
-    The reference's fields and defaults. The port runs ``engine="cohort"``,
-    ``"async"`` and ``"sequential"``, ``data_plane="host"`` on all three
-    and ``"traced"`` on the cohort engines, with ``dtype="f32"`` for every
-    model and ``dtype="bf16"`` on the cohort engines for the models of
-    ``BF16_MODELS``; the fault axes, ``buffer_k`` and the staleness knobs
-    belong to the async engine, ``mesh_shape`` to the sharded one, which
-    is not ported yet (ROADMAP.md M9).
+    The reference's fields and defaults. The port runs every engine of
+    the reference, ``data_plane="host"`` on all of them and ``"traced"``
+    on the cohort engines (``"cohort"``, ``"sharded"``, ``"async"``), with
+    ``dtype="f32"`` for every model and ``dtype="bf16"`` on the cohort
+    engines for the models of ``BF16_MODELS``; the fault axes,
+    ``buffer_k`` and the staleness knobs belong to the async engine,
+    ``mesh_shape`` (the cohort mesh's rank count, ``None`` every rank) to
+    the sharded one.
     """
     model: str = "vgg"                 # repro_torch.models.registry key
     width_mult: float = 0.25
@@ -292,7 +295,7 @@ def register_engine(name: str):
 
 
 # the reference's engines that the port has not yet, by ROADMAP.md item
-UNPORTED_ENGINES = {"sharded": "M9"}
+UNPORTED_ENGINES: Dict[str, str] = {}
 
 
 def make_engine(name: str) -> "Engine":
@@ -336,8 +339,8 @@ class Engine:
     """Protocol: how a scheduled round is executed on the model.
 
     The reference's ``Engine``, implemented by ``CohortEngine``,
-    ``AsyncCohortEngine`` and ``SequentialEngine``; ``make_engine`` raises
-    ``NotImplementedError`` for ``"sharded"`` (ROADMAP.md M9).
+    ``ShardedCohortEngine``, ``AsyncCohortEngine`` and
+    ``SequentialEngine``.
     """
     name: str
     # compute dtypes this engine can run the data plane in; Simulation
@@ -410,6 +413,16 @@ class Engine:
         :meth:`Simulation.restart`, and so from ``run()`` and ``reset()``."""
         return None
 
+    def writes_checkpoints(self, sim: "Simulation") -> bool:
+        """Whether this process writes ``sim``'s checkpoint files (every
+        rank of a sharded run holds the same state; its first writes)."""
+        return True
+
+    def sync(self, sim: "Simulation") -> None:
+        """Wait for every process that runs ``sim`` (default: there is one)
+        — after a checkpoint is written, before any of them reads it."""
+        return None
+
     def state_dict(self, sim: "Simulation"):
         """Engine-internal state to checkpoint, as ``(meta, arrays)`` —
         ``meta`` a JSON-serializable dict stored in the ``sim_*.json``
@@ -429,32 +442,74 @@ class CohortEngine(Engine):
 
     Participants are packed into a fixed tier-major slot layout
     (``repro_torch.fl.data.CohortLayout``; ``Scenario.tiers`` sets how many
-    distinct slot widths are used).
+    distinct slot widths are used). Where the round and the statistics
+    pass run is the hooks' business (:meth:`_fused_round`,
+    :meth:`_fused_stats`, :meth:`_shard_count`, :meth:`_slot_blocks`,
+    :meth:`_reduce`): the sharded subclass overrides them, and only them.
     """
 
     supported_dtypes = ("f32", "bf16")
     supports_fused = True
     supports_traced_data = True
 
+    def _shard_count(self, sim: "Simulation") -> int:
+        """Multiple each tier's slot count must divide into (the cohort
+        mesh size for the sharded subclass; 1 on a single device)."""
+        return 1
+
     def _layout(self, sim: "Simulation", capacity: int) -> CohortLayout:
         """The (cached) fixed slot layout for ``capacity``-slot rounds."""
-        key = (capacity, sim.scenario.tiers)
+        key = (capacity, sim.scenario.tiers, self._shard_count(sim))
         if key not in sim._layouts:
             sim._layouts[key] = CohortLayout.build(
-                sim.d_tilde, capacity, sim.scenario.tiers)
+                sim.d_tilde, capacity, sim.scenario.tiers,
+                self._shard_count(sim))
         return sim._layouts[key]
+
+    def _fused_round(self, sim: "Simulation", params, batch, l_slot, w_slot,
+                     gw_slot, *, with_boundary: bool,
+                     with_gateway_models: bool):
+        """Execute one round (``repro_torch.fl.cohort.cohort_round``); the
+        sharded subclass overrides this to change *where* it runs without
+        touching the packing and telemetry around it. Always returns the
+        6-tuple (new_global, gw_loss, gw_count, slot_losses, boundary,
+        gw_models), ``gw_models`` None when not asked for; tensors on the
+        simulation's device."""
+        sc = sim.scenario
+        out = cohort_lib.cohort_round(
+            sim.plan, params, batch, l_slot, w_slot, gw_slot, sc.k_iters,
+            sc.lr, with_boundary=with_boundary,
+            with_gateway_models=with_gateway_models, compute_dtype=sc.dtype,
+            device=sim.device)
+        return out if with_gateway_models else (*out, None)
+
+    def _fused_stats(self, sim: "Simulation", params, batch, mix):
+        """The sigma/delta/L_n pass (``cohort_lib.cohort_stats``); the
+        sharded subclass overrides this to split it over the mesh. Three
+        (N,) tensors on the device."""
+        sc = sim.scenario
+        return cohort_lib.cohort_stats(sim.plan, params, batch, mix, sc.lr,
+                                       sc.sigma_samples, device=sim.device)
+
+    def _slot_blocks(self, sim: "Simulation", sizes) -> Tuple[slice, ...]:
+        """The slots of each tier (of ``sizes`` slots) this process trains
+        in the fused loop: all of them on one device."""
+        return tuple(slice(0, s) for s in sizes)
+
+    def _reduce(self, sim: "Simulation"):
+        """The fused loop's in-place sum of a round's FedAvg sums over the
+        processes that share its slots (``cohort_lib.train_scan``'s
+        ``reduce``): None on one device, where a round is one graph."""
+        return None
 
     def estimate_stats(self, sim: "Simulation", params) -> DataStats:
         """sigma/delta/Lipschitz for every device in one slot-batched pass."""
-        sc = sim.scenario
         n_dev = sim.net.cfg.n_devices
         batch = sample_cohort_batch(sim.rng, sim.ds, range(n_dev),
                                     sim.d_tilde, int(sim.d_tilde.max()))
         mix = sim.d_sizes / sim.d_sizes.sum()
-        sigma, delta, lips = cohort_lib.cohort_stats(
-            sim.plan, params, batch, mix, sc.lr, sc.sigma_samples,
-            device=sim.device)
-        sigma, delta, lips = (t.cpu().numpy() for t in (sigma, delta, lips))
+        sigma, delta, lips = (t.cpu().numpy() for t in self._fused_stats(
+            sim, params, batch, mix))
         return DataStats(sigma, delta, np.maximum(lips, 0.1),
                          sim.d_tilde.astype(float))
 
@@ -506,13 +561,11 @@ class CohortEngine(Engine):
         back to device order (0 for devices that did not train)."""
         if not trained:
             return None
-        sc = sim.scenario
         device_ids, batch, l_slot, w_slot, slot_gw = self._pack_round(
             sim, trained, l_n)
-        new_global, gw_loss, _, _, boundary = cohort_lib.cohort_round(
-            sim.plan, sim.params, batch, l_slot, w_slot, slot_gw,
-            sc.k_iters, sc.lr, with_boundary=with_boundary,
-            compute_dtype=sc.dtype, device=sim.device)
+        new_global, gw_loss, _, _, boundary, _ = self._fused_round(
+            sim, sim.params, batch, l_slot, w_slot, slot_gw,
+            with_boundary=with_boundary, with_gateway_models=False)
         sim.params = new_global
         # padded-vs-real sample accounting, as the reference's
         sim.padding_stats["real_samples"] += float(
@@ -543,7 +596,7 @@ class CohortEngine(Engine):
             ws, gws, torch.as_tensor(trained, device=sim.device), sc.lr,
             np.asarray(eval_mask, bool), x_test, y_test,
             k_iters=sc.k_iters, compute_dtype=sc.dtype,
-            graphs=sim._fused_graphs)
+            graphs=sim._fused_graphs, reduce=self._reduce(sim))
 
     @staticmethod
     def _losses(sim: "Simulation", losses0) -> torch.Tensor:
@@ -625,7 +678,8 @@ class CohortEngine(Engine):
             torch.as_tensor(np.asarray(trained, bool), device=sim.device),
             sc.lr, np.asarray(eval_mask, bool), x_test, y_test,
             k_iters=sc.k_iters, compute_dtype=sc.dtype,
-            tier_widths=tuple(layout.tier_widths), graphs=sim._fused_graphs)
+            tier_widths=tuple(layout.tier_widths), graphs=sim._fused_graphs,
+            reduce=self._reduce(sim))
 
     def shop_floor_round(self, sim: "Simulation", device_ids: List[int],
                          l_n: np.ndarray, params=None,
@@ -643,7 +697,6 @@ class CohortEngine(Engine):
         Returns (new_global, gateway_models (leading M axis),
         gateway_losses (M,) numpy, CohortBatch).
         """
-        sc = sim.scenario
         rng = sim.rng if rng is None else rng
         params = sim.params if params is None else params
         ids = list(device_ids)
@@ -651,10 +704,9 @@ class CohortEngine(Engine):
         weights[ids] = sim.d_tilde[ids]
         batch = sample_cohort_batch(rng, sim.ds, ids, sim.d_tilde,
                                     int(sim.d_tilde.max()))
-        new_global, gw_loss, _, _, _, gw_models = cohort_lib.cohort_round(
-            sim.plan, params, batch, l_n, weights, sim.net.a, sc.k_iters,
-            sc.lr, with_boundary=False, with_gateway_models=True,
-            compute_dtype=sc.dtype, device=sim.device)
+        new_global, gw_loss, _, _, _, gw_models = self._fused_round(
+            sim, params, batch, l_n, weights, sim.net.a,
+            with_boundary=False, with_gateway_models=True)
         return new_global, gw_models, gw_loss.cpu().numpy(), batch
 
 
@@ -793,9 +845,10 @@ class Simulation:
     ``resume`` checkpoint and continue a run, on the cohort or the
     sequential engine; ``sweep`` runs a scheduling sweep on the device;
     ``fused_rounds`` and ``run_fused`` run rounds through the fused loop
-    on the cohort engine; the async engine runs the fault axes and
-    buffered aggregation stepwise. A Scenario naming the sharded engine
-    (ROADMAP.md M9) raises ``NotImplementedError``.
+    on the cohort engines; the async engine runs the fault axes and
+    buffered aggregation stepwise; the sharded engine runs every rank of
+    a process group through the same Simulation, each training its own
+    slots (``repro_torch.fl.shard``).
 
     ``device``: where the data plane runs (``"cuda"`` unless the caller
     passes ``"cpu"``). ``init_params``: numpy params in the reference's
@@ -897,7 +950,7 @@ class Simulation:
         per_gw = int(np.bincount(self.net.assign,
                                  minlength=ncfg.n_gateways).max())
         self.cohort_capacity = min(ncfg.n_devices, ncfg.n_channels * per_gw)
-        self._layouts: Dict = {}      # (capacity, tiers) -> layout
+        self._layouts: Dict = {}      # (capacity, tiers, shards) -> layout
 
         t0 = time.perf_counter()
         self.stats = _stats if _stats is not None \
@@ -1133,11 +1186,21 @@ class Simulation:
         directory: after this save only the newest ``keep_last`` round
         checkpoints survive — ``step_*`` param files, their ``sim_*.json``
         manifests and any ``engine_*`` side-cars alike.
+
+        Under the sharded engine every rank holds the same state and only
+        the mesh's first rank writes; ``flush`` (and a blocking save) then
+        waits for every rank, so all of them can ``resume`` the directory.
         """
         if keep_last is None:
             keep_last = self.scenario.keep_last
         path = pathlib.Path(path)
         step = self.t
+        fname = path / f"sim_{step:08d}.json"
+        if not self.engine.writes_checkpoints(self):
+            if block:
+                self.flush()
+                self.engine.sync(self)
+            return fname
         params = params_to_numpy(self.plan, self.params)   # host copies
         pol = None
         if self._policy is not None:
@@ -1166,7 +1229,6 @@ class Simulation:
             "engine": eng_meta,
         }
         payload = json.dumps(state).encode()       # serialized pre-submit
-        fname = path / f"sim_{step:08d}.json"
 
         def job():
             store.save_pytree(path, params, step=step, keep_last=keep_last)
@@ -1185,6 +1247,7 @@ class Simulation:
         if block:
             self.flush()      # keep FIFO order with pending async saves
             job()
+            self.engine.sync(self)
         else:
             if self._ckpt_writer is None:
                 self._ckpt_writer = _CheckpointWriter()
@@ -1194,9 +1257,11 @@ class Simulation:
     def flush(self) -> None:
         """Block until every pending non-blocking :meth:`save` has fully
         landed on disk; re-raises the first error any background write hit.
-        A no-op when nothing is pending."""
+        A no-op when nothing is pending, but for the sharded engine's wait
+        for every rank (:meth:`Engine.sync`)."""
         if self._ckpt_writer is not None:
             self._ckpt_writer.flush()
+        self.engine.sync(self)
 
     @classmethod
     def resume(cls, path, *, device="cuda") -> "Simulation":
@@ -1312,7 +1377,3 @@ def _unflatten_like(flat: torch.Tensor, params) -> List[torch.Tensor]:
 def _unported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
-
-# Registers AsyncCohortEngine under "async" in ENGINES. Must stay at the
-# bottom: it subclasses CohortEngine from this module.
-import repro_torch.fl.async_engine  # noqa: E402,F401

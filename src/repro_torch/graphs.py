@@ -3,7 +3,8 @@ reference's ``lax.scan`` programs.
 
 A step of the decide plane (``core/ddsra_batched.py``,
 ``core/baseline_batched.py``) or of the fused training loop
-(``fl/cohort.py``'s ``train_scan``) reads nothing on the host, so on CUDA
+(``fl/cohort.py``'s ``train_scan``; under the sharded engine each half of
+a round around its ``all_reduce``) reads nothing on the host, so on CUDA
 it is captured once per set of input shapes as one
 ``torch.cuda.CUDAGraph`` and replayed every round. On the CPU the same
 step functions run eagerly.
@@ -18,9 +19,13 @@ import torch
 # CUDA graphs captured, by step: "round" a DDSRA round (a plan captures one
 # per lane count), "baseline" a fixed-resource round (one per rule and lane
 # count), "train_scan" a trained round of the fused loop (one per model,
-# tier shapes, K, dtype and data plane), "eval" its test-set hit count.
-# The CPU captures none. chip_smoke.py reads it.
-CAPTURE_COUNTS = {"round": 0, "baseline": 0, "train_scan": 0, "eval": 0}
+# tier shapes, K, dtype and data plane), "eval" its test-set hit count;
+# under the sharded engine a trained round is two graphs around its
+# all_reduce, "train_local" (the rank's slots up to their FedAvg sums) and
+# "train_finish" (the averages and the guards). The CPU captures none.
+# chip_smoke.py reads it.
+CAPTURE_COUNTS = {"round": 0, "baseline": 0, "train_scan": 0, "eval": 0,
+                  "train_local": 0, "train_finish": 0}
 
 
 class GraphedStep:

@@ -122,39 +122,49 @@ def test_scenario_json_interchange():
 
 def test_unported_options_raise():
     """What the port refuses, with the reference's errors: the traced plane
-    on the sequential engine, fault axes on a synchronous engine (they run
-    on ``engine="async"``, which builds now) and the sharded engine."""
+    on the sequential engine and fault axes on a synchronous engine (they
+    run on ``engine="async"``); the sharded engine builds (ROADMAP.md M9
+    is ported), with no process group as a one-rank mesh."""
     for kw, err, match in (
             (dict(data_plane="traced", engine="sequential"), ValueError,
              "cannot honor data_plane='traced'"),
             (dict(churn=0.1), ValueError, "synchronous"),
-            (dict(engine="sharded"), NotImplementedError, "ROADMAP.md M9")):
+            (dict(churn=0.1, engine="sharded"), ValueError, "synchronous")):
         with pytest.raises(err, match=match):
             sim.Simulation(sim.Scenario(**SC, **kw), device="cpu")
     s = sim.Simulation(sim.Scenario(**SC, engine="async", churn=0.1),
                        device="cpu")
     assert s.engine.name == "async" and s.faults.active
+    s = sim.Simulation(sim.Scenario(**SC, engine="sharded"), device="cpu")
+    assert s.engine.name == "sharded" and s.engine._shard_count(s) == 1
 
 
 @pytest.mark.parametrize("name,item", [("sharded", "M9")])
 def test_unported_engines_raise_naming_their_item(name, item):
-    """F5: the reference registers this engine; the port names the
-    ROADMAP.md item that ports it, not an unknown name."""
-    assert name in ref_sim.ENGINES
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        sim.make_engine(name)
+    """F5, then M9: the reference registers this engine, which the port
+    built under that ROADMAP.md item; it builds now, no engine is left
+    unported, and an unknown name still raises."""
+    assert name in ref_sim.ENGINES and name in sim.ENGINES
+    assert item not in sim.UNPORTED_ENGINES.values()
+    eng = sim.make_engine(name)
+    assert isinstance(eng, sim.ENGINES[name]) and eng.name == name
     with pytest.raises(ValueError, match="unknown engine"):
         sim.make_engine("nope")
 
 
 def test_every_reference_engine_but_sharded_is_registered():
-    """The async engine (M8) is ported: every engine the reference
-    registers is the port's too, but ``"sharded"`` (M9)."""
-    assert set(ref_sim.ENGINES) - set(sim.ENGINES) == {"sharded"}
-    assert sim.UNPORTED_ENGINES == {"sharded": "M9"}
+    """The async (M8) and sharded (M9) engines are ported: every engine the
+    reference registers is the port's, and the port registers no other."""
+    assert set(ref_sim.ENGINES) == set(sim.ENGINES)
+    assert sim.UNPORTED_ENGINES == {}
     eng = sim.make_engine("async")
     assert eng.supports_faults and not eng.supports_fused
     assert not sim.make_engine("cohort").supports_faults
+    sharded = sim.make_engine("sharded")
+    assert isinstance(sharded, sim.CohortEngine)
+    assert sharded.supports_fused and sharded.supports_traced_data
+    assert sharded.supported_dtypes == ref_sim.ENGINES[
+        "sharded"].supported_dtypes
 
 
 def test_engine_api_matches_reference(reference):
