@@ -30,10 +30,12 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
      shapes (S = 32, D = 32, causal; the round's 6 slots x 95 rows x 2
      heads, the statistics pass's 12 x 95 x 2, the per-sample pass's
      8 x 2), at two more shapes of the short forms (S = 20 with a window
-     of 8, and S = 32 non-causal) and at multi-tile shapes the path never
-     reaches ((2, 8, 1024, 128) causal, the same with a 256 window,
+     of 8, and S = 32 non-causal), at multi-tile shapes the FL paths never
+     reach ((2, 8, 1024, 128) causal, the same with a 256 window,
      (2, 4, 256, 64) non-causal, and a ragged S = 100 at D = 32 with a
-     window of 40), against ``scaled_dot_product_attention`` as the
+     window of 40) and at the LM step's (``lm 4096``: (1, 16, 4096, 64)
+     causal, granite-moe-1b-a400m's heads at seq 4096), against
+     ``scaled_dot_product_attention`` as the
      library yardstick; every case line prints its kernel's launch plan
      (short or tiled form, heads per block, copy width);
    - the SSD scan at the SSM path's shapes (S = 32, chunk 32, n = 4,
@@ -185,7 +187,25 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
    ``control`` must launch the f32 fused linear kernels and no plain
    version (``control`` checks that for (c), its only training; ``fused``
    the kernels of every model it trains, whose launches its warm runs and
-   captures count: a replay launches them through its graph).
+   captures count: a replay launches them through its graph);
+6. the ``lm`` phase (the LM stack, ROADMAP M11a; its seconds printed):
+   (a) each of the ten smoke configs (B = 2, S = 64) from the port's CPU
+   init: forward, ``loss_fn`` and the gradients on the CPU, then on the
+   card from the same params and batch, logits and loss within LM_RTOL
+   (1e-5) of their largest magnitude and each gradient leaf within 1e-5
+   of its largest entry (MoE routing recorded and held as the ``moe``
+   agreement phases hold it, ``TIE_AGREE`` once a token parts), the
+   attention configs launching the three f32 attention kernels, mamba2
+   and jamba the SSD scan and its backward, no plain call; (b)
+   granite-moe-1b-a400m at its published width, f32, batch 1 x seq 4096
+   (``SHAPES["train_4k"]``'s sequence; its global batch of 256 cut to
+   1), three steps of ``repro_torch.launch.train.train``, the last under
+   torch.profiler: s a step, ``max_memory_allocated``, the losses (finite,
+   the first within 1 of ln vocab), device ms by kernel, the attention
+   kernels launched and no plain call; (c) its first two layers at full
+   width (d 1024, 32 experts, vocab 49155) at seq 512, one step's loss
+   and gradients on the card against the CPU as in (a). The three runs'
+   launches count in the ``kernels`` record.
 
 Any failure raises, which exits non-zero before the result line. The line
 before last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
@@ -196,6 +216,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import pathlib
@@ -234,6 +255,10 @@ from repro_torch.fl.data import traced_batch_indices  # noqa: E402
 from repro_torch.fl.fused_sim import _seed_states  # noqa: E402
 from repro_torch.fl.sim import Scenario, Simulation  # noqa: E402
 from repro_torch.fl.trainer import FLConfig, FLTrainer  # noqa: E402
+from repro_torch import configs as lm_configs  # noqa: E402
+from repro_torch.launch import train as lm_train  # noqa: E402
+from repro_torch.models import bundle_for, demo_batch, get_bundle  # noqa
+from repro_torch.models.convert import flatten, tree_map  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
@@ -244,18 +269,18 @@ from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.vgg import mlp_layer_costs  # noqa: E402
 
 # H100 SXM data sheet: f32 outside the tensor cores, HBM3 bandwidth. The
-# attention backward, the forward's short form and the SSD kernels are
-# plain f32 FMA (their bf16 forms too, but their bound reads the bf16
-# rate below: on bf16 operands the same work could run there).
+# attention's short forms and the SSD kernels are plain f32 FMA (their bf16
+# forms too, but their bound reads the bf16 rate below: on bf16 operands the
+# same work could run there).
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # The fused linear kernels and the attention forward's tiled form run
 # 3xTF32 on the tensor cores: three TF32 products (495 TFLOP/s dense) per
 # f32 product, which holds the 1e-5 x scale contract below (split a = big +
 # small, drop only small * small). The bound of all three fused linear
-# kernels, dx too, reads this rate: the same work could run at it whatever
-# implements it; the attention forward's bound reads the rate of the form
-# that runs.
+# kernels, dx too, and of every tiled f32 attention kernel, the backward's
+# dq and dk/dv too, reads this rate: the same work could run at it whatever
+# implements it.
 PEAK_3XTF32_FLOPS = 495e12 / 3
 # The bf16 forms (every kernel's): dense bf16 tensor cores, f32
 # accumulation
@@ -726,6 +751,9 @@ FA_CASES = [
     ("full 256", 2, 4, 256, 64, False, None),
     ("tiled S=100 D=32", 8, 2, 100, 32, True, 40),
     ("round unaligned", 570, 2, 32, 32, True, None),
+    # the LM step's attention (lm phase (b)): granite-moe-1b-a400m's 16
+    # heads of 64 at seq 4096, batch 1
+    ("lm 4096", 1, 16, 4096, 64, True, None),
 ]
 # cases whose operands are views 2 elements into their storage: 4 bytes off
 # 16-byte alignment in bf16 (8 in f32), so both dtypes take the FMA short
@@ -837,10 +865,10 @@ def attention_phase(bf16: bool = False) -> dict:
         for name, (fn, plain, lib) in fns.items():
             per_pair, tensors, rows = FA_WORK[name]
             plan = plans[name]
-            # the forward's tiled form runs on the tensor cores; the bf16
-            # forms' bound reads the bf16 rate, 2 bytes a tensor element
-            # and 4 an lse or delta element
-            tc = name == "flash_attention" and plan.form == "tiled"
+            # the tiled forms' work could run on the tensor cores (3xTF32),
+            # the forward's does; the bf16 forms' bound reads the bf16
+            # rate, 2 bytes a tensor element and 4 an lse or delta element
+            tc = plan.form == "tiled"
             bound = _bound(per_pair * d * pairs * b * h,
                            b * h * s * (q.element_size() * tensors * d
                                         + 4 * rows),
@@ -1261,15 +1289,16 @@ ABSENT.update({"moe-bf16": ABSENT["transformer-bf16"],
                "moe": ABSENT["transformer"]})
 
 
-def _print_breakdown(label: str, prof, wall: float) -> None:
-    """Device time of the profiled round by kernel, and its busy share of
-    the round's wall time (the profiler's own overhead inflates the wall
-    time, so the idle share is an upper bound)."""
+def _print_breakdown(label: str, prof, wall: float,
+                     unit: str = "round") -> None:
+    """Device time of the profiled round (or ``unit``) by kernel, and its
+    busy share of its wall time (the profiler's own overhead inflates the
+    wall time, so the idle share is an upper bound)."""
     rows = [(e.self_device_time_total, e.count, e.key)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_s = sum(r[0] for r in rows) / 1e6
-    print(f"{label} profile round: wall_s={wall:.3f} device_busy_s="
+    print(f"{label} profile {unit}: wall_s={wall:.3f} device_busy_s="
           f"{busy_s:.3f} busy_share={busy_s / wall:.3f} "
           f"launches={sum(r[1] for r in rows)}")
     for us, count, key in sorted(rows, reverse=True)[:20]:
@@ -3084,6 +3113,165 @@ def trainer_phase() -> None:
     check_launched("trainer", NAMES)
 
 
+# ---------------------------------------------------------------------------
+# LM phase: the LM stack's forward, loss and training step (ROADMAP M11a)
+# ---------------------------------------------------------------------------
+
+# (a): every smoke config at tests/test_models_smoke.py's shape
+LM_B, LM_S = 2, 64
+# the f32 contract, as the CPU tests hold the port to the reference:
+# logits and loss relative to their largest magnitude, each gradient leaf
+# to its largest entry
+LM_RTOL = 1e-5
+# (b): granite-moe-1b-a400m at its published width, SHAPES["train_4k"]'s
+# sequence; its global batch of 256 is a many-card shape, cut to 1
+LM_FULL = dict(arch="granite-moe-1b-a400m", batch=1, seq=4096, steps=3)
+# (c): the first two of its 24 layers at full width, at a sequence the
+# host's CPU runs in seconds
+LM_CUT = dict(n_layers=2, seq=512)
+# a random model's loss: ln(vocab) plus about 0.5 (unit-variance logits)
+LM_FIRST_LOSS = 1.0
+SSD_NAMES = ("ssd_scan", "ssd_scan_bwd")
+
+
+def _lm_names(cfg) -> tuple:
+    """The kernels a config's step must launch: attention's three where it
+    has attention layers, the SSD scan and its backward where it has
+    Mamba layers."""
+    kinds = {cfg.kind(i) for i in range(cfg.n_layers)}
+    return (FA_NAMES if "A" in kinds else ()) + (SSD_NAMES if "M" in kinds
+                                                 else ())
+
+
+def _lm_run(bundle, params, batch) -> tuple:
+    """(logits, loss, flat grads) of one forward and one value-and-grad of
+    ``loss_fn``, on the params' device."""
+    with torch.no_grad():
+        logits = bundle.forward(params, batch)
+    loss, grads = lm_train.value_and_grad(
+        lambda p: bundle.loss_fn(p, batch), params)
+    return logits, float(loss), flatten(grads)
+
+
+def _to(tree, device):
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def _lm_agree(label: str, bundle, params, batch) -> dict:
+    """One config's forward, loss and gradients on the CPU, then on the
+    card from the same params and batch: the card's kernels launched and
+    no plain call, held at LM_RTOL (TIE_AGREE where an MoE router parted a
+    token at a tie, as ``agreement_phase`` holds the MoE runs). Returns
+    the card run's launches."""
+    moe = bundle.cfg.moe is not None
+    logs = {"cpu": [], "gpu": []}
+    t0 = time.perf_counter()
+    with _routing_log(logs["cpu"], moe):
+        want = _lm_run(bundle, params, batch)
+    cpu_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    with _routing_log(logs["gpu"], moe):
+        got = _lm_run(bundle, _to(params, "cuda"), _to(batch, "cuda"))
+        torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    launches = check_launched(label, _lm_names(bundle.cfg))
+    tol = LM_RTOL
+    if moe and _routing_parts(label, logs["cpu"], logs["gpu"], "f32"):
+        tol = TIE_AGREE["params"]
+    (lg, loss_g, grads_g), (lc, loss_c, grads_c) = got, want
+    check(bool(torch.isfinite(lg).all()) and np.isfinite(loss_g),
+          f"{label}: non-finite logits or loss")
+    logits_err = float((lg.cpu() - lc).abs().max()) / float(lc.abs().max())
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    grad_err = max(float((grads_g[k].cpu() - g).abs().max())
+                   / max(float(g.abs().max()), 1e-30)
+                   for k, g in grads_c.items())
+    print(f"{label}: loss {loss_g:.6f} (cpu {loss_c:.6f}); relative "
+          f"differences logits {logits_err:.3e} loss {loss_err:.3e} "
+          f"grads (worst leaf) {grad_err:.3e} at {tol}; cpu {cpu_s:.2f} s, "
+          f"card {gpu_s:.2f} s; launches "
+          f"{ {k: launches[k] for k in _lm_names(bundle.cfg)} }",
+          flush=True)
+    check(max(logits_err, loss_err, grad_err) <= tol,
+          f"{label}: the card and the CPU disagree")
+    return launches
+
+
+def _lm_full() -> dict:
+    """LM_FULL's steps of ``train()`` at full width, the last step under
+    torch.profiler: ms a step, peak memory, the losses, device ms by
+    kernel. Returns the run's launches."""
+    cfg = lm_configs.get_config(LM_FULL["arch"])
+    marks = []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def on_step(i, loss):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        if i == LM_FULL["steps"] - 2:
+            prof.start()
+        elif i == LM_FULL["steps"] - 1:
+            prof.stop()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = lm_train.train(LM_FULL["arch"], False, LM_FULL["steps"],
+                            LM_FULL["batch"], LM_FULL["seq"], device="cuda",
+                            log_every=1, on_step=on_step)
+    launches = check_launched("lm full", FA_NAMES)
+    step_s = np.diff([t0] + marks)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"lm full {LM_FULL['arch']}: {cfg.n_params:,} params (f32: "
+          f"{4 * cfg.n_params / 1e9:.3f} GB; with grads and both AdamW "
+          f"moments {16 * cfg.n_params / 1e9:.3f} GB), batch "
+          f"{LM_FULL['batch']} x seq {LM_FULL['seq']}: losses "
+          f"{[round(x, 6) for x in losses]} (ln vocab "
+          f"{np.log(cfg.vocab):.4f}); s a step (the first with the init) "
+          f"{[round(float(x), 4) for x in step_s]}, the last profiled; "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB; launches "
+          f"{ {k: launches[k] for k in FA_NAMES} }", flush=True)
+    _print_breakdown("lm full", prof, float(step_s[-1]), "step")
+    check(len(losses) == LM_FULL["steps"]
+          and all(np.isfinite(x) for x in losses), f"lm losses {losses}")
+    check(abs(losses[0] - np.log(cfg.vocab)) < LM_FIRST_LOSS,
+          f"lm first loss {losses[0]}, ln vocab {np.log(cfg.vocab)}")
+    return launches
+
+
+def lm_phase() -> dict:
+    """The LM stack on the card: (a) every smoke config's forward, loss
+    and gradients against the CPU's; (b) LM_FULL at full width through
+    ``train()``; (c) LM_CUT of granite at full width against the CPU.
+    Returns the launches of (a)-(c)'s card runs."""
+    total: dict = collections.Counter()
+    t0 = time.perf_counter()
+    for arch in lm_configs.ARCHS:
+        bundle = get_bundle(arch, smoke=True)
+        params = bundle.init(torch.Generator().manual_seed(0))
+        batch = demo_batch(bundle.cfg, LM_B, LM_S, device="cpu")
+        total.update(_lm_agree(f"lm smoke {arch}", bundle, params, batch))
+    print(f"lm (a) s={time.perf_counter() - t0:.1f}", flush=True)
+    t0 = time.perf_counter()
+    total.update(_lm_full())
+    print(f"lm (b) s={time.perf_counter() - t0:.1f}", flush=True)
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(lm_configs.get_config(LM_FULL["arch"]),
+                              n_layers=LM_CUT["n_layers"])
+    bundle = bundle_for(cfg)
+    params = _to(bundle.init(torch.Generator(device="cuda").manual_seed(0)),
+                 "cpu")
+    batch = demo_batch(cfg, 1, LM_CUT["seq"], device="cpu")
+    total.update(_lm_agree(f"lm cut {cfg.n_layers} layers seq "
+                           f"{LM_CUT['seq']}", bundle, params, batch))
+    print(f"lm (c) s={time.perf_counter() - t0:.1f}", flush=True)
+    return dict(total)
+
+
 def main() -> int:
     check(torch.cuda.is_available(), "no CUDA device: this smoke test needs "
           "one GPU")
@@ -3130,10 +3318,11 @@ def main() -> int:
                         ("fused", fused_phase),
                         ("async", async_phase),
                         ("sharded", sharded_phase),
-                        ("trainer", trainer_phase)):
+                        ("trainer", trainer_phase),
+                        ("lm", lm_phase)):
         got = timed(name, phase)
-        if name == "sharded":
-            # (a)'s sharded rounds: a path of their own
+        if name in ("sharded", "lm"):
+            # (a)'s sharded rounds and the LM runs: paths of their own
             for k, v in got.items():
                 launches[k] = launches.get(k, 0) + v
 

@@ -1,0 +1,1 @@
+"""Launch drivers of the LM stack (port of ``repro.launch``): ``train``."""

@@ -8,10 +8,16 @@ reference's HWIO ``(3, 3, ci, co)`` to the port's OIHW; fc weights stay
 (``{"ln1": ..., "attn": {"wq": ...}}``), which the port keeps flat under
 dotted keys (``"attn.wq"``); sorted, those keys give the reference's leaf
 order.
+
+The LM stack's params are nested dicts of the reference's own leaves, in
+the same layout in both packages: :func:`tree_from_numpy` and
+:func:`tree_to_numpy` carry them across whole. :func:`tree_map` and
+:func:`tree_leaves` walk such trees in the reference's pytree order, dict
+keys sorted at every level, for every module of the port that does.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Any, Callable, Dict, List
 
 import numpy as np
 import torch
@@ -19,6 +25,22 @@ import torch
 from repro_torch.device import resolve_device
 
 NpParams = List[Dict[str, np.ndarray]]
+
+
+def tree_leaves(tree) -> List:
+    """The leaves of a nested dict in pytree order: keys sorted."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of a nested dict and of same-structured
+    ``rest``, called in pytree order: keys sorted."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
 
 
 def flatten(tree: Dict, prefix: str = "") -> Dict:
@@ -32,7 +54,7 @@ def flatten(tree: Dict, prefix: str = "") -> Dict:
     return out
 
 
-def _unflatten(flat: Dict) -> Dict:
+def unflatten(flat: Dict) -> Dict:
     out: Dict = {}
     for key, v in flat.items():
         *path, leaf = key.split(".")
@@ -71,5 +93,20 @@ def params_to_numpy(model, params) -> NpParams:
                 t = t.permute(2, 3, 1, 0)                # OIHW -> HWIO
             d[name] = t.to("cpu", memory_format=torch.contiguous_format,
                            copy=True).numpy()
-        out.append(_unflatten(d))
+        out.append(unflatten(d))
     return out
+
+
+def tree_from_numpy(np_tree, device="cuda"):
+    """A nested dict of numpy arrays (the reference's LM params, exported
+    with ``jax.tree.map(np.asarray, params)``) as tensors on ``device``,
+    in the arrays' own dtypes."""
+    device = resolve_device(device)
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device),
+                    np_tree)
+
+
+def tree_to_numpy(tree) -> Any:
+    """The inverse of :func:`tree_from_numpy`: each tensor a host numpy
+    copy of its own."""
+    return tree_map(lambda t: t.detach().to("cpu", copy=True).numpy(), tree)

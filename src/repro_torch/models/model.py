@@ -1,24 +1,44 @@
-"""Parameter templates and forward building blocks of the decoder-only
-token models (port of the parts of ``repro.models.model`` the split models
-use).
+"""Unified decoder / encoder-decoder model covering every published
+architecture of ``repro_torch.configs`` (port of ``repro.models.model``'s
+templates and sequence-mode forward).
 
-Templates mirror the reference's leaf for leaf (shapes, logical axes,
-init kinds), so :func:`repro_torch.models.params.init_params` draws the
-same structure. The building blocks are slot-batched: activations are
-``(S, B, seq, D)`` and every weight is per slot (a leading ``S`` axis; a
-stride-0 expanded view when shared); the FFN is SwiGLU or the MoE FFN
-(``repro_torch.models.moe``), whose routing groups are per slot. The
-encoder-decoder path, qkv biases, qk-norm and the LLM stack's forward
-come with the LLM side (ROADMAP.md M11): their templates raise.
+One config-driven implementation: dense, GQA (+bias, +qk-norm), MoE,
+Mamba-2 SSD, hybrid interleave (Jamba), early-fusion VLM (discrete VQ
+tokens in the shared vocab) and enc-dec audio (frame-embedding frontend
+stub). Templates mirror the reference's leaf for leaf (shapes, logical
+axes, init kinds), so :func:`repro_torch.models.params.init_params` draws
+the same structure, and a layer's params are stacked over "units" (one
+repetition of ``cfg.layer_pattern``), which :func:`forward` walks in a
+Python loop.
+
+The building blocks are slot-batched, as the FL split models run them:
+activations are ``(S, B, seq, D)`` and every weight is per slot (a leading
+``S`` axis; a stride-0 expanded view when shared); the FFN is SwiGLU or
+the MoE FFN (``repro_torch.models.moe``), whose routing groups are per
+slot. The LM's forward runs them on one slot (``x[None]``, ``w[None]``),
+so one slot's B x seq tokens route as one group set, as the reference's
+``moe_ffn`` routes them. Self-attention goes through the flash-attention
+op (the CUDA kernels on the card, where a head dim they do not take
+raises; the plain version on the CPU); cross-attention is plain torch, as
+the reference computes it outside any kernel.
+
+The decode side (``cache_template``, ``serve_step``) is not ported yet
+(ROADMAP.md M11b); the reference's ``acts`` sharding anchors and scan
+``unroll`` are jax-only and have no counterpart here.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import apply_rope, slot_mm, swiglu
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.layers import (apply_rope, causal_attention,
+                                       rms_norm, slot_bcast, slot_mm, swiglu)
 from repro_torch.models.moe import moe_ffn_slots
 from repro_torch.models.params import PSpec
 
@@ -36,19 +56,24 @@ def n_units(cfg: ArchConfig) -> int:
     return cfg.n_layers // len(pat)
 
 
-def _attn_template(cfg: ArchConfig, u: int) -> Dict[str, PSpec]:
-    if cfg.qkv_bias or cfg.qk_norm:
-        raise NotImplementedError("qkv biases and qk-norm are not ported "
-                                  "yet (no FL config uses them; "
-                                  "ROADMAP.md M11)")
+def _attn_template(cfg: ArchConfig, u: int,
+                   cross: bool = False) -> Dict[str, PSpec]:
     d, hd = cfg.d_model, cfg.hd
     nh, kv = cfg.n_heads, cfg.n_kv_heads
-    return {
+    t = {
         "wq": PSpec((u, d, nh * hd), ("layers", "embed", "q_heads")),
         "wk": PSpec((u, d, kv * hd), ("layers", "embed", "kv_fused")),
         "wv": PSpec((u, d, kv * hd), ("layers", "embed", "kv_fused")),
         "wo": PSpec((u, nh * hd, d), ("layers", "q_heads", "embed")),
     }
+    if cfg.qkv_bias and not cross:
+        t["bq"] = PSpec((u, nh * hd), ("layers", "q_heads"), "zeros")
+        t["bk"] = PSpec((u, kv * hd), ("layers", "kv_fused"), "zeros")
+        t["bv"] = PSpec((u, kv * hd), ("layers", "kv_fused"), "zeros")
+    if cfg.qk_norm and not cross:
+        t["q_norm"] = PSpec((u, hd), ("layers", None), "ones")
+        t["k_norm"] = PSpec((u, hd), ("layers", None), "ones")
+    return t
 
 
 def _ffn_template(cfg: ArchConfig, u: int,
@@ -95,7 +120,8 @@ def _mamba_template(cfg: ArchConfig, u: int) -> Dict[str, PSpec]:
     }
 
 
-def _unit_template(cfg: ArchConfig, u: int) -> Dict[str, Any]:
+def _unit_template(cfg: ArchConfig, u: int,
+                   cross: bool = False) -> Dict[str, Any]:
     unit: Dict[str, Any] = {}
     for j, kind in enumerate(pattern_of(cfg)):
         sub: Dict[str, Any] = {
@@ -108,34 +134,56 @@ def _unit_template(cfg: ArchConfig, u: int) -> Dict[str, Any]:
         if ffn is not None:
             sub["ln2"] = PSpec((u, cfg.d_model), ("layers", "embed"), "ones")
             sub["ffn"] = ffn
+        if cross:
+            sub["ln_x"] = PSpec((u, cfg.d_model), ("layers", "embed"), "ones")
+            sub["xattn"] = _attn_template(cfg, u, cross=True)
         unit[f"s{j}"] = sub
     return unit
 
 
 def build_template(cfg: ArchConfig) -> Dict[str, Any]:
-    """The decoder-only model's template (encoder-decoder configs raise)."""
-    if cfg.enc_layers:
-        raise NotImplementedError("encoder-decoder templates are not ported "
-                                  "yet (ROADMAP.md M11)")
     d = cfg.d_model
     t: Dict[str, Any] = {
         "embed": PSpec((cfg.vocab, d), ("vocab", "embed"), "embed"),
         "final_norm": PSpec((d,), ("embed",), "ones"),
-        "blocks": _unit_template(cfg, n_units(cfg)),
+        "blocks": _unit_template(cfg, n_units(cfg), cross=cfg.enc_layers > 0),
     }
     if not cfg.tie_embeddings:
         t["unembed"] = PSpec((d, cfg.vocab), ("embed", "vocab"))
+    if cfg.enc_layers:
+        t["encoder"] = {
+            "blocks": _unit_template(_encoder_cfg(cfg), cfg.enc_layers),
+            "final_norm": PSpec((d,), ("embed",), "ones"),
+        }
     return t
+
+
+def _encoder_cfg(cfg: ArchConfig) -> ArchConfig:
+    return dataclasses.replace(cfg, layer_pattern="A", moe=None, enc_layers=0,
+                               n_layers=cfg.enc_layers, qkv_bias=False,
+                               qk_norm=False)
+
+
+# ---------------------------------------------------------------------------
+# slot-batched building blocks
+# ---------------------------------------------------------------------------
 
 
 def _proj_qkv(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ArchConfig,
               positions: Optional[torch.Tensor]):
-    """x (S, B, seq, D) -> q (S, B, seq, H, hd), k/v (S, B, seq, KV, hd)."""
+    """x (S, B, seq, D) -> q (S, B, seq, H, hd), k/v (S, B, seq, KV, hd):
+    bias, heads, qk rms-norm, rope, in the reference's order."""
     hd, nh, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     q, k, v = (slot_mm(x, p[w]) for w in ("wq", "wk", "wv"))
+    if "bq" in p:
+        q, k, v = (t + slot_bcast(p[b], t.dim())
+                   for t, b in zip((q, k, v), ("bq", "bk", "bv")))
     q = q.reshape(*x.shape[:-1], nh, hd)
     k = k.reshape(*x.shape[:-1], kvh, hd)
     v = v.reshape(*x.shape[:-1], kvh, hd)
+    if "q_norm" in p:
+        q = rms_norm(q, slot_bcast(p["q_norm"], q.dim()), cfg.norm_eps)
+        k = rms_norm(k, slot_bcast(p["k_norm"], k.dim()), cfg.norm_eps)
     if positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -152,3 +200,119 @@ def _ffn_apply(x: torch.Tensor, p: Dict[str, torch.Tensor],
     s, d = x.shape[0], x.shape[-1]
     y = swiglu(x.reshape(s, -1, d), p["w1"], p["w3"], p["w2"])
     return y.reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# sequence-mode forward (train / prefill) of one model
+# ---------------------------------------------------------------------------
+
+
+def _one_slot(p: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """One model's block params as a single slot (views)."""
+    return {k: w[None] for k, w in p.items()}
+
+
+def _attention(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ArchConfig,
+               *, causal: bool = True) -> torch.Tensor:
+    """Self-attention, x (B, S, D) -> (B, S, D); rope on the causal
+    (decoder) side only, as in the reference."""
+    positions = torch.arange(x.shape[1], device=x.device) if causal else None
+    q, k, v = (t[0] for t in _proj_qkv(x[None], _one_slot(p), cfg,
+                                        positions))
+    o = flash_ops.gqa_attention(q, k, v, causal=causal)
+    return o.reshape(*x.shape[:-1], cfg.n_heads * cfg.hd) @ p["wo"]
+
+
+def _cross_attention(x: torch.Tensor, enc_out: torch.Tensor,
+                     p: Dict[str, torch.Tensor],
+                     cfg: ArchConfig) -> torch.Tensor:
+    """Decoder x (B, S, D) attends to enc_out (B, T, D): plain torch."""
+    b, s, _ = x.shape
+    hd, nh, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    t = enc_out.shape[1]
+    q = (x @ p["wq"]).reshape(b, s, nh, hd)
+    k = (enc_out @ p["wk"]).reshape(b, t, kvh, hd)
+    v = (enc_out @ p["wv"]).reshape(b, t, kvh, hd)
+    o = causal_attention(q, k, v, causal=False)
+    return o.reshape(b, s, nh * hd) @ p["wo"]
+
+
+def _sublayer_seq(x: torch.Tensor, sub: Dict[str, Any], kind: str,
+                  cfg: ArchConfig, enc_out: Optional[torch.Tensor] = None,
+                  causal: bool = True) -> torch.Tensor:
+    h = rms_norm(x, sub["ln1"], cfg.norm_eps)
+    if kind == "A":
+        x = x + _attention(h, sub["attn"], cfg, causal=causal)
+    else:
+        x = x + ssm_lib.mamba_block(h[None], _one_slot(sub["mamba"]),
+                                    cfg)[0]
+    if "xattn" in sub and enc_out is not None:
+        h = rms_norm(x, sub["ln_x"], cfg.norm_eps)
+        x = x + _cross_attention(h, enc_out, sub["xattn"], cfg)
+    if "ffn" in sub:
+        h = rms_norm(x, sub["ln2"], cfg.norm_eps)
+        x = x + _ffn_apply(h[None], _one_slot(sub["ffn"]), cfg)[0]
+    return x
+
+
+def _units(tree) -> list:
+    """The stacked block params as one tree per unit (views): one unbind
+    per leaf, whose backward stacks the units' gradients in one op, where
+    indexing each unit would add every unit's gradient into a zero-filled
+    copy of the whole leaf."""
+    if isinstance(tree, dict):
+        per_key = {k: _units(v) for k, v in tree.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: per_key[k][u] for k in tree} for u in range(n)]
+    return torch.unbind(tree, 0)
+
+
+def _scan_units(x: torch.Tensor, blocks: Dict[str, Any], cfg: ArchConfig,
+                enc_out: Optional[torch.Tensor] = None, *,
+                causal: bool = True, remat: bool = False) -> torch.Tensor:
+    """Every unit in turn (the reference's ``lax.scan``); ``remat``
+    recomputes each unit's activations in the backward
+    (``torch.utils.checkpoint``, as ``jax.checkpoint`` around the unit)."""
+    pat = pattern_of(cfg)
+
+    def unit(xc, unit_params):
+        for j, kind in enumerate(pat):
+            xc = _sublayer_seq(xc, unit_params[f"s{j}"], kind, cfg, enc_out,
+                               causal)
+        return xc
+
+    units = _units(blocks)
+    if len(units) != n_units(cfg):
+        raise ValueError(f"{len(units)} units of params, {n_units(cfg)} "
+                         f"in {cfg.name}")
+    for p in units:
+        x = (checkpoint(unit, x, p, use_reentrant=False) if remat
+             else unit(x, p))
+    return x
+
+
+def forward(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+            cfg: ArchConfig, *, remat: bool = False) -> torch.Tensor:
+    """batch: tokens (B,S) integers [+ enc_frames (B,T,D) for audio] ->
+    logits (B, S, V)."""
+    x = params["embed"][batch["tokens"].long()]
+    enc_out = None
+    if cfg.enc_layers:
+        e = batch["enc_frames"].to(x.dtype)
+        e = _scan_units(e, params["encoder"]["blocks"], _encoder_cfg(cfg),
+                        causal=False, remat=remat)
+        enc_out = rms_norm(e, params["encoder"]["final_norm"], cfg.norm_eps)
+    x = _scan_units(x, params["blocks"], cfg, enc_out, causal=True,
+                    remat=remat)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return x @ unembed
+
+
+def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+            cfg: ArchConfig, *, remat: bool = False) -> torch.Tensor:
+    """Mean token cross-entropy: f32 logsumexp minus the gold logit."""
+    logits = forward(params, batch, cfg, remat=remat).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    return torch.mean(lse - gold)

@@ -1,12 +1,88 @@
-"""FL split-model registry: name -> builder producing the ``(SplitModel,
-params, layer costs)`` triple the FL simulation consumes (port of the FL
-half of ``repro.models.registry``: ``vgg``, ``mlp``, ``transformer``,
-``moe`` and ``ssm``)."""
+"""Model registries (port of ``repro.models.registry``).
+
+* arch-id -> (template, init, forward, loss) bundle for the LLM stack
+  (:func:`get_bundle`); its decode side is not ported yet (ROADMAP.md
+  M11b): ``serve_step`` and ``cache_template`` raise;
+* FL split-model registry: name -> builder producing the ``(SplitModel,
+  params, layer costs)`` triple the FL simulation consumes (``vgg``,
+  ``mlp``, ``transformer``, ``moe`` and ``ssm``).
+"""
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+
+from repro_torch import configs as cfg_lib
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import model as model_lib
+from repro_torch.models import params as params_lib
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelBundle:
+    cfg: ArchConfig
+    build_template: Callable[[], Any]
+    init: Callable[..., Any]          # generator[, dtype] -> params
+    forward: Callable[..., torch.Tensor]
+    loss_fn: Callable[..., torch.Tensor]
+    serve_step: Callable[..., Any]
+    cache_template: Callable[..., Any]
+
+    def abstract_params(self, dtype=torch.bfloat16):
+        return params_lib.abstract_params(self.build_template(), dtype)
+
+
+def _decode_not_ported(*args, **kwargs):
+    raise NotImplementedError("the LM decode side (serve_step, "
+                              "cache_template) is not ported yet "
+                              "(ROADMAP.md M11b)")
+
+
+def bundle_for(cfg: ArchConfig) -> ModelBundle:
+    """The bundle of ``cfg``; ``init(generator, dtype=float32)`` draws the
+    params on the generator's device."""
+    template = model_lib.build_template(cfg)
+    return ModelBundle(
+        cfg=cfg,
+        build_template=lambda: template,
+        init=lambda generator, dtype=torch.float32: params_lib.init_params(
+            generator, template, dtype),
+        forward=lambda p, b, **kw: model_lib.forward(p, b, cfg, **kw),
+        loss_fn=lambda p, b, **kw: model_lib.loss_fn(p, b, cfg, **kw),
+        serve_step=_decode_not_ported,
+        cache_template=_decode_not_ported,
+    )
+
+
+def get_bundle(arch: str, smoke: bool = False) -> ModelBundle:
+    cfg = cfg_lib.get_smoke_config(arch) if smoke else cfg_lib.get_config(arch)
+    return bundle_for(cfg)
+
+
+def demo_batch(cfg: ArchConfig, batch: int, seq: int,
+               generator: Optional[torch.Generator] = None,
+               enc_len: int = 64, device="cuda") -> Dict[str, torch.Tensor]:
+    """Random tokens and labels (B, S) int32 [+ enc_frames (B, enc_len, D)
+    f32 for audio], drawn from ``generator`` (default: a CPU generator
+    seeded 0) in that order and moved to ``device``. The draws are not
+    jax's: parity runs carry the reference's batch across."""
+    device = resolve_device(device)
+    g = generator if generator is not None else torch.Generator().manual_seed(0)
+    out = {name: torch.randint(0, cfg.vocab, (batch, seq), generator=g,
+                               device=g.device, dtype=torch.int32)
+           for name in ("tokens", "labels")}
+    if cfg.enc_layers:
+        out["enc_frames"] = torch.randn(batch, enc_len, cfg.d_model,
+                                        generator=g, device=g.device)
+    return {k: v.to(device) for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# FL split-model registry
+# ---------------------------------------------------------------------------
 
 # name -> builder(generator, spec, device) -> (SplitModel, params, costs).
 # ``spec`` is any object exposing the scenario fields the builder needs

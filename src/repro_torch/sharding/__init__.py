@@ -22,8 +22,8 @@ masked partial sums (``repro_torch.fl.shard``). Only ``all_reduce`` and
 run the same code.
 
 The model-parallel half of the reference module (``DEFAULT_RULES``,
-``partition_specs``, ``rules_for_mesh``) belongs to the LM side, not
-ported yet (ROADMAP.md M11).
+``partition_specs``, ``rules_for_mesh``) belongs to the LM side's
+multi-device launch, not ported yet (ROADMAP.md M11d).
 """
 from __future__ import annotations
 

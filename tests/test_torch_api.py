@@ -2,10 +2,11 @@
 names (``__all__``), from the port's own modules.
 
 ``repro_torch.fl`` and ``repro_torch.checkpoint`` hold all of theirs. For
-``core``, ``models``, ``configs`` and ``sharding`` the names of a ROADMAP.md
-item not ported yet are listed here, each with its item, and the port
-must still lack them (a name that arrives leaves the list); a reference
-name whose counterpart has another name in the port is listed with it.
+``core`` and ``sharding`` the names of a ROADMAP.md item not ported yet
+are listed here, each with its item, and the port must still lack them (a
+name that arrives leaves the list); ``models`` and ``configs`` hold all
+of theirs; a reference name whose counterpart has another name in the
+port is listed with it.
 """
 import jax
 import jax.experimental
@@ -21,15 +22,10 @@ import pytest  # noqa: E402
 
 # reference name -> the ROADMAP.md item that ports it
 NOT_YET = {
-    "core": {"partition": "M11"},          # the two-stage GPipe split
-    "models": {"ModelBundle": "M11", "bundle_for": "M11",
-               "get_bundle": "M11", "demo_batch": "M11"},
-    "configs": {"ARCHS": "M11", "SHAPES": "M11", "ShapeConfig": "M11",
-                "get_config": "M11", "get_shape": "M11",
-                "get_smoke_config": "M11"},
+    "core": {"partition": "M11c"},         # the two-stage GPipe split
     # the model-parallel LM sharding rules
-    "sharding": {"DEFAULT_RULES": "M11", "partition_specs": "M11",
-                 "rules_for_mesh": "M11"},
+    "sharding": {"DEFAULT_RULES": "M11d", "partition_specs": "M11d",
+                 "rules_for_mesh": "M11d"},
 }
 # reference name -> the port's counterpart under another name
 RENAMED = {
@@ -53,8 +49,9 @@ def test_port_package_exports_the_reference_names(package):
     for name in sorted(want - set(not_yet)):
         assert hasattr(port, renamed.get(name, name)), (package, name)
     for name, item in not_yet.items():
-        assert item == "M11" and not hasattr(port, name), (package, name)
-    if package in ("fl", "checkpoint"):
+        assert item in ("M11c", "M11d") and not hasattr(port, name), (
+            package, name)
+    if package in ("fl", "checkpoint", "models", "configs"):
         assert not not_yet and not renamed
         assert set(ref.__all__) <= set(dir(port))
         assert set(port.__all__) == set(ref.__all__)

@@ -239,6 +239,8 @@ def _bshd_views(b, h, s, d, n=5):
     ("window 256", ("tiled", 1, 4)),
     ("full 256", ("tiled", 1, 4)),
     ("tiled S=100 D=32", ("tiled", 1, 4)),
+    # the LM step's attention (granite-moe-1b-a400m at seq 4096)
+    ("lm 4096", ("tiled", 1, 4)),
 ])
 def test_attention_plan_for_chip_smoke_cases(label, want):
     b, h, s, d, _, _ = _chip_smoke_fa_cases()[label]
