@@ -37,7 +37,11 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
      causal, granite-moe-1b-a400m's heads at seq 4096), against
      ``scaled_dot_product_attention`` as the
      library yardstick; every case line prints its kernel's launch plan
-     (short or tiled form, heads per block, copy width);
+     (short or tiled form, heads per block, copy width) and its share of
+     the bound; the tiled forms of all three run on the tensor cores in
+     3xTF32 (``fwd_tc_kernel``, ``dq_tc_kernel``, ``dkdv_tc_kernel``),
+     and at ``FA_BITWISE`` two calls of dq and of dk/dv must agree bit for
+     bit;
    - the SSD scan at the SSM path's shapes (S = 32, chunk 32, n = 4,
      p = 32, ds = 16, a_log per slot or stride-0 shared) and two multi-chunk
      shapes ((2, 512, 8, 64), ds = 64, chunk 64: the chunk-parallel form;
@@ -274,13 +278,12 @@ from repro_torch.models.vgg import mlp_layer_costs  # noqa: E402
 # same work could run there).
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-# The fused linear kernels and the attention forward's tiled form run
-# 3xTF32 on the tensor cores: three TF32 products (495 TFLOP/s dense) per
-# f32 product, which holds the 1e-5 x scale contract below (split a = big +
-# small, drop only small * small). The bound of all three fused linear
-# kernels, dx too, and of every tiled f32 attention kernel, the backward's
-# dq and dk/dv too, reads this rate: the same work could run at it whatever
-# implements it.
+# The fused linear kernels and the attention's tiled forms (forward, dq,
+# dk/dv) run 3xTF32 on the tensor cores: three TF32 products (495 TFLOP/s
+# dense) per f32 product, which holds the 1e-5 x scale contract below
+# (split a = big + small, drop only small * small). The bound of all three
+# fused linear kernels and of every tiled f32 attention kernel reads this
+# rate.
 PEAK_3XTF32_FLOPS = 495e12 / 3
 # The bf16 forms (every kernel's): dense bf16 tensor cores, f32
 # accumulation
@@ -330,7 +333,7 @@ PORT_KERNELS = ("fwd_kernel", "splitk_reduce_kernel", "dx_kernel",
                 "dwdb_bf16_kernel", "fwd_tma_kernel", "dx_tma_kernel",
                 "dwdb_tma_kernel",
                 "fwd_short_kernel", "fwd_short_mma_kernel", "fwd_tc_kernel",
-                "dq_kernel", "dkdv_kernel", "dq_short_kernel",
+                "dq_tc_kernel", "dkdv_tc_kernel", "dq_short_kernel",
                 "dkdv_short_kernel", "bwd_short_mma_kernel", "ssd_kernel",
                 "ssd_chunk_scan_kernel",
                 "ssd_mma_kernel", "ssd_bwd_chunk_kernel",
@@ -719,7 +722,8 @@ def _hold(totals: dict, name: str, label: str, fn, plain, lib, rtol: float,
     print(f"case {name:24s} {label:18s} {shape} max_abs_err={err:.3e} "
           + " ".join(f"{k}={_fmt(dev[k])} (wall {_fmt(wall[k])})"
                      for k in fns)
-          + f" bound_ms={bound[0]:.4f} ({bound[1]})", flush=True)
+          + f" bound_ms={bound[0]:.4f} ({bound[1]}) share_of_bound="
+          f"{bound[0] / dev['ms']:.3f}", flush=True)
     tot = totals.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                                        library_ms=None if lib is None
                                        else 0.0, bound_ms=0.0, ops_ms=0.0))
@@ -755,6 +759,9 @@ FA_CASES = [
     # heads of 64 at seq 4096, batch 1
     ("lm 4096", 1, 16, 4096, 64, True, None),
 ]
+# cases whose dq and dk/dv are computed twice and must agree bit for bit
+# (no atomics: every sum in a fixed order)
+FA_BITWISE = ("causal 1024", "lm 4096")
 # cases whose operands are views 2 elements into their storage: 4 bytes off
 # 16-byte alignment in bf16 (8 in f32), so both dtypes take the FMA short
 # forms, with copies of one element
@@ -863,11 +870,19 @@ def attention_phase(bf16: bool = False) -> dict:
                 lambda: fa_ref.attention_ref_bwd(*args, causal=causal,
                                                  window=window), lib_bwd)
         for name, (fn, plain, lib) in fns.items():
+            if label in FA_BITWISE and name != "flash_attention":
+                first, again = fn(), fn()
+                first = first if isinstance(first, tuple) else (first,)
+                again = again if isinstance(again, tuple) else (again,)
+                check(all(torch.equal(a, c) for a, c in zip(first, again)),
+                      f"{name}{sfx} {label}: two calls differ")
+                print(f"case {name + sfx:24s} {label:18s} two calls "
+                      "bit-identical: True", flush=True)
             per_pair, tensors, rows = FA_WORK[name]
             plan = plans[name]
-            # the tiled forms' work could run on the tensor cores (3xTF32),
-            # the forward's does; the bf16 forms' bound reads the bf16
-            # rate, 2 bytes a tensor element and 4 an lse or delta element
+            # the tiled forms run on the tensor cores (3xTF32); the bf16
+            # forms' bound reads the bf16 rate, 2 bytes a tensor element and
+            # 4 an lse or delta element
             tc = plan.form == "tiled"
             bound = _bound(per_pair * d * pairs * b * h,
                            b * h * s * (q.element_size() * tensors * d
@@ -3132,6 +3147,8 @@ LM_CUT = dict(n_layers=2, seq=512)
 # a random model's loss: ln(vocab) plus about 0.5 (unit-variance logits)
 LM_FIRST_LOSS = 1.0
 SSD_NAMES = ("ssd_scan", "ssd_scan_bwd")
+# the CUDA kernels of the LM step's attention backward (f32, S > 32)
+LM_BWD_KERNELS = ("dq_tc_kernel", "dkdv_tc_kernel")
 
 
 def _lm_names(cfg) -> tuple:
@@ -3234,6 +3251,16 @@ def _lm_full() -> dict:
           f"max_memory_allocated {peak / 2**30:.3f} GiB; launches "
           f"{ {k: launches[k] for k in FA_NAMES} }", flush=True)
     _print_breakdown("lm full", prof, float(step_s[-1]), "step")
+    # the profiled step's attention backward: the tensor-core tiled pair,
+    # one launch each an attention layer
+    attn = sum(cfg.kind(i) == "A" for i in range(cfg.n_layers))
+    for name in LM_BWD_KERNELS:
+        count = sum(e.count for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and f"::{name}<" in e.key)
+        print(f"lm full profiled step: {name} x{count} ({attn} attention "
+              f"layers)", flush=True)
+        check(count > 0, f"lm full: {name} not in the profiled step")
     check(len(losses) == LM_FULL["steps"]
           and all(np.isfinite(x) for x in losses), f"lm losses {losses}")
     check(abs(losses[0] - np.log(cfg.vocab)) < LM_FIRST_LOSS,

@@ -12,13 +12,13 @@
 // What bounds them on an H100: attention does 4*S*S*D (forward) and
 // 8*S*S*D (backward) operations per head on 4*S*D elements in and out, so
 // at S >= 64 it is bound by arithmetic, not by device memory. The tiled
-// forward runs it on the tensor cores as 3xTF32 (each operand split into a
+// forms run it on the tensor cores as 3xTF32 (each operand split into a
 // TF32 high part and a TF32 remainder, three products summed in f32 per
 // stage), which the fused linear kernels run within the reference's 1e-5
-// f32 contract; the tiled backward is still plain f32 FMA against the 67
-// TFLOP/s f32 rate. At the FL path's S <= 32 with D = 32 a head is far too
-// small for a tile and the kernels are bound by latency: the forward and
-// the backward pair run their short forms there (below).
+// f32 contract, against 165 TFLOP/s where plain f32 FMA has 67. At the FL
+// path's S <= 32 with D = 32 a head is far too small for a tile and the
+// kernels are bound by latency: the forward and the backward pair run
+// their short forms there (below).
 //
 // The tiled forward (tensor cores). A block of 4 warps per (batch*head,
 // 64-row query tile); each warp owns 16 query rows and walks the visible
@@ -27,19 +27,24 @@
 // accumulator stay in registers, in the MMA's fragment layout (below,
 // before fwd_tc_kernel).
 //
-// The tiled backward. One block of 256 threads per (batch*head, 64-row
-// tile); the TPU grid's sequential innermost axis becomes a loop inside the
-// block over the other operand's 64-row tiles, with the dq / dk / dv
-// accumulators kept in registers. Every tile sits in shared memory
-// row-major with an odd row pitch (D + 1): thread (ty, tx) owns rows
-// ty*4 .. ty*4+3 and columns tx + 16*c, so a warp reads one row by
-// broadcast and 16 consecutive columns without bank conflicts.
+// The tiled backward (tensor cores; dq_tc_kernel, dkdv_tc_kernel). The
+// TPU grid's sequential innermost axis becomes a loop inside the block
+// over the other operand's 64-row tiles, streamed through a cp.async ring
+// of two, with the dq / dk / dv accumulators in registers in the MMA's
+// fragment layout. A block of 4 warps per (batch*head, 64-row tile), a
+// warp per 16 rows: dq's warps own query rows and form S and dP, dk/dv's
+// own key rows and form S^T and dP^T (the scores transposed). P and dS are
+// formed in the C fragments of the scores and are, split into TF32 parts,
+// the A fragments of the second products (dS K; P^T dO and dS^T Q) with
+// no trip through shared memory. Below, after the tiled forward.
+//
 // Operands are (batch, head, seq, d) with any batch / head / seq strides
 // and unit d stride, so the slot-batched (rows, seq, heads, d) projections
 // are read in place; rows past the sequence end are masked on load and
 // store, so any S runs. Tiles that a causal or window mask hides entirely
-// are skipped, not run, in every tiled kernel. expf / logf throughout (the
-// tiled forward: exp2f; no fast-math intrinsics).
+// are skipped, not run, in every tiled kernel. The tiled forms take exp2f
+// of log2(e)-scaled exponents, the FMA short forms expf (no fast-math
+// intrinsics).
 //
 // The short forms (S <= 32, D = 32: every shape of the FL path). A 64-row
 // tile there is half padding, and a block per head runs 2.2 waves of mostly
@@ -64,8 +69,7 @@
 // 2 bytes of bf16 per copy (the plan's `vec`) with plain loads, widen them
 // with __bfloat162float and write f32 into the same shared-memory layouts
 // and pitches the f32 forms fill by cp.async, so everything downstream (the
-// short forms' passes, the tiled backward's FMA tiles, tc_tile's 3xTF32
-// MMAs) is the f32 code. bf16 values are exact in TF32, so the small parts
+// short forms' passes, the tiled forms' 3xTF32 MMAs) is the f32 code. bf16 values are exact in TF32, so the small parts
 // of Q, K and V's 3xTF32 split are zero there: right, not fast. Each output
 // is rounded once, to nearest even (__float2bfloat16_rn); lse and delta
 // are f32 in both forms.
@@ -95,9 +99,6 @@
 namespace {
 
 constexpr int kTile = 64;      // query rows and key rows per tile
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kRows = 4;       // rows per thread
-constexpr int kPitchP = kTile + 1;
 constexpr float kNegInf = -1e30f;
 
 struct Strides {
@@ -189,229 +190,15 @@ __device__ __forceinline__ void key_tiles(const Problem& pr, int q0, int* lo,
   *lo = pr.window > 0 ? max(0, q0 - pr.window + 1) / k_rows : 0;
 }
 
-// query tiles [lo, hi) that see some key of the k tile
+// query tiles [lo, hi) of kTile queries that see some key of the key
+// rows [k0, k0 + k_rows)
 __device__ __forceinline__ void query_tiles(const Problem& pr, int k0,
-                                            int* lo, int* hi) {
-  const int k_last = min(k0 + kTile, pr.seq) - 1;
+                                            int* lo, int* hi,
+                                            int k_rows = kTile) {
+  const int k_last = min(k0 + k_rows, pr.seq) - 1;
   *lo = pr.causal ? k0 / kTile : 0;
   *hi = pr.window > 0 ? min(n_tiles(pr), (k_last + pr.window - 1) / kTile + 1)
                       : n_tiles(pr);
-}
-
-// rows [row0, row0 + 64) of one (batch, head) operand into dst[64][D+1]
-// as f32; rows past the sequence end read as 0
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long row_stride, int row0,
-                                          int seq) {
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    const int row = row0 + r;
-    dst[r * (D + 1) + d] = row < seq ? to_f32(src[row * row_stride + d])
-                                     : 0.f;
-  }
-}
-
-// acc[r][j] = sum_d a[(ty*4+r)][d] * b[(tx+16j)][d] over two [64][D+1] tiles
-template <int D>
-__device__ __forceinline__ void tile_dot(const float* a, const float* b,
-                                         int ty, int tx,
-                                         float acc[kRows][4]) {
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float bv[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float av = a[(ty * kRows + r) * (D + 1) + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(av, bv[j], acc[r][j]);
-    }
-  }
-}
-
-// acc[r][c] += sum_j p[(ty*4+r)][j] * m[j][(tx+16c)]: p is [64][65], m is
-// [64][D+1]
-template <int D>
-__device__ __forceinline__ void tile_matmul(const float* p, const float* m,
-                                            int ty, int tx,
-                                            float acc[kRows][D / 16]) {
-#pragma unroll 4
-  for (int j = 0; j < kTile; ++j) {
-    float mv[D / 16];
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) mv[c] = m[j * (D + 1) + tx + 16 * c];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float pv = p[(ty * kRows + r) * kPitchP + j];
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) acc[r][c] = fmaf(pv, mv[c], acc[r][c]);
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const T* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          T* __restrict__ dq, Strides sq, Strides sk, Strides sv,
-          Strides sdo, Strides sdq, Problem pr) {
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* dos = qs + kTile * (D + 1);
-  float* ks = dos + kTile * (D + 1);
-  float* vs = ks + kTile * (D + 1);
-  float* ps = vs + kTile * (D + 1);
-  const int bh = blockIdx.x, b = bh / pr.heads, h = bh % pr.heads;
-  const int q0 = blockIdx.y * kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  q += b * sq.b + h * sq.h;
-  k += b * sk.b + h * sk.h;
-  v += b * sv.b + h * sv.h;
-  dout += b * sdo.b + h * sdo.h;
-  dq += b * sdq.b + h * sdq.h;
-  lse += static_cast<long long>(bh) * pr.seq;
-  delta += static_cast<long long>(bh) * pr.seq;
-
-  load_tile<D>(qs, q, sq.s, q0, pr.seq);
-  load_tile<D>(dos, dout, sdo.s, q0, pr.seq);
-  float lse_r[kRows], delta_r[kRows], acc[kRows][D / 16];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qi = q0 + ty * kRows + r;
-    lse_r[r] = qi < pr.seq ? lse[qi] : 0.f;
-    delta_r[r] = qi < pr.seq ? delta[qi] : 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[r][c] = 0.f;
-  }
-  int lo, hi;
-  key_tiles(pr, q0, &lo, &hi);
-  for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile<D>(ks, k, sk.s, k0, pr.seq);
-    load_tile<D>(vs, v, sv.s, k0, pr.seq);
-    __syncthreads();
-    float s[kRows][4] = {}, dp[kRows][4] = {};
-    tile_dot<D>(qs, ks, ty, tx, s);
-    tile_dot<D>(dos, vs, ty, tx, dp);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qi = q0 + ty * kRows + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = visible(pr, qi, k0 + tx + 16 * j)
-                            ? expf(s[r][j] * pr.scale - lse_r[r]) : 0.f;
-        ps[(ty * kRows + r) * kPitchP + tx + 16 * j] =
-            p * (dp[r][j] - delta_r[r]);
-      }
-    }
-    __syncthreads();
-    tile_matmul<D>(ps, ks, ty, tx, acc);
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qi = q0 + ty * kRows + r;
-    if (qi >= pr.seq) continue;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c)
-      dq[qi * sdq.s + tx + 16 * c] = from_f32<T>(acc[r][c] * pr.scale);
-  }
-}
-
-// One block per (batch*head, 64-key tile); here the thread's rows are keys
-// and its columns queries, so p^T and ds^T are formed directly and never
-// transposed.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const T* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ delta,
-            T* __restrict__ dk, T* __restrict__ dv, Strides sq,
-            Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
-            Problem pr) {
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + kTile * (D + 1);
-  float* qs = vs + kTile * (D + 1);
-  float* dos = qs + kTile * (D + 1);
-  float* ps = dos + kTile * (D + 1);
-  float* lse_s = ps + kTile * kPitchP;
-  float* delta_s = lse_s + kTile;
-  const int bh = blockIdx.x, b = bh / pr.heads, h = bh % pr.heads;
-  const int k0 = blockIdx.y * kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  q += b * sq.b + h * sq.h;
-  k += b * sk.b + h * sk.h;
-  v += b * sv.b + h * sv.h;
-  dout += b * sdo.b + h * sdo.h;
-  dk += b * sdk.b + h * sdk.h;
-  dv += b * sdv.b + h * sdv.h;
-  lse += static_cast<long long>(bh) * pr.seq;
-  delta += static_cast<long long>(bh) * pr.seq;
-
-  load_tile<D>(ks, k, sk.s, k0, pr.seq);
-  load_tile<D>(vs, v, sv.s, k0, pr.seq);
-  float dk_acc[kRows][D / 16], dv_acc[kRows][D / 16];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
-  int lo, hi;
-  query_tiles(pr, k0, &lo, &hi);
-  for (int qt = lo; qt < hi; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    load_tile<D>(qs, q, sq.s, q0, pr.seq);
-    load_tile<D>(dos, dout, sdo.s, q0, pr.seq);
-    if (threadIdx.x < kTile) {
-      const int qi = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = qi < pr.seq ? lse[qi] : 0.f;
-      delta_s[threadIdx.x] = qi < pr.seq ? delta[qi] : 0.f;
-    }
-    __syncthreads();
-    // st[r][j]: key ty*4+r against query tx+16j
-    float st[kRows][4] = {}, dpt[kRows][4] = {};
-    tile_dot<D>(ks, qs, ty, tx, st);
-    tile_dot<D>(vs, dos, ty, tx, dpt);
-    float p[kRows][4];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int kj = k0 + ty * kRows + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qc = tx + 16 * j;
-        p[r][j] = visible(pr, q0 + qc, kj)
-                      ? expf(st[r][j] * pr.scale - lse_s[qc]) : 0.f;
-        ps[(ty * kRows + r) * kPitchP + qc] = p[r][j];
-      }
-    }
-    __syncthreads();
-    tile_matmul<D>(ps, dos, ty, tx, dv_acc);       // dv += p^T do
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qc = tx + 16 * j;
-        ps[(ty * kRows + r) * kPitchP + qc] =
-            p[r][j] * (dpt[r][j] - delta_s[qc]);
-      }
-    __syncthreads();
-    tile_matmul<D>(ps, qs, ty, tx, dk_acc);        // dk += ds^T q
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int kj = k0 + ty * kRows + r;
-    if (kj >= pr.seq) continue;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      dk[kj * sdk.s + tx + 16 * c] = from_f32<T>(dk_acc[r][c] * pr.scale);
-      dv[kj * sdv.s + tx + 16 * c] = from_f32<T>(dv_acc[r][c]);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1858,6 +1645,415 @@ fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the tiled backward on the tensor cores (3xTF32)
+// ---------------------------------------------------------------------------
+
+// Design choices of the tiled backward, as measured at chip_smoke.py's
+// tiled cases (tools/flash_attention_variants.py --tiled-bwd; PERF.md
+// section 6): the forward's ring of kTcStages streamed tiles (with one, dq
+// is 4-6 % slower at causal 1024, both within 2 % elsewhere); the blocks
+// with the most tiles first (in grid order both are 35-41 % slower at
+// causal 1024, 14-17 % at lm 4096); P in base 2 (expf 2-12 % slower);
+// three TF32 products a k-step (one alone takes a quarter to a half less
+// time but lies 5e-4 to 9e-4 of scale off, over FA_RTOL); from D =
+// kTbSplitMinD two warps per 16 rows (TbSplit below; unsplit, D = 128
+// spills 84 (dq) and 368 (dk/dv) bytes and is 1.2-1.3x and 2.0-2.4x
+// slower).
+constexpr int kTbSplitMinD = 128;
+static_assert(kTcQRows == kTcKeys, "the backward's query and key tiles "
+              "are one size");
+
+// The pitch of every tile the backward stages, D + 4 (4 mod 32): each
+// operand is read two ways, and both are free of bank conflicts. Along d,
+// as the scores' operand (A or B), lane (g, t) reads row g (+ 8, + 8j) at
+// columns t and t + 4: banks 4g + t and 4g + t + 4. Along rows, as the
+// second product's B operand, it reads rows 2t and 2t + 1 at column g:
+// banks 8t + g and 8t + 4 + g. (The forward's float2 loads along d want 8
+// mod 32, under which the row reads of rows 2t and 2t + 2 collide.)
+template <int D>
+struct TbPitch {
+  static constexpr int p = D + 4;
+  static constexpr int tile = kTcKeys * p;  // floats of one staged tile
+};
+
+// At D = 128 a warp's accumulators alone take 64 (dq) or 128 (dk and dv)
+// registers a lane, and the block's tiles about 200 KB of shared memory,
+// so one block of 4 warps fits on an SM. There a block holds 8 warps: the
+// two warps of each 16 rows take one half each of the streamed tile's 64
+// rows (n8 tiles [j0, j0 + nj) of the scores, the same k-steps of the
+// second product), so a warp holds half the scores' fragments, and the two
+// partial accumulators are added (the second half's into the first's)
+// through shared memory at the end.
+template <int D>
+struct TbSplit {
+  static constexpr int split = D >= kTbSplitMinD ? 2 : 1;
+  static constexpr int warps = kTcWarps * split;
+  static constexpr int nj = kTcN / split;  // n8 tiles of a tile a warp
+};
+
+// p of a visible pair from its score s and its row's lse: exp(s * scale -
+// lse), in base 2 as exp2(fma(s, scale2, -lse2)) with scale2 = scale *
+// log2 e and lse2 = lse * log2 e (the forward's lse is a natural log), one
+// MUFU.EX2 where expf adds its own range reduction.
+__device__ __forceinline__ float tb_p(float s, float scale2, float lse2) {
+  return exp2f(fmaf(s, scale2, -lse2));
+}
+
+// s (16 x 8NJ, C fragments: row g [+8], column 8j + 2t [+1]) = the warp's
+// 16 rows of a against 8NJ rows of b, both of pitch TbPitch<D>::p, over d:
+// per 32-wide stage of d, four k-steps chained on the tensor cores, then
+// added to s in f32 (tc_tile's order). K-slots t and t + 4 are columns t
+// and t + 4 of the k-step, the mma's own layout.
+template <int D, int NJ>
+__device__ __forceinline__ void tb_scores(const float* a, const float* b,
+                                          float (&s)[NJ][4]) {
+  constexpr int P = TbPitch<D>::p;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int d0 = 0; d0 < D; d0 += 32) {
+    float st[NJ][4] = {};
+#pragma unroll
+    for (int kk = d0; kk < d0 + 32; kk += 8) {
+      uint32_t ab[4], as[4];
+      split_tf32(a[g * P + kk + t], ab[0], as[0]);
+      split_tf32(a[(g + 8) * P + kk + t], ab[1], as[1]);
+      split_tf32(a[g * P + kk + t + 4], ab[2], as[2]);
+      split_tf32(a[(g + 8) * P + kk + t + 4], ab[3], as[3]);
+      uint32_t bb[NJ][2], bs[NJ][2];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        split_tf32(b[(8 * j + g) * P + kk + t], bb[j][0], bs[j][0]);
+        split_tf32(b[(8 * j + g) * P + kk + t + 4], bb[j][1], bs[j][1]);
+      }
+      mma_3xtf32(st, ab, as, bb, bs);
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += st[j][e];
+  }
+}
+
+// acc (16 x D) += x (16 x 8NJ, C fragments as tb_scores leaves them) times
+// m (8NJ rows of pitch TbPitch<D>::p). x goes from its registers to the
+// product: C (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1) of n-tile j are A
+// (g, t), (g, t+4), (g+8, t), (g+8, t+4) of k-step j, split into TF32
+// parts here, so k-slots t and t + 4 are m's rows 2t and 2t + 1. Per chunk
+// of kTcPvN n-tiles of d, the NJ k-steps chained on the tensor cores, then
+// one f32 add into acc: a chain over every tile would drift (the tensor
+// cores truncate what they accumulate).
+template <int D, int NJ>
+__device__ __forceinline__ void tb_product(const float (&x)[NJ][4],
+                                           const float* m,
+                                           float (&acc)[D / 8][4]) {
+  constexpr int P = TbPitch<D>::p;
+  constexpr int NC = kTcPvN < D / 8 ? kTcPvN : D / 8;  // n-tiles per chunk
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int c = 0; c < D / 8; c += NC) {
+    float st[NC][4] = {};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      uint32_t ab[4], as[4];
+      split_tf32(x[j][0], ab[0], as[0]);
+      split_tf32(x[j][2], ab[1], as[1]);
+      split_tf32(x[j][1], ab[2], as[2]);
+      split_tf32(x[j][3], ab[3], as[3]);
+      uint32_t bb[NC][2], bs[NC][2];
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          split_tf32(m[(8 * j + 2 * t + hh) * P + 8 * (c + n) + g],
+                     bb[n][hh], bs[n][hh]);
+      mma_3xtf32(st, ab, as, bb, bs);
+    }
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c + n][e] += st[n][e];
+  }
+}
+
+// The split blocks' partial sums: the second half's warps (half 1) hand
+// their accumulators to the first's through `red` (lane-major, so a warp's
+// stores and loads are consecutive), which add them to their own. Every
+// thread of the block calls it; `red` may alias the ring, whose last tile
+// every warp is done with.
+template <int D>
+__device__ __forceinline__ void tb_reduce(float* red, int rw, int half,
+                                          float (&acc)[D / 8][4]) {
+  float* mine = red + rw * (D / 2) * 32 + (threadIdx.x & 31);
+  if (half) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[(4 * n + e) * 32] = acc[n][e];
+  }
+  __syncthreads();
+  if (!half) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += mine[(4 * n + e) * 32];
+  }
+  __syncthreads();
+}
+
+// The warp's 16 output rows r0 + g (+ 8) of acc * mul, rounded once to T,
+// as pairs along d where `pair` (the plan's copy width allows it).
+template <typename T, int D>
+__device__ __forceinline__ void tb_store(T* out, long long ld, int r0,
+                                         int seq, const float (&acc)[D / 8][4],
+                                         float mul, bool pair) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    if (row >= seq) continue;
+    T* o = out + row * ld + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      store_pair(o + 8 * n, acc[n][2 * r] * mul, acc[n][2 * r + 1] * mul,
+                 pair);
+  }
+}
+
+// Rows [r0, r0 + kTcQRows) of lse, then of delta, into dst by 4-byte
+// copies; rows at or past seq are zero-filled.
+__device__ __forceinline__ void stage_stats(float* dst, const float* lse,
+                                            const float* delta, int r0,
+                                            int seq) {
+  for (int i = threadIdx.x; i < 2 * kTcQRows; i += blockDim.x) {
+    const int r = r0 + (i & (kTcQRows - 1));
+    const float* src = i < kTcQRows ? lse : delta;
+    cp_async4(dst + i, r < seq ? src + r : src, r < seq ? 4 : 0);
+  }
+}
+
+// dq of one (batch*head, 64-row query tile): TbSplit<D>::warps warps, 16
+// rows each (and half of each key tile where split). The block stages its
+// q and do rows once and streams the visible key tiles' k and v through a
+// ring of kTcStages (the next tiles' copies in flight while the warps work
+// on this one); a warp skips the tiles its own rows cannot see. Per tile
+// and warp: S = Q K^T and dP = dO V^T (tb_scores), then in the same
+// registers p = exp(s * scale - lse) (exactly 0 where masked) and dS = p *
+// (dP - delta), and dq += dS K (tb_product, dS as its A fragments); dq =
+// acc * scale at the store. The query tiles run last first, so a causal
+// mask's longest tiles start first.
+template <typename T, int D>
+__global__ void __launch_bounds__(32 * TbSplit<D>::warps)
+dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const T* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             T* __restrict__ dq, Strides sq, Strides sk, Strides sv,
+             Strides sdo, Strides sdq, Problem pr, int vec) {
+  constexpr int P = TbPitch<D>::p, TILE = TbPitch<D>::tile;
+  constexpr int NJ = TbSplit<D>::nj;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = warp % kTcWarps, half = warp / kTcWarps, j0 = half * NJ;
+  float* qs = smem;
+  float* dos = qs + TILE;
+  float* ring = dos + TILE;  // stage i: K at ring + 2 i TILE, then V
+  const int bh = blockIdx.x, b = bh / pr.heads, h = bh % pr.heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcQRows;
+  q += b * sq.b + h * sq.h;
+  k += b * sk.b + h * sk.h;
+  v += b * sv.b + h * sv.h;
+  dout += b * sdo.b + h * sdo.h;
+  dq += b * sdq.b + h * sdq.h;
+  lse += static_cast<long long>(bh) * pr.seq;
+  delta += static_cast<long long>(bh) * pr.seq;
+
+  int lo, hi, wlo = 0, whi = 0;
+  key_tiles(pr, q0, &lo, &hi, kTcQRows, kTcKeys);
+  const int wq0 = q0 + rw * kTcRows;
+  if (wq0 < pr.seq) key_tiles(pr, wq0, &wlo, &whi, kTcRows, kTcKeys);
+  auto stage_kv = [&](int kt) {
+    float* ks = ring + ((kt - lo) % kTcStages) * 2 * TILE;
+    stage_tile<D>(ks, P, k, sk.s, kt * kTcKeys, kTcKeys, pr.seq, vec);
+    stage_tile<D>(ks + TILE, P, v, sv.s, kt * kTcKeys, kTcKeys, pr.seq, vec);
+    cp_async_commit();
+  };
+  // q and do go with the first group; one group per tile, empty past the
+  // last tile, so the count of groups in flight stays kTcStages - 1
+  stage_tile<D>(qs, P, q, sq.s, q0, kTcQRows, pr.seq, vec);
+  stage_tile<D>(dos, P, dout, sdo.s, q0, kTcQRows, pr.seq, vec);
+#pragma unroll
+  for (int i = 0; i < kTcStages - 1; ++i) {
+    if (lo + i < hi) stage_kv(lo + i);
+    else cp_async_commit();
+  }
+
+  // lse and delta of the rows wq0 + g (r = 0) and wq0 + g + 8 (r = 1)
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wq0 + g + 8 * r;
+    lse2[r] = row < pr.seq ? lse[row] * kTcLog2e : 0.f;
+    dl[r] = row < pr.seq ? delta[row] : 0.f;
+  }
+  const float scale2 = pr.scale * kTcLog2e;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int kt = lo; kt < hi; ++kt) {
+    // into the stage that tile kt - 1 left
+    if (kt + kTcStages - 1 < hi) stage_kv(kt + kTcStages - 1);
+    else cp_async_commit();
+    cp_async_wait<kTcStages - 1>();
+    __syncthreads();  // tile kt is in, for every thread's copies
+    if (kt >= wlo && kt < whi) {
+      // the warp's keys: rows 8 j0 .. of the staged tile
+      const float* ks = ring + ((kt - lo) % kTcStages) * 2 * TILE
+                        + 8 * j0 * P;
+      const int k0 = kt * kTcKeys + 8 * j0;
+      float s[NJ][4], dp[NJ][4];
+      tb_scores<D>(qs + rw * kTcRows * P, ks, s);
+      tb_scores<D>(dos + rw * kTcRows * P, ks + TILE, dp);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float p = visible(pr, wq0 + g + 8 * r,
+                                  k0 + 8 * j + 2 * t + (e & 1))
+                              ? tb_p(s[j][e], scale2, lse2[r]) : 0.f;
+          s[j][e] = p * (dp[j][e] - dl[r]);
+        }
+      tb_product<D>(s, ks, acc);
+    }
+    __syncthreads();  // done with this stage before it is refilled
+  }
+  if constexpr (TbSplit<D>::split == 2) tb_reduce<D>(ring, rw, half, acc);
+  // a pair of f32 needs 8-byte alignment (16-byte copies), of bf16 4-byte
+  const bool pair = sizeof(T) == 4 ? vec == 16 : vec >= 4;
+  if (!half) tb_store<T, D>(dq, sdq.s, wq0, pr.seq, acc, pr.scale, pair);
+}
+
+// dk and dv of one (batch*head, 64-row key tile): TbSplit<D>::warps warps,
+// 16 key rows each (and half of each query tile where split). The block
+// stages its k and v rows once and streams the query tiles that see them
+// (q, do, lse and delta) through a ring of kTcStages. The scores are taken
+// transposed, rows keys and columns queries: S^T = K Q^T, P^T = exp(S^T *
+// scale - lse) (exactly 0 where masked), dV += P^T dO; dP^T = V dO^T,
+// dS^T = P^T * (dP^T - delta), dK += dS^T Q; P^T and dS^T are the A
+// fragments of their products in the registers they were formed in. The
+// key tiles run in order, so a causal mask's longest tiles (the first keys
+// see every query) start first.
+template <typename T, int D>
+__global__ void __launch_bounds__(32 * TbSplit<D>::warps)
+dkdv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ dout,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta, T* __restrict__ dk,
+               T* __restrict__ dv, Strides sq, Strides sk, Strides sv,
+               Strides sdo, Strides sdk, Strides sdv, Problem pr, int vec) {
+  constexpr int P = TbPitch<D>::p, TILE = TbPitch<D>::tile;
+  constexpr int NJ = TbSplit<D>::nj;
+  constexpr int STAGE = 2 * TILE + 2 * kTcQRows;  // q, do, lse, delta
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = warp % kTcWarps, half = warp / kTcWarps, j0 = half * NJ;
+  float* ks = smem;
+  float* vs = ks + TILE;
+  float* ring = vs + TILE;
+  const int bh = blockIdx.x, b = bh / pr.heads, h = bh % pr.heads;
+  const int k0 = blockIdx.y * kTcKeys;
+  q += b * sq.b + h * sq.h;
+  k += b * sk.b + h * sk.h;
+  v += b * sv.b + h * sv.h;
+  dout += b * sdo.b + h * sdo.h;
+  dk += b * sdk.b + h * sdk.h;
+  dv += b * sdv.b + h * sdv.h;
+  lse += static_cast<long long>(bh) * pr.seq;
+  delta += static_cast<long long>(bh) * pr.seq;
+
+  int lo, hi, wlo = 0, whi = 0;
+  query_tiles(pr, k0, &lo, &hi, kTcKeys);
+  const int wk0 = k0 + rw * kTcRows;
+  if (wk0 < pr.seq) query_tiles(pr, wk0, &wlo, &whi, kTcRows);
+  auto stage_q = [&](int qt) {
+    float* qs = ring + ((qt - lo) % kTcStages) * STAGE;
+    const int q0 = qt * kTcQRows;
+    stage_tile<D>(qs, P, q, sq.s, q0, kTcQRows, pr.seq, vec);
+    stage_tile<D>(qs + TILE, P, dout, sdo.s, q0, kTcQRows, pr.seq, vec);
+    stage_stats(qs + 2 * TILE, lse, delta, q0, pr.seq);
+    cp_async_commit();
+  };
+  // k and v go with the first group
+  stage_tile<D>(ks, P, k, sk.s, k0, kTcKeys, pr.seq, vec);
+  stage_tile<D>(vs, P, v, sv.s, k0, kTcKeys, pr.seq, vec);
+#pragma unroll
+  for (int i = 0; i < kTcStages - 1; ++i) {
+    if (lo + i < hi) stage_q(lo + i);
+    else cp_async_commit();
+  }
+
+  const float scale2 = pr.scale * kTcLog2e;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  for (int qt = lo; qt < hi; ++qt) {
+    if (qt + kTcStages - 1 < hi) stage_q(qt + kTcStages - 1);
+    else cp_async_commit();
+    cp_async_wait<kTcStages - 1>();
+    __syncthreads();  // tile qt is in, for every thread's copies
+    if (qt >= wlo && qt < whi) {
+      // the warp's queries: rows 8 j0 .. of the staged tile
+      const float* base = ring + ((qt - lo) % kTcStages) * STAGE;
+      const float* qs = base + 8 * j0 * P;
+      const float* dos = qs + TILE;
+      const float* ls = base + 2 * TILE + 8 * j0;
+      const float* ds = ls + kTcQRows;
+      const int q0 = qt * kTcQRows + 8 * j0;
+      float s[NJ][4], dp[NJ][4];
+      tb_scores<D>(ks + rw * kTcRows * P, qs, s);
+      // C (key g [+8], query 8j + 2t [+1])
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = 8 * j + 2 * t + (e & 1);
+          s[j][e] = visible(pr, q0 + qc, wk0 + g + 8 * (e >> 1))
+                        ? tb_p(s[j][e], scale2, ls[qc] * kTcLog2e)
+                        : 0.f;
+        }
+      tb_product<D>(s, dos, dv_acc);
+      tb_scores<D>(vs + rw * kTcRows * P, dos, dp);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[j][e] = s[j][e] * (dp[j][e] - ds[8 * j + 2 * t + (e & 1)]);
+      tb_product<D>(dp, qs, dk_acc);
+    }
+    __syncthreads();  // done with this stage before it is refilled
+  }
+  if constexpr (TbSplit<D>::split == 2) {
+    tb_reduce<D>(ring, rw, half, dk_acc);
+    tb_reduce<D>(ring, rw, half, dv_acc);
+  }
+  // a pair of f32 needs 8-byte alignment (16-byte copies), of bf16 4-byte
+  const bool pair = sizeof(T) == 4 ? vec == 16 : vec >= 4;
+  if (!half) {
+    tb_store<T, D>(dk, sdk.s, wk0, pr.seq, dk_acc, pr.scale, pair);
+    tb_store<T, D>(dv, sdv.s, wk0, pr.seq, dv_acc, 1.f, pair);
+  }
+}
+
 Strides strides_at(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
@@ -1878,38 +2074,44 @@ cudaError_t allow_max_smem(Kernel kernel) {
   return err;
 }
 
-dim3 grid_of(int batch, int heads, int seq) {
-  return dim3(batch * heads, (seq + kTile - 1) / kTile);
+// The tiled backward: a block of TbSplit<D>::warps warps per
+// (batch*head, 64-row tile), its two staged tiles and the ring in shared
+// memory (dk/dv's ring
+// stages carry the query tile's lse and delta too).
+dim3 tb_grid(int batch, const Problem& pr) {
+  return dim3(batch * pr.heads, (pr.seq + kTcQRows - 1) / kTcQRows);
 }
 
 template <typename T, int D>
-int launch_dq(const T* q, const T* k, const T* v, const T* dout,
-              const float* lse, const float* delta, T* dq, int batch,
-              const long long* st, Problem pr, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (4 * kTile * (D + 1) + kTile * kPitchP);
-  static const cudaError_t attr = allow_max_smem(dq_kernel<T, D>);
+int launch_dq_tc(const T* q, const T* k, const T* v, const T* dout,
+                 const float* lse, const float* delta, T* dq, int batch,
+                 const long long* st, Problem pr, int vec,
+                 cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * (2 + 2 * kTcStages) * TbPitch<D>::tile;
+  static const cudaError_t attr = allow_max_smem(dq_tc_kernel<T, D>);
   if (attr != cudaSuccess) return attr;
-  dq_kernel<T, D><<<grid_of(batch, pr.heads, pr.seq), kThreads, smem,
-                    stream>>>(
+  dq_tc_kernel<T, D><<<tb_grid(batch, pr), 32 * TbSplit<D>::warps, smem,
+                      stream>>>(
       q, k, v, dout, lse, delta, dq, strides_at(st, 0), strides_at(st, 1),
-      strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), pr);
+      strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), pr, vec);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
-int launch_dkdv(const T* q, const T* k, const T* v, const T* dout,
-                const float* lse, const float* delta, T* dk, T* dv,
-                int batch, const long long* st, Problem pr,
-                cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (4 * kTile * (D + 1) + kTile * kPitchP + 2 * kTile);
-  static const cudaError_t attr = allow_max_smem(dkdv_kernel<T, D>);
+int launch_dkdv_tc(const T* q, const T* k, const T* v, const T* dout,
+                   const float* lse, const float* delta, T* dk, T* dv,
+                   int batch, const long long* st, Problem pr, int vec,
+                   cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (2 * TbPitch<D>::tile + kTcStages *
+                                       (2 * TbPitch<D>::tile + 2 * kTcQRows));
+  static const cudaError_t attr = allow_max_smem(dkdv_tc_kernel<T, D>);
   if (attr != cudaSuccess) return attr;
-  dkdv_kernel<T, D><<<grid_of(batch, pr.heads, pr.seq), kThreads, smem,
-                      stream>>>(
+  dkdv_tc_kernel<T, D><<<tb_grid(batch, pr), 32 * TbSplit<D>::warps, smem,
+                        stream>>>(
       q, k, v, dout, lse, delta, dk, dv, strides_at(st, 0),
       strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
-      strides_at(st, 4), strides_at(st, 5), pr);
+      strides_at(st, 4), strides_at(st, 5), pr, vec);
   return cudaGetLastError();
 }
 
@@ -2136,10 +2338,11 @@ int dq_entry(const T* q, const T* k, const T* v, const T* dout,
           heads_per_block, stream);
     });
   }
+  if (!vec_ok<T>(vec)) return cudaErrorInvalidValue;
   switch (d) {
-    case 32: return launch_dq<T, 32>(q, k, v, dout, lse, delta, dq, batch, strides, pr, stream);
-    case 64: return launch_dq<T, 64>(q, k, v, dout, lse, delta, dq, batch, strides, pr, stream);
-    case 128: return launch_dq<T, 128>(q, k, v, dout, lse, delta, dq, batch, strides, pr, stream);
+    case 32: return launch_dq_tc<T, 32>(q, k, v, dout, lse, delta, dq, batch, strides, pr, vec, stream);
+    case 64: return launch_dq_tc<T, 64>(q, k, v, dout, lse, delta, dq, batch, strides, pr, vec, stream);
+    case 128: return launch_dq_tc<T, 128>(q, k, v, dout, lse, delta, dq, batch, strides, pr, vec, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -2161,10 +2364,11 @@ int dkdv_entry(const T* q, const T* k, const T* v, const T* dout,
           heads_per_block, stream);
     });
   }
+  if (!vec_ok<T>(vec)) return cudaErrorInvalidValue;
   switch (d) {
-    case 32: return launch_dkdv<T, 32>(q, k, v, dout, lse, delta, dk, dv, batch, strides, pr, stream);
-    case 64: return launch_dkdv<T, 64>(q, k, v, dout, lse, delta, dk, dv, batch, strides, pr, stream);
-    case 128: return launch_dkdv<T, 128>(q, k, v, dout, lse, delta, dk, dv, batch, strides, pr, stream);
+    case 32: return launch_dkdv_tc<T, 32>(q, k, v, dout, lse, delta, dk, dv, batch, strides, pr, vec, stream);
+    case 64: return launch_dkdv_tc<T, 64>(q, k, v, dout, lse, delta, dk, dv, batch, strides, pr, vec, stream);
+    case 128: return launch_dkdv_tc<T, 128>(q, k, v, dout, lse, delta, dk, dv, batch, strides, pr, vec, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -2180,8 +2384,8 @@ int dkdv_entry(const T* q, const T* k, const T* v, const T* dout,
 // short form (seq <= 32, d = 32) with `heads_per_block` warps per block and
 // `vec`-byte staging copies (16 needs every pointer and (b, h, s) stride
 // 16-byte aligned; 2, one bf16 at a time, only in the bf16 forms), form 0
-// the tiled kernels: the forward's on the tensor cores with `vec`-byte
-// copies (heads_per_block unused), the backward's 64-row tiles. Form 2,
+// the tiled kernels on the tensor cores with `vec`-byte copies by the same
+// rule (heads_per_block unused). Form 2,
 // bf16 on the tensor cores at seq <= 32, d = 32 with 16-byte copies and
 // `heads_per_block` heads a block, is the bf16 forward's
 // (flash_attention_fwd_bf16: fwd_short_mma_kernel) and the only form of

@@ -29,9 +29,9 @@ How every kernel launches is decided here, in pure Python, by
 :func:`attention_plan`: the short form (a warp per (b, h) head, a lane per
 row) where S <= 32 and D = 32, and there in bf16 the tensor-core forward
 and fused backward (``"mma"``) where 16-byte copies apply, else the tiled
-kernels (the forward's on the tensor cores, the backward's 64-row tiles);
-heads per block and the staging copy width. The CPU tests check every
-plan the card would run.
+kernels (all three on the tensor cores in 3xTF32: ``fwd_tc_kernel``,
+``dq_tc_kernel``, ``dkdv_tc_kernel``); heads per block and the staging
+copy width. The CPU tests check every plan the card would run.
 """
 from __future__ import annotations
 
@@ -104,10 +104,9 @@ class AttentionPlan:
     ``heads_per_block`` heads a block, operands staged as bf16 by
     cp.async: the forward's o and lse, or the backward's dq, dk and dv in
     one kernel)
-    or ``"tiled"``: the forward's tensor-core tiles (a block of 4 warps per
-    head and 64 query rows, copies of ``vec`` bytes by the same rule) or the
-    backward's 256-thread block per head and 64-row tile (loads of one
-    element: ``vec`` is the element size)."""
+    or ``"tiled"``: the tensor-core tiles of the forward, dq and dk/dv (a
+    block of 4 warps per head and 64 query rows, or 64 key rows for dk/dv,
+    staging copies of ``vec`` bytes by the same rule)."""
     form: str
     heads_per_block: int
     vec: int
@@ -115,40 +114,41 @@ class AttentionPlan:
 
 def attention_plan(b: int, h: int, s: int, d: int, *,
                    strides: Sequence[int] = (), aligned: bool = False,
-                   forward: bool = False, itemsize: int = 4) -> AttentionPlan:
-    """The plan of the forward (``forward``) or of the backward pair for
-    ``b`` x ``h`` heads of ``s`` rows of width ``d`` of ``itemsize``-byte
-    elements (4: f32, 2: bf16). ``strides`` are the (b, h, s) element
-    strides of every operand, ``aligned`` whether every pointer is 16-byte
-    aligned (else it is taken as aligned to the element only)."""
+                   itemsize: int = 4) -> AttentionPlan:
+    """The plan of the forward and of the backward (one rule for both)
+    for ``b`` x ``h`` heads of ``s`` rows of width ``d`` of
+    ``itemsize``-byte elements (4: f32, 2: bf16). ``strides`` are the (b,
+    h, s) element strides of every operand, ``aligned`` whether every
+    pointer is 16-byte aligned (else it is taken as aligned to the element
+    only)."""
     vec = build.copy_width(16 if aligned else itemsize, *strides,
                            itemsize=itemsize)
     if s <= SHORT_MAX_SEQ and d == SHORT_HEAD_DIM:
         if itemsize == 2 and vec == 16:
             return AttentionPlan("mma", MMA_HEADS_PER_BLOCK, vec)
         return AttentionPlan("short", HEADS_PER_BLOCK, vec)
-    return AttentionPlan("tiled", 1, vec if forward else itemsize)
+    return AttentionPlan("tiled", 1, vec)
 
 
-def _plan_for(forward: bool, tensors) -> AttentionPlan:
+def _plan_for(tensors) -> AttentionPlan:
     return attention_plan(
         *tensors[0].shape,
         strides=[st for t in tensors for st in t.stride()[:3]],
         aligned=all(t.data_ptr() % 16 == 0 for t in tensors),
-        forward=forward, itemsize=tensors[0].element_size())
+        itemsize=tensors[0].element_size())
 
 
 def attention_fwd_plan(*tensors: torch.Tensor) -> AttentionPlan:
     """The forward's plan for these (B, H, S, D) operands, q, k, v and o
     (unit last strides): ``"mma"`` is ``fwd_short_mma_kernel``'s."""
-    return _plan_for(True, tensors)
+    return _plan_for(tensors)
 
 
 def attention_bwd_plan(*tensors: torch.Tensor) -> AttentionPlan:
     """The backward's plan for these (B, H, S, D) operands, inputs and
     outputs (unit last strides): ``"mma"`` is the fused kernel's, which
     :func:`flash_attention_bwd` launches."""
-    return _plan_for(False, tensors)
+    return _plan_for(tensors)
 
 
 def _pair_plan(*tensors: torch.Tensor) -> AttentionPlan:

@@ -602,7 +602,7 @@ def test_attention_bwd_plan_mma_form(itemsize, s, d, aligned, form):
         assert plan.vec == 16
         assert 1 <= plan.heads_per_block <= fa.MAX_HEADS_PER_BLOCK
     fwd = fa.attention_plan(570, 2, s, d, strides=strides, aligned=aligned,
-                            itemsize=itemsize, forward=True)
+                            itemsize=itemsize)
     assert fwd.form == form
 
 
@@ -627,8 +627,7 @@ def test_attention_fwd_plan_mma_form(itemsize, s, d, strides, aligned, want):
     S <= 32, D = 32 and 16-byte copies all hold, with
     MMA_HEADS_PER_BLOCK heads a block."""
     plan = fa.attention_plan(570, 2, s, d, strides=strides * 4,
-                             aligned=aligned, itemsize=itemsize,
-                             forward=True)
+                             aligned=aligned, itemsize=itemsize)
     assert (plan.form, plan.vec) == want
     if plan.form == "mma":
         assert plan.heads_per_block == fa.MMA_HEADS_PER_BLOCK
@@ -678,12 +677,12 @@ def test_attention_plan_bf16_copy_width(itemsize, strides, aligned, vec):
     form = "mma" if (itemsize, vec) == (2, 16) else "short"
     assert (plan.form, plan.vec) == (form, vec)
     fwd = fa.attention_plan(2, 2, 64, 64, strides=strides * 4,
-                            aligned=aligned, itemsize=itemsize, forward=True)
+                            aligned=aligned, itemsize=itemsize)
     assert (fwd.form, fwd.vec) == ("tiled", vec)
-    # the tiled backward loads one element at a time
+    # the tiled backward stages by the same rule
     bwd = fa.attention_plan(2, 2, 64, 64, strides=strides * 4,
                             aligned=aligned, itemsize=itemsize)
-    assert (bwd.form, bwd.vec) == ("tiled", itemsize)
+    assert (bwd.form, bwd.vec) == ("tiled", vec)
 
 
 def test_fl_path_bf16_plans_take_16_byte_copies():

@@ -234,13 +234,14 @@ def _bshd_views(b, h, s, d, n=5):
     # a ragged S and a non-causal mask are the short form too
     ("S=20 window 8", ("short", 1, 16)),
     ("full 32", ("short", 1, 16)),
-    # S > 32 or D != 32: the 64-row tiles
-    ("causal 1024", ("tiled", 1, 4)),
-    ("window 256", ("tiled", 1, 4)),
-    ("full 256", ("tiled", 1, 4)),
-    ("tiled S=100 D=32", ("tiled", 1, 4)),
+    # S > 32 or D != 32: the tensor-core tiles, with 16-byte copies of the
+    # aligned views
+    ("causal 1024", ("tiled", 1, 16)),
+    ("window 256", ("tiled", 1, 16)),
+    ("full 256", ("tiled", 1, 16)),
+    ("tiled S=100 D=32", ("tiled", 1, 16)),
     # the LM step's attention (granite-moe-1b-a400m at seq 4096)
-    ("lm 4096", ("tiled", 1, 4)),
+    ("lm 4096", ("tiled", 1, 16)),
 ])
 def test_attention_plan_for_chip_smoke_cases(label, want):
     b, h, s, d, _, _ = _chip_smoke_fa_cases()[label]
@@ -382,16 +383,16 @@ def test_short_form_order_of_work_matches_reference_pallas(s, causal,
 
 def _launchable(plan, s, d, forward) -> bool:
     """The plan is one the C entries take (csrc short_plan_ok and the
-    forward's check of its copy width): the short form within S <= 32,
-    D = 32, 1-8 heads per block and 4- or 16-byte copies; the forward's
-    bf16 tensor-core form there with 16-byte copies; the forward's tiled
-    form with 4- or 16-byte copies; the backward's tiled form as it is."""
+    tiled entries' check of their copy width): the short form within S <=
+    32, D = 32, 1-8 heads per block and 4- or 16-byte copies; the forward's
+    bf16 tensor-core form there with 16-byte copies; the tiled forms,
+    forward and backward, with 4- or 16-byte copies."""
     if plan.form in ("short", "mma"):
         return (s <= kernel.SHORT_MAX_SEQ and d == kernel.SHORT_HEAD_DIM
                 and 1 <= plan.heads_per_block <= kernel.MAX_HEADS_PER_BLOCK
                 and plan.vec in ((16,) if plan.form == "mma" else (4, 16))
                 and (forward or plan.form == "short"))
-    return plan.form == "tiled" and (not forward or plan.vec in (4, 16))
+    return plan.form == "tiled" and plan.vec in (4, 16)
 
 
 def test_variant_tool_plans_are_launchable():
@@ -484,7 +485,7 @@ def test_forward_plan_for_chip_smoke_cases(label, want):
                                       (33, 32, "tiled"), (32, 64, "tiled"),
                                       (16, 128, "tiled")])
 def test_forward_plan_short_form_bounds(s, d, form):
-    plan = kernel.attention_plan(570, 2, s, d, forward=True)
+    plan = kernel.attention_plan(570, 2, s, d)
     assert plan.form == form
     assert _launchable(plan, s, d, forward=True)
 
@@ -503,7 +504,7 @@ def test_forward_plan_copy_width_is_16_bytes_only_where_aligned():
         assert (plan.form, plan.vec) == (form, 4)
         strides = [st for x in views for st in x.stride()[:3]]
         unaligned = kernel.attention_plan(b, h, s, d, strides=strides,
-                                          aligned=False, forward=True)
+                                          aligned=False)
         assert (unaligned.form, unaligned.vec) == (form, 4)
 
 
@@ -557,7 +558,7 @@ def test_forward_short_form_order_of_work_matches_reference_pallas(
         out[:, :, :s] = a
         return torch.from_numpy(out)
     o, lse = _short_fwd(pad(q), pad(k), pad(v), s, causal, window)
-    assert kernel.attention_plan(b, h, s, d, forward=True).form == "short"
+    assert kernel.attention_plan(b, h, s, d).form == "short"
     np.testing.assert_allclose(_np(o), np.asarray(o_ref), **TOL)
     np.testing.assert_allclose(_np(lse), np.asarray(lse_ref), **TOL)
 
@@ -663,3 +664,178 @@ def test_forward_3xtf32_emulation_matches_reference_pallas(causal, window):
     np.testing.assert_allclose(lse, np.asarray(lse_ref), **TOL)
     o1, _ = _tc_forward(q, k, v, causal, window, terms="1x")
     assert not np.allclose(o1, np.asarray(o_ref), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the tiled backward's tensor-core arithmetic (dq_tc_kernel, dkdv_tc_kernel)
+# ---------------------------------------------------------------------------
+
+
+def _tb_split_min_d() -> int:
+    """The head dim from which the tiled backward splits each streamed
+    tile between two warps (csrc kTbSplitMinD)."""
+    import re
+    found = re.search(r"constexpr int kTbSplitMinD = (\d+);",
+                      kernel.SOURCE.read_text())
+    return int(found.group(1))
+
+
+def _tb_scores(tcp, a, b, terms):
+    """a (16, D) against b (n, D): per 32-wide stage of d, the stage's
+    chained 3xTF32 k-steps (``tcp``, ``_tensor_core_product``), then added
+    to the scores in f32."""
+    sc = np.zeros((a.shape[0], b.shape[0]), np.float32)
+    for d0 in range(0, a.shape[1], 32):
+        stage = tcp(a[:, d0:d0 + 32], b[:, d0:d0 + 32].T, terms)
+        sc = (sc + stage).astype(np.float32)
+    return sc
+
+
+def _tb_p(sc, scale2, lse2, vis):
+    """p = exp2(fma(s, scale * log2 e, -lse * log2 e)), exactly 0 where
+    masked (the fma's product is exact in f64)."""
+    arg = (sc.astype(np.float64) * scale2 - lse2).astype(np.float32)
+    return np.where(vis, np.exp2(arg), np.float32(0)).astype(np.float32)
+
+
+def _tb_backward(q, k, v, do, lse, delta, causal, window, terms="3x"):
+    """dq, dk, dv of (B, H, S, D) f32 numpy operands in the tensor-core
+    tiled backward's order of work (csrc dq_tc_kernel, dkdv_tc_kernel): a
+    warp's 16 rows (queries for dq, keys for dk/dv) walk the 64-row tiles
+    of the other operand they can see (key_tiles, query_tiles), each tile
+    split between two warps' halves from D = kTbSplitMinD; per tile, the
+    scores (S and dP; S^T and dP^T) with a per-stage f32 add, P in base 2,
+    dS = P * (dP - delta) in f32, and each second product (dS K; P^T dO and
+    dS^T Q) chained over the tile's k-steps with dS / P split into TF32
+    parts, then added to the half's accumulator in one f32 add; the halves
+    summed at the end, dq and dk times scale at the store. ``terms`` "1x":
+    one TF32 product instead of three."""
+    tcp = _fused_linear_tests()._tensor_core_product
+    b, h, s, d = q.shape
+    log2e = np.float32(np.log2(np.e))
+    scale = np.float32(d ** -0.5)
+    scale2 = np.float32(scale * log2e)
+    tile = _tc_keys()
+    halves = 2 if d >= _tb_split_min_d() else 1
+    part = tile // halves
+    n_tiles = -(-s // tile)
+    pad = n_tiles * tile + 16
+    grads = [np.zeros_like(q) for _ in range(3)]
+    for bi in range(b):
+        for hi in range(h):
+            qh, kh, vh, doh = (np.zeros((pad, d), np.float32)
+                               for _ in range(4))
+            lse2, dl = np.zeros(pad, np.float32), np.zeros(pad, np.float32)
+            for full, x in zip((qh, kh, vh, doh), (q, k, v, do)):
+                full[:s] = x[bi, hi]
+            lse2[:s] = (lse[bi, hi] * log2e).astype(np.float32)
+            dl[:s] = delta[bi, hi]
+            for w0 in range(0, s, 16):
+                rows = np.arange(w0, w0 + 16)
+                last = min(w0 + 16, s) - 1
+                # dq: the warp's queries against the key tiles they see
+                lo = max(0, w0 - window + 1) // tile if window else 0
+                hi_t = last // tile + 1 if causal else n_tiles
+                acc = [np.zeros((16, d), np.float32) for _ in range(halves)]
+                for kt in range(lo, hi_t):
+                    for hf in range(halves):
+                        cols = kt * tile + hf * part + np.arange(part)
+                        vis = _visible(torch.from_numpy(rows[:, None]),
+                                       torch.from_numpy(cols[None, :]),
+                                       causal, window).numpy()
+                        vis &= (rows[:, None] < s) & (cols[None, :] < s)
+                        sc = _tb_scores(tcp, qh[rows], kh[cols], terms)
+                        dp = _tb_scores(tcp, doh[rows], vh[cols], terms)
+                        p = _tb_p(sc, scale2, lse2[rows, None], vis)
+                        ds = (p * (dp - dl[rows, None])).astype(np.float32)
+                        acc[hf] = (acc[hf] + tcp(ds, kh[cols], terms)
+                                   ).astype(np.float32)
+                dq = sum(acc[1:], acc[0]).astype(np.float32)
+                # dk/dv: the warp's keys against the query tiles that see
+                # them
+                lo = w0 // tile if causal else 0
+                hi_t = (min(n_tiles, (last + window - 1) // tile + 1)
+                        if window else n_tiles)
+                dk = [np.zeros((16, d), np.float32) for _ in range(halves)]
+                dv = [np.zeros((16, d), np.float32) for _ in range(halves)]
+                for qt in range(lo, hi_t):
+                    for hf in range(halves):
+                        cols = qt * tile + hf * part + np.arange(part)
+                        vis = _visible(torch.from_numpy(cols[None, :]),
+                                       torch.from_numpy(rows[:, None]),
+                                       causal, window).numpy()
+                        vis &= (rows[:, None] < s) & (cols[None, :] < s)
+                        sc = _tb_scores(tcp, kh[rows], qh[cols], terms)
+                        p = _tb_p(sc, scale2, lse2[None, cols], vis)
+                        dv[hf] = (dv[hf] + tcp(p, doh[cols], terms)
+                                  ).astype(np.float32)
+                        dp = _tb_scores(tcp, vh[rows], doh[cols], terms)
+                        ds = (p * (dp - dl[None, cols])).astype(np.float32)
+                        dk[hf] = (dk[hf] + tcp(ds, qh[cols], terms)
+                                  ).astype(np.float32)
+                n = min(16, s - w0)
+                for out, x, mul in ((grads[0], dq, scale),
+                                    (grads[1], sum(dk[1:], dk[0]), scale),
+                                    (grads[2], sum(dv[1:], dv[0]),
+                                     np.float32(1))):
+                    out[bi, hi, w0:w0 + n] = (x * mul).astype(
+                        np.float32)[:n]
+    return grads
+
+
+@pytest.fixture(scope="module")
+def tiled_bwd_reference():
+    """The reference's Pallas backward (interpret mode) at (1, 2, 128, 64),
+    causal and causal with a window of 48: window -> (the kernels'
+    arguments, dq, dk and dv), one run of each for the module."""
+    out = {}
+    for window in (None, 48):
+        q, k, v, do = _qkv_do(1, 2, 128, 64, seed=400 + (window or 0))
+        o_ref, lse_ref = ref_kernel.flash_attention(
+            q, k, v, causal=True, window=window, block_q=BLOCK,
+            block_k=BLOCK, interpret=True, return_lse=True)
+        delta = np.sum(do * np.asarray(o_ref), axis=-1)
+        grads = ref_kernel.flash_attention_bwd(
+            q, k, v, do, lse_ref, delta, causal=True, window=window,
+            block_q=BLOCK, block_k=BLOCK, interpret=True)
+        out[window] = ((q, k, v, do, np.asarray(lse_ref), delta),
+                       [np.asarray(g) for g in grads])
+    return out
+
+
+@pytest.mark.parametrize("window", [None, 48])
+def test_tiled_backward_3xtf32_emulation_matches_reference_pallas(
+        tiled_bwd_reference, window):
+    """The tensor-core tiled backward's arithmetic (numpy emulation: 16-row
+    warps, 64-row tiles, S and dP with a per-stage f32 add, P in base 2, dS
+    split into TF32 parts, a per-tile f32 add into each accumulator)
+    against the reference's flash_attention_bwd in interpret mode, dq, dk
+    and dv at the file's TOL (the reference's f32 attention tolerance). One
+    TF32 product instead of three misses TOL in every output, so the check
+    has teeth."""
+    args, want = tiled_bwd_reference[window]
+    got = _tb_backward(*args, True, window)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, **TOL)
+    one = _tb_backward(*args, True, window, terms="1x")
+    for g, w in zip(one, want):
+        assert not np.allclose(g, w, **TOL)
+
+
+def test_tiled_backward_3xtf32_emulation_matches_plain_ragged():
+    """The same emulation against the port's plain versions
+    (attention_ref_bwd_dq, attention_ref_bwd_dkdv) at a ragged S = 100
+    (a half-empty second tile, masked on load and store), D = 32, causal
+    with a window of 40."""
+    b, h, s, d, window = 1, 2, 100, 32, 40
+    q, k, v, do = _qkv_do(b, h, s, d, seed=500)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = ref.attention_ref_lse(tq, tk, tv, causal=True, window=window)
+    delta = (tdo * o).sum(-1)
+    args = (tq, tk, tv, tdo, lse, delta)
+    want = (ref.attention_ref_bwd_dq(*args, causal=True, window=window),
+            *ref.attention_ref_bwd_dkdv(*args, causal=True, window=window))
+    got = _tb_backward(q, k, v, do, _np(lse), _np(delta), True, window)
+    assert kernel.attention_plan(b, h, s, d).form == "tiled"
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, _np(w), **TOL)

@@ -1,8 +1,8 @@
 """Design and launch-plan variants of the flash-attention kernels, side by
 side on one card.
 
-    python3 tools/flash_attention_variants.py [--bwd | --fwd]
-    python3 tools/flash_attention_variants.py --parent DIR [--fwd]
+    python3 tools/flash_attention_variants.py [--bwd | --fwd | --tiled-bwd]
+    python3 tools/flash_attention_variants.py --parent DIR [--fwd | --tiled-bwd]
 
 Run from the root of a checkout on a machine with a CUDA card. It prints
 the registers and spills of every kernel of the source as it is (``ptxas
@@ -40,6 +40,16 @@ forward. With ``--parent DIR`` the bf16 backward
 archive`` of the parent unpacked into an ignored ``tmp_*/`` directory):
 its wrappers and source loaded from DIR, both held and timed in turns
 (DIR, this, this, DIR) at the same cases, bf16 SDPA beside them.
+
+With ``--tiled-bwd`` the f32 tiled backward (``dq_tc_kernel``,
+``dkdv_tc_kernel``): the registers and spills of the base source and of
+its unsplit variant, then its source variants (TB_VARIANTS: a ring of
+one, the shortest blocks first, expf, one TF32 product, no split of the
+streamed tiles at D = 128) at chip_smoke.py's tiled f32 cases
+(TB_CASES), each held to FA_RTOL (the 1xTF32 variant prints its error,
+over it), beside f32 SDPA's whole backward; with ``--parent DIR`` as
+well, the pair against another checkout's dq and dk/dv wrappers, timed in
+turns (DIR, this, this, DIR) at the same cases, f32 SDPA beside them.
 
 ``base`` / ``plan`` (the source and the wrapper's plan as they are) runs
 first and again last, which shows the run's spread. One line per case,
@@ -229,6 +239,44 @@ FWD_MMA_PLANS = {
     f"heads_per_block={n}":
     (lambda p, n=n: dataclasses.replace(p, heads_per_block=n))
     for n in (1, 2, 4, 8)}
+# the f32 tiled backward with one choice undone (outputs checked; the
+# substitutions of the ring, the exponent and the products reach the
+# forward too, which this mode does not time)
+TB_VARIANTS = {
+    "base": [],
+    # a ring of one streamed tile: no copies in flight while the warps work
+    "ring_1": [(_STAGES, "constexpr int kTcStages = 1;")],
+    # the blocks in grid order: a causal mask's longest tiles start last
+    "shortest_first": [
+        ("  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcQRows;\n"
+         "  q += b * sq.b + h * sq.h;\n"
+         "  k += b * sk.b + h * sk.h;\n"
+         "  v += b * sv.b + h * sv.h;\n"
+         "  dout +=",
+         "  const int q0 = blockIdx.y * kTcQRows;\n"
+         "  q += b * sq.b + h * sq.h;\n"
+         "  k += b * sk.b + h * sk.h;\n"
+         "  v += b * sv.b + h * sv.h;\n"
+         "  dout +="),
+        ("  const int k0 = blockIdx.y * kTcKeys;",
+         "  const int k0 = (gridDim.y - 1 - blockIdx.y) * kTcKeys;")],
+    # P by expf of base-e exponents, not exp2f of log2(e)-scaled ones
+    "expf": [("constexpr float kTcLog2e = 1.4426950408889634f;",
+              "constexpr float kTcLog2e = 1.f;"),
+             ("  return exp2f(fmaf(s, scale2, -lse2));",
+              "  return expf(fmaf(s, scale2, -lse2));")],
+    # one TF32 product a k-step, not three (its error printed, over
+    # FA_RTOL)
+    "1xtf32": [(_MMA3, (
+        "#pragma unroll\n"
+        "  for (int j = 0; j < N; ++j) mma_tf32(c[j], ab, bb[j]);\n"))],
+    # 4 warps a block at D = 128 too, each with the whole streamed tile
+    "no_split": [("constexpr int kTbSplitMinD = 128;",
+                  "constexpr int kTbSplitMinD = 256;")],
+}
+# chip_smoke.py's cases that take the tiled backward
+TB_CASES = ("causal 1024", "window 256", "full 256", "tiled S=100 D=32",
+            "lm 4096")
 SHORT_CASES = ("round", "stats", "sigma M=1")
 TILED_CASES = ("causal 1024", "window 256", "full 256")
 
@@ -260,14 +308,15 @@ PLANS = {
 CASES = ("round", "stats")
 
 
-def print_registers() -> None:
-    """Compile the source with ``-Xptxas -v`` and print each kernel's
-    registers and spill bytes."""
+def print_registers(source: pathlib.Path = kernel.SOURCE, only: str = "",
+                    tag: str = "") -> None:
+    """Compile ``source`` with ``-Xptxas -v`` and print the registers and
+    spill bytes of each kernel whose name holds ``only``."""
     out_dir = build.BUILD_DIR / "fa_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run(
         [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-         str(out_dir / "ptxas.so"), str(kernel.SOURCE)],
+         str(out_dir / f"ptxas{tag}.so"), str(source)],
         capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
@@ -280,7 +329,7 @@ def print_registers() -> None:
                           r"I(f|13__nv_bfloat16)Li(\d+)E", line)
         plain = re.search(r"Compiling entry function '.*?\d+([a-z_]+kernel)"
                           r"ILb([01])EE", line)
-        if not (found or plain):
+        if not (found or plain) or only not in line:
             continue
         info = " ".join(lines[i + 1:i + 5])
         regs = re.search(r"Used (\d+) registers", info).group(1)
@@ -290,7 +339,8 @@ def print_registers() -> None:
             name = f"{found.group(1)}<{dtype}, {found.group(3)}>"
         else:
             name = f"{plain.group(1)}<causal={plain.group(2)}>"
-        print(f"ptxas {name:30s} registers={regs} spill_bytes={spill}")
+        print(f"ptxas{tag} {name:30s} registers={regs} "
+              f"spill_bytes={spill}")
 
 
 def build_variants(variants: dict = VARIANTS, tag: str = "") -> dict:
@@ -488,6 +538,17 @@ def mma_variants(g: torch.Generator, forward: bool) -> None:
               flush=True)
 
 
+def _load_parent(parent: pathlib.Path):
+    """Another checkout's attention wrapper module (its SOURCE its own)."""
+    spec = importlib.util.spec_from_file_location(
+        "_parent_fa_kernel", parent / "src" / "repro_torch" / "kernels"
+        / "flash_attention" / "kernel.py")
+    other = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = other   # its dataclasses look their module up
+    spec.loader.exec_module(other)
+    return other
+
+
 def parent_ab(parent: pathlib.Path, forward: bool = False) -> None:
     """The bf16 backward (``forward``: the bf16 forward) against another
     checkout's (``--parent DIR``): its wrapper module and source loaded
@@ -495,12 +556,7 @@ def parent_ab(parent: pathlib.Path, forward: bool = False) -> None:
     FA_RTOL and timed in turns (DIR, this, this, DIR), bf16 SDPA beside
     them. A parent without ``flash_attention_bwd`` runs its dq and dk/dv
     wrappers in turn."""
-    spec = importlib.util.spec_from_file_location(
-        "_parent_fa_kernel", parent / "src" / "repro_torch" / "kernels"
-        / "flash_attention" / "kernel.py")
-    other = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = other   # its dataclasses look their module up
-    spec.loader.exec_module(other)
+    other = _load_parent(parent)
     build.build_all([other.SOURCE, kernel.SOURCE])
     g = torch.Generator(device="cuda").manual_seed(5)
     which = "fwd" if forward else "bwd"
@@ -534,6 +590,74 @@ def parent_ab(parent: pathlib.Path, forward: bool = False) -> None:
                          f"version: {errs}")
 
 
+def _tb_case(label: str, g: torch.Generator):
+    """One TB_CASES case in f32: (causal, window, the pair's arguments, the
+    plain versions' dq, dk and dv, f32 SDPA's whole backward in ms)."""
+    (b, h, s, d, causal, window), (q, k, v, do) = _inputs(label, g)
+    o, lse = kernel.flash_attention(q, k, v, causal, window)
+    args = (q, k, v, do, lse, (do * o).sum(-1))
+    want = (ref.attention_ref_bwd_dq(*args, causal=causal, window=window),
+            *ref.attention_ref_bwd_dkdv(*args, causal=causal, window=window))
+    return causal, window, args, want, _sdpa_ms(args, causal, window, False)
+
+
+def tiled_bwd_variants(g: torch.Generator) -> None:
+    """The f32 tiled backward's source variants (TB_VARIANTS) at TB_CASES:
+    dq and dk/dv each held to FA_RTOL and timed, f32 SDPA's whole backward
+    beside them."""
+    libs = build_variants(TB_VARIANTS, "_tb")
+    print_registers(build.BUILD_DIR / "variants"
+                    / "flash_attention_tb_no_split.cu", "tc_kernel",
+                    "[no_split]")
+    library = kernel.library
+    for label in TB_CASES:
+        causal, window, args, want, sdpa = _tb_case(label, g)
+        fns = {"dq": lambda: (kernel.flash_attention_bwd_dq(
+                   *args, causal, window),),
+               "dkdv": lambda: kernel.flash_attention_bwd_dkdv(
+                   *args, causal, window)}
+        wants = {"dq": want[:1], "dkdv": want[1:]}
+        for name in list(TB_VARIANTS) + ["base"]:
+            kernel.library = lambda lib=libs[name]: lib
+            for which, fn in fns.items():
+                _line(label, name, which, fn, wants[which])
+        kernel.library = library
+        print(f"variant {label:11s} {'sdpa_backward':24s} bwd  "
+              f"ms={sdpa:.4f}", flush=True)
+
+
+def tiled_parent_ab(parent: pathlib.Path) -> None:
+    """The f32 tiled backward against another checkout's (``--parent DIR
+    --tiled-bwd``): its dq and dk/dv wrappers and source loaded from DIR,
+    built beside this one's, all held to FA_RTOL and timed in turns (DIR,
+    this, this, DIR) at TB_CASES, f32 SDPA's whole backward beside them."""
+    other = _load_parent(parent)
+    build.build_all([other.SOURCE, kernel.SOURCE])
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for label in TB_CASES:
+        causal, window, args, want, sdpa = _tb_case(label, g)
+        for which, wants in (("dq", want[:1]), ("dkdv", want[1:])):
+            fns = {name: (lambda m=mod: getattr(
+                       m, f"flash_attention_bwd_{which}")(*args, causal,
+                                                          window))
+                   for name, mod in (("parent", other), ("this", kernel))}
+            errs = {}
+            for name, fn in fns.items():
+                got = fn()
+                errs[name] = _err(got if isinstance(got, tuple) else (got,),
+                                  wants)
+            ms = [chip_smoke.device_ms(fns[k])
+                  for k in ("parent", "this", "this", "parent")]
+            print(f"tiled {which:4s} ab {label:16s} parent/this/this/parent "
+                  "ms=" + " ".join(f"{m:.4f}" for m in ms)
+                  + f" sdpa_backward={sdpa:.4f} err/scale parent="
+                  f"{errs['parent']:.1e} this={errs['this']:.1e}",
+                  flush=True)
+            chip_smoke.check(max(errs.values()) <= chip_smoke.FA_RTOL,
+                             f"{label}: a tiled {which} disagrees with the "
+                             f"plain version: {errs}")
+
+
 def main() -> int:
     chip_smoke.check(torch.cuda.is_available(), "needs one CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -541,14 +665,21 @@ def main() -> int:
                          text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
     forward = "--fwd" in sys.argv[1:]
-    if "--parent" in sys.argv[1:]:
-        parent_ab(pathlib.Path(sys.argv[sys.argv.index("--parent") + 1]),
-                  forward)
-        return 0
-    print_registers()
-    kernel.library()
+    tiled = "--tiled-bwd" in sys.argv[1:]
     torch.backends.cuda.matmul.allow_tf32 = False
+    if "--parent" in sys.argv[1:]:
+        parent = pathlib.Path(sys.argv[sys.argv.index("--parent") + 1])
+        if tiled:
+            tiled_parent_ab(parent)
+        else:
+            parent_ab(parent, forward)
+        return 0
+    print_registers(only="tc_kernel" if tiled else "")
+    kernel.library()
     g = torch.Generator(device="cuda").manual_seed(1)
+    if tiled:
+        tiled_bwd_variants(g)
+        return 0
     if forward or "--bwd" in sys.argv[1:]:
         mma_variants(g, forward)
         return 0
