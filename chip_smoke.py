@@ -209,7 +209,29 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
    kernels launched and no plain call; (c) its first two layers at full
    width (d 1024, 32 experts, vocab 49155) at seq 512, one step's loss
    and gradients on the card against the CPU as in (a). The three runs'
-   launches count in the ``kernels`` record.
+   launches count in the ``kernels`` record;
+7. the ``serve`` phase (the LM decode and serve path, ROADMAP M11b; its
+   seconds printed): (a) each of the ten smoke configs decodes B = 2 x
+   S = 16 tokens through ``serve_step`` (seamless with 8 encoder frames)
+   on the CPU, then on the card from the same params, logits and every
+   cache leaf within LM_RTOL of their largest magnitude (``TIE_AGREE``
+   where an MoE router parted a token), no plain call, seamless's
+   encoder launching the attention forward; the card's decode logits
+   against the card's sequence forward at the reference's 2e-3 (MoE at
+   capacity factor 8); deepseek-smoke's caches as ring buffers of 8 over
+   24 tokens, card against CPU; (b) ``launch.serve.serve`` at its
+   defaults (batch 4, prompt 32, gen 32, cache 128) at the published
+   widths of mamba2-2.7b, deepseek-7b, stablelm-3b and
+   seamless-m4t-medium, memory freed between them: tok/s and ms a decode
+   step over the unprofiled steps, ``max_memory_allocated`` and the last
+   step under torch.profiler (device ms, launches, busy share of the
+   median step), seamless's encoder launching ``fwd_tc_kernel<float,
+   64>`` once a layer (12) and no plain call (that kernel is held against
+   its plain version at this shape as FA_CASES' "serve encoder"); (c)
+   mamba2-2.7b and seamless at full width cut to two units (seamless's
+   encoder to two layers), 16 steps of batch 4 (seamless over 16 frames)
+   on the card against the CPU as in (a). (b)'s launches count in the
+   ``kernels`` record.
 
 Any failure raises, which exits non-zero before the result line. The line
 before last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
@@ -260,8 +282,11 @@ from repro_torch.fl.fused_sim import _seed_states  # noqa: E402
 from repro_torch.fl.sim import Scenario, Simulation  # noqa: E402
 from repro_torch.fl.trainer import FLConfig, FLTrainer  # noqa: E402
 from repro_torch import configs as lm_configs  # noqa: E402
+from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.models import bundle_for, demo_batch, get_bundle  # noqa
+from repro_torch.models import model as model_lib  # noqa: E402
+from repro_torch.models import params as params_lib  # noqa: E402
 from repro_torch.models.convert import flatten, tree_map  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa
@@ -758,6 +783,9 @@ FA_CASES = [
     # the LM step's attention (lm phase (b)): granite-moe-1b-a400m's 16
     # heads of 64 at seq 4096, batch 1
     ("lm 4096", 1, 16, 4096, 64, True, None),
+    # the serve path's (serve phase (b)): seamless-m4t-medium's encoder,
+    # 16 heads of 64 over launch/serve.py's 16 frames, batch 4, non-causal
+    ("serve encoder", 4, 16, 16, 64, False, None),
 ]
 # cases whose dq and dk/dv are computed twice and must agree bit for bit
 # (no atomics: every sum in a fixed order)
@@ -3299,6 +3327,259 @@ def lm_phase() -> dict:
     return dict(total)
 
 
+# ---------------------------------------------------------------------------
+# serve phase: the LM decode and serve path (ROADMAP M11b)
+# ---------------------------------------------------------------------------
+
+# (a): every smoke config decoding tests/test_decode_parity.py's B = 2 x
+# S = 16 tokens (the encoder-decoder arch with 8 encoder frames)
+SERVE_B, SERVE_S, SERVE_ENC = 2, 16, 8
+# decode against the card's own sequence forward, at the reference's
+# tolerance (tests/test_decode_parity.py), MoE at capacity factor 8 (the
+# capacity cut-off sees B tokens a step in decode, B x S in the forward)
+SERVE_PARITY = 2e-3
+SERVE_PARITY_CF = 8.0
+# deepseek-smoke's caches as ring buffers of 8 over 24 tokens
+SERVE_RING = dict(arch="deepseek-7b", window=8, tokens=24)
+# (b): launch/serve.py's defaults at the published widths (stablelm-3b:
+# head dim 80, which its training cannot take yet, ROADMAP K7)
+SERVE_FULL = ("mamba2-2.7b", "deepseek-7b", "stablelm-3b",
+              "seamless-m4t-medium")
+SERVE_ARGS = dict(batch=4, prompt_len=32, gen=32, cache_len=128)
+# (c): two units of the published widths (seamless: two encoder layers
+# too), 16 decode steps of SERVE_ARGS' batch (seamless: over
+# launch/serve.py's 16 frames) on the card against the CPU
+SERVE_CUT = dict(archs=("mamba2-2.7b", "seamless-m4t-medium"), units=2,
+                 steps=16)
+
+
+def _serve_decode(bundle, params, tokens, enc, cache_len: int,
+                  ring: bool = False) -> tuple:
+    """``serve_step`` over ``tokens`` (B, T) from a zeroed cache of
+    ``cache_len`` on the params' device (the cross cache filled first
+    from ``enc`` where the arch has an encoder) -> (logits (B, T, V), the
+    final cache)."""
+    cfg = bundle.cfg
+    dev = params["embed"].device
+    cache = params_lib.init_params(
+        torch.Generator(device=dev),
+        bundle.cache_template(tokens.shape[0], cache_len,
+                              enc_len=0 if enc is None else enc.shape[1]))
+    with torch.no_grad():
+        if cfg.enc_layers:
+            enc_out = model_lib.encode_for_decode(params, enc.to(dev), cfg)
+            model_lib.fill_cross_cache(params, cache, enc_out, cfg)
+        outs = []
+        for t in range(tokens.shape[1]):
+            logits, cache = bundle.serve_step(
+                params, cache, tokens[:, t:t + 1].to(dev), t, ring=ring)
+            outs.append(logits[:, 0])
+    return torch.stack(outs, dim=1), cache
+
+
+def _serve_agree(label: str, bundle, params, tokens, enc, cache_len: int,
+                 ring: bool = False) -> tuple:
+    """One config's decode on the CPU, then on the card from the same
+    params, tokens and frames: logits and every cache leaf within LM_RTOL
+    of their largest magnitude (TIE_AGREE where an MoE router parted a
+    token, as ``_lm_agree`` holds it); no plain kernel call on the card,
+    and the encoder's attention forward launched where there is one.
+    Returns (the card run's launches, its logits, the card's params)."""
+    cfg = bundle.cfg
+    moe = cfg.moe is not None
+    logs = {"cpu": [], "gpu": []}
+    t0 = time.perf_counter()
+    with _routing_log(logs["cpu"], moe):
+        lc, cc = _serve_decode(bundle, params, tokens, enc, cache_len, ring)
+    cpu_s = time.perf_counter() - t0
+    gparams = _to(params, "cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    with _routing_log(logs["gpu"], moe):
+        lg, cg = _serve_decode(bundle, gparams, tokens, enc, cache_len, ring)
+        torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    launches = check_launched(label, ("flash_attention",) if cfg.enc_layers
+                              else ())
+    tol = LM_RTOL
+    if moe and _routing_parts(label, logs["cpu"], logs["gpu"], "f32"):
+        tol = TIE_AGREE["params"]
+    check(bool(torch.isfinite(lg).all()), f"{label}: non-finite logits")
+    logits_err = float((lg.cpu() - lc).abs().max()) / float(lc.abs().max())
+    fc, fg = flatten(cc), flatten(cg)
+    cache_err = max(float((fg[k].cpu() - c).abs().max())
+                    / max(float(c.abs().max()), 1e-30)
+                    for k, c in fc.items())
+    print(f"{label}: {tokens.shape[1]} steps of batch {tokens.shape[0]}; "
+          f"relative differences logits {logits_err:.3e} cache (worst "
+          f"leaf) {cache_err:.3e} at {tol}; cpu {cpu_s:.2f} s, card "
+          f"{gpu_s:.2f} s; attention forward launches "
+          f"{launches['flash_attention']}", flush=True)
+    check(max(logits_err, cache_err) <= tol,
+          f"{label}: the card and the CPU disagree")
+    return launches, lg, gparams
+
+
+def _serve_parity(label: str, cfg, params, tokens, enc, logits) -> None:
+    """The card's decode logits against the card's sequence forward of
+    the same tokens, at SERVE_PARITY (``logits`` None: decode again, MoE
+    at SERVE_PARITY_CF). Its launches are a comparison's: not counted."""
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=SERVE_PARITY_CF))
+    bundle = bundle_for(cfg)
+    if logits is None:
+        logits, _ = _serve_decode(bundle, params, tokens, enc, SERVE_S)
+    batch = {"tokens": tokens.cuda()}
+    if enc is not None:
+        batch["enc_frames"] = enc.cuda()
+    with torch.no_grad():
+        want = bundle.forward(params, batch)
+    excess = float(((logits - want).abs()
+                    - SERVE_PARITY * (1 + want.abs())).max())
+    print(f"{label} decode against forward: max abs diff "
+          f"{float((logits - want).abs().max()):.3e} (atol = rtol = "
+          f"{SERVE_PARITY})", flush=True)
+    check(excess <= 0, f"{label}: decode and forward disagree")
+
+
+def _serve_full(arch: str) -> dict:
+    """``launch.serve.serve`` of ``arch`` at its published width with
+    SERVE_ARGS: tok/s and ms a decode step (each step ends in a sync;
+    the median) over steps 1 to the last but one, none of them profiled;
+    the last step under torch.profiler (its device ms, launches and busy
+    share of the median step); peak memory. Returns the run's launches."""
+    cfg = lm_configs.get_config(arch)
+    total = SERVE_ARGS["prompt_len"] + SERVE_ARGS["gen"]
+    marks, finite = [], []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def on_step(i, logits):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        # the tracer starts and stops outside the timed steps' marks
+        if i == total - 2:
+            prof.start()
+        elif i == total - 1:
+            prof.stop()
+            finite.append(bool(torch.isfinite(logits).all()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = lm_serve.serve(arch, False, SERVE_ARGS["batch"],
+                         SERVE_ARGS["prompt_len"], SERVE_ARGS["gen"],
+                         cache_len=SERVE_ARGS["cache_len"], device="cuda",
+                         on_step=on_step)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    label = f"serve full {arch}"
+    launches = check_launched(label, ("flash_attention",) if cfg.enc_layers
+                              else ())
+    steps = np.diff(marks) * 1e3
+    timed, profiled = steps[:-1], float(steps[-1])
+    median = float(np.median(timed))
+    cache_b = params_lib.spec_bytes(model_lib.cache_template(
+        cfg, SERVE_ARGS["batch"], SERVE_ARGS["cache_len"],
+        lm_serve.ENC_LEN), torch.float32)
+    print(f"{label}: {cfg.n_params:,} params (f32 {4 * cfg.n_params / 1e9:.3f}"
+          f" GB), cache {cache_b / 1e9:.4f} GB; batch {SERVE_ARGS['batch']},"
+          f" {SERVE_ARGS['prompt_len']}+{SERVE_ARGS['gen']} tokens each; "
+          f"{SERVE_ARGS['batch'] * len(timed) / (timed.sum() / 1e3):.1f} "
+          f"tok/s over steps 1-{len(timed)} (unprofiled); ms a step: first "
+          f"{1e3 * (marks[0] - t0):.1f} (with the init), median {median:.3f}"
+          f", min {float(timed.min()):.3f}, max {float(timed.max()):.3f}; "
+          f"profiled step {total - 1} {profiled:.3f} ms; "
+          f"{SERVE_ARGS['batch'] * total / wall:.1f} tok/s over the whole "
+          f"call ({wall:.2f} s, the init and the profiled step in it); "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB; attention forward "
+          f"launches {launches['flash_attention']}", flush=True)
+    # busy share: the profiled step's device time over the median
+    # unprofiled step (the tracer stretches the step it records)
+    _print_breakdown(label, prof, median / 1e3,
+                     "step (wall_s: the median unprofiled step)")
+    check(out.shape == (SERVE_ARGS["batch"], SERVE_ARGS["gen"])
+          and int(out.min()) >= 0 and int(out.max()) < cfg.vocab,
+          f"{label}: generated tokens {out.shape}")
+    check(finite == [True], f"{label}: non-finite logits")
+    if cfg.enc_layers:
+        # the encoder's self-attention: one launch a layer, at enc_len 16
+        # the tiled 3xTF32 forward, fwd_tc_kernel<float, 64> (held against
+        # its plain version at this shape as FA_CASES' "serve encoder"),
+        # on (B, H, S, D) views of aligned (B, S, H, D) activations
+        h, s, d = cfg.n_heads, lm_serve.ENC_LEN, cfg.hd
+        plan = fa_kernel.attention_plan(SERVE_ARGS["batch"], h, s, d,
+                                        strides=(s * h * d, d, h * d),
+                                        aligned=True)
+        print(f"{label}: encoder attention plan {plan}", flush=True)
+        check(launches["flash_attention"] == cfg.enc_layers
+              and plan.form == "tiled" and cfg.hd == 64,
+              f"{label}: {launches['flash_attention']} attention forward "
+              f"launches, plan {plan}")
+    return launches
+
+
+def serve_phase() -> dict:
+    """The LM decode and serve path on the card: (a) every smoke config's
+    decode against the CPU's and against the card's forward, and
+    deepseek-smoke's ring buffers; (b) SERVE_FULL through ``serve()`` at
+    full width; (c) SERVE_CUT's two units at full width against the CPU.
+    Returns the launches of (b)'s ``serve()`` runs, the served path: (a)'s
+    and (c)'s are comparisons at other shapes, not counted."""
+    total: dict = collections.Counter()
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(0)
+    for arch in lm_configs.ARCHS:
+        bundle = get_bundle(arch, smoke=True)
+        cfg = bundle.cfg
+        params = bundle.init(torch.Generator().manual_seed(0))
+        tokens = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_S), generator=g,
+                               dtype=torch.int32)
+        enc = (torch.randn(SERVE_B, SERVE_ENC, cfg.d_model, generator=g)
+               if cfg.enc_layers else None)
+        label = f"serve smoke {arch}"
+        _, logits, gparams = _serve_agree(label, bundle, params, tokens,
+                                          enc, SERVE_S)
+        _serve_parity(label, cfg, gparams, tokens, enc,
+                      None if cfg.moe is not None else logits)
+    cfg = dataclasses.replace(
+        lm_configs.get_smoke_config(SERVE_RING["arch"]),
+        window=SERVE_RING["window"])
+    bundle = bundle_for(cfg)
+    tokens = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_RING["tokens"]),
+                           generator=g, dtype=torch.int32)
+    _serve_agree(f"serve smoke {cfg.name} ring {SERVE_RING['window']}",
+                 bundle, bundle.init(torch.Generator().manual_seed(0)),
+                 tokens, None, SERVE_RING["window"], ring=True)
+    print(f"serve (a) s={time.perf_counter() - t0:.1f}", flush=True)
+    t0 = time.perf_counter()
+    for arch in SERVE_FULL:
+        total.update(_serve_full(arch))
+    print(f"serve (b) s={time.perf_counter() - t0:.1f}", flush=True)
+    t0 = time.perf_counter()
+    for arch in SERVE_CUT["archs"]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        full = lm_configs.get_config(arch)
+        units = SERVE_CUT["units"]
+        cfg = dataclasses.replace(
+            full, n_layers=units * len(model_lib.pattern_of(full)),
+            enc_layers=units if full.enc_layers else 0)
+        bundle = bundle_for(cfg)
+        params = _to(bundle.init(torch.Generator(device="cuda").manual_seed(
+            0)), "cpu")
+        batch = SERVE_ARGS["batch"]
+        tokens = torch.randint(0, cfg.vocab, (batch, SERVE_CUT["steps"]),
+                               generator=g, dtype=torch.int32)
+        enc = (torch.randn(batch, lm_serve.ENC_LEN, cfg.d_model,
+                           generator=g) if cfg.enc_layers else None)
+        _serve_agree(f"serve cut {arch} {units} units", bundle, params,
+                     tokens, enc, SERVE_CUT["steps"])
+    print(f"serve (c) s={time.perf_counter() - t0:.1f}", flush=True)
+    return dict(total)
+
+
 def main() -> int:
     check(torch.cuda.is_available(), "no CUDA device: this smoke test needs "
           "one GPU")
@@ -3346,10 +3627,12 @@ def main() -> int:
                         ("async", async_phase),
                         ("sharded", sharded_phase),
                         ("trainer", trainer_phase),
-                        ("lm", lm_phase)):
+                        ("lm", lm_phase),
+                        ("serve", serve_phase)):
         got = timed(name, phase)
-        if name in ("sharded", "lm"):
-            # (a)'s sharded rounds and the LM runs: paths of their own
+        if name in ("sharded", "lm", "serve"):
+            # (a)'s sharded rounds, the LM runs and serve's served runs:
+            # paths of their own
             for k, v in got.items():
                 launches[k] = launches.get(k, 0) + v
 

@@ -1,1 +1,2 @@
-"""Launch drivers of the LM stack (port of ``repro.launch``): ``train``."""
+"""Launch drivers of the LM stack (port of ``repro.launch``): ``train``
+and ``serve``."""

@@ -4,12 +4,13 @@ helpers every block uses (:func:`slot_mm`, :func:`slot_bcast`).
 
 ``causal_attention`` is the plain multi-block attention the flash-attention
 kernels are held against; the models run attention through
-``repro_torch.kernels.flash_attention.ops``. Decode attention is not ported
-yet.
+``repro_torch.kernels.flash_attention.ops``. ``decode_attention`` (one
+query token against a cache) is plain torch, as the reference computes it
+outside any kernel.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -105,3 +106,26 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.softmax(scores, dim=-1).to(v.dtype)
         out.append(_gqa_out(p, v))
     return torch.cat(out, dim=1)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     pos: Union[int, torch.Tensor]) -> torch.Tensor:
+    """One-token attention against a cache.
+
+    q: (B,1,H,hd); k_cache/v_cache: (B,S,KV,hd); pos: the current
+    position, a Python int or a 0-d integer tensor on the cache's device
+    (compared there: no host sync). Entries at index > pos are masked out.
+    """
+    s = k_cache.shape[1]
+    scale = q.shape[-1] ** -0.5
+    scores = _gqa_scores(q, k_cache) * scale            # (B,H,1,S)
+    valid = torch.arange(s, device=k_cache.device) <= pos
+    scores = scores.masked_fill(~valid, float("-inf"))
+    p = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    return _gqa_out(p, v_cache)
+
+
+def ring_index(pos: Union[int, torch.Tensor], size: int):
+    """Write index for a ring-buffer (sliding-window) cache."""
+    return pos % size

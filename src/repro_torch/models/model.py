@@ -1,6 +1,6 @@
 """Unified decoder / encoder-decoder model covering every published
-architecture of ``repro_torch.configs`` (port of ``repro.models.model``'s
-templates and sequence-mode forward).
+architecture of ``repro_torch.configs`` (port of ``repro.models.model``:
+templates, sequence-mode forward and the decode side).
 
 One config-driven implementation: dense, GQA (+bias, +qk-norm), MoE,
 Mamba-2 SSD, hybrid interleave (Jamba), early-fusion VLM (discrete VQ
@@ -22,14 +22,23 @@ op (the CUDA kernels on the card, where a head dim they do not take
 raises; the plain version on the CPU); cross-attention is plain torch, as
 the reference computes it outside any kernel.
 
-The decode side (``cache_template``, ``serve_step``) is not ported yet
-(ROADMAP.md M11b); the reference's ``acts`` sharding anchors and scan
-``unroll`` are jax-only and have no counterpart here.
+The decode side (:func:`cache_template`, :func:`serve_step`,
+:func:`encode_for_decode`, :func:`fill_cross_cache`) feeds one token per
+step against per-sublayer caches: KV caches (optionally ring buffers),
+Mamba conv windows and f32 SSM states, and the encoder-decoder's cross
+K/V. It is plain torch on both devices, as the reference computes it
+outside any kernel, except the encoder, which runs the flash-attention
+op. Where the reference returns a new cache, the port writes into the
+cache it was handed, in place (as a jit with the cache donated would),
+and returns it: a full-width KV cache is too large to copy every step.
+The reference's ``acts`` sharding anchors, scan ``unroll`` and
+``serve_step``'s unused ``cache_len`` are jax-only or unused and have no
+counterpart here.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -38,6 +47,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_rope, causal_attention,
+                                       decode_attention, ring_index,
                                        rms_norm, slot_bcast, slot_mm, swiglu)
 from repro_torch.models.moe import moe_ffn_slots
 from repro_torch.models.params import PSpec
@@ -316,3 +326,153 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
     return torch.mean(lse - gold)
+
+
+# ---------------------------------------------------------------------------
+# decode (serve_step) with per-sublayer caches
+# ---------------------------------------------------------------------------
+
+
+def cache_template(cfg: ArchConfig, batch: int, cache_len: int,
+                   enc_len: int = 0) -> Dict[str, Any]:
+    """PSpec tree of the decode cache (stacked over units), the
+    reference's leaf for leaf: K/V caches for attention sublayers, the
+    conv window and the f32 state for Mamba ones, cross K/V for every
+    sublayer of the encoder-decoder arch."""
+    u, hd, kvh = n_units(cfg), cfg.hd, cfg.n_kv_heads
+    kv_axes = ("layers", "batch", "seq", None, "hd")
+    blocks: Dict[str, Any] = {}
+    for j, kind in enumerate(pattern_of(cfg)):
+        if kind == "A":
+            blocks[f"s{j}"] = {
+                name: PSpec((u, batch, cache_len, kvh, hd), kv_axes, "zeros")
+                for name in ("k", "v")}
+        else:
+            s = cfg.ssm
+            d_in = s.d_inner(cfg.d_model)
+            blocks[f"s{j}"] = {
+                "conv": PSpec((u, batch, s.d_conv - 1, d_in + 2 * s.d_state),
+                              ("layers", "batch", None, "ssm_in"), "zeros"),
+                "h": PSpec((u, batch, s.n_heads(cfg.d_model), s.d_state,
+                            s.head_dim),
+                           ("layers", "batch", "nheads", None, None), "zeros",
+                           dtype=torch.float32),
+            }
+        if cfg.enc_layers:
+            for name in ("xk", "xv"):
+                blocks[f"s{j}"][name] = PSpec((u, batch, enc_len, kvh, hd),
+                                              kv_axes, "zeros")
+    return {"blocks": blocks}
+
+
+def _position(pos: Union[int, torch.Tensor],
+              device: torch.device) -> torch.Tensor:
+    """``pos`` as a 0-d int64 tensor on ``device``; an int is filled in
+    there (no copy from the host)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.long).reshape(())
+    return torch.full((), pos, dtype=torch.long, device=device)
+
+
+def _decode_sublayer(x: torch.Tensor, sub: Dict[str, Any],
+                     cache_sub: Dict[str, torch.Tensor], kind: str,
+                     cfg: ArchConfig, pos: torch.Tensor,
+                     ring: int) -> torch.Tensor:
+    """x (B,1,D); cache entries of one unit, written in place."""
+    b = x.shape[0]
+    hd, nh = cfg.hd, cfg.n_heads
+    h = rms_norm(x, sub["ln1"], cfg.norm_eps)
+    if kind == "A":
+        # rope at the absolute position, before the keys are cached
+        q, k, v = (t[0] for t in _proj_qkv(
+            h[None], _one_slot(sub["attn"]), cfg,
+            pos.reshape(1, 1, 1).expand(1, b, 1)))
+        kc, vc = cache_sub["k"], cache_sub["v"]
+        last = kc.shape[1] - 1
+        # the reference's dynamic_update_slice clamps its start: without
+        # a ring a position past the end writes the last slot
+        slot = ring_index(pos, ring) if ring else pos.clamp(0, last)
+        kc.index_copy_(1, slot.reshape(1), k.to(kc.dtype))
+        vc.index_copy_(1, slot.reshape(1), v.to(vc.dtype))
+        # once pos passes the cache (a full ring, or clamped) every slot
+        # is valid
+        o = decode_attention(q, kc, vc, pos.clamp(max=last))
+        x = x + o.reshape(b, 1, nh * hd) @ sub["attn"]["wo"]
+    else:
+        o, conv, state = ssm_lib.mamba_step(h, sub["mamba"], cfg,
+                                            cache_sub["conv"],
+                                            cache_sub["h"])
+        cache_sub["conv"].copy_(conv)
+        cache_sub["h"].copy_(state)
+        x = x + o
+    if "xattn" in sub:
+        hx = rms_norm(x, sub["ln_x"], cfg.norm_eps)
+        q = (hx @ sub["xattn"]["wq"]).reshape(b, 1, nh, hd)
+        o = decode_attention(q, cache_sub["xk"], cache_sub["xv"],
+                             cache_sub["xk"].shape[1] - 1)
+        x = x + o.reshape(b, 1, nh * hd) @ sub["xattn"]["wo"]
+    if "ffn" in sub:
+        hf = rms_norm(x, sub["ln2"], cfg.norm_eps)
+        x = x + _ffn_apply(hf[None], _one_slot(sub["ffn"]), cfg)[0]
+    return x
+
+
+@torch.no_grad()
+def serve_step(params: Dict[str, Any], cache: Dict[str, Any],
+               tokens: torch.Tensor, pos: Union[int, torch.Tensor],
+               cfg: ArchConfig, *,
+               ring: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decode step. tokens (B,1) -> (logits (B,1,V), cache).
+
+    ``pos`` is the tokens' position, a Python int or a 0-d integer tensor
+    on the params' device (nothing is read back to the host). The cache
+    is written in place and returned (the same tensors). ``ring=True``
+    treats attention caches as sliding-window ring buffers.
+    """
+    pat = pattern_of(cfg)
+    x = params["embed"][tokens.long()]
+    pos = _position(pos, x.device)
+    units = _units(params["blocks"])
+    unit_caches = _units(cache["blocks"])
+    if len(unit_caches) != len(units):
+        raise ValueError(f"{len(unit_caches)} units of cache, {len(units)} "
+                         f"of params")
+    for unit_params, unit_cache in zip(units, unit_caches):
+        for j, kind in enumerate(pat):
+            c = unit_cache[f"s{j}"]
+            ring_size = c["k"].shape[1] if ring and kind == "A" else 0
+            x = _decode_sublayer(x, unit_params[f"s{j}"], c, kind, cfg, pos,
+                                 ring_size)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return x @ unembed, cache
+
+
+def encode_for_decode(params: Dict[str, Any], enc_frames: torch.Tensor,
+                      cfg: ArchConfig) -> torch.Tensor:
+    """Run the encoder once (non-causal self-attention through the
+    flash-attention op) -> enc_out (B, T, D), for :func:`fill_cross_cache`."""
+    e = _scan_units(enc_frames, params["encoder"]["blocks"],
+                    _encoder_cfg(cfg), causal=False)
+    return rms_norm(e, params["encoder"]["final_norm"], cfg.norm_eps)
+
+
+@torch.no_grad()
+def fill_cross_cache(params: Dict[str, Any], cache: Dict[str, Any],
+                     enc_out: torch.Tensor, cfg: ArchConfig) -> Dict[str, Any]:
+    """Write every unit's cross K/V of ``enc_out`` (B, T, D) into the
+    cache's ``xk``/``xv`` (whose enc_len must be T), in place; returns the
+    cache."""
+    b, t, _ = enc_out.shape
+    for j in range(len(pattern_of(cfg))):
+        p = params["blocks"][f"s{j}"]["xattn"]
+        sub = cache["blocks"][f"s{j}"]
+        for w, name in (("wk", "xk"), ("wv", "xv")):
+            if tuple(sub[name].shape[1:3]) != (b, t):
+                raise ValueError(f"cache {name} of shape "
+                                 f"{tuple(sub[name].shape)} for enc_out of "
+                                 f"shape {tuple(enc_out.shape)}")
+            # every unit's projection as one batched product
+            y = torch.matmul(enc_out[None], p[w][:, None])
+            sub[name].copy_(y.reshape(sub[name].shape))
+    return cache

@@ -1,8 +1,7 @@
 """Model registries (port of ``repro.models.registry``).
 
-* arch-id -> (template, init, forward, loss) bundle for the LLM stack
-  (:func:`get_bundle`); its decode side is not ported yet (ROADMAP.md
-  M11b): ``serve_step`` and ``cache_template`` raise;
+* arch-id -> (template, init, forward, loss, serve step, cache
+  template) bundle for the LLM stack (:func:`get_bundle`);
 * FL split-model registry: name -> builder producing the ``(SplitModel,
   params, layer costs)`` triple the FL simulation consumes (``vgg``,
   ``mlp``, ``transformer``, ``moe`` and ``ssm``).
@@ -35,12 +34,6 @@ class ModelBundle:
         return params_lib.abstract_params(self.build_template(), dtype)
 
 
-def _decode_not_ported(*args, **kwargs):
-    raise NotImplementedError("the LM decode side (serve_step, "
-                              "cache_template) is not ported yet "
-                              "(ROADMAP.md M11b)")
-
-
 def bundle_for(cfg: ArchConfig) -> ModelBundle:
     """The bundle of ``cfg``; ``init(generator, dtype=float32)`` draws the
     params on the generator's device."""
@@ -52,8 +45,10 @@ def bundle_for(cfg: ArchConfig) -> ModelBundle:
             generator, template, dtype),
         forward=lambda p, b, **kw: model_lib.forward(p, b, cfg, **kw),
         loss_fn=lambda p, b, **kw: model_lib.loss_fn(p, b, cfg, **kw),
-        serve_step=_decode_not_ported,
-        cache_template=_decode_not_ported,
+        serve_step=lambda p, c, t, pos, **kw: model_lib.serve_step(
+            p, c, t, pos, cfg, **kw),
+        cache_template=lambda batch, cache_len, enc_len=0:
+            model_lib.cache_template(cfg, batch, cache_len, enc_len),
     )
 
 

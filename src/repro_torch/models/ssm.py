@@ -1,5 +1,5 @@
-"""Mamba-2 SSD (state-space duality) block, sequence mode (port of
-``repro.models.ssm``).
+"""Mamba-2 SSD (state-space duality) block, sequence mode and decode step
+(port of ``repro.models.ssm``).
 
 Follows arXiv:2405.21060: within a chunk the quadratic (attention-like)
 dual form, across chunks a linear recurrence on the carried state.
@@ -11,7 +11,9 @@ when every slot shares it). B/C projections are shared across heads
 through the SSD op (:mod:`repro_torch.kernels.ssd_scan.ops`, the CUDA
 kernel forward); CPU tensors take :func:`ssd_chunked`, the reference's own
 path off the TPU (its ``default_impl() == "ref"``). The decode step
-(``mamba_step``) is not ported yet.
+(:func:`mamba_step`, one token of one model, no slot axis) runs the
+single-token recurrence :func:`ssd_step` in plain torch on both devices,
+as the reference does outside any kernel.
 """
 from __future__ import annotations
 
@@ -129,3 +131,47 @@ def mamba_block(x: torch.Tensor, params: Dict[str, torch.Tensor],
     y = rms_norm(y * F.silu(z), slot_bcast(params["norm"], y.dim()),
                  cfg.norm_eps)
     return slot_mm(y, params["w_out"])
+
+
+def ssd_step(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+             b_ssm: torch.Tensor, c_ssm: torch.Tensor,
+             h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token recurrence. xh (B,n,p); dt (B,n) f32; a_log (n,); b/c
+    (B,ds); h (B,n,ds,p) f32 -> (y (B,n,p) in xh's dtype, new h f32)."""
+    a = -torch.exp(a_log.float())
+    dec = torch.exp(dt * a)                             # (B,n)
+    upd = (dt[..., None, None] * b_ssm[:, None, :, None]
+           * xh[:, :, None, :].float())
+    h = h * dec[..., None, None] + upd
+    y = torch.einsum("bnsp,bs->bnp", h, c_ssm.float())
+    return y.to(xh.dtype), h
+
+
+def mamba_step(x: torch.Tensor, params: Dict[str, torch.Tensor],
+               cfg: ArchConfig, conv_state: torch.Tensor,
+               h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Decode step of one model. x (B,1,D); conv_state (B,K-1,C); h
+    (B,n,ds,p) f32 -> (out (B,1,D), new conv_state (the window shifted by
+    one), new h)."""
+    s_cfg = cfg.ssm
+    d_in = s_cfg.d_inner(cfg.d_model)
+    n, p, ds = s_cfg.n_heads(cfg.d_model), s_cfg.head_dim, s_cfg.d_state
+    bsz = x.shape[0]
+
+    one_slot = {k: params[k][None] for k in ("w_xz", "w_bc", "w_dt",
+                                             "dt_bias")}
+    z, xin, b_ssm, c_ssm, dt = (t[0] for t in _split_proj(x[:, 0][None],
+                                                          one_slot, cfg))
+    conv_in = torch.cat([xin, b_ssm, c_ssm], dim=-1)            # (B,C)
+    full = torch.cat([conv_state, conv_in[:, None, :]], dim=1)  # (B,K,C)
+    conv_out = F.silu(torch.einsum("bkc,kc->bc", full, params["conv_w"])
+                      + params["conv_b"])
+    xin, b_ssm, c_ssm = torch.split(conv_out, [d_in, ds, ds], dim=-1)
+
+    xh = xin.reshape(bsz, n, p)
+    y, h = ssd_step(xh, dt, params["a_log"], b_ssm, c_ssm, h)
+    y = y + params["d_skip"].to(x.dtype)[:, None] * xh
+    y = y.reshape(bsz, d_in)
+    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
+    return (y @ params["w_out"])[:, None], full[:, 1:], h

@@ -242,6 +242,8 @@ def _bshd_views(b, h, s, d, n=5):
     ("tiled S=100 D=32", ("tiled", 1, 16)),
     # the LM step's attention (granite-moe-1b-a400m at seq 4096)
     ("lm 4096", ("tiled", 1, 16)),
+    # the serve path's encoder (seamless-m4t-medium, 16 frames, D = 64)
+    ("serve encoder", ("tiled", 1, 16)),
 ])
 def test_attention_plan_for_chip_smoke_cases(label, want):
     b, h, s, d, _, _ = _chip_smoke_fa_cases()[label]
@@ -474,6 +476,8 @@ def test_variant_tool_fwd_mma_plans_are_launchable():
     ("window 256", ("tiled", 1, 16)),
     ("full 256", ("tiled", 1, 16)),
     ("tiled S=100 D=32", ("tiled", 1, 16)),
+    # the serve path's encoder: S = 16 < one 64-row tile, D = 64
+    ("serve encoder", ("tiled", 1, 16)),
 ])
 def test_forward_plan_for_chip_smoke_cases(label, want):
     b, h, s, d, _, _ = _chip_smoke_fa_cases()[label]

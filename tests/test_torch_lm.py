@@ -313,14 +313,6 @@ def test_full_configs_the_kernels_do_not_take_raise():
 # ---------------------------------------------------------------------------
 
 
-def test_decode_side_raises_naming_m11b():
-    bundle = get_bundle("qwen3-14b", smoke=True)
-    with pytest.raises(NotImplementedError, match="M11b"):
-        bundle.serve_step(None, None, None, 0)
-    with pytest.raises(NotImplementedError, match="M11b"):
-        bundle.cache_template(B, 32, enc_len=16)
-
-
 def test_demo_batch():
     cfg = configs.get_smoke_config("seamless-m4t-medium")
     a = demo_batch(cfg, B, S, torch.Generator().manual_seed(3), enc_len=16,
