@@ -13,7 +13,8 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
    where PyTorch has one:
    - fused linear at the VGG path's shapes (the round's fc layers at 6
      slots x 95 rows, the statistics pass's stride-0 shared weights at
-     M = 95 and M = 1, the evaluation's M = 232, fc_last's N = 10), plus
+     M = 95 and M = 1, the evaluation's M = 232, fc_last's N = 10) and at
+     the pipeline's stage layer (M = 128, K = N = 4096), plus
      the forward with silu and gelu at the round's fc1 shape; each case
      line prints the launch plan (slot fold, split-K count, copy width);
    - the fused linear kernels' bf16 forms at the same shapes, at one odd
@@ -231,7 +232,23 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
    mamba2-2.7b and seamless at full width cut to two units (seamless's
    encoder to two layers), 16 steps of batch 4 (seamless over 16 frames)
    on the card against the CPU as in (a). (b)'s launches count in the
-   ``kernels`` record.
+   ``kernels`` record;
+8. the ``pipeline`` phase (the two-stage partition pipeline, ROADMAP M11c;
+   its seconds printed): (a) ``choose_cut`` on the demo's per-layer FLOPs
+   and bytes, one H100 a stage, must give the 4 | 4 split the stages are
+   built from; (b) two gloo ranks spawned on the one card run
+   ``launch.pipeline.gpipe_forward`` over the f32 fused linear kernel at
+   full width (8 layers of 4096 x 4096, full-width VGG-11's fc2; batch
+   512 in 4 microbatches of 128), each rank reading only its stage's
+   weights; both ranks' outputs identical and within KERNEL_RTOL of
+   scale of ``reference_forward`` (the same kernel, unpipelined) and of
+   the plain version, each rank launching ``fwd_kernel`` 16 times (its
+   microbatches x its layers) and no plain version; each rank's wall
+   seconds a forward, the tick's handoff all-reduce alone and the
+   unpipelined forward's seconds (median, min and max of PIPE_REPS timed
+   runs each) printed with the card's name and power limit (two
+   ranks share the card: no speed-up is claimed). The ranks' launches
+   count in the ``kernels`` record as a path of their own.
 
 Any failure raises, which exits non-zero before the result line. The line
 before last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
@@ -246,6 +263,7 @@ import gc
 import json
 import os
 import pathlib
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -521,6 +539,8 @@ CASES = [
     ("stats fc3 shared", 12, 95, 4096, 10, "none", True),
     ("sigma fc2 M=1", 8, 1, 4096, 4096, "relu", True),
     ("eval fc1 M=232", 1, 232, 512, 4096, "relu", True),
+    # a stage layer of the pipeline phase: one microbatch of 128 rows
+    ("pipeline layer", 1, 128, 4096, 4096, "relu", False),
 ]
 # the forward's smooth activations (their backward runs the kernels with
 # mask "none" on a pre-multiplied dz, which CASES cover)
@@ -3580,6 +3600,174 @@ def serve_phase() -> dict:
     return dict(total)
 
 
+# ---------------------------------------------------------------------------
+# pipeline phase (ROADMAP M11c)
+# ---------------------------------------------------------------------------
+
+# the two-stage GPipe demo at full width: layers of full-width VGG-11's fc2
+# (4096 x 4096, CASES' "round fc2"), f32, 4 a stage, batch 512 in 4
+# microbatches of 128
+PIPE = dict(n_layers=8, width=4096, batch=512, n_micro=4)
+# a rank's fused linear launches: its microbatches x its layers (the fill
+# and drain ticks compute nothing)
+PIPE_LAUNCHES = PIPE["n_micro"] * PIPE["n_layers"] // 2
+PIPE_SEED = 0
+PIPE_RANK_LIMIT_S = 120
+PIPE_REPS = 5
+
+
+def _pipe_rank(rank: int, init: str, out_dir: str) -> None:
+    """One stage of the pipeline on the card: PIPE's weights and input from
+    a CUDA generator seeded PIPE_SEED (both ranks and the parent draw the
+    same), one warm ``gpipe_forward``, one counted (its output and
+    launches kept), then PIPE_REPS timed, each after a barrier; then the
+    tick's handoff all-reduce alone, PIPE_REPS times. Writes its output,
+    seconds, launches and plain calls to ``out_dir``."""
+    from repro_torch.launch import pipeline as pipe
+    from repro_torch.sharding import pod_mesh
+    kernel.library()                    # built by the parent: loads
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=2)
+    try:
+        mesh = pod_mesh(2)
+        params, x = pipe.demo_inputs(
+            PIPE["n_layers"], PIPE["width"], PIPE["batch"],
+            torch.Generator(device="cuda").manual_seed(PIPE_SEED))
+        layers = PIPE["n_layers"] // 2
+
+        def forward():
+            with torch.no_grad():
+                y = pipe.gpipe_forward(pipe.mlp_layer_fn, params, x, mesh,
+                                       PIPE["n_micro"], layers)
+            torch.cuda.synchronize()
+            return y
+        forward()
+        mesh.barrier()
+        reset_counts()
+        y = forward()
+        launches, plain = read_counts()
+        walls = []
+        for _ in range(PIPE_REPS):
+            mesh.barrier()
+            t0 = time.perf_counter()
+            forward()
+            walls.append(time.perf_counter() - t0)
+        buf = torch.zeros((2, PIPE["batch"] // PIPE["n_micro"],
+                           PIPE["width"]), device="cuda")
+        ms = []
+        for _ in range(PIPE_REPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mesh.all_reduce(buf)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        torch.save(dict(y=y.cpu(), walls=walls, launches=launches,
+                        plain=plain,
+                        allreduce_ms=ms[1:],
+                        allreduce_bytes=buf.numel() * buf.element_size()),
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def pipeline_phase(card: str) -> dict:
+    """The two-stage pipeline (``repro_torch.launch.pipeline``) on the card:
+    (a) ``choose_cut`` on PIPE's per-layer FLOPs and bytes, one H100 a
+    stage, must give the 4 | 4 split the stages are built from; (b) two
+    gloo ranks spawned on the one card run ``gpipe_forward`` over the
+    fused linear kernel, held against ``reference_forward`` (the same
+    kernel, unpipelined) and the plain version at KERNEL_RTOL of scale,
+    each rank launching the f32 forward PIPE_LAUNCHES times and no plain
+    version. Two ranks share one card, so no speed-up is expected. Returns
+    the ranks' launches, a path of their own."""
+    from repro_torch.launch import pipeline as pipe
+    n, w, b, nm = (PIPE[k] for k in ("n_layers", "width", "batch",
+                                     "n_micro"))
+    costs = np.full(n, 2.0 * b * w * w)
+    mem = np.full(n, 4.0 * (w * w + w + b * w))    # weights, bias, output
+    boundary = np.full(n + 1, 4.0 * (b // nm) * w)
+    cut = pipe.choose_cut(costs, mem, hbm_per_pod=pipe.H100_HBM_BYTES,
+                          boundary_bytes=boundary)
+    check(cut.stage_layers == (n // 2, n // 2),
+          f"pipeline (a): cut {cut} is not the stages' {n // 2} | {n // 2}")
+    print(f"pipeline (a) choose_cut on {n} layers of {w} x {w}, batch {b}, "
+          f"one H100 a stage: cut at {cut.cut}, stages {cut.stage_layers}",
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_pipe_rank, args=(f"file://{tmp}/init", tmp),
+                                 nprocs=2, join=False, start_method="spawn")
+        deadline = time.monotonic() + PIPE_RANK_LIMIT_S
+        try:
+            while not ctx.join(timeout=1.0):
+                check(time.monotonic() < deadline,
+                      f"pipeline (b): the ranks ran past "
+                      f"{PIPE_RANK_LIMIT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        spawn_s = time.perf_counter() - t0
+        outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=False) for r in range(2)]
+    params, x = pipe.demo_inputs(
+        n, w, b, torch.Generator(device="cuda").manual_seed(PIPE_SEED))
+    want = pipe.reference_forward(params, x)
+    unpiped_s = []
+    for _ in range(PIPE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.reference_forward(params, x)
+        torch.cuda.synchronize()
+        unpiped_s.append(time.perf_counter() - t0)
+    plain = x
+    for wi, bi in zip(params["w"].reshape(n, w, w),
+                      params["b"].reshape(n, w)):
+        plain = ref.fused_linear_ref(plain[None], wi[None], bi[None],
+                                     "relu")[0]
+    want, plain = want.cpu(), plain.cpu()
+    scale = float(plain.abs().max())
+    check(scale > 0, "pipeline (b): the plain forward is all zeros")
+    total = collections.Counter()
+    for r, out in enumerate(outs):
+        y = out["y"]
+        check(bool(torch.isfinite(y).all()) and y.shape == (b, w),
+              f"pipeline (b) rank {r}: output {tuple(y.shape)} not finite")
+        err = float((y - want).abs().max())
+        err_plain = float((y - plain).abs().max())
+        check(err <= KERNEL_RTOL * scale and err_plain <= KERNEL_RTOL * scale,
+              f"pipeline (b) rank {r}: {err:.3e} from reference_forward, "
+              f"{err_plain:.3e} from the plain version (scale {scale:.3e})")
+        launched = {k: v for k, v in out["launches"].items() if v}
+        check(launched == {"fused_linear": PIPE_LAUNCHES,
+                           "fwd_kernel": PIPE_LAUNCHES},
+              f"pipeline (b) rank {r}: launches {launched}, want "
+              f"{PIPE_LAUNCHES} f32 forwards")
+        check(not any(out["plain"].values()),
+              f"pipeline (b) rank {r}: plain versions ran: {out['plain']}")
+        total.update(out["launches"])
+        walls = out["walls"]
+        print(f"pipeline (b) rank {r} on {card}: gpipe_forward {n} layers "
+              f"of {w}, batch {b} in {nm} microbatches, f32: wall s a "
+              f"forward median {statistics.median(walls):.4f} (min "
+              f"{min(walls):.4f}, max {max(walls):.4f}, {len(walls)} "
+              f"timed), {PIPE_LAUNCHES} fwd_kernel launches, "
+              f"{err:.3e} from reference_forward and {err_plain:.3e} from "
+              f"the plain version (scale {scale:.3e}); the tick's handoff "
+              f"all-reduce alone ({out['allreduce_bytes']} B, gloo, CUDA "
+              f"tensors) wall ms "
+              f"{[round(v, 3) for v in out['allreduce_ms']]}", flush=True)
+    check(torch.equal(outs[0]["y"], outs[1]["y"]),
+          "pipeline (b): the ranks' outputs differ")
+    print(f"pipeline (b) on {card}: unpipelined reference_forward "
+          f"median {statistics.median(unpiped_s):.4f} s (min "
+          f"{min(unpiped_s):.4f}, max {max(unpiped_s):.4f}; one process, "
+          f"the same kernel); two ranks "
+          f"share this card, so no speed-up is claimed; ranks spawned, run "
+          f"and joined in {spawn_s:.1f} s", flush=True)
+    return dict(total)
+
+
 def main() -> int:
     check(torch.cuda.is_available(), "no CUDA device: this smoke test needs "
           "one GPU")
@@ -3635,6 +3823,9 @@ def main() -> int:
             # paths of their own
             for k, v in got.items():
                 launches[k] = launches.get(k, 0) + v
+    # the pipeline ranks' launches: a path of their own
+    for k, v in timed("pipeline", pipeline_phase, card).items():
+        launches[k] = launches.get(k, 0) + v
 
     out = [dict(name=name, route="cuda", source=SOURCES[name],
                 replaces=REPLACES[name], launches=launches[name],

@@ -9,8 +9,9 @@ a card (registered as policy ``"ddsra_jax"``, the reference's name);
 and the policies x seeds x V sweep grid the same way."""
 from repro_torch.core import baseline_batched, costmodel, ddsra
 from repro_torch.core import ddsra_batched, hungarian, lyapunov, network
-from repro_torch.core import participation, policy_sweep, schedulers
+from repro_torch.core import participation, partition, policy_sweep
+from repro_torch.core import schedulers
 
 __all__ = ["baseline_batched", "costmodel", "ddsra", "ddsra_batched",
            "hungarian", "lyapunov", "network", "participation",
-           "policy_sweep", "schedulers"]
+           "partition", "policy_sweep", "schedulers"]

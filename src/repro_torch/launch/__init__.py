@@ -1,2 +1,3 @@
 """Launch drivers of the LM stack (port of ``repro.launch``): ``train``
-and ``serve``."""
+and ``serve``; the two-stage partition pipeline (``pipeline``); and the
+dry run (``dryrun``, with ``specs``, ``mesh`` and ``roofline``)."""

@@ -110,3 +110,17 @@ def tree_to_numpy(tree) -> Any:
     """The inverse of :func:`tree_from_numpy`: each tensor a host numpy
     copy of its own."""
     return tree_map(lambda t: t.detach().to("cpu", copy=True).numpy(), tree)
+
+
+def pipeline_params_from_numpy(np_params, device="cuda"):
+    """The reference's two-stage pipeline demo weights (``build_demo``'s
+    ``{"w": (2, L/2, W, W), "b": (2, L/2, W)}``, exported with
+    ``jax.tree.map(np.asarray, params)``) as f32 tensors on ``device``,
+    in the same stacked layout (``repro_torch.launch.pipeline``)."""
+    w, b = np.asarray(np_params["w"]), np.asarray(np_params["b"])
+    if (set(np_params) != {"w", "b"} or w.ndim != 4 or w.shape[0] != 2
+            or w.shape[2] != w.shape[3] or b.shape != w.shape[:3]):
+        raise ValueError(f"not a 2-stage demo: w {w.shape}, b {b.shape}, "
+                         f"keys {sorted(np_params)}")
+    return tree_from_numpy({"w": w.astype(np.float32),
+                            "b": b.astype(np.float32)}, device)

@@ -1,6 +1,15 @@
-"""The cohort mesh of the sharded FL engine (port of ``repro.sharding``'s
-cohort half): a 1-D ``"cohort"`` axis of ranks that device *slots* are
-split over while model parameters are replicated.
+"""Sharding substrate of the port (port of ``repro.sharding``).
+
+Two families of helpers live here:
+
+* **Model-parallel parameter sharding**: logical-axis rules mapped to one
+  spec tuple a leaf (re-exported from ``repro_torch.models.params``):
+  ``DEFAULT_RULES``, ``partition_specs``, ``rules_for_mesh``. The dry run
+  (``repro_torch.launch.dryrun``) reads each device's bytes from them.
+* **Meshes of ranks**: the 1-D ``"cohort"`` mesh that the sharded FL
+  engine splits device *slots* over while model parameters are
+  replicated, and the 1-D ``"pod"`` mesh of the two-stage pipeline
+  (``repro_torch.launch.pipeline``), built the same way.
 
 The reference maps one program over the devices of a ``jax`` mesh from a
 single controller (``jax.shard_map``). The port runs one process per rank
@@ -20,10 +29,6 @@ masked partial sums (``repro_torch.fl.shard``). Only ``all_reduce`` and
 ``barrier`` are used: gloo takes CUDA tensors for those (not for
 ``all_gather``), so NCCL on the card, gloo on the CPU and gloo on the card
 run the same code.
-
-The model-parallel half of the reference module (``DEFAULT_RULES``,
-``partition_specs``, ``rules_for_mesh``) belongs to the LM side's
-multi-device launch, not ported yet (ROADMAP.md M11d).
 """
 from __future__ import annotations
 
@@ -34,23 +39,33 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.models.params import (DEFAULT_RULES, partition_specs,
+                                       rules_for_mesh)
+
 # the mesh axis the sharded cohort engine splits device slots over
 COHORT_AXIS = "cohort"
+# the mesh axis of the two pipeline stages
+POD_AXIS = "pod"
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class CohortMesh:
-    """A 1-D cohort mesh: ``size`` ranks, this process's ``rank`` among
-    them, and the process group their reductions run in (``None``: no
-    process group, one rank, every reduction the identity)."""
+    """A 1-D mesh of ranks: ``size`` ranks, this process's ``rank`` among
+    them, the process group their reductions run in (``None``: no process
+    group, one rank, every reduction the identity) and the axis's name."""
     size: int
     rank: int
     group: Optional[object] = None
+    axis: str = COHORT_AXIS
 
     @property
     def shape(self) -> Dict[str, int]:
-        """``{COHORT_AXIS: size}``, as a ``jax`` mesh's ``shape`` reads."""
-        return {COHORT_AXIS: self.size}
+        """``{axis: size}``, as a ``jax`` mesh's ``shape`` reads."""
+        return {self.axis: self.size}
+
+    @property
+    def axis_names(self) -> Tuple[str]:
+        return (self.axis,)
 
     def block(self, rows: int) -> slice:
         """This rank's contiguous block of ``rows`` (a multiple of the mesh
@@ -105,4 +120,14 @@ def cohort_mesh(mesh_shape: Optional[Tuple[int, ...]] = None) -> CohortMesh:
     return CohortMesh(n, rank, hit[1])
 
 
-__all__ = ["COHORT_AXIS", "CohortMesh", "cohort_mesh"]
+def pod_mesh(n_stages: Optional[int] = None) -> CohortMesh:
+    """The 1-D ``"pod"`` mesh of the pipeline's stages: :func:`cohort_mesh`
+    of ``(n_stages,)`` ranks (``None``: the whole world) under the axis
+    name ``POD_AXIS``, one process a stage."""
+    mesh = cohort_mesh(None if n_stages is None else (n_stages,))
+    return dataclasses.replace(mesh, axis=POD_AXIS)
+
+
+__all__ = ["DEFAULT_RULES", "partition_specs", "rules_for_mesh",
+           "COHORT_AXIS", "POD_AXIS", "CohortMesh", "cohort_mesh",
+           "pod_mesh"]

@@ -1,12 +1,13 @@
 """F12: every package of the port exports the reference package's public
 names (``__all__``), from the port's own modules.
 
-``repro_torch.fl`` and ``repro_torch.checkpoint`` hold all of theirs. For
-``core`` and ``sharding`` the names of a ROADMAP.md item not ported yet
-are listed here, each with its item, and the port must still lack them (a
-name that arrives leaves the list); ``models`` and ``configs`` hold all
-of theirs; a reference name whose counterpart has another name in the
-port is listed with it.
+Every package holds all of the reference's names. ``NOT_YET`` would list
+the names of a ROADMAP.md item not ported yet, each with its item, and
+the port must still lack them (a name that arrives leaves the list); it
+is empty since ``core.partition`` (M11c) and ``sharding``'s
+``DEFAULT_RULES``, ``partition_specs`` and ``rules_for_mesh`` (M11d)
+arrived. A reference name whose counterpart has another name in the port
+is listed with it.
 """
 import jax
 import jax.experimental
@@ -20,13 +21,9 @@ import importlib  # noqa: E402
 
 import pytest  # noqa: E402
 
-# reference name -> the ROADMAP.md item that ports it
-NOT_YET = {
-    "core": {"partition": "M11c"},         # the two-stage GPipe split
-    # the model-parallel LM sharding rules
-    "sharding": {"DEFAULT_RULES": "M11d", "partition_specs": "M11d",
-                 "rules_for_mesh": "M11d"},
-}
+# reference name -> the ROADMAP.md item that ports it: none left since
+# M11c (core.partition) and M11d (the sharding rules) were ported
+NOT_YET = {}
 # reference name -> the port's counterpart under another name
 RENAMED = {
     "core": {"ddsra_jax": "ddsra_batched"},    # registered as "ddsra_jax"
