@@ -34,8 +34,9 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
      of 8, and S = 32 non-causal), at multi-tile shapes the FL paths never
      reach ((2, 8, 1024, 128) causal, the same with a 256 window,
      (2, 4, 256, 64) non-causal, and a ragged S = 100 at D = 32 with a
-     window of 40) and at the LM step's (``lm 4096``: (1, 16, 4096, 64)
-     causal, granite-moe-1b-a400m's heads at seq 4096), against
+     window of 40) and at the LM steps' (``lm 4096``: (1, 16, 4096, 64)
+     causal, granite-moe-1b-a400m's heads at seq 4096; ``lm stablelm
+     4096``: (1, 32, 4096, 80), stablelm-3b's head dim of 80), against
      ``scaled_dot_product_attention`` as the
      library yardstick; every case line prints its kernel's launch plan
      (short or tiled form, heads per block, copy width) and its share of
@@ -46,9 +47,12 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
    - the SSD scan at the SSM path's shapes (S = 32, chunk 32, n = 4,
      p = 32, ds = 16, a_log per slot or stride-0 shared) and two multi-chunk
      shapes ((2, 512, 8, 64), ds = 64, chunk 64: the chunk-parallel form;
-     264 rows of 128 steps: the sequential walk); each case line prints the
+     264 rows of 128 steps: the sequential walk) and, in f32 only
+     (``SSD_F32_ONLY``; the plain recurrence timed by CUDA events, seconds
+     a call), mamba2-2.7b's step ((1, 4096, 80, 64), ds 128, chunk 256,
+     which the kernel runs as sub-chunks of 64); each case line prints the
      launch plan (the bf16 scan takes its tensor-core form at chunk 32,
-     ds 16, p 32);
+     ds 16, p 32; the inner chunk);
    - the bf16 forms of flash attention (forward, dq, dk/dv) and of the SSD
      scan at the same shapes, against their plain bf16 versions (one bf16
      ulp plus FA_RTOL or SSD_RTOL of scale; lse, f32, at FA_RTOL), with
@@ -209,8 +213,17 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
    the first within 1 of ln vocab), device ms by kernel, the attention
    kernels launched and no plain call; (c) its first two layers at full
    width (d 1024, 32 experts, vocab 49155) at seq 512, one step's loss
-   and gradients on the card against the CPU as in (a). The three runs'
-   launches count in the ``kernels`` record;
+   and gradients on the card against the CPU as in (a); (d) stablelm-3b
+   (head dim 80) and then mamba2-2.7b (SSD chunk 256) at their published
+   widths and depths, f32, 1 x 4096, each unit recomputed in the backward
+   (``remat``), memory freed between them, ``LM_PUBLISHED_STEPS`` steps
+   of ``train()`` each, the last profiled: s a step, peak memory and the
+   losses as in (b) beside the card's name and power limit, stablelm
+   launching the three attention wrappers (``fwd_tc_kernel``,
+   ``dq_tc_kernel`` and ``dkdv_tc_kernel`` at D = 80 in its profiled
+   step), mamba2 the SSD scan and its backward (``ssd_kernel``,
+   ``ssd_chunk_scan_kernel``, ``ssd_bwd_chunk_kernel``), no plain call.
+   The four runs' launches count in the ``kernels`` record;
 7. the ``serve`` phase (the LM decode and serve path, ROADMAP M11b; its
    seconds printed): (a) each of the ten smoke configs decodes B = 2 x
    S = 16 tokens through ``serve_step`` (seamless with 8 encoder frames)
@@ -738,13 +751,18 @@ def _fmt(ms) -> str:
 
 def _hold(totals: dict, name: str, label: str, fn, plain, lib, rtol: float,
           bound: tuple, record: bool, shape: str, bf16: bool = False,
-          plain_reps: int = 10, each: bool = False) -> None:
+          plain_reps: int = 10, each: bool = False,
+          plain_events: bool = False) -> None:
     """Check one kernel against its plain version at ``rtol`` x its output
     scale (``each``: every output at its own scale; ``bf16``: one bf16 ulp
     per element plus that, each output at its own scale); time kernel,
     plain version (over ``plain_reps`` calls) and library call on the
     device (and print their event-timed wall times); keep the largest
-    error, and add the case to the record when ``record``."""
+    error, and add the case to the record when ``record``. With
+    ``plain_events`` the plain version is timed by CUDA events alone (its
+    device time is then its elapsed time on the card, launch gaps
+    included): a plain recurrence of tens of thousands of launches a call
+    takes the profiler minutes to sum."""
     got, want = fn(), plain()
     err, scale = _max_err(name, label, got, want)
     if bf16:
@@ -760,10 +778,11 @@ def _hold(totals: dict, name: str, label: str, fn, plain, lib, rtol: float,
                   f"x {sc:.3e}")
     fns = dict(ms=fn, plain_ms=plain, library_ms=lib)
     reps = dict(ms=10, plain_ms=plain_reps, library_ms=10)
-    dev = {k: None if f is None else device_ms(f, reps[k])
-           for k, f in fns.items()}
     wall = {k: None if f is None else time_ms(f, reps[k])
             for k, f in fns.items()}
+    dev = {k: None if f is None else wall[k]
+           if plain_events and k == "plain_ms" else device_ms(f, reps[k])
+           for k, f in fns.items()}
     print(f"case {name:24s} {label:18s} {shape} max_abs_err={err:.3e} "
           + " ".join(f"{k}={_fmt(dev[k])} (wall {_fmt(wall[k])})"
                      for k in fns)
@@ -806,10 +825,12 @@ FA_CASES = [
     # the serve path's (serve phase (b)): seamless-m4t-medium's encoder,
     # 16 heads of 64 over launch/serve.py's 16 frames, batch 4, non-causal
     ("serve encoder", 4, 16, 16, 64, False, None),
+    # lm phase (d)'s: stablelm-3b's 32 heads of 80 at seq 4096, batch 1
+    ("lm stablelm 4096", 1, 32, 4096, 80, True, None),
 ]
 # cases whose dq and dk/dv are computed twice and must agree bit for bit
 # (no atomics: every sum in a fixed order)
-FA_BITWISE = ("causal 1024", "lm 4096")
+FA_BITWISE = ("causal 1024", "lm 4096", "lm stablelm 4096")
 # cases whose operands are views 2 elements into their storage: 4 bytes off
 # 16-byte alignment in bf16 (8 in f32), so both dtypes take the FMA short
 # forms, with copies of one element
@@ -961,7 +982,13 @@ SSD_CASES = [
     ("stats", 1140, 32, 4, 32, 16, 32, 0),
     ("multi-chunk", 2, 512, 8, 64, 64, 64, 1),
     ("long rows", 264, 128, 4, 32, 16, 32, 6),
+    # lm phase (d)'s: mamba2-2.7b's 80 heads of 64, ds 128, at its chunk of
+    # 256 (the kernel runs sub-chunks of 64), seq 4096, batch 1
+    ("mamba2 4096", 1, 4096, 80, 64, 128, 256, 1),
 ]
+# cases held in f32 only: the plain recurrence over 4096 steps takes
+# seconds a call, and its bf16 forms are no path's here
+SSD_F32_ONLY = ("mamba2 4096",)
 
 
 def ssd_phase(bf16: bool = False) -> dict:
@@ -973,15 +1000,20 @@ def ssd_phase(bf16: bool = False) -> dict:
     size = 2 if bf16 else 4
     totals: dict = {}
     for label, rows, s, n, p, ds, chunk, slots in SSD_CASES:
+        if bf16 and label in SSD_F32_ONLY:
+            continue
         x, dt, a_log, bm, cm = ssd_operands(g, dtype, rows, s, n, p, ds,
                                             slots)
-        pairs = chunk * (chunk + 1) // 2
-        ops = rows * (s // chunk) * (2 * pairs * ds + n * (
-            2 * pairs * p + 4 * chunk * ds * p))
+        plan = ssd_kernel.ssd_scan_plan(x, bm, cm, chunk)
+        # the work of the chunk the kernel runs (the same function at any
+        # chunk: the least of them is the bound's)
+        inner = plan.inner
+        pairs = inner * (inner + 1) // 2
+        ops = rows * (s // inner) * (2 * pairs * ds + n * (
+            2 * pairs * p + 4 * inner * ds * p))
         # x and y, b and c, a_log at the operands' size; dt at 4 bytes
         nbytes = size * (2 * rows * s * n * p + 2 * rows * s * ds
                          + max(slots, 1) * n) + 4 * rows * s * n
-        plan = ssd_kernel.ssd_scan_plan(x, bm, cm, chunk)
         # the plain recurrence launches some eight kernels a step: over
         # hundreds of steps a call is thousands of launches, which the
         # profiler takes seconds to sum, so those cases time one call
@@ -992,10 +1024,12 @@ def ssd_phase(bf16: bool = False) -> dict:
                      else PEAK_F32_FLOPS), label == "round",
               f"rows={rows} S={s} n={n} p={p} ds={ds} chunk={chunk} "
               f"slots={slots}" + " bf16" * bf16 + f" plan: form={plan.form} "
+              f"inner={plan.inner} chunks={plan.chunks} "
               f"heads={plan.heads} warps={plan.warps} "
               f"chunk_parallel={int(plan.chunk_parallel)} "
               f"vec_x={plan.vec_x} vec_bc={plan.vec_bc}", bf16=bf16,
-              plain_reps=10 if s <= 32 else 1)
+              plain_reps=10 if s <= 32 else 1,
+              plain_events=label in SSD_F32_ONLY)
     return totals
 
 
@@ -1024,18 +1058,21 @@ def ssd_bwd_phase(bf16: bool = False) -> dict:
     size = 2 if bf16 else 4
     totals: dict = {}
     for label, rows, s, n, p, ds, chunk, slots in SSD_CASES:
+        if bf16 and label in SSD_F32_ONLY:
+            continue
         args = ssd_operands(g, dtype, rows, s, n, p, ds, slots)
         dy = torch.randn(rows, s, n, p, device="cuda", generator=g).to(dtype)
-        pairs = chunk * (chunk + 1) // 2
-        # twice the forward's operations (each product of the chunked form
-        # has two gradient products); x, dy, dx, b, c, db, dc and a_log,
-        # da_log at the operands' size, dt and ddt at 4 bytes
-        ops = 2 * rows * (s // chunk) * (2 * pairs * ds + n * (
-            2 * pairs * p + 4 * chunk * ds * p))
-        nbytes = size * (3 * rows * s * n * p + 4 * rows * s * ds
-                         + 2 * max(slots, 1) * n) + 8 * rows * s * n
         x, _, _, bm, cm = args
         plan = ssd_kernel.ssd_bwd_scan_plan(x, bm, cm, dy)
+        # twice the forward's operations (each product of the chunked form
+        # has two gradient products) at the backward's own chunk; x, dy,
+        # dx, b, c, db, dc and a_log, da_log at the operands' size, dt and
+        # ddt at 4 bytes
+        pairs = plan.chunk * (plan.chunk + 1) // 2
+        ops = 2 * rows * plan.chunks * (2 * pairs * ds + n * (
+            2 * pairs * p + 4 * plan.chunk * ds * p))
+        nbytes = size * (3 * rows * s * n * p + 4 * rows * s * ds
+                         + 2 * max(slots, 1) * n) + 8 * rows * s * n
         _hold(totals, "ssd_scan_bwd" + "_bf16" * bf16, label,
               lambda: ssd_kernel.ssd_scan_bwd(*args, dy),
               lambda: ssd_ref.ssd_bwd_ref(*args, dy), None, SSD_RTOL,
@@ -1046,7 +1083,8 @@ def ssd_bwd_phase(bf16: bool = False) -> dict:
               f"chunk={plan.chunk} chunks={plan.chunks} heads={plan.heads} "
               f"warps={plan.warps} ring={plan.ring} vec_x={plan.vec_x} "
               f"vec_bc={plan.vec_bc}", bf16=bf16,
-              plain_reps=2 if s <= 32 else 1, each=True)
+              plain_reps=2 if s <= 32 else 1, each=True,
+              plain_events=label in SSD_F32_ONLY)
     return totals
 
 
@@ -3197,6 +3235,21 @@ LM_FIRST_LOSS = 1.0
 SSD_NAMES = ("ssd_scan", "ssd_scan_bwd")
 # the CUDA kernels of the LM step's attention backward (f32, S > 32)
 LM_BWD_KERNELS = ("dq_tc_kernel", "dkdv_tc_kernel")
+# (d): the two published configs whose attention head dim (stablelm-3b's
+# 80) and SSD chunk (mamba2-2.7b's 256) the kernels took last, at their
+# published widths and depths, f32, LM_FULL's batch 1 x seq 4096, each
+# unit's activations recomputed in the backward (remat); memory freed
+# between the two. Each profiled step must run these CUDA kernels (by the
+# profile's names): the tiled attention kernels at D = 80, the SSD forward
+# (its chunk-parallel form: the sub-chunks' states, their scan, the
+# outputs) and the backward's chunked form.
+LM_PUBLISHED = {
+    "stablelm-3b": ("fwd_tc_kernel<float, 80>", "dq_tc_kernel<float, 80>",
+                    "dkdv_tc_kernel<float, 80>"),
+    "mamba2-2.7b": ("ssd_kernel<float, float>", "ssd_chunk_scan_kernel<float>",
+                    "ssd_bwd_chunk_kernel<float, float>"),
+}
+LM_PUBLISHED_STEPS = 3
 
 
 def _lm_names(cfg) -> tuple:
@@ -3263,64 +3316,71 @@ def _lm_agree(label: str, bundle, params, batch) -> dict:
     return launches
 
 
-def _lm_full() -> dict:
-    """LM_FULL's steps of ``train()`` at full width, the last step under
-    torch.profiler: ms a step, peak memory, the losses, device ms by
-    kernel. Returns the run's launches."""
-    cfg = lm_configs.get_config(LM_FULL["arch"])
+def _lm_train(arch: str, names, kernels, card: str, remat: bool = False,
+              steps: int = LM_FULL["steps"], label: str = "lm full") -> dict:
+    """``steps`` steps of ``train()`` at full width, batch LM_FULL["batch"]
+    x seq LM_FULL["seq"], the last step under torch.profiler: s a step,
+    peak memory, the losses, device ms by kernel; the wrappers ``names``
+    launched and no plain call, and each CUDA kernel of ``kernels`` (a
+    substring of the profile's kernel names) in the profiled step. Returns
+    the run's launches."""
+    cfg = lm_configs.get_config(arch)
     marks = []
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
     def on_step(i, loss):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
-        if i == LM_FULL["steps"] - 2:
+        if i == steps - 2:
             prof.start()
-        elif i == LM_FULL["steps"] - 1:
+        elif i == steps - 1:
             prof.stop()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    losses = lm_train.train(LM_FULL["arch"], False, LM_FULL["steps"],
-                            LM_FULL["batch"], LM_FULL["seq"], device="cuda",
-                            log_every=1, on_step=on_step)
-    launches = check_launched("lm full", FA_NAMES)
+    losses = lm_train.train(arch, False, steps, LM_FULL["batch"],
+                            LM_FULL["seq"], device="cuda", log_every=steps,
+                            remat=remat, on_step=on_step)
+    launches = check_launched(label, names)
     step_s = np.diff([t0] + marks)
     peak = torch.cuda.max_memory_allocated()
-    print(f"lm full {LM_FULL['arch']}: {cfg.n_params:,} params (f32: "
+    print(f"{label} {arch}: {cfg.n_params:,} params (f32: "
           f"{4 * cfg.n_params / 1e9:.3f} GB; with grads and both AdamW "
-          f"moments {16 * cfg.n_params / 1e9:.3f} GB), batch "
-          f"{LM_FULL['batch']} x seq {LM_FULL['seq']}: losses "
-          f"{[round(x, 6) for x in losses]} (ln vocab "
+          f"moments {16 * cfg.n_params / 1e9:.3f} GB), {cfg.n_layers} "
+          f"layers, batch {LM_FULL['batch']} x seq {LM_FULL['seq']}, remat "
+          f"{int(remat)}: losses {[round(x, 6) for x in losses]} (ln vocab "
           f"{np.log(cfg.vocab):.4f}); s a step (the first with the init) "
           f"{[round(float(x), 4) for x in step_s]}, the last profiled; "
           f"max_memory_allocated {peak / 2**30:.3f} GiB; launches "
-          f"{ {k: launches[k] for k in FA_NAMES} }", flush=True)
-    _print_breakdown("lm full", prof, float(step_s[-1]), "step")
-    # the profiled step's attention backward: the tensor-core tiled pair,
-    # one launch each an attention layer
-    attn = sum(cfg.kind(i) == "A" for i in range(cfg.n_layers))
-    for name in LM_BWD_KERNELS:
-        count = sum(e.count for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA
-                    and f"::{name}<" in e.key)
-        print(f"lm full profiled step: {name} x{count} ({attn} attention "
-              f"layers)", flush=True)
-        check(count > 0, f"lm full: {name} not in the profiled step")
-    check(len(losses) == LM_FULL["steps"]
-          and all(np.isfinite(x) for x in losses), f"lm losses {losses}")
+          f"{ {k: launches[k] for k in names} }; card {card}", flush=True)
+    _print_breakdown(f"{label} {arch}", prof, float(step_s[-1]), "step")
+    for name in kernels:
+        found = [(e.count, e.self_device_time_total)
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and f"::{name}" in e.key]
+        print(f"{label} {arch} profiled step: {name} x"
+              f"{sum(c for c, _ in found)} "
+              f"{sum(us for _, us in found) / 1e3:.3f} ms ({cfg.n_layers} "
+              f"layers; card {card})", flush=True)
+        check(bool(found), f"{label} {arch}: {name} not in the profiled "
+              "step")
+    check(len(losses) == steps and all(np.isfinite(x) for x in losses),
+          f"{label} {arch} losses {losses}")
     check(abs(losses[0] - np.log(cfg.vocab)) < LM_FIRST_LOSS,
-          f"lm first loss {losses[0]}, ln vocab {np.log(cfg.vocab)}")
+          f"{label} {arch} first loss {losses[0]}, ln vocab "
+          f"{np.log(cfg.vocab)}")
     return launches
 
 
-def lm_phase() -> dict:
+def lm_phase(card: str) -> dict:
     """The LM stack on the card: (a) every smoke config's forward, loss
     and gradients against the CPU's; (b) LM_FULL at full width through
-    ``train()``; (c) LM_CUT of granite at full width against the CPU.
-    Returns the launches of (a)-(c)'s card runs."""
+    ``train()``; (c) LM_CUT of granite at full width against the CPU; (d)
+    LM_PUBLISHED's configs at full width through ``train()``. Returns the
+    launches of (a)-(d)'s card runs."""
     total: dict = collections.Counter()
     t0 = time.perf_counter()
     for arch in lm_configs.ARCHS:
@@ -3330,7 +3390,7 @@ def lm_phase() -> dict:
         total.update(_lm_agree(f"lm smoke {arch}", bundle, params, batch))
     print(f"lm (a) s={time.perf_counter() - t0:.1f}", flush=True)
     t0 = time.perf_counter()
-    total.update(_lm_full())
+    total.update(_lm_train(LM_FULL["arch"], FA_NAMES, LM_BWD_KERNELS, card))
     print(f"lm (b) s={time.perf_counter() - t0:.1f}", flush=True)
     t0 = time.perf_counter()
     gc.collect()
@@ -3344,6 +3404,15 @@ def lm_phase() -> dict:
     total.update(_lm_agree(f"lm cut {cfg.n_layers} layers seq "
                            f"{LM_CUT['seq']}", bundle, params, batch))
     print(f"lm (c) s={time.perf_counter() - t0:.1f}", flush=True)
+    del bundle, params, batch
+    for arch, kernels in LM_PUBLISHED.items():
+        t0 = time.perf_counter()
+        total.update(_lm_train(arch, _lm_names(lm_configs.get_config(arch)),
+                               kernels, card, remat=True,
+                               steps=LM_PUBLISHED_STEPS, label="lm (d)"))
+        print(f"lm (d) {arch} s={time.perf_counter() - t0:.1f}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     return dict(total)
 
 
@@ -3815,7 +3884,7 @@ def main() -> int:
                         ("async", async_phase),
                         ("sharded", sharded_phase),
                         ("trainer", trainer_phase),
-                        ("lm", lm_phase),
+                        ("lm", lambda: lm_phase(card)),
                         ("serve", serve_phase)):
         got = timed(name, phase)
         if name in ("sharded", "lm", "serve"):

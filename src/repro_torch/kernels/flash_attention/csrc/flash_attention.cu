@@ -1328,8 +1328,9 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[N][4],
 // Rows [r0, r0 + rows) of one head's operand (global row stride `ld`) into
 // dst with row pitch `pitch`, by all the block's threads in VEC-byte
 // copies; rows at or past seq are zero-filled. The chunks per row are a
-// compile-time power of two, so a chunk's row and column cost a shift and
-// a mask, not a division.
+// compile-time constant (a power of two but at D = 80), so a chunk's row
+// and column cost a shift and a mask, or a multiply by a constant, not a
+// division.
 template <int D, int VEC>
 __device__ __forceinline__ void stage_tile_by(float* dst, int pitch,
                                               const float* src, long long ld,
@@ -1413,7 +1414,7 @@ constexpr int kTcRows = 16;   // query rows per warp: one m16 tile
 constexpr int kTcKeys = 64;   // keys per tile: eight n8 tiles
 constexpr int kTcN = kTcKeys / 8;
 constexpr int kTcStages = 2;  // key/value tiles in the ring
-constexpr int kTcPvN = 8;     // n8 tiles of d per P V chunk
+constexpr int kTcPvN = 8;     // n8 tiles of d per P V chunk, at most
 // Four warps, 64 query rows, per block: the warps share every key/value
 // tile the block stages, and 64 rows beat 32 and 16 at every multi-tile
 // shape of chip_smoke.py, even at full 256, where they leave 100 of the
@@ -1428,14 +1429,42 @@ constexpr float kTcLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float tc_exp(float x) { return exp2f(x); }
 
+// The tiled kernels take head dims that are multiples of 16 (HEAD_DIMS:
+// 32, 64, 80, 128): a score stage of d is 32 wide, or 16 at the end of an
+// odd multiple of 16 (D = 80: stages of 32, 32 and 16).
+//
+// The least row pitch >= D whose residue mod `mod` is `res` (a residue
+// class, not D plus a constant, is what keeps loads free of bank conflicts).
+__host__ __device__ constexpr int pitch_at(int d, int res, int mod) {
+  return d + ((res - d % mod) % mod + mod) % mod;
+}
+
 // Pitches that keep every fragment load free of bank conflicts (see
-// fused_linear.cu's warp_mma): Q and K are read as float2 pairs along d
-// (pitch 8 mod 32), V as scalars along d at rows 2t and 2t + 1 (4 mod 32).
+// fused_linear.cu's warp_mma). Q and K are read as float2 pairs along d:
+// lane (g, t) at row g, words 2t and 2t + 1, a half-warp (g = 0..3) at a
+// time. With pitch = 8 mod 16 the four rows start at banks 8 x (g x odd
+// mod 4), a permutation of 0, 8, 16, 24, so the 16 pairs fill the 32 banks
+// once (D + 8 at every D = 0 mod 16: 8 mod 32 at D = 32, 64 and 128, 24 at
+// D = 80). V is read as scalars along d at rows 2t and 2t + 1, column g:
+// with pitch = 4 mod 8 the rows 2t start at banks 8 x (t x odd mod 4),
+// again 0, 8, 16, 24 in some order, and g fills each group (D + 4: 4 mod
+// 32, or 20 at D = 80).
 template <int D>
 struct TcPitch {
-  static constexpr int qk = D + 8, v = D + 4;
+  static_assert(D % 16 == 0, "the tiled kernels take D = 0 mod 16");
+  static constexpr int qk = pitch_at(D, 8, 16), v = pitch_at(D, 4, 8);
   static constexpr int stage = kTcKeys * (qk + v);  // one K and V tile
 };
+
+// n8 tiles of d per P V chunk: the most, up to kTcPvN, that divide D / 8,
+// so no chunk runs past d (D = 80: two chunks of five). The chunks only
+// group independent columns: each column's sum is the same in any of them.
+template <int D>
+__host__ __device__ constexpr int pv_chunk() {
+  int nc = kTcPvN < D / 8 ? kTcPvN : D / 8;
+  while ((D / 8) % nc) --nc;
+  return nc;
+}
 
 // One warp, one key tile: the warp's 16 query rows (qs, staged) against
 // keys [k0, k0 + kTcKeys) (ks, vs, staged). Fragments are mma.m16n8k8's:
@@ -1447,16 +1476,18 @@ struct TcPitch {
 // k-step of its eight keys: P goes from the scores' registers to the P V
 // product with no trip through shared memory.
 //
-// Order of the sums. S: per 32-wide stage of d, four k-steps chained on the
-// tensor cores (3 MMAs each), then added to S in f32. Then the online
+// Order of the sums. S: per 32-wide stage of d (the last 16 wide at D =
+// 80), its four k-steps (two) chained on the tensor cores (3 MMAs each),
+// then added to S in f32. Then the online
 // softmax per row, in base 2: m_new = max(m, tile max), alpha = exp2(m -
 // m_new), p = exp2(s * (scale * log2 e) - m_new) (exactly 0 where masked),
 // l = alpha * l + the row's sum of p (each lane's values in order, then
 // across the quad's four lanes, xor 1 then xor 2). P V: per chunk of
-// 8 * kTcPvN columns of d, the tile's k-steps chained on the tensor cores,
-// then acc = fma(acc, alpha, that), so each tile's product reaches acc in
-// one f32 add (chained MMAs drift, the tensor cores truncating what they
-// accumulate: fused_linear.cu's flush).
+// 8 * pv_chunk<D>() columns of d, the tile's k-steps chained on the
+// tensor cores, then acc = fma(acc, alpha, that), so each tile's product
+// reaches acc in
+// one f32 add (chained MMAs drift, the tensor cores truncating what
+// they accumulate: fused_linear.cu's flush).
 template <int D>
 __device__ __forceinline__ void tc_tile(const float* qs, const float* ks,
                                         const float* vs, const Problem& pr,
@@ -1469,7 +1500,7 @@ __device__ __forceinline__ void tc_tile(const float* qs, const float* ks,
   for (int d0 = 0; d0 < D; d0 += 32) {
     float st[kTcN][4] = {};
 #pragma unroll
-    for (int kk = d0; kk < d0 + 32; kk += 8) {
+    for (int kk = d0; kk < d0 + 32 && kk < D; kk += 8) {
       const float2 lo =
           *reinterpret_cast<const float2*>(qs + g * PQK + kk + 2 * t);
       const float2 hi =
@@ -1540,7 +1571,7 @@ __device__ __forceinline__ void tc_tile(const float* qs, const float* ks,
     l[r] = alpha[r] * l[r] + sum[r];
   }
 
-  constexpr int NC = kTcPvN < D / 8 ? kTcPvN : D / 8;  // n-tiles per chunk
+  constexpr int NC = pv_chunk<D>();  // n-tiles per chunk
 #pragma unroll
   for (int c = 0; c < D / 8; c += NC) {
     float st[NC][4] = {};
@@ -1664,16 +1695,19 @@ constexpr int kTbSplitMinD = 128;
 static_assert(kTcQRows == kTcKeys, "the backward's query and key tiles "
               "are one size");
 
-// The pitch of every tile the backward stages, D + 4 (4 mod 32): each
-// operand is read two ways, and both are free of bank conflicts. Along d,
-// as the scores' operand (A or B), lane (g, t) reads row g (+ 8, + 8j) at
-// columns t and t + 4: banks 4g + t and 4g + t + 4. Along rows, as the
-// second product's B operand, it reads rows 2t and 2t + 1 at column g:
-// banks 8t + g and 8t + 4 + g. (The forward's float2 loads along d want 8
-// mod 32, under which the row reads of rows 2t and 2t + 2 collide.)
+// The pitch of every tile the backward stages, the least >= D that is 4
+// mod 8 (D + 4: 4 mod 32, or 20 at D = 80): each operand is read two ways,
+// and both are free of bank conflicts. Along d, as the scores' operand (A
+// or B), lane (g, t) reads row g (+ 8, + 8j) at columns t and t + 4: rows
+// g start at banks 4 x (g x odd mod 8), a permutation of 0, 4, .., 28, and
+// t fills each group. Along rows, as the second product's B operand, it
+// reads rows 2t and 2t + 1 at column g: rows 2t start at 8 x (t x odd mod
+// 4), and g fills each group. (The forward's float2 loads along d want 8
+// mod 16, under which the row reads of rows 2t and 2t + 2 collide.)
 template <int D>
 struct TbPitch {
-  static constexpr int p = D + 4;
+  static_assert(D % 16 == 0, "the tiled kernels take D = 0 mod 16");
+  static constexpr int p = pitch_at(D, 4, 8);
   static constexpr int tile = kTcKeys * p;  // floats of one staged tile
 };
 
@@ -1702,9 +1736,10 @@ __device__ __forceinline__ float tb_p(float s, float scale2, float lse2) {
 
 // s (16 x 8NJ, C fragments: row g [+8], column 8j + 2t [+1]) = the warp's
 // 16 rows of a against 8NJ rows of b, both of pitch TbPitch<D>::p, over d:
-// per 32-wide stage of d, four k-steps chained on the tensor cores, then
-// added to s in f32 (tc_tile's order). K-slots t and t + 4 are columns t
-// and t + 4 of the k-step, the mma's own layout.
+// per 32-wide stage of d (the last 16 wide at D = 80), its k-steps
+// chained on the tensor cores, then added to s in f32 (tc_tile's order).
+// K-slots t and t + 4 are columns t and t + 4 of the k-step, the mma's
+// own layout.
 template <int D, int NJ>
 __device__ __forceinline__ void tb_scores(const float* a, const float* b,
                                           float (&s)[NJ][4]) {
@@ -1718,7 +1753,7 @@ __device__ __forceinline__ void tb_scores(const float* a, const float* b,
   for (int d0 = 0; d0 < D; d0 += 32) {
     float st[NJ][4] = {};
 #pragma unroll
-    for (int kk = d0; kk < d0 + 32; kk += 8) {
+    for (int kk = d0; kk < d0 + 32 && kk < D; kk += 8) {
       uint32_t ab[4], as[4];
       split_tf32(a[g * P + kk + t], ab[0], as[0]);
       split_tf32(a[(g + 8) * P + kk + t], ab[1], as[1]);
@@ -1744,15 +1779,15 @@ __device__ __forceinline__ void tb_scores(const float* a, const float* b,
 // product: C (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1) of n-tile j are A
 // (g, t), (g, t+4), (g+8, t), (g+8, t+4) of k-step j, split into TF32
 // parts here, so k-slots t and t + 4 are m's rows 2t and 2t + 1. Per chunk
-// of kTcPvN n-tiles of d, the NJ k-steps chained on the tensor cores, then
-// one f32 add into acc: a chain over every tile would drift (the tensor
-// cores truncate what they accumulate).
+// of pv_chunk<D>() n-tiles of d, the NJ k-steps chained on the tensor
+// cores, then one f32 add into acc: a chain over every tile would drift
+// (the tensor cores truncate what they accumulate).
 template <int D, int NJ>
 __device__ __forceinline__ void tb_product(const float (&x)[NJ][4],
                                            const float* m,
                                            float (&acc)[D / 8][4]) {
   constexpr int P = TbPitch<D>::p;
-  constexpr int NC = kTcPvN < D / 8 ? kTcPvN : D / 8;  // n-tiles per chunk
+  constexpr int NC = pv_chunk<D>();  // n-tiles per chunk
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int c = 0; c < D / 8; c += NC) {
@@ -2060,7 +2095,9 @@ Strides strides_at(const long long* s, int i) {
 
 // Above 48 KB a block's shared memory must be asked for explicitly: allow
 // each kernel the card's opt-in maximum, once per process (the launch
-// itself fails, and reports it, if a block asks for more).
+// itself fails, and reports it, if a block asks for more). The tiled
+// kernels' blocks are checked at compile time against the H100's 227 KB.
+constexpr size_t kSmemOptin = 227 * 1024;
 template <typename Kernel>
 cudaError_t allow_max_smem(Kernel kernel) {
   int dev = 0, max_smem = 0;
@@ -2087,8 +2124,9 @@ int launch_dq_tc(const T* q, const T* k, const T* v, const T* dout,
                  const float* lse, const float* delta, T* dq, int batch,
                  const long long* st, Problem pr, int vec,
                  cudaStream_t stream) {
-  const size_t smem =
+  constexpr size_t smem =
       sizeof(float) * (2 + 2 * kTcStages) * TbPitch<D>::tile;
+  static_assert(smem <= kSmemOptin, "dq_tc_kernel's tiles exceed the card");
   static const cudaError_t attr = allow_max_smem(dq_tc_kernel<T, D>);
   if (attr != cudaSuccess) return attr;
   dq_tc_kernel<T, D><<<tb_grid(batch, pr), 32 * TbSplit<D>::warps, smem,
@@ -2103,8 +2141,10 @@ int launch_dkdv_tc(const T* q, const T* k, const T* v, const T* dout,
                    const float* lse, const float* delta, T* dk, T* dv,
                    int batch, const long long* st, Problem pr, int vec,
                    cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * TbPitch<D>::tile + kTcStages *
-                                       (2 * TbPitch<D>::tile + 2 * kTcQRows));
+  constexpr size_t smem = sizeof(float) * (2 * TbPitch<D>::tile + kTcStages *
+                                           (2 * TbPitch<D>::tile +
+                                            2 * kTcQRows));
+  static_assert(smem <= kSmemOptin, "dkdv_tc_kernel's tiles exceed the card");
   static const cudaError_t attr = allow_max_smem(dkdv_tc_kernel<T, D>);
   if (attr != cudaSuccess) return attr;
   dkdv_tc_kernel<T, D><<<tb_grid(batch, pr), 32 * TbSplit<D>::warps, smem,
@@ -2145,8 +2185,9 @@ template <typename T, int D>
 int launch_fwd_tc(const T* q, const T* k, const T* v, T* o, float* lse,
                   int batch, const long long* st, Problem pr, int vec,
                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (kTcQRows * TcPitch<D>::qk +
-                                       kTcStages * TcPitch<D>::stage);
+  constexpr size_t smem = sizeof(float) * (kTcQRows * TcPitch<D>::qk +
+                                           kTcStages * TcPitch<D>::stage);
+  static_assert(smem <= kSmemOptin, "fwd_tc_kernel's tiles exceed the card");
   static const cudaError_t attr = allow_max_smem(fwd_tc_kernel<T, D>);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(batch * pr.heads, (pr.seq + kTcQRows - 1) / kTcQRows);
@@ -2316,6 +2357,7 @@ int fwd_entry(const T* q, const T* k, const T* v, T* o, float* lse,
   switch (d) {
     case 32: return launch_fwd_tc<T, 32>(q, k, v, o, lse, batch, strides, pr, vec, stream);
     case 64: return launch_fwd_tc<T, 64>(q, k, v, o, lse, batch, strides, pr, vec, stream);
+    case 80: return launch_fwd_tc<T, 80>(q, k, v, o, lse, batch, strides, pr, vec, stream);
     case 128: return launch_fwd_tc<T, 128>(q, k, v, o, lse, batch, strides, pr, vec, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -2342,6 +2384,7 @@ int dq_entry(const T* q, const T* k, const T* v, const T* dout,
   switch (d) {
     case 32: return launch_dq_tc<T, 32>(q, k, v, dout, lse, delta, dq, batch, strides, pr, vec, stream);
     case 64: return launch_dq_tc<T, 64>(q, k, v, dout, lse, delta, dq, batch, strides, pr, vec, stream);
+    case 80: return launch_dq_tc<T, 80>(q, k, v, dout, lse, delta, dq, batch, strides, pr, vec, stream);
     case 128: return launch_dq_tc<T, 128>(q, k, v, dout, lse, delta, dq, batch, strides, pr, vec, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -2368,6 +2411,7 @@ int dkdv_entry(const T* q, const T* k, const T* v, const T* dout,
   switch (d) {
     case 32: return launch_dkdv_tc<T, 32>(q, k, v, dout, lse, delta, dk, dv, batch, strides, pr, vec, stream);
     case 64: return launch_dkdv_tc<T, 64>(q, k, v, dout, lse, delta, dk, dv, batch, strides, pr, vec, stream);
+    case 80: return launch_dkdv_tc<T, 80>(q, k, v, dout, lse, delta, dk, dv, batch, strides, pr, vec, stream);
     case 128: return launch_dkdv_tc<T, 128>(q, k, v, dout, lse, delta, dk, dv, batch, strides, pr, vec, stream);
     default: return cudaErrorInvalidValue;
   }

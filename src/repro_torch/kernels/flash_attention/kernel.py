@@ -14,8 +14,9 @@ unit-stride), so a transposed view of ``(B, S, H, D)`` activations is read
 in place; outputs take the layout of the matching input. q, k, v and do
 are all float32 or all bfloat16 (the kernels' bf16 forms: every product
 and sum in f32, each output rounded once to bf16); lse and delta are
-float32 in both. D is 32, 64 or
-128 on the card; any S runs (ragged tiles are masked). ``window`` is the
+float32 in both. D is 32, 64, 80
+or 128 on the card (256, which no config has, raises); any S runs (ragged
+tiles are masked). ``window`` is the
 sliding-window width (None: no window).
 
 Dispatch is by tensor device only: CPU tensors go to the plain versions in
@@ -56,7 +57,10 @@ LAUNCHES = {"flash_attention": 0, "flash_attention_bwd_dq": 0,
 # CUDA kernel
 KERNEL_LAUNCHES = {"fwd_short_mma_kernel": 0, "bwd_short_mma_kernel": 0}
 
-HEAD_DIMS = (32, 64, 128)
+# the tiled kernels' instantiations (csrc ``fwd_entry``, ``dq_entry``,
+# ``dkdv_entry``): multiples of 16, a score stage of d 32 wide or 16 at
+# the end (D = 80: stablelm-3b)
+HEAD_DIMS = (32, 64, 80, 128)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PROBLEM = [_I] * 4 + [_P, _F, _I, _I]  # b, h, s, d, strides, scale,
 #                                           causal, window

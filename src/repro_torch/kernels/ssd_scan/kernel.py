@@ -29,7 +29,8 @@ and rows); ``KERNEL_LAUNCHES`` counts the backward's calls again by the
 CUDA kernel its plan launched (the chunked or the tensor-core form).
 
 How the kernels launch is decided here, in pure Python, by :func:`ssd_plan`
-(form, heads per block, warps, sequential or chunk-parallel) and
+(the chunk the kernel runs, form, heads per block, warps, sequential or
+chunk-parallel) and
 :func:`ssd_bwd_plan` (tensor-core or chunked form, heads per block, copy
 widths), so the CPU tests can check every plan the card would run.
 """
@@ -73,6 +74,9 @@ SMEM_MAX = 232448 // 4
 # The bf16 tensor-core form's one shape (csrc/ssd_scan.cu kMmaQ, kMmaDs,
 # kMmaP): the FL path's chunk, state width and head width.
 MMA_SHAPE = (32, 16, 32)
+# The chunks the kernel runs a caller's chunk as where the caller's own does
+# not fit in a block (mamba2-2.7b's and jamba's 256), largest first.
+INNER_CHUNKS = (128, 64, 32)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -97,7 +101,9 @@ def smem_floats(chunk: int, p: int, ds: int, heads: int,
 
 @dataclasses.dataclass(frozen=True)
 class SsdPlan:
-    """One wrapper call. ``form`` "fma": a block takes one batch row and
+    """One wrapper call. ``chunk`` is the caller's chunk, ``inner`` the one
+    the kernel runs (see :func:`inner_chunk`), ``chunks`` the row's chunks
+    of ``inner`` steps. ``form`` "fma": a block takes one batch row and
     ``heads`` heads (they share the row's c b^T scores) with ``warps``
     warps sharing the heads' tiles, products by FMA on f32 tiles. ``form``
     "mma" (bf16 at MMA_SHAPE, sequential): a persistent grid of one wave
@@ -115,7 +121,37 @@ class SsdPlan:
     chunks: int
     vec_x: int
     vec_bc: int
+    chunk: int
+    inner: int
     form: str = "fma"
+
+
+def inner_chunk(s: int, p: int, ds: int, chunk: int) -> int:
+    """The chunk the kernel runs for a caller's ``chunk`` over ``s``
+    steps: the chunk itself where one head's block fits the card's shared
+    memory (SMEM_MAX), else the largest of INNER_CHUNKS that divides it and
+    fits. A chunk of 256 with a state width of 16 or more does not fit: its
+    block keeps the 256 x 256 score block once a block and once a head.
+
+    The result is the same function: y_t = sum over s <= t of (c_t . b_s)
+    exp(cum_t - cum_s) dt_s x_s, each step's sum over every earlier step,
+    whatever the chunk. A chunk only decides which of those terms the
+    kernel sums as the quadratic dual form inside a chunk and which it
+    carries through the state h across chunks, so the sub-chunks' state
+    carried from one to the next (sequentially or by the chunk-parallel
+    scan) gives the caller's chunk's outputs in another order of summation,
+    within SSD_RTOL of scale (as the chunked form is of the sequential
+    recurrence)."""
+    def fits(q: int) -> bool:
+        return smem_floats(q, p, ds, 1, s // q > 1) <= SMEM_MAX
+    if fits(chunk):
+        return chunk
+    for q in INNER_CHUNKS:
+        if q < chunk and chunk % q == 0 and fits(q):
+            return q
+    raise ValueError(f"chunk={chunk}, p={p}, ds={ds}: the block's shared "
+                     f"memory exceeds the card's, and no inner chunk of "
+                     f"{INNER_CHUNKS} divides the chunk and fits")
 
 
 def ssd_plan(bsz: int, s: int, n: int, p: int, ds: int, chunk: int, *,
@@ -123,7 +159,8 @@ def ssd_plan(bsz: int, s: int, n: int, p: int, ds: int, chunk: int, *,
              bc_aligned: bool = False, itemsize: int = 4) -> SsdPlan:
     """The launch plan for ``bsz`` rows of ``s`` steps, ``n`` heads of
     width ``p``, state width ``ds``, in chunks of ``chunk`` steps, on a card
-    with ``sms`` SMs. bf16 at MMA_SHAPE (chunk, ds, p) with up to 8 heads,
+    with ``sms`` SMs; the kernel runs chunks of :func:`inner_chunk`'s
+    steps. bf16 at MMA_SHAPE (chunk, ds, p) with up to 8 heads,
     walked in order with 16-byte copies, takes the tensor-core form. The
     FMA form: up to 4 heads share a block while the grid still fills the
     card; the chunk-parallel form where it does not and there are several
@@ -133,29 +170,28 @@ def ssd_plan(bsz: int, s: int, n: int, p: int, ds: int, chunk: int, *,
     only) set the copy widths, counted in ``itemsize``-byte elements (4:
     f32, 2: bf16)."""
     target = BLOCKS_PER_SM * sms
-    chunks = s // chunk
+    inner = inner_chunk(s, p, ds, chunk)
+    chunks = s // inner
     heads = 1
     for hb in (4, 2):
         if (n % hb == 0 and bsz * (n // hb) >= target
-                and smem_floats(chunk, p, ds, hb, chunks > 1) <= SMEM_SHARE):
+                and smem_floats(inner, p, ds, hb, chunks > 1) <= SMEM_SHARE):
             heads = hb
             break
-    if smem_floats(chunk, p, ds, heads, chunks > 1) > SMEM_MAX:
-        raise ValueError(f"chunk={chunk}, p={p}, ds={ds}: the block's "
-                         "shared memory exceeds the card's")
     chunk_parallel = chunks > 1 and bsz * (n // heads) < target
-    tasks = heads * _cdiv(chunk, TILE) * _cdiv(p, TILE)
+    tasks = heads * _cdiv(inner, TILE) * _cdiv(p, TILE)
 
     def vec(aligned, width, strides):
         return build.copy_width(16 if aligned else itemsize, width, *strides,
                                 itemsize=itemsize)
     vec_x, vec_bc = vec(x_aligned, p, x_strides), vec(bc_aligned, ds,
                                                       bc_strides)
-    if (itemsize == 2 and (chunk, ds, p) == MMA_SHAPE and n <= 8
+    if (itemsize == 2 and (inner, ds, p) == MMA_SHAPE and n <= 8
             and not chunk_parallel and vec_x == vec_bc == 16):
-        return SsdPlan(n, n, False, chunks, vec_x, vec_bc, "mma")
+        return SsdPlan(n, n, False, chunks, vec_x, vec_bc, chunk, inner,
+                       "mma")
     return SsdPlan(heads, max(1, min(MAX_WARPS, tasks)), chunk_parallel,
-                   chunks, vec_x, vec_bc)
+                   chunks, vec_x, vec_bc, chunk, inner)
 
 
 def ssd_scan_plan(xh: torch.Tensor, b_ssm: torch.Tensor, c_ssm: torch.Tensor,
@@ -227,7 +263,8 @@ def _operands(xh, dt, a_log, b_ssm, c_ssm) -> tuple:
 def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
              b_ssm: torch.Tensor, c_ssm: torch.Tensor, *,
              chunk: int = 128) -> torch.Tensor:
-    """y (B, S, n, p) of the chunked SSD scan (chunk clamped to S)."""
+    """y (B, S, n, p) of the chunked SSD scan (chunk clamped to S; the
+    kernel runs the plan's inner chunk, :func:`inner_chunk`)."""
     if not build.on_cuda("ssd_scan", xh, dt, a_log, b_ssm, c_ssm):
         return ref.ssd_ref(xh, dt, a_log, b_ssm, c_ssm)
     xh, dt, a2, b_ssm, c_ssm = _operands(xh, dt, a_log, b_ssm, c_ssm)
@@ -255,7 +292,8 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                  b_ssm.data_ptr(), c_ssm.data_ptr(), y.data_ptr(),
                  None if states is None else states.data_ptr(),
                  None if decays is None else decays.data_ptr(), bsz, s, n, p,
-                 ds, chunk, plan.heads, plan.warps, int(plan.chunk_parallel),
+                 ds, plan.inner, plan.heads, plan.warps,
+                 int(plan.chunk_parallel),
                  bsz // groups, plan.vec_x, plan.vec_bc,
                  int(a2.dtype == torch.bfloat16), int(plan.form == "mma"),
                  strides, dtype=xh.dtype)

@@ -79,9 +79,15 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     qpos = torch.arange(chunk, device=xh.device)
     causal = qpos[:, None] >= qpos[None, :]
     scores = torch.einsum("cbqs,cbks->cbqk", ccs, bcs)
-    ldec = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
-    w = scores[..., None] * torch.where(causal[None, None, :, :, None],
-                                        ldec, 0.0)
+    # exp(cum_q - cum_k) where q >= k, else 0: the exponent is masked to
+    # -inf before the exp (the reference zeroes the exp's result after it,
+    # the same values). Above the diagonal cum_q - cum_k grows with the
+    # chunk; over 256 steps it overflows exp, and inf's gradient times the
+    # mask's 0 would be NaN
+    ldec = torch.exp(torch.where(
+        causal[None, None, :, :, None],
+        cum[:, :, :, None, :] - cum[:, :, None, :, :], float("-inf")))
+    w = scores[..., None] * ldec
     w = w * dtc[:, :, None, :, :]                   # * dt_k
     y_intra = torch.einsum("cbqkn,cbknp->cbqnp", w.to(xh.dtype), xc)
 

@@ -34,9 +34,16 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(tree, max_norm: float):
+def clip_scale(tree, max_norm: float):
+    """(scale, norm): the global norm of ``tree`` and the factor
+    :func:`clip_by_global_norm` multiplies every leaf by."""
     norm = global_norm(tree)
-    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    return torch.clamp(max_norm / (norm + 1e-9), max=1.0), norm
+
+
+@torch.no_grad()
+def clip_by_global_norm(tree, max_norm: float):
+    scale, norm = clip_scale(tree, max_norm)
     return tree_map(lambda g: g * scale.to(g.dtype), tree), norm
 
 

@@ -34,9 +34,11 @@ TOL = dict(atol=2e-5, rtol=2e-5)
 BLOCK = 64
 
 # (B, H, S, D, causal, window): causal over 4 tiles, a window that cuts
-# tiles, non-causal, and the FL path's single half tile (S = 32, D = 32)
+# tiles, non-causal, the FL path's single half tile (S = 32, D = 32), and
+# stablelm-3b's head dim of 80, causal over 4 tiles and with a window
 CASES = [(1, 2, 256, 32, True, None), (1, 2, 256, 64, True, 100),
-         (2, 1, 128, 32, False, None), (3, 2, 32, 32, True, None)]
+         (2, 1, 128, 32, False, None), (3, 2, 32, 32, True, None),
+         (1, 2, 256, 80, True, None), (2, 1, 128, 80, True, 48)]
 
 
 def _qkv_do(b, h, s, d, seed):
@@ -244,6 +246,9 @@ def _bshd_views(b, h, s, d, n=5):
     ("lm 4096", ("tiled", 1, 16)),
     # the serve path's encoder (seamless-m4t-medium, 16 frames, D = 64)
     ("serve encoder", ("tiled", 1, 16)),
+    # stablelm-3b's step: 32 heads of 80 at seq 4096, 160-byte bf16 and
+    # 320-byte f32 rows
+    ("lm stablelm 4096", ("tiled", 1, 16)),
 ])
 def test_attention_plan_for_chip_smoke_cases(label, want):
     b, h, s, d, _, _ = _chip_smoke_fa_cases()[label]
@@ -262,7 +267,8 @@ def test_attention_plan_for_test_shapes(case):
 
 @pytest.mark.parametrize("s,d,form", [(1, 32, "short"), (32, 32, "short"),
                                       (33, 32, "tiled"), (32, 64, "tiled"),
-                                      (16, 128, "tiled")])
+                                      (16, 128, "tiled"), (16, 80, "tiled"),
+                                      (4096, 80, "tiled")])
 def test_attention_plan_short_form_bounds(s, d, form):
     assert kernel.attention_plan(570, 2, s, d).form == form
 
@@ -843,3 +849,114 @@ def test_tiled_backward_3xtf32_emulation_matches_plain_ragged():
     assert kernel.attention_plan(b, h, s, d).form == "tiled"
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, _np(w), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# head dim 80 (stablelm-3b): the tiled kernels' pitches, shared memory and
+# arithmetic where D is an odd multiple of 16
+# ---------------------------------------------------------------------------
+
+
+def _pitch_rules() -> dict:
+    """The residue rules of the tiled kernels' pitches in the source:
+    {"qk" | "v" | "tb": (res, mod)}, a pitch the least >= D that is res mod
+    mod (csrc pitch_at)."""
+    import re
+    src = kernel.SOURCE.read_text()
+    tc = re.search(r"qk = pitch_at\(D, (\d+), (\d+)\), v = pitch_at\(D, "
+                   r"(\d+), (\d+)\)", src)
+    tb = re.search(r"int p = pitch_at\(D, (\d+), (\d+)\)", src)
+    return {"qk": (int(tc.group(1)), int(tc.group(2))),
+            "v": (int(tc.group(3)), int(tc.group(4))),
+            "tb": (int(tb.group(1)), int(tb.group(2)))}
+
+
+def _pitch(d: int, rule) -> int:
+    res, mod = rule
+    return d + (res - d) % mod
+
+
+def _conflict_free(words) -> bool:
+    """One shared-memory request of 32-bit words (a warp's, or a
+    half-warp's 64-bit one) touches each of the 32 banks at most once."""
+    banks = [w % 32 for w in words]
+    return len(set(banks)) == len(banks)
+
+
+@pytest.mark.parametrize("d", kernel.HEAD_DIMS)
+def test_tiled_pitches_are_free_of_bank_conflicts(d):
+    """Every fragment load of the tiled kernels at each head dim, with the
+    pitches the source's residue rules give (D = 80: 88 for Q and K, 84
+    for V and the backward's tiles, as at every D = 0 mod 16 D + 8 and
+    D + 4): the forward's float2 loads of Q and K along d (half-warps of
+    lanes 4g + t: row g, words 2t and 2t + 1), its V loads along rows
+    (rows 2t and 2t + 1, column g), the backward's loads along d (row g,
+    columns t and t + 4) and along rows; and each kernel's block within
+    the H100's 227 KB of shared memory. A pitch of D alone conflicts."""
+    rules = _pitch_rules()
+    pqk, pv, ptb = (_pitch(d, rules[k]) for k in ("qk", "v", "tb"))
+    if d == 80:
+        assert (pqk, pv, ptb) == (88, 84, 84)
+    lanes = [(g, t) for g in range(8) for t in range(4)]
+    for half in (lanes[:16], lanes[16:]):
+        assert _conflict_free([g * pqk + 2 * t + i for g, t in half
+                               for i in (0, 1)])
+    for hh in (0, 1):
+        assert _conflict_free([(2 * t + hh) * pv + g for g, t in lanes])
+        assert _conflict_free([(2 * t + hh) * ptb + g for g, t in lanes])
+    for col in (0, 4):
+        assert _conflict_free([g * ptb + t + col for g, t in lanes])
+    assert not _conflict_free([g * d + t for g, t in lanes])
+    keys, stages = _tc_keys(), 2
+    fwd = keys * pqk + stages * keys * (pqk + pv)
+    dq = (2 + 2 * stages) * keys * ptb
+    dkdv = 2 * keys * ptb + stages * (2 * keys * ptb + 2 * keys)
+    assert 4 * max(fwd, dq, dkdv) <= 227 * 1024
+
+
+@pytest.fixture(scope="module")
+def head_dim_80_reference():
+    """The reference's Pallas forward and backward (interpret mode) at
+    (1, 1, 128, 80), causal: (q, k, v, do, lse, delta) and (o, dq, dk,
+    dv), one run for the module."""
+    q, k, v, do = _qkv_do(1, 1, 128, 80, seed=800)
+    o_ref, lse_ref = ref_kernel.flash_attention(
+        q, k, v, causal=True, block_q=BLOCK, block_k=BLOCK, interpret=True,
+        return_lse=True)
+    delta = np.sum(do * np.asarray(o_ref), axis=-1)
+    grads = ref_kernel.flash_attention_bwd(
+        q, k, v, do, lse_ref, delta, causal=True, block_q=BLOCK,
+        block_k=BLOCK, interpret=True)
+    return ((q, k, v, do, np.asarray(lse_ref), delta),
+            [np.asarray(o_ref)] + [np.asarray(g) for g in grads])
+
+
+def test_forward_3xtf32_emulation_at_head_dim_80(head_dim_80_reference):
+    """The tiled forward's arithmetic at D = 80, where the scores' last
+    stage of d is 16 wide (two k-steps, still added to S in f32 on its
+    own), against the reference's Pallas forward: o and lse at TOL."""
+    (q, k, v, _, lse_ref, _), (o_ref, *_) = head_dim_80_reference
+    o, lse = _tc_forward(q, k, v, True, None)
+    np.testing.assert_allclose(o, o_ref, **TOL)
+    np.testing.assert_allclose(lse, lse_ref, **TOL)
+
+
+def test_tiled_backward_3xtf32_emulation_at_head_dim_80(
+        head_dim_80_reference):
+    """The tiled backward's order of work at D = 80 (unsplit: 80 is below
+    kTbSplitMinD) against the reference's Pallas backward: dq, dk and dv at
+    TOL."""
+    assert 80 < _tb_split_min_d()
+    args, (_, *want) = head_dim_80_reference
+    got = _tb_backward(*args, True, None)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, **TOL)
+
+
+def test_head_dim_256_is_refused():
+    """D = 256, which no config has, has no instantiation: the wrappers
+    raise on the card rather than fall back to a plain version."""
+    assert 256 not in kernel.HEAD_DIMS
+    q = torch.empty(1, 2, 64, 256)
+    with pytest.raises(NotImplementedError, match="head dim 256"):
+        kernel._operands("qkv", q, q, q)

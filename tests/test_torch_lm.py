@@ -19,6 +19,7 @@ if not hasattr(jax.experimental, "enable_x64"):
     # this process only
     jax.experimental.enable_x64 = lambda v=True: jax.enable_x64(v)
 
+import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
 
 import numpy as np  # noqa: E402
@@ -28,13 +29,14 @@ import torch  # noqa: E402
 from repro import configs as ref_configs  # noqa: E402
 from repro.models import backend as ref_backend  # noqa: E402
 from repro.models import demo_batch as ref_demo_batch  # noqa: E402
+from repro.models import bundle_for as ref_bundle_for  # noqa: E402
 from repro.models import get_bundle as ref_get_bundle  # noqa: E402
 from repro.models import model as ref_model  # noqa: E402
 from repro.models import params as ref_params  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
-from repro_torch.models import demo_batch, get_bundle  # noqa: E402
+from repro_torch.models import bundle_for, demo_batch, get_bundle  # noqa
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models import params as params_lib  # noqa: E402
 from repro_torch.models.convert import (flatten, tree_from_numpy,  # noqa
@@ -276,28 +278,46 @@ def test_random_init_loss_near_uniform():
         assert abs(loss - np.log(bundle.cfg.vocab)) < 1.0, (arch, loss)
 
 
-def test_full_configs_the_kernels_do_not_take_raise():
-    """No fallback: the full configs whose shapes the CUDA kernels do not
-    take are refused by the kernels' checks (run on the card, the LM
-    raises there), not routed to the plain versions. stablelm-3b's head
-    dim 80 (ROADMAP K7); mamba2-2.7b's and jamba's SSD chunk of 256, whose
-    forward block would need 222,980 floats of shared memory (K15)."""
-    cfg = configs.get_config("stablelm-3b")
-    assert cfg.hd == 80 and cfg.hd not in fa_kernel.HEAD_DIMS
-    q = torch.empty(1, cfg.n_heads, 64, cfg.hd)
-    with pytest.raises(NotImplementedError, match="head dim 80"):
-        fa_kernel._operands("qkv", q, q, q)
-    for arch in ("mamba2-2.7b", "jamba-v0.1-52b"):
+def test_full_configs_have_cuda_plans():
+    """Every published config's attention and SSD shapes have CUDA plans,
+    at SHAPES["train_4k"]'s 4096 steps of one row: the head dims (stablelm-
+    3b's 80 among them, ROADMAP K7) in ``HEAD_DIMS``, on the tiled kernels
+    with 16-byte copies of the (B, S, H, hd) activations; the SSD forward
+    at each chunk of 256 (mamba2-2.7b's and jamba's, K15) on an inner chunk
+    whose block fits the card, and the backward's chunked form. No
+    fallback: head dim 256, which no config has, is refused with
+    ``NotImplementedError``, and a chunk with no inner chunk that fits
+    with ``ValueError``, by the kernels' own checks (run on the card, the
+    LM raises there), not routed to the plain versions."""
+    seq = 4096
+    for arch in ARCHS:
         cfg = configs.get_config(arch)
-        s = cfg.ssm
-        n = s.n_heads(cfg.d_model)
-        assert s.chunk_size == 256
-        assert ssd_kernel.smem_floats(256, s.head_dim, s.d_state, 1,
-                                      True) > ssd_kernel.SMEM_MAX
-        with pytest.raises(ValueError, match="shared memory exceeds"):
-            ssd_kernel.ssd_plan(1, 4096, n, s.head_dim, s.d_state, 256,
-                                sms=132)
+        kinds = {cfg.kind(i) for i in range(cfg.n_layers)}
+        if "A" in kinds:
+            h, hd = cfg.n_heads, cfg.hd
+            assert hd in fa_kernel.HEAD_DIMS, arch
+            plan = fa_kernel.attention_plan(
+                1, h, seq, hd, strides=(seq * h * hd, hd, h * hd) * 5,
+                aligned=True)
+            assert (plan.form, plan.vec) == ("tiled", 16), arch
+        if "M" in kinds:
+            s = cfg.ssm
+            n, p, ds = s.n_heads(cfg.d_model), s.head_dim, s.d_state
+            plan = ssd_kernel.ssd_plan(1, seq, n, p, ds, s.chunk_size,
+                                       sms=132)
+            assert plan.chunk == s.chunk_size and seq % plan.inner == 0
+            assert ssd_kernel.smem_floats(plan.inner, p, ds, plan.heads,
+                                          plan.chunks > 1) <= \
+                ssd_kernel.SMEM_MAX, arch
+            assert ssd_kernel.ssd_bwd_plan(1, seq, n, p, ds,
+                                           sms=132).form == "chunk"
+    assert configs.get_config("stablelm-3b").hd == 80
+    q = torch.empty(1, 2, 64, 256)
+    with pytest.raises(NotImplementedError, match="head dim 256"):
+        fa_kernel._operands("qkv", q, q, q)
     assert ssd_kernel.smem_floats(256, 64, 128, 1, True) == 222_980
+    with pytest.raises(ValueError, match="no inner chunk"):
+        ssd_kernel.ssd_plan(1, seq, 2, 256, 256, 256, sms=132)
     # every smoke config fits: head dim 64, SSD chunk 32
     for arch in ARCHS:
         cfg = configs.get_smoke_config(arch)
@@ -306,6 +326,96 @@ def test_full_configs_the_kernels_do_not_take_raise():
             s = cfg.ssm
             ssd_kernel.ssd_plan(B, S, s.n_heads(cfg.d_model), s.head_dim,
                                 s.d_state, min(s.chunk_size, S), sms=132)
+
+
+# The shapes the smoke configs do not reach, on the CPU path: a smoke
+# config narrowed to head dim 80 (stablelm-3b's, at d_model 320 over its 4
+# heads) at B = 2, S = 64, and mamba2-smoke at its published chunk of 256
+# over two chunks (B = 1, S = 512). name -> (arch, config change, B, S,
+# the gradients' reference route and tolerance). The logits and the loss
+# are the reference's CPU form's, at RTOL. At chunk 256 that form's
+# gradients are NaN (its chunked dual form under autodiff: exp overflows
+# above the diagonal before its mask zeroes it; the port masks the
+# exponent, tests/test_torch_ssd_scan.py), so mamba2's gradients are held
+# against the route the reference's model takes there on the TPU, its
+# Pallas forward in interpret mode and ``jax.vjp`` through the sequential
+# oracle, at the SSD's own tolerance (SSD_RTOL, 1e-4 of each leaf's
+# largest entry): the port's chunked adjoint and that sequential one sum
+# in different orders (2.6e-5 of scale at most, a_log's).
+SSD_RTOL = 1e-4
+WIDE = {
+    "stablelm-hd80": ("stablelm-3b", lambda c: dataclasses.replace(
+        c, d_model=320), 2, 64, False, RTOL),
+    "mamba2-chunk256": ("mamba2-2.7b", lambda c: dataclasses.replace(
+        c, ssm=dataclasses.replace(c.ssm, chunk_size=256)), 1, 512, True,
+        SSD_RTOL),
+}
+
+
+@pytest.fixture(scope="module", params=list(WIDE))
+def wide_reference(request):
+    """One WIDE config's reference run (one jitted ``value_and_grad``, on
+    the kernel route where WIDE says so, then the CPU form's forward) and
+    the port's from the same params and batch: (config, the gradients'
+    tolerance, the reference's numpy, the port's tensors)."""
+    arch, change, b, s, kernel_route, grad_rtol = WIDE[request.param]
+    ref_cfg = change(ref_configs.get_smoke_config(arch))
+    cfg = change(configs.get_smoke_config(arch))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
+    bundle = ref_bundle_for(ref_cfg)
+    params = bundle.init(jax.random.PRNGKey(0))
+    batch = ref_demo_batch(ref_cfg, b, s)
+
+    def f(p, bt):
+        logits = ref_model.forward(p, bt, ref_cfg)
+        return ref_model.loss_fn(p, bt, ref_cfg), logits
+    with (ref_backend.use_pallas(interpret=True) if kernel_route
+          else contextlib.nullcontext()):
+        (loss, logits), grads = jax.jit(jax.value_and_grad(
+            f, has_aux=True))(params, batch)
+    if kernel_route:
+        loss, logits = jax.jit(f)(params, batch)
+    as_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+    want = dict(loss=float(loss), logits=np.asarray(logits),
+                grads=dict(_walk(as_np(grads))))
+    port = bundle_for(cfg)
+    tparams = tree_from_numpy(as_np(params), "cpu")
+    tbatch = tree_from_numpy(as_np(batch), "cpu")
+    leaves = {k: v.requires_grad_() for k, v in flatten(tparams).items()}
+    got_logits = port.forward(tparams, tbatch)
+    got_loss = port.loss_fn(tparams, tbatch)
+    got_grads = torch.autograd.grad(got_loss, list(leaves.values()))
+    return cfg, grad_rtol, want, dict(logits=got_logits.detach(),
+                                      loss=float(got_loss.detach()),
+                                      grads=dict(zip(leaves, got_grads)))
+
+
+def test_wide_config_shapes(wide_reference):
+    cfg, _, _, _ = wide_reference
+    assert cfg.hd == 80 if cfg.n_heads else cfg.ssm.chunk_size == 256
+
+
+def test_wide_forward_logits_match(wide_reference):
+    _, _, want, got = wide_reference
+    assert got["logits"].shape == want["logits"].shape
+    err = np.abs(got["logits"].numpy() - want["logits"]).max()
+    assert err <= RTOL * np.abs(want["logits"]).max(), err
+
+
+def test_wide_loss_matches(wide_reference):
+    _, _, want, got = wide_reference
+    assert np.isfinite(got["loss"])
+    assert abs(got["loss"] - want["loss"]) <= RTOL * abs(want["loss"])
+
+
+def test_wide_grads_match(wide_reference):
+    _, rtol, want, got = wide_reference
+    assert set(got["grads"]) == set(want["grads"])
+    for path, g in got["grads"].items():
+        w = want["grads"][path]
+        assert tuple(g.shape) == w.shape, path
+        err = np.abs(g.numpy() - w).max()
+        assert err <= rtol * max(np.abs(w).max(), 1e-30), (path, err)
 
 
 # ---------------------------------------------------------------------------

@@ -311,3 +311,63 @@ def test_entry_points_default_to_the_card(capsys):
     train_lib.main(["--arch", "qwen3-14b", "--smoke", "--device", "cpu",
                     "--steps", "3", "--batch", "2", "--seq", "64"])
     assert "final loss" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("block", [None, 1000])
+def test_update_in_place_is_the_tree_update_bit_for_bit(block,
+                                                        monkeypatch):
+    """``update_in_place`` (the clip's scaling, AdamW and the update's
+    application written into the params and moments, a block of a leaf at
+    a time; here also blocks of 1000 elements, which split leaves and end
+    ragged) gives the whole-tree functions' params and moments bit for bit
+    over two steps, and empties the flat gradients."""
+    from repro_torch.models.convert import flatten, tree_leaves, tree_map
+    if block is not None:
+        monkeypatch.setattr(train_lib, "UPDATE_BLOCK", block)
+    params = get_bundle("qwen3-14b", smoke=True).init(
+        torch.Generator().manual_seed(0))
+    o = opt.adamw(opt.cosine_schedule(3e-4, warmup=5, total=3),
+                  weight_decay=0.01)
+    want_p, want_s = params, o.init(params)
+    got_p = tree_map(torch.clone, params)
+    got_s = o.init(got_p)
+    g = torch.Generator().manual_seed(1)
+    for _ in range(2):
+        grads = tree_map(lambda p: 3 * torch.randn(p.shape, generator=g),
+                         params)
+        clipped, norm = opt.clip_by_global_norm(grads, 1.0)
+        upd, want_s = o.update(clipped, want_s, want_p)
+        want_p = opt.apply_updates(want_p, upd)
+        scale, got_norm = opt.clip_scale(grads, 1.0)
+        assert torch.equal(got_norm, norm)
+        flat = flatten(grads)
+        train_lib.update_in_place(o, flat, got_s, got_p, scale)
+        assert flat == {}
+    assert torch.equal(got_s["step"], want_s["step"])
+    for got, want in ((got_p, want_p), (got_s["m"], want_s["m"]),
+                      (got_s["v"], want_s["v"])):
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            assert torch.equal(a, b)
+
+
+def test_train_step_with_remat_matches_plain():
+    """``make_step(remat=True)`` recomputes each unit's activations in the
+    backward: the same loss and gradient norm, and params within 1e-6 of
+    scale of the plain step's (the recomputation's sums may run in
+    another order), for a dense and an SSM config."""
+    for arch in ("stablelm-3b", "mamba2-2.7b"):
+        bundle = get_bundle(arch, smoke=True)
+        stream = markov_stream(bundle.cfg.vocab, 32, 2, 0)
+        b = stream.next_batch()
+        tokens, labels = (torch.from_numpy(b[k]) for k in ("tokens",
+                                                           "labels"))
+        runs = []
+        for remat in (False, True):
+            o = opt.adamw(1e-3, weight_decay=0.01)
+            params = bundle.init(torch.Generator().manual_seed(0))
+            step = train_lib.make_step(bundle.cfg, o, remat)
+            runs.append(step(params, o.init(params), tokens, labels))
+        (p0, _, l0, n0), (p1, _, l1, n1) = runs
+        assert float(l0) == float(l1), arch
+        assert abs(float(n0) - float(n1)) <= 1e-6 * float(n0), arch
+        _close(p1, p0, 1e-6, arch)

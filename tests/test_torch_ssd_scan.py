@@ -36,6 +36,21 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 
 # (B, S, n, p, ds, chunk): four chunks; the FL path's single chunk
 SHAPES = [(2, 128, 4, 16, 8, 32), (3, 32, 4, 32, 16, 32)]
+# two chunks of 256 (mamba2-2.7b's and jamba's chunk), which the kernel
+# runs as sub-chunks of 128 (kernel.inner_chunk)
+LONG_SHAPES = [(1, 512, 4, 32, 16, 256)]
+# the card's contract (chip_smoke.py SSD_RTOL): the kernel's sums within
+# 1e-4 of the output's largest magnitude. Over a chunk of 256 the kernel's
+# exp2 of differences of 256-step cumulative decays lose a few ulps of
+# those decays, so single small elements of the kernel's order of work can
+# miss TOL's elementwise 1e-4 (1.4e-4 at 0.02) while the error stays under
+# 1e-5 of scale.
+SSD_RTOL = 1e-4
+
+
+def _close_to_scale(got, want, rtol=SSD_RTOL):
+    err = np.abs(got - want).max()
+    assert err <= rtol * np.abs(want).max(), (err, np.abs(want).max())
 
 
 def _inputs(b, s, n, p, ds, seed=0, groups=0):
@@ -53,7 +68,7 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + LONG_SHAPES)
 def test_plain_and_chunked_match_reference(shape):
     """ssd_ref (the kernel's plain version) and ssd_chunked (the CPU model
     path) against the Pallas kernel in interpret mode and the reference's
@@ -72,6 +87,30 @@ def test_plain_and_chunked_match_reference(shape):
     got, h = ssm.ssd_chunked(*targs, chunk)
     np.testing.assert_allclose(_np(got), want, **TOL)
     np.testing.assert_allclose(_np(h), np.asarray(want_h), **TOL)
+
+
+def test_chunked_form_gradients_are_finite_at_chunk_256():
+    """The CPU model path's chunked form at chunk 256: its cotangents are
+    finite and within SSD_RTOL of scale of ``jax.vjp`` through the
+    reference's sequential oracle, where the reference's own chunked form
+    gives NaN (exp(cum_q - cum_k) above the diagonal overflows before its
+    mask zeroes it; the port masks the exponent instead, the same forward
+    values)."""
+    args = _inputs(1, 256, 2, 16, 8, seed=11)
+    dy = np.random.default_rng(12).normal(size=(1, 256, 2, 16)).astype(
+        np.float32)
+    def cotangents(f):
+        return jax.jit(lambda *a: jax.vjp(f, *a)[1](jnp.asarray(dy)))(*args)
+    want = cotangents(ref_ref.ssd_ref)
+    ref_grads = cotangents(lambda *a: ref_ssm.ssd_chunked(*a, 256)[0])
+    # its dt and a_log cotangents, which reach the exponent
+    assert not all(np.isfinite(np.asarray(g)).all() for g in ref_grads[1:3])
+    targs = [torch.tensor(a, requires_grad=True) for a in args]
+    y, _ = ssm.ssd_chunked(*targs, 256)
+    y.backward(torch.from_numpy(dy))
+    for t, w in zip(targs, want):
+        assert torch.isfinite(t.grad).all()
+        _close_to_scale(_np(t.grad), np.asarray(w))
 
 
 def test_op_gradients_match_reference():
@@ -166,27 +205,43 @@ def _chip_smoke_ssd_cases():
     # per (row, head, chunk) with 2 x 2 output tiles of 32 for 4 warps
     ("multi-chunk", (1, 4, True)),
     ("long rows", (4, 4, False)),
+    # mamba2-2.7b's step: one row of 80 heads, chunk 256 run as 64 sub-
+    # chunks of 64 (ds 128), chunk-parallel
+    ("mamba2 4096", (1, 4, True)),
 ])
 def test_ssd_plan_for_chip_smoke_cases(label, want):
     rows, s, n, p, ds, chunk = _chip_smoke_ssd_cases()[label]
     plan = kernel.ssd_plan(rows, s, n, p, ds, chunk, sms=132)
     assert (plan.heads, plan.warps, plan.chunk_parallel) == want
-    assert plan.chunks == s // chunk
-    assert kernel.smem_floats(chunk, p, ds, plan.heads,
-                              plan.chunks > 1) <= kernel.SMEM_SHARE
+    assert plan.chunk == chunk and plan.chunks == s // plan.inner
+    assert plan.inner == (64 if chunk == 256 else chunk)
+    # within half an SM; only a sub-chunked head's block takes more
+    smem = kernel.smem_floats(plan.inner, p, ds, plan.heads,
+                              plan.chunks > 1)
+    assert smem <= kernel.SMEM_SHARE or (
+        plan.inner < chunk and plan.heads == 1 and smem <= kernel.SMEM_MAX)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + LONG_SHAPES)
 def test_ssd_plan_for_test_shapes(shape):
     """The file's shapes have few rows: heads get a block each; the
-    4-chunk shape takes the chunk-parallel form, the single chunk cannot."""
+    multi-chunk shapes take the chunk-parallel form, the single chunk
+    cannot. A chunk of 256 runs as sub-chunks of 128 (four warps for its
+    four 32-step tiles)."""
     b, s, n, p, ds, chunk = shape
     plan = kernel.ssd_plan(b, s, n, p, ds, chunk, sms=132)
-    assert plan.heads == 1 and plan.warps == 1
-    assert plan.chunk_parallel == (s // chunk > 1)
-    # a chunk whose block cannot fit in shared memory is refused
-    with pytest.raises(ValueError):
-        kernel.ssd_plan(b, 1024, n, 128, 128, 1024, sms=132)
+    inner = 128 if chunk == 256 else chunk
+    assert (plan.chunk, plan.inner, plan.chunks) == (chunk, inner,
+                                                     s // inner)
+    assert plan.heads == 1 and plan.warps == (1 if chunk == 32 else 4)
+    assert plan.chunk_parallel == (s // inner > 1)
+    # no inner chunk fits (p = ds = 256: even 32 steps overflow), or none
+    # divides the chunk (80 steps at p = ds = 128 overflow, and none of
+    # 128, 64 and 32 divides 80): refused
+    with pytest.raises(ValueError, match="no inner chunk"):
+        kernel.ssd_plan(b, 1024, n, 256, 256, 1024, sms=132)
+    with pytest.raises(ValueError, match="no inner chunk"):
+        kernel.ssd_plan(b, 960, n, 128, 128, 80, sms=132)
 
 
 LOG2E = 1.4426950408889634
@@ -293,6 +348,50 @@ def test_kernel_order_of_work_matches_reference_pallas(shape, chunk_parallel):
     got, updates = _kernel_emulation(*args, chunk, chunk_parallel)
     assert updates == dims[1] // chunk - 1
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("dims", [(1, 512, 4, 32, 16), (1, 512, 2, 64, 128)],
+                         ids=["inner128", "inner64"])
+def test_sub_chunk_plan_order_of_work_matches_reference_at_chunk_256(dims):
+    """The plan at chunk 256 (the kernel's sub-chunks of 128, or of 64 at
+    mamba2-2.7b's ds = 128 and p = 64) in the kernel's order of work, in
+    the form the plan takes (chunk-parallel) and walked in order, against
+    the reference's Pallas kernel at chunk 256 in interpret mode: the same
+    function, summed in another order, within SSD_RTOL of scale."""
+    args = _inputs(*dims, seed=256 + dims[3])
+    want = np.asarray(ref_kernel.ssd_scan(*args, chunk=256, block_h=2,
+                                          interpret=True))
+    plan = kernel.ssd_plan(*dims, 256, sms=132)
+    assert plan.inner == (128 if dims[4] == 16 else 64)
+    assert plan.chunk_parallel
+    for chunk_parallel in (True, False):
+        got, updates = _kernel_emulation(*args, plan.inner, chunk_parallel)
+        assert updates == plan.chunks - 1
+        _close_to_scale(got, want)
+
+
+@pytest.mark.parametrize("arch,inner", [("mamba2-2.7b", 64),
+                                        ("jamba-v0.1-52b", 128)])
+def test_ssd_plan_at_full_configs_chunk_256(arch, inner):
+    """mamba2-2.7b's (80 heads of 64, ds 128) and jamba's (128 heads of
+    64, ds 16) SSD at their chunk of 256, one row of SHAPES["train_4k"]'s
+    4096 steps: a launchable plan whose block fits the card (chunk 256
+    itself would need 222,980 floats at mamba2's widths)."""
+    from repro_torch import configs
+    cfg = configs.get_config(arch)
+    s_cfg = cfg.ssm
+    n, p, ds = s_cfg.n_heads(cfg.d_model), s_cfg.head_dim, s_cfg.d_state
+    assert s_cfg.chunk_size == 256
+    plan = kernel.ssd_plan(1, 4096, n, p, ds, 256, sms=132)
+    assert (plan.chunk, plan.inner, plan.chunks) == (256, inner,
+                                                     4096 // inner)
+    assert plan.chunk_parallel and plan.form == "fma"
+    assert kernel.smem_floats(256, p, ds, 1, True) > kernel.SMEM_MAX
+    assert kernel.smem_floats(inner, p, ds, plan.heads,
+                              True) <= kernel.SMEM_MAX
+    # the backward's chunked form takes the same shape
+    bwd = kernel.ssd_bwd_plan(1, 4096, n, p, ds, sms=132)
+    assert (bwd.form, bwd.chunks) == ("chunk", 4096 // kernel.BWD_CHUNK)
 
 
 def test_warp_scan_cumsum_is_the_cumsum():

@@ -15,7 +15,8 @@ FA_RTOL x the output scale) and timed on the device (chip_smoke.py's
    with the port's nvcc flags into ``build/variants/``, loaded with ctypes
    and driven through the wrapper with its own plan: the short form at
    chip_smoke.py's round, statistics and sigma shapes, the tensor-core
-   tiled form at its multi-tile shapes;
+   tiled form at its multi-tile shapes (stablelm-3b's D = 80 among
+   them);
 2. forward plan variants (FWD_PLANS, FWD_TILED_PLANS): heads per block
    1-8, 4-byte copies and the tiled form forced where the short form runs;
    4-byte copies where the tiled form runs; SDPA's forward beside them;
@@ -276,9 +277,10 @@ TB_VARIANTS = {
 }
 # chip_smoke.py's cases that take the tiled backward
 TB_CASES = ("causal 1024", "window 256", "full 256", "tiled S=100 D=32",
-            "lm 4096")
+            "lm 4096", "lm stablelm 4096")
 SHORT_CASES = ("round", "stats", "sigma M=1")
-TILED_CASES = ("causal 1024", "window 256", "full 256")
+TILED_CASES = ("causal 1024", "window 256", "full 256",
+               "lm stablelm 4096")
 
 
 # forward plan variants where the short form runs: name -> change to the

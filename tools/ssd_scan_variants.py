@@ -166,6 +166,10 @@ PLANS = {
     # a row's chunks walked in order by one block, whatever the grid
     "sequential_chunks": lambda p: dataclasses.replace(p,
                                                        chunk_parallel=False),
+    # the kernel's chunk cut to 32 steps (the same function; at mamba2's
+    # ds = 128 a block of 83 KB, two an SM, where inner 64 takes 149 KB)
+    "inner_32": lambda p: dataclasses.replace(
+        p, inner=32, chunks=p.chunks * p.inner // 32),
 }
 
 
@@ -250,6 +254,8 @@ def bwd_main(bf16: bool) -> int:
     g = torch.Generator(device="cuda").manual_seed(6)
     dtype = torch.bfloat16 if bf16 else torch.float32
     for label, rows, s, n, p, ds, _, slots in chip_smoke.SSD_CASES:
+        if bf16 and label in chip_smoke.SSD_F32_ONLY:
+            continue
         args = chip_smoke.ssd_operands(g, dtype, rows, s, n, p, ds, slots)
         dy = torch.randn(rows, s, n, p, device="cuda", generator=g).to(dtype)
         want = ref.ssd_bwd_ref(*args, dy)
@@ -290,6 +296,8 @@ def bwd_ab(parent: pathlib.Path) -> int:
     for bf16 in (False, True):
         dtype = torch.bfloat16 if bf16 else torch.float32
         for label, rows, s, n, p, ds, _, slots in chip_smoke.SSD_CASES:
+            if bf16 and label in chip_smoke.SSD_F32_ONLY:
+                continue
             args = chip_smoke.ssd_operands(g, dtype, rows, s, n, p, ds, slots)
             dy = torch.randn(rows, s, n, p, device="cuda",
                              generator=g).to(dtype)
@@ -327,6 +335,8 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(2)
     dtype = torch.bfloat16 if bf16 else torch.float32
     for label, rows, s, n, p, ds, chunk, slots in chip_smoke.SSD_CASES:
+        if bf16 and label in chip_smoke.SSD_F32_ONLY:
+            continue
         x, dt, a_log, bm, cm = chip_smoke.ssd_operands(
             g, dtype, rows, s, n, p, ds, max(slots, 1))
         want = ref.ssd_ref(x, dt, a_log, bm, cm)
