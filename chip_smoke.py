@@ -73,6 +73,14 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
      tensor-core forms (3xTF32 in f32, bf16 mma.sync), every other shape
      the chunked form; each case line prints its plan (form, chunk,
      chunks, heads a block, warps, ring, copy widths);
+   - the kernel-selection tables (``autotune`` phase, after the kernel
+     phases, which like every later phase run at the tables' plans):
+     every committed table validated strictly; at each entry's shape the
+     kernels at the table's plan against the same kernels at the rules'
+     plan and against the plain version, at the kernel's tolerance, both
+     plans timed (CUDA graphs replayed between CUDA events) beside the
+     card's name and power limit; one small sweep an op into a temporary
+     directory, written, validated and read back;
 3. agreement phases: narrow simulations on the card against the same on
    the CPU, whose plain path the CPU tests hold against the JAX reference:
    VGG, the FL transformer, the FL Mamba-2, VGG, the transformer and the
@@ -221,8 +229,9 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
    losses as in (b) beside the card's name and power limit, stablelm
    launching the three attention wrappers (``fwd_tc_kernel``,
    ``dq_tc_kernel`` and ``dkdv_tc_kernel`` at D = 80 in its profiled
-   step), mamba2 the SSD scan and its backward (``ssd_kernel``,
-   ``ssd_chunk_scan_kernel``, ``ssd_bwd_chunk_kernel``), no plain call.
+   step), mamba2 the SSD scan and its backward (``ssd_kernel`` and
+   ``ssd_bwd_chunk_kernel``; ``ssd_chunk_scan_kernel`` printed, run where
+   the selection table leaves the forward chunk-parallel), no plain call.
    The four runs' launches count in the ``kernels`` record;
 7. the ``serve`` phase (the LM decode and serve path, ROADMAP M11b; its
    seconds printed): (a) each of the ten smoke configs decodes B = 2 x
@@ -319,7 +328,7 @@ from repro_torch.models import bundle_for, demo_batch, get_bundle  # noqa
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models import params as params_lib  # noqa: E402
 from repro_torch.models.convert import flatten, tree_map  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import autotune, build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.fused_linear import kernel, ref  # noqa: E402
@@ -1063,7 +1072,7 @@ def ssd_bwd_phase(bf16: bool = False) -> dict:
         args = ssd_operands(g, dtype, rows, s, n, p, ds, slots)
         dy = torch.randn(rows, s, n, p, device="cuda", generator=g).to(dtype)
         x, _, _, bm, cm = args
-        plan = ssd_kernel.ssd_bwd_scan_plan(x, bm, cm, dy)
+        plan = ssd_kernel.ssd_bwd_scan_plan(x, bm, cm, dy, chunk)
         # twice the forward's operations (each product of the chunked form
         # has two gradient products) at the backward's own chunk; x, dy,
         # dx, b, c, db, dc and a_log, da_log at the operands' size, dt and
@@ -1074,7 +1083,7 @@ def ssd_bwd_phase(bf16: bool = False) -> dict:
         nbytes = size * (3 * rows * s * n * p + 4 * rows * s * ds
                          + 2 * max(slots, 1) * n) + 8 * rows * s * n
         _hold(totals, "ssd_scan_bwd" + "_bf16" * bf16, label,
-              lambda: ssd_kernel.ssd_scan_bwd(*args, dy),
+              lambda: ssd_kernel.ssd_scan_bwd(*args, dy, chunk=chunk),
               lambda: ssd_ref.ssd_bwd_ref(*args, dy), None, SSD_RTOL,
               _bound(ops, nbytes, PEAK_BF16_FLOPS if bf16
                      else PEAK_F32_FLOPS), label == "round",
@@ -1086,6 +1095,172 @@ def ssd_bwd_phase(bf16: bool = False) -> dict:
               plain_reps=2 if s <= 32 else 1, each=True,
               plain_events=label in SSD_F32_ONLY)
     return totals
+
+
+# ---------------------------------------------------------------------------
+# autotune phase: the kernel-selection tables (ROADMAP M10)
+# ---------------------------------------------------------------------------
+
+# one small sweep an op, into a temporary directory: shapes off every path
+# at which each plan has a choice (splits up to 4; heads per block of the
+# short form; heads and either SSD form over four chunks)
+AT_SWEEPS = {"fused_linear": (2, 64, 512, 512), "flash_attention":
+             (64, 2, 32, 32), "ssd_scan": (8, 128, 4, 32, 16, 32)}
+
+
+def _entry_calls(op: str, shape: tuple, dtype) -> tuple:
+    """(name -> (kernel, plain) callables, a function that prints the
+    kernels' plans, tolerance) of one table entry's shape, with the
+    operands its kernel phase draws there."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    if op == "fused_linear":
+        (label, act, shared), = [(c[0], c[5], c[6]) for c in CASES
+                                 if c[1:5] == shape]
+        x, w, b, dy = case_operands(g, dtype, *shape, shared)
+        fns = _case_fns(x, w, b, dy, act)
+        return ({k: v[:2] for k, v in fns.items()},
+                lambda: " ".join(f"{k}:{_plan_of(k, x, w, b, dy, act)[7:]}"
+                                 for k in fns), KERNEL_RTOL)
+    if op == "flash_attention":
+        # the first case of the shape: a path's ("round" before "full 32")
+        label, causal = next((c[0], c[5]) for c in FA_CASES
+                             if c[1:5] == shape and c[6] is None
+                             and c[0] not in FA_UNALIGNED)
+        q, k, v, do = fa_operands(label, g, dtype)
+        o, lse = fa_kernel.flash_attention(q, k, v, causal)
+        args = (q, k, v, do, lse, (do.float() * o.float()).sum(-1))
+        fns = {"flash_attention": (
+                   lambda: fa_kernel.flash_attention(q, k, v, causal),
+                   lambda: fa_ref.attention_ref_lse(q, k, v, causal=causal)),
+               "flash_attention_bwd": (
+                   lambda: fa_kernel.flash_attention_bwd(*args, causal),
+                   lambda: fa_ref.attention_ref_bwd(*args, causal=causal))}
+        return (fns, lambda: str(fa_kernel.attention_fwd_plan(q, k, v, o)),
+                FA_RTOL)
+    rows, s, n, p, ds, chunk = shape
+    slots, = [c[7] for c in SSD_CASES if tuple(c[1:7]) == shape]
+    args = ssd_operands(g, dtype, rows, s, n, p, ds, slots)
+    x, _, _, bm, cm = args
+    dy = torch.randn(rows, s, n, p, device="cuda", generator=g).to(dtype)
+    fns = {"ssd_scan": (
+               lambda: ssd_kernel.ssd_scan(*args, chunk=chunk),
+               lambda: ssd_ref.ssd_ref(*args)),
+           "ssd_scan_bwd": (
+               lambda: ssd_kernel.ssd_scan_bwd(*args, dy, chunk=chunk),
+               lambda: ssd_ref.ssd_bwd_ref(*args, dy))}
+    def plans():
+        return (f"{ssd_kernel.ssd_scan_plan(x, bm, cm, chunk)} "
+                f"{ssd_kernel.ssd_bwd_scan_plan(x, bm, cm, dy, chunk)}")
+    return fns, plans, SSD_RTOL
+
+
+def _close(label: str, got, want, rtol: float, bf16: bool) -> float:
+    """Fail unless every output of ``got`` lies within ``rtol`` of its own
+    scale of ``want``'s (bf16: one bf16 ulp plus that); returns the worst
+    ratio to the scale."""
+    if bf16:
+        worst = _bf16_excess(got, want)
+    else:
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        worst = max(float((a - r).abs().max()) / max(float(r.abs().max()),
+                                                      1.0)
+                    for a, r in zip(got, want))
+    check(worst <= rtol, f"autotune {label}: {worst:.3e} x scale > {rtol}")
+    return worst
+
+
+def autotune_phase(card: str) -> None:
+    """The committed selection tables (``artifacts/autotune_torch``): each
+    validated (strict: an inadmissible entry fails the run); at every
+    entry of this card's backend the kernels at the table's plan against
+    the same kernels at the rules' plan (the entry replaced by none) and
+    against the plain version, at the kernel's tolerance of each output's
+    scale (bf16: one ulp plus that), both plans timed by CUDA events over
+    graph replays, in turns; then one small sweep an op into a temporary
+    directory, written, validated and read back."""
+    backend = autotune.backend_id()
+    autotune.clear_cache()
+    counts = {op: autotune.validate_table(op) for op in autotune.OPS}
+    print(f"autotune: tables {counts} valid; backend {backend}; card {card}",
+          flush=True)
+    for op in autotune.OPS:
+        path = autotune.table_dir() / f"{op}.json"
+        entries = (json.loads(path.read_text())["entries"]
+                   if path.exists() else {})
+        for key, e in entries.items():
+            if e["backend"] != backend:
+                print(f"autotune {key}: another backend, not run", flush=True)
+                continue
+            shape, dtype = tuple(e["shape"]), getattr(torch, e["dtype"])
+            fns, plans, rtol = _entry_calls(op, shape, dtype)
+            bf16 = dtype == torch.bfloat16
+            # each wrapper at the rules' plan and at the table's, captured
+            # in a CUDA graph (the host's launch cost left out, as on the
+            # fused loop), replayed between CUDA events in turns (rules,
+            # table, table, rules, rules, table): the median of three runs
+            # of 20 replays a plan
+            outs, seen, graphs = {}, {}, {}
+            for side in ("rules", "table"):
+                autotune.clear_cache()
+                if side == "rules":
+                    autotune.record(op, shape, e["dtype"], backend, {}, 1.0,
+                                    1.0, save=False)
+                outs[side] = {k: f() for k, (f, _) in fns.items()}
+                seen[side] = plans()
+                graphs[side] = {k: autotune.capture(f)
+                                for k, (f, _) in fns.items()}
+            autotune.clear_cache()
+            ms = {side: {k: [] for k in fns} for side in ("rules", "table")}
+            for side in ("rules", "table", "table", "rules", "rules",
+                         "table"):
+                for k in fns:
+                    ms[side][k].append(
+                        autotune.replay_us(graphs[side][k], 20) / 1e3)
+            del graphs
+            table_ms, rules_ms = ({k: statistics.median(v) for k, v in
+                                   ms[side].items()}
+                                  for side in ("table", "rules"))
+            table, rules = outs["table"], outs["rules"]
+            table_plans, rules_plans = seen["table"], seen["rules"]
+            errs = {k: (_close(f"{key} {k} table vs rules", table[k],
+                               rules[k], rtol, bf16),
+                        _close(f"{key} {k} table vs plain", table[k],
+                               plain(), rtol, bf16))
+                    for k, (_, plain) in fns.items()}
+            print(f"autotune {key}: entry {e['plan']} (sweep us={e['us']:.2f}"
+                  f" baseline_us={e['baseline_us']:.2f}, {e['card']}); "
+                  + " ".join(f"{k}: table_ms={table_ms[k]:.4f} rules_ms="
+                             f"{rules_ms[k]:.4f} err/scale vs rules "
+                             f"{errs[k][0]:.2e} vs plain {errs[k][1]:.2e};"
+                             for k in fns)
+                  + f" table plans [{table_plans}] rules plans "
+                  f"[{rules_plans}]; card {card}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        swept = {"fused_linear": autotune.sweep_fused_linear(
+                     *AT_SWEEPS["fused_linear"], card=card, save=False,
+                     iters=5, repeats=3),
+                 "flash_attention": autotune.sweep_flash_attention(
+                     *AT_SWEEPS["flash_attention"], card=card, save=False,
+                     iters=5, repeats=3),
+                 "ssd_scan": autotune.sweep_ssd_scan(
+                     *AT_SWEEPS["ssd_scan"], card=card, save=False, iters=5,
+                     repeats=3)}
+        for op, entry in swept.items():
+            check(entry is not None, f"autotune: no choice at {op} "
+                  f"{AT_SWEEPS[op]}")
+            autotune.save_table(op, tmp)
+            n = autotune.validate_table(op, tmp)
+            key = autotune.make_key(op, AT_SWEEPS[op], entry["dtype"],
+                                    backend)
+            back = json.loads((pathlib.Path(tmp) / f"{op}.json")
+                              .read_text())["entries"][key]
+            check(back == entry and n == counts[op] + 1,
+                  f"autotune: {op}'s table did not round-trip")
+            print(f"autotune sweep {key}: plan {entry['plan']} us="
+                  f"{entry['us']:.2f} baseline_us={entry['baseline_us']:.2f}"
+                  f"; {n} entries round-tripped; card {card}", flush=True)
+    autotune.clear_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3241,15 +3416,19 @@ LM_BWD_KERNELS = ("dq_tc_kernel", "dkdv_tc_kernel")
 # unit's activations recomputed in the backward (remat); memory freed
 # between the two. Each profiled step must run these CUDA kernels (by the
 # profile's names): the tiled attention kernels at D = 80, the SSD forward
-# (its chunk-parallel form: the sub-chunks' states, their scan, the
-# outputs) and the backward's chunked form.
+# and the backward's chunked form. The SSD forward's chunk-state scan
+# (ssd_chunk_scan_kernel) runs where the plan is chunk-parallel, which the
+# selection table decides at this shape (ssd_plan), and is printed, not
+# required.
 LM_PUBLISHED = {
     "stablelm-3b": ("fwd_tc_kernel<float, 80>", "dq_tc_kernel<float, 80>",
                     "dkdv_tc_kernel<float, 80>"),
-    "mamba2-2.7b": ("ssd_kernel<float, float>", "ssd_chunk_scan_kernel<float>",
+    "mamba2-2.7b": ("ssd_kernel<float, float>",
                     "ssd_bwd_chunk_kernel<float, float>"),
 }
 LM_PUBLISHED_STEPS = 3
+# kernels a profiled step prints where its plan runs them, not required
+LM_SEEN = {"mamba2-2.7b": ("ssd_chunk_scan_kernel<float>",)}
 
 
 def _lm_names(cfg) -> tuple:
@@ -3356,7 +3535,7 @@ def _lm_train(arch: str, names, kernels, card: str, remat: bool = False,
           f"max_memory_allocated {peak / 2**30:.3f} GiB; launches "
           f"{ {k: launches[k] for k in names} }; card {card}", flush=True)
     _print_breakdown(f"{label} {arch}", prof, float(step_s[-1]), "step")
-    for name in kernels:
+    for name in kernels + LM_SEEN.get(arch, ()):
         found = [(e.count, e.self_device_time_total)
                  for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA
@@ -3365,8 +3544,8 @@ def _lm_train(arch: str, names, kernels, card: str, remat: bool = False,
               f"{sum(c for c, _ in found)} "
               f"{sum(us for _, us in found) / 1e3:.3f} ms ({cfg.n_layers} "
               f"layers; card {card})", flush=True)
-        check(bool(found), f"{label} {arch}: {name} not in the profiled "
-              "step")
+        check(bool(found) or name not in kernels, f"{label} {arch}: {name} "
+              "not in the profiled step")
     check(len(losses) == steps and all(np.isfinite(x) for x in losses),
           f"{label} {arch} losses {losses}")
     check(abs(losses[0] - np.log(cfg.vocab)) < LM_FIRST_LOSS,
@@ -3431,7 +3610,7 @@ SERVE_PARITY_CF = 8.0
 # deepseek-smoke's caches as ring buffers of 8 over 24 tokens
 SERVE_RING = dict(arch="deepseek-7b", window=8, tokens=24)
 # (b): launch/serve.py's defaults at the published widths (stablelm-3b:
-# head dim 80, which its training cannot take yet, ROADMAP K7)
+# head dim 80, which its training takes too since K7, lm (d))
 SERVE_FULL = ("mamba2-2.7b", "deepseek-7b", "stablelm-3b",
               "seamless-m4t-medium")
 SERVE_ARGS = dict(batch=4, prompt_len=32, gen=32, cache_len=128)
@@ -3869,6 +4048,7 @@ def main() -> int:
         for bf16 in (False, True):
             totals.update(timed(f"{phase.__name__} bf16={int(bf16)}", phase,
                                 bf16=bf16))
+    timed("autotune", autotune_phase, card)
     for label in AGREE:
         timed(f"agree {label}", agreement_phase, label)
     for label in PATHS:

@@ -32,7 +32,11 @@ row) where S <= 32 and D = 32, and there in bf16 the tensor-core forward
 and fused backward (``"mma"``) where 16-byte copies apply, else the tiled
 kernels (all three on the tensor cores in 3xTF32: ``fwd_tc_kernel``,
 ``dq_tc_kernel``, ``dkdv_tc_kernel``); heads per block and the staging
-copy width. The CPU tests check every plan the card would run.
+copy width. Given a ``backend``, as the CUDA path gives it, the plan takes
+heads per block from the selection table (:mod:`repro_torch.kernels.
+autotune`, op ``flash_attention``, shape (b, h, s, d)) where the table
+has an entry and admits it. The CPU tests check every plan the card would
+run.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 from repro_torch.kernels.flash_attention import ref
 
 SOURCE = pathlib.Path(__file__).parent / "csrc" / "flash_attention.cu"
@@ -95,6 +99,10 @@ MAX_HEADS_PER_BLOCK = 8
 # 24-36 %, four 3-10 % and eight 30-40 % slower at the round's and the
 # statistics pass's.
 MMA_HEADS_PER_BLOCK = 2
+# The most heads a block of the tensor-core forms holds: the fused
+# backward's 8 warps at two a head (csrc kMaxHeadsPerBlock /
+# kBwdWarpsPerHead), the forward's bound too since one choice sets both.
+MMA_MAX_HEADS_PER_BLOCK = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,20 +126,63 @@ class AttentionPlan:
 
 def attention_plan(b: int, h: int, s: int, d: int, *,
                    strides: Sequence[int] = (), aligned: bool = False,
-                   itemsize: int = 4) -> AttentionPlan:
+                   itemsize: int = 4,
+                   backend: Optional[str] = None) -> AttentionPlan:
     """The plan of the forward and of the backward (one rule for both)
     for ``b`` x ``h`` heads of ``s`` rows of width ``d`` of
     ``itemsize``-byte elements (4: f32, 2: bf16). ``strides`` are the (b,
     h, s) element strides of every operand, ``aligned`` whether every
     pointer is 16-byte aligned (else it is taken as aligned to the element
-    only)."""
+    only); ``backend``: the selection table's, whose ``heads_per_block``
+    the short forms take where :func:`heads_ok` admits it."""
     vec = build.copy_width(16 if aligned else itemsize, *strides,
                            itemsize=itemsize)
     if s <= SHORT_MAX_SEQ and d == SHORT_HEAD_DIM:
-        if itemsize == 2 and vec == 16:
-            return AttentionPlan("mma", MMA_HEADS_PER_BLOCK, vec)
-        return AttentionPlan("short", HEADS_PER_BLOCK, vec)
+        form = "mma" if itemsize == 2 and vec == 16 else "short"
+        hpb = autotune.blocks_for("flash_attention", (b, h, s, d),
+                                  autotune.DTYPES[itemsize],
+                                  backend).get("heads_per_block")
+        if not heads_ok(form, hpb):
+            hpb = MMA_HEADS_PER_BLOCK if form == "mma" else HEADS_PER_BLOCK
+        return AttentionPlan(form, hpb, vec)
     return AttentionPlan("tiled", 1, vec)
+
+
+def heads_ok(form: str, hpb) -> bool:
+    """Whether a block of the short ``form`` ("short" or "mma") holds
+    ``hpb`` heads; the tiled forms take one."""
+    most = {"short": MAX_HEADS_PER_BLOCK, "mma": MMA_MAX_HEADS_PER_BLOCK}
+    return type(hpb) is int and 1 <= hpb <= most.get(form, 1)
+
+
+def entry_error(shape, itemsize: int, sms: int, fields) -> Optional[str]:
+    """Why a selection-table entry's ``fields`` are not admitted at
+    ``shape`` (b, h, s, d) for contiguous (B, H, S, D) operands of
+    ``itemsize`` bytes, 16-byte aligned; None where they are. ``sms`` is
+    not read: no attention plan sizes its grid by it."""
+    plan = attention_plan(*shape, itemsize=itemsize, aligned=True)
+    for field, v in fields.items():
+        if field != "heads_per_block":
+            return f"unknown field {field!r}"
+        if plan.form == "tiled":
+            return "heads_per_block: the tiled forms take one head a block"
+        if not heads_ok(plan.form, v):
+            return (f"heads_per_block={v!r}: not admitted by the "
+                    f"{plan.form} form")
+    return None
+
+
+def table_choices(shape, itemsize: int, sms: int) -> dict:
+    """The admissible heads per block at ``shape`` (b, h, s, d), forward
+    and backward together: the rule's first, then 1, 2, 4 and 8 where the
+    form admits them; none where the plan is tiled."""
+    plan = attention_plan(*shape, itemsize=itemsize, aligned=True)
+    if plan.form == "tiled":
+        return {}
+    return {"fwd+bwd": [{"heads_per_block": c} for c in
+                        [plan.heads_per_block] + [c for c in (1, 2, 4, 8)
+                        if c != plan.heads_per_block
+                        and heads_ok(plan.form, c)]]}
 
 
 def _plan_for(tensors) -> AttentionPlan:
@@ -139,7 +190,8 @@ def _plan_for(tensors) -> AttentionPlan:
         *tensors[0].shape,
         strides=[st for t in tensors for st in t.stride()[:3]],
         aligned=all(t.data_ptr() % 16 == 0 for t in tensors),
-        itemsize=tensors[0].element_size())
+        itemsize=tensors[0].element_size(),
+        backend=autotune.backend_of(tensors[0]))
 
 
 def attention_fwd_plan(*tensors: torch.Tensor) -> AttentionPlan:

@@ -19,7 +19,11 @@ How the kernels launch is decided here, in pure Python, by
 :func:`fwd_plan`, :func:`dx_plan` and :func:`dwdb_plan` (slot fold, split
 count, copy widths; for the bf16 backward the form, tile, stages and
 cluster; for the bf16 forward its form, tile and stages), so the CPU
-tests can check every plan the card would run.
+tests can check every plan the card would run. Given a ``backend``, as
+the CUDA path gives them, they take the split counts and dw/db's CTA count
+from the selection table (:mod:`repro_torch.kernels.autotune`, op
+``fused_linear``, shape (nb, m, k, n)) where the table has an entry and
+admits it, else their own rules.
 
 Operands are float32 or bfloat16, all of one dtype per call (mixed dtypes
 raise). bf16 operands launch the ``*_bf16`` entries of the same source:
@@ -45,7 +49,7 @@ import pathlib
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 from repro_torch.kernels.fused_linear import ref
 
 SOURCE = pathlib.Path(__file__).parent / "csrc" / "fused_linear.cu"
@@ -173,11 +177,14 @@ def _stage(f32_depth: int, itemsize: int) -> int:
 
 def fwd_plan(nb: int, m: int, k: int, n: int, *, sxb: int, sxm: int,
              swb: int, swk: int, sbb: int, x_align: int, w_align: int,
-             sms: int, itemsize: int = 4) -> FwdPlan:
+             sms: int, itemsize: int = 4,
+             backend: str | None = None) -> FwdPlan:
     """The forward's launch plan for x (nb, m, k) @ w (nb, k, n) on a card
     with ``sms`` SMs; strides in elements, ``x_align`` / ``w_align``: the
     alignment in bytes of the operand's data pointer (at most 16);
-    ``itemsize`` 4 (f32) or 2 (bf16)."""
+    ``itemsize`` 4 (f32) or 2 (bf16); ``backend``: the selection table's
+    (its ``fwd_splits``), None for the rule alone."""
+    splits = _tuned(nb, m, k, n, itemsize, backend).get("fwd_splits")
     fold = nb > 1 and swb == 0 and sbb == 0 and (m == 1 or sxb == m * sxm)
     batch, rows = nb, m
     if fold:
@@ -187,11 +194,13 @@ def fwd_plan(nb: int, m: int, k: int, n: int, *, sxb: int, sxm: int,
     if itemsize == 2 and all(fwd_maps(batch, rows, k, n, sxb, sxm, swb, swk,
                                       x_align, w_align)):
         ctas = batch * _cdiv(rows, TF_BM) * _cdiv(n, TF_BN)
-        splits, k_chunk = _split(ctas, k, TF_BK, sms, per_sm=1)
+        splits, k_chunk = _split(ctas, k, TF_BK, sms, per_sm=1,
+                                 splits=splits)
         return FwdPlan(fold, batch, rows, n, sxb, sxm, splits, k_chunk,
                        *vecs, form="tma", itemsize=itemsize)
     ctas = batch * _cdiv(rows, FWD_BM) * _cdiv(n, FWD_BN)
-    splits, k_chunk = _split(ctas, k, _stage(FWD_BK, itemsize), sms)
+    splits, k_chunk = _split(ctas, k, _stage(FWD_BK, itemsize), sms,
+                             splits=splits)
     return FwdPlan(fold, batch, rows, n, sxb, sxm, splits, k_chunk, *vecs,
                    itemsize=itemsize)
 
@@ -206,19 +215,36 @@ def fwd_maps(batch: int, rows: int, k: int, n: int, sxb: int, sxm: int,
             tma_map(n, k, batch, swk, swb, 64, TF_BK, w_align))
 
 
+def _tuned(nb: int, m: int, k: int, n: int, itemsize: int,
+           backend: str | None):
+    """The selection table's plan fields at this shape (none without a
+    backend or on a miss)."""
+    return autotune.blocks_for("fused_linear", (nb, m, k, n),
+                               autotune.DTYPES[itemsize], backend)
+
+
+def splits_ok(depth: int, splits) -> bool:
+    """Whether a reduction of ``depth`` steps takes ``splits`` splits: 1 to
+    ``depth // MIN_SPLIT_K`` of them (1 where that is 0)."""
+    return type(splits) is int and 1 <= splits <= max(1,
+                                                       depth // MIN_SPLIT_K)
+
+
 def _split(ctas: int, depth: int, step: int, sms: int,
-           per_sm: int = CTAS_PER_SM) -> tuple:
+           per_sm: int = CTAS_PER_SM, splits=None) -> tuple:
     """(splits, chunk) of a reduction of ``depth`` steps for a grid of
     ``ctas`` CTAs: split only where the grid is under ``per_sm`` x ``sms``,
     into chunks that are multiples of the stage depth ``step`` and no
     shorter than MIN_SPLIT_K. With one CTA per SM (the Hopper forms) no
     more splits than fill one wave: a CTA past it would wait for a whole
-    CTA's time."""
-    target, ctas = per_sm * sms, max(1, ctas)
-    splits = 1
-    if ctas < target:
-        want = target // ctas if per_sm == 1 else _cdiv(target, ctas)
-        splits = max(1, min(want, depth // MIN_SPLIT_K))
+    CTA's time. ``splits``: a selection table's count, taken instead of
+    the rule's where :func:`splits_ok` admits it."""
+    if not splits_ok(depth, splits):
+        target, ctas = per_sm * sms, max(1, ctas)
+        splits = 1
+        if ctas < target:
+            want = target // ctas if per_sm == 1 else _cdiv(target, ctas)
+            splits = max(1, min(want, depth // MIN_SPLIT_K))
     chunk = step * max(1, _cdiv(_cdiv(depth, splits), step))
     return max(1, _cdiv(depth, chunk)), chunk
 
@@ -307,11 +333,13 @@ class DxPlan:
 
 def dx_plan(nb: int, m: int, k: int, n: int, *, strides, swb: int, swk: int,
             dz_align: int, w_align: int, sms: int,
-            itemsize: int = 4) -> DxPlan:
+            itemsize: int = 4, backend: str | None = None) -> DxPlan:
     """dx's launch plan for dz (nb, m, n) @ w (nb, k, n)^T on a card with
     ``sms`` SMs; ``strides``: the batch and row strides of dy and y (dy's
     again when there is no mask), in elements; ``dz_align``: the alignment
-    in bytes of dy's and y's pointers, ``w_align``: of w's."""
+    in bytes of dy's and y's pointers, ``w_align``: of w's; ``backend``:
+    the selection table's (its ``dx_splits``)."""
+    splits = _tuned(nb, m, k, n, itemsize, backend).get("dx_splits")
     sdb, sdm, syb, sym = strides
     fold = nb > 1 and swb == 0 and (
         m == 1 or (sdb == m * sdm and syb == m * sym))
@@ -326,11 +354,13 @@ def dx_plan(nb: int, m: int, k: int, n: int, *, strides, swb: int, swk: int,
     if itemsize == 2 and all(dx_maps(batch, rows, k, n, sdb, sdm, syb, sym,
                                      swb, swk, dz_align, w_align)):
         ctas = batch * _cdiv(rows, TX_BM) * _cdiv(k, TX_BK)
-        splits, n_chunk = _split(ctas, n, TX_BN, sms, per_sm=1)
+        splits, n_chunk = _split(ctas, n, TX_BN, sms, per_sm=1,
+                                 splits=splits)
         return DxPlan(fold, batch, rows, k, sdb, sdm, syb, sym, splits,
                       n_chunk, *vecs, form="tma")
     ctas = batch * _cdiv(rows, DX_BM) * _cdiv(k, DX_BN)
-    splits, n_chunk = _split(ctas, n, _stage(DX_BK, itemsize), sms)
+    splits, n_chunk = _split(ctas, n, _stage(DX_BK, itemsize), sms,
+                             splits=splits)
     return DxPlan(fold, batch, rows, k, sdb, sdm, syb, sym, splits, n_chunk,
                   *vecs)
 
@@ -385,18 +415,22 @@ class DwPlan:
 
 
 def dwdb_plan(nb: int, m: int, k: int, n: int, *, strides, x_align: int,
-              dz_align: int, itemsize: int = 4, sms: int = 132) -> DwPlan:
+              dz_align: int, itemsize: int = 4, sms: int = 132,
+              backend: str | None = None) -> DwPlan:
     """The dw/db launch plan; ``strides``: the batch and row strides of x,
     dy and y; ``x_align`` / ``dz_align``: the alignment in bytes of x's
     pointer, or of dy's and y's; ``sms``: the card's SMs (an H100's 132 by
-    default)."""
+    default); ``backend``: the selection table's (its ``dw_ctas``, 1 to
+    the tile count, for the Hopper form)."""
     vecs = (build.copy_width(x_align, *strides[:2], itemsize=itemsize),
             build.copy_width(dz_align, *strides[2:], itemsize=itemsize))
     if itemsize == 2 and 1 <= m <= TW_MR and all(
             dw_maps(nb, m, k, n, strides, x_align, dz_align)):
         tiles = nb * _cdiv(n, TW_NT) * _cdiv(k, TW_KT)
-        return DwPlan(nb, k, n, *vecs, form="tma", ctas=min(tiles, sms),
-                      tiles=tiles)
+        ctas = _tuned(nb, m, k, n, itemsize, backend).get("dw_ctas")
+        if not (type(ctas) is int and 1 <= ctas <= tiles):
+            ctas = min(tiles, sms)
+        return DwPlan(nb, k, n, *vecs, form="tma", ctas=ctas, tiles=tiles)
     return DwPlan(nb, k, n, *vecs)
 
 
@@ -412,6 +446,74 @@ def dw_maps(nb: int, m: int, k: int, n: int, strides, x_align: int,
             tma_map(n, m, nb, sdm, sdb, 64, rows, dz_align),
             tma_map(n, m, nb, sym, syb, 64, rows, dz_align),
             tma_map(n, k, nb, n, k * n, 64, 64, 16))
+
+
+def _contiguous_plans(shape, itemsize: int, sms: int,
+                      shared: bool = False) -> tuple:
+    """The rules' forward, dx and dw/db plans at ``shape`` (nb, m, k, n)
+    for contiguous, 16-byte aligned operands with a relu mask (``shared``:
+    one weight and bias for every slot, stride-0 views)."""
+    nb, m, k, n = shape
+    swb, sbb = (0, 0) if shared else (k * n, n)
+    return (fwd_plan(nb, m, k, n, sxb=m * k, sxm=k, swb=swb, swk=n, sbb=sbb,
+                     x_align=16, w_align=16, sms=sms, itemsize=itemsize),
+            dx_plan(nb, m, k, n, strides=(m * n, n, m * n, n), swb=swb,
+                    swk=n, dz_align=16, w_align=16, sms=sms,
+                    itemsize=itemsize),
+            dwdb_plan(nb, m, k, n, strides=(m * k, k, m * n, n, m * n, n),
+                      x_align=16, dz_align=16, itemsize=itemsize, sms=sms))
+
+
+def entry_error(shape, itemsize: int, sms: int, fields) -> str | None:
+    """Why a selection-table entry's ``fields`` are not admitted at
+    ``shape`` (nb, m, k, n) on a card of ``sms`` SMs, for contiguous
+    16-byte aligned operands of ``itemsize`` bytes; None where they are."""
+    nb, m, k, n = shape
+    dw = _contiguous_plans(shape, itemsize, sms)[2]
+    for field, v in fields.items():
+        if field in ("fwd_splits", "dx_splits"):
+            depth = k if field == "fwd_splits" else n
+            if not splits_ok(depth, v):
+                return (f"{field}={v!r}: a reduction of {depth} takes 1 to "
+                        f"{max(1, depth // MIN_SPLIT_K)} splits")
+        elif field == "dw_ctas":
+            if dw.form != "tma":
+                return ("dw_ctas: dw/db's mma.sync form here has no CTA "
+                        "count")
+            if not (type(v) is int and 1 <= v <= dw.tiles):
+                return f"dw_ctas={v!r}: 1 to {dw.tiles} CTAs"
+        else:
+            return f"unknown field {field!r}"
+    return None
+
+
+def table_choices(shape, itemsize: int, sms: int,
+                  shared: bool = False) -> dict:
+    """The admissible variants of the rules' plans at ``shape`` (nb, m, k,
+    n), by wrapper: the forward's and dx's split counts (1 and the powers
+    of 2 up to the most a reduction takes), dw/db's CTA count (the Hopper
+    form only: a quarter, half, one and two waves of one CTA an SM, up to
+    the tiles); the rules' own choice first in each (``shared``: at one
+    weight for every slot, whose forward and dx fold the slots), and only
+    the parts that have a choice."""
+    nb, m, k, n = shape
+    fwd, dx, dw = _contiguous_plans(shape, itemsize, sms, shared)
+
+    def counts(first, most):
+        return [first] + [c for c in (2 ** i for i in range(12))
+                          if c <= most and c != first]
+    parts = {
+        "fwd": [{"fwd_splits": c} for c in counts(
+            fwd.splits, max(1, k // MIN_SPLIT_K))],
+        "dx": [{"dx_splits": c} for c in counts(
+            dx.splits, max(1, n // MIN_SPLIT_K))],
+    }
+    if dw.form == "tma":
+        more = {c for c in (sms // 4, sms // 2, sms, 2 * sms)
+                if 1 <= c <= dw.tiles}
+        parts["dw"] = [{"dw_ctas": c} for c in
+                       [dw.ctas] + sorted(more - {dw.ctas})]
+    return {part: v for part, v in parts.items() if len(v) > 1}
 
 
 @functools.lru_cache(maxsize=None)
@@ -485,7 +587,8 @@ def fused_linear_plan(x: torch.Tensor, w: torch.Tensor,
     return fwd_plan(nb, m, k, w.shape[2], sxb=x.stride(0), sxm=x.stride(1),
                     swb=w.stride(0), swk=w.stride(1), sbb=b.stride(0),
                     x_align=_align(x), w_align=_align(w),
-                    sms=_sm_count(x.device.index), itemsize=x.element_size())
+                    sms=_sm_count(x.device.index), itemsize=x.element_size(),
+                    backend=autotune.backend_of(x))
 
 
 def fused_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -532,7 +635,8 @@ def fused_linear_bwd_dx_plan(dy: torch.Tensor, w: torch.Tensor,
                    swb=w.stride(0), swk=w.stride(1),
                    dz_align=_align(dy, y), w_align=_align(w),
                    sms=_sm_count(dy.device.index),
-                   itemsize=dy.element_size())
+                   itemsize=dy.element_size(),
+                   backend=autotune.backend_of(dy))
 
 
 def fused_linear_bwd_dx(dy: torch.Tensor, w: torch.Tensor,
@@ -582,7 +686,8 @@ def fused_linear_bwd_dw_db_plan(x: torch.Tensor, dy: torch.Tensor,
     return dwdb_plan(nb, m, k, dy.shape[2], strides=_dw_strides(x, dy, y),
                      x_align=_align(x), dz_align=_align(dy, y),
                      itemsize=x.element_size(),
-                     sms=_sm_count(x.device.index))
+                     sms=_sm_count(x.device.index),
+                     backend=autotune.backend_of(x))
 
 
 def fused_linear_bwd_dw_db(x: torch.Tensor, dy: torch.Tensor,

@@ -32,7 +32,12 @@ How the kernels launch is decided here, in pure Python, by :func:`ssd_plan`
 (the chunk the kernel runs, form, heads per block, warps, sequential or
 chunk-parallel) and
 :func:`ssd_bwd_plan` (tensor-core or chunked form, heads per block, copy
-widths), so the CPU tests can check every plan the card would run.
+widths), so the CPU tests can check every plan the card would run. Given a
+``backend``, as the CUDA path gives them, both take their free fields from
+the selection table (:mod:`repro_torch.kernels.autotune`, op ``ssd_scan``,
+shape (B, S, n, p, ds, chunk)) where the table has an entry and admits it:
+the forward's inner chunk, heads per block and chunk-parallel form, the
+backward's heads per block.
 """
 from __future__ import annotations
 
@@ -43,7 +48,7 @@ import pathlib
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 from repro_torch.kernels.ssd_scan import ref
 
 SOURCE = pathlib.Path(__file__).parent / "csrc" / "ssd_scan.cu"
@@ -156,7 +161,8 @@ def inner_chunk(s: int, p: int, ds: int, chunk: int) -> int:
 
 def ssd_plan(bsz: int, s: int, n: int, p: int, ds: int, chunk: int, *,
              sms: int, x_strides=(), bc_strides=(), x_aligned: bool = False,
-             bc_aligned: bool = False, itemsize: int = 4) -> SsdPlan:
+             bc_aligned: bool = False, itemsize: int = 4,
+             backend: str | None = None) -> SsdPlan:
     """The launch plan for ``bsz`` rows of ``s`` steps, ``n`` heads of
     width ``p``, state width ``ds``, in chunks of ``chunk`` steps, on a card
     with ``sms`` SMs; the kernel runs chunks of :func:`inner_chunk`'s
@@ -168,17 +174,28 @@ def ssd_plan(bsz: int, s: int, n: int, p: int, ds: int, chunk: int, *,
     (b's and c's row and step strides) with ``x_aligned`` / ``bc_aligned``
     (the pointers are 16-byte aligned; else taken as aligned to the element
     only) set the copy widths, counted in ``itemsize``-byte elements (4:
-    f32, 2: bf16)."""
+    f32, 2: bf16). ``backend``: the selection table's, whose ``inner``,
+    ``heads`` and ``chunk_parallel`` replace the rules' where
+    :func:`fwd_choice_error` admits them."""
     target = BLOCKS_PER_SM * sms
     inner = inner_chunk(s, p, ds, chunk)
-    chunks = s // inner
     heads = 1
     for hb in (4, 2):
         if (n % hb == 0 and bsz * (n // hb) >= target
-                and smem_floats(inner, p, ds, hb, chunks > 1) <= SMEM_SHARE):
+                and smem_floats(inner, p, ds, hb, s // inner > 1)
+                <= SMEM_SHARE):
             heads = hb
             break
-    chunk_parallel = chunks > 1 and bsz * (n // heads) < target
+    chunk_parallel = s // inner > 1 and bsz * (n // heads) < target
+    tuned = {k: v for k, v in _tuned(bsz, s, n, p, ds, chunk, itemsize,
+                                     backend).items() if k != "bwd_heads"}
+    if tuned:
+        choice = {"inner": inner, "heads": heads,
+                  "chunk_parallel": chunk_parallel, **tuned}
+        if fwd_choice_error(s, n, p, ds, chunk, **choice) is None:
+            inner, heads, chunk_parallel = (choice["inner"], choice["heads"],
+                                            choice["chunk_parallel"])
+    chunks = s // inner
     tasks = heads * _cdiv(inner, TILE) * _cdiv(p, TILE)
 
     def vec(aligned, width, strides):
@@ -194,6 +211,36 @@ def ssd_plan(bsz: int, s: int, n: int, p: int, ds: int, chunk: int, *,
                    chunks, vec_x, vec_bc, chunk, inner)
 
 
+def _tuned(bsz: int, s: int, n: int, p: int, ds: int, chunk: int,
+           itemsize: int, backend: str | None):
+    """The selection table's plan fields at this shape (none without a
+    backend or on a miss)."""
+    return autotune.blocks_for("ssd_scan", (bsz, s, n, p, ds, chunk),
+                               autotune.DTYPES[itemsize], backend)
+
+
+def fwd_choice_error(s: int, n: int, p: int, ds: int, chunk: int, *,
+                     inner, heads, chunk_parallel) -> str | None:
+    """Why the forward cannot run ``inner``-step chunks of a caller's
+    ``chunk`` with ``heads`` heads a block, chunk-parallel or not; None
+    where it can: the inner chunk divides the chunk, the heads divide n,
+    the block's shared memory fits (SMEM_MAX alone, SMEM_SHARE where heads
+    share it) and the chunk-parallel form has several chunks."""
+    if not (type(inner) is int and 1 <= inner <= chunk and chunk % inner == 0):
+        return f"inner={inner!r} does not divide the chunk {chunk}"
+    if not (type(heads) is int and 1 <= heads <= n and n % heads == 0):
+        return f"heads={heads!r} does not divide n={n}"
+    if not isinstance(chunk_parallel, bool):
+        return f"chunk_parallel={chunk_parallel!r} is not a flag"
+    limit = SMEM_MAX if heads == 1 else SMEM_SHARE
+    if smem_floats(inner, p, ds, heads, s // inner > 1) > limit:
+        return (f"inner={inner} heads={heads}: the block's shared memory "
+                f"exceeds {4 * limit} bytes")
+    if chunk_parallel and s // inner < 2:
+        return "chunk_parallel: one chunk"
+    return None
+
+
 def ssd_scan_plan(xh: torch.Tensor, b_ssm: torch.Tensor, c_ssm: torch.Tensor,
                   chunk: int) -> SsdPlan:
     """The plan for these CUDA operands (unit last strides; ``chunk``
@@ -205,7 +252,8 @@ def ssd_scan_plan(xh: torch.Tensor, b_ssm: torch.Tensor, c_ssm: torch.Tensor,
         bc_strides=b_ssm.stride()[:2] + c_ssm.stride()[:2],
         x_aligned=xh.data_ptr() % 16 == 0,
         bc_aligned=b_ssm.data_ptr() % 16 == 0 and c_ssm.data_ptr() % 16 == 0,
-        itemsize=xh.element_size())
+        itemsize=xh.element_size(),
+        backend=autotune.backend_of(xh))
 
 
 @functools.lru_cache(maxsize=None)
@@ -354,7 +402,9 @@ class SsdBwdPlan:
 
 def ssd_bwd_plan(bsz: int, s: int, n: int, p: int, ds: int, *, sms: int,
                  x_strides=(), bc_strides=(), x_aligned: bool = False,
-                 bc_aligned: bool = False, itemsize: int = 4) -> SsdBwdPlan:
+                 bc_aligned: bool = False, itemsize: int = 4,
+                 chunk: int = 128,
+                 backend: str | None = None) -> SsdBwdPlan:
     """The backward's plan for ``bsz`` rows of ``s`` steps, ``n`` heads of
     width ``p`` and state width ``ds`` on a card with ``sms`` SMs. One
     chunk of MMA_SHAPE (S, ds, p) with up to 8 heads and 16-byte copies
@@ -365,7 +415,10 @@ def ssd_bwd_plan(bsz: int, s: int, n: int, p: int, ds: int, *, sms: int,
     (x's and dy's row, step and head strides), ``bc_strides`` (b's and c's
     row and step strides) and ``x_aligned`` / ``bc_aligned`` (the pointers
     are 16-byte aligned) set the copy widths, counted in ``itemsize``-byte
-    elements."""
+    elements. ``backend``: the selection table's, whose ``bwd_heads`` the
+    chunked form takes where :func:`bwd_heads_error` admits it, at the
+    forward's key (``chunk``: the forward's chunk, clamped to S; the
+    backward itself runs chunks of BWD_CHUNK)."""
     if p > 128:
         raise ValueError(f"p={p}: the backward kernel takes p <= 128")
 
@@ -384,6 +437,10 @@ def ssd_bwd_plan(bsz: int, s: int, n: int, p: int, ds: int, *, sms: int,
     heads = n if n <= BWD_MAX_WARPS and bsz >= sms else 1
     if bwd_smem_floats(p, ds, heads, chunks > 1) > SMEM_MAX:
         heads = 1
+    tuned = _tuned(bsz, s, n, p, ds, min(chunk, s), itemsize,
+                   backend).get("bwd_heads")
+    if tuned is not None and bwd_heads_error(s, n, p, ds, tuned) is None:
+        heads = tuned
     if bwd_smem_floats(p, ds, heads, chunks > 1) > SMEM_MAX:
         raise ValueError(f"p={p}, ds={ds}: the backward block's shared "
                          "memory exceeds the card's")
@@ -391,9 +448,90 @@ def ssd_bwd_plan(bsz: int, s: int, n: int, p: int, ds: int, *, sms: int,
                       vec_x, vec_bc)
 
 
+def bwd_heads_error(s: int, n: int, p: int, ds: int, heads) -> str | None:
+    """Why the chunked backward cannot take ``heads`` heads a block (a warp
+    each, at most BWD_MAX_WARPS, dividing n, the block within SMEM_MAX);
+    None where it can."""
+    if not (type(heads) is int and 1 <= heads <= min(n, BWD_MAX_WARPS)
+            and n % heads == 0):
+        return (f"bwd_heads={heads!r}: 1 to {BWD_MAX_WARPS} heads that "
+                f"divide n={n}")
+    if bwd_smem_floats(p, ds, heads, _cdiv(s, BWD_CHUNK) > 1) > SMEM_MAX:
+        return (f"bwd_heads={heads}: the block's shared memory exceeds the "
+                "card's")
+    return None
+
+
+def _contiguous_plans(shape, itemsize: int, sms: int) -> tuple:
+    """The rules' forward and backward plans at ``shape`` (B, S, n, p, ds,
+    chunk) for contiguous, 16-byte aligned x and b, c split from one row
+    (the model's conv output: strides of n p + 2 ds)."""
+    bsz, s, n, p, ds, chunk = shape
+    row = n * p + 2 * ds
+    kw = dict(sms=sms, x_strides=(s * row, row, p),
+              bc_strides=(s * row, row) * 2, x_aligned=True,
+              bc_aligned=(n * p * itemsize) % 16 == 0, itemsize=itemsize)
+    return (ssd_plan(bsz, s, n, p, ds, chunk, **kw),
+            ssd_bwd_plan(bsz, s, n, p, ds, **kw))
+
+
+def entry_error(shape, itemsize: int, sms: int, fields) -> str | None:
+    """Why a selection-table entry's ``fields`` are not admitted at
+    ``shape`` (B, S, n, p, ds, chunk) on a card of ``sms`` SMs, for the
+    model's operands (:func:`_contiguous_plans`); None where they are."""
+    bsz, s, n, p, ds, chunk = shape
+    fwd, bwd = _contiguous_plans(shape, itemsize, sms)
+    unknown = set(fields) - {"inner", "heads", "chunk_parallel", "bwd_heads"}
+    if unknown:
+        return f"unknown fields {sorted(unknown)}"
+    choice = {k: v for k, v in fields.items() if k != "bwd_heads"}
+    if choice:
+        if fwd.form == "mma":
+            return "the forward's tensor-core form here has no choice"
+        why = fwd_choice_error(s, n, p, ds, chunk, **{
+            "inner": fwd.inner, "heads": fwd.heads,
+            "chunk_parallel": fwd.chunk_parallel, **choice})
+        if why is not None:
+            return why
+    if "bwd_heads" in fields:
+        if bwd.form != "chunk":
+            return f"the backward's {bwd.form} form here has no choice"
+        return bwd_heads_error(s, n, p, ds, fields["bwd_heads"])
+    return None
+
+
+def table_choices(shape, itemsize: int, sms: int) -> dict:
+    """The admissible variants of the rules' plans at ``shape`` (B, S, n,
+    p, ds, chunk): the forward's (every inner chunk of INNER_CHUNKS and the
+    chunk itself that divides the chunk, heads of 1, 2, 4 and 8 that divide
+    n, either form) and the backward's heads per block (1, 2, 4, 8 that
+    divide n); the rules' own first in each, and only the parts that have
+    a choice."""
+    bsz, s, n, p, ds, chunk = shape
+    fwd, bwd = _contiguous_plans(shape, itemsize, sms)
+    first = dict(inner=fwd.inner, heads=fwd.heads,
+                 chunk_parallel=fwd.chunk_parallel)
+    parts = {"fwd": [first], "bwd": [{"bwd_heads": bwd.heads}]}
+    if fwd.form != "mma":
+        for inner in sorted({chunk, *INNER_CHUNKS}, reverse=True):
+            for heads in (1, 2, 4, 8):
+                for cp in (False, True):
+                    c = dict(inner=inner, heads=heads, chunk_parallel=cp)
+                    if (c != first and fwd_choice_error(
+                            s, n, p, ds, chunk, **c) is None):
+                        parts["fwd"].append(c)
+    if bwd.form == "chunk":
+        parts["bwd"] += [{"bwd_heads": h} for h in (1, 2, 4, 8)
+                         if h != bwd.heads
+                         and bwd_heads_error(s, n, p, ds, h) is None]
+    return {part: v for part, v in parts.items() if len(v) > 1}
+
+
 def ssd_bwd_scan_plan(xh: torch.Tensor, b_ssm: torch.Tensor,
-                      c_ssm: torch.Tensor, dy: torch.Tensor) -> SsdBwdPlan:
-    """The backward's plan for these CUDA operands (unit last strides)."""
+                      c_ssm: torch.Tensor, dy: torch.Tensor,
+                      chunk: int = 128) -> SsdBwdPlan:
+    """The backward's plan for these CUDA operands (unit last strides;
+    ``chunk``: the forward's, which keys the selection table)."""
     bsz, s, n, p = xh.shape
     return ssd_bwd_plan(
         bsz, s, n, p, b_ssm.shape[-1], sms=_sm_count(xh.device.index),
@@ -401,7 +539,8 @@ def ssd_bwd_scan_plan(xh: torch.Tensor, b_ssm: torch.Tensor,
         bc_strides=b_ssm.stride()[:2] + c_ssm.stride()[:2],
         x_aligned=xh.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0,
         bc_aligned=b_ssm.data_ptr() % 16 == 0 and c_ssm.data_ptr() % 16 == 0,
-        itemsize=xh.element_size())
+        itemsize=xh.element_size(), chunk=chunk,
+        backend=autotune.backend_of(xh))
 
 
 def _bwd_operands(xh, dt, a_log, b_ssm, c_ssm, dy) -> tuple:
@@ -415,11 +554,12 @@ def _bwd_operands(xh, dt, a_log, b_ssm, c_ssm, dy) -> tuple:
 
 def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                  b_ssm: torch.Tensor, c_ssm: torch.Tensor,
-                 dy: torch.Tensor) -> tuple:
+                 dy: torch.Tensor, *, chunk: int = 128) -> tuple:
     """(dxh, ddt, da_log, db, dc): the adjoint of the SSD scan at these
     operands for the cotangent ``dy`` of y (on the card the chunked form's
     adjoint, :func:`ssd_bwd_plan`; on the CPU autograd through the
-    sequential recurrence)."""
+    sequential recurrence). ``chunk``: the forward's, which keys the
+    selection table; the result does not depend on it."""
     if not build.on_cuda("ssd_scan_bwd", xh, dt, a_log, b_ssm, c_ssm, dy):
         return ref.ssd_bwd_ref(xh, dt, a_log, b_ssm, c_ssm, dy)
     xh, dt, a2, b_ssm, c_ssm, dy = _bwd_operands(xh, dt, a_log, b_ssm,
@@ -435,7 +575,7 @@ def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     if not dxh.numel():
         da.zero_()
     else:
-        plan = ssd_bwd_scan_plan(xh, b_ssm, c_ssm, dy)
+        plan = ssd_bwd_scan_plan(xh, b_ssm, c_ssm, dy, chunk)
         states = (torch.empty(bsz * n * (plan.chunks - 1) * ds * p,
                               device=dev, dtype=f32)
                   if plan.chunks > 1 else None)

@@ -21,11 +21,13 @@ class _SSD(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xh, dt, a_log, b_ssm, c_ssm, chunk: int):
         ctx.save_for_backward(xh, dt, a_log, b_ssm, c_ssm)
+        ctx.chunk = chunk
         return kernel.ssd_scan(xh, dt, a_log, b_ssm, c_ssm, chunk=chunk)
 
     @staticmethod
     def backward(ctx, dy):
-        return (*kernel.ssd_scan_bwd(*ctx.saved_tensors, dy), None)
+        return (*kernel.ssd_scan_bwd(*ctx.saved_tensors, dy,
+                                     chunk=ctx.chunk), None)
 
 
 def ssd(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,

@@ -56,6 +56,7 @@ from repro_torch import configs as cfg_lib
 from repro_torch.launch import specs as specs_lib
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.roofline import Roofline
+from repro_torch.models.model import pattern_of
 from repro_torch.models.params import _axis_size
 
 # how the temp_bytes figure was made
@@ -163,6 +164,25 @@ def sharded_bytes(tree, specs, mesh) -> int:
                for t, spec in _pairs(tree, specs))
 
 
+def model_pattern(cfg) -> str:
+    """The config's repeating unit of layer kinds (``pattern_of``)."""
+    return pattern_of(cfg)
+
+
+def trace_case(case: specs_lib.Case, mesh) -> tuple:
+    """Run ``case``'s step once on its fake tensors under a
+    :class:`StepCounter`: (counter, host seconds of the trace, per-device
+    argument bytes, per-device output bytes, :class:`Roofline`)."""
+    counter = StepCounter(held=case.args)
+    t0 = time.perf_counter()
+    with case.fake_mode, counter:
+        out = case.fn(*case.args)
+    t_trace = time.perf_counter() - t0
+    return (counter, t_trace, sharded_bytes(case.args, case.in_specs, mesh),
+            sharded_bytes(out, case.out_specs, mesh),
+            Roofline(float(counter.flops), float(counter.bytes), mesh.size))
+
+
 def run_case(arch: str, shape: str, multi_pod: bool, out_dir=None,
              remat: bool = True, verbose: bool = True,
              profile: str = "baseline") -> dict:
@@ -172,15 +192,7 @@ def run_case(arch: str, shape: str, multi_pod: bool, out_dir=None,
     mesh = make_production_mesh(multi_pod=multi_pod)
     case = specs_lib.build_case(arch, shape, mesh, remat=remat,
                                 profile=profile)
-    counter = StepCounter(held=case.args)
-    t0 = time.perf_counter()
-    with case.fake_mode, counter:
-        out = case.fn(*case.args)
-    t_trace = time.perf_counter() - t0
-
-    args_b = sharded_bytes(case.args, case.in_specs, mesh)
-    out_b = sharded_bytes(out, case.out_specs, mesh)
-    roof = Roofline(float(counter.flops), float(counter.bytes), mesh.size)
+    counter, t_trace, args_b, out_b, roof = trace_case(case, mesh)
     cfg = cfg_lib.get_config(arch)
     shape_cfg = cfg_lib.get_shape(shape)
     tokens = shape_cfg.global_batch * (shape_cfg.seq_len

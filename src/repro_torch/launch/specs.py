@@ -117,26 +117,35 @@ def input_specs(arch: str, shape_name: str) -> Dict[str, torch.Tensor]:
 
 
 def build_case(arch: str, shape_name: str, mesh, *, dtype=torch.bfloat16,
-               remat: bool = True, microbatch: int = 4,
+               remat: bool = True, extra_rules: Optional[dict] = None,
+               microbatch: int = 4,
                grad_acc_dtype=torch.float32,
                moment_dtype=torch.float32,
+               moe_groups: Optional[int] = None,
                profile: str = "baseline") -> Case:
     """The step of ``arch`` x ``shape_name`` on ``mesh``'s shape, at full
     depth: the reference's ``n_layers`` and ``unroll`` (its shallow,
     unrolled compiles for cost analysis) have no counterpart, since the
     dry run traces and counts every unit and microbatch as it runs. The
-    other keywords are the reference's; its hill climb's ``extra_rules``
-    and ``moe_groups`` come with the port of that hill climb."""
+    other keywords are the reference's: ``extra_rules`` update the
+    sharding rules after :func:`rules_for`, ``moe_groups`` sets the MoE
+    dispatch groups (the optimized profile's group choice applies only
+    where it is None)."""
     cfg = cfg_lib.get_config(arch)
     shape = cfg_lib.get_shape(shape_name)
+    if moe_groups and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch_groups=moe_groups))
     if profile == "optimized" and cfg.moe is not None:
         # shard-local (grouped) MoE dispatch
         groups = _axis_size(mesh, rules_for(cfg, shape, mesh)["batch"])
         if shape.mode != "decode" or shape.global_batch % max(groups, 1) == 0:
-            if groups > 1:
+            if moe_groups is None and groups > 1:
                 cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
                     cfg.moe, dispatch_groups=groups))
     rules = rules_for(cfg, shape, mesh, profile)
+    if extra_rules:
+        rules.update(extra_rules)
     mode = FakeTensorMode()
 
     template = model_lib.build_template(cfg)

@@ -38,7 +38,7 @@ import torch.multiprocessing as mp
 import repro_torch.fl as port_fl
 from repro_torch.core.participation import DataStats
 from repro_torch.fl import sim
-from repro_torch.fl.data import CohortLayout
+from repro_torch.fl.data import CohortLayout, sample_cohort_batch
 from repro_torch.fl.shard import ShardedCohortEngine
 from repro_torch.models.convert import params_to_numpy
 from repro_torch.sharding import COHORT_AXIS, cohort_mesh
@@ -416,12 +416,16 @@ def test_shop_floor_gateway_models_match_reference(worlds, reference,
     each gateway's model at 1e-5 against the port's single-device
     shop-floor round on the same inputs. Against the reference the
     narrow VGG's models part at 2 of gateway 3's 108 conv1 weights,
-    1.75e-5 apart where the rest lie a median 1.3e-8 apart, as a relu
-    decision taken the other way leaves them; the same at one rank and at
-    three, and in the cohort engine before the sharded one existed, so
-    the port's shop-floor round is held against the reference's at 1e-5
-    on the MLP (``tests/test_torch_telemetry.py``) and here against itself
-    across meshes."""
+    1.75e-5 apart where the rest lie a median 1.3e-8 apart: a max-pool
+    tie, not a fault. At the first local step of device 3, row 7, the 2 x 2
+    window (15, 8) of conv1's channel 0 holds two values 6.4e-8 apart in
+    f64 (2.1182634e-1 and 2.1182640e-1); the reference's f32 conv rounds
+    the first above the second and the port's the second above the first,
+    so the pool's gradient reaches a different input patch and only that
+    channel's conv1 weights differ. The same at one rank and at three, and
+    in the cohort engine, so the port's shop-floor round is held against
+    the reference's at 1e-5 on the MLP (``tests/test_torch_telemetry.py``)
+    and here against itself across meshes."""
     want_models, want_loss = reference["shop"]
     for out in worlds(world):
         got_models, got_loss = out["shop"]
@@ -430,6 +434,59 @@ def test_shop_floor_gateway_models_match_reference(worlds, reference,
         for got, want in zip(got_models, out["shop_cohort"][0]):
             _trees_close(got, want, **TOL)
         assert len(got_models) == len(want_models)
+
+
+def test_shop_floor_gateway3_parts_at_a_max_pool_tie(reference):
+    """Why gateway 3's models part from the reference's (the test above):
+    conv1 of both packages, slot-batched on the shop-floor round's first
+    batch, agrees within 1e-6 of its largest output, yet the 2 x 2 pool
+    window (15, 8) of channel 0 of device 3's row 7 holds two outputs
+    6.4e-8 apart in f64 that the packages' f32 convs order either way, so
+    the pool's gradient takes another input patch there. Nowhere else on
+    that batch does the first pool choose another element."""
+    jax, _, _ = _ref()
+    from repro.models import split_model as ref_sm
+    s = sim.Simulation(sim.Scenario(**SC),
+                       DataStats(**reference["inputs"]["stats"]),
+                       device="cpu", init_params=reference["params0"])
+    device_ids, _ = _mid_cut(s)
+    batch = sample_cohort_batch(np.random.default_rng(SHOP_SEED), s.ds,
+                                device_ids, s.d_tilde, int(s.d_tilde.max()))
+    slots = batch.x.shape[0]
+    ref_model = ref_sm.VGGSplitModel(width_mult=SC["width_mult"],
+                                     classes=s.plan.classes)
+    w0, b0 = (reference["params0"][0][k] for k in ("w", "b"))
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda x: ref_model.apply_block(0, {"w": w0, "b": b0}, x)))(
+            batch.x))
+    with torch.no_grad():
+        got = s.plan.apply_block(
+            0, {k: v.detach().expand(slots, *v.shape)
+                for k, v in s.params[0].items()},
+            torch.from_numpy(batch.x)).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(
+        want).max())
+
+    def windows(a):
+        n, rows, h, w, c = a.shape
+        return a.reshape(n, rows, h // 2, 2, w // 2, 2, c).transpose(
+            0, 1, 2, 4, 6, 3, 5).reshape(n, rows, h // 2, w // 2, c, 4)
+    wa, wb = windows(want), windows(got)
+    live = (wa.max(-1) > 0) & batch.mask.astype(bool)[:, :, None, None, None]
+    differ = np.argwhere((wa.argmax(-1) != wb.argmax(-1)) & live)
+    assert [tuple(int(i) for i in d) for d in differ] == [(3, 7, 15, 8, 0)]
+    # the batch's rows are devices (row n = device n): device 3 trains
+    # under gateway 3
+    assert [m for m, gw in enumerate(s.gateways) for d in gw.devices
+            if d.idx == 3] == [3]
+    # the two outputs in f64, at conv1 positions (30, 16) and (30, 17)
+    x = np.pad(batch.x[3, 7].astype(np.float64), ((1, 1), (1, 1), (0, 0)))
+    f64 = [float((x[30:33, c:c + 3] * w0[..., 0]).sum() + b0[0])
+           for c in (16, 17)]
+    assert 0 < f64[1] - f64[0] < 1e-7
+    assert want[3, 7, 30, 16, 0] > want[3, 7, 30, 17, 0]
+    assert got[3, 7, 30, 17, 0] > got[3, 7, 30, 16, 0]
 
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -806,17 +806,19 @@ def test_bwd_wrapper_checks_operands():
 
 
 def test_op_backward_goes_through_the_backward_wrapper(monkeypatch):
-    """_SSD.backward calls kernel.ssd_scan_bwd once with the saved inputs
-    and dy, and passes its five gradients through: the op's gradients are
-    the wrapper's (on the CPU, its plain version, counted)."""
+    """_SSD.backward calls kernel.ssd_scan_bwd once with the saved inputs,
+    dy and the forward's chunk (which keys the selection table), and passes
+    its five gradients through: the op's gradients are the wrapper's (on
+    the CPU, its plain version, counted)."""
     t = [torch.from_numpy(a).requires_grad_()
          for a in _inputs(2, 32, 2, 8, 4, seed=3, groups=2)]
     seen = []
     real = kernel.ssd_scan_bwd
 
-    def spy(*args):
+    def spy(*args, **kwargs):
         seen.append(args)
-        return real(*args)
+        assert kwargs == {"chunk": 32}
+        return real(*args, **kwargs)
     monkeypatch.setattr(kernel, "ssd_scan_bwd", spy)
     before = ref.CALLS["ssd_scan_bwd"]
     dy = torch.randn(2, 32, 2, 8)
