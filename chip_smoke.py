@@ -45,14 +45,22 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
      and at ``FA_BITWISE`` two calls of dq and of dk/dv must agree bit for
      bit;
    - the SSD scan at the SSM path's shapes (S = 32, chunk 32, n = 4,
-     p = 32, ds = 16, a_log per slot or stride-0 shared) and two multi-chunk
-     shapes ((2, 512, 8, 64), ds = 64, chunk 64: the chunk-parallel form;
-     264 rows of 128 steps: the sequential walk) and, in f32 only
+     p = 32, ds = 16, a_log per slot or stride-0 shared), four multi-chunk
+     shapes ((2, 512, 8, 64), ds = 64, chunk 64: the chunk-parallel
+     tensor-core form, ``ssd_tc_state_kernel``, ``ssd_tc_pass_kernel`` and
+     ``ssd_tc_out_kernel`` over chunks of 64, f32 and bf16; (4, 480, 8,
+     64), ds 64, chunk 32, two slots: steps not whole chunks of 64, so the
+     FMA chunk-parallel form, ``ssd_kernel`` then ``ssd_chunk_scan_kernel``;
+     264 rows of 128 steps: the sequential walk; 66 rows of 128 steps, six
+     slots: the sequential walk, a block per head) with each case's forms
+     asserted (``SSD_FORMS``) and, in f32 only
      (``SSD_F32_ONLY``; the plain recurrence timed by CUDA events, seconds
      a call), mamba2-2.7b's step ((1, 4096, 80, 64), ds 128, chunk 256,
-     which the kernel runs as sub-chunks of 64); each case line prints the
-     launch plan (the bf16 scan takes its tensor-core form at chunk 32,
-     ds 16, p 32; the inner chunk);
+     which the tensor-core form runs as sub-chunks of 64); each case line
+     prints the launch plan (the bf16 scan takes its tensor-core form at
+     chunk 32, ds 16, p 32; the inner chunk); the bound counts the chunked
+     form's operations at chunks of SSD_BOUND_CHUNK (16), whatever the
+     plan, at the 3xTF32 rate in f32;
    - the bf16 forms of flash attention (forward, dq, dk/dv) and of the SSD
      scan at the same shapes, against their plain bf16 versions (one bf16
      ulp plus FA_RTOL or SSD_RTOL of scale; lse, f32, at FA_RTOL), with
@@ -70,9 +78,16 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
      gradients against the plain version (autograd through the sequential
      recurrence), each at SSD_RTOL of its own scale (bf16: one ulp plus
      that; ddt, f32, at SSD_RTOL); one chunk of (32, 16, 32) takes the
-     tensor-core forms (3xTF32 in f32, bf16 mma.sync), every other shape
-     the chunked form; each case line prints its plan (form, chunk,
-     chunks, heads a block, warps, ring, copy widths);
+     tensor-core forms (3xTF32 in f32, bf16 mma.sync), several chunks of
+     64 with few rows (multi-chunk, mamba2 4096, and the 480 steps of two
+     slots, whose last chunk is ragged) the
+     chunk-parallel tensor-core form (``ssd_tc_state_kernel``,
+     ``ssd_tc_pass_kernel``, ``ssd_tc_bwd_kernel``, then
+     ``ssd_bwd_sum_kernel``), every other shape the chunked form (the 66
+     rows a block per head, their dB and dC summed over heads by
+     ``ssd_bwd_sum_kernel``); each
+     case line prints its plan (form, chunk, chunks, heads a block, warps,
+     ring, copy widths);
    - the kernel-selection tables (``autotune`` phase, after the kernel
      phases, which like every later phase run at the tables' plans):
      every committed table validated strictly; at each entry's shape the
@@ -229,9 +244,10 @@ the port (``src/repro_torch``), never jax and nothing of ``repro``, and:
    losses as in (b) beside the card's name and power limit, stablelm
    launching the three attention wrappers (``fwd_tc_kernel``,
    ``dq_tc_kernel`` and ``dkdv_tc_kernel`` at D = 80 in its profiled
-   step), mamba2 the SSD scan and its backward (``ssd_kernel`` and
-   ``ssd_bwd_chunk_kernel``; ``ssd_chunk_scan_kernel`` printed, run where
-   the selection table leaves the forward chunk-parallel), no plain call.
+   step), mamba2 the SSD scan and its backward in their chunk-parallel
+   tensor-core forms (``ssd_tc_state_kernel``, ``ssd_tc_pass_kernel``,
+   ``ssd_tc_out_kernel``, ``ssd_tc_bwd_kernel`` in its profiled step, and
+   neither ``ssd_kernel`` nor ``ssd_bwd_chunk_kernel``), no plain call.
    The four runs' launches count in the ``kernels`` record;
 7. the ``serve`` phase (the LM decode and serve path, ROADMAP M11b; its
    seconds printed): (a) each of the ten smoke configs decodes B = 2 x
@@ -338,9 +354,9 @@ from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.vgg import mlp_layer_costs  # noqa: E402
 
 # H100 SXM data sheet: f32 outside the tensor cores, HBM3 bandwidth. The
-# attention's short forms and the SSD kernels are plain f32 FMA (their bf16
-# forms too, but their bound reads the bf16 rate below: on bf16 operands the
-# same work could run there).
+# attention's short forms are plain f32 FMA (their bf16 forms too, but
+# their bound reads the bf16 rate below: on bf16 operands the same work
+# could run there).
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # The fused linear kernels and the attention's tiled forms (forward, dq,
@@ -348,7 +364,8 @@ PEAK_BYTES = 3.35e12
 # dense) per f32 product, which holds the 1e-5 x scale contract below
 # (split a = big + small, drop only small * small). The bound of all three
 # fused linear kernels and of every tiled f32 attention kernel reads this
-# rate.
+# rate, as does every f32 SSD kernel's (the FMA forms' too: the same work
+# runs on the tensor cores in the 3xTF32 forms).
 PEAK_3XTF32_FLOPS = 495e12 / 3
 # The bf16 forms (every kernel's): dense bf16 tensor cores, f32
 # accumulation
@@ -403,7 +420,9 @@ PORT_KERNELS = ("fwd_kernel", "splitk_reduce_kernel", "dx_kernel",
                 "ssd_chunk_scan_kernel",
                 "ssd_mma_kernel", "ssd_bwd_chunk_kernel",
                 "ssd_bwd_mma_kernel", "ssd_bwd_tf32_kernel",
-                "ssd_bwd_sum_kernel")
+                "ssd_bwd_sum_kernel", "ssd_tc_state_kernel",
+                "ssd_tc_pass_kernel", "ssd_tc_out_kernel",
+                "ssd_tc_bwd_kernel")
 # the CUDA kernels (forms) behind each fused linear wrapper, counted by
 # the wrapper per launch (kernel.KERNEL_LAUNCHES): a path that launches a
 # wrapper must launch each of its forms
@@ -423,6 +442,16 @@ FORMS.update(flash_attention_bf16=("fwd_short_mma_kernel",),
              flash_attention_bwd_bf16=("bwd_short_mma_kernel",))
 EVERY_CALL = {"flash_attention_bf16": "fwd_short_mma_kernel",
               "flash_attention_bwd_bf16": "bwd_short_mma_kernel"}
+# the kernels line's forms: FORMS, and the SSD wrappers' chunk-parallel
+# tensor-core forms (ssd_kernel.KERNEL_LAUNCHES, counted by wrapper and
+# kernel each wrapper call launches), which the lm phase's mamba2-2.7b step
+# runs and no FL path does
+LISTED_FORMS = {**FORMS,
+                "ssd_scan": tuple(ssd_kernel.tc_key("ssd_scan", k)
+                                  for k in ssd_kernel.TC_FWD_KERNELS),
+                "ssd_scan_bwd": FORMS["ssd_scan_bwd"] + tuple(
+                    ssd_kernel.tc_key("ssd_scan_bwd", k)
+                    for k in ssd_kernel.TC_BWD_KERNELS)}
 # every launch counter and every plain-version call counter of the port
 LAUNCH_COUNTS = (kernel.LAUNCHES, kernel.KERNEL_LAUNCHES, fa_kernel.LAUNCHES,
                  fa_kernel.KERNEL_LAUNCHES, ssd_kernel.LAUNCHES,
@@ -984,20 +1013,59 @@ SSD_RTOL = 1e-4
 # (label, rows, S, n, p, ds, chunk, slots): rows = slots x batch rows, each
 # slot with its own a_log; slots = 0: one a_log for every row, read through
 # a stride-0 view of 12 slots (the statistics pass). The multi-chunk case
-# runs the plan's chunk-parallel form (16 rows x heads), "long rows" (the
-# round's 6 slots at four chunks) the sequential walk over chunks.
+# (16 rows x heads) runs the chunk-parallel tensor-core forms; "ragged
+# chunks" (32 rows x heads over 480 steps, two slots) the FMA forward's
+# chunk-parallel form (the tensor-core forward takes whole chunks of 64
+# only) and the tensor-core backward with a ragged last chunk and da
+# summed per slot; "long rows" (the round's 6 slots at four chunks) the
+# sequential walk over chunks; "head blocks" (66 rows of 4 heads: the
+# rows alone cannot give every SM a block, rows x heads fill the card)
+# the sequential walk and the chunked backward a block per head.
 SSD_CASES = [
     ("round", 570, 32, 4, 32, 16, 32, 6),
     ("stats", 1140, 32, 4, 32, 16, 32, 0),
     ("multi-chunk", 2, 512, 8, 64, 64, 64, 1),
+    ("ragged chunks", 4, 480, 8, 64, 64, 32, 2),
     ("long rows", 264, 128, 4, 32, 16, 32, 6),
+    ("head blocks", 66, 128, 4, 32, 16, 32, 6),
     # lm phase (d)'s: mamba2-2.7b's 80 heads of 64, ds 128, at its chunk of
-    # 256 (the kernel runs sub-chunks of 64), seq 4096, batch 1
+    # 256 (the tensor-core forms run sub-chunks of 64), seq 4096, batch 1
     ("mamba2 4096", 1, 4096, 80, 64, 128, 256, 1),
 ]
 # cases held in f32 only: the plain recurrence over 4096 steps takes
 # seconds a call, and its bf16 forms are no path's here
 SSD_F32_ONLY = ("mamba2 4096",)
+# The forms each multi-chunk case is there to hold, f32 and bf16 alike
+# (bf16 "head blocks": its forward's tensor-core form, one chunk of 32 at
+# ds 16, p 32): (forward form, chunk-parallel, backward form, backward
+# heads a block)
+SSD_FORMS = {"multi-chunk": ("tc", True, "tc", 1),
+             "ragged chunks": ("fma", True, "tc", 1),
+             "long rows": ("fma", False, "chunk", 4),
+             "head blocks": ("fma", False, "chunk", 1),
+             "mamba2 4096": ("tc", True, "tc", 1)}
+SSD_FORMS_BF16 = {**SSD_FORMS, "long rows": ("mma", False, "chunk", 4),
+                  "head blocks": ("mma", False, "chunk", 1)}
+# The SSD rows' bound counts the chunked form's operations at chunks of
+# this many steps (or the whole sequence where shorter), whatever chunk a
+# plan runs: the smallest chunk that is a whole m16 tile of mma.sync. The
+# count falls as the chunk shrinks (the quadratic in-chunk terms go, the
+# state terms stay): at mamba2-2.7b's widths this is 3.0 % above the least
+# count (chunks of one step, the sequential recurrence), where the forms'
+# own chunk of 64 is 12.6 % above it. A bound at the plan's own chunk
+# moved with the design (the FL shapes' 32, the FMA sub-chunks' 64 or 128).
+SSD_BOUND_CHUNK = 16
+
+
+def ssd_ops(rows: int, s: int, n: int, p: int, ds: int) -> int:
+    """The chunked SSD forward's operations at chunks of SSD_BOUND_CHUNK:
+    per chunk of q steps the scores c b^T over its q (q + 1) / 2 pairs
+    (once a row), and per head the intra product over the pairs and the
+    state terms (the inter term and the state update, 4 q ds p)."""
+    q = min(SSD_BOUND_CHUNK, s)
+    pairs = q * (q + 1) // 2
+    return rows * (s // q) * (2 * pairs * ds + n * (2 * pairs * p
+                                                    + 4 * q * ds * p))
 
 
 def ssd_phase(bf16: bool = False) -> dict:
@@ -1014,12 +1082,10 @@ def ssd_phase(bf16: bool = False) -> dict:
         x, dt, a_log, bm, cm = ssd_operands(g, dtype, rows, s, n, p, ds,
                                             slots)
         plan = ssd_kernel.ssd_scan_plan(x, bm, cm, chunk)
-        # the work of the chunk the kernel runs (the same function at any
-        # chunk: the least of them is the bound's)
-        inner = plan.inner
-        pairs = inner * (inner + 1) // 2
-        ops = rows * (s // inner) * (2 * pairs * ds + n * (
-            2 * pairs * p + 4 * inner * ds * p))
+        want = (SSD_FORMS_BF16 if bf16 else SSD_FORMS).get(label)
+        check(want is None or (plan.form, plan.chunk_parallel) == want[:2],
+              f"ssd_scan {label}: plan {plan}, want {want}")
+        ops = ssd_ops(rows, s, n, p, ds)
         # x and y, b and c, a_log at the operands' size; dt at 4 bytes
         nbytes = size * (2 * rows * s * n * p + 2 * rows * s * ds
                          + max(slots, 1) * n) + 4 * rows * s * n
@@ -1030,7 +1096,7 @@ def ssd_phase(bf16: bool = False) -> dict:
               lambda: ssd_kernel.ssd_scan(x, dt, a_log, bm, cm, chunk=chunk),
               lambda: ssd_ref.ssd_ref(x, dt, a_log, bm, cm), None, SSD_RTOL,
               _bound(ops, nbytes, PEAK_BF16_FLOPS if bf16
-                     else PEAK_F32_FLOPS), label == "round",
+                     else PEAK_3XTF32_FLOPS), label == "round",
               f"rows={rows} S={s} n={n} p={p} ds={ds} chunk={chunk} "
               f"slots={slots}" + " bf16" * bf16 + f" plan: form={plan.form} "
               f"inner={plan.inner} chunks={plan.chunks} "
@@ -1073,20 +1139,21 @@ def ssd_bwd_phase(bf16: bool = False) -> dict:
         dy = torch.randn(rows, s, n, p, device="cuda", generator=g).to(dtype)
         x, _, _, bm, cm = args
         plan = ssd_kernel.ssd_bwd_scan_plan(x, bm, cm, dy, chunk)
+        want = (SSD_FORMS_BF16 if bf16 else SSD_FORMS).get(label)
+        check(want is None or (plan.form, plan.heads) == want[2:],
+              f"ssd_scan_bwd {label}: plan {plan}, want {want}")
         # twice the forward's operations (each product of the chunked form
-        # has two gradient products) at the backward's own chunk; x, dy,
-        # dx, b, c, db, dc and a_log, da_log at the operands' size, dt and
-        # ddt at 4 bytes
-        pairs = plan.chunk * (plan.chunk + 1) // 2
-        ops = 2 * rows * plan.chunks * (2 * pairs * ds + n * (
-            2 * pairs * p + 4 * plan.chunk * ds * p))
+        # has two gradient products) at SSD_BOUND_CHUNK; x, dy, dx, b, c,
+        # db, dc and a_log, da_log at the operands' size, dt and ddt at 4
+        # bytes
+        ops = 2 * ssd_ops(rows, s, n, p, ds)
         nbytes = size * (3 * rows * s * n * p + 4 * rows * s * ds
                          + 2 * max(slots, 1) * n) + 8 * rows * s * n
         _hold(totals, "ssd_scan_bwd" + "_bf16" * bf16, label,
               lambda: ssd_kernel.ssd_scan_bwd(*args, dy, chunk=chunk),
               lambda: ssd_ref.ssd_bwd_ref(*args, dy), None, SSD_RTOL,
               _bound(ops, nbytes, PEAK_BF16_FLOPS if bf16
-                     else PEAK_F32_FLOPS), label == "round",
+                     else PEAK_3XTF32_FLOPS), label == "round",
               f"rows={rows} S={s} n={n} p={p} ds={ds} slots={slots}"
               + " bf16" * bf16 + f" plan: form={plan.form} "
               f"chunk={plan.chunk} chunks={plan.chunks} heads={plan.heads} "
@@ -3416,19 +3483,18 @@ LM_BWD_KERNELS = ("dq_tc_kernel", "dkdv_tc_kernel")
 # unit's activations recomputed in the backward (remat); memory freed
 # between the two. Each profiled step must run these CUDA kernels (by the
 # profile's names): the tiled attention kernels at D = 80, the SSD forward
-# and the backward's chunked form. The SSD forward's chunk-state scan
-# (ssd_chunk_scan_kernel) runs where the plan is chunk-parallel, which the
-# selection table decides at this shape (ssd_plan), and is printed, not
-# required.
+# and backward in their chunk-parallel tensor-core forms (the chunk
+# states, the state pass, the outputs and the adjoint), and none of
+# LM_ABSENT's: not the FMA forward or the chunked backward they replace.
 LM_PUBLISHED = {
     "stablelm-3b": ("fwd_tc_kernel<float, 80>", "dq_tc_kernel<float, 80>",
                     "dkdv_tc_kernel<float, 80>"),
-    "mamba2-2.7b": ("ssd_kernel<float, float>",
-                    "ssd_bwd_chunk_kernel<float, float>"),
+    "mamba2-2.7b": ("ssd_tc_state_kernel<float>", "ssd_tc_pass_kernel",
+                    "ssd_tc_out_kernel<float>", "ssd_tc_bwd_kernel<float>"),
 }
+LM_ABSENT = {"mamba2-2.7b": ("ssd_kernel<", "ssd_chunk_scan_kernel<",
+                             "ssd_bwd_chunk_kernel<")}
 LM_PUBLISHED_STEPS = 3
-# kernels a profiled step prints where its plan runs them, not required
-LM_SEEN = {"mamba2-2.7b": ("ssd_chunk_scan_kernel<float>",)}
 
 
 def _lm_names(cfg) -> tuple:
@@ -3535,7 +3601,7 @@ def _lm_train(arch: str, names, kernels, card: str, remat: bool = False,
           f"max_memory_allocated {peak / 2**30:.3f} GiB; launches "
           f"{ {k: launches[k] for k in names} }; card {card}", flush=True)
     _print_breakdown(f"{label} {arch}", prof, float(step_s[-1]), "step")
-    for name in kernels + LM_SEEN.get(arch, ()):
+    for name in kernels:
         found = [(e.count, e.self_device_time_total)
                  for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA
@@ -3544,8 +3610,13 @@ def _lm_train(arch: str, names, kernels, card: str, remat: bool = False,
               f"{sum(c for c, _ in found)} "
               f"{sum(us for _, us in found) / 1e3:.3f} ms ({cfg.n_layers} "
               f"layers; card {card})", flush=True)
-        check(bool(found) or name not in kernels, f"{label} {arch}: {name} "
-              "not in the profiled step")
+        check(bool(found), f"{label} {arch}: {name} not in the profiled "
+              "step")
+    absent = [e.key[:60] for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and any(f"::{name}" in e.key
+                      for name in LM_ABSENT.get(arch, ()))]
+    check(not absent, f"{label} {arch}: the profiled step ran {absent}")
     check(len(losses) == steps and all(np.isfinite(x) for x in losses),
           f"{label} {arch} losses {losses}")
     check(abs(losses[0] - np.log(cfg.vocab)) < LM_FIRST_LOSS,
@@ -4081,9 +4152,9 @@ def main() -> int:
                 bound_by=("operations" if totals[name].pop("ops_ms")
                           >= totals[name]["bound_ms"] / 2 else "bytes"),
                 **totals[name],
-                # the fused linear wrappers' launches by CUDA kernel (form)
-                **({"forms": {f: launches[f] for f in FORMS[name]}}
-                   if name in FORMS else {}))
+                # the wrappers' launches by CUDA kernel (form)
+                **({"forms": {f: launches[f] for f in LISTED_FORMS[name]}}
+                   if name in LISTED_FORMS else {}))
            for name in REPLACES]
     print(f"card: {card}")
     print(json.dumps({"kernels": out}))

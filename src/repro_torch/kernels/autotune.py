@@ -15,11 +15,13 @@ backend):
   tensor-core short forms (``heads_per_block``), forward and backward alike;
   the tiled forms have no choice.
 * ``ssd_scan`` (``(b, s, n, p, ds, chunk)``: the caller's chunk is an
-  input, not a choice): the forward's ``inner`` chunk, ``heads`` per block
-  and ``chunk_parallel`` form, and the backward's heads per block
-  (``bwd_heads``).
+  input, not a choice): the forward's ``inner`` chunk, ``heads`` per block,
+  ``chunk_parallel`` form and tensor-core chunk-parallel form (``tc``), and
+  the backward's tensor-core chunk-parallel form (``bwd_tc``) or heads per
+  block (``bwd_heads``).
 
-A plan's form stays what dtype and alignment dictate. An entry's fields
+A plan's form stays what dtype and alignment dictate (the SSD's FMA and
+tensor-core chunk-parallel forms are both free fields). An entry's fields
 take effect only where the plan function's own checks admit them (shared
 memory within the block's share, an inner chunk that divides the chunk,
 heads that divide n, no more splits than ``depth // MIN_SPLIT_K``); a miss,
@@ -63,10 +65,11 @@ TABLE_VERSION = 1
 OPS: Dict[str, tuple] = {
     "fused_linear": ("fwd_splits", "dx_splits", "dw_ctas"),
     "flash_attention": ("heads_per_block",),
-    "ssd_scan": ("inner", "heads", "chunk_parallel", "bwd_heads"),
+    "ssd_scan": ("inner", "heads", "chunk_parallel", "tc", "bwd_heads",
+                 "bwd_tc"),
 }
 # fields that are on/off; every other field is a positive count
-_FLAGS = ("chunk_parallel",)
+_FLAGS = ("chunk_parallel", "tc", "bwd_tc")
 # the length of each op's shape
 _SHAPE_LEN = {"fused_linear": 4, "flash_attention": 4, "ssd_scan": 6}
 # the operands' element size -> the key's dtype
@@ -439,8 +442,9 @@ def sweep_ssd_scan(b: int, s: int, n: int, p: int, ds: int, chunk: int,
                    dtype: str = "float32", *, card: str = "",
                    save: bool = True, seed: int = 0, iters: int = 10,
                    repeats: int = 7) -> Optional[dict]:
-    """Sweep the SSD forward's inner chunk, heads per block and form, and
-    the backward's heads per block, at one (B, S, n, p, ds, chunk)."""
+    """Sweep the SSD forward's inner chunk, heads per block and forms, and
+    the backward's form and heads per block, at one (B, S, n, p, ds,
+    chunk)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.ssd_scan import kernel

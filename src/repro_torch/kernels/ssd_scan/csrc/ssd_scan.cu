@@ -8,16 +8,20 @@
 //   y_intra  = sum_{k<=q} (c_q . b_k) exp(cum_q - cum_k) dt_k x_k
 //   y_inter  = exp(cum_q) c_q . h                   (h: state before chunk)
 //   h        = h exp(cum_last) + sum_k b_k (exp(cum_last - cum_k) dt_k x_k)
-// and y = y_intra + y_inter. Two forms: the FMA form (ssd_kernel<T, TA>,
-// below) for every shape, and for bf16 at the FL path's shape (chunk 32,
-// ds 16, p 32) the tensor-core form (ssd_mma_kernel, further down).
+// and y = y_intra + y_inter. Three forms: the FMA form (ssd_kernel<T, TA>,
+// below) for every shape, for bf16 at the FL path's shape (chunk 32, ds 16,
+// p 32) the tensor-core form (ssd_mma_kernel, further down), and for few
+// rows over many chunks (mamba2-2.7b's step) the chunk-parallel
+// tensor-core form (ssd_tc_state_kernel, ssd_tc_pass_kernel,
+// ssd_tc_out_kernel: 3xTF32 passes over chunks of 64; its own note is at
+// its section).
 //
 // The backward (ssd_bwd_chunk_kernel<T, TA>, ssd_bwd_mma_kernel,
-// ssd_bwd_sum_kernel<T>, at the end) has no Pallas counterpart: the
-// reference's op takes jax.vjp through its sequential oracle
-// (src/repro/kernels/ssd_scan/ops.py:64 `_ssd_bwd`). It is the adjoint of
-// the chunked form, computed chunk by chunk; its own note is at its
-// section.
+// ssd_bwd_tf32_kernel, the chunk-parallel ssd_tc_bwd_kernel<T> after the
+// same chunk states and state pass, and ssd_bwd_sum_kernel<T>) has no
+// Pallas counterpart: the reference's op takes jax.vjp through its
+// sequential oracle (src/repro/kernels/ssd_scan/ops.py:64 `_ssd_bwd`). It
+// is the adjoint of the chunked form; its own note is at its section.
 //
 // What bounds it on an H100: per chunk and head it does about
 // Q^2 (ds + p) + 2 Q ds p FMAs on Q (p + ds + ds + 1) inputs, a few tens of
@@ -54,8 +58,9 @@
 // (tools/ssd_scan_variants.py).
 //
 // Where rows x head blocks cannot fill the card and there are several
-// chunks (long sequences, few rows), the kernel runs Mamba-2's three-pass
-// form instead of walking the chunks in order: (1) each (row, head, chunk)
+// chunks (long sequences, few rows), the FMA form can run Mamba-2's
+// three-pass form instead of walking the chunks in order (f32 takes the
+// tensor-core chunk-parallel form there instead): (1) each (row, head, chunk)
 // block computes its chunk's own end state from zero and its total decay
 // exp(cum_last); (2) ssd_chunk_scan_kernel walks the chunks in order per
 // state entry, h_in[c + 1] = h_in[c] exp(cum_last[c]) + state[c], writing
@@ -957,11 +962,13 @@ struct BwdArgs {
                        // every chunk but the first
   float* part_bc;      // (2, n / heads, B, S, ds): db and dc per head group
                        // (only where heads < n)
-  float* part_da;      // (B, n): per row and head, a dL/da
+  float* part_da;      // (B, n, da_parts): per row and head, a dL/da (per
+                       // chunk in the tensor-core chunk-parallel form)
   long long sx_b, sx_s, sx_h, sdt_b, sdt_s, sb_b, sb_s, sc_b, sc_s, sdy_b,
       sdy_s, sdy_h, sa_slot;
   int batch, seq, n, p, ds, heads, chunks, rows_per_slot, groups, a_bf16;
   int vec_x, vec_bc;   // copy widths in bytes of x and dy, and of b and c
+  int da_parts;
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -1014,9 +1021,11 @@ inline __host__ __device__ BwdLayout bwd_layout(int p, int ds, int heads,
   return l;
 }
 
-// rows [rows, Q) of a staged tile set to zero (a ragged last chunk)
-__device__ __forceinline__ void zero_rows(float* dst, int pitch, int rows) {
-  for (int e = threadIdx.x; e < (kBwdQ - rows) * pitch; e += blockDim.x)
+// rows [rows, q) of a staged tile of q rows set to zero (a ragged last
+// chunk)
+__device__ __forceinline__ void zero_rows(float* dst, int pitch, int rows,
+                                          int q = kBwdQ) {
+  for (int e = threadIdx.x; e < (q - rows) * pitch; e += blockDim.x)
     dst[rows * pitch + e] = 0.f;
 }
 
@@ -2142,9 +2151,10 @@ ssd_bwd_tf32_kernel(const BwdArgs<float> a) {
 
 // db and dc: the head groups' f32 partials summed in order, rounded once to
 // T (where heads < n; the first bc_blocks blocks, a thread an element);
-// da_log: a dL/da summed over a slot's rows, in a_log's dtype (the blocks
-// after them, a warp per (slot, head): lane l adds rows l, l + 32, ... in
-// order, then a butterfly over the lanes, the same order every run)
+// da_log: a dL/da summed over a slot's rows and each row's da_parts parts,
+// in a_log's dtype (the blocks after them, a warp per (slot, head): lane l
+// adds parts l, l + 32, ... of the slot's (row, part) list in order, then
+// a butterfly over the lanes, the same order every run)
 template <typename T>
 __global__ void ssd_bwd_sum_kernel(const BwdArgs<T> a, int bc_blocks) {
   if (static_cast<int>(blockIdx.x) < bc_blocks) {
@@ -2168,17 +2178,782 @@ __global__ void ssd_bwd_sum_kernel(const BwdArgs<T> a, int bc_blocks) {
   const int lane = threadIdx.x & 31;
   if (i >= a.groups * a.n) return;   // whole warps
   const int slot = i / a.n;
+  const int parts = a.da_parts;
   const float* pd = a.part_da +
-                    static_cast<long long>(slot) * a.rows_per_slot * a.n +
-                    (i - slot * a.n);
+                    (static_cast<long long>(slot) * a.rows_per_slot * a.n +
+                     (i - slot * a.n)) * parts;
   float acc = 0.f;
-  for (int r = lane; r < a.rows_per_slot; r += 32) acc += pd[r * a.n];
+  for (int j = lane; j < a.rows_per_slot * parts; j += 32)
+    acc += pd[static_cast<long long>(j / parts) * a.n * parts + j % parts];
   acc = warp_sum(acc);
   if (lane == 0) {
     if (a.a_bf16)
       static_cast<bf16*>(a.da_log)[i] = __float2bfloat16_rn(acc);
     else
       static_cast<float*>(a.da_log)[i] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The chunk-parallel tensor-core forms (ssd_tc_state_kernel,
+// ssd_tc_pass_kernel, ssd_tc_out_kernel, ssd_tc_bwd_kernel): few rows over
+// many chunks, mamba2-2.7b's step
+// ---------------------------------------------------------------------------
+//
+// Mamba-2's own chunked decomposition (arXiv:2405.21060), over chunks of
+// kTcQ = 64 steps, with a block per (head, chunk, row) where the forms
+// above walk a row's chunks in one block:
+// 1. chunk states (ssd_tc_state_kernel): the cumsum in log2 units, the
+//    chunk's own end state s_c = B^T diag(u) X and its total decay
+//    exp(cum_last); for the backward also the chunk's own boundary
+//    cotangent g_c = C^T diag(e) dY (u, e as in the backward's note above);
+// 2. state passing (ssd_tc_pass_kernel), per (row, head) and four state
+//    entries a thread, over the chunks in order: h_in[c + 1] = h_in[c]
+//    dec[c] + s_c forwards, and for the backward G[c - 1] = G[c] dec[c] +
+//    g_c in reverse, each in place of the chunk's own term;
+// 3. forward (ssd_tc_out_kernel): y = (L o C B^T) diag(dt) X + diag(e) C
+//    h_in; backward (ssd_tc_bwd_kernel): the chunk's adjoint from its h_in
+//    and G, the terms of ssd_bwd_chunk_kernel's note (S, W, dW, M, dS, the
+//    straddle, X G^T, dY h_in^T) with dB and dC per head;
+// 4. (backward) ssd_bwd_sum_kernel sums dB and dC over heads and da over a
+//    slot's rows and chunks, each in a fixed order: no float atomics.
+// Every product runs in 3xTF32 on mma.sync m16n8k8 (tf32_a, tf32_b,
+// mma_3xtf32: operands split into TF32 big and small parts as they leave
+// shared memory, small * small dropped), warps sharing out tasks of 16
+// rows by 16 or 32 columns; the elementwise terms (decays, masks, row
+// sums) come from the accumulators' registers.
+//
+// What bounds them on an H100, at mamba2-2.7b's (1, 4096, 80, 64), ds
+// 128. The work is 12 GFLOP a forward and twice that a backward (the
+// chunked form at chunks of 64): 0.07 and 0.15 ms at the 3xTF32 rate. The
+// bytes the design adds are the scratch: h_in and G are (B, n, chunks,
+// ds, p) in f32, 168 MB each at chunks of 64 (twice that at 32), written by
+// pass 1, read and written by pass 2, read by pass 3, and the backward's
+// per-head dB and dC partials 336 MB more. A chunk of 64 halves those
+// bytes against 32 while its Q x Q tiles and a block's operands still fit
+// the card's shared memory (the adjoint's block takes 206 KB, one an SM;
+// the output block 105 KB, two an SM, its state loaded into b's place once
+// the scores are formed). What holds the adjoint and the outputs at
+// several times those bounds is latency inside a block (its phases apart
+// by barriers, one or two blocks an SM, each operand split as it is
+// read; PERF.md §6). The state pass was a thread's serial chain of
+// dependent loads in ssd_chunk_scan_kernel (a chunk's load issued after
+// the previous chunk's store); here a thread issues kTcDepth chunks'
+// 16-byte loads before it walks them.
+
+constexpr int kTcQ = 64;             // the chunk: four m-tiles of 16 steps
+constexpr int kTcThreads = 512;      // outputs: 16 warps
+constexpr int kTcOutCols = 16;       // ... each task 16 steps by 16 of p
+constexpr int kTcBwdThreads = 512;   // the adjoint: 16 warps
+constexpr int kTcStateThreads = 256; // chunk states: 8 warps
+// the adjoint's score tasks 16 columns wide (ten) instead of up to 32 (six)
+constexpr bool kTcFineUpper = true;
+// a warp takes each score task, and one more warp the cumsum meanwhile
+static_assert(kTcThreads / 32 > 6, "the outputs' block: too few warps");
+static_assert(kTcBwdThreads / 32 > (kTcFineUpper ? 10 : 6),
+              "the adjoint's block: too few warps");
+constexpr int kTcDepth = 8;          // the state pass's chunks in flight
+constexpr int kTcTp = kTcQ + 4;      // pitch of the Q x Q tiles
+
+template <typename T>
+struct TcArgs {
+  const T* x;          // (B, S, n, p)
+  const float* dt;     // (B, S, n)
+  const void* a_log;   // (slots, n), f32 or (a_bf16) bf16
+  const T* b;          // (B, S, ds)
+  const T* c;          // (B, S, ds)
+  const T* dy;         // (B, S, n, p): the backward's cotangent
+  T* y;                // (B, S, n, p), contiguous: y, or the backward's dx
+  float* ddt;          // (B, S, n), contiguous (backward)
+  float* states;       // (B, n, chunks, ds, p): s_c, then h_in
+  float* grads;        // (B, n, chunks, ds, p): g_c, then G (backward)
+  float* decays;       // (B, n, chunks): exp(cum_last)
+  float* part_bc;      // (2, n, B, S, ds): dB and dC per head (backward)
+  float* part_da;      // (B, n, chunks): a dL/da per chunk (backward)
+  long long sx_b, sx_s, sx_h, sdt_b, sdt_s, sb_b, sb_s, sc_b, sc_s, sdy_b,
+      sdy_s, sdy_h, sa_slot;
+  int batch, seq, n, p, ds, chunks, rows_per_slot, a_bf16, vec_x, vec_bc;
+};
+
+// An A fragment (16 x 8) at (row0, k0) of a tile stored transposed (row k
+// of the tile holds the operand's column k), split
+__device__ __forceinline__ Tf32A tf32_at(const float* t, int pitch, int row0,
+                                         int k0) {
+  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
+  const float* r = t + (k0 + t4) * pitch + row0 + g;
+  Tf32A f;
+  split_tf32(r[0], f.big[0], f.small[0]);
+  split_tf32(r[8], f.big[1], f.small[1]);
+  split_tf32(r[4 * pitch], f.big[2], f.small[2]);
+  split_tf32(r[4 * pitch + 8], f.big[3], f.small[3]);
+  return f;
+}
+
+// acc[j] (the C tiles of n-tiles j < nt from column n0) += A (16 rows from
+// row0, k in [k0, k1)) B in 3xTF32; AT: A stored transposed, BK: B stored
+// k-major (tf32_b)
+template <bool AT, bool BK>
+__device__ __forceinline__ void tc_gemm(float (&acc)[4][4], const float* a,
+                                        int lda, int row0, const float* b,
+                                        int ldb, int n0, int nt, int k0,
+                                        int k1) {
+  for (int k = k0; k < k1; k += 8) {
+    Tf32A fa;
+    if constexpr (AT)
+      fa = tf32_at(a, lda, row0, k);
+    else
+      fa = tf32_a(a, lda, row0, k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < nt) mma_3xtf32(acc[j], fa, tf32_b<BK>(b, ldb, n0 + 8 * j, k));
+  }
+}
+
+// two adjacent f32 results in T, one store (8 bytes f32, 4 bf16)
+template <typename T>
+__device__ __forceinline__ void store2(T* out, float lo, float hi) {
+  if constexpr (std::is_same<T, float>::value)
+    *reinterpret_cast<float2*>(out) = make_float2(lo, hi);
+  else
+    *reinterpret_cast<uint32_t*>(out) = bf16x2_rn(lo, hi);
+}
+
+// a chunk's dt (rows past its end zero), by cp.async
+__device__ __forceinline__ void tc_stage_dt(float* dts, const float* dt,
+                                            long long ld, int qv) {
+  for (int t = threadIdx.x; t < kTcQ; t += blockDim.x)
+    if (t < qv)
+      cp_async4(dts + t, dt + t * ld);
+    else
+      dts[t] = 0.f;
+}
+
+// The cumsum of the chunk (log2 units), u and e by one warp; returns
+// cum_last
+__device__ __forceinline__ float tc_scan(const float* dts, float* cum,
+                                         float* us, float* es, float rate) {
+  const float last = warp_scan(dts, cum, us, rate, kTcQ);
+  for (int q = threadIdx.x & 31; q < kTcQ; q += 32) es[q] = exp2f(cum[q]);
+  return last;
+}
+
+// Shared memory of ssd_tc_state_kernel, in floats: b (and with `grad` c),
+// kTcQ rows of pitch ds + 8 (read transposed as A fragments: the pitch
+// makes those reads conflict-free), x (and dy), kTcQ rows of pitch p + 8
+// (read k-major as B fragments), then dt, cum, u and e.
+struct TcStateLayout {
+  int bp, xp, bs, cs, xs, dys, dts, cum, us, es, total;
+};
+
+inline __host__ __device__ TcStateLayout tc_state_layout(int p, int ds,
+                                                         bool grad) {
+  TcStateLayout l;
+  l.bp = ds + 8;
+  l.xp = p + 8;
+  l.bs = 0;
+  l.cs = l.bs + kTcQ * l.bp;
+  l.xs = l.cs + (grad ? kTcQ * l.bp : 0);
+  l.dys = l.xs + kTcQ * l.xp;
+  l.dts = l.dys + (grad ? kTcQ * l.xp : 0);
+  l.cum = l.dts + kTcQ;
+  l.us = l.cum + kTcQ;
+  l.es = l.us + kTcQ;
+  l.total = l.es + kTcQ;
+  return l;
+}
+
+// Pass 1: block (head, chunk, row). s_c = B^T (u X) where a later chunk
+// takes it, g_c = C^T (e dY) (with `grad`) where an earlier one does, each
+// (ds x p) as tasks of 16 state rows by 32 columns; the chunk's decay.
+template <typename T>
+__global__ void __launch_bounds__(kTcStateThreads)
+ssd_tc_state_kernel(const TcArgs<T> a, int grad) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int Q = kTcQ;
+  const int P = a.p, DS = a.ds;
+  const TcStateLayout L = tc_state_layout(P, DS, grad);
+  const int h = blockIdx.x, ci = blockIdx.y, row = blockIdx.z;
+  const int warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
+  const int c0 = ci * Q, qv = min(Q, a.seq - c0);
+  const bool own = ci + 1 < a.chunks, back = grad && ci > 0;
+  float* bs = smem + L.bs;
+  float* cs = smem + L.cs;
+  float* xs = smem + L.xs;
+  float* dys = smem + L.dys;
+  float* dts = smem + L.dts;
+  stage_rows(bs, L.bp, a.b + row * a.sb_b + c0 * a.sb_s, a.sb_s, qv, DS,
+             a.vec_bc);
+  stage_rows(xs, L.xp, a.x + row * a.sx_b + c0 * a.sx_s + h * a.sx_h,
+             a.sx_s, qv, P, a.vec_x);
+  if (back) {
+    stage_rows(cs, L.bp, a.c + row * a.sc_b + c0 * a.sc_s, a.sc_s, qv, DS,
+               a.vec_bc);
+    stage_rows(dys, L.xp, a.dy + row * a.sdy_b + c0 * a.sdy_s + h * a.sdy_h,
+               a.sdy_s, qv, P, a.vec_x);
+  }
+  tc_stage_dt(dts, a.dt + row * a.sdt_b + c0 * a.sdt_s + h, a.sdt_s, qv);
+  if (qv < Q) {
+    zero_rows(bs, L.bp, qv, kTcQ);
+    zero_rows(xs, L.xp, qv, kTcQ);
+    if (back) {
+      zero_rows(cs, L.bp, qv, kTcQ);
+      zero_rows(dys, L.xp, qv, kTcQ);
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  if (warp == 0) {
+    const float rate = -expf(load_f32(
+        a.a_log, (row / a.rows_per_slot) * a.sa_slot + h, a.a_bf16));
+    const float last =
+        tc_scan(dts, smem + L.cum, smem + L.us, smem + L.es, rate);
+    if ((threadIdx.x & 31) == 0)
+      a.decays[(static_cast<long long>(row) * a.n + h) * a.chunks + ci] =
+          exp2f(last);
+  }
+  __syncthreads();
+  // u X and e dY, in place
+  for (int e = threadIdx.x; e < Q * P; e += blockDim.x) {
+    const int r = e / P, col = e - r * P;
+    xs[r * L.xp + col] *= smem[L.us + r];
+    if (back) dys[r * L.xp + col] *= smem[L.es + r];
+  }
+  __syncthreads();
+  const int ng = (P + 31) / 32, per = (DS / 16) * ng;
+  const int tasks = (own + back) * per;
+  const long long at =
+      ((static_cast<long long>(row) * a.n + h) * a.chunks + ci) * DS * P;
+  for (int task = warp; task < tasks; task += warps) {
+    const bool is_g = !own || task >= per;
+    const int t = task - (own && is_g ? per : 0);
+    const int s0 = t / ng * 16, n0 = t % ng * 32, nt = min(4, (P - n0) / 8);
+    float acc[4][4] = {};
+    tc_gemm<true, true>(acc, is_g ? cs : bs, L.bp, s0, is_g ? dys : xs,
+                        L.xp, n0, nt, 0, Q);
+    float* out = (is_g ? a.grads : a.states) + at;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < nt) {
+        const int col = n0 + 8 * j + 2 * t4;
+        store2(out + (s0 + g) * P + col, acc[j][0], acc[j][1]);
+        store2(out + (s0 + g + 8) * P + col, acc[j][2], acc[j][3]);
+      }
+  }
+}
+
+// Pass 2: the state pass, a thread per (row, head) and four state entries.
+// blockIdx.y = 0: states in chunk order, each slot's s_c replaced by the
+// state entering its chunk (h_in[0] = 0); 1: grads in reverse, each slot's
+// g_c replaced by G at its chunk's end (G[last] = 0). A thread loads
+// kTcDepth chunks' entries (16 bytes each) before it walks them, so the
+// loads are in flight together, not one chained after another.
+__global__ void __launch_bounds__(256)
+ssd_tc_pass_kernel(float* __restrict__ states, float* __restrict__ grads,
+                   const float* __restrict__ decays, long long entries4,
+                   int hsz4, int chunks) {
+  const long long i =
+      blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (i >= entries4) return;
+  const long long rh = i / hsz4, e = i - rh * hsz4;
+  const bool back = blockIdx.y == 1;
+  float4* base = reinterpret_cast<float4*>(back ? grads : states) +
+                 rh * chunks * hsz4 + e;
+  const float* dec = decays + rh * chunks;
+  float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k0 = 0; k0 < chunks; k0 += kTcDepth) {
+    float4 own[kTcDepth];
+    float d[kTcDepth];
+#pragma unroll
+    for (int k = 0; k < kTcDepth; ++k) {
+      const int ci = back ? chunks - 1 - (k0 + k) : k0 + k;
+      const bool in = k0 + k < chunks;
+      const bool has = in && (back ? ci >= 1 : ci + 1 < chunks);
+      own[k] = has ? base[ci * static_cast<long long>(hsz4)]
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      d[k] = in ? dec[ci] : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kTcDepth; ++k) {
+      if (k0 + k >= chunks) break;
+      const int ci = back ? chunks - 1 - (k0 + k) : k0 + k;
+      base[ci * static_cast<long long>(hsz4)] = h;
+      h.x = fmaf(h.x, d[k], own[k].x);
+      h.y = fmaf(h.y, d[k], own[k].y);
+      h.z = fmaf(h.z, d[k], own[k].z);
+      h.w = fmaf(h.w, d[k], own[k].w);
+    }
+  }
+}
+
+// Shared memory of ssd_tc_out_kernel, in floats: c (kTcQ rows of pitch
+// ds + 4: A fragments), b (the same: n-major B fragments) whose place takes
+// h_in (ds rows of pitch p + 8: k-major B fragments) once the scores are
+// formed, x (kTcQ rows of pitch p + 8), W (kTcQ x kTcTp), dt, cum, e.
+struct TcOutLayout {
+  int cp, xp, cs, bh, xs, ws, dts, cum, es, total;
+};
+
+inline __host__ __device__ TcOutLayout tc_out_layout(int p, int ds) {
+  TcOutLayout l;
+  l.cp = ds + 4;
+  l.xp = p + 8;
+  l.cs = 0;
+  l.bh = l.cs + kTcQ * l.cp;
+  l.xs = l.bh + (kTcQ * l.cp > ds * l.xp ? kTcQ * l.cp : ds * l.xp);
+  l.ws = l.xs + kTcQ * l.xp;
+  l.dts = l.ws + kTcQ * kTcTp;
+  l.cum = l.dts + kTcQ;
+  l.es = l.cum + kTcQ;
+  l.total = l.es + kTcQ;
+  return l;
+}
+
+// The score tiles of a chunk's lower triangle (k <= q), as (m-tile of 16
+// rows, first column, n-tiles): six tasks
+__device__ __constant__ int kTcLower[6][3] = {{0, 0, 2}, {1, 0, 4},
+                                              {2, 0, 4}, {2, 32, 2},
+                                              {3, 0, 4}, {3, 32, 4}};
+// ... and of its upper triangle (q >= k) with rows k, and which of a row's
+// column groups each is: up to 32 columns a task, or (kTcUpperFine) 16
+__device__ __constant__ int kTcUpper[6][4] = {{0, 0, 4, 0}, {0, 32, 4, 1},
+                                              {1, 16, 4, 0}, {1, 48, 2, 1},
+                                              {2, 32, 4, 0}, {3, 48, 2, 0}};
+__device__ __constant__ int kTcUpperFine[10][4] = {
+    {0, 0, 2, 0},  {0, 16, 2, 1}, {0, 32, 2, 2}, {0, 48, 2, 3},
+    {1, 16, 2, 0}, {1, 32, 2, 1}, {1, 48, 2, 2}, {2, 32, 2, 0},
+    {2, 48, 2, 1}, {3, 48, 2, 0}};
+
+// Pass 3 of the forward: block (head, chunk, row), S = s % kTcQ == 0.
+template <typename T>
+__global__ void __launch_bounds__(kTcThreads, 2)
+ssd_tc_out_kernel(const TcArgs<T> a) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int Q = kTcQ;
+  const int P = a.p, DS = a.ds;
+  const TcOutLayout L = tc_out_layout(P, DS);
+  const int h = blockIdx.x, ci = blockIdx.y, row = blockIdx.z;
+  const int warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
+  const int c0 = ci * Q;
+  const bool inter = ci > 0;   // the state entering chunk 0 is zero
+  float* cs = smem + L.cs;
+  float* bh = smem + L.bh;
+  float* xs = smem + L.xs;
+  float* ws = smem + L.ws;
+  float* dts = smem + L.dts;
+  const float* cum = smem + L.cum;
+  const float* es = smem + L.es;
+  stage_rows(cs, L.cp, a.c + row * a.sc_b + c0 * a.sc_s, a.sc_s, Q, DS,
+             a.vec_bc);
+  stage_rows(bh, L.cp, a.b + row * a.sb_b + c0 * a.sb_s, a.sb_s, Q, DS,
+             a.vec_bc);
+  stage_rows(xs, L.xp, a.x + row * a.sx_b + c0 * a.sx_s + h * a.sx_h,
+             a.sx_s, Q, P, a.vec_x);
+  tc_stage_dt(dts, a.dt + row * a.sdt_b + c0 * a.sdt_s + h, a.sdt_s, Q);
+  cp_async_wait_all();
+  __syncthreads();
+  // S = C B^T over the lower triangle, in registers
+  float sacc[4][4] = {};
+  if (warp < 6)
+    tc_gemm<false, false>(sacc, cs, L.cp, 16 * kTcLower[warp][0], bh, L.cp,
+                          kTcLower[warp][1], kTcLower[warp][2], 0, DS);
+  __syncthreads();   // b read: h_in takes its place
+  if (inter)
+    stage_rows(bh, L.xp,
+               a.states + ((static_cast<long long>(row) * a.n + h) *
+                               a.chunks + ci) * DS * P,
+               P, DS, P, 16);
+  if (warp == warps - 1)
+    tc_scan(dts, smem + L.cum, smem + L.es, smem + L.es,
+            -expf(load_f32(a.a_log, (row / a.rows_per_slot) * a.sa_slot + h,
+                           a.a_bf16)));
+  __syncthreads();
+  // W[q][k] = S exp(cum_q - cum_k) dt_k for k <= q, else 0
+  if (warp < 6) {
+    const int q0 = 16 * kTcLower[warp][0], n0 = kTcLower[warp][1];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < kTcLower[warp][2])
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = q0 + g + 8 * (e >> 1);
+          const int k = n0 + 8 * j + 2 * t4 + (e & 1);
+          ws[q * kTcTp + k] =
+              q >= k ? sacc[j][e] * exp2f(cum[q] - cum[k]) * dts[k] : 0.f;
+        }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  // y tiles (16 steps, kTcOutCols columns): e_q (C h_in)_q + (W X)_q
+  const int ng = (P + kTcOutCols - 1) / kTcOutCols;
+  for (int task = warp; task < 4 * ng; task += warps) {
+    const int mi = task / ng, n0 = task % ng * kTcOutCols;
+    const int nt = min(kTcOutCols / 8, (P - n0) / 8);
+    float acc[4][4] = {};
+    if (inter) {
+      tc_gemm<false, true>(acc, cs, L.cp, 16 * mi, bh, L.xp, n0, nt, 0, DS);
+      const float e0 = es[16 * mi + g], e1 = es[16 * mi + g + 8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[j][0] *= e0;
+        acc[j][1] *= e0;
+        acc[j][2] *= e1;
+        acc[j][3] *= e1;
+      }
+    }
+    tc_gemm<false, true>(acc, ws, kTcTp, 16 * mi, xs, L.xp, n0, nt, 0,
+                         16 * (mi + 1));
+    T* out = a.y + ((static_cast<long long>(row) * a.seq + c0 + 16 * mi + g) *
+                        a.n + h) * P;
+    const long long ld8 = 8LL * a.n * P;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < nt) {
+        const int col = n0 + 8 * j + 2 * t4;
+        store2(out + col, acc[j][0], acc[j][1]);
+        store2(out + ld8 + col, acc[j][2], acc[j][3]);
+      }
+  }
+}
+
+// Shared memory of ssd_tc_bwd_kernel, in floats: c and b (kTcQ rows of
+// pitch ds + 4), x and dy (kTcQ rows of pitch p + 4), h_in and G (ds rows of
+// pitch p + 4), W^T (first M^T, for the straddle) and dS^T (kTcQ x kTcTp),
+// then dt, cum, u, e, R (the straddle), ddt's first term in four column
+// groups, r's and v's partials per 32 state columns and the warps' <G,
+// h_in> partials and cum_last.
+struct TcBwdLayout {
+  int cp, xp, cs, bs, xs, dys, hs, gs, wt, dst, dts, cum, us, es, rr, rs,
+      rp, vp, red, last, total;
+};
+
+inline __host__ __device__ TcBwdLayout tc_bwd_layout(int p, int ds) {
+  TcBwdLayout l;
+  const int ngd = (ds + 31) / 32;
+  l.cp = ds + 4;
+  l.xp = p + 4;
+  l.cs = 0;
+  l.bs = l.cs + kTcQ * l.cp;
+  l.xs = l.bs + kTcQ * l.cp;
+  l.dys = l.xs + kTcQ * l.xp;
+  l.hs = l.dys + kTcQ * l.xp;
+  l.gs = l.hs + ds * l.xp;
+  l.wt = l.gs + ds * l.xp;
+  l.dst = l.wt + kTcQ * kTcTp;
+  l.dts = l.dst + kTcQ * kTcTp;
+  l.cum = l.dts + kTcQ;
+  l.us = l.cum + kTcQ;
+  l.es = l.us + kTcQ;
+  l.rr = l.es + kTcQ;
+  l.rs = l.rr + kTcQ;
+  l.rp = l.rs + 4 * kTcQ;
+  l.vp = l.rp + ngd * kTcQ;
+  l.red = l.vp + ngd * kTcQ;
+  l.last = l.red + kTcBwdThreads / 32;
+  l.total = l.last + 1;
+  return l;
+}
+
+// Pass 3 of the backward: block (head, chunk, row), the adjoint of the
+// chunk from its h_in and G (the backward's note above), every product in
+// 3xTF32: S^T = B C^T and dW^T = X dY^T over the upper triangle (rows k);
+// W^T, M^T, dS^T and ddt's first term from their registers; the straddle;
+// dX = u B G + W^T dY, dC = e dY h_in^T + dS B and dB = u X G^T + dS^T C
+// (the head's partials), r and v from the state products' registers; then
+// ddt and the chunk's a dL/da.
+template <typename T>
+__global__ void __launch_bounds__(kTcBwdThreads, 1)
+ssd_tc_bwd_kernel(const TcArgs<T> a) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int Q = kTcQ;
+  const int P = a.p, DS = a.ds;
+  const TcBwdLayout L = tc_bwd_layout(P, DS);
+  const int h = blockIdx.x, ci = blockIdx.y, row = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int c0 = ci * Q, qv = min(Q, a.seq - c0);
+  const bool has_g = ci + 1 < a.chunks, has_h = ci > 0;
+  float* cs = smem + L.cs;
+  float* bs = smem + L.bs;
+  float* xs = smem + L.xs;
+  float* dys = smem + L.dys;
+  float* hs = smem + L.hs;
+  float* gs = smem + L.gs;
+  float* wt = smem + L.wt;
+  float* dst = smem + L.dst;
+  float* dts = smem + L.dts;
+  const float* cum = smem + L.cum;
+  const float* us = smem + L.us;
+  const float* es = smem + L.es;
+  const float rate = -expf(load_f32(
+      a.a_log, (row / a.rows_per_slot) * a.sa_slot + h, a.a_bf16));
+  const long long slot =
+      ((static_cast<long long>(row) * a.n + h) * a.chunks + ci) * DS * P;
+
+  stage_rows(cs, L.cp, a.c + row * a.sc_b + c0 * a.sc_s, a.sc_s, qv, DS,
+             a.vec_bc);
+  stage_rows(bs, L.cp, a.b + row * a.sb_b + c0 * a.sb_s, a.sb_s, qv, DS,
+             a.vec_bc);
+  stage_rows(xs, L.xp, a.x + row * a.sx_b + c0 * a.sx_s + h * a.sx_h,
+             a.sx_s, qv, P, a.vec_x);
+  stage_rows(dys, L.xp, a.dy + row * a.sdy_b + c0 * a.sdy_s + h * a.sdy_h,
+             a.sdy_s, qv, P, a.vec_x);
+  if (has_h) stage_rows(hs, L.xp, a.states + slot, P, DS, P, 16);
+  if (has_g) stage_rows(gs, L.xp, a.grads + slot, P, DS, P, 16);
+  tc_stage_dt(dts, a.dt + row * a.sdt_b + c0 * a.sdt_s + h, a.sdt_s, qv);
+  if (qv < Q) {
+    zero_rows(cs, L.cp, qv, kTcQ);
+    zero_rows(bs, L.cp, qv, kTcQ);
+    zero_rows(xs, L.xp, qv, kTcQ);
+    zero_rows(dys, L.xp, qv, kTcQ);
+  }
+  // the step tiles (their unwritten corners) and ddt's first term: zero
+  for (int e = threadIdx.x; e < 2 * Q * kTcTp; e += blockDim.x) wt[e] = 0.f;
+  for (int e = threadIdx.x; e < 4 * Q; e += blockDim.x) smem[L.rs + e] = 0.f;
+  cp_async_wait_all();
+  __syncthreads();
+
+  // (1) S^T and dW^T (rows k, columns q >= k) in registers; the last warp
+  // scans the chunk's cumsum meanwhile
+  float sacc[4][4] = {}, dacc[4][4] = {};
+  constexpr int kUp = kTcFineUpper ? 10 : 6;
+  const int ut = warp < kUp ? warp : 0;
+  const int k0 = 16 * (kTcFineUpper ? kTcUpperFine[ut][0] : kTcUpper[ut][0]);
+  const int n0 = kTcFineUpper ? kTcUpperFine[ut][1] : kTcUpper[ut][1];
+  const int nt = kTcFineUpper ? kTcUpperFine[ut][2] : kTcUpper[ut][2];
+  const int grp = kTcFineUpper ? kTcUpperFine[ut][3] : kTcUpper[ut][3];
+  if (warp < kUp) {
+    tc_gemm<false, false>(sacc, bs, L.cp, k0, cs, L.cp, n0, nt, 0, DS);
+    tc_gemm<false, false>(dacc, xs, L.xp, k0, dys, L.xp, n0, nt, 0, P);
+  } else if (warp == warps - 1) {
+    const float last =
+        tc_scan(dts, smem + L.cum, smem + L.us, smem + L.es, rate);
+    if (lane == 0) smem[L.last] = last;
+  }
+  __syncthreads();
+  // (2) per element (k, q): l = exp(cum_q - cum_k) (q >= k), W^T = S^T l
+  // dt_k (kept), M^T = dW^T S^T l dt_k, dS^T = dW^T l dt_k; ddt's first
+  // term, sum_q dW^T S^T l, per row and column group
+  if (warp < kUp) {
+    float rsum[2] = {};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = k0 + g + 8 * (e >> 1);
+          const int q = n0 + 8 * j + 2 * t4 + (e & 1);
+          const float l = q >= k ? exp2f(cum[q] - cum[k]) : 0.f;
+          const float sl = sacc[j][e] * l, dk = dts[k];
+          const float dm = dacc[j][e] * sl;
+          rsum[e >> 1] += dm;
+          sacc[j][e] = sl * dk;
+          wt[k * kTcTp + q] = dm * dk;
+          dst[k * kTcTp + q] = dacc[j][e] * l * dk;
+        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 1);
+      rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 2);
+    }
+    if (t4 == 0) {
+      smem[L.rs + grp * Q + k0 + g] = rsum[0];
+      smem[L.rs + grp * Q + k0 + g + 8] = rsum[1];
+    }
+  }
+  __syncthreads();
+  // (3) the straddle R_j = sum_{k < j} sum_{q >= j} M[q][k]: suffix sums
+  // along each row k of M^T (q > k), then each column j's sum over k < j
+  if (threadIdx.x < Q) {
+    const int k = threadIdx.x;
+    float tsum = 0.f;
+    for (int q = Q - 1; q > k; --q) {
+      tsum += wt[k * kTcTp + q];
+      wt[k * kTcTp + q] = tsum;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < Q) {
+    const int j = threadIdx.x;
+    float r = 0.f;
+    for (int k = 0; k < j; ++k) r += wt[k * kTcTp + j];
+    smem[L.rr + j] = r;
+  }
+  __syncthreads();
+  // W^T into its tile
+  if (warp < kUp)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          wt[(k0 + g + 8 * (e >> 1)) * kTcTp + n0 + 8 * j + 2 * t4 +
+             (e & 1)] = sacc[j][e];
+  // <G, h_in>, per warp
+  if (has_g && has_h) {
+    float v = 0.f;
+    for (int e = threadIdx.x; e < DS * P; e += blockDim.x) {
+      const int s = e / P, col = e - s * P;
+      v = fmaf(gs[s * L.xp + col], hs[s * L.xp + col], v);
+    }
+    v = warp_sum(v);
+    if (lane == 0) smem[L.red + warp] = v;
+  }
+  __syncthreads();
+
+  // (4) the products: dX (16 rows k, 32 columns of p), dC (16 rows q, 32
+  // columns of ds), dB (16 rows k, 32 columns of ds)
+  const int ngp = (P + 31) / 32, ngd = (DS + 31) / 32;
+  const int nx = 4 * ngp, nc = 4 * ngd;
+  const long long nbc = static_cast<long long>(a.batch) * a.seq * DS;
+  for (int task = warp; task < nx + 2 * nc; task += warps) {
+    float acc[4][4] = {};
+    if (task < nx) {
+      const int mi = task / ngp, m0 = 16 * mi, c = task % ngp * 32;
+      const int ntc = min(4, (P - c) / 8);
+      if (has_g) {
+        tc_gemm<false, true>(acc, bs, L.cp, m0, gs, L.xp, c, ntc, 0, DS);
+        const float u0 = us[m0 + g], u1 = us[m0 + g + 8];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[j][0] *= u0;
+          acc[j][1] *= u0;
+          acc[j][2] *= u1;
+          acc[j][3] *= u1;
+        }
+      }
+      tc_gemm<false, true>(acc, wt, kTcTp, m0, dys, L.xp, c, ntc, m0, Q);
+      T* out = a.y + ((static_cast<long long>(row) * a.seq + c0 + m0 + g) *
+                          a.n + h) * P;
+      const long long ld8 = 8LL * a.n * P;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j < ntc) {
+          const int col = c + 8 * j + 2 * t4;
+          if (m0 + g < qv) store2(out + col, acc[j][0], acc[j][1]);
+          if (m0 + g + 8 < qv) store2(out + ld8 + col, acc[j][2], acc[j][3]);
+        }
+      continue;
+    }
+    const bool is_dc = task < nx + nc;
+    const int t = task - nx - (is_dc ? 0 : nc);
+    const int mi = t / ngd, m0 = 16 * mi, grp = t % ngd, c = 32 * grp;
+    const int ntc = min(4, (DS - c) / 8);
+    const bool state = is_dc ? has_h : has_g;
+    const float* sc = is_dc ? es : us;   // the rows' scale
+    if (state) {
+      // dY h_in^T (dC) or X G^T (dB), then its rows' dot with c or b
+      if (is_dc)
+        tc_gemm<false, false>(acc, dys, L.xp, m0, hs, L.xp, c, ntc, 0, P);
+      else
+        tc_gemm<false, false>(acc, xs, L.xp, m0, gs, L.xp, c, ntc, 0, P);
+      const float* o = is_dc ? cs : bs;
+      float dot[2] = {};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j < ntc)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dot[e >> 1] = fmaf(
+                o[(m0 + g + 8 * (e >> 1)) * L.cp + c + 8 * j + 2 * t4 +
+                  (e & 1)],
+                acc[j][e], dot[e >> 1]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        dot[i] += __shfl_xor_sync(0xffffffffu, dot[i], 1);
+        dot[i] += __shfl_xor_sync(0xffffffffu, dot[i], 2);
+      }
+      if (t4 == 0) {
+        float* part = smem + (is_dc ? L.rp : L.vp) + grp * Q + m0 + g;
+        part[0] = dot[0];
+        part[8] = dot[1];
+      }
+      const float s0 = sc[m0 + g], s1 = sc[m0 + g + 8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[j][0] *= s0;
+        acc[j][1] *= s0;
+        acc[j][2] *= s1;
+        acc[j][3] *= s1;
+      }
+    }
+    if (is_dc)   // dS B: dS[q][k] = dS^T[k][q], k <= q
+      tc_gemm<true, true>(acc, dst, kTcTp, m0, bs, L.cp, c, ntc, 0, m0 + 16);
+    else         // dS^T C, q >= k
+      tc_gemm<false, true>(acc, dst, kTcTp, m0, cs, L.cp, c, ntc, m0, Q);
+    float* out = a.part_bc + (is_dc ? a.n : 0) * nbc + h * nbc +
+                 (static_cast<long long>(row) * a.seq + c0 + m0 + g) * DS;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < ntc) {
+        const int col = c + 8 * j + 2 * t4;
+        if (m0 + g < qv) store2(out + col, acc[j][0], acc[j][1]);
+        if (m0 + g + 8 < qv)
+          store2(out + 8 * DS + col, acc[j][2], acc[j][3]);
+      }
+  }
+  __syncthreads();
+
+  // (5) per step, lane j and j + 32 of warp 0: r_j = e_j sum of its
+  // partials, v_j likewise, dA_j = R_j + sum_{q >= j} r_q + sum_{k < j}
+  // u_k v_k + exp(cum_last) <G, h_in>; ddt_j = ddt1_j + exp(cum_last -
+  // cum_j) v_j + a dA_j; the chunk's a dL/da = a sum_j dt_j dA_j
+  if (warp == 0) {
+    const float last = smem[L.last];
+    float hg = 0.f;
+    if (has_g && has_h)
+      for (int w = 0; w < warps; ++w) hg += smem[L.red + w];
+    float r[2], v[2], rs[2], uv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int j = lane + 32 * i;
+      float rv = 0.f, vv = 0.f;
+      for (int grp = 0; grp < ngd; ++grp) {
+        rv += smem[L.rp + grp * Q + j];
+        vv += smem[L.vp + grp * Q + j];
+      }
+      r[i] = has_h ? es[j] * rv : 0.f;
+      v[i] = has_g ? vv : 0.f;
+      rs[i] = r[i];
+      uv[i] = us[j] * v[i];
+    }
+    // suffix sums of r and prefix sums of u v within each half of 32
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float dn = __shfl_down_sync(0xffffffffu, rs[i], off);
+        const float upv = __shfl_up_sync(0xffffffffu, uv[i], off);
+        if (lane + off < 32) rs[i] += dn;
+        if (lane >= off) uv[i] += upv;
+      }
+    rs[0] += __shfl_sync(0xffffffffu, rs[1], 0);   // the upper half's total
+    const float lower = __shfl_sync(0xffffffffu, uv[0], 31);
+    uv[1] += lower;
+    float before[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      before[i] = __shfl_up_sync(0xffffffffu, uv[i], 1);
+      if (lane == 0) before[i] = i ? lower : 0.f;
+    }
+    float da = 0.f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int j = lane + 32 * i;
+      const float dA = smem[L.rr + j] + rs[i] + before[i] + exp2f(last) * hg;
+      if (j < qv)
+        a.ddt[(static_cast<long long>(row) * a.seq + c0 + j) * a.n + h] =
+            smem[L.rs + j] + smem[L.rs + Q + j] + smem[L.rs + 2 * Q + j] +
+                smem[L.rs + 3 * Q + j] +
+            exp2f(last - cum[j]) * v[i] + rate * dA;
+      da = fmaf(dts[j], dA, da);
+    }
+    da = warp_sum(da);
+    if (lane == 0)
+      a.part_da[(static_cast<long long>(row) * a.n + h) * a.chunks + ci] =
+          rate * da;
   }
 }
 
@@ -2267,6 +3042,76 @@ cudaError_t launch_fma(const Args<T>& a, int batch, int heads, int warps,
   return cudaGetLastError();
 }
 
+// db and dc summed over head groups (with `bc`: where heads < n, and in
+// the tensor-core chunk-parallel form) and da over a slot's rows and parts
+template <typename T>
+cudaError_t launch_bwd_sum(const BwdArgs<T>& a, bool bc,
+                           cudaStream_t stream) {
+  const long long nbc =
+      bc ? static_cast<long long>(a.batch) * a.seq * a.ds : 0;
+  const int bc_blocks = static_cast<int>(nbc < 4096 * 256LL ? (nbc + 255) / 256
+                                                           : 4096);
+  const int da_blocks = (a.groups * a.n * 32 + 255) / 256;
+  ssd_bwd_sum_kernel<T><<<bc_blocks + da_blocks, 256, 0, stream>>>(
+      a, bc_blocks);
+  return cudaGetLastError();
+}
+
+// The chunk-parallel tensor-core forms: the chunk states, the state pass,
+// then the outputs (forward) or the adjoint and the ordered sums
+// (backward).
+template <typename T>
+cudaError_t launch_tc_pass(const TcArgs<T>& a, bool grads,
+                           cudaStream_t stream) {
+  const long long entries4 =
+      static_cast<long long>(a.batch) * a.n * a.ds * a.p / 4;
+  const unsigned blocks = static_cast<unsigned>((entries4 + 255) / 256);
+  ssd_tc_pass_kernel<<<dim3(blocks, grads ? 2 : 1), 256, 0, stream>>>(
+      a.states, a.grads, a.decays, entries4, a.ds * a.p / 4, a.chunks);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_tc_fwd(const TcArgs<T>& a, cudaStream_t stream) {
+  static const cudaError_t attr_state = allow_smem(ssd_tc_state_kernel<T>);
+  static const cudaError_t attr_out = allow_smem(ssd_tc_out_kernel<T>);
+  if (attr_state != cudaSuccess) return attr_state;
+  if (attr_out != cudaSuccess) return attr_out;
+  ssd_tc_state_kernel<T><<<dim3(a.n, a.chunks - 1, a.batch), kTcStateThreads,
+                           sizeof(float) *
+                               tc_state_layout(a.p, a.ds, false).total,
+                           stream>>>(a, 0);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) err = launch_tc_pass(a, false, stream);
+  if (err != cudaSuccess) return err;
+  ssd_tc_out_kernel<T><<<dim3(a.n, a.chunks, a.batch), kTcThreads,
+                         sizeof(float) * tc_out_layout(a.p, a.ds).total,
+                         stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_tc_bwd(const TcArgs<T>& a, const BwdArgs<T>& sums,
+                          cudaStream_t stream) {
+  static const cudaError_t attr_state = allow_smem(ssd_tc_state_kernel<T>);
+  static const cudaError_t attr_bwd = allow_smem(ssd_tc_bwd_kernel<T>);
+  if (attr_state != cudaSuccess) return attr_state;
+  if (attr_bwd != cudaSuccess) return attr_bwd;
+  const dim3 grid(a.n, a.chunks, a.batch);
+  ssd_tc_state_kernel<T><<<grid, kTcStateThreads,
+                           sizeof(float) *
+                               tc_state_layout(a.p, a.ds, true).total,
+                           stream>>>(a, 1);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) err = launch_tc_pass(a, true, stream);
+  if (err != cudaSuccess) return err;
+  ssd_tc_bwd_kernel<T><<<grid, kTcBwdThreads,
+                         sizeof(float) * tc_bwd_layout(a.p, a.ds).total,
+                         stream>>>(a);
+  err = cudaGetLastError();
+  return err == cudaSuccess ? launch_bwd_sum(sums, true, stream) : err;
+}
+
 template <typename T>
 int ssd_entry(const T* x, const float* dt, const void* a_log, const T* b,
               const T* c, T* y, float* states, float* decays, int batch,
@@ -2274,6 +3119,21 @@ int ssd_entry(const T* x, const float* dt, const void* a_log, const T* b,
               int chunk_parallel, int rows_per_slot, int vec_x, int vec_bc,
               int a_bf16, int form, const long long* strides,
               cudaStream_t stream) {
+  if (form == 2) {
+    // the chunk-parallel tensor-core form: chunks of kTcQ, a block per
+    // head, several chunks, widths of whole m-tiles
+    if (chunk != kTcQ || seq % chunk || seq / chunk < 2 || heads != 1 ||
+        !chunk_parallel || !states || !decays || rows_per_slot <= 0 ||
+        p % 16 || ds % 16 || !copy_ok<T>(vec_x, p) || !copy_ok<T>(vec_bc, ds))
+      return cudaErrorInvalidValue;
+    const TcArgs<T> t{x, dt, a_log, b, c, nullptr, y, nullptr, states,
+                      nullptr, decays, nullptr, nullptr, strides[0],
+                      strides[1], strides[2], strides[3], strides[4],
+                      strides[5], strides[6], strides[7], strides[8], 0, 0, 0,
+                      strides[9], batch, seq, n, p, ds, seq / chunk,
+                      rows_per_slot, a_bf16, vec_x, vec_bc};
+    return launch_tc_fwd(t, stream);
+  }
   if (chunk <= 0 || seq % chunk || heads <= 0 || n % heads ||
       rows_per_slot <= 0 || warps <= 0 || 32 * warps > kMaxThreads ||
       (chunk_parallel && (!states || !decays)) ||
@@ -2359,10 +3219,35 @@ template <typename T>
 int ssd_bwd_entry(const T* x, const float* dt, const void* a_log, const T* b,
                   const T* c, const T* dy, T* dx, float* ddt, T* db, T* dc,
                   void* da_log, float* states, float* part_bc,
-                  float* part_da, int batch, int seq, int n, int p, int ds,
-                  int heads, int warps, int rows_per_slot, int groups,
-                  int a_bf16, int vec_x, int vec_bc, int form,
-                  const long long* strides, cudaStream_t stream) {
+                  float* part_da, float* grads, float* decays, int batch,
+                  int seq, int n, int p, int ds, int heads, int warps,
+                  int rows_per_slot, int groups, int a_bf16, int vec_x,
+                  int vec_bc, int form, const long long* strides,
+                  cudaStream_t stream) {
+  if (form == 2) {
+    // the chunk-parallel tensor-core form: chunks of kTcQ (the last ragged
+    // where S is not a multiple), a block per (head, chunk, row)
+    const int chunks = (seq + kTcQ - 1) / kTcQ;
+    if (chunks < 2 || heads != 1 || rows_per_slot <= 0 ||
+        groups * rows_per_slot != batch || !states || !grads || !decays ||
+        !part_bc || p % 16 || ds % 16 || !copy_ok<T>(vec_x, p) ||
+        !copy_ok<T>(vec_bc, ds))
+      return cudaErrorInvalidValue;
+    const TcArgs<T> t{x, dt, a_log, b, c, dy, dx, ddt, states, grads,
+                      decays, part_bc, part_da, strides[0], strides[1],
+                      strides[2], strides[3], strides[4], strides[5],
+                      strides[6], strides[7], strides[8], strides[9],
+                      strides[10], strides[11], strides[12], batch, seq, n,
+                      p, ds, chunks, rows_per_slot, a_bf16, vec_x, vec_bc};
+    const BwdArgs<T> sums{x, dt, a_log, b, c, dy, dx, ddt, db, dc, da_log,
+                          states, part_bc, part_da, strides[0], strides[1],
+                          strides[2], strides[3], strides[4], strides[5],
+                          strides[6], strides[7], strides[8], strides[9],
+                          strides[10], strides[11], strides[12], batch, seq,
+                          n, p, ds, 1, chunks, rows_per_slot, groups, a_bf16,
+                          vec_x, vec_bc, chunks};
+    return launch_tc_bwd(t, sums, stream);
+  }
   const int chunks = (seq + kBwdQ - 1) / kBwdQ;
   if (heads <= 0 || n % heads || heads > kMmaMaxHeads || warps < heads ||
       32 * warps > kBwdMaxThreads || rows_per_slot <= 0 ||
@@ -2375,7 +3260,7 @@ int ssd_bwd_entry(const T* x, const float* dt, const void* a_log, const T* b,
                strides[3], strides[4], strides[5], strides[6], strides[7],
                strides[8], strides[9], strides[10], strides[11], strides[12],
                batch, seq, n, p, ds, heads, chunks, rows_per_slot, groups,
-               a_bf16, vec_x, vec_bc};
+               a_bf16, vec_x, vec_bc, 1};
   cudaError_t err = cudaErrorInvalidValue;
   if (form) {
     // the tensor-core forms: one chunk of (kMmaQ, kMmaDs, kMmaP), a warp
@@ -2391,15 +3276,7 @@ int ssd_bwd_entry(const T* x, const float* dt, const void* a_log, const T* b,
     err = a_bf16 ? launch_bwd_chunk<T, bf16>(a, warps, stream)
                  : launch_bwd_chunk<T, float>(a, warps, stream);
   }
-  if (err != cudaSuccess) return err;
-  const long long nbc =
-      heads < n ? static_cast<long long>(batch) * seq * ds : 0;
-  const int bc_blocks = static_cast<int>(nbc < 4096 * 256LL ? (nbc + 255) / 256
-                                                           : 4096);
-  const int da_blocks = (groups * n * 32 + 255) / 256;
-  ssd_bwd_sum_kernel<T><<<bc_blocks + da_blocks, 256, 0, stream>>>(
-      a, bc_blocks);
-  return cudaGetLastError();
+  return err == cudaSuccess ? launch_bwd_sum(a, heads < n, stream) : err;
 }
 
 }  // namespace
@@ -2415,9 +3292,12 @@ int ssd_bwd_entry(const T* x, const float* dt, const void* a_log, const T* b,
 // three-pass form, whose scratch `states` holds B * n * chunks * ds * p
 // floats and `decays` B * n * chunks (both unused otherwise); form 1 (bf16
 // only, at chunk 32, ds 16, p 32, heads = n <= 8, sequential, 16-byte
-// copies), the tensor-core form; vec_x and vec_bc are the copy widths in bytes (16 where the rows' pointers and
-// strides allow it, else 4, else one bf16) of x, and of b and c. S must be
-// a multiple of chunk and n of heads. Returns the CUDA error code of the
+// copies), the tensor-core form; form 2 (chunk 64, heads 1,
+// chunk_parallel, several chunks, p and ds multiples of 16), the
+// chunk-parallel tensor-core form, with the same scratch. vec_x and vec_bc
+// are the copy widths in bytes (16 where the rows' pointers and strides
+// allow it, else 4, else one bf16) of x, and of b and c. S must be a
+// multiple of chunk and n of heads. Returns the CUDA error code of the
 // first failing launch (0 on success); the kernels run asynchronously on
 // `stream`.
 extern "C" int ssd_scan_fwd(const float* x, const float* dt,
@@ -2459,22 +3339,28 @@ extern "C" int ssd_scan_fwd_bf16(const bf16* x, const float* dt,
 // of x and dy, and of b and c.
 // Scratch: `states` (B * n * (ceil(S / 32) - 1) * ds * p floats; unused
 // for one chunk), `part_bc` (2 * B * S * ds * n / heads; unused where
-// heads = n), `part_da` (B * n). Two launches: the backward, then the
-// ordered sums over head groups and a slot's rows.
+// heads = n), `part_da` (B * n); `grads` and `decays` unused. Two
+// launches: the backward, then the ordered sums over head groups and a
+// slot's rows. Form 2 (heads 1, S over several chunks of 64, p and ds
+// multiples of 16), the chunk-parallel tensor-core form: `states` and
+// `grads` B * n * ceil(S / 64) * ds * p floats each, `decays` and
+// `part_da` B * n * ceil(S / 64), `part_bc` 2 * B * S * ds * n; four
+// launches (chunk states, the state passes, the adjoint, the sums).
 extern "C" int ssd_scan_bwd(const float* x, const float* dt,
                             const void* a_log, const float* b,
                             const float* c, const float* dy, float* dx,
                             float* ddt, float* db, float* dc, void* da_log,
                             float* states, float* part_bc, float* part_da,
-                            int batch, int seq, int n, int p, int ds,
-                            int heads, int warps, int rows_per_slot,
+                            float* grads, float* decays, int batch,
+                            int seq, int n, int p, int ds, int heads,
+                            int warps, int rows_per_slot,
                             int groups, int a_bf16, int vec_x, int vec_bc,
                             int form, const long long* strides,
                             cudaStream_t stream) {
   return ssd_bwd_entry(x, dt, a_log, b, c, dy, dx, ddt, db, dc, da_log,
-                       states, part_bc, part_da, batch, seq, n, p, ds, heads,
-                       warps, rows_per_slot, groups, a_bf16, vec_x, vec_bc,
-                       form, strides, stream);
+                       states, part_bc, part_da, grads, decays, batch, seq,
+                       n, p, ds, heads, warps, rows_per_slot, groups, a_bf16,
+                       vec_x, vec_bc, form, strides, stream);
 }
 
 extern "C" int ssd_scan_bwd_bf16(const bf16* x, const float* dt,
@@ -2482,14 +3368,15 @@ extern "C" int ssd_scan_bwd_bf16(const bf16* x, const float* dt,
                                  const bf16* c, const bf16* dy, bf16* dx,
                                  float* ddt, bf16* db, bf16* dc,
                                  void* da_log, float* states, float* part_bc,
-                                 float* part_da, int batch, int seq, int n,
+                                 float* part_da, float* grads, float* decays,
+                                 int batch, int seq, int n,
                                  int p, int ds, int heads, int warps,
                                  int rows_per_slot, int groups, int a_bf16,
                                  int vec_x, int vec_bc, int form,
                                  const long long* strides,
                                  cudaStream_t stream) {
   return ssd_bwd_entry(x, dt, a_log, b, c, dy, dx, ddt, db, dc, da_log,
-                       states, part_bc, part_da, batch, seq, n, p, ds, heads,
-                       warps, rows_per_slot, groups, a_bf16, vec_x, vec_bc,
-                       form, strides, stream);
+                       states, part_bc, part_da, grads, decays, batch, seq,
+                       n, p, ds, heads, warps, rows_per_slot, groups, a_bf16,
+                       vec_x, vec_bc, form, strides, stream);
 }

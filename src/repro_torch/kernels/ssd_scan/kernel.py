@@ -36,8 +36,23 @@ widths), so the CPU tests can check every plan the card would run. Given a
 ``backend``, as the CUDA path gives them, both take their free fields from
 the selection table (:mod:`repro_torch.kernels.autotune`, op ``ssd_scan``,
 shape (B, S, n, p, ds, chunk)) where the table has an entry and admits it:
-the forward's inner chunk, heads per block and chunk-parallel form, the
-backward's heads per block.
+the forward's inner chunk, heads per block, chunk-parallel form and
+tensor-core form (``tc``), the backward's tensor-core form (``bwd_tc``)
+and heads per block.
+
+Both ops have a chunk-parallel tensor-core form ("tc") for few rows over
+many chunks (mamba2-2.7b's step): Mamba-2's chunked decomposition over
+chunks of TC_CHUNK steps, a block per (head, chunk, row), every product in
+3xTF32 on ``mma.sync``. The forward launches three kernels (chunk states,
+the state pass, the outputs), the backward four (chunk states and
+cotangents, the state passes both ways, the chunks' adjoint, the ordered
+sums); ``KERNEL_LAUNCHES`` counts each by wrapper and name
+(:func:`tc_key`), since both wrappers launch the chunk states and the
+state pass. Where that form refuses the shape (the forward's steps not
+whole chunks of TC_CHUNK, p or ds not multiples of 16) the FMA forward's
+chunk-parallel form (``ssd_kernel`` over each chunk, then
+``ssd_chunk_scan_kernel``) and the chunked backward, a block per head,
+take few rows over many chunks.
 """
 from __future__ import annotations
 
@@ -55,16 +70,36 @@ SOURCE = pathlib.Path(__file__).parent / "csrc" / "ssd_scan.cu"
 
 LAUNCHES = {"ssd_scan": 0, "ssd_scan_bf16": 0, "ssd_scan_bwd": 0,
             "ssd_scan_bwd_bf16": 0}
-# the backward's calls again, by the CUDA kernel (form) the plan launched
+TC_FWD_KERNELS = ("ssd_tc_state_kernel", "ssd_tc_pass_kernel",
+                  "ssd_tc_out_kernel")
+TC_BWD_KERNELS = ("ssd_tc_state_kernel", "ssd_tc_pass_kernel",
+                  "ssd_tc_bwd_kernel")
+
+
+def tc_key(wrapper: str, name: str) -> str:
+    """``KERNEL_LAUNCHES``' key of tensor-core kernel ``name`` launched by
+    ``wrapper`` (a ``LAUNCHES`` key)."""
+    return f"{wrapper}:{name}"
+
+
+# the backward's calls again, by the CUDA kernel (form) the plan launched,
+# and both ops' chunk-parallel tensor-core forms, by wrapper and each
+# kernel they launch
 KERNEL_LAUNCHES = {"ssd_bwd_chunk_kernel": 0, "ssd_bwd_mma_kernel": 0,
-                   "ssd_bwd_tf32_kernel": 0}
+                   "ssd_bwd_tf32_kernel": 0,
+                   **{tc_key(w + dt, k): 0
+                      for w, names in (("ssd_scan", TC_FWD_KERNELS),
+                                       ("ssd_scan_bwd", TC_BWD_KERNELS))
+                      for dt in ("", "_bf16") for k in names}}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # each bf16 entry takes the same arguments as its f32 one
 _ARGTYPES = {**{fn: [_P] * 8 + [_I] * 14 + [_P, _P]
                 for fn in ("ssd_scan_fwd", "ssd_scan_fwd_bf16")},
-             **{fn: [_P] * 14 + [_I] * 13 + [_P, _P]
+             **{fn: [_P] * 16 + [_I] * 13 + [_P, _P]
                 for fn in ("ssd_scan_bwd", "ssd_scan_bwd_bf16")}}
+# the C entries' form codes
+_FORMS = {"fma": 0, "chunk": 0, "mma": 1, "tf32": 1, "tc": 2}
 
 # A grid of fewer blocks than BLOCKS_PER_SM x SMs leaves the card part idle.
 BLOCKS_PER_SM = 2
@@ -82,6 +117,13 @@ MMA_SHAPE = (32, 16, 32)
 # The chunks the kernel runs a caller's chunk as where the caller's own does
 # not fit in a block (mamba2-2.7b's and jamba's 256), largest first.
 INNER_CHUNKS = (128, 64, 32)
+# The chunk-parallel tensor-core forms' chunk, warps a block of the
+# outputs and of the adjoint (csrc/ssd_scan.cu kTcQ, kTcThreads / 32,
+# kTcBwdThreads / 32) and the pitch of their step tiles (kTcTp)
+TC_CHUNK = 64
+TC_WARPS = 16
+TC_BWD_WARPS = 16
+_TC_TP = TC_CHUNK + 4
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -114,7 +156,9 @@ class SsdPlan:
     "mma" (bf16 at MMA_SHAPE, sequential): a persistent grid of one wave
     whose blocks walk rows through a two-deep cp.async ring of bf16 tiles,
     a warp per head (``heads`` = ``warps`` = n), products on bf16
-    ``mma.sync``. ``chunk_parallel``: the three-pass form (each chunk's own
+    ``mma.sync``. ``form`` "tc": the chunk-parallel tensor-core form, a
+    block per (head, chunk of TC_CHUNK, row) of TC_WARPS warps, products in
+    3xTF32. ``chunk_parallel``: the three-pass form (each chunk's own
     end state in parallel, a scan over the ``chunks`` chunk states, the
     outputs in parallel) instead of one block walking a row's chunks in
     order. ``vec_x`` and ``vec_bc`` are the copy widths in bytes of x, and
@@ -159,24 +203,53 @@ def inner_chunk(s: int, p: int, ds: int, chunk: int) -> int:
                      f"{INNER_CHUNKS} divides the chunk and fits")
 
 
-def ssd_plan(bsz: int, s: int, n: int, p: int, ds: int, chunk: int, *,
-             sms: int, x_strides=(), bc_strides=(), x_aligned: bool = False,
-             bc_aligned: bool = False, itemsize: int = 4,
-             backend: str | None = None) -> SsdPlan:
-    """The launch plan for ``bsz`` rows of ``s`` steps, ``n`` heads of
-    width ``p``, state width ``ds``, in chunks of ``chunk`` steps, on a card
-    with ``sms`` SMs; the kernel runs chunks of :func:`inner_chunk`'s
-    steps. bf16 at MMA_SHAPE (chunk, ds, p) with up to 8 heads,
-    walked in order with 16-byte copies, takes the tensor-core form. The
-    FMA form: up to 4 heads share a block while the grid still fills the
-    card; the chunk-parallel form where it does not and there are several
-    chunks. ``x_strides`` (row, step, head) and ``bc_strides``
-    (b's and c's row and step strides) with ``x_aligned`` / ``bc_aligned``
-    (the pointers are 16-byte aligned; else taken as aligned to the element
-    only) set the copy widths, counted in ``itemsize``-byte elements (4:
-    f32, 2: bf16). ``backend``: the selection table's, whose ``inner``,
-    ``heads`` and ``chunk_parallel`` replace the rules' where
-    :func:`fwd_choice_error` admits them."""
+def tc_smem_floats(p: int, ds: int, backward: bool) -> int:
+    """The shared memory in floats of the tensor-core forms' largest block
+    (csrc/ssd_scan.cu ``tc_state_layout``, ``tc_out_layout``,
+    ``tc_bwd_layout``): the chunk states' block (b, x and, in the
+    backward, c and dy), and the outputs' (c, b or h_in, x, W) or the
+    adjoint's (c, b, x, dy, h_in, G, two step tiles, the per-step
+    vectors)."""
+    q = TC_CHUNK
+    state = (1 + backward) * q * (ds + 8 + p + 8) + 4 * q
+    if backward:
+        last = (2 * q * (ds + 4) + 2 * q * (p + 4) + 2 * ds * (p + 4)
+                + 2 * q * _TC_TP + (9 + 2 * _cdiv(ds, 32)) * q
+                + TC_BWD_WARPS + 1)
+    else:
+        last = (q * (ds + 4) + max(q * (ds + 4), ds * (p + 8))
+                + q * (p + 8) + q * _TC_TP + 3 * q)
+    return max(state, last)
+
+
+def tc_error(s: int, p: int, ds: int, backward: bool) -> str | None:
+    """Why the tensor-core chunk-parallel form cannot take ``s`` steps of
+    heads of width ``p`` and state width ``ds`` (several chunks of
+    TC_CHUNK, whole m-tiles of p and ds, the blocks within SMEM_MAX); None
+    where it can. The forward's steps must also fill whole chunks."""
+    chunks = _cdiv(s, TC_CHUNK) if backward else s // TC_CHUNK
+    if chunks < 2:
+        return f"tc: S={s} is not several chunks of {TC_CHUNK}"
+    if not backward and s % TC_CHUNK:
+        return f"tc: S={s} is not a multiple of {TC_CHUNK}"
+    if p % 16 or ds % 16:
+        return f"tc: p={p} and ds={ds} must be multiples of 16"
+    if tc_smem_floats(p, ds, backward) > SMEM_MAX:
+        return (f"tc: p={p}, ds={ds}: a block's shared memory exceeds the "
+                "card's")
+    return None
+
+
+# the tensor-core chunk-parallel form's fields in a forward plan
+TC_FIELDS = {"inner": TC_CHUNK, "heads": 1, "chunk_parallel": True,
+             "tc": True}
+
+
+def _fma_rule(bsz: int, s: int, n: int, p: int, ds: int, chunk: int,
+              sms: int) -> dict:
+    """The FMA form's plan fields by the rules: up to 4 heads share a
+    block while the grid still fills the card; chunk-parallel where it does
+    not and there are several chunks."""
     target = BLOCKS_PER_SM * sms
     inner = inner_chunk(s, p, ds, chunk)
     heads = 1
@@ -186,15 +259,49 @@ def ssd_plan(bsz: int, s: int, n: int, p: int, ds: int, chunk: int, *,
                 <= SMEM_SHARE):
             heads = hb
             break
-    chunk_parallel = s // inner > 1 and bsz * (n // heads) < target
+    return {"inner": inner, "heads": heads,
+            "chunk_parallel": s // inner > 1 and bsz * (n // heads) < target,
+            "tc": False}
+
+
+def ssd_plan(bsz: int, s: int, n: int, p: int, ds: int, chunk: int, *,
+             sms: int, x_strides=(), bc_strides=(), x_aligned: bool = False,
+             bc_aligned: bool = False, itemsize: int = 4,
+             backend: str | None = None) -> SsdPlan:
+    """The launch plan for ``bsz`` rows of ``s`` steps, ``n`` heads of
+    width ``p``, state width ``ds``, in chunks of ``chunk`` steps, on a card
+    with ``sms`` SMs; the kernel runs chunks of :func:`inner_chunk`'s
+    steps. Where rows x heads cannot fill the card over several whole
+    chunks of TC_CHUNK, the chunk-parallel tensor-core form
+    (:func:`tc_error`; the result does not depend on the chunk, as
+    :func:`inner_chunk` says, so it runs chunks of TC_CHUNK whatever the
+    caller's). bf16 at MMA_SHAPE (chunk, ds, p) with up to 8
+    heads, walked in order with 16-byte copies, takes the tensor-core form.
+    The FMA form: up to 4 heads share a block while the grid still fills
+    the card; the chunk-parallel form where it does not and there are
+    several chunks. ``x_strides`` (row, step, head) and ``bc_strides``
+    (b's and c's row and step strides) with ``x_aligned`` / ``bc_aligned``
+    (the pointers are 16-byte aligned; else taken as aligned to the element
+    only) set the copy widths, counted in ``itemsize``-byte elements (4:
+    f32, 2: bf16). ``backend``: the selection table's, whose ``inner``,
+    ``heads``, ``chunk_parallel`` and ``tc`` replace the rules' where
+    :func:`fwd_choice_error` admits them (an entry without ``tc`` sets the
+    FMA form's fields)."""
+    fma = _fma_rule(bsz, s, n, p, ds, chunk, sms)
+    tc = bsz * n < BLOCKS_PER_SM * sms and tc_error(s, p, ds, False) is None
     tuned = {k: v for k, v in _tuned(bsz, s, n, p, ds, chunk, itemsize,
-                                     backend).items() if k != "bwd_heads"}
+                                     backend).items()
+             if k not in ("bwd_heads", "bwd_tc")}
     if tuned:
-        choice = {"inner": inner, "heads": heads,
-                  "chunk_parallel": chunk_parallel, **tuned}
+        choice = {**(TC_FIELDS if tuned.get("tc") else fma), **tuned}
         if fwd_choice_error(s, n, p, ds, chunk, **choice) is None:
-            inner, heads, chunk_parallel = (choice["inner"], choice["heads"],
-                                            choice["chunk_parallel"])
+            tc = choice["tc"]
+            fma = choice
+    if tc:
+        inner, heads, chunk_parallel = TC_CHUNK, 1, True
+    else:
+        inner, heads, chunk_parallel = (fma["inner"], fma["heads"],
+                                        fma["chunk_parallel"])
     chunks = s // inner
     tasks = heads * _cdiv(inner, TILE) * _cdiv(p, TILE)
 
@@ -203,6 +310,9 @@ def ssd_plan(bsz: int, s: int, n: int, p: int, ds: int, chunk: int, *,
                                 itemsize=itemsize)
     vec_x, vec_bc = vec(x_aligned, p, x_strides), vec(bc_aligned, ds,
                                                       bc_strides)
+    if tc:
+        return SsdPlan(1, TC_WARPS, True, chunks, vec_x, vec_bc, chunk,
+                       TC_CHUNK, "tc")
     if (itemsize == 2 and (inner, ds, p) == MMA_SHAPE and n <= 8
             and not chunk_parallel and vec_x == vec_bc == 16):
         return SsdPlan(n, n, False, chunks, vec_x, vec_bc, chunk, inner,
@@ -220,12 +330,22 @@ def _tuned(bsz: int, s: int, n: int, p: int, ds: int, chunk: int,
 
 
 def fwd_choice_error(s: int, n: int, p: int, ds: int, chunk: int, *,
-                     inner, heads, chunk_parallel) -> str | None:
+                     inner, heads, chunk_parallel, tc=False) -> str | None:
     """Why the forward cannot run ``inner``-step chunks of a caller's
-    ``chunk`` with ``heads`` heads a block, chunk-parallel or not; None
-    where it can: the inner chunk divides the chunk, the heads divide n,
-    the block's shared memory fits (SMEM_MAX alone, SMEM_SHARE where heads
-    share it) and the chunk-parallel form has several chunks."""
+    ``chunk`` with ``heads`` heads a block, chunk-parallel or not, in the
+    tensor-core chunk-parallel form (``tc``) or not; None where it can: the
+    inner chunk divides the chunk, the heads divide n, the block's shared
+    memory fits (SMEM_MAX alone, SMEM_SHARE where heads share it) and the
+    chunk-parallel form has several chunks; ``tc`` runs chunks of TC_CHUNK
+    (whatever the caller's chunk) with one head a block, chunk-parallel,
+    where :func:`tc_error` admits the shape."""
+    if not isinstance(tc, bool):
+        return f"tc={tc!r} is not a flag"
+    if tc:
+        if (inner, heads, chunk_parallel) != (TC_CHUNK, 1, True):
+            return (f"tc: the tensor-core form runs inner={TC_CHUNK}, "
+                    "heads=1, chunk-parallel")
+        return tc_error(s, p, ds, False)
     if not (type(inner) is int and 1 <= inner <= chunk and chunk % inner == 0):
         return f"inner={inner!r} does not divide the chunk {chunk}"
     if not (type(heads) is int and 1 <= heads <= n and n % heads == 0):
@@ -343,8 +463,12 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                  ds, plan.inner, plan.heads, plan.warps,
                  int(plan.chunk_parallel),
                  bsz // groups, plan.vec_x, plan.vec_bc,
-                 int(a2.dtype == torch.bfloat16), int(plan.form == "mma"),
+                 int(a2.dtype == torch.bfloat16), _FORMS[plan.form],
                  strides, dtype=xh.dtype)
+    if plan.form == "tc":
+        for name in TC_FWD_KERNELS:
+            KERNEL_LAUNCHES[tc_key("ssd_scan" + build.DTYPES[xh.dtype],
+                                   name)] += 1
     return y
 
 
@@ -388,8 +512,12 @@ class SsdBwdPlan:
     and "tf32" (f32), at one chunk of MMA_SHAPE: a persistent grid of one
     wave whose blocks walk rows through a ``ring``-deep cp.async ring, a
     warp per head (``heads`` = ``warps`` = n), products on ``mma.sync``
-    (bf16, or 3xTF32). ``vec_x`` (x and dy) and ``vec_bc`` (b and c) are
-    the copy widths in bytes."""
+    (bf16, or 3xTF32). ``form`` "tc": the chunk-parallel tensor-core form
+    over ``chunks`` chunks of TC_CHUNK (the last ragged), a block per
+    (head, chunk, row) of TC_BWD_WARPS warps, products in 3xTF32, the heads'
+    db and dc and the chunks' da summed in order by the last launch.
+    ``vec_x`` (x and dy) and ``vec_bc`` (b and c) are the copy widths in
+    bytes."""
     form: str
     chunk: int
     chunks: int
@@ -408,17 +536,20 @@ def ssd_bwd_plan(bsz: int, s: int, n: int, p: int, ds: int, *, sms: int,
     """The backward's plan for ``bsz`` rows of ``s`` steps, ``n`` heads of
     width ``p`` and state width ``ds`` on a card with ``sms`` SMs. One
     chunk of MMA_SHAPE (S, ds, p) with up to 8 heads and 16-byte copies
-    takes a tensor-core form (bf16 "mma", f32 "tf32"). Otherwise the
+    takes a tensor-core form (bf16 "mma", f32 "tf32"). Where rows x heads
+    cannot fill the card over several chunks of TC_CHUNK, the
+    chunk-parallel tensor-core form "tc" (:func:`tc_error`). Otherwise the
     chunked form: all of a row's heads in one block (up to 8, the block's
     dS summed over them in order) where the rows alone give every SM a
     block, else a block per head (few rows over many chunks). ``x_strides``
     (x's and dy's row, step and head strides), ``bc_strides`` (b's and c's
     row and step strides) and ``x_aligned`` / ``bc_aligned`` (the pointers
     are 16-byte aligned) set the copy widths, counted in ``itemsize``-byte
-    elements. ``backend``: the selection table's, whose ``bwd_heads`` the
-    chunked form takes where :func:`bwd_heads_error` admits it, at the
+    elements. ``backend``: the selection table's, whose ``bwd_tc`` and
+    ``bwd_heads`` replace the rules' where :func:`bwd_choice_error` admits
+    them (an entry of ``bwd_heads`` alone sets the chunked form's), at the
     forward's key (``chunk``: the forward's chunk, clamped to S; the
-    backward itself runs chunks of BWD_CHUNK)."""
+    backward itself runs chunks of BWD_CHUNK or TC_CHUNK)."""
     if p > 128:
         raise ValueError(f"p={p}: the backward kernel takes p <= 128")
 
@@ -437,10 +568,16 @@ def ssd_bwd_plan(bsz: int, s: int, n: int, p: int, ds: int, *, sms: int,
     heads = n if n <= BWD_MAX_WARPS and bsz >= sms else 1
     if bwd_smem_floats(p, ds, heads, chunks > 1) > SMEM_MAX:
         heads = 1
-    tuned = _tuned(bsz, s, n, p, ds, min(chunk, s), itemsize,
-                   backend).get("bwd_heads")
-    if tuned is not None and bwd_heads_error(s, n, p, ds, tuned) is None:
-        heads = tuned
+    tc = bsz * n < BLOCKS_PER_SM * sms and tc_error(s, p, ds, True) is None
+    tuned = {k: v for k, v in _tuned(bsz, s, n, p, ds, min(chunk, s),
+                                     itemsize, backend).items()
+             if k in ("bwd_tc", "bwd_heads")}
+    if tuned and bwd_choice_error(s, n, p, ds, tuned) is None:
+        tc = tuned.get("bwd_tc", False)
+        heads = tuned.get("bwd_heads", heads)
+    if tc:
+        return SsdBwdPlan("tc", TC_CHUNK, _cdiv(s, TC_CHUNK), 1,
+                          TC_BWD_WARPS, 0, vec_x, vec_bc)
     if bwd_smem_floats(p, ds, heads, chunks > 1) > SMEM_MAX:
         raise ValueError(f"p={p}, ds={ds}: the backward block's shared "
                          "memory exceeds the card's")
@@ -459,6 +596,24 @@ def bwd_heads_error(s: int, n: int, p: int, ds: int, heads) -> str | None:
     if bwd_smem_floats(p, ds, heads, _cdiv(s, BWD_CHUNK) > 1) > SMEM_MAX:
         return (f"bwd_heads={heads}: the block's shared memory exceeds the "
                 "card's")
+    return None
+
+
+def bwd_choice_error(s: int, n: int, p: int, ds: int,
+                     fields) -> str | None:
+    """Why the backward cannot take a table's ``bwd_tc`` and ``bwd_heads``
+    (the tensor-core chunk-parallel form where :func:`tc_error` admits the
+    shape, with no heads; else the chunked form with ``bwd_heads``, where
+    :func:`bwd_heads_error` admits them); None where it can."""
+    tc = fields.get("bwd_tc", False)
+    if not isinstance(tc, bool):
+        return f"bwd_tc={tc!r} is not a flag"
+    if tc:
+        if "bwd_heads" in fields:
+            return "bwd_heads: the tensor-core form takes a block per head"
+        return tc_error(s, p, ds, True)
+    if "bwd_heads" in fields:
+        return bwd_heads_error(s, n, p, ds, fields["bwd_heads"])
     return None
 
 
@@ -481,22 +636,26 @@ def entry_error(shape, itemsize: int, sms: int, fields) -> str | None:
     model's operands (:func:`_contiguous_plans`); None where they are."""
     bsz, s, n, p, ds, chunk = shape
     fwd, bwd = _contiguous_plans(shape, itemsize, sms)
-    unknown = set(fields) - {"inner", "heads", "chunk_parallel", "bwd_heads"}
+    unknown = set(fields) - {"inner", "heads", "chunk_parallel", "tc",
+                             "bwd_heads", "bwd_tc"}
     if unknown:
         return f"unknown fields {sorted(unknown)}"
-    choice = {k: v for k, v in fields.items() if k != "bwd_heads"}
+    choice = {k: v for k, v in fields.items()
+              if k not in ("bwd_heads", "bwd_tc")}
     if choice:
         if fwd.form == "mma":
             return "the forward's tensor-core form here has no choice"
-        why = fwd_choice_error(s, n, p, ds, chunk, **{
-            "inner": fwd.inner, "heads": fwd.heads,
-            "chunk_parallel": fwd.chunk_parallel, **choice})
+        rules = (TC_FIELDS if choice.get("tc") else
+                 _fma_rule(bsz, s, n, p, ds, chunk, sms))
+        why = fwd_choice_error(s, n, p, ds, chunk, **{**rules, **choice})
         if why is not None:
             return why
-    if "bwd_heads" in fields:
-        if bwd.form != "chunk":
+    bwd_fields = {k: v for k, v in fields.items()
+                  if k in ("bwd_heads", "bwd_tc")}
+    if bwd_fields:
+        if bwd.form in ("mma", "tf32"):
             return f"the backward's {bwd.form} form here has no choice"
-        return bwd_heads_error(s, n, p, ds, fields["bwd_heads"])
+        return bwd_choice_error(s, n, p, ds, bwd_fields)
     return None
 
 
@@ -504,26 +663,34 @@ def table_choices(shape, itemsize: int, sms: int) -> dict:
     """The admissible variants of the rules' plans at ``shape`` (B, S, n,
     p, ds, chunk): the forward's (every inner chunk of INNER_CHUNKS and the
     chunk itself that divides the chunk, heads of 1, 2, 4 and 8 that divide
-    n, either form) and the backward's heads per block (1, 2, 4, 8 that
-    divide n); the rules' own first in each, and only the parts that have
-    a choice."""
+    n, either FMA form, and the tensor-core chunk-parallel form) and the
+    backward's (the tensor-core chunk-parallel form, or the chunked form
+    with 1, 2, 4, 8 heads that divide n); the rules' own first in each, and
+    only the parts that have a choice."""
     bsz, s, n, p, ds, chunk = shape
     fwd, bwd = _contiguous_plans(shape, itemsize, sms)
     first = dict(inner=fwd.inner, heads=fwd.heads,
-                 chunk_parallel=fwd.chunk_parallel)
-    parts = {"fwd": [first], "bwd": [{"bwd_heads": bwd.heads}]}
+                 chunk_parallel=fwd.chunk_parallel, tc=fwd.form == "tc")
+    bwd_first = ({"bwd_tc": True} if bwd.form == "tc" else
+                 {"bwd_tc": False, "bwd_heads": bwd.heads})
+    parts = {"fwd": [first], "bwd": [bwd_first]}
     if fwd.form != "mma":
         for inner in sorted({chunk, *INNER_CHUNKS}, reverse=True):
             for heads in (1, 2, 4, 8):
                 for cp in (False, True):
-                    c = dict(inner=inner, heads=heads, chunk_parallel=cp)
+                    c = dict(inner=inner, heads=heads, chunk_parallel=cp,
+                             tc=False)
                     if (c != first and fwd_choice_error(
                             s, n, p, ds, chunk, **c) is None):
                         parts["fwd"].append(c)
-    if bwd.form == "chunk":
-        parts["bwd"] += [{"bwd_heads": h} for h in (1, 2, 4, 8)
-                         if h != bwd.heads
-                         and bwd_heads_error(s, n, p, ds, h) is None]
+        c = dict(inner=TC_CHUNK, heads=1, chunk_parallel=True, tc=True)
+        if c != first and fwd_choice_error(s, n, p, ds, chunk, **c) is None:
+            parts["fwd"].append(c)
+    if bwd.form in ("chunk", "tc"):
+        for c in ([{"bwd_tc": False, "bwd_heads": h} for h in (1, 2, 4, 8)]
+                  + [{"bwd_tc": True}]):
+            if c != bwd_first and bwd_choice_error(s, n, p, ds, c) is None:
+                parts["bwd"].append(c)
     return {part: v for part, v in parts.items() if len(v) > 1}
 
 
@@ -576,13 +743,21 @@ def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         da.zero_()
     else:
         plan = ssd_bwd_scan_plan(xh, b_ssm, c_ssm, dy, chunk)
-        states = (torch.empty(bsz * n * (plan.chunks - 1) * ds * p,
-                              device=dev, dtype=f32)
-                  if plan.chunks > 1 else None)
+        tc = plan.form == "tc"
+        # the state entering each chunk (and G at each chunk's end): every
+        # chunk's slot in the tensor-core form, all but the first's in the
+        # chunked one
+        slots = plan.chunks if tc else plan.chunks - 1
+        states = (torch.empty(bsz * n * slots * ds * p, device=dev,
+                              dtype=f32) if slots else None)
+        grads = torch.empty_like(states) if tc else None
+        decays = (torch.empty(bsz * n * plan.chunks, device=dev, dtype=f32)
+                  if tc else None)
         part_bc = (torch.empty(2 * bsz * s * ds * (n // plan.heads),
                                device=dev, dtype=f32)
-                   if plan.heads < n else None)
-        part_da = torch.empty(bsz * n, device=dev, dtype=f32)
+                   if plan.heads < n or tc else None)
+        part_da = torch.empty(bsz * n * (plan.chunks if tc else 1),
+                              device=dev, dtype=f32)
         strides = (ctypes.c_longlong * 13)(
             xh.stride(0), xh.stride(1), xh.stride(2), dt.stride(0),
             dt.stride(1), b_ssm.stride(0), b_ssm.stride(1), c_ssm.stride(0),
@@ -595,11 +770,16 @@ def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                      dc.data_ptr(), da.data_ptr(),
                      None if states is None else states.data_ptr(),
                      None if part_bc is None else part_bc.data_ptr(),
-                     part_da.data_ptr(), bsz, s, n, p, ds, plan.heads,
-                     plan.warps, bsz // groups, groups,
+                     part_da.data_ptr(),
+                     None if grads is None else grads.data_ptr(),
+                     None if decays is None else decays.data_ptr(), bsz, s,
+                     n, p, ds, plan.heads, plan.warps, bsz // groups, groups,
                      int(a2.dtype == torch.bfloat16), plan.vec_x,
-                     plan.vec_bc, int(plan.form != "chunk"), strides,
+                     plan.vec_bc, _FORMS[plan.form], strides,
                      dtype=xh.dtype)
-        KERNEL_LAUNCHES[f"ssd_bwd_{plan.form}_kernel"] += 1
+        wrapper = "ssd_scan_bwd" + build.DTYPES[xh.dtype]
+        for name in ([tc_key(wrapper, k) for k in TC_BWD_KERNELS] if tc
+                     else [f"ssd_bwd_{plan.form}_kernel"]):
+            KERNEL_LAUNCHES[name] += 1
     da = (da if a_log.dim() == 2 else da[0]).to(a_log.dtype)
     return dxh, ddt, da, db, dc

@@ -282,7 +282,8 @@ def test_candidates_are_admitted_and_start_at_the_rule(op, shape, dtype):
     if op == "ssd_scan":
         base = _ssd(shape, itemsize, None)
         assert parts["fwd"][0] == dict(inner=base.inner, heads=base.heads,
-                                       chunk_parallel=base.chunk_parallel)
+                                       chunk_parallel=base.chunk_parallel,
+                                       tc=base.form == "tc")
 
 
 def test_shared_weight_candidates_start_at_the_folded_rule():
@@ -341,11 +342,14 @@ def test_committed_tables_validate():
                              .read_text())["entries"]
         assert all(e["backend"] == H100 and "H100" in e["card"]
                    for e in entries.values())
-    # the one entry a path's plan moves: mamba2-2.7b's SSD forward walks
-    # its sub-chunks in order
+    # mamba2-2.7b's SSD entry, re-swept with the chunk-parallel
+    # tensor-core forms: it keeps them, forward and backward, as the rules
+    # take them
     got = _ssd(SSD_SHAPE)
-    assert (got.inner, got.heads, got.chunk_parallel) == (64, 1, False)
-    assert _ssd(SSD_SHAPE, backend=None).chunk_parallel
+    assert (got.inner, got.heads, got.chunk_parallel, got.form) == (
+        64, 1, True, "tc")
+    assert got == _ssd(SSD_SHAPE, backend=None)
+    assert _ssd_bwd(SSD_SHAPE).form == "tc"
 
 
 @pytest.mark.parametrize("path", [

@@ -735,12 +735,18 @@ def test_ssd_plan_bf16_copy_width(itemsize, step, ds, vec):
     (570, 32, 64, 16, True, ("fma", 4, 4)),
     (570, 32, 32, 32, True, ("fma", 4, 4)),
     (570, 32, 32, 16, False, ("fma", 4, 4)),
-    # few rows over many chunks: the chunk-parallel FMA form
-    (2, 128, 32, 16, True, ("fma", 1, 1)),
+    # few rows over whole chunks of 64: the chunk-parallel tensor-core
+    # form, a block of 16 warps per (head, chunk, row)
+    (2, 128, 32, 16, True, ("tc", 1, 16)),
+    # few rows over chunks that are not whole chunks of 64: the
+    # chunk-parallel FMA form
+    (2, 96, 32, 16, True, ("fma", 1, 1)),
 ])
 def test_ssd_plan_bf16_form(rows, seq, p, ds, aligned, want):
     """bf16 at chunk 32, ds 16, p 32 with 16-byte copies, walked in order,
-    runs ssd_mma_kernel; everything else, and f32 always, the FMA form."""
+    runs ssd_mma_kernel; few rows over several whole chunks of 64 the
+    tensor-core chunk-parallel form, in f32 too; everything else, and f32
+    otherwise, the FMA form."""
     width = 4 * p + 2 * ds
     kw = dict(sms=132, x_strides=(seq * width, width, p),
               bc_strides=(seq * width, width) * 2, x_aligned=aligned,
@@ -748,7 +754,7 @@ def test_ssd_plan_bf16_form(rows, seq, p, ds, aligned, want):
     plan = ssd.ssd_plan(rows, seq, 4, p, ds, 32, itemsize=2, **kw)
     assert (plan.form, plan.heads, plan.warps) == want
     assert ssd.ssd_plan(rows, seq, 4, p, ds, 32, itemsize=4,
-                        **kw).form == "fma"
+                        **kw).form == ("tc" if want[0] == "tc" else "fma")
 
 
 @pytest.mark.parametrize("rows,seq,p,ds,aligned,want", [
@@ -763,14 +769,16 @@ def test_ssd_plan_bf16_form(rows, seq, p, ds, aligned, want):
     (570, 32, 64, 16, True, ("chunk", 4, 4, 0)),
     (570, 32, 32, 16, False, ("chunk", 4, 4, 0)),
     # few rows of one chunk: still the tensor-core form, a block a row;
-    # few rows over several chunks: the chunked form, a block per head
+    # few rows over several chunks of 64: the chunk-parallel tensor-core
+    # form, a block of 16 warps per (head, chunk, row)
     (2, 32, 32, 16, True, ("mma", 4, 4, 2)),
-    (2, 128, 32, 16, True, ("chunk", 1, 4, 0)),
+    (2, 128, 32, 16, True, ("tc", 1, 16, 0)),
 ])
 def test_ssd_bwd_plan_bf16_form(rows, seq, p, ds, aligned, want):
     """bf16 at one chunk of (32, 16, 32) with 16-byte copies of x, dy, b and
-    c runs ssd_bwd_mma_kernel (f32 there ssd_bwd_tf32_kernel); everything
-    else the chunked form."""
+    c runs ssd_bwd_mma_kernel (f32 there ssd_bwd_tf32_kernel); several
+    chunks of 64 where the rows cannot fill the card the chunk-parallel
+    tensor-core form; everything else the chunked form."""
     width = 4 * p + 2 * ds
     kw = dict(sms=132, x_strides=(seq * width, width, p) * 2,
               bc_strides=(seq * width, width) * 2, x_aligned=aligned,
@@ -779,7 +787,7 @@ def test_ssd_bwd_plan_bf16_form(rows, seq, p, ds, aligned, want):
     assert (plan.form, plan.heads, plan.warps, plan.ring) == want
     # f32 takes its own tensor-core form (3xTF32) where bf16 takes mma
     assert ssd.ssd_bwd_plan(rows, seq, 4, p, ds, itemsize=4, **kw).form == (
-        "tf32" if plan.form == "mma" else "chunk")
+        "tf32" if plan.form == "mma" else plan.form)
 
 
 def test_attention_operands_refuse_a_mix_of_dtypes():

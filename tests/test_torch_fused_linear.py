@@ -562,7 +562,7 @@ def test_variant_tool_substitutions_match_the_source(name):
     source = mod.kernel.SOURCE.read_text()
     for group in ("VARIANTS", "BF16_VARIANTS", "BWD_VARIANTS",
                   "BWD_TF32_VARIANTS", "BWD_BF16_VARIANTS",
-                  "FWD_MMA_VARIANTS", "TB_VARIANTS"):
+                  "FWD_MMA_VARIANTS", "TB_VARIANTS", "TC_VARIANTS"):
         for variant, subs in getattr(mod, group, {}).items():
             for old, _ in subs:
                 assert source.count(old) == 1, (group, variant, old)

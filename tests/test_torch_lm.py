@@ -284,7 +284,8 @@ def test_full_configs_have_cuda_plans():
     3b's 80 among them, ROADMAP K7) in ``HEAD_DIMS``, on the tiled kernels
     with 16-byte copies of the (B, S, H, hd) activations; the SSD forward
     at each chunk of 256 (mamba2-2.7b's and jamba's, K15) on an inner chunk
-    whose block fits the card, and the backward's chunked form. No
+    whose block fits the card, and the backward's chunk-parallel
+    tensor-core form. No
     fallback: head dim 256, which no config has, is refused with
     ``NotImplementedError``, and a chunk with no inner chunk that fits
     with ``ValueError``, by the kernels' own checks (run on the card, the
@@ -309,8 +310,10 @@ def test_full_configs_have_cuda_plans():
             assert ssd_kernel.smem_floats(plan.inner, p, ds, plan.heads,
                                           plan.chunks > 1) <= \
                 ssd_kernel.SMEM_MAX, arch
+            # one row of 80 or 128 heads cannot fill the card: the
+            # chunk-parallel tensor-core form
             assert ssd_kernel.ssd_bwd_plan(1, seq, n, p, ds,
-                                           sms=132).form == "chunk"
+                                           sms=132).form == "tc"
     assert configs.get_config("stablelm-3b").hd == 80
     q = torch.empty(1, 2, 64, 256)
     with pytest.raises(NotImplementedError, match="head dim 256"):

@@ -199,22 +199,31 @@ def _chip_smoke_ssd_cases():
 @pytest.mark.parametrize("label,want", [
     # the FL round and statistics pass: 4 heads share a block's scores,
     # a warp per head, one chunk walked in place
-    ("round", (4, 4, False)),
-    ("stats", (4, 4, False)),
-    # 2 rows x 8 heads cannot fill 132 SMs: the three-pass form, a block
-    # per (row, head, chunk) with 2 x 2 output tiles of 32 for 4 warps
-    ("multi-chunk", (1, 4, True)),
-    ("long rows", (4, 4, False)),
+    ("round", (4, 4, False, "fma")),
+    ("stats", (4, 4, False, "fma")),
+    # 2 rows x 8 heads cannot fill 132 SMs: the tensor-core chunk-parallel
+    # form, a block of 16 warps per (head, chunk, row)
+    ("multi-chunk", (1, 16, True, "tc")),
+    # 480 steps are not whole chunks of 64: the FMA chunk-parallel form
+    # over 15 chunks of 32, a warp per 32 columns of p
+    ("ragged chunks", (1, 2, True, "fma")),
+    ("long rows", (4, 4, False, "fma")),
+    # 66 rows x 4 heads fill the card, 66 rows alone do not share blocks:
+    # a block per head, walked in order
+    ("head blocks", (1, 1, False, "fma")),
     # mamba2-2.7b's step: one row of 80 heads, chunk 256 run as 64 sub-
-    # chunks of 64 (ds 128), chunk-parallel
-    ("mamba2 4096", (1, 4, True)),
+    # chunks of 64 (ds 128) in the tensor-core chunk-parallel form
+    ("mamba2 4096", (1, 16, True, "tc")),
 ])
 def test_ssd_plan_for_chip_smoke_cases(label, want):
     rows, s, n, p, ds, chunk = _chip_smoke_ssd_cases()[label]
     plan = kernel.ssd_plan(rows, s, n, p, ds, chunk, sms=132)
-    assert (plan.heads, plan.warps, plan.chunk_parallel) == want
+    assert (plan.heads, plan.warps, plan.chunk_parallel, plan.form) == want
     assert plan.chunk == chunk and plan.chunks == s // plan.inner
     assert plan.inner == (64 if chunk == 256 else chunk)
+    if plan.form == "tc":
+        assert kernel.tc_smem_floats(p, ds, False) <= kernel.SMEM_MAX
+        return
     # within half an SM; only a sub-chunked head's block takes more
     smem = kernel.smem_floats(plan.inner, p, ds, plan.heads,
                               plan.chunks > 1)
@@ -226,14 +235,15 @@ def test_ssd_plan_for_chip_smoke_cases(label, want):
 def test_ssd_plan_for_test_shapes(shape):
     """The file's shapes have few rows: heads get a block each; the
     multi-chunk shapes take the chunk-parallel form, the single chunk
-    cannot. A chunk of 256 runs as sub-chunks of 128 (four warps for its
-    four 32-step tiles)."""
+    cannot. A chunk of 256 runs in the tensor-core chunk-parallel form, as
+    sub-chunks of 64 (sixteen warps a block)."""
     b, s, n, p, ds, chunk = shape
     plan = kernel.ssd_plan(b, s, n, p, ds, chunk, sms=132)
-    inner = 128 if chunk == 256 else chunk
+    inner = kernel.TC_CHUNK if chunk == 256 else chunk
     assert (plan.chunk, plan.inner, plan.chunks) == (chunk, inner,
                                                      s // inner)
-    assert plan.heads == 1 and plan.warps == (1 if chunk == 32 else 4)
+    assert plan.form == ("tc" if chunk == 256 else "fma")
+    assert plan.heads == 1 and plan.warps == {32: 1, 256: 16}[chunk]
     assert plan.chunk_parallel == (s // inner > 1)
     # no inner chunk fits (p = ds = 256: even 32 steps overflow), or none
     # divides the chunk (80 steps at p = ds = 128 overflow, and none of
@@ -242,6 +252,48 @@ def test_ssd_plan_for_test_shapes(shape):
         kernel.ssd_plan(b, 1024, n, 256, 256, 1024, sms=132)
     with pytest.raises(ValueError, match="no inner chunk"):
         kernel.ssd_plan(b, 960, n, 128, 128, 80, sms=132)
+
+
+@pytest.mark.parametrize("s,chunk,form", [
+    (256, 32, "tc"), (512, 128, "tc"), (4096, 256, "tc"),
+    # steps not whole chunks of 64: the FMA chunk-parallel form
+    (480, 32, "fma"), (200, 40, "fma"),
+    # one chunk of 64: nothing to run in parallel
+    (64, 32, "fma")])
+def test_tc_forward_takes_whole_chunks_of_64_at_any_chunk(s, chunk, form):
+    """The tensor-core forward runs chunks of TC_CHUNK whatever the
+    caller's chunk (the same function): the rules and a table's ``tc``
+    take it wherever the steps are several whole chunks of 64, else the
+    FMA forms, chunk-parallel where there are several chunks."""
+    plan = kernel.ssd_plan(2, s, 8, 32, 16, chunk, sms=132)
+    assert plan.form == form
+    assert plan.chunk_parallel == (s // plan.inner > 1)
+    assert plan.inner == (kernel.TC_CHUNK if form == "tc" else chunk)
+    why = kernel.fwd_choice_error(s, 8, 32, 16, chunk, **kernel.TC_FIELDS)
+    assert (why is None) == (form == "tc")
+
+
+def test_tc_launch_counts_are_kept_per_wrapper():
+    """Both wrappers launch the chunk states and the state pass, so the
+    tensor-core kernels' counts are keyed by wrapper (each dtype's) and
+    kernel, and chip_smoke's kernels line lists each wrapper's own."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    for wrapper, names in (("ssd_scan", kernel.TC_FWD_KERNELS),
+                           ("ssd_scan_bwd", kernel.TC_BWD_KERNELS)):
+        assert wrapper in kernel.LAUNCHES
+        for dt in ("", "_bf16"):
+            for name in names:
+                assert kernel.tc_key(wrapper + dt, name) in \
+                    kernel.KERNEL_LAUNCHES
+        listed = [f for f in mod.LISTED_FORMS[wrapper] if ":" in f]
+        assert listed == [kernel.tc_key(wrapper, k) for k in names]
+    assert not any(k in kernel.KERNEL_LAUNCHES
+                   for k in kernel.TC_FWD_KERNELS + kernel.TC_BWD_KERNELS)
 
 
 LOG2E = 1.4426950408889634
@@ -353,20 +405,22 @@ def test_kernel_order_of_work_matches_reference_pallas(shape, chunk_parallel):
 @pytest.mark.parametrize("dims", [(1, 512, 4, 32, 16), (1, 512, 2, 64, 128)],
                          ids=["inner128", "inner64"])
 def test_sub_chunk_plan_order_of_work_matches_reference_at_chunk_256(dims):
-    """The plan at chunk 256 (the kernel's sub-chunks of 128, or of 64 at
-    mamba2-2.7b's ds = 128 and p = 64) in the kernel's order of work, in
-    the form the plan takes (chunk-parallel) and walked in order, against
-    the reference's Pallas kernel at chunk 256 in interpret mode: the same
+    """The FMA form's plan at chunk 256 (the kernel's sub-chunks of 128,
+    or of 64 at mamba2-2.7b's ds = 128 and p = 64; a selection table's
+    choice, where the rules take the tensor-core form) in the kernel's
+    order of work, chunk-parallel and walked in order, against the
+    reference's Pallas kernel at chunk 256 in interpret mode: the same
     function, summed in another order, within SSD_RTOL of scale."""
     args = _inputs(*dims, seed=256 + dims[3])
     want = np.asarray(ref_kernel.ssd_scan(*args, chunk=256, block_h=2,
                                           interpret=True))
-    plan = kernel.ssd_plan(*dims, 256, sms=132)
-    assert plan.inner == (128 if dims[4] == 16 else 64)
-    assert plan.chunk_parallel
+    assert kernel.ssd_plan(*dims, 256, sms=132).form == "tc"
+    fma = kernel._fma_rule(*dims, 256, 132)
+    assert fma["inner"] == (128 if dims[4] == 16 else 64)
+    assert fma["chunk_parallel"]
     for chunk_parallel in (True, False):
-        got, updates = _kernel_emulation(*args, plan.inner, chunk_parallel)
-        assert updates == plan.chunks - 1
+        got, updates = _kernel_emulation(*args, fma["inner"], chunk_parallel)
+        assert updates == dims[1] // fma["inner"] - 1
         _close_to_scale(got, want)
 
 
@@ -375,23 +429,27 @@ def test_sub_chunk_plan_order_of_work_matches_reference_at_chunk_256(dims):
 def test_ssd_plan_at_full_configs_chunk_256(arch, inner):
     """mamba2-2.7b's (80 heads of 64, ds 128) and jamba's (128 heads of
     64, ds 16) SSD at their chunk of 256, one row of SHAPES["train_4k"]'s
-    4096 steps: a launchable plan whose block fits the card (chunk 256
-    itself would need 222,980 floats at mamba2's widths)."""
+    4096 steps: the tensor-core chunk-parallel forms over 64 chunks of 64,
+    forward and backward, whose blocks fit the card; the FMA form's
+    sub-chunk (``inner``), a selection table's choice, fits too (chunk
+    256 itself would need 222,980 floats at mamba2's widths)."""
     from repro_torch import configs
     cfg = configs.get_config(arch)
     s_cfg = cfg.ssm
     n, p, ds = s_cfg.n_heads(cfg.d_model), s_cfg.head_dim, s_cfg.d_state
     assert s_cfg.chunk_size == 256
     plan = kernel.ssd_plan(1, 4096, n, p, ds, 256, sms=132)
-    assert (plan.chunk, plan.inner, plan.chunks) == (256, inner,
-                                                     4096 // inner)
-    assert plan.chunk_parallel and plan.form == "fma"
+    assert (plan.chunk, plan.inner, plan.chunks) == (256, kernel.TC_CHUNK,
+                                                     4096 // kernel.TC_CHUNK)
+    assert plan.chunk_parallel and plan.form == "tc" and plan.heads == 1
+    for backward in (False, True):
+        assert kernel.tc_smem_floats(p, ds, backward) <= kernel.SMEM_MAX
     assert kernel.smem_floats(256, p, ds, 1, True) > kernel.SMEM_MAX
-    assert kernel.smem_floats(inner, p, ds, plan.heads,
-                              True) <= kernel.SMEM_MAX
-    # the backward's chunked form takes the same shape
+    assert kernel._fma_rule(1, 4096, n, p, ds, 256, 132)["inner"] == inner
+    assert kernel.smem_floats(inner, p, ds, 1, True) <= kernel.SMEM_MAX
     bwd = kernel.ssd_bwd_plan(1, 4096, n, p, ds, sms=132)
-    assert (bwd.form, bwd.chunks) == ("chunk", 4096 // kernel.BWD_CHUNK)
+    assert (bwd.form, bwd.chunk, bwd.chunks) == (
+        "tc", kernel.TC_CHUNK, 4096 // kernel.TC_CHUNK)
 
 
 def test_warp_scan_cumsum_is_the_cumsum():
@@ -730,17 +788,23 @@ def test_bwd_straddle_equals_row_minus_column_sums(seed):
     # tensor-core form (3xTF32), a warp per head, one row staged at a time
     ("round", ("tf32", 1, 4, 4, 1)),
     ("stats", ("tf32", 1, 4, 4, 1)),
-    # 2 rows cannot fill 132 SMs: the chunked form, a block per (row, head)
-    # of 4 warps, the heads' dB and dC partials summed by the second
-    # launch; 16 chunks
-    ("multi-chunk", ("chunk", 16, 1, 4, 0)),
+    # 2 rows x 8 heads cannot fill 132 SMs: the tensor-core chunk-parallel
+    # form, a block of 16 warps per (head, chunk, row), the heads' dB and
+    # dC partials summed by the last launch; 8 chunks of 64
+    ("multi-chunk", ("tc", 8, 1, 16, 0)),
+    # 480 steps: 7 chunks of 64 and a ragged last one of 32
+    ("ragged chunks", ("tc", 8, 1, 16, 0)),
     # 264 rows fill the card: all heads a block, 4 chunks
     ("long rows", ("chunk", 4, 4, 4, 0)),
+    # 66 rows do not give every SM a block: a block per head, the heads'
+    # dB and dC partials summed by the second launch
+    ("head blocks", ("chunk", 4, 1, 4, 0)),
 ])
 def test_ssd_bwd_plan_for_chip_smoke_cases(label, want):
     """The plan at chip_smoke's operands: x, b and c split views of one
     (rows, S, n p + 2 ds) conv output, dy contiguous, all 16-byte aligned;
-    with 4-byte copies only, every case takes the chunked form."""
+    with 4-byte copies only, every case but the tensor-core chunk-parallel
+    one (which takes them) takes the chunked form."""
     rows, s, n, p, ds, _ = _chip_smoke_ssd_cases()[label]
     width = n * p + 2 * ds
     kw = dict(sms=132, x_strides=(s * width, width, p, s * n * p, n * p, p),
@@ -749,11 +813,15 @@ def test_ssd_bwd_plan_for_chip_smoke_cases(label, want):
     plan = kernel.ssd_bwd_plan(rows, s, n, p, ds, **kw)
     assert (plan.form, plan.chunks, plan.heads, plan.warps,
             plan.ring) == want
-    assert plan.chunk == 32 and (plan.vec_x, plan.vec_bc) == (16, 16)
-    assert kernel.bwd_smem_floats(p, ds, plan.heads,
-                                  plan.chunks > 1) <= kernel.SMEM_MAX
+    tc = plan.form == "tc"
+    assert plan.chunk == (64 if tc else 32)
+    assert (plan.vec_x, plan.vec_bc) == (16, 16)
+    assert (kernel.tc_smem_floats(p, ds, True) if tc else
+            kernel.bwd_smem_floats(p, ds, plan.heads,
+                                   plan.chunks > 1)) <= kernel.SMEM_MAX
     plain = kernel.ssd_bwd_plan(rows, s, n, p, ds, sms=132)
-    assert (plain.form, plain.heads, plain.vec_x) == ("chunk", want[2], 4)
+    assert (plain.form, plain.heads, plain.vec_x) == (
+        "tc" if tc else "chunk", want[2], 4)
 
 
 def test_ssd_bwd_plan_limits():
@@ -829,3 +897,206 @@ def test_op_backward_goes_through_the_backward_wrapper(monkeypatch):
     want = real(*(a.detach() for a in t), dy)
     for a, w in zip(t, want):
         assert torch.equal(a.grad, w)
+
+
+# ---------------------------------------------------------------------------
+# the chunk-parallel tensor-core forms (ssd_tc_*_kernel): chunks of 64, a
+# block per (head, chunk, row), every product in 3xTF32
+# ---------------------------------------------------------------------------
+
+
+def _tc_chunks(t: torch.Tensor, q: int) -> torch.Tensor:
+    """(B, S, ...) -> (B, chunks, q, ...), the last chunk zero-padded."""
+    bsz, s = t.shape[:2]
+    pad = -s % q
+    t = torch.cat([t, t.new_zeros((bsz, pad) + t.shape[2:])], 1)
+    return t.reshape((bsz, -1, q) + t.shape[2:])
+
+
+def _tc_scan(dt_c: torch.Tensor, rate: torch.Tensor) -> tuple:
+    """tc_scan for every (row, chunk, head): dt_c (B, C, Q, n), rate (B,
+    n) -> cum (log2 units), u, e (B, C, n, Q) and cum_last (B, C, n)."""
+    d = dt_c.permute(0, 1, 3, 2)
+    cum = _warp_scan_cumsum(d * rate[:, None, :, None]) * LOG2E
+    last = cum[..., -1]
+    return cum, torch.exp2(last[..., None] - cum) * d, torch.exp2(cum), last
+
+
+def _tc_pass(own: torch.Tensor, dec: torch.Tensor, back: bool):
+    """ssd_tc_pass_kernel over (B, C, n, ds, p) terms and (B, C, n) decays:
+    in chunk order h_in[c + 1] = h_in[c] dec[c] + s_c, or in reverse
+    G[c - 1] = G[c] dec[c] + g_c; each slot replaced by the state entering
+    (or the cotangent leaving) its chunk."""
+    out, h = torch.zeros_like(own), torch.zeros_like(own[:, 0])
+    chunks = own.shape[1]
+    for ci in (reversed(range(chunks)) if back else range(chunks)):
+        out[:, ci] = h
+        has = ci >= 1 if back else ci + 1 < chunks
+        h = h * dec[:, ci, :, None, None] + (own[:, ci] if has else 0.0)
+    return out
+
+
+def _tc_states(x, dt, rate, b, c=None, dy=None):
+    """ssd_tc_state_kernel then the state pass: each chunk's own end state
+    B^T (u X) (and with c, dy its boundary cotangent C^T (e dY)) in
+    3xTF32, then h_in (and G). x (B, C, Q, n, p), dt (B, C, Q, n), b and c
+    (B, C, Q, ds)."""
+    cum, u, e, last = _tc_scan(dt, rate)
+    dec = torch.exp2(last)
+    ux = u.permute(0, 1, 3, 2)[..., None] * x            # (B, C, Q, n, p)
+    h_in = _tc_pass(_mm3("bcks,bcknp->bcnsp", b, ux), dec, False)
+    g_out = None
+    if c is not None:
+        edy = e.permute(0, 1, 3, 2)[..., None] * dy
+        g_out = _tc_pass(_mm3("bcqs,bcqnp->bcnsp", c, edy), dec, True)
+    return cum, u, e, last, h_in, g_out
+
+
+def _tc_fwd_emulation(xh, dt, a_log, bm, cm):
+    """The forward's chunk-parallel tensor-core form in its order of work:
+    chunk states and decays, the state pass, then per chunk y = e (C
+    h_in) + W X with W = (C B^T) exp2(cum_q - cum_k) dt_k for k <= q, every
+    product in 3xTF32."""
+    q = kernel.TC_CHUNK
+    x, d, b, c = (torch.from_numpy(v) for v in (xh, dt, bm, cm))
+    bsz, s = x.shape[:2]
+    rate = ref.decay_rates(torch.from_numpy(a_log), bsz)
+    rate = rate.expand(bsz, x.shape[2]) if rate.dim() == 1 else rate
+    xc, dc, bc, cc = (_tc_chunks(t, q) for t in (x, d, b, c))
+    cum, _, e, _, h_in, _ = _tc_states(xc, dc, rate, bc)
+    lower = torch.tril(torch.ones(q, q, dtype=torch.bool))
+    scores = _mm3("bcqs,bcks->bcqk", cc, bc)[:, :, None]   # (B, C, 1, Q, Q)
+    dec = torch.where(lower, torch.exp2(torch.where(
+        lower, cum[..., :, None] - cum[..., None, :], 0.0)), 0.0)
+    w = scores * dec * dc.permute(0, 1, 3, 2)[..., None, :]
+    y = (e.permute(0, 1, 3, 2)[..., None]
+         * _mm3("bcqs,bcnsp->bcqnp", cc, h_in)
+         + _mm3("bcnqk,bcknp->bcqnp", w, xc))
+    return y.reshape(bsz, -1, *y.shape[3:])[:, :s].numpy()
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 4, 16, 16, 64),
+                                   (1, 512, 2, 32, 32, 256)],
+                         ids=["four_chunks", "chunk256"])
+def test_tc_fwd_order_of_work_matches_reference_pallas(shape):
+    """The forward's chunk-parallel tensor-core form (chunks of 64: four,
+    and a caller's chunk of 256 run as eight sub-chunks) in its order of
+    work against the reference's Pallas kernel in interpret mode, within
+    SSD_RTOL of scale; the plan takes that form there."""
+    *dims, chunk = shape
+    args = _inputs(*dims, seed=chunk + dims[1] + 7)
+    want = np.asarray(ref_kernel.ssd_scan(*args, chunk=chunk, block_h=2,
+                                          interpret=True))
+    plan = kernel.ssd_plan(*dims, chunk, sms=132)
+    assert (plan.form, plan.inner, plan.chunks) == (
+        "tc", kernel.TC_CHUNK, dims[1] // kernel.TC_CHUNK)
+    _close_to_scale(_tc_fwd_emulation(*args), want)
+
+
+def _tc_bwd_emulation(xh, dt, a_log, bm, cm, dy):
+    """The backward's chunk-parallel tensor-core form in its order of work
+    (ssd_tc_state_kernel, ssd_tc_pass_kernel both ways, ssd_tc_bwd_kernel,
+    ssd_bwd_sum_kernel): chunks of 64, the last zero-padded past S. Per
+    (row, head, chunk) with its h_in and G: S^T = B C^T and dW^T = X dY^T;
+    W^T, M^T, dS^T and ddt's first term from them; the straddle R_j; dX =
+    u (B G) + W^T dY, dC_h = e (dY h_in^T) + dS B, dB_h = u (X G^T) + dS^T
+    C, r and v from the state products; dA, ddt and the chunk's a dL/da.
+    Then dB and dC summed over heads in order, da over a slot's rows and
+    chunks in order. Every product in 3xTF32."""
+    q = kernel.TC_CHUNK
+    x, d, b, c, gy = (torch.from_numpy(v) for v in (xh, dt, bm, cm, dy))
+    bsz, s, n, _ = x.shape
+    a2 = torch.from_numpy(a_log)
+    a2 = a2 if a2.dim() == 2 else a2[None]
+    rate = ref.decay_rates(a2, bsz)                          # (B, n)
+    xc, dc, bc, cc, dyc = (_tc_chunks(t, q) for t in (x, d, b, c, gy))
+    chunks = xc.shape[1]
+    cum, u, e, last, h_in, g_out = _tc_states(xc, dc, rate, bc, cc, dyc)
+    dk = dc.permute(0, 1, 3, 2)                              # (B, C, n, Q)
+    upper = torch.triu(torch.ones(q, q, dtype=torch.bool))   # [k][q]
+    lq = torch.where(upper, torch.exp2(torch.where(
+        upper, cum[..., None, :] - cum[..., :, None], 0.0)), 0.0)
+    st = _mm3("bcks,bcqs->bckq", bc, cc)[:, :, None]         # S^T
+    dwt = _mm3("bcknp,bcqnp->bcnkq", xc, dyc)                # dW^T
+    sl = st * lq
+    wt = sl * dk[..., None]
+    dm = dwt * sl
+    ddt1 = dm.sum(-1)
+    mt = dm * dk[..., None]
+    dst = dwt * lq * dk[..., None]
+    # suffix sums along each row k of M^T over q > k, then column sums
+    # over k < j
+    strict = torch.triu(torch.ones(q, q), 1)
+    suffix = torch.flip(torch.cumsum(torch.flip(mt * strict, [-1]), -1),
+                        [-1])
+    r_straddle = (suffix * strict).sum(-2)
+    ut, et = u[..., None], e[..., None]                      # (B, C, n, Q, 1)
+    pb = _mm3("bcknp,bcnsp->bcnks", xc, g_out)               # X G^T
+    pc = _mm3("bcqnp,bcnsp->bcnqs", dyc, h_in)               # dY h_in^T
+    dx = (ut * _mm3("bcks,bcnsp->bcnkp", bc, g_out)
+          + _mm3("bcnkq,bcqnp->bcnkp", wt, dyc))
+    dc_h = et * pc + _mm3("bcnkq,bcks->bcnqs", dst, bc)
+    db_h = ut * pb + _mm3("bcnkq,bcqs->bcnks", dst, cc)
+    v = (bc[:, :, None] * pb).sum(-1)                        # (B, C, n, Q)
+    r = e * (cc[:, :, None] * pc).sum(-1)
+    hg = (g_out * h_in).sum((-2, -1))                        # (B, C, n)
+    r_suffix = torch.flip(torch.cumsum(torch.flip(r, [-1]), -1), [-1])
+    uv = torch.cumsum(u * v, -1)
+    before = torch.cat([torch.zeros_like(uv[..., :1]), uv[..., :-1]], -1)
+    d_a = (r_straddle + r_suffix + before
+           + (torch.exp2(last) * hg)[..., None])
+    rate_c = rate[:, None, :, None]
+    ddt = ddt1 + torch.exp2(last[..., None] - cum) * v + rate_c * d_a
+    part_da = rate[:, None] * (dk * d_a).sum(-1)             # (B, C, n)
+
+    def unchunk(t):                                          # (B, C, n, Q, w)
+        t = t.permute(0, 1, 3, 2, 4).reshape(bsz, chunks * q, n, -1)
+        return t[:, :s]
+    db, dc_ = unchunk(db_h)[:, :, 0], unchunk(dc_h)[:, :, 0]
+    for h in range(1, n):
+        db, dc_ = db + unchunk(db_h)[:, :, h], dc_ + unchunk(dc_h)[:, :, h]
+    part = part_da.permute(0, 2, 1).reshape(a2.shape[0], -1, n, chunks)
+    dlog = torch.zeros(a2.shape)
+    for rr in range(part.shape[1]):
+        for ci in range(chunks):
+            dlog = dlog + part[:, rr, :, ci]
+    return (unchunk(dx), unchunk(ddt[..., None])[..., 0],
+            dlog if a_log.ndim == 2 else dlog[0], db, dc_)
+
+
+@pytest.fixture(scope="module", params=[(256, 0), (200, 3), (130, 3)],
+                ids=["four_chunks", "ragged_per_slot", "ragged_3"])
+def tc_bwd_case(request):
+    """One case's operands, the emulated tensor-core backward, the plain
+    version's gradients and the reference's vjp (per slot where a_log is
+    per slot): 6 rows, 3 heads of 16, ds 16."""
+    seq, groups = request.param
+    args = _inputs(6, seq, 3, 16, 16, seed=seq + groups, groups=groups)
+    dy = np.random.default_rng(seq + 1).normal(size=args[0].shape).astype(
+        np.float32)
+    got = _tc_bwd_emulation(*args, dy)
+    plain = ref.ssd_bwd_ref(*(torch.from_numpy(a) for a in args + (dy,)))
+    xh, dt, a_log, bm, cm = args
+    slots = [slice(None)] if groups == 0 else [
+        slice(2 * g, 2 * g + 2) for g in range(groups)]
+    want = [_ref_vjp(xh[rows], dt[rows], a_log[g] if groups else a_log,
+                     bm[rows], cm[rows], dy[rows])
+            for g, rows in enumerate(slots)]
+    return seq, groups, slots, got, plain, want
+
+
+def test_tc_bwd_order_of_work_matches_plain_and_reference(tc_bwd_case):
+    """The backward's chunk-parallel tensor-core form (several chunks of
+    64, a ragged last one, a_log per slot, every head its own block summed
+    in order) in its order of work against ssd_bwd_ref and the reference's
+    vjp, each gradient at 1e-4 of its own scale; the plan takes that form
+    there."""
+    seq, groups, slots, got, plain, want = tc_bwd_case
+    _assert_grads(got, plain)
+    for g, rows in enumerate(slots):
+        _assert_grads([got[0][rows], got[1][rows],
+                       got[2][g] if groups else got[2], got[3][rows],
+                       got[4][rows]], want[g], f"slot {g}")
+    plan = kernel.ssd_bwd_plan(6, seq, 3, 16, 16, sms=132)
+    assert (plan.form, plan.chunk, plan.chunks, plan.heads) == (
+        "tc", kernel.TC_CHUNK, -(-seq // kernel.TC_CHUNK), 1)

@@ -1,7 +1,6 @@
 """mamba2-2.7b's training step at the selection table's kernel plans
 against the same step at the plans' own rules, in one process on one card
-(the one LM step whose plans a committed entry moves: its SSD forward at
-"mamba2 4096").
+(the LM step whose SSD plans the committed entry at "mamba2 4096" sets).
 
     python3 tools/autotune_step.py
 

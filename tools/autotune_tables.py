@@ -2,6 +2,7 @@
 the card at the shapes the port's paths run, and write them.
 
     python3 tools/autotune_tables.py [--out artifacts/autotune_torch]
+                                     [--only OP]
 
 Every shape of chip_smoke.py's ``CASES``, ``FA_CASES`` and ``SSD_CASES``
 that a path runs, in each dtype a path runs it in (the VGG round's fc
@@ -20,6 +21,9 @@ whose plans have no choice (the tiled attention, the SSD's tensor-core
 forms) gets no entry. The tables are written to ``--out`` (a run on a
 machine whose copy of the repository is discarded writes under
 ``chiprun_out/``) and checked there with ``validate_table``.
+``--only OP`` sweeps and writes one op's table (``ssd_scan``,
+``flash_attention`` or ``fused_linear``) and leaves the others as they
+are.
 """
 from __future__ import annotations
 
@@ -68,7 +72,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=str(ROOT / "artifacts"
                                          / "autotune_torch"))
+    ap.add_argument("--only", choices=sorted(autotune.OPS), default=None)
     args = ap.parse_args(argv)
+    ops = [args.only] if args.only else list(autotune.OPS)
     chip_smoke.check(torch.cuda.is_available(), "needs one CUDA card")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -82,10 +88,10 @@ def main(argv=None) -> int:
         mod.library()
     torch.backends.cuda.matmul.allow_tf32 = False
     # start from no entries: the sweeps' baselines are the rules' plans
-    for op in autotune.OPS:
+    for op in ops:
         autotune._entries(op).clear()
     cases = {c[0]: c[1:] for c in chip_smoke.CASES}
-    for label, dtypes in FL_PATHS.items():
+    for label, dtypes in FL_PATHS.items() if "fused_linear" in ops else ():
         nb, m, k, n, act, shared = cases[label]
         for dtype in dtypes:
             t0 = time.perf_counter()
@@ -95,7 +101,8 @@ def main(argv=None) -> int:
             _line("fused_linear", label, dtype, entry,
                   time.perf_counter() - t0, card)
     cases = {c[0]: c[1:] for c in chip_smoke.FA_CASES}
-    for label, dtypes in FA_PATHS.items():
+    for label, dtypes in (FA_PATHS.items() if "flash_attention" in ops
+                          else ()):
         b, h, s, d, causal, window = cases[label]
         chip_smoke.check(window is None, f"{label}: a window")
         for dtype in dtypes:
@@ -106,7 +113,7 @@ def main(argv=None) -> int:
             _line("flash_attention", label, dtype, entry,
                   time.perf_counter() - t0, card)
     cases = {c[0]: c[1:] for c in chip_smoke.SSD_CASES}
-    for label, dtypes in SSD_PATHS.items():
+    for label, dtypes in SSD_PATHS.items() if "ssd_scan" in ops else ():
         rows, s, n, p, ds, chunk, _ = cases[label]
         for dtype in dtypes:
             t0 = time.perf_counter()
@@ -114,7 +121,7 @@ def main(argv=None) -> int:
                                             card=card, save=False)
             _line("ssd_scan", label, dtype, entry, time.perf_counter() - t0,
                   card)
-    for op in autotune.OPS:
+    for op in ops:
         path = autotune.save_table(op, args.out)
         print(f"{op}: {autotune.validate_table(op, args.out)} entries "
               f"written to {path}", flush=True)

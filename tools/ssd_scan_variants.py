@@ -1,6 +1,7 @@
 """Design variants of the SSD scan CUDA kernel, side by side on one card.
 
     python3 tools/ssd_scan_variants.py [--bwd] [--bf16]
+    python3 tools/ssd_scan_variants.py --tc [--case LABEL]
     python3 tools/ssd_scan_variants.py --parent DIR
 
 Run from the root of a checkout on a machine with a CUDA card. Source
@@ -18,11 +19,23 @@ f32 operands or (``--bf16``) bf16 ones, timed on the device (chip_smoke.py's
 that). With ``--bwd`` the same for the backward: its chunked form with one
 piece removed (BWD_VARIANTS), its tensor-core forms with one choice undone
 (BWD_TF32_VARIANTS, BWD_BF16_VARIANTS), and plan variants (BWD_PLANS,
-BWD_BF16_PLANS), every gradient held at its own scale. ``base`` runs first and again last, which
-shows the run's spread. With ``--parent DIR`` it times the backward
-against the one of another checkout (DIR, this, this, DIR), both checked.
-Prints each source variant's registers and spills, then one line per case
-and variant, in milliseconds.
+BWD_BF16_PLANS), every gradient held at its own scale. ``base`` runs
+first and again last, which shows the run's spread. With ``--tc`` the
+chunk-parallel tensor-core forms at the multi-chunk SSD shapes (TC_CASES),
+f32 and bf16, forward and backward: the forms (TC_VARIANTS: the state
+pass's loads one chunk at a time, fewer warps in the adjoint's and the
+chunk states' blocks, coarser score tasks, fewer warps in the outputs')
+against the FMA forms the plans took before them (TC_PLANS, as table
+fields), each output checked, with each call's device ms by CUDA kernel;
+``--case LABEL`` takes one of TC_CASES. At "ragged chunks" the forward's
+steps are not whole chunks of 64, so its tensor-core form is refused and
+the forward runs the FMA forms: there TC_PLANS time the FMA
+chunk-parallel form against the FMA walk.
+With ``--parent DIR`` it times the forward and the backward against those
+of another checkout (DIR, this, this, DIR), both checked: DIR's at its own
+selection table's plans, this one's at its rules'. Prints each source
+variant's registers and spills, then one line per case and variant, in
+milliseconds.
 """
 from __future__ import annotations
 
@@ -156,6 +169,45 @@ BF16_PLANS = {
     # every product by FMA)
     "fma_form": lambda p: dataclasses.replace(p, form="fma"),
 }
+# the chunk-parallel tensor-core forms' source variants (``--tc``;
+# outputs checked)
+TC_VARIANTS = {
+    "base": [],
+    # the state pass's loads issued one chunk at a time, each after the
+    # last chunk's store (the old chunk scan's chain, on 16-byte loads)
+    "pass_depth_1": [("constexpr int kTcDepth = 8;",
+                      "constexpr int kTcDepth = 1;")],
+    # the adjoint's block of 8 warps (one block an SM either way), so its
+    # score tasks up to 32 columns wide (six: a warp each, one more for the
+    # cumsum)
+    "bwd_warps_8": [("constexpr int kTcBwdThreads = 512;",
+                     "constexpr int kTcBwdThreads = 256;"),
+                    ("constexpr bool kTcFineUpper = true;",
+                     "constexpr bool kTcFineUpper = false;")],
+    # the chunk states' block of 4 warps
+    "state_warps_4": [("constexpr int kTcStateThreads = 256;",
+                       "constexpr int kTcStateThreads = 128;")],
+    # the adjoint's score tasks up to 32 columns wide: six tasks, not ten
+    "bwd_coarse_scores": [("constexpr bool kTcFineUpper = true;",
+                           "constexpr bool kTcFineUpper = false;")],
+    # the outputs' block of 8 warps, its tasks 32 columns wide
+    "out_warps_8": [("constexpr int kTcThreads = 512;",
+                     "constexpr int kTcThreads = 256;"),
+                    ("constexpr int kTcOutCols = 16;",
+                     "constexpr int kTcOutCols = 32;")],
+}
+# the multi-chunk SSD cases the tensor-core forms take (the forward's at
+# "ragged chunks" refuses: 480 steps)
+TC_CASES = ("multi-chunk", "ragged chunks", "mamba2 4096")
+# the forms the plans took before the tensor-core ones, as selection-table
+# fields (``--tc``): the FMA forward walked in order (the table's pick at
+# "mamba2 4096") and chunk-parallel, and the chunked backward, a block per
+# head
+TC_PLANS = {
+    "fma_sequential": {"tc": False, "heads": 1, "chunk_parallel": False},
+    "fma_chunk_parallel": {"tc": False, "heads": 1, "chunk_parallel": True},
+    "bwd_chunk": {"bwd_tc": False, "bwd_heads": 1},
+}
 # plan variants of the base source: name -> change to the plan
 PLANS = {
     # 4-byte staging copies everywhere
@@ -262,7 +314,11 @@ def bwd_main(bf16: bool) -> int:
 
         def fn():
             return kernel.ssd_scan_bwd(*args, dy)
+        base_form = plan_of(args[0], args[3], args[4], dy).form
         for name, lib_name, change in runs:
+            if base_form == "tc" and (change is not None or (
+                    lib_name != "base" and lib_name in BWD_VARIANTS)):
+                continue   # the tensor-core chunk-parallel form: --tc
             lib = libs[lib_name]
             kernel.library = lambda lib=lib: lib
             kernel.ssd_bwd_scan_plan = (plan_of if change is None else
@@ -279,11 +335,110 @@ def bwd_main(bf16: bool) -> int:
     return 0
 
 
+def _by_kernel(fn, reps: int = 3) -> str:
+    """Device ms a call of ``fn`` by CUDA kernel (torch.profiler over
+    ``reps`` calls), largest first."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    def name(key):
+        found = re.search(r"\w*kernel\w*", key)
+        return found.group(0) if found else key[:40]
+    rows = sorted(((e.self_device_time_total / reps / 1e3, name(e.key))
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0), reverse=True)
+    return " ".join(f"{k}={ms:.4f}" for ms, k in rows[:6])
+
+
+def tc_main(cases=TC_CASES) -> int:
+    """The chunk-parallel tensor-core forms at ``cases`` (of TC_CASES), f32
+    and bf16: each TC_VARIANTS source (forward and backward forced into the
+    form by table fields where it takes the shape) and each TC_PLANS form
+    of the base source (the FMA forward at the rules' inner chunk),
+    checked against the plain versions, with device ms and each call's
+    kernels."""
+    libs = build_variants(TC_VARIANTS)
+    tuned = kernel._tuned
+    g = torch.Generator(device="cuda").manual_seed(6)
+    tc = {"tc": True, "inner": kernel.TC_CHUNK, "heads": 1,
+          "chunk_parallel": True, "bwd_tc": True}
+    # the FMA forward's TC_PLANS at the rules' inner chunk
+    fma = {k: v for k, v in tc.items() if k != "inner"}
+    for label, rows, s, n, p, ds, chunk, slots in chip_smoke.SSD_CASES:
+        if label not in cases:
+            continue
+        for bf16 in (False, True):
+            dtype = torch.bfloat16 if bf16 else torch.float32
+            args = chip_smoke.ssd_operands(g, dtype, rows, s, n, p, ds,
+                                           slots)
+            dy = torch.randn(rows, s, n, p, device="cuda",
+                             generator=g).to(dtype)
+            want = ref.ssd_ref(*args)
+            want_b = ref.ssd_bwd_ref(*args, dy)
+            runs = ([(name, name, tc) for name in libs]
+                    + [(name, "base", {**(tc if fields.get("tc", True)
+                                          else fma), **fields})
+                       for name, fields in TC_PLANS.items()]
+                    + [("base", "base", tc)])
+            for name, lib_name, fields in runs:
+                lib = libs[lib_name]
+                kernel.library = lambda lib=lib: lib
+                kernel._tuned = lambda *a, f=fields: dict(f)
+
+                def fwd():
+                    return kernel.ssd_scan(*args, chunk=chunk)
+
+                def bwd():
+                    return kernel.ssd_scan_bwd(*args, dy, chunk=chunk)
+                err = (chip_smoke._bf16_excess(fwd(), want) if bf16 else
+                       float((fwd() - want).abs().max())
+                       / max(1.0, float(want.abs().max())))
+                err_b = _bwd_error(bwd(), want_b, bf16)
+                note = (" OVER SSD_RTOL"
+                        if max(err, err_b) > chip_smoke.SSD_RTOL else "")
+                x, _, _, bm, cm = args
+                plan = kernel.ssd_scan_plan(x, bm, cm, chunk)
+                bplan = kernel.ssd_bwd_scan_plan(x, bm, cm, dy, chunk)
+                fwd_form = plan.form + "-cp" * (plan.form == "fma"
+                                                and plan.chunk_parallel)
+                print(f"tc variant {label:12s} bf16={int(bf16)} {name:20s} "
+                      f"forms={fwd_form}/{bplan.form} fwd ms="
+                      f"{chip_smoke.device_ms(fwd):.4f} bwd ms="
+                      f"{chip_smoke.device_ms(bwd):.4f} err={err:.1e} "
+                      f"bwd err={err_b:.1e}{note}", flush=True)
+                print(f"  fwd kernels: {_by_kernel(fwd)}", flush=True)
+                print(f"  bwd kernels: {_by_kernel(bwd)}", flush=True)
+    kernel._tuned = tuned
+    return 0
+
+
+def _parent_tuned(parent: pathlib.Path):
+    """A ``_tuned`` that reads DIR's own selection table (its plans at
+    DIR's entries, as DIR's CUDA path takes them)."""
+    import json
+    from repro_torch.kernels import autotune
+    path = parent / "artifacts" / "autotune_torch" / "ssd_scan.json"
+    entries = json.loads(path.read_text())["entries"]
+
+    def tuned(bsz, s, n, p, ds, chunk, itemsize, backend):
+        if backend is None:
+            return {}
+        key = autotune.make_key("ssd_scan", (bsz, s, n, p, ds, chunk),
+                                autotune.DTYPES[itemsize], backend)
+        return dict(entries.get(key, {}).get("plan", {}))
+    return tuned
+
+
 def bwd_ab(parent: pathlib.Path) -> int:
-    """The backward against another checkout's (``--parent DIR``, e.g. a
-    ``git archive`` of the parent commit unpacked into an ignored
-    directory): its wrapper and source loaded from DIR, built beside this
-    one's, both held against the plain version and timed in turns (DIR,
+    """The forward and the backward against another checkout's (``--parent
+    DIR``, e.g. a ``git archive`` of the parent commit unpacked into an
+    ignored directory): its wrapper and source loaded from DIR, built beside
+    this one's, DIR's plans at DIR's selection table, this one's at its
+    rules', both held against the plain versions and timed in turns (DIR,
     this, this, DIR) at every SSD case, f32 and bf16."""
     spec = importlib.util.spec_from_file_location(
         "_parent_ssd_kernel",
@@ -291,29 +446,54 @@ def bwd_ab(parent: pathlib.Path) -> int:
     other = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = other   # its dataclasses look their module up
     spec.loader.exec_module(other)
+    other._tuned = _parent_tuned(parent)
+    kernel._tuned = lambda *a: {}
     build.build_all([other.SOURCE, kernel.SOURCE])
     g = torch.Generator(device="cuda").manual_seed(6)
     for bf16 in (False, True):
         dtype = torch.bfloat16 if bf16 else torch.float32
-        for label, rows, s, n, p, ds, _, slots in chip_smoke.SSD_CASES:
+        for label, rows, s, n, p, ds, chunk, slots in chip_smoke.SSD_CASES:
             if bf16 and label in chip_smoke.SSD_F32_ONLY:
                 continue
             args = chip_smoke.ssd_operands(g, dtype, rows, s, n, p, ds, slots)
             dy = torch.randn(rows, s, n, p, device="cuda",
                              generator=g).to(dtype)
-            want = ref.ssd_bwd_ref(*args, dy)
-            fns = {"parent": lambda: other.ssd_scan_bwd(*args, dy),
-                   "this": lambda: kernel.ssd_scan_bwd(*args, dy)}
-            errs = {k: _bwd_error(f(), want, bf16) for k, f in fns.items()}
-            ms = [chip_smoke.device_ms(fns[k])
-                  for k in ("parent", "this", "this", "parent")]
-            print(f"bwd ab {label:12s} bf16={int(bf16)} parent/this/this/"
-                  f"parent ms=" + " ".join(f"{m:.4f}" for m in ms)
-                  + f" err parent={errs['parent']:.1e} "
-                  f"this={errs['this']:.1e}", flush=True)
-            chip_smoke.check(max(errs.values()) <= chip_smoke.SSD_RTOL,
-                             f"{label}: a backward disagrees with the plain "
-                             f"version: {errs}")
+            want = ref.ssd_ref(*args)
+            want_b = ref.ssd_bwd_ref(*args, dy)
+            x, _, _, bm, cm = args
+            for op in ("fwd", "bwd"):
+                if op == "fwd":
+                    fns = {"parent": lambda: other.ssd_scan(*args,
+                                                            chunk=chunk),
+                           "this": lambda: kernel.ssd_scan(*args,
+                                                           chunk=chunk)}
+                    forms = (other.ssd_scan_plan(x, bm, cm, chunk).form,
+                             kernel.ssd_scan_plan(x, bm, cm, chunk).form)
+                    errs = {k: (chip_smoke._bf16_excess(f(), want) if bf16
+                                else float((f() - want).abs().max())
+                                / max(1.0, float(want.abs().max())))
+                            for k, f in fns.items()}
+                else:
+                    fns = {"parent": lambda: other.ssd_scan_bwd(
+                               *args, dy, chunk=chunk),
+                           "this": lambda: kernel.ssd_scan_bwd(
+                               *args, dy, chunk=chunk)}
+                    forms = (other.ssd_bwd_scan_plan(x, bm, cm, dy,
+                                                     chunk).form,
+                             kernel.ssd_bwd_scan_plan(x, bm, cm, dy,
+                                                      chunk).form)
+                    errs = {k: _bwd_error(f(), want_b, bf16)
+                            for k, f in fns.items()}
+                ms = [chip_smoke.device_ms(fns[k])
+                      for k in ("parent", "this", "this", "parent")]
+                print(f"{op} ab {label:12s} bf16={int(bf16)} forms="
+                      f"{forms[0]}/{forms[1]} parent/this/this/parent ms="
+                      + " ".join(f"{m:.4f}" for m in ms)
+                      + f" err parent={errs['parent']:.1e} "
+                      f"this={errs['this']:.1e}", flush=True)
+                chip_smoke.check(max(errs.values()) <= chip_smoke.SSD_RTOL,
+                                 f"{label} {op}: a kernel disagrees with "
+                                 f"the plain version: {errs}")
     return 0
 
 
@@ -326,6 +506,12 @@ def main() -> int:
     bf16 = "--bf16" in sys.argv[1:]
     if "--parent" in sys.argv[1:]:
         return bwd_ab(pathlib.Path(sys.argv[sys.argv.index("--parent") + 1]))
+    if "--tc" in sys.argv[1:]:
+        if "--case" in sys.argv[1:]:
+            label = sys.argv[sys.argv.index("--case") + 1]
+            chip_smoke.check(label in TC_CASES, f"--case: one of {TC_CASES}")
+            return tc_main((label,))
+        return tc_main()
     if "--bwd" in sys.argv[1:]:
         return bwd_main(bf16)
     libs = build_variants(BF16_VARIANTS if bf16 else VARIANTS)
@@ -344,7 +530,10 @@ def main() -> int:
 
         def fn():
             return kernel.ssd_scan(x, dt, a_log, bm, cm, chunk=chunk)
+        base_form = plan_of(x, bm, cm, chunk).form
         for name, change in runs:
+            if base_form == "tc" and (change is not None or name != "base"):
+                continue   # the tensor-core chunk-parallel form: --tc
             lib = libs["base" if change else name]
             kernel.library = lambda lib=lib: lib
             kernel.ssd_scan_plan = (plan_of if change is None else
